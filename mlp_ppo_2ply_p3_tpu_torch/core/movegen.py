@@ -20,9 +20,10 @@ no host synchronisation and truncates exactly where the JAX package does.
 
 Every stable compaction, including the per-game k1 compaction and the
 doubles/non-doubles sub-batch split, goes through
-``ops.compaction.compact_rows``: the CUDA kernel on the card, its plain
-PyTorch version on the CPU.  Output lists, counts and overflow flags are
-bit-identical to the JAX package's.
+``ops.compaction.compact_rows``, and the non-doubles dedup with the
+compaction after it through ``ops.compaction.dedup_compact_rows``: CUDA
+kernels on the card, their plain PyTorch versions on the CPU.  Output
+lists, counts and overflow flags are bit-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -181,20 +182,10 @@ def _compact_games(payloads, valid, k_out: int):
 def _dedup_pairwise(boards, valid):
     """First-occurrence dedup flags in ORIGINAL (generation) order for
     (G, K, 52) boards: keep[g, i] iff row i is valid and no earlier valid
-    row holds the same board.  The (G, K, K) equality is accumulated one
-    packed key word at a time, so only one (G, K, K) bool block is live
-    (fusing all 7 words would materialise 7 of them)."""
-    keys = B.pack_key(boards)  # (G, K, 7)
-    eq = keys[:, :, None, 0] == keys[:, None, :, 0]
-    for w in range(1, keys.shape[-1]):
-        eq &= keys[:, :, None, w] == keys[:, None, :, w]
-    k = boards.shape[1]
-    earlier = torch.ones((k, k), dtype=torch.bool,
-                         device=boards.device).tril_(-1)
-    eq &= earlier
-    eq &= valid[:, None, :]
-    dup = eq.any(dim=2)
-    return valid & torch.logical_not(dup)
+    row holds the same board (``ops.compaction.first_occurrence_plain``).
+    Only the ``exact_order`` doubles levels use the flags themselves; the
+    non-doubles path dedups and compacts in one ``dedup_compact_rows``."""
+    return compaction.first_occurrence_plain(boards, valid)
 
 
 def _embed(boards, n, m):
@@ -263,8 +254,8 @@ def _nondoubles_candidates(vecs, d_hi, d_lo, cfg: MovegenConfig, mirror):
 
 def _nondoubles_batch(vecs, d_hi, d_lo, cfg: MovegenConfig, mirror):
     """(G,)-batched non-doubles enumeration: candidate blocks, then
-    stable compaction -> per-game dedup -> compaction into the M-wide
-    output."""
+    stable compaction -> per-game dedup and compaction into the M-wide
+    output (one ``dedup_compact_rows``)."""
     cand, keep0 = _nondoubles_candidates(vecs, d_hi, d_lo, cfg, mirror)
     if not cfg.dedup:
         (out,), n = _compact_batch((cand,), keep0, cfg.max_moves)
@@ -272,8 +263,7 @@ def _nondoubles_batch(vecs, d_hi, d_lo, cfg: MovegenConfig, mirror):
     kd = cfg.dedup_width
     (cb,), n_raw = _compact_batch((cand,), keep0, kd)
     kv = _arange_lt(kd, torch.clamp(n_raw, max=kd))
-    keep = _dedup_pairwise(cb, kv)
-    (out,), n = _compact_batch((cb,), keep, cfg.max_moves)
+    out, n = compaction.dedup_compact_rows(cb, kv, cfg.max_moves)
     overflow = (n_raw > kd) | (n > cfg.max_moves)
     return out, torch.clamp(n, max=cfg.max_moves), overflow
 
@@ -405,10 +395,15 @@ def nondoubles_capacity(batch_size: int,
 def compactions_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:
     """Number of ``compact_rows`` calls one ``legal_afterstates_batch``
     makes: the two sub-batch splits, the stacked k1 compaction and the
-    one or two non-doubles levels, and the doubles levels."""
-    nondoubles = 1 + (2 if cfg.dedup else 1)
+    raw non-doubles block, and the doubles levels."""
     doubles = 7 if cfg.exact_order else 4
-    return 2 + nondoubles + doubles
+    return 2 + 2 + doubles
+
+
+def dedups_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:
+    """Number of ``dedup_compact_rows`` calls one
+    ``legal_afterstates_batch`` makes: the non-doubles dedup, if on."""
+    return 1 if cfg.dedup else 0
 
 
 def _game_over(vecs):
