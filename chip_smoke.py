@@ -11,10 +11,13 @@ Phases (any failure exits non-zero and prints no result line):
    and ``dedup_compact_rows``) with nvcc for sm_90a.
 3. Kernels vs plain versions, bit-exact ``out`` (every slot, zero tail
    included) and ``count``: ``compact_rows`` on ragged edge cases, on
-   the split-N layout (one row of tens of thousands of flags) and on the
+   the split-N layout (one row of tens of thousands of flags), on the
    nine compaction call shapes of the ``train4096`` table (the eight of
-   one movegen call and the former final one); ``dedup_compact_rows``
-   on planted duplicates, high-nibble copies and the main-path shape.
+   one movegen call and the former final one) and on the 2-ply reply
+   shapes (non-doubles at candidate chunks of 512, 2048 and 8192,
+   doubles at 512 and 2048: the JAX package's chunks and the port's);
+   ``dedup_compact_rows`` on planted duplicates, high-nibble copies, the
+   main-path shape and the reply shape.
 4. Movegen on the card at B=4096 on boards from a few env steps: the
    kernel path is bit-exact against the plain-PyTorch path on the card
    and against the CPU on a 256-game slice.  Every kernel call of one
@@ -24,19 +27,33 @@ Phases (any failure exits non-zero and prints no result line):
    one small ``train_step`` (B=64, T=8, full width) on the card and on
    the CPU from the same weights and draws: equal env integers,
    parameters and losses within 1e-4.
-5. Main path: ``get_preset("train4096")`` at B=4096, M=256, hidden 128:
-   one warm-up ``train_step`` and two timed ones (T=64 by default; the
-   preset's 128 is cut to keep the run short).  Losses must be finite,
-   ``compact_rows.launches`` must grow by exactly
+5. Training path: ``get_preset("train4096")`` at B=4096, M=256, hidden
+   128: one warm-up ``train_step`` and two timed ones (T=64 by default;
+   the preset's 128 is cut to keep the run short).  Losses must be
+   finite, ``compact_rows.launches`` must grow by exactly
    ``compactions_per_call x T`` per step and
    ``dedup_compact_rows.launches`` by ``dedups_per_call x T``.  One
    more rollout and update are timed apart.  Then one
    ``afterstate``-mode ``train_step`` at B=512.
-6. Prints the ``kernels`` JSON line, then the device line
+6. Evaluation path, the ``twoply`` preset on the committed frozen_v1
+   net, positions after 12 random env steps: one 2-ply decision at
+   B=256 at reply width 512 and at 128 (the reply dedup branch), and one
+   at B=4096 at width 512, each with exact launch counts, the kernel
+   path bit-exact against the plain path, and a 32-game slice against
+   the CPU (actions where the best score leads by more than 1e-4, backup
+   scores within 1e-4); every distinct reply call of those decisions
+   checked against its plain version and timed beside its bound;
+   decisions timed at B=256 and B=4096.  Then the league runner on the
+   card: 1-ply vs the pubeval heuristic over 512 games and 400 plies
+   (the win rate must lie within 0.072 of the JAX package's 0.818), and
+   2-ply vs 1-ply over 64 games for at most 100 plies (cut from 400),
+   both with exact launch counts for the plies played.
+7. Prints the ``kernels`` JSON line (launches summed over every path's
+   run, and by path), then the device line
    ``{"ok": true, "device": {...}}`` last.
 
-``--profile`` adds a ``torch.profiler`` breakdown of four env steps,
-after every timed phase.
+``--profile`` adds ``torch.profiler`` breakdowns of four env steps and of
+one 2-ply decision at B=256, after every timed phase.
 ``--out DIR`` writes the details of every phase to ``DIR/chip_smoke.json``
 (and the profile table to ``DIR/chip_smoke_profile.txt``).
 """
@@ -137,13 +154,101 @@ def same(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
 
 
+def measure(torch, fn, plain_fn, args, nbytes, ops=0):
+    """Check fn against plain_fn on args, then time both in turns (plain,
+    kernel, kernel, plain) beside the bound."""
+    ko, kc = fn(*args)
+    po, pc = plain_fn(*args)
+    torch.cuda.synchronize()
+    shape = f"{tuple(args[0].shape)}->{args[2]}"
+    check(same(ko, po) and same(kc, pc),
+          f"kernel != plain on captured {shape}")
+    err = max(int((ko.int() - po.int()).abs().max()) if ko.numel() else 0,
+              int((kc - pc).abs().max()))
+    iters = 20
+    plain = time_ms(lambda: plain_fn(*args), iters)
+    kern = time_ms(lambda: fn(*args), iters)
+    kern2 = time_ms(lambda: fn(*args), iters)
+    plain2 = time_ms(lambda: plain_fn(*args), iters)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_OPS_PER_S * 1e3
+    return {
+        "shape": list(args[0].shape), "k_out": args[2],
+        "ms": (kern + kern2) / 2, "plain_ms": (plain + plain2) / 2,
+        "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+        "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "max_abs_err": err,
+    }
+
+
+def measure_calls(torch, compaction, captured, captured_dedup):
+    """measure() every captured compaction and dedup call."""
+    per_call = [
+        measure(torch, compaction.compact_rows, compaction.compact_rows_plain,
+                args, compaction_bytes(args[1], args[2], args[0].shape[2]))
+        for args in captured]
+    per_dedup = [
+        measure(torch, compaction.dedup_compact_rows,
+                compaction.dedup_compact_rows_plain, args,
+                *dedup_work(torch, compaction, *args))
+        for args in captured_dedup]
+    return per_call, per_dedup
+
+
+class Capture:
+    """Swaps both compaction wrappers for ones that keep their inputs and
+    call the kernels (``record``), or for the plain versions (``plain``),
+    and restores them on exit.  ``distinct`` keeps one call per (shape,
+    k_out)."""
+
+    def __init__(self, compaction, plain=False, distinct=False):
+        self.compaction, self.plain, self.distinct = (compaction, plain,
+                                                      distinct)
+        self.compact, self.dedup = [], []
+
+    def _wrap(self, kept, fn):
+        def wrapper(payload, valid, k_out):
+            key = (tuple(payload.shape), k_out)
+            if not self.distinct or key not in {
+                    (tuple(a[0].shape), a[2]) for a in kept}:
+                kept.append((payload, valid, k_out))
+            return fn(payload, valid, k_out)
+        return wrapper
+
+    def __enter__(self):
+        c = self.compaction
+        self.saved = (c.compact_rows, c.dedup_compact_rows)
+        if self.plain:
+            c.compact_rows = c.compact_rows_plain
+            c.dedup_compact_rows = c.dedup_compact_rows_plain
+        else:
+            c.compact_rows = self._wrap(self.compact, self.saved[0])
+            c.dedup_compact_rows = self._wrap(self.dedup, self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.compaction.compact_rows, self.compaction.dedup_compact_rows = (
+            self.saved)
+
+
+def launches(compaction):
+    return {"compact_rows": compaction.compact_rows.launches,
+            "dedup_compact_rows": compaction.dedup_compact_rows.launches}
+
+
+def zero_launches(compaction):
+    compaction.compact_rows.launches = 0
+    compaction.dedup_compact_rows.launches = 0
+
+
 # --- phase 3 -----------------------------------------------------------------
 
 
 def edge_cases(torch, compaction, dev):
-    """Ragged shapes, the split-N layout and the nine train4096
-    compaction call shapes, with random flags; returns the cases
-    checked."""
+    """Ragged shapes, the split-N layout, the nine train4096 compaction
+    call shapes and the 2-ply reply shapes, with random flags; returns
+    the cases checked."""
     rng = torch.Generator(device=dev)
     rng.manual_seed(3)
     # (B, N, C, k_out, fraction valid)
@@ -162,6 +267,18 @@ def edge_cases(torch, compaction, dev):
         (875, 27, 53, 16, 0.3), (875, 432, 53, 80, 0.08),
         (875, 2160, 53, 192, 0.04), (875, 5184, 53, 256, 0.03),
     ]
+    # the 2-ply reply movegen's shapes at candidate chunks C: the stacked
+    # k1 and the raw non-doubles block (-> 512, and -> 288 ahead of the
+    # dedup below width 482) at the JAX package's game_chunk 2048 and the
+    # port's 8192; doubles L1-L4 at k2 = 128, k3 = 256, M' = 512 at
+    # dbl_game_chunk 512 (JAX) and 2048 (the port); their output runs
+    # reach 27 KB, above a block's 16 KB output image
+    for c in (512, 2048, 8192):
+        cases += [(2 * c, 27, 52, 16, 0.3), (c, 896, 52, 512, 0.12),
+                  (c, 896, 52, 288, 0.12)]
+    for c in (512, 2048):
+        cases += [(c, 27, 53, 16, 0.3), (c, 432, 53, 128, 0.3),
+                  (c, 3456, 53, 256, 0.08), (c, 6912, 53, 512, 0.08)]
     out = []
     for b, n, c, k, frac in cases:
         payload = torch.randint(-128, 128, (b, n, c), generator=rng,
@@ -182,8 +299,8 @@ def edge_cases(torch, compaction, dev):
 def dedup_cases(torch, compaction, dev):
     """dedup_compact_rows against its plain version: planted duplicates
     (copies of earlier rows, some differing only in the high nibbles that
-    pack_key drops), ragged K, k_out = 0, the main-path shape and the
-    parity width; returns the cases checked."""
+    pack_key drops), ragged K, k_out = 0, the main-path shape, the 2-ply
+    reply shape and the parity width; returns the cases checked."""
     rng = torch.Generator(device=dev)
     rng.manual_seed(4)
     # (G, K, k_out, fraction valid, share of planted copies, nibble noise)
@@ -192,6 +309,8 @@ def dedup_cases(torch, compaction, dev):
         (8, 60, 0, 0.6, 0.3, False), (6, 33, 8, 1.0, 0.7, True),
         (3604, 288, 256, 0.3, 0.3, False), (3604, 288, 256, 0.9, 0.5, True),
         (64, 512, 500, 0.9, 0.5, True),
+        # the 2-ply reply dedup below width 482 (reply_max_moves 128)
+        (2048, 288, 128, 0.3, 0.3, False), (2048, 288, 128, 0.9, 0.5, True),
     ]
     out = []
     for g, k, k_out, frac, planted, nibble in cases:
@@ -223,50 +342,25 @@ def dedup_cases(torch, compaction, dev):
 # --- phase 4 -----------------------------------------------------------------
 
 
-def play_boards(torch, bg_env, env_cfg, batch, steps, dev):
+def play_boards(perf_twoply, env_cfg, batch, steps, dev):
     """Canonical boards, dice and mirror flags after a few random-play
     env steps from a fresh reset."""
     from mlp_ppo_2ply_p3_tpu_torch.core import board as Bd
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(11)
-    es = bg_env.reset(gen, env_cfg, batch, device=dev)
-    for _ in range(steps):
-        u = torch.rand((batch,), generator=gen, device=dev)
-        act = (u * es.n_moves.clamp(min=1)).to(torch.int32)
-        es, _ = bg_env.step(es, act, gen, env_cfg)
+    es = perf_twoply.realistic_state(env_cfg, batch, steps, device=dev)
     vecs = Bd.to_canonical(es.points, es.bar, es.off, es.turn)
     return vecs, es.dice, es.turn == 1
 
 
-def movegen_phase(torch, compaction, movegen, bg_env, env_cfg, dev):
+def movegen_phase(torch, compaction, movegen, perf_twoply, env_cfg, dev):
     mg = env_cfg.movegen
-    vecs, dice, mirror = play_boards(torch, bg_env, env_cfg, 4096, 6, dev)
+    vecs, dice, mirror = play_boards(perf_twoply, env_cfg, 4096, 6, dev)
 
-    captured, captured_dedup = [], []
-    kernel = compaction.compact_rows
-    dedup = compaction.dedup_compact_rows
-
-    def record(payload, valid, k_out):
-        captured.append((payload, valid, k_out))
-        return kernel(payload, valid, k_out)
-
-    def record_dedup(boards, valid, k_out):
-        captured_dedup.append((boards, valid, k_out))
-        return dedup(boards, valid, k_out)
-
-    def with_wrappers(compact_fn, dedup_fn):
-        compaction.compact_rows = compact_fn
-        compaction.dedup_compact_rows = dedup_fn
-        try:
-            return movegen.legal_afterstates_batch(vecs, dice, mg, mirror)
-        finally:
-            compaction.compact_rows = kernel
-            compaction.dedup_compact_rows = dedup
-
-    got = with_wrappers(record, record_dedup)
-    want = with_wrappers(compaction.compact_rows_plain,
-                         compaction.dedup_compact_rows_plain)
+    with Capture(compaction) as cap:
+        got = movegen.legal_afterstates_batch(vecs, dice, mg, mirror)
+    with Capture(compaction, plain=True):
+        want = movegen.legal_afterstates_batch(vecs, dice, mg, mirror)
+    captured, captured_dedup = cap.compact, cap.dedup
     torch.cuda.synchronize()
     for g, w, name in zip(got, want, ("boards", "n_moves", "overflow")):
         check(same(g, w), f"movegen {name}: kernel path != plain path")
@@ -287,42 +381,9 @@ def movegen_phase(torch, compaction, movegen, bg_env, env_cfg, dev):
               f"movegen {name}: card != CPU on the 256-game slice")
     check(int(got[1].sum()) > 0, "no legal moves at all")
 
-    def measure(fn, plain_fn, args, nbytes, ops=0):
-        """Check fn against plain_fn on args, then time both in turns
-        (plain, kernel, kernel, plain) beside the bound."""
-        ko, kc = fn(*args)
-        po, pc = plain_fn(*args)
-        torch.cuda.synchronize()
-        shape = f"{tuple(args[0].shape)}->{args[2]}"
-        check(same(ko, po) and same(kc, pc),
-              f"kernel != plain on captured {shape}")
-        err = max(int((ko.int() - po.int()).abs().max()) if ko.numel() else 0,
-                  int((kc - pc).abs().max()))
-        iters = 20
-        plain = time_ms(lambda: plain_fn(*args), iters)
-        kern = time_ms(lambda: fn(*args), iters)
-        kern2 = time_ms(lambda: fn(*args), iters)
-        plain2 = time_ms(lambda: plain_fn(*args), iters)
-        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-        ops_ms = ops / H100_OPS_PER_S * 1e3
-        return {
-            "shape": list(args[0].shape), "k_out": args[2],
-            "ms": (kern + kern2) / 2, "plain_ms": (plain + plain2) / 2,
-            "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
-            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "max_abs_err": err,
-        }
-
     # time every kernel call of this movegen call: kernel vs plain
-    per_call = [
-        measure(kernel, compaction.compact_rows_plain, args,
-                compaction_bytes(args[1], args[2], args[0].shape[2]))
-        for args in captured]
-    per_dedup = [
-        measure(dedup, compaction.dedup_compact_rows_plain, args,
-                *dedup_work(torch, compaction, *args))
-        for args in captured_dedup]
+    per_call, per_dedup = measure_calls(torch, compaction, captured,
+                                        captured_dedup)
 
     def one_call():
         movegen.legal_afterstates_batch(vecs, dice, mg, mirror)
@@ -362,22 +423,20 @@ def train_phase(torch, compaction, movegen, bg_env, learner, cfg, batch, t,
     torch.cuda.synchronize()
     warm_s = time.time() - t0
 
-    compaction.compact_rows.launches = 0
-    compaction.dedup_compact_rows.launches = 0
+    zero_launches(compaction)
     t0 = time.time()
     for _ in range(timed):
         ts, es, metrics = learner.train_step(ts, es, cfg.env, cfg.model, ppo)
     torch.cuda.synchronize()
     dt = time.time() - t0
-    launches = {"compact_rows": compaction.compact_rows.launches,
-                "dedup_compact_rows": compaction.dedup_compact_rows.launches}
+    counted = launches(compaction)
 
     mg = cfg.env.movegen
     for name, per_call in (("compact_rows", movegen.compactions_per_call(mg)),
                            ("dedup_compact_rows", movegen.dedups_per_call(mg))):
         expect = timed * t * per_call
-        check(launches[name] == expect,
-              f"{name} launched {launches[name]} times in {timed} "
+        check(counted[name] == expect,
+              f"{name} launched {counted[name]} times in {timed} "
               f"train_steps, expected {expect}")
     vals = {k: float(v) for k, v in metrics.items()}
     for k in ("loss", "policy_loss", "value_loss", "entropy"):
@@ -405,7 +464,7 @@ def train_phase(torch, compaction, movegen, bg_env, learner, cfg, batch, t,
         "train_step_s": dt / timed,
         "env_steps_per_s": batch * t * timed / dt,
         "rollout_s": rollout_s, "update_s": update_s,
-        "launches": launches, "metrics": vals,
+        "launches": counted, "metrics": vals,
     }
 
 
@@ -482,22 +541,193 @@ def small_agreement_phase(torch, bg_env, learner, cfg, dev):
     return diff
 
 
-def profile_phase(torch, bg_env, env_cfg, dev):
+# --- phase 6: the evaluation path --------------------------------------------
+
+KERNELS = ("compact_rows", "dedup_compact_rows")
+# 1-ply frozen_v1 against the pubeval heuristic in the JAX package, 512
+# games (docs/LEARNING.md:171), and 3 sigma of the difference of two
+# 512-game win rates near it
+JAX_ONEPLY_VS_HEURISTIC = 0.818
+WIN_RATE_BAND = 0.072
+# the 2-ply vs 1-ply arena's plies, cut from 400: about 210 ms a ply
+TWOPLY_PLIES = 100
+
+
+def twoply_check(torch, compaction, twoply, bg_env, model, state, scfg):
+    """One 2-ply decision over the batch: exact launch counts; the kernel
+    path equal to the plain path bit for bit; a 32-game slice on the CPU
+    equal in actions where the best score leads by more than 1e-4, in
+    overflow, and in backup scores within 1e-4.  Returns (report, the
+    decision's distinct compaction and dedup calls)."""
+    import copy
+
+    batch = state.turn.shape[0]
+    zero_launches(compaction)
+    with Capture(compaction, distinct=True) as cap:
+        got = twoply.twoply_actions_values(model, state, scfg)
+    torch.cuda.synchronize()
+    counted = launches(compaction)
+    expect = dict(zip(KERNELS, twoply.launches_per_decision(batch, scfg)))
+    check(counted == expect, f"2-ply decision at B={batch}, reply width "
+          f"{scfg.reply_max_moves}: launches {counted}, expected {expect}")
+    with Capture(compaction, plain=True):
+        plain = twoply.twoply_actions_values(model, state, scfg)
+    for g, p, name in zip(got, plain, ("actions", "backup", "overflow")):
+        check(same(g, p), f"2-ply {name}: kernel path != plain path")
+
+    k = 32
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_state = bg_env.EnvState(*(x[:k].cpu() for x in state))
+    top_idx, score2, ovf = twoply.candidate_scores(cpu_model, cpu_state, scfg)
+    best = torch.argmax(score2, dim=-1, keepdim=True)
+    action = torch.gather(top_idx, 1, best)[:, 0].to(torch.int32)
+    backup = torch.gather(score2, 1, best)[:, 0]
+    top2 = torch.topk(score2, 2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4
+    check(same(got[0][:k].cpu()[clear], action[clear]),
+          "2-ply actions: card != CPU on the 32-game slice")
+    check(same(got[2][:k].cpu(), ovf),
+          "2-ply overflow: card != CPU on the 32-game slice")
+    diff = float((got[1][:k].cpu() - backup).abs().max())
+    check(diff <= 1e-4, f"2-ply backup: card and CPU differ by {diff}")
+    return {
+        "batch": batch, "reply_max_moves": scfg.reply_max_moves,
+        "launches": counted, "cpu_slice_games": k,
+        "cpu_slice_clear_margin_games": int(clear.sum()),
+        "cpu_slice_max_backup_diff": diff,
+        "overflow_games": int(got[2].sum()),
+    }, cap
+
+
+def twoply_phase(torch, compaction, twoply, perf_twoply, bg_env, cfg, model,
+                 dev):
+    """The ``twoply`` preset on frozen_v1, positions after 12 random env
+    steps: checked at B=256 at reply width 512 (no reply dedup) and 128
+    (the dedup branch), and at B=4096 at width 512; the distinct reply
+    calls of those decisions checked and timed against their plain
+    versions; decisions timed at B=256 and B=4096."""
+    states = {b: perf_twoply.realistic_state(cfg.env, b, 12, device=dev)
+              for b in (256, 4096)}
+    out = {"checks": [], "timing": []}
+    calls = {}
+    for batch, width in ((256, 512), (256, 128), (4096, 512)):
+        scfg = dataclasses.replace(cfg.search, reply_max_moves=width)
+        report, calls[batch, width] = twoply_check(
+            torch, compaction, twoply, bg_env, model, states[batch], scfg)
+        out["checks"].append(report)
+        clear = report["cpu_slice_clear_margin_games"]
+        log(f"2-ply B={batch} reply width {width}: kernel path == plain "
+            f"path, card == CPU on 32 games ({clear} with a clear margin, "
+            f"backup within {report['cpu_slice_max_backup_diff']:.1e}); "
+            f"launches {report['launches']}")
+    # B=4096 shares the doubles chunk with B=256; its non-doubles calls
+    # run at the port's game_chunk
+    reply = calls[256, 512].compact
+    seen = {(tuple(a[0].shape), a[2]) for a in reply}
+    reply = reply + [a for a in calls[4096, 512].compact
+                     if (tuple(a[0].shape), a[2]) not in seen]
+    per_call, _ = measure_calls(torch, compaction, reply, [])
+    _, per_dedup = measure_calls(torch, compaction, [], calls[256, 128].dedup)
+    out["reply_calls"], out["reply_dedups"] = per_call, per_dedup
+    for name, rows in (("compact", per_call), ("dedup", per_dedup)):
+        for row in rows:
+            log(f"reply {name} {tuple(row['shape'])} -> {row['k_out']}: "
+                f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
+                f" bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    del calls, reply
+    for batch, reps in ((256, 3), (4096, 1)):
+        row, _ = perf_twoply.time_decision(model, states[batch], cfg.search,
+                                           reps)
+        out["timing"].append(row)
+        log(f"2-ply decision B={batch}: {row['ms_per_decision']:.1f} ms, "
+            f"{row['decisions_per_s']:.1f} decisions/s, peak "
+            f"{row['peak_mem_gb']:.2f} GB")
+    return out
+
+
+def arena_phase(torch, compaction, movegen, arena, league, twoply, cfg, dev):
+    """The league CLI's ``run_pair`` on the card: 1-ply frozen_v1 against
+    the pubeval heuristic over 512 games, then 2-ply against 1-ply (both
+    frozen_v1) over 64 games for at most ``TWOPLY_PLIES`` plies; exact
+    launch counts of both for the plies that each played."""
+    import contextlib
+
+    mg = cfg.env.movegen
+    per_step = {"compact_rows": movegen.compactions_per_call(mg),
+                "dedup_compact_rows": movegen.dedups_per_call(mg)}
+    out = {}
+    for pair, games, plies in (("oneply:pubeval", 512, 400),
+                               ("twoply:oneply", 64, TWOPLY_PLIES)):
+        # count the plies played: the 2-ply pair's host loop stops once
+        # every game is over
+        inner, played = arena._ply, [0]
+
+        def counted_ply(*a, **kw):
+            played[0] += 1
+            return inner(*a, **kw)
+
+        zero_launches(compaction)
+        arena._ply = counted_ply
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                res = league.run_pair(cfg, pair, games, plies, 11,
+                                      params_from="frozen", device=dev)
+        finally:
+            arena._ply = inner
+        counted = launches(compaction)
+        ran = played[0]
+        check(ran == plies or (0 < ran < plies and res["finished"] == games),
+              f"arena {pair}: {ran} plies played of {plies}, "
+              f"{res['finished']} of {games} games finished")
+        # the reset and every ply list the moves of all games; the 2-ply
+        # side decides for every game every ply
+        search = (twoply.launches_per_decision(games, cfg.search)
+                  if pair.startswith("twoply") else (0, 0))
+        expect = {name: (1 + ran) * per_step[name] + ran * extra
+                  for name, extra in zip(KERNELS, search)}
+        check(counted == expect,
+              f"arena {pair}: launches {counted}, expected {expect}")
+        res["launches"] = counted
+        res["max_plies"] = plies
+        res["plies_played"] = ran
+        out[pair] = res
+        log(f"arena {pair}: {json.dumps(res)}")
+    wr = out["oneply:pubeval"]["win_rate_a"]
+    check(out["oneply:pubeval"]["finished"] == 512,
+          "1-ply vs pubeval: not every game finished in 400 plies")
+    check(abs(wr - JAX_ONEPLY_VS_HEURISTIC) <= WIN_RATE_BAND,
+          f"1-ply frozen_v1 vs pubeval: win rate {wr}, JAX "
+          f"{JAX_ONEPLY_VS_HEURISTIC} +- {WIN_RATE_BAND}")
+    return out
+
+
+def profile_phase(torch, bg_env, env_cfg, dev, decide):
+    """torch.profiler tables (by device time) of four env steps at
+    B=4096 and of one call of ``decide``."""
     from torch.profiler import ProfilerActivity, profile
+
+    def table(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return prof.key_averages().table(sort_by="cuda_time_total",
+                                         row_limit=25)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     es = bg_env.reset(gen, env_cfg, 4096, device=dev)
     act = torch.zeros((4096,), dtype=torch.int32, device=dev)
     es, _ = bg_env.step(es, act, gen, env_cfg)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def steps():
+        state = es
         for _ in range(4):
-            es, _ = bg_env.step(es, act, gen, env_cfg)
-        torch.cuda.synchronize()
-    return prof.key_averages().table(sort_by="cuda_time_total",
-                                     row_limit=25)
+            state, _ = bg_env.step(state, act, gen, env_cfg)
+
+    return ("four env steps, train4096, B=4096\n" + table(steps)
+            + "\none 2-ply decision, twoply, B=256\n" + table(decide))
 
 
 def main(argv=None) -> int:
@@ -505,7 +735,8 @@ def main(argv=None) -> int:
     ap.add_argument("--t", type=int, default=64,
                     help="rollout horizon T of the main-path train_steps")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile four env steps with torch.profiler")
+                    help="also profile four env steps and a 2-ply "
+                         "decision with torch.profiler")
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke.json (and the profile)")
     args = ap.parse_args(argv)
@@ -516,10 +747,13 @@ def main(argv=None) -> int:
         fail("torch.cuda.is_available() is False: this script needs a card")
     sys.path.insert(0, HERE)
     try:
+        from mlp_ppo_2ply_p3_tpu_torch.agents import (arena, frozen, league,
+                                                      twoply)
         from mlp_ppo_2ply_p3_tpu_torch.core import movegen
         from mlp_ppo_2ply_p3_tpu_torch.env import bg_env
         from mlp_ppo_2ply_p3_tpu_torch.ops import build, compaction
         from mlp_ppo_2ply_p3_tpu_torch.ppo import learner
+        from mlp_ppo_2ply_p3_tpu_torch.scripts import perf_twoply
         from mlp_ppo_2ply_p3_tpu_torch.utils.config import get_preset
     except ImportError as e:
         fail(f"the port package is not beside this script: {e}")
@@ -548,7 +782,7 @@ def main(argv=None) -> int:
 
     cfg = get_preset("train4096")
     per_call, per_dedup, mg_ms, mg_graph_ms = movegen_phase(
-        torch, compaction, movegen, bg_env, cfg.env, dev)
+        torch, compaction, movegen, perf_twoply, cfg.env, dev)
     report["phases"]["movegen"] = {"ms_per_call": mg_ms,
                                    "graph_ms_per_call": mg_graph_ms,
                                    "compactions": per_call,
@@ -585,14 +819,53 @@ def main(argv=None) -> int:
     log(f"afterstate B=512 T=16: "
         f"{report['phases']['afterstate']['train_step_s']:.3f} s/step")
 
+    # the evaluation path: the twoply preset on the committed frozen_v1 net
+    eval_cfg = get_preset("twoply")
+    model, model_cfg = frozen.load_frozen(device=dev)
+    check(model_cfg == eval_cfg.model, "frozen_v1 is not the twoply model")
+    t0 = time.time()
+    two = twoply_phase(torch, compaction, twoply, perf_twoply, bg_env,
+                       eval_cfg, model, dev)
+    report["phases"]["twoply"] = two
+    log(f"2-ply phase: {time.time() - t0:.1f} s")
+    log(f"reduced: 2-ply vs 1-ply arena max_plies 400 -> {TWOPLY_PLIES}")
+    t0 = time.time()
+    arenas = arena_phase(torch, compaction, movegen, arena, league, twoply,
+                         eval_cfg, dev)
+    report["phases"]["arena"] = arenas
+    log(f"arena phase: {time.time() - t0:.1f} s; 1-ply frozen_v1 vs pubeval "
+        f"heuristic {arenas['oneply:pubeval']['win_rate_a']:.3f} over 512 "
+        f"games (JAX {JAX_ONEPLY_VS_HEURISTIC})")
+
+    # each path's launches, counted from 0 just before it
+    by_path = {"train4096": main_path["launches"],
+               "afterstate": report["phases"]["afterstate"]["launches"]}
+    for row in two["checks"]:
+        by_path[f"twoply_b{row['batch']}_reply{row['reply_max_moves']}"] = (
+            row["launches"])
+    for pair, res in arenas.items():
+        by_path[f"arena_{pair.replace(':', '_vs_')}"] = res["launches"]
+    for path, counted in by_path.items():
+        for name in KERNELS:
+            # replies skip the dedup from width 482
+            if not (path.endswith("_reply512")
+                    and name == "dedup_compact_rows"):
+                check(counted[name] > 0, f"{path} never launched {name}")
+
     # last, so that the profiler's own cost cannot reach the timed steps
     table = None
     if args.profile:
-        table = profile_phase(torch, bg_env, cfg.env, dev)
+        state = perf_twoply.realistic_state(eval_cfg.env, 256, 12,
+                                            device=dev)
+        table = profile_phase(
+            torch, bg_env, cfg.env, dev,
+            lambda: twoply.twoply_actions_values(model, state,
+                                                 eval_cfg.search))
         log(table)
 
     def kernel_row(name, replaces, rows):
-        # one movegen call's launches (B=4096, train4096), summed
+        # times: one movegen call's launches (B=4096, train4096), summed;
+        # launches: every path's run, summed, and by path
         bytes_ms = sum(r["bytes_ms"] for r in rows)
         ops_ms = sum(r["ops_ms"] for r in rows)
         return {
@@ -600,7 +873,8 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "mlp_ppo_2ply_p3_tpu_torch/csrc/compaction.cu",
             "replaces": replaces,
-            "launches": main_path["launches"][name],
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

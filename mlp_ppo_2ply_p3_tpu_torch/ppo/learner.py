@@ -27,7 +27,7 @@ the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 from torch.nn import functional as Fn
@@ -95,6 +95,22 @@ class Rollout(NamedTuple):
     after: torch.Tensor | None = None  # afterstate mode: (T, B, M, 52) int8
 
 
+# shape -> float32 uniforms in [0, 1) (the agents' policies draw from one)
+Rand = Callable[[tuple], torch.Tensor]
+
+
+def uniforms(gen: torch.Generator) -> Rand:
+    """A draw source on ``gen`` (and on its device)."""
+    return lambda shape: torch.rand(shape, generator=gen, device=gen.device)
+
+
+def categorical(rand: Rand, logits):
+    """One sample per row of (B, M) logits, by Gumbel-max."""
+    u = rand(tuple(logits.shape)).clamp_(min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)),
+                        dim=-1).to(torch.int32)
+
+
 class Sampler:
     """Every random draw of ``train_step``, from one generator."""
 
@@ -103,10 +119,7 @@ class Sampler:
 
     def actions(self, masked):
         """Categorical sample per row of (B, M) logits by Gumbel-max."""
-        u = torch.rand(masked.shape, generator=self.gen, device=masked.device)
-        u = u.clamp_(min=torch.finfo(torch.float32).tiny)
-        gumbel = -torch.log(-torch.log(u))
-        return torch.argmax(masked + gumbel, dim=-1).to(torch.int32)
+        return categorical(uniforms(self.gen), masked)
 
     def env_draws(self, batch_size: int) -> bg_env.StepDraws:
         return bg_env.draw_step(self.gen, batch_size)

@@ -13,7 +13,9 @@ Port of ``mlp_ppo_2ply_p3_tpu/utils/config.py`` with the same presets:
 
 The fields of the training loop (``ppo/train.py``: checkpoints,
 metrics, remote store) are kept as data so that a preset reads the same
-in both packages; the port's training loop is not written yet.
+in both packages; the port's training loop is not written yet.  Only
+``SearchConfig``'s chunk sizes differ from the JAX package's: they were
+sized again for the card.
 """
 
 from __future__ import annotations
@@ -28,14 +30,23 @@ from ..ppo.learner import PPOConfig
 
 @dataclasses.dataclass(frozen=True)
 class SearchConfig:
-    """2-ply expectimax settings.  The chunk sizes were set for the TPU's
-    memory and are to be sized again for the card when the 2-ply agent
-    is ported."""
+    """2-ply expectimax settings (``agents/twoply.py``).
+
+    The chunks bound the reply sweep's memory: the flattened (B * top_k)
+    candidate axis runs in ``game_chunk`` rows for the 15 non-doubles
+    rolls and ``dbl_game_chunk`` rows for the 6 doubles dies, and reply
+    values are computed in ``eval_slot_chunk``-wide feature blocks.  No
+    chunking changes a result.  The JAX package's 2048 / 512 / 128 were
+    set for TPU memory; these were picked on an H100 from the time and
+    peak memory of B=4096 decisions at six chunkings
+    (``python -m mlp_ppo_2ply_p3_tpu_torch.scripts.perf_twoply``; the
+    table is in PERF.md): wider chunks than these gain little time for
+    several times the memory."""
 
     top_k: int = 8              # 1-ply candidates kept for 2-ply expansion
     reply_max_moves: int = 512  # cap on opponent reply list width
-    game_chunk: int = 2048
-    dbl_game_chunk: int = 512
+    game_chunk: int = 8192
+    dbl_game_chunk: int = 2048
     eval_slot_chunk: int = 128
 
 

@@ -45,6 +45,24 @@ CASES = [
     (3, 20000, 55, 20000, 0.9),
     (200, 1500, 13, 100, 0.2),
     (263, 1024, 4, 2000, 0.5),
+    # the 2-ply reply movegen at a candidate chunk of 512 (twoply preset:
+    # k2 128, k3 256, M' 512; output runs up to 27 KB), and L3/L4 of a
+    # 32-game decision (256 rows: the split layout)
+    (1024, 27, 52, 16, 0.3),
+    (512, 896, 52, 512, 0.12),
+    (512, 896, 52, 288, 0.12),
+    (512, 27, 53, 16, 0.3),
+    (512, 432, 53, 128, 0.3),
+    (512, 3456, 53, 256, 0.08),
+    (512, 6912, 53, 512, 0.08),
+    (256, 3456, 53, 256, 0.08),
+    (256, 6912, 53, 512, 0.3),
+    # the non-doubles calls at the JAX package's game_chunk (2048) and at
+    # the port's (8192, a B=4096 decision)
+    (4096, 27, 52, 16, 0.3),
+    (2048, 896, 52, 512, 0.12),
+    (16384, 27, 52, 16, 0.3),
+    (8192, 896, 52, 512, 0.12),
 ]
 
 
@@ -108,6 +126,7 @@ DEDUP_CASES = [
     (8, 60, 0, 0.6, 0.3, False),
     (3604, 288, 256, 0.3, 0.3, False),
     (64, 512, 500, 0.9, 0.5, True),
+    (2048, 288, 128, 0.3, 0.3, False),   # 2-ply reply dedup, width 128
 ]
 
 
@@ -184,3 +203,36 @@ def test_movegen_kernel_path_matches_plain_and_cpu(card, monkeypatch):
     torch.cuda.synchronize()
     for g, p, c in zip(got, plain, cpu):
         assert torch.equal(g, p) and torch.equal(g.cpu(), c)
+
+
+@pytest.mark.parametrize("width", [512, 128])
+def test_twoply_kernel_path_matches_plain(card, monkeypatch, width):
+    """One 2-ply decision over 32 games (the twoply preset on frozen_v1,
+    positions after 12 random env steps): the kernel path equals the
+    plain path bit for bit, with the launches of the formula; width 128
+    takes the reply dedup branch."""
+    import dataclasses
+
+    from mlp_ppo_2ply_p3_tpu_torch.agents import frozen, twoply
+    from mlp_ppo_2ply_p3_tpu_torch.utils.config import get_preset
+
+    cfg = get_preset("twoply")
+    scfg = dataclasses.replace(cfg.search, reply_max_moves=width)
+    model, _ = frozen.load_frozen(device=card)
+    gen = torch.Generator(device=card).manual_seed(1)
+    es = TE.reset(gen, cfg.env, 32, device=card)
+    for _ in range(12):
+        u = torch.rand((32,), generator=gen, device=card)
+        es, _ = TE.step(es, (u * es.n_moves.clamp(min=1)).to(torch.int32),
+                        gen, cfg.env)
+    before = (TC.compact_rows.launches, TC.dedup_compact_rows.launches)
+    got = twoply.twoply_actions_values(model, es, scfg)
+    counted = (TC.compact_rows.launches - before[0],
+               TC.dedup_compact_rows.launches - before[1])
+    assert counted == twoply.launches_per_decision(32, scfg)
+    monkeypatch.setattr(TC, "compact_rows", TC.compact_rows_plain)
+    monkeypatch.setattr(TC, "dedup_compact_rows", TC.dedup_compact_rows_plain)
+    plain = twoply.twoply_actions_values(model, es, scfg)
+    torch.cuda.synchronize()
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)

@@ -65,6 +65,34 @@ def jax_step_draws(key, batch) -> TE.StepDraws:
     return TE.StepDraws(*(tt(x) for x in _step_draws(key, batch)))
 
 
+class JaxArenaDraws:
+    """An arena ``Sampler`` that replays JAX ``arena.play``'s key schedule
+    (``agents/arena.py:49,55,74``): ``key`` splits into (k_reset, k_run),
+    k_run into ``max_plies`` ply keys, each of those into (k_a, k_b,
+    k_env).  The policies' uniforms are ``jax.random.uniform(k_side,
+    shape)``, as ``basic.random_actions`` draws them."""
+
+    def __init__(self, key, max_plies):
+        self.k_reset, k_run = jax.random.split(key)
+        self.plies = iter(jax.random.split(k_run, max_plies))
+
+    def reset_draws(self, n_games):
+        return jax_reset_draws(self.k_reset, n_games)
+
+    def ply(self, n_games):
+        from mlp_ppo_2ply_p3_tpu_torch.agents.arena import PlyDraws
+
+        k_a, k_b, k_env = jax.random.split(next(self.plies), 3)
+        return PlyDraws(jax_uniforms(k_a), jax_uniforms(k_b),
+                        jax_step_draws(k_env, n_games))
+
+
+def jax_uniforms(key):
+    """A policy's draw source that returns ``jax.random.uniform(key,
+    shape)``."""
+    return lambda shape: tt(jax.random.uniform(key, shape))
+
+
 def assert_same_tuple(got, want, names):
     """Field-by-field bit equality of two NamedTuples of arrays."""
     for g, w, name in zip(got, want, names):
