@@ -23,7 +23,12 @@ Phases (any failure exits non-zero and prints no result line):
    and against the CPU on a 256-game slice.  Every kernel call of one
    movegen call is captured, checked against the plain version and
    timed (CUDA events) beside its bound.  The whole call is timed
-   eagerly and as a CUDA graph replay (the device's own time).  Then
+   eagerly and as a CUDA graph replay (the device's own time).  The
+   same at the other batch sizes the paths below run movegen at: the
+   league eval's 256 games (``train4096``'s movegen) and the arenas' 512
+   and 64 games (``twoply``'s), where both sub-batches are the whole
+   batch and the doubles levels take the split-N layout; each call's
+   shape is checked once more with random flags.  Then
    one small ``train_step`` (B=64, T=8, full width) on the card and on
    the CPU from the same weights and draws: equal env integers,
    parameters and losses within 1e-4.
@@ -48,7 +53,22 @@ Phases (any failure exits non-zero and prints no result line):
    (the win rate must lie within 0.072 of the JAX package's 0.818), and
    2-ply vs 1-ply over 64 games for at most 100 plies (cut from 400),
    both with exact launch counts for the plies played.
-7. Prints the ``kernels`` JSON line (launches summed over every path's
+7. Training driver: ``ppo.train.train`` at ``train4096``'s width (B=4096,
+   M=256, hidden 128, 32 minibatches, the preset's T=128) in a
+   temporary directory with a ``file://``
+   store.  Run A: 3 updates from scratch, a checkpoint every update, the
+   league eval (256 games of 400 plies against the pubeval heuristic and
+   frozen_v1) after update 1.  Run B: 2 updates from scratch, its local
+   checkpoints wiped, then resumed to 3 updates from ``ckpt_2`` pulled
+   from the store.  B's final parameters, Adam state, generator,
+   counters and env state must equal A's bit for bit; both kernels'
+   launches must match every run exactly (the first reset, T env steps
+   an update, two arenas of a reset and 400 plies an eval); the league
+   metrics must carry the JAX driver's keys, win rates in [0, 1] and
+   finished games; every loss must be finite.  Records the driver's
+   s/update and env-steps/s, the eval's seconds, checkpoint save and
+   restore seconds and size, and the remote pull's seconds.
+8. Prints the ``kernels`` JSON line (launches summed over every path's
    run, and by path), then the device line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -245,12 +265,14 @@ def zero_launches(compaction):
 # --- phase 3 -----------------------------------------------------------------
 
 
-def edge_cases(torch, compaction, dev):
-    """Ragged shapes, the split-N layout, the nine train4096 compaction
-    call shapes and the 2-ply reply shapes, with random flags; returns
-    the cases checked."""
+def edge_cases(torch, compaction, dev, cases=None):
+    """``cases`` (by default: ragged shapes, the split-N layout, the nine
+    train4096 compaction call shapes and the 2-ply reply shapes) with
+    random flags; returns the cases checked."""
     rng = torch.Generator(device=dev)
     rng.manual_seed(3)
+    if cases is not None:
+        return compaction_cases(torch, compaction, dev, rng, cases)
     # (B, N, C, k_out, fraction valid)
     cases = [
         (1, 1, 1, 1, 1.0), (1, 7, 3, 4, 0.6), (5, 33, 52, 8, 0.5),
@@ -279,6 +301,13 @@ def edge_cases(torch, compaction, dev):
     for c in (512, 2048):
         cases += [(c, 27, 53, 16, 0.3), (c, 432, 53, 128, 0.3),
                   (c, 3456, 53, 256, 0.08), (c, 6912, 53, 512, 0.08)]
+    return compaction_cases(torch, compaction, dev, rng, cases)
+
+
+def compaction_cases(torch, compaction, dev, rng, cases):
+    """compact_rows against its plain version on (B, N, C, k_out,
+    fraction valid) cases with random payloads and flags, row 1 all
+    invalid and row 2 all valid where B > 2."""
     out = []
     for b, n, c, k, frac in cases:
         payload = torch.randint(-128, 128, (b, n, c), generator=rng,
@@ -296,15 +325,16 @@ def edge_cases(torch, compaction, dev):
     return out
 
 
-def dedup_cases(torch, compaction, dev):
-    """dedup_compact_rows against its plain version: planted duplicates
-    (copies of earlier rows, some differing only in the high nibbles that
-    pack_key drops), ragged K, k_out = 0, the main-path shape, the 2-ply
-    reply shape and the parity width; returns the cases checked."""
+def dedup_cases(torch, compaction, dev, cases=None):
+    """dedup_compact_rows against its plain version on ``cases`` (by
+    default: ragged K, k_out = 0, the main-path shape, the 2-ply reply
+    shape and the parity width) with planted duplicates (copies of
+    earlier rows, some differing only in the high nibbles that pack_key
+    drops); returns the cases checked."""
     rng = torch.Generator(device=dev)
     rng.manual_seed(4)
     # (G, K, k_out, fraction valid, share of planted copies, nibble noise)
-    cases = [
+    default = [
         (3, 40, 16, 0.8, 0.4, False), (5, 37, 64, 0.7, 0.5, True),
         (8, 60, 0, 0.6, 0.3, False), (6, 33, 8, 1.0, 0.7, True),
         (3604, 288, 256, 0.3, 0.3, False), (3604, 288, 256, 0.9, 0.5, True),
@@ -313,7 +343,8 @@ def dedup_cases(torch, compaction, dev):
         (2048, 288, 128, 0.3, 0.3, False), (2048, 288, 128, 0.9, 0.5, True),
     ]
     out = []
-    for g, k, k_out, frac, planted, nibble in cases:
+    for g, k, k_out, frac, planted, nibble in (
+            default if cases is None else cases):
         boards = torch.randint(0, 16, (g, k, 52), generator=rng, device=dev,
                                dtype=torch.int8)
         pick = (torch.rand((g, k), generator=rng, device=dev)
@@ -352,24 +383,33 @@ def play_boards(perf_twoply, env_cfg, batch, steps, dev):
     return vecs, es.dice, es.turn == 1
 
 
-def movegen_phase(torch, compaction, movegen, perf_twoply, env_cfg, dev):
-    mg = env_cfg.movegen
-    vecs, dice, mirror = play_boards(perf_twoply, env_cfg, 4096, 6, dev)
-
+def captured_movegen(torch, compaction, movegen, vecs, dice, mg, mirror):
+    """One movegen call on the kernel path, checked equal to the plain
+    path, with the expected number of kernel calls; returns (its output,
+    its Capture)."""
+    batch = vecs.shape[0]
     with Capture(compaction) as cap:
         got = movegen.legal_afterstates_batch(vecs, dice, mg, mirror)
     with Capture(compaction, plain=True):
         want = movegen.legal_afterstates_batch(vecs, dice, mg, mirror)
-    captured, captured_dedup = cap.compact, cap.dedup
     torch.cuda.synchronize()
     for g, w, name in zip(got, want, ("boards", "n_moves", "overflow")):
-        check(same(g, w), f"movegen {name}: kernel path != plain path")
-    check(len(captured) == movegen.compactions_per_call(mg),
-          f"{len(captured)} compactions per movegen call, expected "
-          f"{movegen.compactions_per_call(mg)}")
-    check(len(captured_dedup) == movegen.dedups_per_call(mg),
-          f"{len(captured_dedup)} dedups per movegen call, expected "
+        check(same(g, w), f"movegen {name} at B={batch}: kernel path != "
+              f"plain path")
+    check(len(cap.compact) == movegen.compactions_per_call(mg)
+          and len(cap.dedup) == movegen.dedups_per_call(mg),
+          f"{len(cap.compact)} compactions and {len(cap.dedup)} dedups per "
+          f"movegen call at B={batch}, expected "
+          f"{movegen.compactions_per_call(mg)} and "
           f"{movegen.dedups_per_call(mg)}")
+    return got, cap
+
+
+def movegen_phase(torch, compaction, movegen, perf_twoply, env_cfg, dev):
+    mg = env_cfg.movegen
+    vecs, dice, mirror = play_boards(perf_twoply, env_cfg, 4096, 6, dev)
+    got, cap = captured_movegen(torch, compaction, movegen, vecs, dice, mg,
+                                mirror)
 
     # a 256-game slice on the CPU (plain path, no sub-batch partition)
     k = 256
@@ -382,8 +422,8 @@ def movegen_phase(torch, compaction, movegen, perf_twoply, env_cfg, dev):
     check(int(got[1].sum()) > 0, "no legal moves at all")
 
     # time every kernel call of this movegen call: kernel vs plain
-    per_call, per_dedup = measure_calls(torch, compaction, captured,
-                                        captured_dedup)
+    per_call, per_dedup = measure_calls(torch, compaction, cap.compact,
+                                        cap.dedup)
 
     def one_call():
         movegen.legal_afterstates_batch(vecs, dice, mg, mirror)
@@ -405,6 +445,43 @@ def movegen_phase(torch, compaction, movegen, perf_twoply, env_cfg, dev):
     graph.replay()
     mg_graph_ms = time_ms(graph.replay, 5)
     return per_call, per_dedup, mg_ms, mg_graph_ms
+
+
+def movegen_batches_phase(torch, compaction, movegen, perf_twoply, runs,
+                          dev):
+    """Movegen at the other batch sizes the paths run, ``runs`` of
+    (label, EnvConfig, games): below 512 games both sub-batches are the
+    whole batch, and a doubles level of fewer than 264 rows and N >= 1024
+    takes the split-N layout.  Each: one movegen call on boards from a
+    few env steps, kernel path == plain path; every kernel call of it
+    checked against its plain version and timed (``measure``); and each
+    call's shape once more with random flags.  Returns a report row per
+    run."""
+    out = []
+    for label, env_cfg, batch in runs:
+        vecs, dice, mirror = play_boards(perf_twoply, env_cfg, batch, 6, dev)
+        _, cap = captured_movegen(torch, compaction, movegen, vecs, dice,
+                                  env_cfg.movegen, mirror)
+        per_call, per_dedup = measure_calls(torch, compaction, cap.compact,
+                                            cap.dedup)
+        # the same shapes at this call's share of valid flags, with an
+        # all-invalid and an all-valid row
+        flags = edge_cases(torch, compaction, dev, [
+            (*a[0].shape, a[2], float(a[1].float().mean()))
+            for a in cap.compact])
+        dedups = dedup_cases(torch, compaction, dev, [
+            (*a[0].shape[:2], a[2], frac, planted, nibble)
+            for a in cap.dedup
+            for frac, planted, nibble in ((0.3, 0.3, False),
+                                          (0.9, 0.5, True))])
+        out.append({"label": label, "batch": batch, "compactions": per_call,
+                    "dedups": per_dedup,
+                    "random_flag_cases": len(flags) + len(dedups)})
+        shapes = ", ".join(f"{tuple(r['shape'])}->{r['k_out']}"
+                           for r in per_call + per_dedup)
+        log(f"{label} movegen B={batch}: kernel path == plain path; every "
+            f"call == plain, also with random flags: {shapes}")
+    return out
 
 
 # --- phase 5 -----------------------------------------------------------------
@@ -551,6 +628,9 @@ JAX_ONEPLY_VS_HEURISTIC = 0.818
 WIN_RATE_BAND = 0.072
 # the 2-ply vs 1-ply arena's plies, cut from 400: about 210 ms a ply
 TWOPLY_PLIES = 100
+# the league runner's pairs: (pair, games, plies)
+ARENA_PAIRS = (("oneply:pubeval", 512, 400),
+               ("twoply:oneply", 64, TWOPLY_PLIES))
 
 
 def twoply_check(torch, compaction, twoply, bg_env, model, state, scfg):
@@ -656,8 +736,7 @@ def arena_phase(torch, compaction, movegen, arena, league, twoply, cfg, dev):
     per_step = {"compact_rows": movegen.compactions_per_call(mg),
                 "dedup_compact_rows": movegen.dedups_per_call(mg)}
     out = {}
-    for pair, games, plies in (("oneply:pubeval", 512, 400),
-                               ("twoply:oneply", 64, TWOPLY_PLIES)):
+    for pair, games, plies in ARENA_PAIRS:
         # count the plies played: the 2-ply pair's host loop stops once
         # every game is over
         inner, played = arena._ply, [0]
@@ -698,6 +777,189 @@ def arena_phase(torch, compaction, movegen, arena, league, twoply, cfg, dev):
     check(abs(wr - JAX_ONEPLY_VS_HEURISTIC) <= WIN_RATE_BAND,
           f"1-ply frozen_v1 vs pubeval: win rate {wr}, JAX "
           f"{JAX_ONEPLY_VS_HEURISTIC} +- {WIN_RATE_BAND}")
+    return out
+
+
+# --- phase 7: the training driver --------------------------------------------
+
+# the JAX driver's league keys (mlp_ppo_2ply_p3_tpu/ppo/train.py:84-122)
+LEAGUE_KEYS = {
+    f"league/{stat}_vs_{tag}"
+    for stat in ("win_rate", "finished", "points_a", "points_b",
+                 "point_margin", "avg_plies")
+    for tag in ("heuristic", "frozen_v1")
+} | {"league/win_rate_vs_baseline"}
+LEAGUE_PLIES = 400
+
+
+class Timed:
+    """Replaces ``module.name`` with a wrapper that records each call's
+    seconds (the card synchronised at the end) and result; restores it on
+    exit."""
+
+    def __init__(self, torch, module, name):
+        self.torch, self.module, self.name = torch, module, name
+        self.calls = []
+
+    def __enter__(self):
+        inner = self.inner = getattr(self.module, self.name)
+
+        def wrapper(*a, **kw):
+            t0 = time.time()
+            out = inner(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.calls.append((time.time() - t0, out))
+            return out
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+
+def driver_run(torch, compaction, arena, train_mod, cfg, dev, **kw):
+    """One ``train`` call on the card, its stdout sent to stderr; returns
+    (TrainState, EnvState, the launches of both kernels, the arenas'
+    plies)."""
+    import contextlib
+
+    inner, plies = arena._ply, [0]
+
+    def counted_ply(*a, **k):
+        plies[0] += 1
+        return inner(*a, **k)
+
+    zero_launches(compaction)
+    arena._ply = counted_ply
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            ts, es, _, _ = train_mod.train(cfg, device=dev, **kw)
+    finally:
+        arena._ply = inner
+    torch.cuda.synchronize()
+    return ts, es, launches(compaction), plies[0]
+
+
+def state_tensors(ts, es):
+    """Every tensor of a train state and env state, and the generator's
+    state (on the host), by name."""
+    out = {f"param {n}": p.detach()
+           for n, p in ts.model.named_parameters()}
+    out.update({f"adam mu {i}": m for i, m in enumerate(ts.opt_state.mu)})
+    out.update({f"adam nu {i}": v for i, v in enumerate(ts.opt_state.nu)})
+    out.update({"adam count": ts.opt_state.count,
+                "update_idx": ts.update_idx, "episodes": ts.episodes,
+                "generator": ts.gen.get_state()})
+    out.update({f"env {f}": x for f, x in zip(es._fields, es)})
+    return out
+
+
+def trainer_phase(torch, compaction, movegen, arena, train_mod, ckpt, cfg,
+                  dev):
+    """``ppo.train.train`` on the card at ``cfg``, in a temporary
+    directory with a ``file://`` store:
+
+    - run A: 3 updates from scratch, a checkpoint every update, the league
+      eval every 2 (one eval, after update 1);
+    - run B: 2 updates from scratch with the same seed, its local
+      checkpoints wiped, then ``resume=True`` to 3 updates, which must
+      pull ``ckpt_2`` from the store;
+
+    B's final state must equal A's bit for bit, both kernels' launches
+    must match every train() call exactly, the league metrics must have
+    the JAX driver's keys with win rates in [0, 1] and games finished,
+    and every loss must be finite."""
+    import shutil
+    import tempfile
+
+    mg = cfg.env.movegen
+    per_step = {"compact_rows": movegen.compactions_per_call(mg),
+                "dedup_compact_rows": movegen.dedups_per_call(mg)}
+    t = cfg.ppo.t_horizon
+    out = {"t_horizon": t, "batch": cfg.ppo.num_envs}
+    with tempfile.TemporaryDirectory() as tmp:
+        def run_cfg(tag, updates):
+            return dataclasses.replace(
+                cfg, num_updates=updates, checkpoint_every=1, eval_every=2,
+                checkpoint_dir=os.path.join(tmp, tag, "ckpts"),
+                metrics_path=os.path.join(tmp, tag, "metrics.jsonl"),
+                remote_url="file://" + os.path.join(tmp, tag, "store"))
+
+        def check_launches(label, counted, plies, updates, evals):
+            check(plies == 2 * LEAGUE_PLIES * evals,
+                  f"{label}: {plies} arena plies, expected "
+                  f"{2 * LEAGUE_PLIES * evals}")
+            # the first reset, T env steps per update, and per eval two
+            # arenas of a reset and 400 plies: one movegen call each
+            calls = 1 + updates * t + evals * 2 * (1 + LEAGUE_PLIES)
+            expect = {k: calls * v for k, v in per_step.items()}
+            check(counted == expect,
+                  f"{label}: launches {counted}, expected {expect}")
+
+        cfg_a = run_cfg("a", 3)
+        with Timed(torch, train_mod, "league_eval") as ev_timer, \
+                Timed(torch, ckpt, "save") as save_timer:
+            ts_a, es_a, counted_a, plies_a = driver_run(
+                torch, compaction, arena, train_mod, cfg_a, dev,
+                resume=False)
+        check_launches("run A", counted_a, plies_a, 3, 1)
+        lines = [json.loads(x) for x in open(cfg_a.metrics_path)]
+        check([r["step"] for r in lines] == [0, 1, 2],
+              f"run A logged steps {[r['step'] for r in lines]}")
+        for r in lines:
+            for k in ("loss", "policy_loss", "value_loss", "entropy"):
+                check(math.isfinite(r[k]), f"run A update {r['step']}: "
+                      f"{k} = {r[k]}")
+        league = {k: v for k, v in lines[1].items()
+                  if k.startswith("league/")}
+        check(set(league) == LEAGUE_KEYS,
+              f"league keys {sorted(league)} != the JAX driver's")
+        for tag in ("heuristic", "frozen_v1", "baseline"):
+            wr = league[f"league/win_rate_vs_{tag}"]
+            check(0.0 <= wr <= 1.0, f"win rate vs {tag}: {wr}")
+        for tag in ("heuristic", "frozen_v1"):
+            check(league[f"league/finished_vs_{tag}"] > 0,
+                  f"no league game vs {tag} finished in 400 plies")
+
+        cfg_b = run_cfg("b", 2)
+        _, _, counted_b1, plies_b1 = driver_run(
+            torch, compaction, arena, train_mod, cfg_b, dev, resume=False)
+        check_launches("run B, updates 0-1", counted_b1, plies_b1, 2, 1)
+        shutil.rmtree(os.path.join(tmp, "b", "ckpts"))
+        with Timed(torch, train_mod, "_pull_remote_latest") as pull, \
+                Timed(torch, ckpt, "restore") as restore:
+            ts_b, es_b, counted_b2, plies_b2 = driver_run(
+                torch, compaction, arena, train_mod,
+                dataclasses.replace(cfg_b, num_updates=3), dev, resume=True)
+        check_launches("run B, resumed to 3", counted_b2, plies_b2, 1, 0)
+        check(len(pull.calls) == 1 and str(pull.calls[0][1]).endswith(
+            "ckpt_2.npz"), f"run B did not pull ckpt_2: {pull.calls}")
+
+        want, got = state_tensors(ts_a, es_a), state_tensors(ts_b, es_b)
+        check(list(want) == list(got), "train states differ in structure")
+        for k in want:
+            check(want[k].dtype == got[k].dtype and bool(
+                torch.equal(want[k], got[k])),
+                f"resumed run != uninterrupted run in {k}")
+        ckpt_mb = os.path.getsize(save_timer.calls[-1][1]) / 1e6
+        lines_b = [json.loads(x) for x in open(cfg_b.metrics_path)]
+        out.update({
+            "launches": counted_a,
+            "launches_run_b": [counted_b1, counted_b2],
+            "update_time_s": [r["update_time_s"] for r in lines],
+            "steps_per_sec": [r["steps_per_sec"] for r in lines],
+            "update_time_s_run_b": [r["update_time_s"] for r in lines_b],
+            "steps_per_sec_run_b": [r["steps_per_sec"] for r in lines_b],
+            "league_eval_s": ev_timer.calls[0][0],
+            "league": league,
+            "checkpoint_save_s": [s for s, _ in save_timer.calls],
+            "checkpoint_mb": ckpt_mb,
+            "checkpoint_restore_s": restore.calls[0][0],
+            "remote_pull_s": pull.calls[0][0],
+            "losses": {k: lines[-1][k] for k in ("loss", "policy_loss",
+                                                 "value_loss", "entropy")},
+        })
     return out
 
 
@@ -753,7 +1015,9 @@ def main(argv=None) -> int:
         from mlp_ppo_2ply_p3_tpu_torch.env import bg_env
         from mlp_ppo_2ply_p3_tpu_torch.ops import build, compaction
         from mlp_ppo_2ply_p3_tpu_torch.ppo import learner
+        from mlp_ppo_2ply_p3_tpu_torch.ppo import train as train_mod
         from mlp_ppo_2ply_p3_tpu_torch.scripts import perf_twoply
+        from mlp_ppo_2ply_p3_tpu_torch.utils import checkpoint as ckpt
         from mlp_ppo_2ply_p3_tpu_torch.utils.config import get_preset
     except ImportError as e:
         fail(f"the port package is not beside this script: {e}")
@@ -794,6 +1058,13 @@ def main(argv=None) -> int:
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     log(f"movegen B=4096: {mg_ms:.3f} ms/call ({mg_graph_ms:.3f} ms as a "
         f"CUDA graph), kernel path == plain path")
+    # the league eval's and the arenas' movegen batches
+    eval_cfg = get_preset("twoply")
+    report["phases"]["movegen_batches"] = movegen_batches_phase(
+        torch, compaction, movegen, perf_twoply,
+        [("league eval", cfg.env, cfg.eval_games)]
+        + [(f"arena {pair}", eval_cfg.env, games)
+           for pair, games, _ in ARENA_PAIRS], dev)
 
     diff = small_agreement_phase(torch, bg_env, learner, cfg, dev)
     report["phases"]["small_train_step_max_param_diff"] = diff
@@ -820,7 +1091,6 @@ def main(argv=None) -> int:
         f"{report['phases']['afterstate']['train_step_s']:.3f} s/step")
 
     # the evaluation path: the twoply preset on the committed frozen_v1 net
-    eval_cfg = get_preset("twoply")
     model, model_cfg = frozen.load_frozen(device=dev)
     check(model_cfg == eval_cfg.model, "frozen_v1 is not the twoply model")
     t0 = time.time()
@@ -837,6 +1107,25 @@ def main(argv=None) -> int:
         f"heuristic {arenas['oneply:pubeval']['win_rate_a']:.3f} over 512 "
         f"games (JAX {JAX_ONEPLY_VS_HEURISTIC})")
 
+    # the training driver, at the preset's horizon
+    t0 = time.time()
+    trainer = trainer_phase(torch, compaction, movegen, arena, train_mod,
+                            ckpt, cfg, dev)
+    report["phases"]["trainer"] = trainer
+    league = trainer["league"]
+    log(f"trainer phase: {time.time() - t0:.1f} s; B=4096 "
+        f"T={cfg.ppo.t_horizon}: "
+        f"s/update {[round(x, 3) for x in trainer['update_time_s']]}, "
+        f"env-steps/s {[round(x) for x in trainer['steps_per_sec']]} on "
+        f"{card}; league_eval {trainer['league_eval_s']:.2f} s (vs "
+        f"heuristic {league['league/win_rate_vs_heuristic']:.3f}, vs "
+        f"frozen_v1 {league['league/win_rate_vs_frozen_v1']:.3f}); "
+        f"checkpoint {trainer['checkpoint_mb']:.1f} MB, save "
+        f"{[round(x, 3) for x in trainer['checkpoint_save_s']]} s, restore "
+        f"{trainer['checkpoint_restore_s']:.3f} s, remote pull "
+        f"{trainer['remote_pull_s']:.3f} s; resumed == uninterrupted bit "
+        f"for bit; launches {trainer['launches']}")
+
     # each path's launches, counted from 0 just before it
     by_path = {"train4096": main_path["launches"],
                "afterstate": report["phases"]["afterstate"]["launches"]}
@@ -845,6 +1134,7 @@ def main(argv=None) -> int:
             row["launches"])
     for pair, res in arenas.items():
         by_path[f"arena_{pair.replace(':', '_vs_')}"] = res["launches"]
+    by_path["trainer"] = trainer["launches"]
     for path, counted in by_path.items():
         for name in KERNELS:
             # replies skip the dedup from width 482

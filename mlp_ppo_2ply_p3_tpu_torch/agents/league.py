@@ -19,10 +19,9 @@ Agents:
                   greedy 1-ply
 
 The network agents play ``--params-from frozen`` (the committed asset) or
-``ckpt``: a fresh net from ``--seed`` when no checkpoint exists under
-``checkpoint_dir/<preset>``.  The port cannot read the training loop's
-checkpoints yet (``utils/checkpoint.py`` is still to be ported), so when
-one exists the runner stops rather than play a fresh net in its place.
+``ckpt``: the newest checkpoint that the port's training driver
+(``ppo/train.py``) wrote under ``checkpoint_dir/<preset>``, or a fresh
+net from ``--seed`` when there is none.
 """
 
 from __future__ import annotations
@@ -35,7 +34,9 @@ import time
 import torch
 
 from .. import resolve_device
+from ..env import bg_env
 from ..ppo import learner
+from ..utils import checkpoint as ckpt
 from ..utils.config import get_preset
 from . import arena, basic, frozen, pubeval, twoply
 
@@ -68,26 +69,6 @@ def _agent_fn(name: str, cfg, device="cuda"):
     raise SystemExit(f"unknown agent {name!r}")
 
 
-def latest_checkpoint(dirpath: str, prefix: str = "ckpt_"):
-    """Newest ``ckpt_<update>`` entry under ``dirpath``, or None (the JAX
-    package's ``utils.checkpoint.latest``)."""
-    if not os.path.isdir(dirpath):
-        return None
-    cands = [f for f in os.listdir(dirpath) if f.startswith(prefix)]
-    if not cands:
-        return None
-
-    def step_of(f):
-        stem = f[len(prefix):]
-        stem = stem[:-4] if stem.endswith(".npz") else stem
-        try:
-            return int(stem)
-        except ValueError:
-            return -1
-
-    return os.path.join(dirpath, max(cands, key=step_of))
-
-
 def _network(cfg, seed: int, params_from: str, device):
     if params_from == "frozen":
         asset = frozen.load_frozen(device=device)
@@ -100,15 +81,16 @@ def _network(cfg, seed: int, params_from: str, device):
                 f"model {cfg.model}; pick a matching --preset")
         print("params from the committed frozen_v1 asset")
         return model
-    path = latest_checkpoint(os.path.join(cfg.checkpoint_dir, cfg.name))
+    path = ckpt.latest(os.path.join(cfg.checkpoint_dir, cfg.name))
+    ts = learner.init_train_state(seed, cfg.model, cfg.ppo, device=device)
     if path:
-        raise SystemExit(
-            f"checkpoint {path} exists, but the port cannot read the "
-            f"training loop's checkpoints yet (utils/checkpoint.py is "
-            f"still to be ported); use --params-from frozen")
-    print("no checkpoint found; fresh-initialized params")
-    return learner.init_train_state(seed, cfg.model, cfg.ppo,
-                                    device=device).model
+        env0 = bg_env.reset(torch.Generator(device=device).manual_seed(1),
+                            cfg.env, cfg.ppo.num_envs, device=device)
+        ts, _ = ckpt.restore(path, (ts, env0))
+        print(f"params from {path} (update {int(ts.update_idx)})")
+    else:
+        print("no checkpoint found; fresh-initialized params")
+    return ts.model
 
 
 def run_pair(cfg, pair: str, games: int, max_plies: int, seed: int,

@@ -11,11 +11,10 @@ Port of ``mlp_ppo_2ply_p3_tpu/utils/config.py`` with the same presets:
 - ``twoply``:     2-ply expectimax evaluation settings.
 - ``pod``:        the multi-host scale-out sizes.
 
-The fields of the training loop (``ppo/train.py``: checkpoints,
-metrics, remote store) are kept as data so that a preset reads the same
-in both packages; the port's training loop is not written yet.  Only
-``SearchConfig``'s chunk sizes differ from the JAX package's: they were
-sized again for the card.
+``RunConfig``'s driver fields (checkpoints, metrics, league eval,
+remote store) are read by the training driver, ``ppo/train.py``, as in
+the JAX package.  Only ``SearchConfig``'s chunk sizes differ from the
+JAX package's: they were sized again for the card.
 """
 
 from __future__ import annotations
@@ -67,7 +66,12 @@ class RunConfig:
     eval_every: int = 25
     eval_games: int = 256
     overflow_policy: str = "warn"   # "none" | "warn" | "abort"
+    # blob store for checkpoints and metrics (utils.remote: file:// |
+    # s3:// | gs://; "" disables).  On resume a local checkpoint wins; the
+    # store's newest is pulled only when checkpoint_dir/<name> has none,
+    # so a stale local checkpoint shadows a newer remote one
     remote_url: str = ""
+    # raise at the first update with a non-finite loss (ppo/train.py)
     debug_nans: bool = False
 
 

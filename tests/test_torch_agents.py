@@ -307,19 +307,29 @@ def test_league_run_pair_frozen_keys_match_jax(capsys):
 
 
 def test_league_ckpt_mode(tmp_path, capsys):
-    """No checkpoint: a fresh net from the seed; a checkpoint present:
-    the runner stops (the port cannot read it yet)."""
+    """No checkpoint: a fresh net from the seed; checkpoints present: the
+    newest is restored and played, as in the JAX runner."""
+    from mlp_ppo_2ply_p3_tpu_torch.ppo import learner as TL
+    from mlp_ppo_2ply_p3_tpu_torch.utils import checkpoint as ckpt
+
     cfg = dataclasses.replace(get_preset("debug"),
                               checkpoint_dir=str(tmp_path))
     out = TLG.run_pair(cfg, "oneply:random", 2, 3, 0, device="cpu")
     assert out["games"] == 2
     assert "fresh-initialized" in capsys.readouterr().out
-    (tmp_path / cfg.name).mkdir()
-    (tmp_path / cfg.name / "ckpt_7.npz").write_bytes(b"")
-    assert TLG.latest_checkpoint(str(tmp_path / cfg.name)).endswith(
-        "ckpt_7.npz")
-    with pytest.raises(SystemExit, match="checkpoint"):
-        TLG.run_pair(cfg, "oneply:random", 2, 3, 0, device="cpu")
+    # another seed's net stands for a trained one
+    ts = TL.init_train_state(5, cfg.model, cfg.ppo, device="cpu")
+    ts = ts._replace(update_idx=torch.tensor(7, dtype=torch.int32))
+    env = TE.reset(torch.Generator().manual_seed(2), cfg.env,
+                   cfg.ppo.num_envs, device="cpu")
+    ckpt.save(str(tmp_path / cfg.name / "ckpt_7"), (ts, env))
+    (tmp_path / cfg.name / "ckpt_3.npz").write_bytes(b"")  # older: unread
+    got = TLG.run_pair(cfg, "oneply:random", 2, 3, 0, device="cpu")
+    assert "ckpt_7.npz (update 7)" in capsys.readouterr().out
+    want = TLG.run_pair(cfg, "oneply:random", 2, 3, 0, params=ts.model,
+                        device="cpu")
+    del got["seconds"], want["seconds"]
+    assert got == want
 
 
 def test_league_cli_main(capsys):

@@ -11,6 +11,8 @@ package, so it also runs on a machine that has only PyTorch:
 parity of the plain version with the JAX Pallas kernels is in
 ``tests/test_torch_compaction.py`` and ``tests/test_torch_dedup.py``."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -211,8 +213,6 @@ def test_twoply_kernel_path_matches_plain(card, monkeypatch, width):
     positions after 12 random env steps): the kernel path equals the
     plain path bit for bit, with the launches of the formula; width 128
     takes the reply dedup branch."""
-    import dataclasses
-
     from mlp_ppo_2ply_p3_tpu_torch.agents import frozen, twoply
     from mlp_ppo_2ply_p3_tpu_torch.utils.config import get_preset
 
@@ -236,3 +236,64 @@ def test_twoply_kernel_path_matches_plain(card, monkeypatch, width):
     torch.cuda.synchronize()
     for g, p in zip(got, plain):
         assert torch.equal(g, p)
+
+
+def _train_state_tensors(ts, env, gen=True):
+    """Every tensor of a train state and env state, and the generator's
+    state, in a fixed order."""
+    return ([*ts.model.parameters(), *ts.opt_state.mu, *ts.opt_state.nu,
+             ts.opt_state.count, ts.update_idx, ts.episodes] + list(env)
+            + ([ts.gen.get_state()] if gen else []))
+
+
+def test_checkpoint_roundtrip_and_resumed_train_step(card, tmp_path,
+                                                     capsys):
+    """At train4096's widths and B=64, T=8 on the card: a checkpoint
+    restores every tensor and the 16-byte generator state (seed and
+    Philox offset) exactly, and the next ``train_step`` from the restored
+    state equals the one from the saved state bit for bit.  Restored on
+    the CPU, every tensor is still exact and the generator is reseeded."""
+    from mlp_ppo_2ply_p3_tpu_torch.ppo import learner as TL
+    from mlp_ppo_2ply_p3_tpu_torch.utils import checkpoint as ckpt
+    from mlp_ppo_2ply_p3_tpu_torch.utils.config import get_preset
+
+    cfg = get_preset("train4096")
+    ppo = dataclasses.replace(cfg.ppo, num_envs=64, t_horizon=8,
+                              num_minibatches=4)
+
+    def fresh(seed, dev):
+        ts = TL.init_train_state(seed, cfg.model, ppo, device=dev)
+        return ts, TE.reset(ts.gen, cfg.env, 64, device=dev)
+
+    ts, env = fresh(0, card)
+    ts, env, _ = TL.train_step(ts, env, cfg.env, cfg.model, ppo)
+    assert ts.gen.get_state().numel() == 16
+    path = ckpt.save(str(tmp_path / "ckpt_1"), (ts, env))
+    ts2, env2 = ckpt.restore(path, fresh(1, card))
+    for a, b in zip(_train_state_tensors(ts, env),
+                    _train_state_tensors(ts2, env2)):
+        assert a.device == b.device and torch.equal(a, b)
+    # the model is stepped in place below: hold the CPU restore first
+    ts_cpu, env_cpu = ckpt.restore(path, fresh(1, "cpu"))
+    assert "reseeded" in capsys.readouterr().out
+    for a, b in zip(_train_state_tensors(ts_cpu, env_cpu, gen=False),
+                    _train_state_tensors(ts2, env2, gen=False)):
+        assert a.device.type == "cpu" and torch.equal(a, b.cpu())
+
+    out_a = TL.train_step(ts, env, cfg.env, cfg.model, ppo)
+    out_b = TL.train_step(ts2, env2, cfg.env, cfg.model, ppo)
+    for a, b in zip(_train_state_tensors(*out_a[:2]),
+                    _train_state_tensors(*out_b[:2])):
+        assert torch.equal(a, b)
+    for k, v in out_a[2].items():
+        assert torch.equal(v, out_b[2][k]), k
+
+
+def test_profiling_timeit_on_card(card):
+    """``utils.profiling.timeit``: CUDA events around back-to-back calls;
+    a ~1 ms device sleep reads about 1 ms."""
+    from mlp_ppo_2ply_p3_tpu_torch.utils import profiling
+
+    seconds = profiling.timeit(lambda: torch.cuda._sleep(2_000_000), n=5,
+                               device=card)
+    assert 2e-4 < seconds < 2e-2

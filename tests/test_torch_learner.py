@@ -138,12 +138,15 @@ _rollout = jax.jit(JL.rollout, static_argnums=(3, 4, 5))
 _update = jax.jit(JL.ppo_update, static_argnums=(4, 5, 6))
 
 
-def jax_run(mode) -> JaxRun:
-    """JAX train_step, in its two compiled pieces, plus its draws."""
+def jax_run(mode, ts=None, env0=None) -> JaxRun:
+    """JAX train_step, in its two compiled pieces, plus its draws; from
+    ``ts`` and ``env0`` when given, else from a fresh train state and
+    ``endgame_positions(1)``."""
     cfg = JL.PPOConfig(**MODES[mode])
-    ts = JL.init_train_state(jax.random.PRNGKey(0), JMODEL, cfg)
-    env0 = JE.make_state(*(jnp.asarray(x) for x in endgame_positions(1)),
-                         JENV)
+    if ts is None:
+        ts = JL.init_train_state(jax.random.PRNGKey(0), JMODEL, cfg)
+        env0 = JE.make_state(*(jnp.asarray(x) for x in endgame_positions(1)),
+                             JENV)
     key, k_roll = jax.random.split(ts.key)          # learner.py:324
     ts = ts._replace(key=key)
     env1, traj, last_value, last_turn = _rollout(ts.params, env0, k_roll,
