@@ -68,7 +68,29 @@ Phases (any failure exits non-zero and prints no result line):
    finished games; every loss must be finite.  Records the driver's
    s/update and env-steps/s, the eval's seconds, checkpoint save and
    restore seconds and size, and the remote pull's seconds.
-8. Prints the ``kernels`` JSON line (launches summed over every path's
+8. Data-parallel training: two ranks of this script (``--dp-worker``)
+   share the card in a gloo group and run ``ppo.train.train`` at the
+   ``pod`` preset (B=16384, 8192 games a rank, M=256, hidden 128,
+   default movegen widths; T cut 128 -> 16, 2 updates with a checkpoint
+   after each); the same config runs unsharded in this process.  After
+   update 1 the two global checkpoints agree in every integer, the
+   generator and the env exactly, and in the parameters' update and
+   Adam's moments within 4 times what a one-ulp nudge of the parameters
+   makes of them in one process (rounding, amplified by 128 Adam steps
+   under clipping); the losses of both
+   updates agree within a tolerance; each rank and the
+   single run launch both kernels exactly.  Then a NCCL group of one
+   rank: its collectives are the identity, a ``train_step`` through the
+   sharded code equals the plain one bit for bit, and one rank's movegen
+   call (8192 games, with a rank's sub-batch widths) is held call by call
+   against the plain versions.  Two ranks on one card are no scaling
+   number.
+9. 2-ply distillation: ``scripts/run_distill.main`` on frozen_v1 at 256
+   games, one iteration (plies cut 48 -> 8, eval games 512 -> 128):
+   the JAX script's record keys, finite losses, exact launches; then a
+   2-ply ``collect`` of 2 plies at 16 games and one update on the card
+   against the CPU.
+10. Prints the ``kernels`` JSON line (launches summed over every path's
    run, and by path), then the device line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -383,15 +405,17 @@ def play_boards(perf_twoply, env_cfg, batch, steps, dev):
     return vecs, es.dice, es.turn == 1
 
 
-def captured_movegen(torch, compaction, movegen, vecs, dice, mg, mirror):
-    """One movegen call on the kernel path, checked equal to the plain
-    path, with the expected number of kernel calls; returns (its output,
-    its Capture)."""
+def captured_movegen(torch, compaction, movegen, vecs, dice, mg, mirror,
+                     world=None):
+    """One movegen call on the kernel path (a rank's, with a ``world``),
+    checked equal to the plain path, with the expected number of kernel
+    calls; returns (its output, its Capture)."""
     batch = vecs.shape[0]
     with Capture(compaction) as cap:
-        got = movegen.legal_afterstates_batch(vecs, dice, mg, mirror)
+        got = movegen.legal_afterstates_batch(vecs, dice, mg, mirror, world)
     with Capture(compaction, plain=True):
-        want = movegen.legal_afterstates_batch(vecs, dice, mg, mirror)
+        want = movegen.legal_afterstates_batch(vecs, dice, mg, mirror,
+                                               world)
     torch.cuda.synchronize()
     for g, w, name in zip(got, want, ("boards", "n_moves", "overflow")):
         check(same(g, w), f"movegen {name} at B={batch}: kernel path != "
@@ -448,20 +472,21 @@ def movegen_phase(torch, compaction, movegen, perf_twoply, env_cfg, dev):
 
 
 def movegen_batches_phase(torch, compaction, movegen, perf_twoply, runs,
-                          dev):
+                          dev, world=None):
     """Movegen at the other batch sizes the paths run, ``runs`` of
     (label, EnvConfig, games): below 512 games both sub-batches are the
     whole batch, and a doubles level of fewer than 264 rows and N >= 1024
     takes the split-N layout.  Each: one movegen call on boards from a
     few env steps, kernel path == plain path; every kernel call of it
     checked against its plain version and timed (``measure``); and each
-    call's shape once more with random flags.  Returns a report row per
-    run."""
+    call's shape once more with random flags.  With a ``world`` each call
+    is a rank's (its shapes those of a shard of any number of ranks).
+    Returns a report row per run."""
     out = []
     for label, env_cfg, batch in runs:
         vecs, dice, mirror = play_boards(perf_twoply, env_cfg, batch, 6, dev)
         _, cap = captured_movegen(torch, compaction, movegen, vecs, dice,
-                                  env_cfg.movegen, mirror)
+                                  env_cfg.movegen, mirror, world)
         per_call, per_dedup = measure_calls(torch, compaction, cap.compact,
                                             cap.dedup)
         # the same shapes at this call's share of valid flags, with an
@@ -963,6 +988,488 @@ def trainer_phase(torch, compaction, movegen, arena, train_mod, ckpt, cfg,
     return out
 
 
+# --- phase 8: data-parallel training -----------------------------------------
+
+DP_RANKS = 2
+DP_T = 16              # the pod preset's T=128, cut
+DP_UPDATES = 2
+DP_TIMEOUT = 300       # seconds for the ranks' whole run
+# Ranks vs one process after update 1: the norm of the difference over
+# the norm of the single run's, for the update (parameters after update 1
+# less the initial ones) and Adam's two moments.  The ranks sum each
+# minibatch's gradient in another order, and an update is 4 epochs x 32
+# minibatches of Adam steps under PPO's clipping, which amplify rounding
+# into differences of several percent, while a fault such as a missing
+# gradient all-reduce moves them by tens of percent.  The phase measures
+# that amplification on the card: the single run once more, every
+# parameter moved by one ulp before update 1 (``nudged``).  The ranks
+# may differ by at most DP_FLOOR_FACTOR times as much.
+DP_FLOOR_FACTOR = 4.0
+# losses, absolute (relative above 1): update 1 runs the same rollout;
+# update 2's rollout starts from the parameters above, so some actions
+# differ
+DP_LOSS_TOL = (1e-4, 2e-3)
+
+
+def dp_cfg(get_preset, tmp, tag):
+    """The ``pod`` preset (B=16384, M=256, hidden 128, default movegen
+    widths, 32 minibatches) cut in depth: T=16, 2 updates with a
+    checkpoint after each, no league eval, in ``tmp/tag``."""
+    cfg = get_preset("pod")
+    return dataclasses.replace(
+        cfg, ppo=dataclasses.replace(cfg.ppo, t_horizon=DP_T),
+        num_updates=DP_UPDATES, checkpoint_every=1, eval_every=0,
+        checkpoint_dir=os.path.join(tmp, tag, "ckpts"),
+        metrics_path=os.path.join(tmp, tag, "metrics.jsonl"))
+
+
+def dp_worker(rank, size, port, tmp) -> int:
+    """One rank of phase 8 (``--dp-worker``): joins a gloo group with the
+    other ranks on cuda:0, runs ``ppo.train.train`` at ``dp_cfg`` and
+    writes its kernels' launches to ``tmp/rank<r>.json``."""
+    import contextlib
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    from mlp_ppo_2ply_p3_tpu_torch.ops import compaction
+    from mlp_ppo_2ply_p3_tpu_torch.parallel import mesh
+    from mlp_ppo_2ply_p3_tpu_torch.ppo import train as train_mod
+    from mlp_ppo_2ply_p3_tpu_torch.utils.config import get_preset
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = mesh.initialize_distributed(f"localhost:{port}", size, rank,
+                                        backend="gloo", device="cuda")
+    check(world is not None and world.size == size, f"rank {rank}: no "
+          f"process group of {size}")
+    try:
+        zero_launches(compaction)
+        t0 = time.time()
+        with contextlib.redirect_stdout(sys.stderr):
+            train_mod.train(dp_cfg(get_preset, tmp, "dp"), resume=False,
+                            device="cuda", world=world)
+        torch.cuda.synchronize()
+        out = {"rank": rank, "device": str(world.device),
+               "launches": launches(compaction), "wall_s": time.time() - t0}
+    finally:
+        mesh.shutdown()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(tmp, size):
+    """``size`` ranks of ``dp_worker`` at once, each one's output in a log
+    file of its own; every one must exit 0 within DP_TIMEOUT."""
+    port = free_port()
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    procs, logs = [], []
+    try:
+        for r in range(size):
+            logs.append(os.path.join(tmp, f"rank{r}.log"))
+            with open(logs[-1], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--dp-worker", str(r), str(size), str(port), tmp],
+                    stdout=f, stderr=subprocess.STDOUT, env=env))
+        for p in procs:
+            p.wait(timeout=DP_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"data-parallel rank {r} exited "
+              f"{p.returncode}:\n{open(log).read()[-6000:]}")
+    return [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+            for r in range(size)]
+
+
+def compare_checkpoints(np, path_a, path_b, init):
+    """Two checkpoints of the same global state: every integer array
+    (the env, the generator, the counters) and the fingerprint equal.
+    Returns, for the parameters' update from ``init`` (name -> array) and
+    Adam's moments, the norm of the difference over ``path_b``'s norm."""
+    sq = {k: [0.0, 0.0] for k in ("update", "mu", "nu")}  # diff, reference
+    with np.load(path_a) as a, np.load(path_b) as b:
+        check(sorted(a.files) == sorted(b.files),
+              "data-parallel and single checkpoints hold other arrays")
+        for k in a.files:
+            x, y = a[k], b[k]
+            check(x.shape == y.shape and x.dtype == y.dtype,
+                  f"checkpoint {k}: {x.shape} {x.dtype} vs {y.shape} "
+                  f"{y.dtype}")
+            if x.dtype.kind != "f":
+                diff = int((x != y).sum())
+                games = (int((x != y).reshape(x.shape[0], -1).any(1).sum())
+                         if k.startswith("env/") else diff)
+                check(diff == 0, f"after update 1, {k}: {diff} elements "
+                      f"({games} games) differ between the ranks and the "
+                      f"single-process run")
+            else:
+                kind = ("update" if k.startswith("model/")
+                        else k.split("/")[1])
+                ref = y - init[k[len("model/"):]] if kind == "update" else y
+                sq[kind][0] += float(np.square(x - y, dtype=np.float64).sum())
+                sq[kind][1] += float(np.square(ref, dtype=np.float64).sum())
+    return {kind: math.sqrt(d / r) for kind, (d, r) in sq.items()}
+
+
+def nudged(torch, ppo_update):
+    """``ppo_update`` with every parameter moved up by one ulp first."""
+    def run(ts, *a, **k):
+        with torch.no_grad():
+            for p in ts.model.parameters():
+                p.copy_(torch.nextafter(p, torch.full_like(p, math.inf)))
+        return ppo_update(ts, *a, **k)
+
+    return run
+
+
+def dp_phase(torch, compaction, movegen, learner, train_mod, get_preset,
+             dev):
+    """Phase 8: ``DP_RANKS`` gloo ranks sharing the card run the driver at
+    ``dp_cfg`` (8192 games a rank); the same config runs in this process
+    unsharded.  After update 1 the two checkpoints (each the global
+    state) agree: every integer, the generator and the env exactly,
+    the parameters' update and Adam's moments within ``DP_FLOOR_FACTOR``
+    times the difference that a one-ulp nudge makes in one process; the
+    losses of both updates within ``DP_LOSS_TOL``; every rank and the
+    single run launch both kernels exactly (the first reset and T movegen
+    calls an update)."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+
+    pod = get_preset("pod")
+    mg = pod.env.movegen
+    calls = 1 + DP_UPDATES * DP_T
+    expect = {"compact_rows": calls * movegen.compactions_per_call(mg),
+              "dedup_compact_rows": calls * movegen.dedups_per_call(mg)}
+    out = {"ranks": DP_RANKS, "batch": pod.ppo.num_envs,
+           "batch_per_rank": pod.ppo.num_envs // DP_RANKS,
+           "t_horizon": DP_T, "updates": DP_UPDATES, "backend": "gloo"}
+    # the ranks are other processes: hand them the memory cached here
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        ranks = run_ranks(tmp, DP_RANKS)
+        out["ranks_wall_s"] = time.time() - t0
+        cfg = dp_cfg(get_preset, tmp, "single")
+        zero_launches(compaction)
+        t0 = time.time()
+        with contextlib.redirect_stdout(sys.stderr):
+            train_mod.train(cfg, resume=False, device=dev, shard=False)
+        torch.cuda.synchronize()
+        out["single_wall_s"] = time.time() - t0
+        single = launches(compaction)
+        for label, counted in [(f"rank {r['rank']}", r["launches"])
+                               for r in ranks] + [("single", single)]:
+            check(counted == expect, f"data-parallel phase, {label}: "
+                  f"launches {counted}, expected {expect}")
+        out["launches"] = {f"rank{r['rank']}": r["launches"] for r in ranks}
+        out["launches"]["single"] = single
+        # the rounding floor: the single run again, nudged, one update
+        inner = learner.ppo_update
+        learner.ppo_update = nudged(torch, inner)
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                train_mod.train(dp_cfg(get_preset, tmp, "nudged"),
+                                resume=False, updates=1, device=dev,
+                                shard=False)
+        finally:
+            learner.ppo_update = inner
+        init = {n: p.detach().cpu().numpy() for n, p in
+                learner.init_train_state(cfg.seed, cfg.model, cfg.ppo,
+                                         device=dev).model.named_parameters()}
+        ckpt_1 = {tag: os.path.join(tmp, tag, "ckpts", "pod", "ckpt_1.npz")
+                  for tag in ("dp", "single", "nudged")}
+        out["rel_diff"] = compare_checkpoints(np, ckpt_1["dp"],
+                                              ckpt_1["single"], init)
+        out["nudged_rel_diff"] = compare_checkpoints(
+            np, ckpt_1["nudged"], ckpt_1["single"], init)
+        log(f"data-parallel phase, after update 1, norm of the difference "
+            f"over the single run's: ranks {out['rel_diff']}, one process "
+            f"nudged by one ulp {out['nudged_rel_diff']}")
+        for kind, rel in out["rel_diff"].items():
+            bound = DP_FLOOR_FACTOR * out["nudged_rel_diff"][kind]
+            check(rel <= bound, f"after update 1 the ranks' {kind} differs "
+                  f"from one process's by {rel:.4f} of its norm > {bound:.4f}"
+                  f" ({DP_FLOOR_FACTOR} x a one-ulp nudge's)")
+        dp_lines = [json.loads(x) for x in open(
+            os.path.join(tmp, "dp", "metrics.jsonl"))]
+        single_lines = [json.loads(x) for x in open(cfg.metrics_path)]
+    check(len(dp_lines) == len(single_lines) == DP_UPDATES,
+          f"metrics: {len(dp_lines)} and {len(single_lines)} lines")
+    # statistics of the env alone, over the gathered rollout
+    for k in ("episodes_finished", "movegen_overflow", "mean_reward"):
+        check(dp_lines[0][k] == single_lines[0][k], f"update 1 {k}: "
+              f"{dp_lines[0][k]} vs {single_lines[0][k]}")
+    out["loss_max_abs_diff"] = [0.0, 0.0]
+    for i, (a, b) in enumerate(zip(dp_lines, single_lines)):
+        for k in ("loss", "policy_loss", "value_loss", "entropy"):
+            check(math.isfinite(a[k]), f"data-parallel {k} = {a[k]}")
+            d = abs(a[k] - b[k])
+            out["loss_max_abs_diff"][i] = max(out["loss_max_abs_diff"][i], d)
+            check(d <= DP_LOSS_TOL[i] * max(1.0, abs(b[k])),
+                  f"update {a['step']} {k}: ranks {a[k]}, single {b[k]}")
+    for tag, lines in (("dp", dp_lines), ("single", single_lines)):
+        out[f"{tag}_update_time_s"] = [r["update_time_s"] for r in lines]
+        out[f"{tag}_steps_per_sec"] = [r["steps_per_sec"] for r in lines]
+    return out
+
+
+def nccl_phase(torch, compaction, movegen, bg_env, learner, mesh,
+               perf_twoply, cfg, pod, dev):
+    """A 1-rank NCCL group on the card: ``all_reduce_sum`` and
+    ``gather_batch`` of CUDA tensors are the identity, and one
+    ``train_step`` (B=64, T=8, full width) through the sharded code ==
+    the plain ``train_step`` bit for bit.  Then one rank's movegen call
+    at ``pod`` (8192 games: the sub-batches a rank of phase 8 holds) is
+    held call by call against the plain versions.  Returns (the sharded
+    step's launches, that movegen report)."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        world = mesh.World(0, 1, dev, "nccl")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(9)
+        x = torch.rand((64, 7), generator=gen, device=dev)
+        ints = torch.randint(-9, 9, (64, 3), generator=gen, device=dev,
+                             dtype=torch.int32)
+        flags = x[:, 0] < 0.5
+        for got, want in zip(mesh.all_reduce_sum([x, ints, flags, x[0]],
+                                                 world),
+                             [x, ints, flags, x[0]]):
+            check(got.device == dev and same(got, want),
+                  "NCCL all_reduce_sum of one rank is not the identity")
+        got = mesh.gather_batch((x, (ints, flags), None), world)
+        check(got[2] is None and all(same(a, b) for a, b in zip(
+            (got[0], *got[1]), (x, ints, flags))),
+            "NCCL gather_batch of one rank is not the identity")
+        got = mesh.gather_batch((x, ints), world, dim=1)
+        check(same(got[0], x) and same(got[1], ints),
+              "NCCL gather_batch of one rank (dim 1) is not the identity")
+        ppo = dataclasses.replace(cfg.ppo, num_envs=64, t_horizon=8,
+                                  num_minibatches=4)
+
+        def step(w):
+            ts = learner.init_train_state(0, cfg.model, ppo, device=dev)
+            start = bg_env.reset(torch.Generator(device=dev).manual_seed(2),
+                                 cfg.env, 64, device=dev, world=w)
+            ts, es, m = learner.train_step(ts, start, cfg.env, cfg.model,
+                                           ppo, world=w)
+            return state_tensors(ts, es), m
+
+        plain, plain_m = step(None)
+        zero_launches(compaction)
+        sharded, sharded_m = step(world)
+        torch.cuda.synchronize()
+        counted = launches(compaction)
+        per_rank = movegen_batches_phase(
+            torch, compaction, movegen, perf_twoply,
+            [("pod, one rank's shard", pod.env,
+              pod.ppo.num_envs // DP_RANKS)], dev, world)
+    finally:
+        dist.destroy_process_group()
+    for k in plain:
+        check(plain[k].dtype == sharded[k].dtype and bool(
+            torch.equal(plain[k], sharded[k])),
+            f"NCCL world of one: {k} differs from the plain train_step")
+    for k in plain_m:
+        check(bool(torch.equal(plain_m[k], sharded_m[k])),
+              f"NCCL world of one: metric {k} differs")
+    calls = 1 + ppo.t_horizon
+    mg = cfg.env.movegen
+    expect = {"compact_rows": calls * movegen.compactions_per_call(mg),
+              "dedup_compact_rows": calls * movegen.dedups_per_call(mg)}
+    check(counted == expect, f"NCCL world of one: launches {counted}, "
+          f"expected {expect}")
+    return counted, per_rank
+
+
+# --- phase 9: 2-ply distillation ---------------------------------------------
+
+DISTILL_PLIES = 8          # the script's 48, cut
+DISTILL_EVAL_GAMES = 128   # the script's 512, cut
+DISTILL_ENVS = 256         # the script's default
+DISTILL_KEYS = {"iter", "states", "loss", "ce", "value_mse",
+                "win_rate_vs_frozen", "finished", "collect_s", "train_s"}
+DISTILL_LR = 3e-4
+
+
+def distill_agreement(torch, np, twoply, learner, bg_env, frozen,
+                      run_distill, env_cfg, scfg, dev):
+    """A 2-ply ``collect`` of 2 plies at 16 games and one ``make_update``
+    step on its 32 states, on the card and on the CPU from the same net
+    and draws: actions equal where the best 2-ply score leads by more
+    than 1e-4, states exact, backups within 1e-4 (phase 6's bound);
+    losses within 1e-5; Adam's first moment (0.1 x the gradient) within
+    1e-5 of the model's largest entry (the two devices sum in other
+    orders, and an entry near zero, such as the score head's bias, whose
+    exact gradient is zero, is a sum of much larger terms); parameters
+    within 1e-6, or 2 lr where the first moment is within 10 times that
+    bound of zero: Adam's first step is lr g / (|g| + 1e-8), which there
+    may take either sign."""
+    games, plies = 16, 2
+    model_g, _ = frozen.load_frozen(device=dev)
+    model_c, _ = frozen.load_frozen(device="cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    start = bg_env.reset(gen, env_cfg, games, device=dev)
+    rec = RecordingSampler(learner, gen)
+    margins, inner = [], twoply.candidate_scores
+
+    def recorded(*a, **kw):
+        top_idx, score2, ovf = inner(*a, **kw)
+        top2 = torch.topk(score2, 2, dim=1).values
+        margins.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+        return top_idx, score2, ovf
+
+    twoply.candidate_scores = recorded
+    try:
+        buf_g, _ = run_distill.collect(model_g, start, rec, env_cfg, scfg,
+                                       plies)
+    finally:
+        twoply.candidate_scores = inner
+    buf_c, _ = run_distill.collect(
+        model_c, bg_env.EnvState(*(x.cpu() for x in start)),
+        ReplaySampler(rec, torch.device("cpu")), env_cfg, scfg, plies)
+    clear = np.concatenate(margins) > 1e-4
+    backup_diff, compared = 0.0, 0
+    for p in range(plies):
+        rows = slice(p * games, (p + 1) * games)
+        for k in ("obs", "after", "n_moves", "turn"):
+            check(np.array_equal(buf_g[k][rows], buf_c[k][rows]),
+                  f"distill collect ply {p}: {k} card != CPU")
+        check(np.array_equal(buf_g["action"][rows][clear[rows]],
+                             buf_c["action"][rows][clear[rows]]),
+              f"distill collect ply {p}: actions card != CPU")
+        backup_diff = max(backup_diff, float(np.abs(
+            buf_g["target_v"][rows] - buf_c["target_v"][rows]).max()))
+        compared += 1
+        if not np.array_equal(buf_g["action"][rows], buf_c["action"][rows]):
+            break    # a near tie went another way: the games part here
+    check(backup_diff <= 1e-4, f"distill backups: card and CPU differ by "
+          f"{backup_diff}")
+
+    m = env_cfg.max_moves
+    mb = tuple(buf_g[k] for k in run_distill.KEYS)
+    out = []
+    for where, model in ((dev, model_g), (torch.device("cpu"), model_c)):
+        update = run_distill.make_update(model, m, DISTILL_LR, 1.0, 1.0)
+        state, *losses = update(learner.init_optimizer(model),
+                                tuple(torch.from_numpy(x).to(where)
+                                      for x in mb))
+        out.append((state, [float(x) for x in losses],
+                    {n: p.detach().cpu().numpy()
+                     for n, p in model.named_parameters()}))
+    (s_g, l_g, p_g), (s_c, l_c, p_c) = out
+    loss_diff = max(abs(a - b) for a, b in zip(l_g, l_c))
+    check(loss_diff <= 1e-5 * max(1.0, max(abs(x) for x in l_c)),
+          f"distill update: losses {l_g} on the card, {l_c} on the CPU")
+    mu_diff, param_diff = 0.0, 0.0
+    bound = 1e-5 * max(float(m.abs().max()) for m in s_c.mu)
+    for (name, pg), mg_, mc in zip(p_g.items(), s_g.mu, s_c.mu):
+        mg_, mc = mg_.cpu().numpy(), mc.numpy()
+        check(bool((np.abs(mg_ - mc) <= bound).all()),
+              f"distill update: first moment of {name} card != CPU by "
+              f"{float(np.abs(mg_ - mc).max())} > {bound}")
+        mu_diff = max(mu_diff, float(np.abs(mg_ - mc).max()))
+        noisy = np.abs(mc) < 10 * bound
+        diff = np.abs(pg - p_c[name])
+        check(bool((diff <= np.where(noisy, 2 * DISTILL_LR, 1e-6)).all()),
+              f"distill update: {name} card != CPU by {float(diff.max())}")
+        param_diff = max(param_diff, float(diff[~noisy].max(initial=0.0)))
+    return {"games": games, "plies_compared": compared,
+            "clear_margin_decisions": int(clear.sum()),
+            "decisions": int(clear.size), "max_backup_diff": backup_diff,
+            "max_loss_diff": loss_diff, "max_first_moment_diff": mu_diff,
+            "max_param_diff": param_diff}
+
+
+def distill_phase(torch, compaction, movegen, twoply, arena, learner, bg_env,
+                  frozen, run_distill, dev):
+    """Phase 9: ``scripts/run_distill.main`` on the card, frozen_v1 at the
+    script's 256 games, one iteration of ``DISTILL_PLIES`` plies and two
+    league evals of ``DISTILL_EVAL_GAMES`` games: the JAX record's keys,
+    finite losses, exact launches; then ``distill_agreement``."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+
+    from mlp_ppo_2ply_p3_tpu_torch.core.movegen import MovegenConfig
+    from mlp_ppo_2ply_p3_tpu_torch.utils.config import SearchConfig
+
+    env_cfg = bg_env.EnvConfig(movegen=MovegenConfig.fast(256))
+    scfg = SearchConfig()
+    inner, plies = arena._ply, [0]
+
+    def counted_ply(*a, **k):
+        plies[0] += 1
+        return inner(*a, **k)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "distill.jsonl")
+        zero_launches(compaction)
+        arena._ply = counted_ply
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                records = run_distill.main([
+                    "--iters", "1", "--plies", str(DISTILL_PLIES),
+                    "--envs", str(DISTILL_ENVS), "--eval-games",
+                    str(DISTILL_EVAL_GAMES), "--out", path, "--device",
+                    "cuda"])
+            torch.cuda.synchronize()
+        finally:
+            arena._ply = inner
+        wall = time.time() - t0
+        counted = launches(compaction)
+        lines = [json.loads(x) for x in open(path)]
+    check(len(lines) == 2 and lines == records,
+          f"distill wrote {len(lines)} records")
+    check(set(lines[0]) == {"iter", "win_rate_vs_frozen", "finished"},
+          f"distill baseline record keys {sorted(lines[0])}")
+    rec = lines[1]
+    check(set(rec) == DISTILL_KEYS, f"distill record keys {sorted(rec)} != "
+          f"the JAX script's")
+    for k in ("loss", "ce", "value_mse"):
+        check(math.isfinite(rec[k]), f"distill {k} = {rec[k]}")
+    check(rec["states"] == DISTILL_PLIES * DISTILL_ENVS,
+          f"distill states {rec['states']}")
+    check(plies[0] == 2 * 400, f"distill evals played {plies[0]} plies")
+    # the reset, each ply's env step and each eval's reset and plies list
+    # every game's moves; each ply's 2-ply decision adds its own
+    mg = env_cfg.movegen
+    calls = 1 + DISTILL_PLIES + 2 + plies[0]
+    search = twoply.launches_per_decision(DISTILL_ENVS, scfg)
+    expect = {name: calls * per + DISTILL_PLIES * extra
+              for name, per, extra in zip(
+                  KERNELS, (movegen.compactions_per_call(mg),
+                            movegen.dedups_per_call(mg)), search)}
+    check(counted == expect, f"distill launches {counted}, expected {expect}")
+    agree = distill_agreement(torch, np, twoply, learner, bg_env, frozen,
+                              run_distill, env_cfg, scfg, dev)
+    return {"wall_s": wall, "records": lines, "launches": counted,
+            "eval_plies": plies[0], "agreement": agree}
+
+
 def profile_phase(torch, bg_env, env_cfg, dev, decide):
     """torch.profiler tables (by device time) of four env steps at
     B=4096 and of one call of ``decide``."""
@@ -1001,12 +1508,19 @@ def main(argv=None) -> int:
                          "decision with torch.profiler")
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke.json (and the profile)")
+    # one rank of phase 8, started by this script: RANK SIZE PORT DIR
+    ap.add_argument("--dp-worker", nargs=4, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    t_script = time.time()
 
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
+    if args.dp_worker:
+        rank, size, port, tmp = args.dp_worker
+        return dp_worker(int(rank), int(size), port, tmp)
     sys.path.insert(0, HERE)
     try:
         from mlp_ppo_2ply_p3_tpu_torch.agents import (arena, frozen, league,
@@ -1014,9 +1528,10 @@ def main(argv=None) -> int:
         from mlp_ppo_2ply_p3_tpu_torch.core import movegen
         from mlp_ppo_2ply_p3_tpu_torch.env import bg_env
         from mlp_ppo_2ply_p3_tpu_torch.ops import build, compaction
+        from mlp_ppo_2ply_p3_tpu_torch.parallel import mesh
         from mlp_ppo_2ply_p3_tpu_torch.ppo import learner
         from mlp_ppo_2ply_p3_tpu_torch.ppo import train as train_mod
-        from mlp_ppo_2ply_p3_tpu_torch.scripts import perf_twoply
+        from mlp_ppo_2ply_p3_tpu_torch.scripts import perf_twoply, run_distill
         from mlp_ppo_2ply_p3_tpu_torch.utils import checkpoint as ckpt
         from mlp_ppo_2ply_p3_tpu_torch.utils.config import get_preset
     except ImportError as e:
@@ -1126,6 +1641,54 @@ def main(argv=None) -> int:
         f"{trainer['remote_pull_s']:.3f} s; resumed == uninterrupted bit "
         f"for bit; launches {trainer['launches']}")
 
+    # data-parallel training: two gloo ranks on the card against one
+    # process, the kernels at one rank's movegen call, a NCCL world of one
+    t0 = time.time()
+    dp = dp_phase(torch, compaction, movegen, learner, train_mod,
+                  get_preset, dev)
+    pod = get_preset("pod")
+    log(f"reduced: pod t_horizon {pod.ppo.t_horizon} -> {DP_T}, "
+        f"{DP_UPDATES} updates, no league eval")
+    dp["nccl_world1_launches"], dp["movegen_per_rank"] = nccl_phase(
+        torch, compaction, movegen, bg_env, learner, mesh, perf_twoply, cfg,
+        pod, dev)
+    dp["phase_s"] = time.time() - t0
+    report["phases"]["data_parallel"] = dp
+    log(f"data-parallel phase: {dp['phase_s']:.1f} s; pod B={dp['batch']} "
+        f"T={DP_T}: {DP_RANKS} gloo ranks of {dp['batch_per_rank']} games "
+        f"== one process (env exact after update 1; relative to its norm "
+        f"the update differs by {dp['rel_diff']['update']:.2e}, Adam's "
+        f"moments by {dp['rel_diff']['mu']:.2e} and "
+        f"{dp['rel_diff']['nu']:.2e}; a one-ulp nudge by "
+        f"{dp['nudged_rel_diff']['update']:.2e}, "
+        f"{dp['nudged_rel_diff']['mu']:.2e} and "
+        f"{dp['nudged_rel_diff']['nu']:.2e}; losses "
+        f"by {dp['loss_max_abs_diff'][0]:.2e} and "
+        f"{dp['loss_max_abs_diff'][1]:.2e}); s/update ranks "
+        f"{[round(x, 3) for x in dp['dp_update_time_s']]}, one process "
+        f"{[round(x, 3) for x in dp['single_update_time_s']]}; env-steps/s "
+        f"ranks {[round(x) for x in dp['dp_steps_per_sec']]}, one process "
+        f"{[round(x) for x in dp['single_steps_per_sec']]} on {card} (two "
+        f"ranks share this one card: not a scaling number); launches "
+        f"{dp['launches']}; NCCL world of one == plain train_step bit for "
+        f"bit")
+
+    # 2-ply distillation on frozen_v1
+    t0 = time.time()
+    distill = distill_phase(torch, compaction, movegen, twoply, arena,
+                            learner, bg_env, frozen, run_distill, dev)
+    distill["phase_s"] = time.time() - t0
+    report["phases"]["distill"] = distill
+    rec, agree = distill["records"][1], distill["agreement"]
+    log(f"reduced: distill plies 48 -> {DISTILL_PLIES}, eval games 512 -> "
+        f"{DISTILL_EVAL_GAMES}")
+    log(f"distill phase: {distill['phase_s']:.1f} s; {json.dumps(rec)}; "
+        f"launches {distill['launches']}; card == CPU on 16 games x "
+        f"{agree['plies_compared']} plies (backups within "
+        f"{agree['max_backup_diff']:.1e}, update losses within "
+        f"{agree['max_loss_diff']:.1e}, parameters within "
+        f"{agree['max_param_diff']:.1e})")
+
     # each path's launches, counted from 0 just before it
     by_path = {"train4096": main_path["launches"],
                "afterstate": report["phases"]["afterstate"]["launches"]}
@@ -1135,6 +1698,11 @@ def main(argv=None) -> int:
     for pair, res in arenas.items():
         by_path[f"arena_{pair.replace(':', '_vs_')}"] = res["launches"]
     by_path["trainer"] = trainer["launches"]
+    by_path["dp_rank0"] = dp["launches"]["rank0"]
+    by_path["dp_rank1"] = dp["launches"]["rank1"]
+    by_path["dp_single"] = dp["launches"]["single"]
+    by_path["nccl_world1"] = dp["nccl_world1_launches"]
+    by_path["distill"] = distill["launches"]
     for path, counted in by_path.items():
         for name in KERNELS:
             # replies skip the dedup from width 482
@@ -1179,6 +1747,8 @@ def main(argv=None) -> int:
     kernels = [kernel_row("compact_rows", TPU_KERNELS, per_call),
                kernel_row("dedup_compact_rows", DEDUP_REPLACES, per_dedup)]
     report["kernels"] = kernels
+    report["script_s"] = time.time() - t_script
+    log(f"chip_smoke.py ran {report['script_s']:.1f} s")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -34,6 +34,7 @@ import math
 import torch
 
 from ..ops import compaction
+from ..parallel import mesh
 from . import board as B
 from .constants import NUM_CHECKERS
 
@@ -410,8 +411,43 @@ def _game_over(vecs):
     return vecs[:, B.MY_OFF].to(I32) >= NUM_CHECKERS
 
 
+def _global_fit(world, cfg, pos_d, pos_n, db_out, nd_out):
+    """The sub-batch split of the global batch, for a shard of it (data
+    parallelism, ``world`` a ``parallel.mesh.World``): which of the
+    shard's doubles and non-doubles games fit their global sub-batch's
+    capacity, and the rows the games that do not fit carry.
+
+    Unsharded, the first ``capacity`` games of each kind (in batch order)
+    fit, and every other game of the kind gets n = 0, the overflow flag
+    and the list of the sub-batch's last game, global slot capacity - 1
+    (the slot clamp).  It binds at a reset, whose first rolls are all
+    non-doubles.  Here the counts of every shard are gathered, each game
+    is placed by its global position, and the last game's list is
+    gathered from the shard that holds it.  Returns (fits_d, fits_n,
+    fill_d, fill_n)."""
+    gsz = pos_d.shape[0] * world.size
+    caps = torch.tensor([doubles_capacity(gsz, cfg),
+                         nondoubles_capacity(gsz, cfg)], dtype=I32,
+                        device=pos_d.device)
+    every = mesh.gather_batch(torch.stack([pos_d[-1], pos_n[-1]])[None],
+                              world)                     # (W, 2) counts
+    before = torch.cumsum(every, 0, dtype=I32) - every   # earlier shards'
+    last = caps - 1 - before          # the last fitting game's local slot
+    owner = ((last >= 0) & (last < every)).to(I32).argmax(0)
+    mine = last[world.rank].long()
+    # index_select keeps the slots on the device (no host sync)
+    cand = torch.cat([
+        sub.index_select(0, k.clamp(0, sub.shape[0] - 1).reshape(1))
+        for sub, k in ((db_out, mine[0]), (nd_out, mine[1]))])
+    cands = mesh.gather_batch(cand[None], world)         # (W, 2, M, 52)
+    fill = cands[owner, torch.arange(2, device=owner.device)]
+    first = before[world.rank]
+    return (pos_d + first[0] <= caps[0], pos_n + first[1] <= caps[1],
+            fill[0], fill[1])
+
+
 def legal_afterstates_batch(vecs, dice, cfg: MovegenConfig = MovegenConfig(),
-                            mirror=None):
+                            mirror=None, world=None):
     """Batched legal-move enumeration with doubles partitioning: doubles
     games are stable-compacted into a ``doubles_capacity(B)`` sub-batch
     (the rest into ``nondoubles_capacity(B)``), expanded there, and
@@ -424,6 +460,15 @@ def legal_afterstates_batch(vecs, dice, cfg: MovegenConfig = MovegenConfig(),
       mirror: (B,) bool — True for games whose mover is player 2, so the
               list follows the reference's generation order (None = all
               False, canonical order).
+      world:  a ``parallel.mesh.World`` when the B games are one rank's
+              shard of a global batch of B x size games: every rank must
+              call this at once (two collectives), and the result is the
+              shard's rows of the global batch's, capacities included
+              (``_global_fit``).  The shard's non-doubles sub-batch is
+              then all of its B games; its doubles one stays
+              ``doubles_capacity(B)``, 12 sigma above the mean count
+              (``fast()``: 8), which a shard's doubles exceed with a
+              probability below 1e-15 a call.
 
     Returns: (boards (B, M, 52) int8, n_moves (B,) int32, overflow (B,)).
     """
@@ -437,7 +482,7 @@ def legal_afterstates_batch(vecs, dice, cfg: MovegenConfig = MovegenConfig(),
     d_hi, d_lo = torch.maximum(d0, d1), torch.minimum(d0, d1)
     mir8 = mirror.to(I8)
 
-    bn = nondoubles_capacity(bsz, cfg)
+    bn = bsz if world is not None else nondoubles_capacity(bsz, cfg)
     (nvecs, nhi, nlo, nmir), _ = _compact_games(
         (vecs, d_hi, d_lo, mir8), not_double, bn
     )
@@ -453,8 +498,15 @@ def legal_afterstates_batch(vecs, dice, cfg: MovegenConfig = MovegenConfig(),
     pos_n = torch.cumsum(not_double.to(I32), 0, dtype=I32)
     slot_n = torch.clamp(pos_n - 1, 0, bn - 1).long()
     fits_n = not_double & (pos_n <= bn)
+    out_d, out_n = db_out[slot_d], nd_out[slot_n]
+    if world is not None:
+        g_fits_d, g_fits_n, fill_d, fill_n = _global_fit(
+            world, cfg, pos_d, pos_n, db_out, nd_out)
+        fits_d, fits_n = fits_d & g_fits_d, fits_n & g_fits_n
+        out_d = torch.where(fits_d[:, None, None], out_d, fill_d)
+        out_n = torch.where(fits_n[:, None, None], out_n, fill_n)
 
-    out = torch.where(is_double[:, None, None], db_out[slot_d], nd_out[slot_n])
+    out = torch.where(is_double[:, None, None], out_d, out_n)
     n = torch.where(
         is_double,
         torch.where(fits_d, db_n[slot_d], 0),

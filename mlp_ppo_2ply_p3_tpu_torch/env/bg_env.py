@@ -44,6 +44,7 @@ from ..core.constants import (
     REWARD_WIN_NORMAL,
 )
 from ..core.movegen import MovegenConfig, legal_afterstates_batch
+from ..parallel import mesh
 
 I8 = torch.int8
 I32 = torch.int32
@@ -120,20 +121,23 @@ def draw_step(gen: torch.Generator, batch_size: int) -> StepDraws:
     return StepDraws(rolled, fresh_turn, fresh_dice)
 
 
-def _movegen_batch(points, bar, off, turn, dice_, cfg: EnvConfig):
+def _movegen_batch(points, bar, off, turn, dice_, cfg: EnvConfig,
+                   world=None):
     """(B, ...) absolute arrays -> (after, n, overflow); ``mirror`` keeps
-    the list in the reference's generation order for both players."""
+    the list in the reference's generation order for both players.  With
+    a ``world`` the B games are this rank's shard (every rank calls)."""
     vecs = B.to_canonical(points, bar, off, turn)
     return legal_afterstates_batch(vecs, dice_, cfg.movegen,
-                                   mirror=turn == 1)
+                                   mirror=turn == 1, world=world)
 
 
-def make_state(points, bar, off, turn, dice_, cfg: EnvConfig) -> EnvState:
+def make_state(points, bar, off, turn, dice_, cfg: EnvConfig,
+               world=None) -> EnvState:
     """Build an EnvState from (batched) board tensors: computes the
     legal-move cache; scores and flags zeroed."""
     bsz = turn.shape[0]
     dev = turn.device
-    after, n, ovf = _movegen_batch(points, bar, off, turn, dice_, cfg)
+    after, n, ovf = _movegen_batch(points, bar, off, turn, dice_, cfg, world)
     zb = torch.zeros((bsz,), dtype=torch.bool, device=dev)
     return EnvState(
         points=points.to(I8),
@@ -150,28 +154,33 @@ def make_state(points, bar, off, turn, dice_, cfg: EnvConfig) -> EnvState:
     )
 
 
-def reset_with_draws(turn, dice_, cfg: EnvConfig) -> EnvState:
+def reset_with_draws(turn, dice_, cfg: EnvConfig, world=None) -> EnvState:
     """B fresh games from given starter turns and first rolls."""
     bsz = turn.shape[0]
     pts = initial_points(turn.device).expand(bsz, 2, 24).clone()
     zero2 = torch.zeros((bsz, 2), dtype=I8, device=turn.device)
-    return make_state(pts, zero2, zero2.clone(), turn, dice_, cfg)
+    return make_state(pts, zero2, zero2.clone(), turn, dice_, cfg, world)
 
 
 def reset(gen: torch.Generator, cfg: EnvConfig, batch_size: int,
-          device="cuda") -> EnvState:
-    """B fresh games on ``device``; ``gen`` must live on that device."""
+          device="cuda", world=None) -> EnvState:
+    """B fresh games on ``device``; ``gen`` must live on that device.
+    With a ``world`` (``parallel.mesh.World``) the draws are made for all
+    ``batch_size`` games and this rank's shard of them is built; every
+    rank must call."""
     dev = resolve_device(device)
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, device is {dev}")
-    turn, dc = draw_fresh(gen, batch_size)
-    return reset_with_draws(turn, dc, cfg)
+    turn, dc = mesh.shard_batch(draw_fresh(gen, batch_size), world)
+    return reset_with_draws(turn, dc, cfg, world)
 
 
 def step_with_draws(state: EnvState, actions, draws: StepDraws,
-                    cfg: EnvConfig):
+                    cfg: EnvConfig, world=None):
     """Advance all B games one half-turn with the given random draws.
-    Returns (state', StepInfo)."""
+    Returns (state', StepInfo).  With a ``world`` the games are this
+    rank's shard (and ``draws`` its rows): every rank must call, since
+    movegen places the games in the global batch."""
     s = state
     bsz = s.turn.shape[0]
     dev = s.turn.device
@@ -242,7 +251,7 @@ def step_with_draws(state: EnvState, actions, draws: StepDraws,
     game_over = torch.where(was_over, False, s.game_over | win)
 
     after, n_mv, ovf = _movegen_batch(n_pts, n_bar, n_off, n_turn, n_dice,
-                                      cfg)
+                                      cfg, world)
     n_mv = torch.where(game_over, 0, n_mv)
     ns = EnvState(
         points=n_pts, bar=n_bar, off=n_off, turn=n_turn, dice=n_dice,

@@ -19,6 +19,16 @@ Every random draw (actions, env dice, epoch permutations) goes through a
 one that replays the JAX package's draws.  The model's parameters are
 updated in place: the ``TrainState`` returned shares the module.
 
+Data parallelism (``world``, a ``parallel.mesh.World``; None runs the
+unsharded code): the env state holds the rank's shard of the games and
+the rollout runs on it, drawing every random tensor at its global shape
+(``Sampler``).  ``ppo_update`` computes GAE on the shard, gathers the
+rollout once, so that the return / advantage normalisation, the episode
+count and every metric are the unsharded run's, and takes the rank's
+1 / size of each global minibatch; the gradient is summed over the
+ranks before ``adam_step``, which then runs identically on every rank.
+A world of one computes the unsharded run bit for bit.
+
 Float32 matmuls: the caller sets ``torch.backends.cuda.matmul.allow_tf32
 = False`` (PyTorch's default) so the card computes in full float32 like
 the reference.
@@ -36,6 +46,7 @@ from .. import resolve_device
 from ..core import features as F
 from ..env import bg_env
 from ..models.mlp import MLP, ModelConfig
+from ..parallel import mesh
 from . import gae as gae_mod
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -112,19 +123,31 @@ def categorical(rand: Rand, logits):
 
 
 class Sampler:
-    """Every random draw of ``train_step``, from one generator."""
+    """Every random draw of ``train_step``, from one generator.
 
-    def __init__(self, gen: torch.Generator):
-        self.gen = gen
+    With a ``world`` the env batch is this rank's shard: each per-game
+    draw is made for all ``world.size`` shards and the rank keeps its own
+    rows, so every rank draws the unsharded run's stream."""
+
+    def __init__(self, gen: torch.Generator, world=None):
+        self.gen, self.world = gen, world
+
+    def _global(self, batch_size: int) -> int:
+        return batch_size * (self.world.size if self.world else 1)
 
     def actions(self, masked):
         """Categorical sample per row of (B, M) logits by Gumbel-max."""
-        return categorical(uniforms(self.gen), masked)
+        b, m = masked.shape
+        u = mesh.shard_batch(uniforms(self.gen)((self._global(b), m)),
+                             self.world)
+        return categorical(lambda shape: u, masked)
 
     def env_draws(self, batch_size: int) -> bg_env.StepDraws:
-        return bg_env.draw_step(self.gen, batch_size)
+        return mesh.shard_batch(
+            bg_env.draw_step(self.gen, self._global(batch_size)), self.world)
 
     def permutation(self, n: int, device):
+        """A permutation of the ``n`` rows of the global rollout."""
         return torch.randperm(n, generator=self.gen, device=device)
 
 
@@ -208,9 +231,9 @@ def _afterstate_logits(model: MLP, after, turn, n_moves, m):
 
 @torch.no_grad()
 def rollout(model: MLP, env_state, sampler: Sampler, env_cfg,
-            cfg: PPOConfig):
+            cfg: PPOConfig, world=None):
     """Collect T steps; returns (env_state', Rollout, last_value,
-    last_turn)."""
+    last_turn).  With a ``world``, ``env_state`` is this rank's shard."""
     m = env_cfg.max_moves
     afterstate = cfg.policy_mode == "afterstate"
     bsz = env_state.turn.shape[0]
@@ -229,7 +252,8 @@ def rollout(model: MLP, env_state, sampler: Sampler, env_cfg,
                             action[:, None].long())[:, 0]
         pre = es
         es, info = bg_env.step_with_draws(es, action,
-                                          sampler.env_draws(bsz), env_cfg)
+                                          sampler.env_draws(bsz), env_cfg,
+                                          world)
         steps.append(Rollout(
             obs=obs, n_moves=pre.n_moves, action=action, logp=logp,
             value=value, reward=info.reward, done=info.done, turn=pre.turn,
@@ -266,20 +290,32 @@ def _loss_fn(model: MLP, batch, ent_coef, m, cfg: PPOConfig):
 
 
 def minibatch_step(model: MLP, opt_state: AdamState, batch, ent_coef, m,
-                   cfg: PPOConfig):
+                   cfg: PPOConfig, world=None):
     """One clipped-PPO gradient step on one minibatch.  Returns
-    (opt_state', stacked (loss, policy_loss, value_loss, entropy))."""
+    (opt_state', stacked (loss, policy_loss, value_loss, entropy)).
+
+    With a ``world``, ``batch`` is this rank's 1 / size of the global
+    minibatch: its mean loss, divided by the size, is its share of the
+    global mean, so the gradients and losses summed over the ranks are
+    the global minibatch's."""
     params = list(model.parameters())
     loss, aux = _loss_fn(model, batch, ent_coef, m, cfg)
+    stats = torch.stack([loss, *aux]).detach()
+    if world is not None:
+        loss = loss / world.size
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
+    if world is not None:
+        *grads, stats = mesh.all_reduce_sum([*grads, stats / world.size],
+                                            world)
     opt_state = adam_step(params, grads, opt_state, cfg)
-    return opt_state, torch.stack([loss, *aux]).detach()
+    return opt_state, stats
 
 
-def advantages(traj: Rollout, last_value, last_turn, cfg: PPOConfig):
-    """(advantages, returns) as (T, B), normalised per ``cfg``."""
+def gae_targets(traj: Rollout, last_value, last_turn, cfg: PPOConfig):
+    """(advantages or None, returns) as (T, B) before normalisation: per
+    game, so a shard of the games computes its own columns."""
     if cfg.use_gae and cfg.reward_perspective == "mover":
         turn_next = torch.cat([traj.turn[1:], last_turn[None]], dim=0)
         flips = turn_next != traj.turn
@@ -295,24 +331,45 @@ def advantages(traj: Rollout, last_value, last_turn, cfg: PPOConfig):
     else:
         returns = gae_mod.mc_returns_ref(traj.reward, traj.done, cfg.gamma)
         adv = None
+    return adv, returns
+
+
+def normalize_targets(adv, returns, value, cfg: PPOConfig):
+    """The normalisations of ``cfg`` over the whole (T, B) batch; with
+    ``adv`` None (MC returns) the advantages are returns - V."""
     if cfg.normalize_returns:
         returns = (returns - returns.mean()) / (
             returns.std(correction=0) + 1e-5)
     if adv is None:
-        adv = returns - traj.value  # reference: advantages = returns - V
+        adv = returns - value  # reference: advantages = returns - V
     if cfg.normalize_adv:
         adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
     return adv, returns
 
 
+def _gather_rollout(traj: Rollout, adv, returns, world):
+    """Every rank's games of the rollout and its targets, along the game
+    axis in rank order: the unsharded run's (T, B) tensors.  The per-step
+    overflow counts are summed over the ranks.  The identity without a
+    world."""
+    (overflow,) = mesh.all_reduce_sum([traj.overflow], world)
+    traj, adv, returns = mesh.gather_batch(
+        (traj._replace(overflow=None), adv, returns), world, dim=1)
+    return traj._replace(overflow=overflow), adv, returns
+
+
 def ppo_update(ts: TrainState, traj: Rollout, last_value, last_turn,
-               env_cfg, cfg: PPOConfig, sampler: Sampler | None = None):
+               env_cfg, cfg: PPOConfig, sampler: Sampler | None = None,
+               world=None):
     """Minibatched clipped-PPO epochs over one rollout.  Returns
-    (TrainState', metrics dict of 0-dim tensors)."""
-    sampler = sampler or Sampler(ts.gen)
+    (TrainState', metrics dict of 0-dim tensors).  With a ``world``,
+    ``traj`` holds this rank's games; the update is the global one."""
+    sampler = sampler or Sampler(ts.gen, world)
     m = env_cfg.max_moves
+    adv, returns = gae_targets(traj, last_value, last_turn, cfg)
+    traj, adv, returns = _gather_rollout(traj, adv, returns, world)
+    adv, returns = normalize_targets(adv, returns, traj.value, cfg)
     t, b = traj.reward.shape
-    adv, returns = advantages(traj, last_value, last_turn, cfg)
 
     n = t * b
     flat = (
@@ -327,6 +384,8 @@ def ppo_update(ts: TrainState, traj: Rollout, last_value, last_turn,
         flat = flat + (traj.after.reshape(n, m, 52), traj.turn.reshape(n))
     nmb = cfg.num_minibatches
     mb_size = n // nmb
+    # this rank's rows of every global minibatch
+    mine = slice(None) if world is None else world.rows(mb_size)
     ent = entropy_coef(cfg, ts.episodes)
 
     opt_state = ts.opt_state
@@ -334,10 +393,10 @@ def ppo_update(ts: TrainState, traj: Rollout, last_value, last_turn,
     for _ in range(cfg.num_epochs):
         perm = sampler.permutation(n, traj.reward.device)
         for i in range(nmb):
-            idx = perm[i * mb_size:(i + 1) * mb_size]
+            idx = perm[i * mb_size:(i + 1) * mb_size][mine]
             batch = tuple(x[idx] for x in flat)
             opt_state, mb_metrics = minibatch_step(ts.model, opt_state,
-                                                   batch, ent, m, cfg)
+                                                   batch, ent, m, cfg, world)
             metrics.append(mb_metrics)
     loss, policy_loss, value_loss, entropy = torch.stack(metrics).mean(0)
 
@@ -357,23 +416,28 @@ def ppo_update(ts: TrainState, traj: Rollout, last_value, last_turn,
         "mean_reward": traj.reward.mean(),
         "episodes_finished": traj.done.sum(dtype=torch.int32),
         "mean_episode_value": traj.value.mean(),
+        # game-steps (of B*T) whose movegen hit a width cap in the rollout
+        "movegen_overflow": traj.overflow.sum(dtype=torch.int32),
     }
     return ts, metrics_out
 
 
 def train_step(ts: TrainState, env_state, env_cfg, model_cfg: ModelConfig,
-               cfg: PPOConfig, sampler: Sampler | None = None):
+               cfg: PPOConfig, sampler: Sampler | None = None, world=None):
     """One full PPO update: rollout T x B + minibatched epochs.  Returns
-    (TrainState', env_state', metrics); no host synchronisation."""
+    (TrainState', env_state', metrics); no host synchronisation apart
+    from the collectives of a ``world``.  With a ``world``,
+    ``env_state`` is this rank's shard of the B games and stays one."""
     if ts.model.cfg != model_cfg:
         raise ValueError("train state's model was built for another "
                          "ModelConfig")
-    sampler = sampler or Sampler(ts.gen)
+    if world is not None:
+        mesh.check_divisible(env_state.turn.shape[0] * world.size,
+                             cfg.t_horizon, cfg.num_minibatches, world.size)
+    sampler = sampler or Sampler(ts.gen, world)
     env_state, traj, last_value, last_turn = rollout(
-        ts.model, env_state, sampler, env_cfg, cfg
+        ts.model, env_state, sampler, env_cfg, cfg, world
     )
     ts, metrics = ppo_update(ts, traj, last_value, last_turn, env_cfg, cfg,
-                             sampler)
-    # game-steps (of B*T) whose movegen hit a width cap in this rollout
-    metrics["movegen_overflow"] = traj.overflow.sum(dtype=torch.int32)
+                             sampler, world)
     return ts, env_state, metrics

@@ -1,8 +1,8 @@
 """Host training driver: the only Python loop above ``train_step``.
 
 Port of ``mlp_ppo_2ply_p3_tpu/ppo/train.py``.  Each iteration runs one
-``learner.train_step`` (rollout + GAE + minibatched PPO) on one device,
-fetches its scalars with one device-to-host copy, logs them, and on its
+``learner.train_step`` (rollout + GAE + minibatched PPO), fetches its
+scalars with one device-to-host copy, logs them, and on its
 cadences evaluates the policy in the league (``league_eval``) and
 checkpoints the full train state (``utils.checkpoint``), uploading
 checkpoints and, at the end, the metrics file to the remote store.
@@ -25,13 +25,24 @@ updates, and is checkpointed.  The JAX package's per-update keys
 seeded from ``(seed, update)`` and ``(seed + 7, update)``, so a resumed
 run draws them again exactly.
 
-Not ported yet: the device mesh (the JAX package shards the games over
-every visible chip) and the multi-host flags; this driver uses one
-device, ``cuda:0`` by default.
+Scale-out: where the JAX driver shards the games over every visible
+chip, this one shards them over the ranks of a ``torch.distributed``
+process group (``parallel/mesh.py``), one process per rank:
+``initialize_distributed`` joins it from the ``--num-processes /
+--coordinator / --process-id`` flags or from ``torchrun``'s
+environment.  Each rank steps B / size games; the update is the global
+one (see ``ppo/learner.py``), so a sharded run trains as the unsharded
+one does.  Rank 0 alone evaluates, writes metrics and checkpoints (the
+global state, readable under any layout) and uploads.  B and the
+global minibatch must divide by the number of ranks.  Without a
+process group (or with ``shard=False``) the driver runs on one device,
+``cuda:0`` by default.
 
 Usage:
     python -m mlp_ppo_2ply_p3_tpu_torch.ppo.train --preset train4096 \\
         --updates 100 [--device cuda]
+    torchrun --nproc-per-node 4 -m mlp_ppo_2ply_p3_tpu_torch.ppo.train \\
+        --preset pod --updates 100
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ import torch
 from .. import resolve_device
 from ..agents import arena, basic, frozen, pubeval
 from ..env import bg_env
+from ..parallel import mesh
 from ..utils import checkpoint as ckpt
 from ..utils import profiling
 from ..utils.config import get_preset
@@ -181,50 +193,114 @@ def _pull_remote_latest(store, cfg, ckpt_dir):
     return path
 
 
+def _make_world(dev, shard: bool, world):
+    """The ``World`` the run shards its games over (``world``, else the
+    initialised process group's), or None: with ``shard=False``, without
+    a process group, or with one rank, as the JAX driver places nothing
+    on one device."""
+    if not shard:
+        return None
+    world = world or mesh.current_world(dev)
+    if world is None or world.size == 1:
+        return None
+    if world.device.type != dev.type:
+        raise ValueError(f"the process group's ranks run on "
+                         f"{world.device}, the run on {dev}")
+    return world
+
+
+def _resume_path(cfg, store, ckpt_dir, world):
+    """The checkpoint to resume from, or None: local first, then remote,
+    decided on rank 0; every rank gets its name under
+    ``cfg.checkpoint_dir``, and a rank whose disk lacks the file pulls it
+    from the store."""
+    rel = None
+    if world is None or world.rank == 0:
+        path = ckpt.latest(ckpt_dir)
+        if path is None and store is not None:
+            path = _pull_remote_latest(store, cfg, ckpt_dir)
+        if world is None:
+            return path
+        rel = path and os.path.relpath(path, cfg.checkpoint_dir)
+    rel = mesh.broadcast_object(rel, world)
+    if rel is None:
+        return None
+    path = os.path.join(cfg.checkpoint_dir, rel)
+    if not os.path.exists(path) and not (store is not None
+                                         and store.get(rel, path)):
+        raise FileNotFoundError(
+            f"rank {world.rank}: {path}, rank 0's checkpoint, is not on "
+            f"this rank's disk, and no remote store holds it")
+    return path
+
+
 def train(cfg, resume: bool = True, updates: int | None = None,
           write_metrics: bool = True, profile: bool = False,
-          device="cuda"):
+          device="cuda", shard: bool = True, world=None):
     """Run updates ``update_idx .. updates`` (default ``cfg.num_updates``)
     on ``device``.  Returns (TrainState, EnvState, the last update's
-    metrics as Python numbers, wall seconds)."""
+    metrics as Python numbers, wall seconds).
+
+    With ``shard`` and a process group of more than one rank (``world``,
+    or the one ``parallel.mesh.initialize_distributed`` joined), each
+    rank runs B / size games on its own device and every rank returns
+    the same TrainState and its shard of the env state; only rank 0
+    evaluates, prints, writes metrics and checkpoints, and uploads."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", 0)
+    world = _make_world(dev, shard, world)
+    if world is not None:
+        dev = world.device
+        mesh.check_divisible(cfg.ppo.num_envs, cfg.ppo.t_horizon,
+                             cfg.ppo.num_minibatches, world.size)
+    lead = world is None or world.rank == 0
     num_updates = updates if updates is not None else cfg.num_updates
     ts = learner.init_train_state(cfg.seed, cfg.model, cfg.ppo, device=dev)
-    env_state = bg_env.reset(ts.gen, cfg.env, cfg.ppo.num_envs, device=dev)
+    env_state = bg_env.reset(ts.gen, cfg.env, cfg.ppo.num_envs, device=dev,
+                             world=world)
 
     ckpt_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
     store = maybe_store(cfg.remote_url)
     if resume:
-        path = ckpt.latest(ckpt_dir)
-        if path is None and store is not None:
-            path = _pull_remote_latest(store, cfg, ckpt_dir)
+        path = _resume_path(cfg, store, ckpt_dir, world)
         if path:
-            ts, env_state = ckpt.restore(path, (ts, env_state))
-            print(f"resumed from {path} at update {int(ts.update_idx)}")
+            ts, env_state = ckpt.restore(path, (ts, env_state), world)
+            if lead:
+                print(f"resumed from {path} at update "
+                      f"{int(ts.update_idx)}")
+    if world is not None:
+        mesh.replicate([*ts.model.parameters(), ts.opt_state.count,
+                        *ts.opt_state.mu, *ts.opt_state.nu, ts.update_idx,
+                        ts.episodes, ts.gen.get_state()], world)
+        if lead:
+            print(f"sharded: {cfg.ppo.num_envs} games over {world.size} "
+                  f"ranks (backend {world.backend})")
 
     metrics_path = cfg.metrics_path.format(name=cfg.name)
     writer = MetricsWriter(
-        metrics_path if write_metrics else None,
-        tb_logdir=cfg.tb_logdir.format(name=cfg.name) or None,
+        metrics_path if write_metrics and lead else None,
+        tb_logdir=(cfg.tb_logdir.format(name=cfg.name) or None) if lead
+        else None,
     )
     steps_per_update = cfg.ppo.num_envs * cfg.ppo.t_horizon
     last_metrics = {}
     t_start = time.time()
     start_update = int(ts.update_idx)
-    overflow_warned: list = []
+    # the overflow warning is printed once, by rank 0
+    overflow_warned: list = [] if lead else [True]
 
     for update in range(start_update, num_updates):
         if cfg.ppo.reset_each_update:
             env_state = bg_env.reset(fold_in(cfg.seed, update, dev), cfg.env,
-                                     cfg.ppo.num_envs, device=dev)
+                                     cfg.ppo.num_envs, device=dev,
+                                     world=world)
         if dev.type == "cuda":  # the clock starts on an idle card
             torch.cuda.synchronize(dev)
         t0 = time.time()
         with profiling.section("train_step", sync=profile):
             ts, env_state, metrics = learner.train_step(
-                ts, env_state, cfg.env, cfg.model, cfg.ppo
+                ts, env_state, cfg.env, cfg.model, cfg.ppo, world=world
             )
             metrics = to_host(metrics)  # waits for the update to finish
         dt = time.time() - t0
@@ -234,7 +310,8 @@ def train(cfg, resume: bool = True, updates: int | None = None,
             _check_finite(update, metrics)
         _handle_overflow(cfg, update, metrics, overflow_warned)
         last_metrics = metrics
-        ran_eval = cfg.eval_every and (update + 1) % cfg.eval_every == 0
+        ran_eval = lead and cfg.eval_every and (
+            update + 1) % cfg.eval_every == 0
         if ran_eval:
             with profiling.section("league_eval", sync=profile):
                 ev = league_eval(cfg, ts.model,
@@ -252,7 +329,7 @@ def train(cfg, resume: bool = True, updates: int | None = None,
                 f"({ev['league/finished_vs_heuristic']} games)"
             )
         # eval updates are always persisted, whatever the log cadence
-        if ran_eval or update % cfg.log_every == 0:
+        if lead and (ran_eval or update % cfg.log_every == 0):
             writer.write(update, metrics)
             print(
                 f"update {update}: loss={metrics['loss']:.4f} "
@@ -266,16 +343,19 @@ def train(cfg, resume: bool = True, updates: int | None = None,
             with profiling.section("checkpoint", sync=profile):
                 local = ckpt.save(
                     os.path.join(ckpt_dir, f"ckpt_{update + 1}"),
-                    (ts, env_state))
-                if store is not None:
+                    (ts, env_state), world)
+                if store is not None and lead:
                     store.put(local,
                               os.path.relpath(local, cfg.checkpoint_dir))
 
     total = time.time() - t_start
     if profile:
-        print("profile sections:\n" + profiling.report())
+        report = profiling.report()
+        if lead:
+            print("profile sections:\n" + report)
     writer.close()
-    if store is not None and write_metrics and os.path.exists(metrics_path):
+    if (store is not None and write_metrics and lead
+            and os.path.exists(metrics_path)):
         store.put(metrics_path, f"{cfg.name}/metrics.jsonl")
     return ts, env_state, last_metrics, total
 
@@ -290,19 +370,38 @@ def main(argv=None):
                          "for a torch.profiler trace of the run)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
+    # the process group of a multi-process run (parallel/mesh.py); with
+    # none of them, torchrun's environment is detected
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port where rank 0 meets the others")
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--backend", choices=mesh.BACKENDS, default=None,
+                    help="nccl (the default on cuda; one card a rank) or "
+                         "gloo (the CPU, or ranks sharing one card)")
     args = ap.parse_args(argv)
 
-    cfg = get_preset(args.preset)
-    trace_dir = os.environ.get("PROFILE_TRACE_DIR") if args.profile else None
-    if trace_dir:
-        with profiling.device_trace(trace_dir):
-            out = train(cfg, resume=not args.no_resume, updates=args.updates,
-                        profile=True, device=args.device)
-    else:
-        out = train(cfg, resume=not args.no_resume, updates=args.updates,
-                    profile=args.profile, device=args.device)
-    ts, _, metrics, total = out
-    print(f"done: {int(ts.update_idx)} updates in {total:.1f}s")
+    world = mesh.initialize_distributed(
+        coordinator=args.coordinator, num_processes=args.num_processes,
+        process_id=args.process_id, backend=args.backend,
+        device=args.device)
+    try:
+        cfg = get_preset(args.preset)
+        trace_dir = (os.environ.get("PROFILE_TRACE_DIR") if args.profile
+                     else None)
+        kw = dict(resume=not args.no_resume, updates=args.updates,
+                  device=args.device, world=world)
+        if trace_dir:
+            with profiling.device_trace(trace_dir):
+                out = train(cfg, profile=True, **kw)
+        else:
+            out = train(cfg, profile=args.profile, **kw)
+        ts, _, metrics, total = out
+        if world is None or world.rank == 0:
+            print(f"done: {int(ts.update_idx)} updates in {total:.1f}s")
+    finally:
+        if world is not None:
+            mesh.shutdown()
 
 
 if __name__ == "__main__":

@@ -1,0 +1,163 @@
+"""Micro-benchmark of movegen's pieces on the card.
+
+Port of ``scripts/perf_movegen.py``: the same sections and keys, timed
+with ``utils.profiling.timed_scan`` (CUDA events around back-to-back
+calls on a card, ``perf_counter`` on the CPU), on the boards and dice of
+a fresh reset of B games and on random candidate blocks of the shapes
+each piece sees at ``MovegenConfig(max_moves=256)``.
+
+The JAX script's ``kernels`` section timed each compaction shape three
+ways: jnp and the two Pallas formulations (a global one-hot matmul and
+128-wide segments).  Those were TPU shapes of one function, which the
+port computes with one CUDA kernel (``ops/compaction.py::compact_rows``),
+so here each shape is timed as the plain PyTorch version
+(``<shape>_plain_ms``) and the kernel (``<shape>_kernel_ms``, null off
+the card, where the wrapper runs the plain version).
+
+Usage:
+    python -m mlp_ppo_2ply_p3_tpu_torch.scripts.perf_movegen [B] \\
+        [section,section,...] [--device cuda]
+
+Sections: full, nd, dbl, ndoo, c832, dedup, c384, c5600, exp4, kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from .. import resolve_device
+from ..core import board as Bd
+from ..core import movegen as MG
+from ..env import bg_env
+from ..ops import compaction as OC
+from ..utils.profiling import timed_scan
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("batch", nargs="?", type=int, default=4096)
+    ap.add_argument("sections", nargs="?", default=None,
+                    help="comma-separated sections (default: all)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+    bsz = args.batch
+    only = set(args.sections.split(",")) if args.sections else None
+    dev = resolve_device(args.device)
+
+    def want(name):
+        return only is None or name in only
+
+    cfg = MG.MovegenConfig(max_moves=256)
+    env_cfg = bg_env.EnvConfig(movegen=cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    es = bg_env.reset(gen, env_cfg, bsz, device=dev)
+    vecs = Bd.to_canonical(es.points, es.bar, es.off, es.turn)
+    dice = es.dice
+    d0 = dice[:, 0].to(torch.int32)
+    d1 = dice[:, 1].to(torch.int32)
+    d_hi, d_lo = torch.maximum(d0, d1), torch.minimum(d0, d1)
+    gen.manual_seed(7)
+
+    def boards(*shape):
+        return torch.randint(0, 15, (*shape, 52), generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def flags(p, *shape):
+        return torch.rand(shape, generator=gen, device=dev) < p
+
+    res = {"B": bsz}
+
+    if want("full"):
+        res["full_ms"] = timed_scan(
+            lambda v, d: MG.legal_afterstates_batch(v, d, cfg), vecs, dice
+        ) * 1e3
+
+    mir = torch.zeros((bsz,), dtype=torch.bool, device=dev)
+    if want("nd"):
+        res["nondoubles_ms"] = timed_scan(
+            lambda v, h, lo: MG._nondoubles_batch(v, h, lo, cfg, mir),
+            vecs, d_hi, d_lo,
+        ) * 1e3
+
+    bd = MG.doubles_capacity(bsz, cfg)
+    if want("dbl"):
+        res["doubles_ms"] = timed_scan(
+            lambda v, d: MG._doubles_batch(v[:bd], d[:bd], cfg, mir[:bd]),
+            vecs, d0,
+        ) * 1e3
+
+    if want("ndoo"):
+        res["nd_one_order_ms"] = timed_scan(
+            lambda v, h, lo: MG._one_order(v, h, lo, cfg.k1, mir),
+            vecs, d_hi, d_lo,
+        ) * 1e3
+
+    n_raw = 2 * (cfg.k1 * 25 + cfg.k1)
+    cand, val = boards(bsz, n_raw), flags(0.15, bsz, n_raw)
+    if want("c832"):
+        res["compact832to384_ms"] = timed_scan(
+            lambda c, v: MG._compact_batch((c,), v, cfg.dedup_width),
+            cand, val,
+        ) * 1e3
+
+    cand2 = boards(bsz, cfg.dedup_width)
+    val2 = flags(0.2, bsz, cfg.dedup_width)
+    if want("dedup"):
+        res["dedup384_ms"] = timed_scan(MG._dedup_pairwise, cand2,
+                                        val2) * 1e3
+
+    if want("c384"):
+        res["compact384to256_ms"] = timed_scan(
+            lambda c, v: MG._compact_batch((c,), v, cfg.max_moves),
+            cand2, val2,
+        ) * 1e3
+
+    n4 = cfg.k3 * 25
+    cand3, val3 = boards(bd, n4), flags(0.05, bd, n4)
+    if want("c5600"):
+        res["dbl_compact5600to256_ms"] = timed_scan(
+            lambda c, v: MG._compact_batch((c,), v, cfg.max_moves),
+            cand3, val3,
+        ) * 1e3
+
+    f3, f3v = boards(bd, cfg.k3), flags(0.5, bd, cfg.k3)
+    die = torch.full((bd,), 3, dtype=torch.int32, device=dev)
+    if want("exp4"):
+        res["dbl_expand_L4_ms"] = timed_scan(
+            lambda f, v, d: MG._expand_one_die(f, v, d, mir[:bd]),
+            f3, f3v, die,
+        ) * 1e3
+
+    if want("kernels"):
+        # the compaction shapes that dominate movegen: plain PyTorch
+        # version against the kernel
+        fast = MG.MovegenConfig.fast()
+        shapes = {
+            "ndblock": (bsz, n_raw, fast.dedup_width, 0.15),
+            "ndfinal": (bsz, fast.dedup_width, cfg.max_moves, 0.2),
+            "dblL3": (bd, fast.k2 * 27, fast.k3, 0.1),
+            "dblL4": (bd, fast.k3 * 27, cfg.max_moves, 0.05),
+        }
+        for name, (b_, n_, k_, dens) in shapes.items():
+            pay, va = boards(b_, n_), flags(dens, b_, n_)
+            res[f"{name}_plain_ms"] = timed_scan(
+                lambda c, v, kk=k_: OC.compact_rows_plain(c, v, kk),
+                pay, va) * 1e3
+            res[f"{name}_kernel_ms"] = timed_scan(
+                lambda c, v, kk=k_: OC.compact_rows(c, v, kk), pay, va
+            ) * 1e3 if dev.type == "cuda" else None
+
+    for k, v in res.items():
+        if k != "B" and v is not None:
+            res[k] = round(v, 2)
+    print(json.dumps(res), flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    main()

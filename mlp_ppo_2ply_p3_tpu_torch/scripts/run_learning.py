@@ -8,15 +8,20 @@ Port of ``scripts/run_learning.py``.  Metrics stream to
 
 Usage:
     python -m mlp_ppo_2ply_p3_tpu_torch.scripts.run_learning [updates] \\
-        [--hidden H] [--tag TAG] [--device cuda]
+        [--hidden H] [--tag TAG] [--device cuda] \\
+        [--num-processes N --coordinator HOST:PORT --process-id R] \\
+        [--backend nccl|gloo]
 
 ``--hidden 256`` runs the capacity experiment; ``--tag`` tells repeat
-runs of one configuration apart.
+runs of one configuration apart.  The process-group flags are the
+driver's (``ppo/train.py``): with them, or under ``torchrun``, the games
+are sharded over the ranks.
 """
 
 import argparse
 import dataclasses
 
+from ..parallel import mesh
 from ..ppo.train import train
 from ..utils.config import get_preset
 
@@ -27,7 +32,23 @@ def main(argv=None):
     ap.add_argument("--hidden", type=int, default=128)
     ap.add_argument("--tag", default="torch")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--coordinator", default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--backend", choices=mesh.BACKENDS, default=None)
     args = ap.parse_args(argv)
+    world = mesh.initialize_distributed(
+        coordinator=args.coordinator, num_processes=args.num_processes,
+        process_id=args.process_id, backend=args.backend,
+        device=args.device)
+    try:
+        run(args, world)
+    finally:
+        if world is not None:
+            mesh.shutdown()
+
+
+def run(args, world):
 
     cfg = get_preset("afterstate4096")
     name = cfg.name
@@ -51,7 +72,9 @@ def main(argv=None):
         num_updates=args.updates,
     )
     ts, _, metrics, total = train(cfg, resume=True, updates=args.updates,
-                                  device=args.device)
+                                  device=args.device, world=world)
+    if world is not None and world.rank != 0:
+        return
     steps = cfg.ppo.num_envs * cfg.ppo.t_horizon * args.updates
     print(
         f"learning run {name} done: {int(ts.update_idx)} updates, "

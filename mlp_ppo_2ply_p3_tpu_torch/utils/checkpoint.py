@@ -19,6 +19,12 @@ target before it copies anything: a structure that changed between save
 and restore raises ``ValueError`` instead of restoring wrong.  Each
 tensor goes through one host copy on the way out and one on the way in.
 
+A checkpoint does not depend on the layout of a run.  A data-parallel
+run (a ``parallel.mesh.World``) gathers the env state of every rank and
+rank 0 writes the global one, so the file is array for array the
+unsharded run's; ``restore`` reads it on every rank and keeps the
+rank's games.  A run of one layout therefore resumes under any other.
+
 The JAX package writes an orbax directory where orbax is installed
 (``backend="auto"``).  The port cannot read one and says so; an npz of
 the JAX package (``backend="npz"``) is read by
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from ..env.bg_env import EnvState
+from ..parallel import mesh
 from ..ppo.learner import AdamState, TrainState
 
 FORMAT = "mlp_ppo_2ply_p3_tpu_torch/train-state-v1"
@@ -59,8 +66,11 @@ def _dtype(t) -> str:
     return str(t.dtype).removeprefix("torch.")
 
 
-def _fingerprint(named: dict) -> list:
-    return [[k, list(t.shape), _dtype(t)] for k, t in named.items()]
+def _fingerprint(named: dict, ranks: int = 1) -> list:
+    """[name, shape, dtype] per array; the env fields' game axis counts
+    the games of all ``ranks`` shards."""
+    return [[k, [t.shape[0] * ranks, *t.shape[1:]] if k.startswith("env/")
+             else list(t.shape), _dtype(t)] for k, t in named.items()]
 
 
 def refuse_directory(path: str) -> None:
@@ -77,13 +87,21 @@ def npz_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def save(path: str, state) -> str:
+def save(path: str, state, world=None) -> str | None:
     """Write ``state = (TrainState, EnvState)`` to ``path`` (``.npz`` is
     appended when missing) and return the file's path.  The file is
     written beside its final name and renamed into place, so a run cut
-    off while saving leaves the previous checkpoint as the newest."""
-    ts, _ = state
-    named = _named(state)
+    off while saving leaves the previous checkpoint as the newest.
+
+    With a ``world`` every rank must call this: the env shards are
+    gathered, rank 0 writes the global state and returns its path, the
+    other ranks write nothing and return None."""
+    ts, env_state = state
+    if world is not None:
+        env_state = mesh.gather_batch(env_state, world)
+        if world.rank != 0:
+            return None
+    named = _named((ts, env_state))
     arrays = {k: t.detach().cpu().numpy() for k, t in named.items()}
     arrays[_GEN] = ts.gen.get_state().numpy()
     fp = {"format": FORMAT, "generator": ts.gen.device.type,
@@ -107,8 +125,10 @@ def _reseed(device_type: str, state: bytes) -> int:
     return int.from_bytes(digest[:8], "little") & (2**63 - 1)
 
 
-def restore(path: str, like):
-    """Restore a (TrainState, EnvState) shaped like ``like``.
+def restore(path: str, like, world=None):
+    """Restore a (TrainState, EnvState) shaped like ``like``.  With a
+    ``world``, ``like``'s env state is this rank's shard: the file's
+    global env state is read and the rank's games are kept.
 
     The model's parameters and the generator are written in place into
     ``like``'s (``TrainState`` shares the module with its callers);
@@ -135,7 +155,7 @@ def restore(path: str, like):
                 f"{path} is not a checkpoint of the port (an npz of the "
                 f"JAX package? read it with "
                 f"utils.convert.train_state_from_jax)")
-        want = _fingerprint(target)
+        want = _fingerprint(target, world.size if world else 1)
         if fp["arrays"] != want:
             first = next((i for i, (a, b) in enumerate(
                 zip(fp["arrays"], want)) if a != b), min(
@@ -155,7 +175,9 @@ def restore(path: str, like):
     names = [n for n, _ in ts.model.named_parameters()]
 
     def moved(key):
-        return host[key].to(target[key].device)
+        x = mesh.shard_batch(host[key], world) if key.startswith(
+            "env/") else host[key]
+        return x.to(target[key].device)
 
     gen = ts.gen
     if fp["generator"] == gen.device.type:

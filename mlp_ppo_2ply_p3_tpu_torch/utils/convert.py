@@ -23,6 +23,7 @@ import torch
 from .. import resolve_device
 from ..env.bg_env import EnvState
 from ..models.mlp import HEADS, MLP, ModelConfig
+from ..parallel import mesh
 from ..ppo.learner import AdamState, TrainState
 from . import checkpoint
 
@@ -108,10 +109,11 @@ def jax_train_state_leaves(cfg) -> list:
     return leaves
 
 
-def train_state_from_jax(npz_path: str, cfg, device="cuda"):
+def train_state_from_jax(npz_path: str, cfg, device="cuda", world=None):
     """A JAX training checkpoint (npz) -> (``TrainState``, ``EnvState``)
     of the port on ``device``, for the ``RunConfig`` ``cfg`` it was
-    trained with.
+    trained with.  With a ``world`` (``parallel.mesh.World``) the env
+    state is this rank's shard of the checkpoint's games.
 
     Parameters, Adam's count and moments, ``update_idx``, ``episodes``
     and the env state carry over exactly; the file's fingerprint is
@@ -171,6 +173,7 @@ def train_state_from_jax(npz_path: str, cfg, device="cuda"):
         update_idx=on_dev(arrays["update_idx"]),
         episodes=on_dev(arrays["episodes"]),
     )
-    env_state = EnvState(*(on_dev(arrays[f"env/{f}"])
-                           for f in EnvState._fields))
+    env_state = EnvState(*(
+        mesh.shard_batch(on_dev(arrays[f"env/{f}"]), world)
+        for f in EnvState._fields))
     return ts, env_state

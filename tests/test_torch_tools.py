@@ -1,0 +1,121 @@
+"""The port's remaining tools: ``tools/render.py``,
+``utils/profiling.timed_scan`` with ``scripts/perf_movegen.py``, and
+``scripts/save_frozen.py``.
+
+- ``render_state`` / ``board_to_ascii`` give the JAX package's strings
+  on fresh and mid-game boards (bars and borne-off checkers included).
+- ``timed_scan`` returns a positive mean on the CPU.
+- ``perf_movegen`` at ``--device cpu`` and B=32 prints one JSON line
+  with the JAX script's section keys.
+- ``save_frozen`` turns a driver checkpoint into an asset that both
+  packages load."""
+
+import dataclasses
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mlp_ppo_2ply_p3_tpu.agents import frozen as JF
+from mlp_ppo_2ply_p3_tpu.core.movegen import MovegenConfig as JMovegenConfig
+from mlp_ppo_2ply_p3_tpu.env import bg_env as JE
+from mlp_ppo_2ply_p3_tpu.tools import render as JR
+from mlp_ppo_2ply_p3_tpu_torch.agents import frozen
+from mlp_ppo_2ply_p3_tpu_torch.core.movegen import MovegenConfig
+from mlp_ppo_2ply_p3_tpu_torch.env import bg_env as TE
+from mlp_ppo_2ply_p3_tpu_torch.ppo import train as train_mod
+from mlp_ppo_2ply_p3_tpu_torch.scripts import perf_movegen, save_frozen
+from mlp_ppo_2ply_p3_tpu_torch.tools import render
+from mlp_ppo_2ply_p3_tpu_torch.utils import convert, profiling
+
+from .test_torch_train import tiny_cfg
+from .test_torch_utils import jax_reset_draws, random_positions, split_abs, tt
+
+M = 64
+JENV = JE.EnvConfig(movegen=JMovegenConfig(max_moves=M))
+TENV = TE.EnvConfig(movegen=MovegenConfig(max_moves=M))
+# the JAX script's keys (scripts/perf_movegen.py)
+SECTION_KEYS = {"B", "full_ms", "nondoubles_ms", "doubles_ms",
+                "nd_one_order_ms", "compact832to384_ms", "dedup384_ms",
+                "compact384to256_ms", "dbl_compact5600to256_ms",
+                "dbl_expand_L4_ms"}
+
+
+def test_render_matches_jax():
+    import jax
+
+    turn, dice = jax_reset_draws(jax.random.PRNGKey(0), 4)
+    fresh = TE.reset_with_draws(turn, dice, TENV)
+    rng = np.random.default_rng(3)
+    boards, players = random_positions(rng, 6, "any")
+    arrays = (*split_abs(boards), players.astype(np.int8),
+              rng.integers(1, 7, (6, 2)).astype(np.int8))
+    mid = TE.make_state(*(tt(x) for x in arrays), TENV)
+    jmid = JE.make_state(*(jnp.asarray(x) for x in arrays), JENV)
+    assert int(mid.off.sum()) > 0 and int(mid.bar.sum()) > 0
+    for i in range(4):
+        want = JR.board_to_ascii(np.asarray(fresh.points[i]),
+                                 np.asarray(fresh.bar[i]),
+                                 np.asarray(fresh.off[i]),
+                                 int(fresh.turn[i]), np.asarray(fresh.dice[i]))
+        assert render.render_state(fresh, i) == want
+    for i in range(6):
+        assert render.render_state(mid, i) == JR.render_state(jmid, i)
+        assert render.board_to_ascii(arrays[0][i], arrays[1][i],
+                                     arrays[2][i]) == JR.board_to_ascii(
+            arrays[0][i], arrays[1][i], arrays[2][i])
+    both = np.zeros((2, 24), np.int8)
+    both[:, 5] = 1                               # an impossible board
+    assert "!?" in render.board_to_ascii(both, np.zeros(2), np.zeros(2))
+
+
+def test_timed_scan_on_cpu():
+    calls = []
+    x = torch.arange(8)
+    got = profiling.timed_scan(lambda a: calls.append(a.sum()), x, iters=5)
+    assert isinstance(got, float) and got > 0
+    assert len(calls) == 6                       # one warm-up call
+
+
+def test_perf_movegen_on_cpu(capsys):
+    torch.manual_seed(0)
+    res = perf_movegen.main(["32", "--device", "cpu"])
+    (line,) = capsys.readouterr().out.splitlines()
+    assert json.loads(line) == res
+    assert SECTION_KEYS <= set(res) and res["B"] == 32
+    for k in SECTION_KEYS - {"B"}:
+        assert res[k] > 0, k
+    for shape in ("ndblock", "ndfinal", "dblL3", "dblL4"):
+        assert res[f"{shape}_plain_ms"] > 0
+        assert res[f"{shape}_kernel_ms"] is None   # the kernel needs a card
+    res = perf_movegen.main(["32", "dedup,c384", "--device", "cpu"])
+    assert set(res) == {"B", "dedup384_ms", "compact384to256_ms"}
+
+
+def test_save_frozen_round_trip(tmp_path, monkeypatch, capsys):
+    """A one-update afterstate run's checkpoint -> an asset holding its
+    network, which both packages load."""
+    cfg = tiny_cfg(tmp_path, num_updates=1, ppo=dataclasses.replace(
+        tiny_cfg(tmp_path).ppo, policy_mode="afterstate"))
+    ts, _, _, _ = train_mod.train(dataclasses.replace(cfg, name="run7"),
+                                  resume=False, device="cpu")
+    monkeypatch.setattr(save_frozen, "get_preset", lambda name: cfg)
+    out = str(tmp_path / "asset.npz")
+    assert save_frozen.main(["run7", "--out", out, "--device", "cpu"]) == out
+    assert "(update 1, hidden 32)" in capsys.readouterr().out
+    model, mcfg = frozen.load_frozen(out, device="cpu")
+    assert mcfg == cfg.model
+    want = convert.params_to_numpy(ts.model)
+    for layer, p in convert.params_to_numpy(model).items():
+        for k in ("w", "b"):
+            np.testing.assert_array_equal(p[k], want[layer][k])
+    jparams, jcfg = JF.load_frozen(out)
+    assert jcfg.hidden_size == 32 and jcfg.action_size == M
+    np.testing.assert_array_equal(np.asarray(jparams["score"]["w"]),
+                                  want["score"]["w"])
+    monkeypatch.setattr(save_frozen, "get_preset", lambda name: (
+        dataclasses.replace(cfg, checkpoint_dir=str(tmp_path / "none"))))
+    with pytest.raises(SystemExit, match="no checkpoint"):
+        save_frozen.main(["run7", "--out", out, "--device", "cpu"])
