@@ -90,7 +90,17 @@ Phases (any failure exits non-zero and prints no result line):
    the JAX script's record keys, finite losses, exact launches; then a
    2-ply ``collect`` of 2 plies at 16 games and one update on the card
    against the CPU.
-10. Prints the ``kernels`` JSON line (launches summed over every path's
+10. The measuring entry points: ``scripts/bench.py`` in a process of its
+   own at its defaults (``train4096``'s widths, B=4096, T=64) with
+   ``BENCH_UPDATES=2``: exit 0, one line per update, the last line the
+   4-key JSON line (``env_steps_per_sec_per_chip``, value > 0,
+   ``vs_baseline`` = value / 1000), and the launches of both kernels it
+   logs exact.  Then ``scripts/perf_breakdown.main(["4096"])`` here:
+   every JAX key and its device or eager twin under both widths, each
+   time positive, each movegen piece's CUDA-graph time at most 1.05 times
+   its eager time, both idle shares in [0, 1], and each graph's launches
+   at capture exact (its replays count none).
+11. Prints the ``kernels`` JSON line (launches summed over every path's
    run, and by path), then the device line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -429,7 +439,8 @@ def captured_movegen(torch, compaction, movegen, vecs, dice, mg, mirror,
     return got, cap
 
 
-def movegen_phase(torch, compaction, movegen, perf_twoply, env_cfg, dev):
+def movegen_phase(torch, compaction, movegen, perf_twoply, profiling,
+                  env_cfg, dev):
     mg = env_cfg.movegen
     vecs, dice, mirror = play_boards(perf_twoply, env_cfg, 4096, 6, dev)
     got, cap = captured_movegen(torch, compaction, movegen, vecs, dice, mg,
@@ -456,18 +467,11 @@ def movegen_phase(torch, compaction, movegen, perf_twoply, env_cfg, dev):
     mg_ms = time_ms(one_call, 5)
     # A movegen call is about a thousand launches, more than the launch
     # queue holds, so the events above also see the host's launch rate
-    # wherever it is slower than the device.  Replaying the call as a
+    # wherever it is slower than the device.  Replaying the calls as a
     # CUDA graph leaves the device's own time.
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        one_call()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        one_call()
-    graph.replay()
-    mg_graph_ms = time_ms(graph.replay, 5)
+    mg_graph_ms = profiling.timed_scan(
+        lambda v, d, m: movegen.legal_afterstates_batch(v, d, mg, m),
+        vecs, dice, mirror) * 1e3
     return per_call, per_dedup, mg_ms, mg_graph_ms
 
 
@@ -1470,6 +1474,141 @@ def distill_phase(torch, compaction, movegen, twoply, arena, learner, bg_env,
             "eval_plies": plies[0], "agreement": agree}
 
 
+# --- phase 10: the measuring entry points -----------------------------------
+
+BENCH_UPDATES = 2
+BENCH_TIMEOUT = 300    # seconds for the bench's process
+BREAKDOWN_B = 4096
+# the keys of the JAX package's scripts/perf_breakdown.py, under each width
+BREAKDOWN_JAX_KEYS = (
+    "movegen_ms", "movegen_nondoubles_ms", "movegen_doubles_subbatch_ms",
+    "movegen_dedup_ms", "env_step_ms", "rollout_ms", "train_step_ms",
+    "update_ms", "rollout_sps", "train_sps", "movegen_share_of_step")
+BREAKDOWN_SCANS = ("movegen", "movegen_nondoubles",
+                   "movegen_doubles_subbatch", "movegen_dedup")
+# (compact_rows, dedup_compact_rows) launches of one call of each timed
+# movegen piece: the k1 and raw-block compactions and the dedup; the four
+# doubles levels; the dedup alone
+PIECE_LAUNCHES = {"movegen_nondoubles": (2, 1),
+                  "movegen_doubles_subbatch": (4, 0),
+                  "movegen_dedup": (0, 1)}
+
+
+def bench_run(movegen, bench):
+    """``python -m mlp_ppo_2ply_p3_tpu_torch.scripts.bench`` at its
+    defaults (train4096's widths, T=64) with BENCH_UPDATES=2, in a
+    process of its own: its stdout contract and its launches, which it
+    logs to stderr."""
+    env_cfg, _, ppo = bench.resolve_config({})
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env["BENCH_UPDATES"] = str(BENCH_UPDATES)
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mlp_ppo_2ply_p3_tpu_torch.scripts.bench"],
+        cwd=HERE, env=env, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT)
+    wall = time.time() - t0
+    check(proc.returncode == 0, f"bench exited {proc.returncode}:\n"
+          f"{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    check(len(lines) == BENCH_UPDATES,
+          f"bench printed {len(lines)} lines for {BENCH_UPDATES} updates")
+    last = json.loads(lines[-1])
+    check(set(last) == {"metric", "value", "unit", "vs_baseline"}
+          and last["metric"] == "env_steps_per_sec_per_chip"
+          and last["unit"] == "steps/s", f"bench line {lines[-1]}")
+    check(last["value"] > 0 and abs(last["vs_baseline"]
+                                    - last["value"] / 1000) <= 0.0051,
+          f"bench value {last['value']}, vs_baseline {last['vs_baseline']}")
+    counted = None
+    for line in proc.stderr.splitlines():
+        if "] launches " in line:
+            counted = json.loads(line.split("] launches ", 1)[1])
+    expect = {name: BENCH_UPDATES * ppo.t_horizon * per
+              for name, per in zip(KERNELS, (
+                  movegen.compactions_per_call(env_cfg.movegen),
+                  movegen.dedups_per_call(env_cfg.movegen)))}
+    check(counted == expect, f"bench launches {counted}, expected {expect}")
+    updates = [float(x.split("update ", 1)[1].split(": ", 1)[1].split("s ")[0])
+               for x in proc.stderr.splitlines() if "] update " in x]
+    return {"wall_s": wall, "t_horizon": ppo.t_horizon, "line": last,
+            "update_s": updates, "launches": counted,
+            "stderr_tail": proc.stderr[-3000:]}
+
+
+def breakdown_run(torch, compaction, movegen, profiling, perf_breakdown,
+                  mgs, card):
+    """``perf_breakdown.main(["4096"])`` in this process: every JAX key
+    and its twin under both widths, each time positive, each graph time
+    at most 1.05 times its eager twin, both idle shares in [0, 1]; the
+    launches of each ``timed_scan`` (counted at capture: the replays
+    count none) show that its movegen piece went through both kernels."""
+    import contextlib
+
+    inner, scans = perf_breakdown.timed_scan, []
+
+    def counted_scan(fn, *args, **kw):
+        before = launches(compaction)
+        out = inner(fn, *args, **kw)
+        after = launches(compaction)
+        scans.append(tuple(after[k] - before[k] for k in KERNELS))
+        return out
+
+    zero_launches(compaction)
+    perf_breakdown.timed_scan = counted_scan
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            (row,) = perf_breakdown.main([str(BREAKDOWN_B)])
+        torch.cuda.synchronize()
+    finally:
+        perf_breakdown.timed_scan = inner
+    wall = time.time() - t0
+    counted = launches(compaction)
+    check(row["device"] == card, f"breakdown device {row['device']}")
+    calls = 1 + profiling.SCAN_ITERS     # the warm-up, then the capture
+    check(len(scans) == len(BREAKDOWN_SCANS) * len(mgs),
+          f"breakdown ran {len(scans)} timed_scans")
+    for (name, mg), got in zip(mgs, [scans[i:i + len(BREAKDOWN_SCANS)]
+                                     for i in range(0, len(scans),
+                                                    len(BREAKDOWN_SCANS))]):
+        cell = row[name]
+        per_call = dict(PIECE_LAUNCHES, movegen=(
+            movegen.compactions_per_call(mg), movegen.dedups_per_call(mg)))
+        for key, counts in zip(BREAKDOWN_SCANS, got):
+            want = tuple(calls * n for n in per_call[key])
+            check(counts == want, f"breakdown {name} {key}: launches "
+                  f"{counts} at capture, expected {want}")
+            check(0 < cell[f"{key}_ms"] <= 1.05 * cell[f"{key}_eager_ms"],
+                  f"breakdown {name} {key}: graph {cell[f'{key}_ms']} ms, "
+                  f"eager {cell[f'{key}_eager_ms']} ms")
+        twins = ([f"{k}_eager_ms" for k in BREAKDOWN_SCANS]
+                 + [f"{k}_device_ms" for k in ("env_step", "rollout",
+                                               "train_step", "update")]
+                 + ["rollout_idle_share", "train_step_idle_share",
+                    "movegen_device_share_of_step"])
+        for key in BREAKDOWN_JAX_KEYS + tuple(twins):
+            check(key in cell and cell[key] is not None,
+                  f"breakdown {name}: no {key}")
+            if key.endswith("_ms"):
+                check(cell[key] > 0, f"breakdown {name}: {key} = {cell[key]}")
+        for key in ("rollout_idle_share", "train_step_idle_share"):
+            check(0 <= cell[key] <= 1, f"breakdown {name}: {key} = "
+                  f"{cell[key]}")
+    return {"wall_s": wall, "row": row, "launches": counted,
+            "scan_launches": scans}
+
+
+def measuring_phase(torch, compaction, movegen, profiling, bench,
+                    perf_breakdown, card):
+    """Phase 10: the bench in a process of its own, then the breakdown at
+    B=4096 in this one."""
+    bench = bench_run(movegen, bench)
+    breakdown = breakdown_run(torch, compaction, movegen, profiling,
+                              perf_breakdown, perf_breakdown.widths(), card)
+    return {"bench": bench, "breakdown": breakdown}
+
+
 def profile_phase(torch, bg_env, env_cfg, dev, decide):
     """torch.profiler tables (by device time) of four env steps at
     B=4096 and of one call of ``decide``."""
@@ -1531,8 +1670,11 @@ def main(argv=None) -> int:
         from mlp_ppo_2ply_p3_tpu_torch.parallel import mesh
         from mlp_ppo_2ply_p3_tpu_torch.ppo import learner
         from mlp_ppo_2ply_p3_tpu_torch.ppo import train as train_mod
-        from mlp_ppo_2ply_p3_tpu_torch.scripts import perf_twoply, run_distill
+        from mlp_ppo_2ply_p3_tpu_torch.scripts import bench as bench_mod
+        from mlp_ppo_2ply_p3_tpu_torch.scripts import (
+            perf_breakdown, perf_twoply, run_distill)
         from mlp_ppo_2ply_p3_tpu_torch.utils import checkpoint as ckpt
+        from mlp_ppo_2ply_p3_tpu_torch.utils import profiling
         from mlp_ppo_2ply_p3_tpu_torch.utils.config import get_preset
     except ImportError as e:
         fail(f"the port package is not beside this script: {e}")
@@ -1561,7 +1703,7 @@ def main(argv=None) -> int:
 
     cfg = get_preset("train4096")
     per_call, per_dedup, mg_ms, mg_graph_ms = movegen_phase(
-        torch, compaction, movegen, perf_twoply, cfg.env, dev)
+        torch, compaction, movegen, perf_twoply, profiling, cfg.env, dev)
     report["phases"]["movegen"] = {"ms_per_call": mg_ms,
                                    "graph_ms_per_call": mg_graph_ms,
                                    "compactions": per_call,
@@ -1689,6 +1831,20 @@ def main(argv=None) -> int:
         f"{agree['max_loss_diff']:.1e}, parameters within "
         f"{agree['max_param_diff']:.1e})")
 
+    # the measuring entry points: the bench and the breakdown
+    t0 = time.time()
+    measuring = measuring_phase(torch, compaction, movegen, profiling,
+                                bench_mod, perf_breakdown, card)
+    measuring["phase_s"] = time.time() - t0
+    report["phases"]["measuring"] = measuring
+    bench, bd = measuring["bench"], measuring["breakdown"]
+    log(f"measuring phase: {measuring['phase_s']:.1f} s; bench "
+        f"({bench['wall_s']:.1f} s, B=4096 T={bench['t_horizon']}): "
+        f"{json.dumps(bench['line'])}, updates {bench['update_s']} s, "
+        f"launches {bench['launches']}; breakdown B={BREAKDOWN_B} "
+        f"({bd['wall_s']:.1f} s) on {card}: {json.dumps(bd['row'])}; "
+        f"launches {bd['launches']}")
+
     # each path's launches, counted from 0 just before it
     by_path = {"train4096": main_path["launches"],
                "afterstate": report["phases"]["afterstate"]["launches"]}
@@ -1703,6 +1859,8 @@ def main(argv=None) -> int:
     by_path["dp_single"] = dp["launches"]["single"]
     by_path["nccl_world1"] = dp["nccl_world1_launches"]
     by_path["distill"] = distill["launches"]
+    by_path["bench"] = bench["launches"]
+    by_path["breakdown"] = bd["launches"]
     for path, counted in by_path.items():
         for name in KERNELS:
             # replies skip the dedup from width 482

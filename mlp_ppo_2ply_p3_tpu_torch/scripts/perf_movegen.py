@@ -1,10 +1,16 @@
 """Micro-benchmark of movegen's pieces on the card.
 
-Port of ``scripts/perf_movegen.py``: the same sections and keys, timed
-with ``utils.profiling.timed_scan`` (CUDA events around back-to-back
-calls on a card, ``perf_counter`` on the CPU), on the boards and dice of
-a fresh reset of B games and on random candidate blocks of the shapes
-each piece sees at ``MovegenConfig(max_moves=256)``.
+Port of ``scripts/perf_movegen.py``: the same sections and keys, on the
+boards and dice of a fresh reset of B games and on random candidate
+blocks of the shapes each piece sees at ``MovegenConfig(max_moves=256)``.
+Each key is the device's time of one call, from
+``utils.profiling.timed_scan`` (a CUDA graph of 20 calls, replayed), the
+counterpart of the JAX script's one jitted scan; beside it,
+``<name>_eager_ms`` is the same calls launched one by one
+(``timed_eager``), which follows the host wherever the host is slower
+than the device.  On the CPU both are the CPU's time, and the line says
+``"device": "cpu"``.  ``dedup384_ms`` times ``dedup_compact_rows``, the
+dedup that the port's movegen runs, as the JAX key times JAX's.
 
 The JAX script's ``kernels`` section timed each compaction shape three
 ways: jnp and the two Pallas formulations (a global one-hot matmul and
@@ -12,7 +18,9 @@ ways: jnp and the two Pallas formulations (a global one-hot matmul and
 port computes with one CUDA kernel (``ops/compaction.py::compact_rows``),
 so here each shape is timed as the plain PyTorch version
 (``<shape>_plain_ms``) and the kernel (``<shape>_kernel_ms``, null off
-the card, where the wrapper runs the plain version).
+the card, where the wrapper runs the plain version); ``dedup_plain_ms``
+(``first_occurrence_plain`` + compaction) and ``dedup_kernel_ms`` do the
+same for the dedup at the non-doubles block's final shape.
 
 Usage:
     python -m mlp_ppo_2ply_p3_tpu_torch.scripts.perf_movegen [B] \\
@@ -33,7 +41,7 @@ from ..core import board as Bd
 from ..core import movegen as MG
 from ..env import bg_env
 from ..ops import compaction as OC
-from ..utils.profiling import timed_scan
+from ..utils.profiling import device_label, timed_eager, timed_scan
 
 
 def main(argv=None):
@@ -70,68 +78,71 @@ def main(argv=None):
     def flags(p, *shape):
         return torch.rand(shape, generator=gen, device=dev) < p
 
-    res = {"B": bsz}
+    res = {"B": bsz, "device": device_label(dev)}
+
+    def timed(key, fn, *args, card_only=False):
+        """``key``: the device time; its ``_eager_ms`` twin beside it
+        (both null for a kernel off the card)."""
+        eager = key[:-len("_ms")] + "_eager_ms"
+        if card_only and dev.type != "cuda":
+            res[key] = res[eager] = None
+            return
+        res[key] = timed_scan(fn, *args) * 1e3
+        res[eager] = timed_eager(fn, *args) * 1e3
 
     if want("full"):
-        res["full_ms"] = timed_scan(
-            lambda v, d: MG.legal_afterstates_batch(v, d, cfg), vecs, dice
-        ) * 1e3
+        timed("full_ms",
+              lambda v, d: MG.legal_afterstates_batch(v, d, cfg), vecs, dice)
 
     mir = torch.zeros((bsz,), dtype=torch.bool, device=dev)
     if want("nd"):
-        res["nondoubles_ms"] = timed_scan(
-            lambda v, h, lo: MG._nondoubles_batch(v, h, lo, cfg, mir),
-            vecs, d_hi, d_lo,
-        ) * 1e3
+        timed("nondoubles_ms",
+              lambda v, h, lo: MG._nondoubles_batch(v, h, lo, cfg, mir),
+              vecs, d_hi, d_lo)
 
     bd = MG.doubles_capacity(bsz, cfg)
     if want("dbl"):
-        res["doubles_ms"] = timed_scan(
-            lambda v, d: MG._doubles_batch(v[:bd], d[:bd], cfg, mir[:bd]),
-            vecs, d0,
-        ) * 1e3
+        timed("doubles_ms",
+              lambda v, d: MG._doubles_batch(v[:bd], d[:bd], cfg, mir[:bd]),
+              vecs, d0)
 
     if want("ndoo"):
-        res["nd_one_order_ms"] = timed_scan(
-            lambda v, h, lo: MG._one_order(v, h, lo, cfg.k1, mir),
-            vecs, d_hi, d_lo,
-        ) * 1e3
+        timed("nd_one_order_ms",
+              lambda v, h, lo: MG._one_order(v, h, lo, cfg.k1, mir),
+              vecs, d_hi, d_lo)
 
     n_raw = 2 * (cfg.k1 * 25 + cfg.k1)
     cand, val = boards(bsz, n_raw), flags(0.15, bsz, n_raw)
     if want("c832"):
-        res["compact832to384_ms"] = timed_scan(
-            lambda c, v: MG._compact_batch((c,), v, cfg.dedup_width),
-            cand, val,
-        ) * 1e3
+        timed("compact832to384_ms",
+              lambda c, v: MG._compact_batch((c,), v, cfg.dedup_width),
+              cand, val)
 
     cand2 = boards(bsz, cfg.dedup_width)
     val2 = flags(0.2, bsz, cfg.dedup_width)
     if want("dedup"):
-        res["dedup384_ms"] = timed_scan(MG._dedup_pairwise, cand2,
-                                        val2) * 1e3
+        # what the non-doubles path of movegen runs (core/movegen.py)
+        timed("dedup384_ms", OC.dedup_compact_rows, cand2, val2,
+              cfg.max_moves)
 
     if want("c384"):
-        res["compact384to256_ms"] = timed_scan(
-            lambda c, v: MG._compact_batch((c,), v, cfg.max_moves),
-            cand2, val2,
-        ) * 1e3
+        timed("compact384to256_ms",
+              lambda c, v: MG._compact_batch((c,), v, cfg.max_moves),
+              cand2, val2)
 
     n4 = cfg.k3 * 25
     cand3, val3 = boards(bd, n4), flags(0.05, bd, n4)
     if want("c5600"):
-        res["dbl_compact5600to256_ms"] = timed_scan(
-            lambda c, v: MG._compact_batch((c,), v, cfg.max_moves),
-            cand3, val3,
-        ) * 1e3
+        timed("dbl_compact5600to256_ms",
+              lambda c, v: MG._compact_batch((c,), v, cfg.max_moves),
+              cand3, val3)
 
     f3, f3v = boards(bd, cfg.k3), flags(0.5, bd, cfg.k3)
     die = torch.full((bd,), 3, dtype=torch.int32, device=dev)
     if want("exp4"):
-        res["dbl_expand_L4_ms"] = timed_scan(
-            lambda f, v, d: MG._expand_one_die(f, v, d, mir[:bd]),
-            f3, f3v, die,
-        ) * 1e3
+        timed("dbl_expand_L4_ms",
+              lambda f, v, d: MG._expand_one_die(f, v, d, mir[:bd]),
+              f3, f3v, die)
 
     if want("kernels"):
         # the compaction shapes that dominate movegen: plain PyTorch
@@ -145,15 +156,20 @@ def main(argv=None):
         }
         for name, (b_, n_, k_, dens) in shapes.items():
             pay, va = boards(b_, n_), flags(dens, b_, n_)
-            res[f"{name}_plain_ms"] = timed_scan(
-                lambda c, v, kk=k_: OC.compact_rows_plain(c, v, kk),
-                pay, va) * 1e3
-            res[f"{name}_kernel_ms"] = timed_scan(
-                lambda c, v, kk=k_: OC.compact_rows(c, v, kk), pay, va
-            ) * 1e3 if dev.type == "cuda" else None
+            timed(f"{name}_plain_ms", OC.compact_rows_plain, pay, va, k_)
+            timed(f"{name}_kernel_ms", OC.compact_rows, pay, va, k_,
+                  card_only=True)
+        # the non-doubles dedup at its final shape: plain flags +
+        # compaction against the kernel
+        dboards = boards(bsz, fast.dedup_width)
+        dvalid = flags(0.2, bsz, fast.dedup_width)
+        timed("dedup_plain_ms", OC.dedup_compact_rows_plain, dboards, dvalid,
+              cfg.max_moves)
+        timed("dedup_kernel_ms", OC.dedup_compact_rows, dboards, dvalid,
+              cfg.max_moves, card_only=True)
 
     for k, v in res.items():
-        if k != "B" and v is not None:
+        if k not in ("B", "device") and v is not None:
             res[k] = round(v, 2)
     print(json.dumps(res), flush=True)
     return res

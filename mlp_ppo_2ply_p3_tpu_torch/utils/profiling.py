@@ -1,4 +1,5 @@
-"""Profiling helpers: section timers and a ``torch.profiler`` trace.
+"""Profiling helpers: section timers, micro-benchmark timers and a
+``torch.profiler`` trace.
 
 Port of ``mlp_ppo_2ply_p3_tpu/utils/profiling.py``:
 
@@ -7,9 +8,18 @@ Port of ``mlp_ppo_2ply_p3_tpu/utils/profiling.py``:
   queued so far (``torch.cuda.synchronize``), since PyTorch returns
   before the device is done.
 - ``timeit``: mean seconds per call, timed with CUDA events on a card.
+- ``wall_time``: JAX's ``timeit``: mean host seconds per call of
+  back-to-back calls, one fence at the end (the shared timer for big
+  steps: an env step, a rollout, a ``train_step``).
 - ``timed_scan``: the micro-benchmark timer of the movegen pieces
-  (``scripts/perf_movegen.py``): mean seconds per call of back-to-back
-  calls.
+  (``scripts/perf_movegen.py``, ``scripts/perf_breakdown.py``): the
+  device's time of one call, from a CUDA graph of back-to-back calls.
+  ``timed_eager`` times the same calls launched one by one, which on a
+  card follows the host's launch rate wherever the host is the slower.
+- ``device_busy``: the device-busy seconds of one call, the union of its
+  kernels' intervals in ``torch.profiler`` traces.
+- ``device_label``: the card's ``nvidia-smi`` name and power limit, or
+  ``"cpu"``, to stand beside every number a script prints.
 - ``device_trace``: a ``torch.profiler`` trace of a block, exported as a
   Chrome trace into a directory.
 
@@ -22,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from collections import defaultdict
 
@@ -99,31 +110,143 @@ def timeit(fn, n: int = 5, warmup: int = 1, device="cuda") -> float:
     return start.elapsed_time(end) / 1e3 / n
 
 
-def timed_scan(fn, *args, iters: int = 20) -> float:
-    """Mean seconds per call of ``fn(*args)`` over ``iters`` back-to-back
-    calls after one warm-up call: between two CUDA events when the first
-    tensor argument is on a card, on ``time.perf_counter`` otherwise.
+def wall_time(fn, n: int = 5, warmup: int = 1) -> float:
+    """Mean host seconds of ``fn()`` over ``n`` back-to-back calls after
+    ``warmup`` calls, the clock stopped after ``torch.cuda.synchronize``
+    when CUDA is in use: JAX's ``timeit`` (its fence is a readback)."""
+    for _ in range(warmup):
+        fn()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    _sync()
+    return (time.perf_counter() - t0) / n
 
-    The JAX package fuses the calls into one jitted ``lax.scan`` whose
-    carry perturbs an input, so that XLA can neither hoist nor drop the
-    body, and fences with a scalar readback.  PyTorch runs each call
-    eagerly, so none of that applies: every call launches its work."""
-    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    fn(*args)
+
+SCAN_ITERS = 20     # calls in one timed_scan, as in the JAX package
+GRAPH_REPLAYS = 3   # timed replays of timed_scan's graph
+
+
+def _device_of(args) -> torch.device:
+    return next(a.device for a in args if isinstance(a, torch.Tensor))
+
+
+def timed_eager(fn, *args, iters: int = SCAN_ITERS) -> float:
+    """Mean seconds per call of ``fn(*args)`` over ``iters`` back-to-back
+    eager calls after one warm-up call: ``timeit``'s CUDA events when the
+    first tensor argument is on a card, ``wall_time`` otherwise.  On a
+    card this is the device's time only where the device is slower than
+    the host's launches; ``timed_scan`` gives the device's own."""
+    dev = _device_of(args)
+    if dev.type == "cuda":
+        return timeit(lambda: fn(*args), n=iters, device=dev)
+    return wall_time(lambda: fn(*args), n=iters)
+
+
+def timed_scan(fn, *args, iters: int = SCAN_ITERS) -> float:
+    """Mean seconds per call of ``fn(*args)`` on the device.
+
+    On a card: one warm-up call on a side stream (the first launch of a
+    kernel, its build and the allocator's pools stay out of the graph),
+    then ``iters`` back-to-back calls captured into one CUDA graph, whose
+    replays are timed with CUDA events.  A replay is one launch, so the
+    host's launch rate drops out: this is the counterpart of the JAX
+    package's one jitted ``lax.scan`` of ``iters`` calls.  A function
+    that cannot be captured (a host synchronisation, a data-dependent
+    shape) raises; there is no eager fallback under this name.  Kernel
+    wrappers count their launches when Python calls them, so a capture
+    counts ``iters`` launches and the replays count none.
+
+    On the CPU: ``iters`` eager calls after one warm-up call, on
+    ``time.perf_counter`` (the CPU's time, never a device's)."""
+    dev = _device_of(args)
     if dev.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn(*args)
-        return (time.perf_counter() - t0) / iters
+        return timed_eager(fn, *args, iters=iters)
+    current = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        fn(*args)
+    current.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn(*args)
+    except RuntimeError as e:
+        raise RuntimeError(f"timed_scan: {fn!r} cannot be captured in a "
+                           f"CUDA graph: {e}") from e
+    graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize(dev)
     start.record()
-    for _ in range(iters):
-        fn(*args)
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / 1e3 / iters
+    return start.elapsed_time(end) / 1e3 / (GRAPH_REPLAYS * iters)
+
+
+def busy_seconds(intervals) -> float:
+    """Length of the union of (start, end) intervals, in their unit."""
+    total, reach = 0.0, None
+    for a, b in sorted(intervals):
+        if reach is None or a > reach:
+            total += b - a
+            reach = b
+        elif b > reach:
+            total += b - reach
+            reach = b
+    return total
+
+
+def device_busy(fn, device="cuda") -> float:
+    """Seconds in which the card ran work of one ``fn()`` call: the union
+    of its kernels', copies' and fills' intervals in a ``torch.profiler``
+    trace of the call (CUDA activity only).  The call is traced twice and
+    the larger union kept: the profiler now and then drops records of a
+    long trace (on an H100, a ``train_step`` at B=16384 once read
+    160 ms short), and
+    a dropped record can only shorten the union.  The profiler slows the
+    host, so read the call's wall time from an untraced run.  Raises
+    without a card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError(f"device_busy needs a card, got {dev}")
+    cuda = torch.autograd.DeviceType.CUDA
+    best = 0.0
+    for _ in range(2):
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize(dev)
+        events = prof.profiler.kineto_results.events()
+        best = max(best, busy_seconds((e.start_ns(), e.end_ns())
+                                      for e in events
+                                      if e.device_type() == cuda))
+    return best / 1e9
+
+
+def device_label(device) -> str:
+    """What a measurement ran on: the card's name and power limit as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them (a card may be set below its maximum power, and then
+    runs slower), or ``"cpu"``."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    try:
+        proc = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True)
+        return proc.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return f"{torch.cuda.get_device_name(dev)}, power limit not read"
 
 
 @contextlib.contextmanager

@@ -297,3 +297,101 @@ def test_profiling_timeit_on_card(card):
     seconds = profiling.timeit(lambda: torch.cuda._sleep(2_000_000), n=5,
                                device=card)
     assert 2e-4 < seconds < 2e-2
+
+
+def _movegen_args(card, batch):
+    """train4096's movegen on the boards of a fresh reset of ``batch``
+    games."""
+    from mlp_ppo_2ply_p3_tpu_torch.core import board
+
+    cfg = TE.EnvConfig(movegen=TM.MovegenConfig.fast(256))
+    gen = torch.Generator(device=card).manual_seed(3)
+    es = TE.reset(gen, cfg, batch, device=card)
+    vecs = board.to_canonical(es.points, es.bar, es.off, es.turn)
+    return vecs, es.dice, cfg.movegen
+
+
+def test_timed_scan_is_graph_time(card):
+    """``utils.profiling.timed_scan`` replays a CUDA graph of the calls:
+    at most 1.05 times the eager calls' time (which adds the host's
+    launches), and every captured call's output equals the eager call's
+    after the replays."""
+    from mlp_ppo_2ply_p3_tpu_torch.utils import profiling
+
+    vecs, dice, mg = _movegen_args(card, 4096)
+    outs = []
+
+    def call(v, d):
+        outs.append(TM.legal_afterstates_batch(v, d, mg))
+
+    graph_s = profiling.timed_scan(call, vecs, dice, iters=5)
+    captured = outs[1:]
+    eager_s = profiling.timed_eager(call, vecs, dice, iters=5)
+    assert len(captured) == 5 and 0 < graph_s <= 1.05 * eager_s
+    want = TM.legal_afterstates_batch(vecs, dice, mg)
+    torch.cuda.synchronize()
+    for got in captured:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_timed_scan_counts_launches_at_capture(card):
+    """The wrappers count when Python calls them: the warm-up and the
+    capture count, the graph's replays do not."""
+    from mlp_ppo_2ply_p3_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device=card).manual_seed(4)
+    payload = torch.randint(-128, 128, (300, 896, 52), generator=gen,
+                            device=card, dtype=torch.int8)
+    valid = torch.rand((300, 896), generator=gen, device=card) < 0.2
+    before = (TC.compact_rows.launches, TC.dedup_compact_rows.launches)
+    profiling.timed_scan(TC.compact_rows, payload, valid, 288, iters=7)
+    profiling.timed_scan(TC.dedup_compact_rows, payload, valid, 256,
+                         iters=3)
+    assert TC.compact_rows.launches - before[0] == 1 + 7
+    assert TC.dedup_compact_rows.launches - before[1] == 1 + 3
+
+
+def test_device_busy_reads_the_kernels(card):
+    """``device_busy`` of a ~10 ms device sleep reads about 10 ms, and of
+    two sleeps about twice that."""
+    from mlp_ppo_2ply_p3_tpu_torch.utils import profiling
+
+    one = profiling.device_busy(lambda: torch.cuda._sleep(20_000_000), card)
+    two = profiling.device_busy(lambda: [torch.cuda._sleep(20_000_000)
+                                         for _ in range(2)], card)
+    assert 2e-3 < one < 5e-2
+    assert 1.6 * one < two < 2.4 * one
+
+
+def test_breakdown_device_keys_on_card(card, capsys):
+    """``scripts/perf_breakdown.py`` at B=512, T=4 on the card: every
+    device key is a number, idle shares lie in [0, 1], each movegen
+    piece's graph time is at most 1.05 times its eager time."""
+    from mlp_ppo_2ply_p3_tpu_torch.scripts import perf_breakdown
+
+    (row,) = perf_breakdown.main(["512", "--t", "4"])
+    assert row["device"] != "cpu"
+    for width in ("default", "fast"):
+        cell = row[width]
+        for k, v in cell.items():
+            assert v is not None and v > 0 or k.endswith("idle_share"), k
+        for k in ("rollout_idle_share", "train_step_idle_share"):
+            assert 0 <= cell[k] <= 1, k
+        for k in ("movegen", "movegen_nondoubles",
+                  "movegen_doubles_subbatch", "movegen_dedup"):
+            assert cell[f"{k}_ms"] <= 1.05 * cell[f"{k}_eager_ms"], k
+
+
+# last: a failed capture must leave the card usable, but if it did not,
+# no other test would be hit
+def test_timed_scan_refuses_what_cannot_be_captured(card):
+    """A host synchronisation inside the timed function raises: there is
+    no eager fallback under the device's name."""
+    from mlp_ppo_2ply_p3_tpu_torch.utils import profiling
+
+    x = torch.arange(1000, device=card)
+    with pytest.raises(RuntimeError):
+        profiling.timed_scan(lambda a: int(a.sum()), x, iters=2)
+    torch.cuda.synchronize()
+    assert int(x.sum()) == 499500          # the card still works

@@ -4,9 +4,12 @@
 
 - ``render_state`` / ``board_to_ascii`` give the JAX package's strings
   on fresh and mid-game boards (bars and borne-off checkers included).
-- ``timed_scan`` returns a positive mean on the CPU.
+- ``timed_scan``, ``timed_eager`` and ``wall_time`` return positive
+  means on the CPU; ``busy_seconds`` is the length of a union of
+  intervals.
 - ``perf_movegen`` at ``--device cpu`` and B=32 prints one JSON line
-  with the JAX script's section keys.
+  with the JAX script's section keys, each with its eager twin, and
+  ``dedup384_ms`` times ``dedup_compact_rows``.
 - ``save_frozen`` turns a driver checkpoint into an asset that both
   packages load."""
 
@@ -25,6 +28,7 @@ from mlp_ppo_2ply_p3_tpu.tools import render as JR
 from mlp_ppo_2ply_p3_tpu_torch.agents import frozen
 from mlp_ppo_2ply_p3_tpu_torch.core.movegen import MovegenConfig
 from mlp_ppo_2ply_p3_tpu_torch.env import bg_env as TE
+from mlp_ppo_2ply_p3_tpu_torch.ops import compaction as OC
 from mlp_ppo_2ply_p3_tpu_torch.ppo import train as train_mod
 from mlp_ppo_2ply_p3_tpu_torch.scripts import perf_movegen, save_frozen
 from mlp_ppo_2ply_p3_tpu_torch.tools import render
@@ -77,21 +81,49 @@ def test_timed_scan_on_cpu():
     got = profiling.timed_scan(lambda a: calls.append(a.sum()), x, iters=5)
     assert isinstance(got, float) and got > 0
     assert len(calls) == 6                       # one warm-up call
+    got = profiling.timed_eager(lambda a: calls.append(a.sum()), x, iters=3)
+    assert isinstance(got, float) and got > 0 and len(calls) == 10
+    got = profiling.wall_time(lambda: calls.append(1), n=2, warmup=2)
+    assert isinstance(got, float) and got > 0 and len(calls) == 14
 
 
-def test_perf_movegen_on_cpu(capsys):
+def test_busy_seconds_is_a_union():
+    assert profiling.busy_seconds([]) == 0
+    assert profiling.busy_seconds([(5, 7), (0, 2), (1, 3), (6, 9),
+                                   (3, 3.5), (10, 11)]) == 8.5
+    assert profiling.device_label("cpu") == "cpu"
+
+
+def test_perf_movegen_on_cpu(capsys, monkeypatch):
     torch.manual_seed(0)
     res = perf_movegen.main(["32", "--device", "cpu"])
     (line,) = capsys.readouterr().out.splitlines()
     assert json.loads(line) == res
     assert SECTION_KEYS <= set(res) and res["B"] == 32
+    assert res["device"] == "cpu"
     for k in SECTION_KEYS - {"B"}:
         assert res[k] > 0, k
-    for shape in ("ndblock", "ndfinal", "dblL3", "dblL4"):
+        assert res[k[:-len("_ms")] + "_eager_ms"] > 0, k
+    for shape in ("ndblock", "ndfinal", "dblL3", "dblL4", "dedup"):
         assert res[f"{shape}_plain_ms"] > 0
+        assert res[f"{shape}_plain_eager_ms"] > 0
         assert res[f"{shape}_kernel_ms"] is None   # the kernel needs a card
+        assert res[f"{shape}_kernel_eager_ms"] is None
+    calls = []
+    inner = OC.dedup_compact_rows
+
+    def counted(boards, valid, k_out):
+        calls.append((tuple(boards.shape), k_out))
+        return inner(boards, valid, k_out)
+
+    monkeypatch.setattr(OC, "dedup_compact_rows", counted)
     res = perf_movegen.main(["32", "dedup,c384", "--device", "cpu"])
-    assert set(res) == {"B", "dedup384_ms", "compact384to256_ms"}
+    assert set(res) == {"B", "device", "dedup384_ms", "dedup384_eager_ms",
+                        "compact384to256_ms", "compact384to256_eager_ms"}
+    # dedup384 times what movegen runs (the reset's movegen runs it once):
+    # warm-up + 20 calls, twice
+    assert calls == [((32, 384, 52), 256)] * (
+        1 + 2 * (1 + profiling.SCAN_ITERS))
 
 
 def test_save_frozen_round_trip(tmp_path, monkeypatch, capsys):
