@@ -7,8 +7,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Device check: needs ``torch.cuda.is_available()``; prints the card's
    ``nvidia-smi`` name and power limit.
-2. Build: compiles ``csrc/compaction.cu`` (both kernels: ``compact_rows``
-   and ``dedup_compact_rows``) with nvcc for sm_90a.
+2. Build: compiles ``csrc/compaction.cu`` (``compact_rows`` and
+   ``dedup_compact_rows``) and ``csrc/doubles.cu`` (``doubles_level``)
+   with nvcc for sm_90a, one nvcc process per source, started together.
 3. Kernels vs plain versions, bit-exact ``out`` (every slot, zero tail
    included) and ``count``: ``compact_rows`` on ragged edge cases, on
    the split-N layout (one row of tens of thousands of flags), on the
@@ -17,18 +18,24 @@ Phases (any failure exits non-zero and prints no result line):
    shapes (non-doubles at candidate chunks of 512, 2048 and 8192,
    doubles at 512 and 2048: the JAX package's chunks and the port's);
    ``dedup_compact_rows`` on planted duplicates, high-nibble copies, the
-   main-path shape and the reply shape.
+   main-path shape and the reply shape; ``doubles_level`` (boards, ranks
+   and unclamped counts) on random frontiers that reach every slot kind
+   (bar entry on a blot, a block, bear-off exact, overshooting and
+   exact from a nearer point, game over, all-zero padding rows of die
+   0, mirrored games), with ragged valid counts, truncation, k_out = 0,
+   boards at an odd address and the parity width.
 4. Movegen on the card at B=4096 on boards from a few env steps: the
    kernel path is bit-exact against the plain-PyTorch path on the card
-   and against the CPU on a 256-game slice.  Every kernel call of one
-   movegen call is captured, checked against the plain version and
-   timed (CUDA events) beside its bound.  The whole call is timed
-   eagerly and as a CUDA graph replay (the device's own time).  The
-   same at the other batch sizes the paths below run movegen at: the
-   league eval's 256 games (``train4096``'s movegen) and the arenas' 512
-   and 64 games (``twoply``'s), where both sub-batches are the whole
-   batch and the doubles levels take the split-N layout; each call's
-   shape is checked once more with random flags.  Then
+   and against the CPU.  Every kernel call of one movegen call is
+   captured, checked against the plain version and timed (CUDA events)
+   beside its bound.  The whole call is timed eagerly and as a CUDA
+   graph replay (the device's own time).  The same at the other batch
+   sizes and widths the paths below run movegen at: the league eval's
+   256 games (``train4096``'s movegen) and the arenas' 512 and 64 games
+   (``twoply``'s), where both sub-batches are the whole batch, with
+   padding rows; B=4096 at the default widths and B=16384 (``pod``);
+   each call's shape is checked once more with random flags or random
+   frontiers.  Then
    one small ``train_step`` (B=64, T=8, full width) on the card and on
    the CPU from the same weights and draws: equal env integers,
    parameters and losses within 1e-4.
@@ -36,8 +43,9 @@ Phases (any failure exits non-zero and prints no result line):
    128: one warm-up ``train_step`` and two timed ones (T=64 by default;
    the preset's 128 is cut to keep the run short).  Losses must be
    finite, ``compact_rows.launches`` must grow by exactly
-   ``compactions_per_call x T`` per step and
-   ``dedup_compact_rows.launches`` by ``dedups_per_call x T``.  One
+   ``compactions_per_call x T`` per step,
+   ``dedup_compact_rows.launches`` by ``dedups_per_call x T`` and
+   ``doubles_level.launches`` by ``doubles_levels_per_call x T``.  One
    more rollout and update are timed apart.  Then one
    ``afterstate``-mode ``train_step`` at B=512.
 6. Evaluation path, the ``twoply`` preset on the committed frozen_v1
@@ -47,6 +55,7 @@ Phases (any failure exits non-zero and prints no result line):
    path bit-exact against the plain path, and a 32-game slice against
    the CPU (actions where the best score leads by more than 1e-4, backup
    scores within 1e-4); every distinct reply call of those decisions
+   (the doubles levels at ``dbl_game_chunk`` games and the reply widths)
    checked against its plain version and timed beside its bound;
    decisions timed at B=256 and B=4096.  Then the league runner on the
    card: 1-ply vs the pubeval heuristic over 512 games and 400 plies
@@ -61,7 +70,7 @@ Phases (any failure exits non-zero and prints no result line):
    frozen_v1) after update 1.  Run B: 2 updates from scratch, its local
    checkpoints wiped, then resumed to 3 updates from ``ckpt_2`` pulled
    from the store.  B's final parameters, Adam state, generator,
-   counters and env state must equal A's bit for bit; both kernels'
+   counters and env state must equal A's bit for bit; the three kernels'
    launches must match every run exactly (the first reset, T env steps
    an update, two arenas of a reset and 400 plies an eval); the league
    metrics must carry the JAX driver's keys, win rates in [0, 1] and
@@ -79,7 +88,7 @@ Phases (any failure exits non-zero and prints no result line):
    makes of them in one process (rounding, amplified by 128 Adam steps
    under clipping); the losses of both
    updates agree within a tolerance; each rank and the
-   single run launch both kernels exactly.  Then a NCCL group of one
+   single run launch the three kernels exactly.  Then a NCCL group of one
    rank: its collectives are the identity, a ``train_step`` through the
    sharded code equals the plain one bit for bit, and one rank's movegen
    call (8192 games, with a rank's sub-batch widths) is held call by call
@@ -94,8 +103,8 @@ Phases (any failure exits non-zero and prints no result line):
    own at its defaults (``train4096``'s widths, B=4096, T=64) with
    ``BENCH_UPDATES=2``: exit 0, one line per update, the last line the
    4-key JSON line (``env_steps_per_sec_per_chip``, value > 0,
-   ``vs_baseline`` = value / 1000), and the launches of both kernels it
-   logs exact.  Then ``scripts/perf_breakdown.main(["4096"])`` here:
+   ``vs_baseline`` = value / 1000), and the launches of the three
+   kernels it logs exact.  Then ``scripts/perf_breakdown.main(["4096"])`` here:
    every JAX key and its device or eager twin under both widths, each
    time positive, each movegen piece's CUDA-graph time at most 1.05 times
    its eager time, both idle shares in [0, 1], and each graph's launches
@@ -132,6 +141,10 @@ TPU_KERNELS = ("mlp_ppo_2ply_p3_tpu/ops/compaction.py:178, "
 # after them, which XLA fused
 DEDUP_REPLACES = ("mlp_ppo_2ply_p3_tpu/core/movegen.py:256-273, "
                   "mlp_ppo_2ply_p3_tpu/core/movegen.py:364")
+# the jnp doubles level, whose compaction is the Pallas compact_rows
+DOUBLES_REPLACES = ("mlp_ppo_2ply_p3_tpu/core/movegen.py:406-416, "
+                    "mlp_ppo_2ply_p3_tpu/ops/compaction.py:231")
+KERNELS = ("compact_rows", "dedup_compact_rows", "doubles_level")
 
 
 def log(msg: str) -> None:
@@ -202,21 +215,39 @@ def dedup_work(torch, compaction, boards, valid, k_out: int):
     return nbytes, 7 * (unique_pred + dups)
 
 
+def level_work(doubles, args):
+    """(bytes, integer operations) that one doubles level must spend on
+    these inputs: the valid frontier rows (52 bytes and a rank each) and
+    each game's valid count, die and mirror flag in, the next frontier
+    (53 bytes a row) and the counts out; 8 operations for each slot
+    predicate of a valid row (27 a row) and 2 for each byte of an
+    afterstate that lands in the output."""
+    boards, ranks, n_in, _, _, k_out = args
+    g, k, _ = boards.shape
+    rows = g * k if n_in is None else int(n_in.clamp(0, k).sum())
+    _, _, n = doubles.doubles_level_plain(*args)
+    landed = int(n.clamp(max=k_out).sum())
+    nbytes = (rows * (52 + (ranks is not None))
+              + g * (4 * (n_in is not None) + 4 + 1) + g * k_out * 53 + 4 * g)
+    return nbytes, rows * 27 * 8 + landed * 52 * 2
+
+
 def same(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
 
 
 def measure(torch, fn, plain_fn, args, nbytes, ops=0):
-    """Check fn against plain_fn on args, then time both in turns (plain,
-    kernel, kernel, plain) beside the bound."""
-    ko, kc = fn(*args)
-    po, pc = plain_fn(*args)
+    """Check fn against plain_fn on args (every output bit for bit), then
+    time both in turns (plain, kernel, kernel, plain) beside the
+    bound."""
+    got = fn(*args)
+    want = plain_fn(*args)
     torch.cuda.synchronize()
-    shape = f"{tuple(args[0].shape)}->{args[2]}"
-    check(same(ko, po) and same(kc, pc),
+    shape = f"{tuple(args[0].shape)}->{args[-1]}"
+    check(all(same(g, w) for g, w in zip(got, want)),
           f"kernel != plain on captured {shape}")
-    err = max(int((ko.int() - po.int()).abs().max()) if ko.numel() else 0,
-              int((kc - pc).abs().max()))
+    err = max(int((g.int() - w.int()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
     iters = 20
     plain = time_ms(lambda: plain_fn(*args), iters)
     kern = time_ms(lambda: fn(*args), iters)
@@ -225,7 +256,7 @@ def measure(torch, fn, plain_fn, args, nbytes, ops=0):
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_OPS_PER_S * 1e3
     return {
-        "shape": list(args[0].shape), "k_out": args[2],
+        "shape": list(args[0].shape), "k_out": args[-1],
         "ms": (kern + kern2) / 2, "plain_ms": (plain + plain2) / 2,
         "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
         "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
@@ -234,8 +265,12 @@ def measure(torch, fn, plain_fn, args, nbytes, ops=0):
     }
 
 
-def measure_calls(torch, compaction, captured, captured_dedup):
-    """measure() every captured compaction and dedup call."""
+def measure_calls(torch, compaction, captured, captured_dedup,
+                  captured_levels=()):
+    """measure() every captured compaction, dedup and doubles level
+    call."""
+    from mlp_ppo_2ply_p3_tpu_torch.ops import doubles
+
     per_call = [
         measure(torch, compaction.compact_rows, compaction.compact_rows_plain,
                 args, compaction_bytes(args[1], args[2], args[0].shape[2]))
@@ -245,53 +280,73 @@ def measure_calls(torch, compaction, captured, captured_dedup):
                 compaction.dedup_compact_rows_plain, args,
                 *dedup_work(torch, compaction, *args))
         for args in captured_dedup]
-    return per_call, per_dedup
+    per_level = [
+        measure(torch, doubles.doubles_level, doubles.doubles_level_plain,
+                args, *level_work(doubles, args))
+        for args in captured_levels]
+    return per_call, per_dedup, per_level
 
 
 class Capture:
-    """Swaps both compaction wrappers for ones that keep their inputs and
-    call the kernels (``record``), or for the plain versions (``plain``),
-    and restores them on exit.  ``distinct`` keeps one call per (shape,
-    k_out)."""
+    """Swaps the three kernel wrappers (``compact_rows``,
+    ``dedup_compact_rows``, ``doubles_level``) for ones that keep their
+    inputs and call the kernels (``record``), or for the plain versions
+    (``plain``), and restores them on exit.  ``distinct`` keeps one call
+    per (shape, k_out)."""
 
-    def __init__(self, compaction, plain=False, distinct=False):
-        self.compaction, self.plain, self.distinct = (compaction, plain,
-                                                      distinct)
-        self.compact, self.dedup = [], []
+    def __init__(self, plain=False, distinct=False):
+        self.plain, self.distinct = plain, distinct
+        self.compact, self.dedup, self.levels = [], [], []
 
     def _wrap(self, kept, fn):
-        def wrapper(payload, valid, k_out):
-            key = (tuple(payload.shape), k_out)
+        def wrapper(*args):
+            key = (tuple(args[0].shape), args[-1])
             if not self.distinct or key not in {
-                    (tuple(a[0].shape), a[2]) for a in kept}:
-                kept.append((payload, valid, k_out))
-            return fn(payload, valid, k_out)
+                    (tuple(a[0].shape), a[-1]) for a in kept}:
+                kept.append(args)
+            return fn(*args)
         return wrapper
 
     def __enter__(self):
-        c = self.compaction
-        self.saved = (c.compact_rows, c.dedup_compact_rows)
-        if self.plain:
-            c.compact_rows = c.compact_rows_plain
-            c.dedup_compact_rows = c.dedup_compact_rows_plain
-        else:
-            c.compact_rows = self._wrap(self.compact, self.saved[0])
-            c.dedup_compact_rows = self._wrap(self.dedup, self.saved[1])
+        from mlp_ppo_2ply_p3_tpu_torch.ops import compaction, doubles
+
+        self.saved = []
+        for m, name, kept in ((compaction, "compact_rows", "compact"),
+                              (compaction, "dedup_compact_rows", "dedup"),
+                              (doubles, "doubles_level", "levels")):
+            fn = getattr(m, name)
+            self.saved.append((m, name, fn))
+            setattr(m, name, getattr(m, name + "_plain") if self.plain
+                    else self._wrap(getattr(self, kept), fn))
         return self
 
     def __exit__(self, *exc):
-        self.compaction.compact_rows, self.compaction.dedup_compact_rows = (
-            self.saved)
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
 
 
 def launches(compaction):
+    from mlp_ppo_2ply_p3_tpu_torch.ops import doubles
+
     return {"compact_rows": compaction.compact_rows.launches,
-            "dedup_compact_rows": compaction.dedup_compact_rows.launches}
+            "dedup_compact_rows": compaction.dedup_compact_rows.launches,
+            "doubles_level": doubles.doubles_level.launches}
 
 
 def zero_launches(compaction):
     compaction.compact_rows.launches = 0
     compaction.dedup_compact_rows.launches = 0
+    from mlp_ppo_2ply_p3_tpu_torch.ops import doubles
+
+    doubles.doubles_level.launches = 0
+
+
+def per_call_launches(movegen, mg):
+    """Each kernel's launches in one ``legal_afterstates_batch`` call at
+    widths ``mg``."""
+    return {"compact_rows": movegen.compactions_per_call(mg),
+            "dedup_compact_rows": movegen.dedups_per_call(mg),
+            "doubles_level": movegen.doubles_levels_per_call(mg)}
 
 
 # --- phase 3 -----------------------------------------------------------------
@@ -402,6 +457,115 @@ def dedup_cases(torch, compaction, dev, cases=None):
     return out
 
 
+def edge_boards(torch, dev):
+    """(6, 52) canonical boards that reach every slot kind of a doubles
+    level (the mover travels 0 -> 23, enters from the bar on die - 1,
+    bears off past 23): entry on a blot, a block and open points; every
+    entry blocked; bear-off exactly from the farthest point, overshooting
+    and exactly from a nearer point; game over; all-zero padding."""
+    rows = [({5: 6, 12: 5, 16: 2}, {0: 1, 1: 2, 3: 3, 10: 1}, 2, 0),
+            ({12: 14}, {p: 2 for p in range(6)}, 1, 0),
+            ({20: 3, 22: 2, 23: 1}, {3: 2}, 0, 9),
+            ({18: 1, 21: 2, 23: 4}, {}, 0, 8),
+            ({}, {4: 2}, 0, 15),
+            ({}, {}, 0, 0)]
+    out = torch.zeros((len(rows), 52), dtype=torch.int8, device=dev)
+    for i, (my, opp, bar, off) in enumerate(rows):
+        for p, c in my.items():
+            out[i, p] = c
+        for p, c in opp.items():
+            out[i, 24 + p] = c
+        out[i, 48], out[i, 50] = bar, off
+    return out
+
+
+def random_frontier(torch, dev, rng, g, k, root):
+    """Random doubles-level inputs: sparse counts (some negative, which
+    the rules never make), some rows on the bar, half of them all home, a
+    tenth game over, the edge boards spread in; parent ranks with many
+    bars; ragged valid counts (some above K); dice 1..6 and a tenth of
+    the games all-zero padding of die 0; mirrored games.  ``root``: a
+    one-row frontier with no ranks and no counts."""
+    def rand(*shape):
+        return torch.rand(shape, generator=rng, device=dev)
+
+    def ints(lo, hi, *shape, dtype=torch.int8):
+        return torch.randint(lo, hi, shape, generator=rng, device=dev,
+                             dtype=dtype)
+
+    b = ints(-2, 16, g, k, 52)
+    b[:, :, :48] *= (rand(g, k, 48) < 0.4).to(torch.int8)
+    b[:, :, 48] *= (rand(g, k) < 0.3).to(torch.int8)
+    b[:, :, :18] *= (rand(g, k) >= 0.5).to(torch.int8)[:, :, None]
+    b[:, :, 50] = torch.where(rand(g, k) < 0.1, 15, b[:, :, 50].abs() % 15)
+    edges = edge_boards(torch, dev)
+    pick = rand(g, k) < 0.2
+    b = torch.where(pick[:, :, None],
+                    edges[ints(0, len(edges), g, k, dtype=torch.int64)], b)
+    ranks = torch.where(rand(g, k) < 0.4, -1, ints(-128, 25, g, k))
+    n_in = ints(0, k + 3, g, dtype=torch.int32)
+    die = ints(1, 7, g, dtype=torch.int32)
+    pad = rand(g) < 0.1
+    b = torch.where(pad[:, None, None], 0, b).to(torch.int8)
+    die = torch.where(pad, 0, die).to(torch.int32)
+    mirror = rand(g) < 0.5
+    if root:
+        return b[:, :1].contiguous(), None, None, die, mirror
+    return b.contiguous(), ranks.to(torch.int8), n_in, die, mirror
+
+
+def doubles_cases(torch, doubles, dev, cases=None):
+    """doubles_level against its plain version (boards, ranks and
+    unclamped counts, bit for bit) on random frontiers
+    (``random_frontier``) at ``cases`` of (G, K, k_out, root) (by
+    default: roots, the B=4096 levels at both widths, truncation, k_out =
+    0, several chunks of 128 rows, the parity width), each also with
+    uint8 mirror flags and the boards at an odd address; and the edge
+    boards through four levels, each with every die, unmirrored and
+    mirrored.  Returns the cases checked."""
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(6)
+    default = [(64, 1, 16, True), (875, 1, 16, True), (875, 16, 80, False),
+               (875, 80, 192, False), (875, 192, 256, False),
+               (1088, 96, 224, False), (1088, 224, 256, False),
+               (300, 40, 5, False), (64, 30, 0, False),
+               (40, 300, 500, False), (16, 512, 500, False),
+               (5, 129, 3000, False)]
+    out = []
+    for g, k, k_out, root in (default if cases is None else cases):
+        args = random_frontier(torch, dev, rng, g, k, root)
+        want = doubles.doubles_level_plain(*args, k_out)
+        raw = torch.zeros(args[0].numel() + 3, dtype=torch.int8, device=dev)
+        raw[3:] = args[0].reshape(-1)
+        odd = (raw[3:].view(args[0].shape), *args[1:4],
+               args[4].to(torch.uint8))
+        for variant in (args, odd):
+            got = doubles.doubles_level(*variant, k_out)
+            torch.cuda.synchronize()
+            check(all(same(a, b) for a, b in zip(got, want)),
+                  f"doubles_level != plain at {(g, k)} -> {k_out}")
+        check(int(want[2].sum()) > 0, f"no valid candidate at {(g, k)}")
+        out.append({"shape": [g, k, 52], "k_out": k_out, "root": root,
+                    "exact": True})
+    if cases is None:
+        edges = edge_boards(torch, dev)
+        vecs = edges.repeat_interleave(12, dim=0)
+        die = torch.arange(1, 7, dtype=torch.int32, device=dev).repeat(12)
+        die[-12:] = 0                                  # the padding rows
+        mirror = (torch.arange(72, device=dev) % 12) >= 6
+        level = (vecs[:, None, :].contiguous(), None, None)
+        for k_out in (16, 80, 192, 256):
+            got = doubles.doubles_level(*level, die, mirror, k_out)
+            want = doubles.doubles_level_plain(*level, die, mirror, k_out)
+            torch.cuda.synchronize()
+            check(all(same(a, b) for a, b in zip(got, want)),
+                  f"doubles_level != plain on the edge boards -> {k_out}")
+            level = want
+        out.append({"shape": [72, 1, 52], "k_out": 256, "root": "edge "
+                    "boards, four levels", "exact": True})
+    return out
+
+
 # --- phase 4 -----------------------------------------------------------------
 
 
@@ -421,21 +585,20 @@ def captured_movegen(torch, compaction, movegen, vecs, dice, mg, mirror,
     checked equal to the plain path, with the expected number of kernel
     calls; returns (its output, its Capture)."""
     batch = vecs.shape[0]
-    with Capture(compaction) as cap:
+    with Capture() as cap:
         got = movegen.legal_afterstates_batch(vecs, dice, mg, mirror, world)
-    with Capture(compaction, plain=True):
+    with Capture(plain=True):
         want = movegen.legal_afterstates_batch(vecs, dice, mg, mirror,
                                                world)
     torch.cuda.synchronize()
     for g, w, name in zip(got, want, ("boards", "n_moves", "overflow")):
         check(same(g, w), f"movegen {name} at B={batch}: kernel path != "
               f"plain path")
-    check(len(cap.compact) == movegen.compactions_per_call(mg)
-          and len(cap.dedup) == movegen.dedups_per_call(mg),
-          f"{len(cap.compact)} compactions and {len(cap.dedup)} dedups per "
-          f"movegen call at B={batch}, expected "
-          f"{movegen.compactions_per_call(mg)} and "
-          f"{movegen.dedups_per_call(mg)}")
+    counted = dict(zip(KERNELS, (len(cap.compact), len(cap.dedup),
+                                 len(cap.levels))))
+    check(counted == per_call_launches(movegen, mg),
+          f"kernel calls {counted} per movegen call at B={batch}, expected "
+          f"{per_call_launches(movegen, mg)}")
     return got, cap
 
 
@@ -446,19 +609,16 @@ def movegen_phase(torch, compaction, movegen, perf_twoply, profiling,
     got, cap = captured_movegen(torch, compaction, movegen, vecs, dice, mg,
                                 mirror)
 
-    # a 256-game slice on the CPU (plain path, no sub-batch partition)
-    k = 256
-    cpu = movegen.legal_afterstates_batch(vecs[:k].cpu(), dice[:k].cpu(), mg,
-                                          mirror[:k].cpu())
-    fits = ~got[2][:k].cpu()
+    # the whole batch on the CPU (the plain path)
+    cpu = movegen.legal_afterstates_batch(vecs.cpu(), dice.cpu(), mg,
+                                          mirror.cpu())
     for g, c, name in zip(got, cpu, ("boards", "n_moves", "overflow")):
-        check(same(g[:k].cpu()[fits], c[fits]),
-              f"movegen {name}: card != CPU on the 256-game slice")
+        check(same(g.cpu(), c), f"movegen {name}: card != CPU at B=4096")
     check(int(got[1].sum()) > 0, "no legal moves at all")
 
     # time every kernel call of this movegen call: kernel vs plain
-    per_call, per_dedup = measure_calls(torch, compaction, cap.compact,
-                                        cap.dedup)
+    per_call, per_dedup, per_level = measure_calls(
+        torch, compaction, cap.compact, cap.dedup, cap.levels)
 
     def one_call():
         movegen.legal_afterstates_batch(vecs, dice, mg, mirror)
@@ -472,27 +632,30 @@ def movegen_phase(torch, compaction, movegen, perf_twoply, profiling,
     mg_graph_ms = profiling.timed_scan(
         lambda v, d, m: movegen.legal_afterstates_batch(v, d, mg, m),
         vecs, dice, mirror) * 1e3
-    return per_call, per_dedup, mg_ms, mg_graph_ms
+    return per_call, per_dedup, per_level, mg_ms, mg_graph_ms
 
 
 def movegen_batches_phase(torch, compaction, movegen, perf_twoply, runs,
                           dev, world=None):
-    """Movegen at the other batch sizes the paths run, ``runs`` of
-    (label, EnvConfig, games): below 512 games both sub-batches are the
-    whole batch, and a doubles level of fewer than 264 rows and N >= 1024
-    takes the split-N layout.  Each: one movegen call on boards from a
-    few env steps, kernel path == plain path; every kernel call of it
-    checked against its plain version and timed (``measure``); and each
-    call's shape once more with random flags.  With a ``world`` each call
-    is a rank's (its shapes those of a shard of any number of ranks).
-    Returns a report row per run."""
+    """Movegen at the other batch sizes and widths the paths run,
+    ``runs`` of (label, EnvConfig, games): below 512 games both
+    sub-batches are the whole batch (the doubles levels then hold every
+    game, the non-doubles ones as all-zero padding rows of die 0).  Each:
+    one movegen call on boards from a few env steps, kernel path ==
+    plain path; every kernel call of it checked against its plain version
+    and timed (``measure``); and each call's shape once more with random
+    flags or a random frontier.  With a ``world`` each call is a rank's
+    (its shapes those of a shard of any number of ranks).  Returns a
+    report row per run."""
+    from mlp_ppo_2ply_p3_tpu_torch.ops import doubles
+
     out = []
     for label, env_cfg, batch in runs:
         vecs, dice, mirror = play_boards(perf_twoply, env_cfg, batch, 6, dev)
         _, cap = captured_movegen(torch, compaction, movegen, vecs, dice,
                                   env_cfg.movegen, mirror, world)
-        per_call, per_dedup = measure_calls(torch, compaction, cap.compact,
-                                            cap.dedup)
+        per_call, per_dedup, per_level = measure_calls(
+            torch, compaction, cap.compact, cap.dedup, cap.levels)
         # the same shapes at this call's share of valid flags, with an
         # all-invalid and an all-valid row
         flags = edge_cases(torch, compaction, dev, [
@@ -503,11 +666,14 @@ def movegen_batches_phase(torch, compaction, movegen, perf_twoply, runs,
             for a in cap.dedup
             for frac, planted, nibble in ((0.3, 0.3, False),
                                           (0.9, 0.5, True))])
+        levels = doubles_cases(torch, doubles, dev, [
+            (*a[0].shape[:2], a[-1], a[1] is None) for a in cap.levels])
         out.append({"label": label, "batch": batch, "compactions": per_call,
-                    "dedups": per_dedup,
-                    "random_flag_cases": len(flags) + len(dedups)})
+                    "dedups": per_dedup, "levels": per_level,
+                    "random_flag_cases": len(flags) + len(dedups),
+                    "random_frontier_cases": len(levels)})
         shapes = ", ".join(f"{tuple(r['shape'])}->{r['k_out']}"
-                           for r in per_call + per_dedup)
+                           for r in per_call + per_dedup + per_level)
         log(f"{label} movegen B={batch}: kernel path == plain path; every "
             f"call == plain, also with random flags: {shapes}")
     return out
@@ -537,9 +703,7 @@ def train_phase(torch, compaction, movegen, bg_env, learner, cfg, batch, t,
     dt = time.time() - t0
     counted = launches(compaction)
 
-    mg = cfg.env.movegen
-    for name, per_call in (("compact_rows", movegen.compactions_per_call(mg)),
-                           ("dedup_compact_rows", movegen.dedups_per_call(mg))):
+    for name, per_call in per_call_launches(movegen, cfg.env.movegen).items():
         expect = timed * t * per_call
         check(counted[name] == expect,
               f"{name} launched {counted[name]} times in {timed} "
@@ -649,7 +813,6 @@ def small_agreement_phase(torch, bg_env, learner, cfg, dev):
 
 # --- phase 6: the evaluation path --------------------------------------------
 
-KERNELS = ("compact_rows", "dedup_compact_rows")
 # 1-ply frozen_v1 against the pubeval heuristic in the JAX package, 512
 # games (docs/LEARNING.md:171), and 3 sigma of the difference of two
 # 512-game win rates near it
@@ -672,14 +835,14 @@ def twoply_check(torch, compaction, twoply, bg_env, model, state, scfg):
 
     batch = state.turn.shape[0]
     zero_launches(compaction)
-    with Capture(compaction, distinct=True) as cap:
+    with Capture(distinct=True) as cap:
         got = twoply.twoply_actions_values(model, state, scfg)
     torch.cuda.synchronize()
     counted = launches(compaction)
     expect = dict(zip(KERNELS, twoply.launches_per_decision(batch, scfg)))
     check(counted == expect, f"2-ply decision at B={batch}, reply width "
           f"{scfg.reply_max_moves}: launches {counted}, expected {expect}")
-    with Capture(compaction, plain=True):
+    with Capture(plain=True):
         plain = twoply.twoply_actions_values(model, state, scfg)
     for g, p, name in zip(got, plain, ("actions", "backup", "overflow")):
         check(same(g, p), f"2-ply {name}: kernel path != plain path")
@@ -735,10 +898,15 @@ def twoply_phase(torch, compaction, twoply, perf_twoply, bg_env, cfg, model,
     seen = {(tuple(a[0].shape), a[2]) for a in reply}
     reply = reply + [a for a in calls[4096, 512].compact
                      if (tuple(a[0].shape), a[2]) not in seen]
-    per_call, _ = measure_calls(torch, compaction, reply, [])
-    _, per_dedup = measure_calls(torch, compaction, [], calls[256, 128].dedup)
+    # the doubles levels run at dbl_game_chunk games at every B; widths
+    # 512 and 128 give them other k2, k3 and M'
+    per_call, per_dedup, per_level = measure_calls(
+        torch, compaction, reply, calls[256, 128].dedup,
+        calls[256, 512].levels + calls[256, 128].levels)
     out["reply_calls"], out["reply_dedups"] = per_call, per_dedup
-    for name, rows in (("compact", per_call), ("dedup", per_dedup)):
+    out["reply_levels"] = per_level
+    for name, rows in (("compact", per_call), ("dedup", per_dedup),
+                       ("doubles level", per_level)):
         for row in rows:
             log(f"reply {name} {tuple(row['shape'])} -> {row['k_out']}: "
                 f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
@@ -758,12 +926,10 @@ def arena_phase(torch, compaction, movegen, arena, league, twoply, cfg, dev):
     """The league CLI's ``run_pair`` on the card: 1-ply frozen_v1 against
     the pubeval heuristic over 512 games, then 2-ply against 1-ply (both
     frozen_v1) over 64 games for at most ``TWOPLY_PLIES`` plies; exact
-    launch counts of both for the plies that each played."""
+    launch counts of the three kernels for the plies that each played."""
     import contextlib
 
-    mg = cfg.env.movegen
-    per_step = {"compact_rows": movegen.compactions_per_call(mg),
-                "dedup_compact_rows": movegen.dedups_per_call(mg)}
+    per_step = per_call_launches(movegen, cfg.env.movegen)
     out = {}
     for pair, games, plies in ARENA_PAIRS:
         # count the plies played: the 2-ply pair's host loop stops once
@@ -790,7 +956,7 @@ def arena_phase(torch, compaction, movegen, arena, league, twoply, cfg, dev):
         # the reset and every ply list the moves of all games; the 2-ply
         # side decides for every game every ply
         search = (twoply.launches_per_decision(games, cfg.search)
-                  if pair.startswith("twoply") else (0, 0))
+                  if pair.startswith("twoply") else (0,) * len(KERNELS))
         expect = {name: (1 + ran) * per_step[name] + ran * extra
                   for name, extra in zip(KERNELS, search)}
         check(counted == expect,
@@ -895,16 +1061,14 @@ def trainer_phase(torch, compaction, movegen, arena, train_mod, ckpt, cfg,
       checkpoints wiped, then ``resume=True`` to 3 updates, which must
       pull ``ckpt_2`` from the store;
 
-    B's final state must equal A's bit for bit, both kernels' launches
-    must match every train() call exactly, the league metrics must have
+    B's final state must equal A's bit for bit, the three kernels'
+    launches must match every train() call exactly, the league metrics must have
     the JAX driver's keys with win rates in [0, 1] and games finished,
     and every loss must be finite."""
     import shutil
     import tempfile
 
-    mg = cfg.env.movegen
-    per_step = {"compact_rows": movegen.compactions_per_call(mg),
-                "dedup_compact_rows": movegen.dedups_per_call(mg)}
+    per_step = per_call_launches(movegen, cfg.env.movegen)
     t = cfg.ppo.t_horizon
     out = {"t_horizon": t, "batch": cfg.ppo.num_envs}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1149,8 +1313,8 @@ def dp_phase(torch, compaction, movegen, learner, train_mod, get_preset,
     the parameters' update and Adam's moments within ``DP_FLOOR_FACTOR``
     times the difference that a one-ulp nudge makes in one process; the
     losses of both updates within ``DP_LOSS_TOL``; every rank and the
-    single run launch both kernels exactly (the first reset and T movegen
-    calls an update)."""
+    single run launch the three kernels exactly (the first reset and T
+    movegen calls an update)."""
     import contextlib
     import tempfile
 
@@ -1159,8 +1323,7 @@ def dp_phase(torch, compaction, movegen, learner, train_mod, get_preset,
     pod = get_preset("pod")
     mg = pod.env.movegen
     calls = 1 + DP_UPDATES * DP_T
-    expect = {"compact_rows": calls * movegen.compactions_per_call(mg),
-              "dedup_compact_rows": calls * movegen.dedups_per_call(mg)}
+    expect = {k: calls * v for k, v in per_call_launches(movegen, mg).items()}
     out = {"ranks": DP_RANKS, "batch": pod.ppo.num_envs,
            "batch_per_rank": pod.ppo.num_envs // DP_RANKS,
            "t_horizon": DP_T, "updates": DP_UPDATES, "backend": "gloo"}
@@ -1298,9 +1461,8 @@ def nccl_phase(torch, compaction, movegen, bg_env, learner, mesh,
         check(bool(torch.equal(plain_m[k], sharded_m[k])),
               f"NCCL world of one: metric {k} differs")
     calls = 1 + ppo.t_horizon
-    mg = cfg.env.movegen
-    expect = {"compact_rows": calls * movegen.compactions_per_call(mg),
-              "dedup_compact_rows": calls * movegen.dedups_per_call(mg)}
+    expect = {k: calls * v
+              for k, v in per_call_launches(movegen, cfg.env.movegen).items()}
     check(counted == expect, f"NCCL world of one: launches {counted}, "
           f"expected {expect}")
     return counted, per_rank
@@ -1463,10 +1625,9 @@ def distill_phase(torch, compaction, movegen, twoply, arena, learner, bg_env,
     mg = env_cfg.movegen
     calls = 1 + DISTILL_PLIES + 2 + plies[0]
     search = twoply.launches_per_decision(DISTILL_ENVS, scfg)
-    expect = {name: calls * per + DISTILL_PLIES * extra
-              for name, per, extra in zip(
-                  KERNELS, (movegen.compactions_per_call(mg),
-                            movegen.dedups_per_call(mg)), search)}
+    per = per_call_launches(movegen, mg)
+    expect = {name: calls * per[name] + DISTILL_PLIES * extra
+              for name, extra in zip(KERNELS, search)}
     check(counted == expect, f"distill launches {counted}, expected {expect}")
     agree = distill_agreement(torch, np, twoply, learner, bg_env, frozen,
                               run_distill, env_cfg, scfg, dev)
@@ -1486,12 +1647,12 @@ BREAKDOWN_JAX_KEYS = (
     "update_ms", "rollout_sps", "train_sps", "movegen_share_of_step")
 BREAKDOWN_SCANS = ("movegen", "movegen_nondoubles",
                    "movegen_doubles_subbatch", "movegen_dedup")
-# (compact_rows, dedup_compact_rows) launches of one call of each timed
-# movegen piece: the k1 and raw-block compactions and the dedup; the four
-# doubles levels; the dedup alone
-PIECE_LAUNCHES = {"movegen_nondoubles": (2, 1),
-                  "movegen_doubles_subbatch": (4, 0),
-                  "movegen_dedup": (0, 1)}
+# (compact_rows, dedup_compact_rows, doubles_level) launches of one call
+# of each timed movegen piece: the k1 and raw-block compactions and the
+# dedup; the four doubles levels; the dedup alone
+PIECE_LAUNCHES = {"movegen_nondoubles": (2, 1, 0),
+                  "movegen_doubles_subbatch": (0, 0, 4),
+                  "movegen_dedup": (0, 1, 0)}
 
 
 def bench_run(movegen, bench):
@@ -1524,10 +1685,8 @@ def bench_run(movegen, bench):
     for line in proc.stderr.splitlines():
         if "] launches " in line:
             counted = json.loads(line.split("] launches ", 1)[1])
-    expect = {name: BENCH_UPDATES * ppo.t_horizon * per
-              for name, per in zip(KERNELS, (
-                  movegen.compactions_per_call(env_cfg.movegen),
-                  movegen.dedups_per_call(env_cfg.movegen)))}
+    expect = {name: BENCH_UPDATES * ppo.t_horizon * per for name, per in
+              per_call_launches(movegen, env_cfg.movegen).items()}
     check(counted == expect, f"bench launches {counted}, expected {expect}")
     updates = [float(x.split("update ", 1)[1].split(": ", 1)[1].split("s ")[0])
                for x in proc.stderr.splitlines() if "] update " in x]
@@ -1542,7 +1701,7 @@ def breakdown_run(torch, compaction, movegen, profiling, perf_breakdown,
     and its twin under both widths, each time positive, each graph time
     at most 1.05 times its eager twin, both idle shares in [0, 1]; the
     launches of each ``timed_scan`` (counted at capture: the replays
-    count none) show that its movegen piece went through both kernels."""
+    count none) show that its movegen piece went through its kernels."""
     import contextlib
 
     inner, scans = perf_breakdown.timed_scan, []
@@ -1573,8 +1732,8 @@ def breakdown_run(torch, compaction, movegen, profiling, perf_breakdown,
                                      for i in range(0, len(scans),
                                                     len(BREAKDOWN_SCANS))]):
         cell = row[name]
-        per_call = dict(PIECE_LAUNCHES, movegen=(
-            movegen.compactions_per_call(mg), movegen.dedups_per_call(mg)))
+        per_call = dict(PIECE_LAUNCHES, movegen=tuple(
+            per_call_launches(movegen, mg).values()))
         for key, counts in zip(BREAKDOWN_SCANS, got):
             want = tuple(calls * n for n in per_call[key])
             check(counts == want, f"breakdown {name} {key}: launches "
@@ -1666,7 +1825,7 @@ def main(argv=None) -> int:
                                                       twoply)
         from mlp_ppo_2ply_p3_tpu_torch.core import movegen
         from mlp_ppo_2ply_p3_tpu_torch.env import bg_env
-        from mlp_ppo_2ply_p3_tpu_torch.ops import build, compaction
+        from mlp_ppo_2ply_p3_tpu_torch.ops import build, compaction, doubles
         from mlp_ppo_2ply_p3_tpu_torch.parallel import mesh
         from mlp_ppo_2ply_p3_tpu_torch.ppo import learner
         from mlp_ppo_2ply_p3_tpu_torch.ppo import train as train_mod
@@ -1689,10 +1848,13 @@ def main(argv=None) -> int:
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.time()
-    build.load("compaction")
+    built = build.load_all()
     report["phases"]["build_s"] = time.time() - t0
-    log(f"built compaction.cu (both kernels) in {time.time() - t0:.1f}s\n"
-        f"{build.build_logs.get('compaction', '(already built)').strip()}")
+    log(f"built {', '.join(f'{n}.cu' for n in built)} (one nvcc each, in "
+        f"parallel) in {time.time() - t0:.1f}s")
+    for name in built:
+        log(f"{name}.cu: "
+            f"{build.build_logs.get(name, '(already built)').strip()}")
 
     report["phases"]["edge_cases"] = edge_cases(torch, compaction, dev)
     log(f"compact_rows == plain on {len(report['phases']['edge_cases'])} "
@@ -1700,28 +1862,36 @@ def main(argv=None) -> int:
     report["phases"]["dedup_cases"] = dedup_cases(torch, compaction, dev)
     log(f"dedup_compact_rows == plain on "
         f"{len(report['phases']['dedup_cases'])} shapes")
+    report["phases"]["doubles_cases"] = doubles_cases(torch, doubles, dev)
+    log(f"doubles_level == plain on "
+        f"{len(report['phases']['doubles_cases'])} shapes")
 
     cfg = get_preset("train4096")
-    per_call, per_dedup, mg_ms, mg_graph_ms = movegen_phase(
+    per_call, per_dedup, per_level, mg_ms, mg_graph_ms = movegen_phase(
         torch, compaction, movegen, perf_twoply, profiling, cfg.env, dev)
     report["phases"]["movegen"] = {"ms_per_call": mg_ms,
                                    "graph_ms_per_call": mg_graph_ms,
                                    "compactions": per_call,
-                                   "dedups": per_dedup}
-    for name, rows in (("compact", per_call), ("dedup", per_dedup)):
+                                   "dedups": per_dedup, "levels": per_level}
+    for name, rows in (("compact", per_call), ("dedup", per_dedup),
+                       ("doubles level", per_level)):
         for row in rows:
             log(f"{name} {tuple(row['shape'])} -> {row['k_out']}: kernel "
                 f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     log(f"movegen B=4096: {mg_ms:.3f} ms/call ({mg_graph_ms:.3f} ms as a "
-        f"CUDA graph), kernel path == plain path")
-    # the league eval's and the arenas' movegen batches
+        f"CUDA graph), kernel path == plain path == CPU")
+    # the league eval's and the arenas' movegen batches, B=4096 at the
+    # default widths, and pod's B=16384
     eval_cfg = get_preset("twoply")
+    pod = get_preset("pod")
     report["phases"]["movegen_batches"] = movegen_batches_phase(
         torch, compaction, movegen, perf_twoply,
         [("league eval", cfg.env, cfg.eval_games)]
         + [(f"arena {pair}", eval_cfg.env, games)
-           for pair, games, _ in ARENA_PAIRS], dev)
+           for pair, games, _ in ARENA_PAIRS]
+        + [("default widths", eval_cfg.env, 4096),
+           ("pod", pod.env, pod.ppo.num_envs)], dev)
 
     diff = small_agreement_phase(torch, bg_env, learner, cfg, dev)
     report["phases"]["small_train_step_max_param_diff"] = diff
@@ -1788,7 +1958,6 @@ def main(argv=None) -> int:
     t0 = time.time()
     dp = dp_phase(torch, compaction, movegen, learner, train_mod,
                   get_preset, dev)
-    pod = get_preset("pod")
     log(f"reduced: pod t_horizon {pod.ppo.t_horizon} -> {DP_T}, "
         f"{DP_UPDATES} updates, no league eval")
     dp["nccl_world1_launches"], dp["movegen_per_rank"] = nccl_phase(
@@ -1879,7 +2048,7 @@ def main(argv=None) -> int:
                                                  eval_cfg.search))
         log(table)
 
-    def kernel_row(name, replaces, rows):
+    def kernel_row(name, replaces, rows, source="compaction.cu"):
         # times: one movegen call's launches (B=4096, train4096), summed;
         # launches: every path's run, summed, and by path
         bytes_ms = sum(r["bytes_ms"] for r in rows)
@@ -1887,7 +2056,7 @@ def main(argv=None) -> int:
         return {
             "name": name,
             "route": "cuda",
-            "source": "mlp_ppo_2ply_p3_tpu_torch/csrc/compaction.cu",
+            "source": f"mlp_ppo_2ply_p3_tpu_torch/csrc/{source}",
             "replaces": replaces,
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
@@ -1898,12 +2067,15 @@ def main(argv=None) -> int:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             # no single PyTorch call computes batched stable compaction,
             # nor ordered first-occurrence dedup at a fixed width
-            # (torch.unique keeps neither the order nor a static shape)
+            # (torch.unique keeps neither the order nor a static shape),
+            # nor the expansion of a frontier by backgammon submoves
             "library_ms": None,
         }
 
     kernels = [kernel_row("compact_rows", TPU_KERNELS, per_call),
-               kernel_row("dedup_compact_rows", DEDUP_REPLACES, per_dedup)]
+               kernel_row("dedup_compact_rows", DEDUP_REPLACES, per_dedup),
+               kernel_row("doubles_level", DOUBLES_REPLACES, per_level,
+                          "doubles.cu")]
     report["kernels"] = kernels
     report["script_s"] = time.time() - t_script
     log(f"chip_smoke.py ran {report['script_s']:.1f} s")

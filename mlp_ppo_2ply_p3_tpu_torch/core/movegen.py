@@ -18,11 +18,12 @@ no host synchronisation and truncates exactly where the JAX package does.
   so levels are plain stable compactions.  The final list is the deepest
   non-empty level.
 
-Every stable compaction, including the per-game k1 compaction and the
-doubles/non-doubles sub-batch split, goes through
-``ops.compaction.compact_rows``, and the non-doubles dedup with the
-compaction after it through ``ops.compaction.dedup_compact_rows``: CUDA
-kernels on the card, their plain PyTorch versions on the CPU.  Output
+Each doubles level (expansion, rank filter and compaction) is one
+``ops.doubles.doubles_level``; every other stable compaction, including
+the per-game k1 compaction and the doubles/non-doubles sub-batch split,
+goes through ``ops.compaction.compact_rows``, and the non-doubles dedup
+with the compaction after it through ``ops.compaction.dedup_compact_rows``:
+CUDA kernels on the card, their plain PyTorch versions on the CPU.  Output
 lists, counts and overflow flags are bit-identical to the JAX package's.
 """
 
@@ -33,7 +34,7 @@ import math
 
 import torch
 
-from ..ops import compaction
+from ..ops import compaction, doubles
 from ..parallel import mesh
 from . import board as B
 from .constants import NUM_CHECKERS
@@ -94,25 +95,8 @@ class MovegenConfig:
         )
 
 
-# Candidate-slot grid per die: 24 point origins + bar + farthest
-# bear-off + exact bear-off (see board.submoves_one_die).
-NSLOT = 27
-
-
-def _bcast(mask, x):
-    """Right-pad a leading-axis mask with singleton dims to x's rank."""
-    return mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
-
-
-def _perm_scan(x, mirror):
-    """Reorder (G, ..., 27) per-slot arrays into each game's scan order:
-    the reference scans point origins in ABSOLUTE ascending order for
-    both players, so for player-2 games (``mirror``, (G,) bool) the first
-    25 slots (points + bar) are flipped; the two bear-off slots stay
-    last."""
-    flipped = torch.cat([torch.flip(x[..., :25], dims=(-1,)), x[..., 25:]],
-                        dim=-1)
-    return torch.where(_bcast(mirror, x), flipped, x)
+# Candidate slots per die (the grid helpers live in ops.doubles)
+NSLOT = doubles.NSLOT
 
 
 def _arange_lt(k, n):
@@ -126,22 +110,9 @@ def _arange_lt(k, n):
 def _first_die(vecs, die, mirror):
     """One die from (G, 52) boards: (afterstates (G, 27, 52), valid
     (G, 27), origin (G, 27)) in scan order."""
-    v, o, d, h = (_perm_scan(a, mirror)
+    v, o, d, h = (doubles.perm_scan(a, mirror)
                   for a in B.submoves_one_die(vecs, die))
     return B.apply_submove(vecs[:, None, :], o, d, h), v, o
-
-
-def _expand_one_die(boards, valid, die, mirror):
-    """Expand (G, K, 52) frontiers by one die: returns
-    (after (G, K*NSLOT, 52), valid (G, K*NSLOT), origin (G, K*NSLOT)) over
-    the dense candidate grid, iterated in scan order."""
-    g, k = valid.shape
-    v, o, d, h = (_perm_scan(a, mirror)
-                  for a in B.submoves_one_die(boards, die[:, None]))
-    after = B.apply_submove(boards[:, :, None, :], o, d, h)  # (G,K,27,52)
-    val = valid[:, :, None] & v
-    return (after.reshape(g, k * NSLOT, 52), val.reshape(g, k * NSLOT),
-            o.reshape(g, k * NSLOT))
 
 
 def _compact_batch(payloads, valid, k_out: int):
@@ -207,7 +178,8 @@ def _one_order(vecs, d_first, d_second, k1, mirror):
     b1, v1, _ = _first_die(vecs, d_first, mirror)
     (b1c,), n1 = _compact_batch((b1,), v1, k1)  # <= 15 valid: never overflows
     v1c = _arange_lt(k1, n1)
-    pair_b, pair_v, _ = _expand_one_die(b1c, v1c, d_second, mirror)
+    pair_b, pair_v, _ = doubles.expand_one_die(b1c, v1c, d_second,
+                                               mirror)
     return b1c, v1c, pair_b, pair_v, pair_v.any(dim=1)
 
 
@@ -272,35 +244,23 @@ def _nondoubles_batch(vecs, d_hi, d_lo, cfg: MovegenConfig, mirror):
 # --- doubles ----------------------------------------------------------------
 
 
-def _rank_of(origin):
-    """Movement-direction rank of an origin (bar first)."""
-    return torch.where(origin == B.ORIGIN_BAR, -1, origin)
-
-
 def _doubles_batch(vecs, die, cfg: MovegenConfig, mirror):
     """(G,)-batched depth-4 frontier expansion with non-decreasing-origin
     canonicalization and no dedup (distinct non-decreasing origin
-    sequences give distinct boards), each level a plain stable
-    compaction."""
+    sequences give distinct boards): four ``doubles.doubles_level``
+    calls, the first on the roots as a one-row frontier with no rank
+    filter, each the level's expansion, rank filter and compaction."""
     m = cfg.max_moves
-    b1, v1, o1 = _first_die(vecs, die, mirror)
-    r1 = _rank_of(o1).to(I8)
-    (f1b, f1r), n1 = _compact_batch((b1, r1), v1, cfg.k1)
-    f1v = _arange_lt(cfg.k1, n1)
+    die, mirror = die.contiguous(), mirror.contiguous()
 
-    def level(fb, fr, fv, k_out):
-        eb, ev, eo = _expand_one_die(fb, fv, die, mirror)
-        erank = _rank_of(eo).to(I8)
-        parent = fr.to(I32).repeat_interleave(NSLOT, dim=1)
-        ev = ev & (erank.to(I32) >= parent)
-        has = ev.any(dim=1)
-        (nb, nr), n = _compact_batch((eb, erank), ev, k_out)
-        nv = _arange_lt(k_out, torch.clamp(n, max=k_out))
-        return nb, nr, nv, n, has
+    def level(fb, fr, n, k_out):
+        return doubles.doubles_level(fb, fr, n, die, mirror, k_out)
 
-    f2b, f2r, f2v, n2, has2 = level(f1b, f1r, f1v, cfg.k2)
-    f3b, f3r, f3v, n3, has3 = level(f2b, f2r, f2v, cfg.k3)
-    f4b, _, _, n4, has4 = level(f3b, f3r, f3v, m)
+    f1b, f1r, n1 = level(vecs.contiguous()[:, None, :], None, None, cfg.k1)
+    f2b, f2r, n2 = level(f1b, f1r, n1, cfg.k2)
+    f3b, f3r, n3 = level(f2b, f2r, n2, cfg.k3)
+    f4b, _, n4 = level(f3b, f3r, n3, m)
+    has2, has3, has4 = n2 > 0, n3 > 0, n4 > 0
 
     # deepest non-empty level is the legal move list
     l1b, l1n = _embed(f1b, n1, m)
@@ -333,7 +293,7 @@ def _doubles_exact(vecs, die, cfg: MovegenConfig, mirror):
     f1v = _arange_lt(cfg.k1, n1)
 
     def level(fb, fkeep, k_out):
-        eb, ev, _ = _expand_one_die(fb, fkeep, die, mirror)
+        eb, ev, _ = doubles.expand_one_die(fb, fkeep, die, mirror)
         has = ev.any(dim=1)
         n_pre = ev.sum(dim=1, dtype=I32)
         (nb,), _ = _compact_batch((eb,), ev, k_out)
@@ -396,9 +356,15 @@ def nondoubles_capacity(batch_size: int,
 def compactions_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:
     """Number of ``compact_rows`` calls one ``legal_afterstates_batch``
     makes: the two sub-batch splits, the stacked k1 compaction and the
-    raw non-doubles block, and the doubles levels."""
-    doubles = 7 if cfg.exact_order else 4
-    return 2 + 2 + doubles
+    raw non-doubles block, and under ``exact_order`` the seven of the
+    doubles levels."""
+    return 2 + 2 + (7 if cfg.exact_order else 0)
+
+
+def doubles_levels_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:
+    """Number of ``doubles_level`` calls one ``legal_afterstates_batch``
+    makes: the four doubles levels, unless ``exact_order``."""
+    return 0 if cfg.exact_order else 4
 
 
 def dedups_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:

@@ -52,24 +52,49 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
+def sources() -> tuple[str, ...]:
+    """The names of every ``csrc/<name>.cu``."""
+    return tuple(sorted(p.stem for p in CSRC_DIR.glob("*.cu")))
+
+
+def build_all(names=None) -> dict[str, Path]:
+    """Compile each ``csrc/<name>.cu`` (by default every source) unless
+    its library is already built: one nvcc process per source, all
+    started together.  Returns the library paths by name."""
+    names = sources() if names is None else tuple(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = {}
+    try:
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC_DIR / f"{name}.cu")]
+            running[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True), tmp, out)
+        for name, (proc, tmp, out) in running.items():
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
+                    f"{stdout}\n{stderr}"
+                )
+            build_logs[name] = stdout + stderr
+            os.replace(tmp, out)
+    finally:
+        for proc, _, _ in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {name: library_path(name) for name in names}
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    build_logs[name] = proc.stdout + proc.stderr
-    os.replace(tmp, out)
-    return out
+    return build_all((name,))[name]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -80,3 +105,12 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
         return lib
+
+
+def load_all() -> dict[str, ctypes.CDLL]:
+    """Build every missing library at once (``build_all``), then load
+    every source's."""
+    names = sources()
+    with _lock:
+        build_all(n for n in names if n not in _loaded)
+    return {name: load(name) for name in names}

@@ -22,7 +22,7 @@ Robustness, as in ``bench.py``:
     also stops early rather than overrun it.
 
 Timing: one untimed warm-up ``train_step`` first (it holds the first
-launch of every kernel; the nvcc build of ``csrc/compaction.cu`` runs
+launch of every kernel; the nvcc builds of ``csrc/*.cu`` run
 before it, also off the clock, and its seconds are logged).  Each timed
 update is host wall time around ``train_step`` and a
 ``torch.cuda.synchronize``, less the fence's own round trip measured on
@@ -64,7 +64,7 @@ from .. import resolve_device
 from ..core.movegen import MovegenConfig
 from ..env import bg_env
 from ..models.mlp import ModelConfig
-from ..ops import compaction
+from ..ops import compaction, doubles
 from ..ppo import learner
 from ..utils.config import get_preset
 from ..utils.profiling import device_label
@@ -175,8 +175,9 @@ def run(progress: Progress, env_cfg, model_cfg, ppo_cfg, timed_updates: int,
 
         progress.stage = "build"
         t0 = time.time()
-        build.load("compaction")
-        progress.log(f"kernels built and loaded (csrc/compaction.cu) in "
+        built = build.load_all()
+        sources = ", ".join(f"csrc/{name}.cu" for name in built)
+        progress.log(f"kernels built and loaded ({sources}) in "
                      f"{time.time() - t0:.1f}s")
 
     progress.stage = "init-and-reset"
@@ -207,6 +208,7 @@ def run(progress: Progress, env_cfg, model_cfg, ppo_cfg, timed_updates: int,
     n_chips = 1     # the cards this process uses
     compaction.compact_rows.launches = 0
     compaction.dedup_compact_rows.launches = 0
+    doubles.doubles_level.launches = 0
     update_s, sps = [], 0.0
     for i in range(timed_updates):
         elapsed = time.time() - progress.t0
@@ -236,7 +238,8 @@ def run(progress: Progress, env_cfg, model_cfg, ppo_cfg, timed_updates: int,
                      f"{[round(x, 3) for x in update_s]}")
     progress.log("launches " + json.dumps({
         "compact_rows": compaction.compact_rows.launches,
-        "dedup_compact_rows": compaction.dedup_compact_rows.launches}))
+        "dedup_compact_rows": compaction.dedup_compact_rows.launches,
+        "doubles_level": doubles.doubles_level.launches}))
     return BenchResult(ts, env_state, update_s, sps)
 
 

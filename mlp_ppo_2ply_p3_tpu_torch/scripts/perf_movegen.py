@@ -41,6 +41,7 @@ from ..core import board as Bd
 from ..core import movegen as MG
 from ..env import bg_env
 from ..ops import compaction as OC
+from ..ops import doubles as OD
 from ..utils.profiling import device_label, timed_eager, timed_scan
 
 
@@ -141,7 +142,7 @@ def main(argv=None):
     die = torch.full((bd,), 3, dtype=torch.int32, device=dev)
     if want("exp4"):
         timed("dbl_expand_L4_ms",
-              lambda f, v, d: MG._expand_one_die(f, v, d, mir[:bd]),
+              lambda f, v, d: OD.expand_one_die(f, v, d, mir[:bd]),
               f3, f3v, die)
 
     if want("kernels"):

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card (``csrc/compaction.cu``).
+"""The port's CUDA kernels on the card (``csrc/compaction.cu``,
+``csrc/doubles.cu``).
 
 Every test here needs an NVIDIA card and skips without one: a CUDA
 kernel has no CPU mode.  The file imports neither JAX nor the JAX
@@ -8,8 +9,9 @@ package, so it also runs on a machine that has only PyTorch:
         tests/test_torch_cuda.py
 
 (``--noconftest`` because ``tests/conftest.py`` configures JAX).  The CPU
-parity of the plain version with the JAX Pallas kernels is in
-``tests/test_torch_compaction.py`` and ``tests/test_torch_dedup.py``."""
+parity of the plain versions with the JAX package is in
+``tests/test_torch_compaction.py``, ``tests/test_torch_dedup.py`` and
+``tests/test_torch_doubles.py``."""
 
 import dataclasses
 
@@ -20,6 +22,7 @@ import torch
 from mlp_ppo_2ply_p3_tpu_torch.core import movegen as TM
 from mlp_ppo_2ply_p3_tpu_torch.env import bg_env as TE
 from mlp_ppo_2ply_p3_tpu_torch.ops import compaction as TC
+from mlp_ppo_2ply_p3_tpu_torch.ops import doubles as TD
 
 pytestmark = pytest.mark.cuda
 
@@ -177,6 +180,141 @@ def test_kernel_rejects_bad_inputs(card):
         TC.compact_rows(payload, valid.cpu(), 4)
 
 
+def _doubles_board(my=None, opp=None, bar=0, off=0):
+    b = np.zeros(52, np.int8)
+    for p, c in (my or {}).items():
+        b[p] = c
+    for p, c in (opp or {}).items():
+        b[24 + p] = c
+    b[48], b[50] = bar, off
+    return b
+
+
+# canonical boards that reach every slot kind (the CPU file
+# tests/test_torch_doubles.py holds the same ones against JAX): entry on
+# a blot, a block and open points; every entry blocked; bear-off exact
+# from the farthest point, overshooting, and exact from a nearer point;
+# game over; a sub-batch's all-zero padding row
+DOUBLES_BOARDS = [
+    _doubles_board({5: 6, 12: 5, 16: 2}, {0: 1, 1: 2, 3: 3, 10: 1}, bar=2),
+    _doubles_board({12: 14}, {p: 2 for p in range(6)}, bar=1),
+    _doubles_board({20: 3, 22: 2, 23: 1}, {3: 2}, off=9),
+    _doubles_board({18: 1, 21: 2, 23: 4}, {}, off=8),
+    _doubles_board({}, {4: 2}, off=15),
+    _doubles_board(),
+]
+
+
+def _doubles_frontier(seed, g, k, root):
+    """Random (G, K, 52) frontier rows: sparse counts (some negative,
+    which the rules never make), some rows on the bar, half of them all
+    home, a tenth game over, the edge boards above spread in; parent ranks
+    with many bars; ragged valid counts (some above K); dice 0..6 (a die 0
+    game is all-zero padding); mirrored games."""
+    r = np.random.default_rng(seed)
+    b = r.integers(-2, 16, (g, k, 52)).astype(np.int8)
+    b[:, :, :48] *= r.random((g, k, 48)) < 0.4
+    b[:, :, 48] *= r.random((g, k)) < 0.3
+    b[r.random((g, k)) < 0.5, :18] = 0
+    b[:, :, 50] = np.where(r.random((g, k)) < 0.1, 15, b[:, :, 50] % 15)
+    edge = r.integers(0, len(DOUBLES_BOARDS), (g, k))
+    pick = r.random((g, k)) < 0.2
+    b[pick] = np.stack(DOUBLES_BOARDS)[edge[pick]]
+    ranks = r.integers(-128, 25, (g, k)).astype(np.int8)
+    ranks[r.random((g, k)) < 0.4] = -1
+    n_in = r.integers(0, k + 3, g).astype(np.int32)
+    die = r.integers(1, 7, g).astype(np.int32)
+    pad = r.random(g) < 0.1
+    b[pad], die[pad] = 0, 0
+    mirror = r.random(g) < 0.5
+    if root:
+        return b[:, :1], None, None, die, mirror
+    return b, ranks, n_in, die, mirror
+
+
+# (G, K, k_out, root): roots (K = 1, no rank filter), the fast widths of
+# every level at B=4096's doubles sub-batch (875 games), counts above
+# k_out, k_out = 0, several chunks of 128 rows, the parity width
+DOUBLES_CASES = [
+    (7, 1, 16, True),
+    (875, 1, 16, True),
+    (875, 16, 80, False),
+    (875, 80, 192, False),
+    (875, 192, 256, False),
+    (300, 40, 5, False),
+    (64, 30, 0, False),
+    (40, 300, 500, False),
+    (16, 512, 500, False),
+    (5, 129, 3000, False),
+]
+
+
+@pytest.mark.parametrize("g,k,k_out,root", DOUBLES_CASES)
+def test_doubles_level_matches_plain(card, g, k, k_out, root):
+    b, ranks, n_in, die, mirror = _doubles_frontier(g * 31 + k, g, k, root)
+    t = lambda x: None if x is None else torch.from_numpy(x).to(card)
+    args = (t(b), t(ranks), t(n_in), t(die), t(mirror))
+    before = TD.doubles_level.launches
+    got = TD.doubles_level(*args, k_out)
+    assert TD.doubles_level.launches == before + 1
+    want = TD.doubles_level_plain(*args, k_out)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert int(want[2].sum()) > 0
+    # uint8 mirror flags and boards at an odd address take the same kernel
+    raw = torch.zeros(b.size + 3, dtype=torch.int8, device=card)
+    raw[3:] = args[0].reshape(-1)
+    odd = raw[3:].view(args[0].shape)
+    got = TD.doubles_level(odd, *args[1:4], args[4].to(torch.uint8), k_out)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_doubles_levels_on_played_boards(card):
+    """The four levels at ``fast()``'s widths on the boards of 900 games
+    after a few random env steps, every game given a double: kernel ==
+    plain at each level, on the plain level's own inputs."""
+    cfg = TE.EnvConfig(movegen=TM.MovegenConfig.fast(256))
+    gen = torch.Generator(device=card).manual_seed(5)
+    es = TE.reset(gen, cfg, 900, device=card)
+    for _ in range(10):
+        u = torch.rand((900,), generator=gen, device=card)
+        es, _ = TE.step(es, (u * es.n_moves.clamp(min=1)).to(torch.int32),
+                        gen, cfg)
+    from mlp_ppo_2ply_p3_tpu_torch.core import board
+
+    vecs = board.to_canonical(es.points, es.bar, es.off, es.turn)
+    die = es.dice[:, 0].to(torch.int32).contiguous()
+    mirror = (es.turn == 1).contiguous()
+    level = (vecs[:, None, :].contiguous(), None, None)
+    mg = cfg.movegen
+    for k_out in (mg.k1, mg.k2, mg.k3, mg.max_moves):
+        got = TD.doubles_level(*level, die, mirror, k_out)
+        want = TD.doubles_level_plain(*level, die, mirror, k_out)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        level = want
+    assert int(level[2].sum()) > 0
+
+
+def test_doubles_level_rejects_bad_inputs(card):
+    b = torch.zeros((2, 8, 52), dtype=torch.int8, device=card)
+    ranks = torch.zeros((2, 8), dtype=torch.int8, device=card)
+    n = torch.full((2,), 8, dtype=torch.int32, device=card)
+    die = torch.ones((2,), dtype=torch.int32, device=card)
+    mirror = torch.zeros((2,), dtype=torch.bool, device=card)
+    with pytest.raises(ValueError):
+        TD.doubles_level(b.int(), ranks, n, die, mirror, 4)
+    with pytest.raises(ValueError):
+        TD.doubles_level(b, ranks, n, die.cpu(), mirror, 4)
+    with pytest.raises(ValueError):
+        TD.doubles_level(b, ranks, n, die.long(), mirror, 4)
+    with pytest.raises(ValueError):
+        TD.doubles_level(b[:, ::2], ranks[:, ::2], n, die, mirror, 4)
+
+
 def test_movegen_kernel_path_matches_plain_and_cpu(card, monkeypatch):
     """B=600 (>= 512: the sub-batch partition is active) on boards from
     a few random-play env steps."""
@@ -192,15 +330,19 @@ def test_movegen_kernel_path_matches_plain_and_cpu(card, monkeypatch):
     args = (vecs, es.dice, cfg.movegen, es.turn == 1)
     before = TC.compact_rows.launches
     before_dedup = TC.dedup_compact_rows.launches
+    before_level = TD.doubles_level.launches
     got = TM.legal_afterstates_batch(*args)
     assert (TC.compact_rows.launches - before
-            == TM.compactions_per_call(cfg.movegen))
+            == TM.compactions_per_call(cfg.movegen) == 4)
     assert (TC.dedup_compact_rows.launches - before_dedup
             == TM.dedups_per_call(cfg.movegen) == 1)
+    assert (TD.doubles_level.launches - before_level
+            == TM.doubles_levels_per_call(cfg.movegen) == 4)
     cpu = TM.legal_afterstates_batch(*(a.cpu() if torch.is_tensor(a) else a
                                        for a in args))
     monkeypatch.setattr(TC, "compact_rows", TC.compact_rows_plain)
     monkeypatch.setattr(TC, "dedup_compact_rows", TC.dedup_compact_rows_plain)
+    monkeypatch.setattr(TD, "doubles_level", TD.doubles_level_plain)
     plain = TM.legal_afterstates_batch(*args)
     torch.cuda.synchronize()
     for g, p, c in zip(got, plain, cpu):
@@ -225,13 +367,16 @@ def test_twoply_kernel_path_matches_plain(card, monkeypatch, width):
         u = torch.rand((32,), generator=gen, device=card)
         es, _ = TE.step(es, (u * es.n_moves.clamp(min=1)).to(torch.int32),
                         gen, cfg.env)
-    before = (TC.compact_rows.launches, TC.dedup_compact_rows.launches)
+    before = (TC.compact_rows.launches, TC.dedup_compact_rows.launches,
+              TD.doubles_level.launches)
     got = twoply.twoply_actions_values(model, es, scfg)
     counted = (TC.compact_rows.launches - before[0],
-               TC.dedup_compact_rows.launches - before[1])
+               TC.dedup_compact_rows.launches - before[1],
+               TD.doubles_level.launches - before[2])
     assert counted == twoply.launches_per_decision(32, scfg)
     monkeypatch.setattr(TC, "compact_rows", TC.compact_rows_plain)
     monkeypatch.setattr(TC, "dedup_compact_rows", TC.dedup_compact_rows_plain)
+    monkeypatch.setattr(TD, "doubles_level", TD.doubles_level_plain)
     plain = twoply.twoply_actions_values(model, es, scfg)
     torch.cuda.synchronize()
     for g, p in zip(got, plain):

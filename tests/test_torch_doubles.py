@@ -1,0 +1,261 @@
+"""Port parity: one doubles frontier level (``ops/doubles.py``).
+
+``doubles_level_plain`` (what ``doubles_level`` runs on the CPU, and what
+``chip_smoke.py`` holds the CUDA kernel against on the card) must give the
+JAX package's level bit for bit: the next frontier's boards, its origin
+ranks and the unclamped candidate counts.  The JAX level is built here
+from the JAX package's own module functions, as its ``_doubles_batch``
+builds it (``mlp_ppo_2ply_p3_tpu/core/movegen.py:395-416``, with the jnp
+compaction); the root level is its ``first`` + compaction.  Inputs are
+made with numpy from a seed."""
+
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from mlp_ppo_2ply_p3_tpu.core import board as JB
+from mlp_ppo_2ply_p3_tpu.core import movegen as JM
+from mlp_ppo_2ply_p3_tpu_torch.core import movegen as TM
+from mlp_ppo_2ply_p3_tpu_torch.ops import doubles as TD
+
+from .test_torch_utils import canonical, nn_, random_positions, tt
+
+
+@partial(jax.jit, static_argnames=("k_out",))
+def jax_root(vecs, die, mirror, k_out):
+    """The JAX package's first doubles level on (G, 52) root boards."""
+    def first(vec, d, mi):
+        v1, o1, d1, h1 = (JM._perm_scan(a, mi)
+                          for a in JB.submoves_one_die(vec, d))
+        b1 = jax.vmap(JB.apply_submove, (None, 0, 0, 0))(vec, o1, d1, h1)
+        return b1, JM._rank_of(o1).astype(jnp.int8), v1
+
+    b1, r1, v1 = jax.vmap(first)(vecs, die, mirror)
+    (nb, nr), n = JM._compact_batch((b1, r1), v1, k_out, False)
+    return nb, nr, n
+
+
+@partial(jax.jit, static_argnames=("k_out",))
+def jax_level(fb, fr, n_in, die, mirror, k_out):
+    """The JAX package's doubles ``level`` on a (G, K, 52) frontier."""
+    fv = jnp.arange(fb.shape[1])[None, :] < jnp.minimum(
+        n_in, fb.shape[1])[:, None]
+    eb, ev, eo = jax.vmap(JM._expand_one_die)(fb, fv, die, mirror)
+    erank = JM._rank_of(eo).astype(jnp.int8)
+    parent = jnp.repeat(fr.astype(jnp.int32), JM.NSLOT, axis=1)
+    ev = ev & (erank.astype(jnp.int32) >= parent)
+    (nb, nr), n = JM._compact_batch((eb, erank), ev, k_out, False)
+    return nb, nr, n
+
+
+def _same(got, want, what):
+    for g, w, name in zip(got, want, ("boards", "ranks", "n")):
+        np.testing.assert_array_equal(nn_(g), np.asarray(w),
+                                      err_msg=f"{what}: {name}")
+
+
+def run_chain(vecs, die, mirror, widths):
+    """Roots through ``len(widths)`` levels, each level's port output
+    held against the JAX level on the same inputs.  Returns the port's
+    counts of every level."""
+    v, d, m = (np.asarray(x) for x in (vecs, die, mirror))
+    got = TD.doubles_level_plain(tt(v)[:, None, :], None, None, tt(d), tt(m),
+                                 widths[0])
+    _same(got, jax_root(v, d, m, k_out=widths[0]), "level 1")
+    counts = [nn_(got[2])]
+    for lvl, w in enumerate(widths[1:], start=2):
+        fb, fr, n = got
+        got = TD.doubles_level_plain(fb, fr, n, tt(d), tt(m), w)
+        want = jax_level(nn_(fb), nn_(fr), nn_(n), d, m, k_out=w)
+        _same(got, want, f"level {lvl}")
+        counts.append(nn_(got[2]))
+    return counts
+
+
+def _positions(seed, g, stage):
+    rng = np.random.default_rng(seed)
+    boards, players = random_positions(rng, g, stage)
+    die = rng.integers(1, 7, g).astype(np.int32)
+    return canonical(boards, players).astype(np.int8), die, players == 1
+
+
+FAST = (16, 80, 192, 256)
+
+
+@pytest.mark.parametrize("stage", ["any", "bar", "bearoff"])
+def test_level_chain_matches_jax(stage):
+    """Four levels at ``fast()``'s widths on random positions of both
+    players, with an all-zero padding row of die 0 and a game-over
+    board."""
+    vecs, die, mirror = _positions(7 + len(stage), 24, stage)
+    vecs[5], die[5] = 0, 0            # a sub-batch's padding row
+    vecs[6, 50] = 15                  # game over: no submove
+    counts = run_chain(vecs, die, mirror, FAST)
+    assert counts[0][5] == counts[0][6] == 0
+    assert counts[-1].sum() > 0
+
+
+def _board(my=None, opp=None, bar=0, off=0):
+    b = np.zeros(52, np.int8)
+    for p, c in (my or {}).items():
+        b[p] = c
+    for p, c in (opp or {}).items():
+        b[24 + p] = c
+    b[48], b[50] = bar, off
+    return b
+
+
+# canonical boards (the mover travels 0 -> 23, enters from the bar on
+# die - 1, bears off past 23), each played with every die, unmirrored
+# and mirrored
+EDGE_BOARDS = {
+    # entry on a blot (die 1: hit), a block (die 2), open points
+    "bar_entry": _board({5: 6, 12: 5, 16: 2}, {0: 1, 1: 2, 3: 3, 10: 1},
+                        bar=2),
+    "bar_blocked": _board({12: 14}, {p: 2 for p in range(6)}, bar=1),
+    # farthest home point 20: die 4 bears off exactly from the farthest
+    # point, 5 and 6 overshoot, 1 and 2 bear off exactly from 23 and 22,
+    # which differ from the farthest
+    "bearoff": _board({20: 3, 22: 2, 23: 1}, {3: 2}, off=9),
+    "bearoff_exact_not_farthest": _board({18: 1, 21: 2, 23: 4}, {}, off=8),
+    "game_over": _board({}, {4: 2}, off=15),
+    "padding": _board(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_BOARDS))
+def test_edge_positions_match_jax(name):
+    vecs = np.stack([EDGE_BOARDS[name]] * 12)
+    die = np.tile(np.arange(1, 7, dtype=np.int32), 2)
+    if name == "padding":
+        die[:] = 0
+    mirror = np.arange(12) >= 6
+    counts = run_chain(vecs, die, mirror, FAST)
+    if name in ("bar_blocked", "game_over", "padding"):
+        assert all(c.sum() == 0 for c in counts)
+    else:
+        assert counts[0].sum() > 0
+    if name == "bar_entry":   # die 2 meets the block
+        assert counts[0][1] == counts[0][7] == 0
+
+
+def test_truncation_and_overflow():
+    """Widths below the counts: the outputs truncate in order and the
+    counts stay unclamped."""
+    vecs, die, mirror = _positions(31, 16, "any")
+    counts = run_chain(vecs, die, mirror, (4, 3, 2, 1))
+    assert (counts[1] > 3).any() and (counts[3] > 1).any()
+
+
+def test_parity_wide_frontier():
+    """A frontier as wide as ``parity()``'s k3 (512 rows), every row a
+    random position with a random parent rank, and ``max_moves`` (500)
+    out: hundreds of valid rows a game (several chunks of the kernel)."""
+    g, k = 3, 512
+    rng = np.random.default_rng(47)
+    boards, players = random_positions(rng, g * k, "any")
+    fb = canonical(boards, players).astype(np.int8).reshape(g, k, 52)
+    fr = rng.integers(-1, 24, (g, k)).astype(np.int8)
+    n = np.array([k, 300, 129], np.int32)
+    die = np.array([1, 3, 6], np.int32)
+    mirror = np.array([False, True, False])
+    got = TD.doubles_level_plain(tt(fb), tt(fr), tt(n), tt(die), tt(mirror),
+                                 500)
+    _same(got, jax_level(fb, fr, n, die, mirror, k_out=500), "512 rows")
+    assert (nn_(got[2]) > 500).any()
+
+
+@settings(max_examples=20, deadline=None, derandomize=True, database=None)
+@given(seed=st.integers(0, 2**31 - 1),
+       stage=st.sampled_from(["any", "bar", "bearoff"]),
+       k_out=st.sampled_from([1, 8, 64]),
+       parent=st.integers(-128, 24))
+def test_random_levels_match_jax(seed, stage, k_out, parent):
+    """Random positions and dice through the root level and two more,
+    the second level's frontier given a random parent rank on some rows
+    (ranks the canonical path would never produce)."""
+    vecs, die, mirror = _positions(seed, 8, stage)
+    rng = np.random.default_rng(seed)
+    got = TD.doubles_level_plain(tt(vecs)[:, None, :], None, None, tt(die),
+                                 tt(mirror), 16)
+    _same(got, jax_root(vecs, die, mirror, k_out=16), "root")
+    fb, fr, n = (nn_(x) for x in got)
+    fr = np.where(rng.random(fr.shape) < 0.3, np.int8(parent), fr)
+    n = np.minimum(n, rng.integers(0, 17, n.shape)).astype(np.int32)
+    for w in (40, k_out):
+        got = TD.doubles_level_plain(tt(fb), tt(fr), tt(n), tt(die),
+                                     tt(mirror), w)
+        _same(got, jax_level(fb, fr, n, die, mirror, k_out=w), f"to {w}")
+        fb, fr, n = (nn_(x) for x in got)
+
+
+def test_wrapper_on_cpu_and_its_checks():
+    """On CPU tensors the wrapper is the plain version and launches
+    nothing; it refuses what the kernel does not take."""
+    vecs, die, mirror = _positions(3, 6, "any")
+    args = (tt(vecs)[:, None, :], None, None, tt(die), tt(mirror))
+    before = TD.doubles_level.launches
+    got = TD.doubles_level(*args, 16)
+    want = TD.doubles_level_plain(*args, 16)
+    assert TD.doubles_level.launches == before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    fb, fr, n = got
+    u8 = TD.doubles_level(fb, fr, n, tt(die), tt(mirror).to(torch.uint8), 9)
+    for g, w in zip(u8, TD.doubles_level_plain(fb, fr, n, tt(die),
+                                               tt(mirror), 9)):
+        assert torch.equal(g, w)
+    bad = [
+        (fb.to(torch.int32), fr, n, tt(die), tt(mirror), 4),
+        (fb, fr.to(torch.int32), n, tt(die), tt(mirror), 4),
+        (fb, fr, n.to(torch.int64), tt(die), tt(mirror), 4),
+        (fb, fr, n, tt(die)[:3], tt(mirror), 4),
+        (fb, fr, n, tt(die), tt(mirror), -1),
+        (fb, None, n, tt(die), tt(mirror), 4),
+        (fb.transpose(0, 1).contiguous().transpose(0, 1), fr, n, tt(die),
+         tt(mirror), 4),
+    ]
+    for a in bad:
+        with pytest.raises(ValueError):
+            TD.doubles_level(*a)
+
+
+@pytest.mark.parametrize("name", ["fast", "default"])
+def test_movegen_through_levels_matches_jax(name, monkeypatch):
+    """``legal_afterstates_batch`` with its doubles sub-batch on
+    ``doubles_level`` equals JAX at ``fast()`` and the default widths,
+    on a batch of doubles and non-doubles with the partition active
+    (B = 600), and makes ``doubles_levels_per_call`` level calls."""
+    cfgs = {"fast": dict(max_moves=256, k2=80, k3=192, dedup_width=288,
+                         dbl_div=5, dbl_add=56),
+            "default": dict(max_moves=256)}
+    jcfg, tcfg = JM.MovegenConfig(**cfgs[name]), TM.MovegenConfig(
+        **cfgs[name])
+    rng = np.random.default_rng(600 + len(name))
+    b = 600
+    boards, players = random_positions(rng, b, "any")
+    dice = rng.integers(1, 7, (b, 2)).astype(np.int8)
+    vecs, mirror = canonical(boards, players), players == 1
+    want = JM.legal_afterstates_batch(jnp.asarray(vecs), jnp.asarray(dice),
+                                      jcfg, mirror=jnp.asarray(mirror))
+    calls = []
+    real = TD.doubles_level
+
+    def counted(*a):
+        calls.append(a[-1])
+        return real(*a)
+
+    monkeypatch.setattr(TD, "doubles_level", counted)
+    got = TM.legal_afterstates_batch(tt(vecs), tt(dice), tcfg,
+                                     mirror=tt(mirror))
+    for g, w, what in zip(got, want, ("boards", "n_moves", "overflow")):
+        np.testing.assert_array_equal(nn_(g), np.asarray(w), err_msg=what)
+    assert calls == [tcfg.k1, tcfg.k2, tcfg.k3, tcfg.max_moves]
+    assert len(calls) == TM.doubles_levels_per_call(tcfg) == 4
+    assert TM.doubles_levels_per_call(TM.MovegenConfig.parity()) == 0

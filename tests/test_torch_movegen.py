@@ -15,6 +15,7 @@ from mlp_ppo_2ply_p3_tpu.core import movegen as JM
 from mlp_ppo_2ply_p3_tpu.core import oracle
 from mlp_ppo_2ply_p3_tpu_torch.core import movegen as TM
 from mlp_ppo_2ply_p3_tpu_torch.ops import compaction as TC
+from mlp_ppo_2ply_p3_tpu_torch.ops import doubles as TD
 
 from .test_movegen import abs_to_canonical_np, canonical_to_abs_np
 from .test_torch_utils import canonical, nn_, random_positions, tt
@@ -212,20 +213,27 @@ def test_set_equality_with_oracle():
 ])
 def test_kernel_selectors_and_dedup_off(over, monkeypatch):
     """Every kernel selector gives the JAX result; dedup=False too.  The
-    number of compactions per call is what compactions_per_call says.
+    numbers of compactions and doubles levels per call are what
+    compactions_per_call and doubles_levels_per_call say.
     (16 games: the JAX Pallas kernels run in interpret mode here.)"""
     b = 16
     rng = np.random.default_rng(17)
     boards, players = random_positions(rng, b, "any")
     dice = rng.integers(1, 7, (b, 2)).astype(np.int8)
-    calls = []
-    real = TC.compact_rows
+    calls, levels = [], []
+    real, real_level = TC.compact_rows, TD.doubles_level
 
     def counting(payload, valid, k_out):
         calls.append(k_out)
         return real(payload, valid, k_out)
 
+    def counting_level(*args):
+        levels.append(args[-1])
+        return real_level(*args)
+
     monkeypatch.setattr(TC, "compact_rows", counting)
+    monkeypatch.setattr(TD, "doubles_level", counting_level)
     _batch(canonical(boards, players), dice, players == 1, "fast", **over)
     _, tcfg = _cfgs("fast", **over)
-    assert len(calls) == TM.compactions_per_call(tcfg)
+    assert len(calls) == TM.compactions_per_call(tcfg) == 4
+    assert len(levels) == TM.doubles_levels_per_call(tcfg) == 4

@@ -28,6 +28,7 @@ from mlp_ppo_2ply_p3_tpu_torch.agents import twoply as TT
 from mlp_ppo_2ply_p3_tpu_torch.core import movegen as TMG
 from mlp_ppo_2ply_p3_tpu_torch.env import bg_env as TE
 from mlp_ppo_2ply_p3_tpu_torch.ops import compaction as TC
+from mlp_ppo_2ply_p3_tpu_torch.ops import doubles as TD
 from mlp_ppo_2ply_p3_tpu_torch.utils import convert
 from mlp_ppo_2ply_p3_tpu_torch.utils.config import SearchConfig, get_preset
 
@@ -150,7 +151,7 @@ def test_launches_per_decision(monkeypatch, width, chunk):
     formula that ``chip_smoke.py`` holds the card's launches to."""
     _, model = models(4)
     _, ts = both_states(17, 2)
-    calls = {"compact": 0, "dedup": 0}
+    calls = {"compact": 0, "dedup": 0, "level": 0}
 
     def counted(name, fn):
         def wrapper(*args):
@@ -162,16 +163,19 @@ def test_launches_per_decision(monkeypatch, width, chunk):
                         counted("compact", TC.compact_rows_plain))
     monkeypatch.setattr(TC, "dedup_compact_rows",
                         counted("dedup", TC.dedup_compact_rows_plain))
+    monkeypatch.setattr(TD, "doubles_level",
+                        counted("level", TD.doubles_level_plain))
     scfg = SearchConfig(top_k=4, reply_max_moves=width, game_chunk=chunk,
                         dbl_game_chunk=chunk)
     TT.twoply_actions_values(model, ts, scfg)
-    assert (calls["compact"], calls["dedup"]) == TT.launches_per_decision(
-        2, scfg)
-    # B=256 at the JAX package's chunks: 1 x 15 x 2 + 4 x 6 x 4, no
-    # dedup; at the port's, the doubles leg is one chunk: 30 + 1 x 6 x 4
+    assert (calls["compact"], calls["dedup"],
+            calls["level"]) == TT.launches_per_decision(2, scfg)
+    # B=256 at the JAX package's chunks: 1 x 15 x 2 compactions, no
+    # dedup, 4 x 6 x 4 doubles levels; at the port's, the doubles leg is
+    # one chunk: 1 x 6 x 4 levels
     jax_chunks = SearchConfig(game_chunk=2048, dbl_game_chunk=512)
-    assert TT.launches_per_decision(256, jax_chunks) == (126, 0)
-    assert TT.launches_per_decision(256, SearchConfig()) == (54, 0)
+    assert TT.launches_per_decision(256, jax_chunks) == (30, 0, 96)
+    assert TT.launches_per_decision(256, SearchConfig()) == (30, 0, 24)
 
 
 def test_twoply_matches_bruteforce():
