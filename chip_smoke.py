@@ -8,45 +8,50 @@ Phases (any failure exits non-zero and prints no result line):
 1. Device check: needs ``torch.cuda.is_available()``; prints the card's
    ``nvidia-smi`` name and power limit.
 2. Build: compiles ``csrc/compaction.cu`` (``compact_rows`` and
-   ``dedup_compact_rows``) and ``csrc/doubles.cu`` (``doubles_level``)
-   with nvcc for sm_90a, one nvcc process per source, started together.
-3. Kernels vs plain versions, bit-exact ``out`` (every slot, zero tail
-   included) and ``count``: ``compact_rows`` on ragged edge cases, on
+   ``dedup_compact_rows``), ``csrc/doubles.cu`` (``doubles_level`` and
+   ``doubles_final``) and ``csrc/nondoubles.cu`` (``nondoubles``) with
+   nvcc for sm_90a, one nvcc process per source, started together.
+3. Kernels vs plain versions, bit-exact (every output slot, zero tail
+   included, counts and flags): ``compact_rows`` on ragged edge cases, on
    the split-N layout (one row of tens of thousands of flags), on the
-   nine compaction call shapes of the ``train4096`` table (the eight of
-   one movegen call and the former final one) and on the 2-ply reply
-   shapes (non-doubles at candidate chunks of 512, 2048 and 8192,
-   doubles at 512 and 2048: the JAX package's chunks and the port's);
-   ``dedup_compact_rows`` on planted duplicates, high-nibble copies, the
-   main-path shape and the reply shape; ``doubles_level`` (boards, ranks
-   and unclamped counts) on random frontiers that reach every slot kind
-   (bar entry on a blot, a block, bear-off exact, overshooting and
-   exact from a nearer point, game over, all-zero padding rows of die
-   0, mirrored games), with ragged valid counts, truncation, k_out = 0,
-   boards at an odd address and the parity width.
+   compaction call shapes of the ``train4096`` table and on the 2-ply
+   reply shapes of earlier slices; ``dedup_compact_rows`` on planted
+   duplicates, high-nibble copies, the old main-path shape and the reply
+   shape; ``doubles_level`` (boards, ranks and unclamped counts) on random
+   frontiers that reach every slot kind (bar entry on a blot, a block,
+   bear-off exact, overshooting and exact from a nearer point, game over,
+   all-zero padding rows of die 0, mirrored games), with ragged valid
+   counts, truncation, k_out = 0, boards at an odd address and the parity
+   width; ``nondoubles`` on random boards of the same kinds with every
+   non-double roll, both mirrors and padding games of dice (0, 0), at the
+   main-path, default, parity and reply widths and at widths that
+   truncate the singles, the raw block and the list; ``doubles_final`` on
+   random L1-L3 frontiers with counts 0, within and above their widths
+   (L4 empty, L3 wider than M), and on the edge boards' real levels.
 4. Movegen on the card at B=4096 on boards from a few env steps: the
    kernel path is bit-exact against the plain-PyTorch path on the card
    and against the CPU.  Every kernel call of one movegen call is
    captured, checked against the plain version and timed (CUDA events)
-   beside its bound.  The whole call is timed eagerly and as a CUDA
-   graph replay (the device's own time).  The same at the other batch
-   sizes and widths the paths below run movegen at: the league eval's
-   256 games (``train4096``'s movegen) and the arenas' 512 and 64 games
-   (``twoply``'s), where both sub-batches are the whole batch, with
-   padding rows; B=4096 at the default widths and B=16384 (``pod``);
-   each call's shape is checked once more with random flags or random
-   frontiers.  Then
+   beside its bound, and ``dedup_compact_rows``, off the path, at the
+   block that the plain non-doubles batch dedups.  The whole call is
+   timed eagerly and as a CUDA graph replay (the device's own time).  The
+   same at the other batch sizes and widths the paths below run movegen
+   at: the league eval's 256 games (``train4096``'s movegen) and the
+   arenas' 512 and 64 games (``twoply``'s), where both sub-batches are the
+   whole batch, with padding rows; B=4096 at the default widths and
+   B=16384 (``pod``); each call's shape is checked once more with random
+   flags or random inputs.  Then
    one small ``train_step`` (B=64, T=8, full width) on the card and on
    the CPU from the same weights and draws: equal env integers,
    parameters and losses within 1e-4.
 5. Training path: ``get_preset("train4096")`` at B=4096, M=256, hidden
    128: one warm-up ``train_step`` and two timed ones (T=64 by default;
    the preset's 128 is cut to keep the run short).  Losses must be
-   finite, ``compact_rows.launches`` must grow by exactly
-   ``compactions_per_call x T`` per step,
-   ``dedup_compact_rows.launches`` by ``dedups_per_call x T`` and
-   ``doubles_level.launches`` by ``doubles_levels_per_call x T``.  One
-   more rollout and update are timed apart.  Then one
+   finite, and each kernel's launches must grow by exactly its
+   per-call count (``compactions_per_call``, ``dedups_per_call`` = 0,
+   ``doubles_levels_per_call``, ``nondoubles_per_call``,
+   ``doubles_finals_per_call``) x T per step.  One more rollout and
+   update are timed apart.  Then one
    ``afterstate``-mode ``train_step`` at B=512.
 6. Evaluation path, the ``twoply`` preset on the committed frozen_v1
    net, positions after 12 random env steps: one 2-ply decision at
@@ -55,7 +60,8 @@ Phases (any failure exits non-zero and prints no result line):
    path bit-exact against the plain path, and a 32-game slice against
    the CPU (actions where the best score leads by more than 1e-4, backup
    scores within 1e-4); every distinct reply call of those decisions
-   (the doubles levels at ``dbl_game_chunk`` games and the reply widths)
+   (``nondoubles`` at width 512 with the dedup off and at 128 with it on,
+   the doubles levels and final levels at ``dbl_game_chunk`` games)
    checked against its plain version and timed beside its bound;
    decisions timed at B=256 and B=4096.  Then the league runner on the
    card: 1-ply vs the pubeval heuristic over 512 games and 400 plies
@@ -70,7 +76,7 @@ Phases (any failure exits non-zero and prints no result line):
    frozen_v1) after update 1.  Run B: 2 updates from scratch, its local
    checkpoints wiped, then resumed to 3 updates from ``ckpt_2`` pulled
    from the store.  B's final parameters, Adam state, generator,
-   counters and env state must equal A's bit for bit; the three kernels'
+   counters and env state must equal A's bit for bit; every kernel's
    launches must match every run exactly (the first reset, T env steps
    an update, two arenas of a reset and 400 plies an eval); the league
    metrics must carry the JAX driver's keys, win rates in [0, 1] and
@@ -88,7 +94,7 @@ Phases (any failure exits non-zero and prints no result line):
    makes of them in one process (rounding, amplified by 128 Adam steps
    under clipping); the losses of both
    updates agree within a tolerance; each rank and the
-   single run launch the three kernels exactly.  Then a NCCL group of one
+   single run launch every kernel exactly.  Then a NCCL group of one
    rank: its collectives are the identity, a ``train_step`` through the
    sharded code equals the plain one bit for bit, and one rank's movegen
    call (8192 games, with a rank's sub-batch widths) is held call by call
@@ -103,14 +109,16 @@ Phases (any failure exits non-zero and prints no result line):
    own at its defaults (``train4096``'s widths, B=4096, T=64) with
    ``BENCH_UPDATES=2``: exit 0, one line per update, the last line the
    4-key JSON line (``env_steps_per_sec_per_chip``, value > 0,
-   ``vs_baseline`` = value / 1000), and the launches of the three
-   kernels it logs exact.  Then ``scripts/perf_breakdown.main(["4096"])`` here:
+   ``vs_baseline`` = value / 1000), and the launches of every kernel
+   that it logs exact.  Then ``scripts/perf_breakdown.main(["4096"])`` here:
    every JAX key and its device or eager twin under both widths, each
    time positive, each movegen piece's CUDA-graph time at most 1.05 times
    its eager time, both idle shares in [0, 1], and each graph's launches
    at capture exact (its replays count none).
-11. Prints the ``kernels`` JSON line (launches summed over every path's
-   run, and by path), then the device line
+11. Checks that every path launched each of its kernels (no path calls
+   ``dedup_compact_rows``, and a 2-ply decision no ``compact_rows``) and
+   prints the ``kernels`` JSON line of all five (launches summed over
+   every path's run, and by path), then the device line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--profile`` adds ``torch.profiler`` breakdowns of four env steps and of
@@ -144,7 +152,20 @@ DEDUP_REPLACES = ("mlp_ppo_2ply_p3_tpu/core/movegen.py:256-273, "
 # the jnp doubles level, whose compaction is the Pallas compact_rows
 DOUBLES_REPLACES = ("mlp_ppo_2ply_p3_tpu/core/movegen.py:406-416, "
                     "mlp_ppo_2ply_p3_tpu/ops/compaction.py:231")
-KERNELS = ("compact_rows", "dedup_compact_rows", "doubles_level")
+# the jnp non-doubles candidates, dedup and compactions
+NONDOUBLES_REPLACES = ("mlp_ppo_2ply_p3_tpu/core/movegen.py:286-369, "
+                       "mlp_ppo_2ply_p3_tpu/ops/compaction.py:231")
+# the fourth doubles level and the selection of the list after it
+FINAL_REPLACES = ("mlp_ppo_2ply_p3_tpu/core/movegen.py:406-439, "
+                  "mlp_ppo_2ply_p3_tpu/ops/compaction.py:231")
+# every kernel: (ops module, wrapper), in the order of the launch tuples
+# (mlp_ppo_2ply_p3_tpu_torch/ops/__init__.py::KERNELS)
+WRAPPERS = {"compact_rows": ("compaction", "compact_rows"),
+            "dedup_compact_rows": ("compaction", "dedup_compact_rows"),
+            "doubles_level": ("doubles", "doubles_level"),
+            "nondoubles": ("nondoubles", "nondoubles_batch"),
+            "doubles_final": ("doubles", "doubles_final")}
+KERNELS = tuple(WRAPPERS)
 
 
 def log(msg: str) -> None:
@@ -232,18 +253,62 @@ def level_work(doubles, args):
     return nbytes, rows * 27 * 8 + landed * 52 * 2
 
 
+def nondoubles_work(torch, compaction, args):
+    """(bytes, integer operations) that the non-doubles batch must spend
+    on these inputs: each game's board, dice and mirror flag in, the
+    (G, M, 52) list, the counts and the flags out; 8 operations for each
+    slot predicate (27 a die: both orders' first die and the second die of
+    every kept single), 2 for each byte of a listed candidate, and the
+    dedup's key compares (``dedup_work``) on the block it sees."""
+    from mlp_ppo_2ply_p3_tpu_torch.ops import doubles, nondoubles
+
+    vecs, d_hi, d_lo, mirror, k1, kd, m, dedup = args
+    g = vecs.shape[0]
+    singles = sum(int(doubles.first_die(vecs, d, mirror.bool())[1].sum(1)
+                      .clamp(max=k1).sum()) for d in (d_hi, d_lo))
+    limit = kd if dedup else m
+    cb, kv, n_raw = nondoubles.raw_block_plain(vecs, d_hi, d_lo,
+                                               mirror.bool(), k1, limit)
+    listed = int(n_raw.clamp(max=limit).sum())
+    compares = dedup_work(torch, compaction, cb, kv, m)[1] if dedup else 0
+    nbytes = g * (52 + 4 + 4 + 1) + g * m * 52 + 5 * g
+    return nbytes, (2 * g + singles) * 27 * 8 + listed * 52 * 2 + compares
+
+
+def final_work(doubles, args):
+    """(bytes, integer operations) that the final doubles level must
+    spend: the fourth level's (``level_work``: the valid L3 rows and
+    ranks, 8 operations a slot predicate, 2 a byte of a landing row), each
+    game's L1 and L2 counts, and the rows of the level that stands in
+    where L4 is empty; the (G, M, 52) list, the counts and the flags
+    out."""
+    f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m = args
+    g, k3, _ = f3b.shape
+    rows3 = int(n3.clamp(0, k3).sum())
+    n4 = doubles.doubles_level_plain(f3b, f3r, n3, die, mirror, m)[2]
+    landed = int(n4.clamp(max=m).sum())
+    empty = n4 == 0
+    width = (f3b.shape[1] * (n3 > 0) + f2b.shape[1] * ((n3 <= 0) & (n2 > 0))
+             + f1b.shape[1] * ((n3 <= 0) & (n2 <= 0))).clamp(max=m)
+    copied = int(width[empty].sum())
+    nbytes = (rows3 * 53 + g * (4 * 4 + 1) + copied * 52
+              + g * m * 52 + 5 * g)
+    return nbytes, rows3 * 27 * 8 + landed * 52 * 2
+
+
 def same(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
 
 
-def measure(torch, fn, plain_fn, args, nbytes, ops=0):
+def measure(torch, fn, plain_fn, args, nbytes, ops=0, k_out=None):
     """Check fn against plain_fn on args (every output bit for bit), then
     time both in turns (plain, kernel, kernel, plain) beside the
-    bound."""
+    bound.  ``k_out``: the output width (by default the last argument)."""
+    k_out = args[-1] if k_out is None else k_out
     got = fn(*args)
     want = plain_fn(*args)
     torch.cuda.synchronize()
-    shape = f"{tuple(args[0].shape)}->{args[-1]}"
+    shape = f"{tuple(args[0].shape)}->{k_out}"
     check(all(same(g, w) for g, w in zip(got, want)),
           f"kernel != plain on captured {shape}")
     err = max(int((g.int() - w.int()).abs().max()) if g.numel() else 0
@@ -256,7 +321,7 @@ def measure(torch, fn, plain_fn, args, nbytes, ops=0):
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_OPS_PER_S * 1e3
     return {
-        "shape": list(args[0].shape), "k_out": args[-1],
+        "shape": list(args[0].shape), "k_out": k_out,
         "ms": (kern + kern2) / 2, "plain_ms": (plain + plain2) / 2,
         "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
         "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
@@ -265,80 +330,95 @@ def measure(torch, fn, plain_fn, args, nbytes, ops=0):
     }
 
 
-def measure_calls(torch, compaction, captured, captured_dedup,
-                  captured_levels=()):
-    """measure() every captured compaction, dedup and doubles level
-    call."""
-    from mlp_ppo_2ply_p3_tpu_torch.ops import doubles
+def wrapper(name, plain=False):
+    """Kernel ``name``'s wrapper (or its plain version), as its module
+    holds it now."""
+    import importlib
 
-    per_call = [
-        measure(torch, compaction.compact_rows, compaction.compact_rows_plain,
-                args, compaction_bytes(args[1], args[2], args[0].shape[2]))
-        for args in captured]
-    per_dedup = [
-        measure(torch, compaction.dedup_compact_rows,
-                compaction.dedup_compact_rows_plain, args,
-                *dedup_work(torch, compaction, *args))
-        for args in captured_dedup]
-    per_level = [
-        measure(torch, doubles.doubles_level, doubles.doubles_level_plain,
-                args, *level_work(doubles, args))
-        for args in captured_levels]
-    return per_call, per_dedup, per_level
+    module, attr = WRAPPERS[name]
+    m = importlib.import_module(f"mlp_ppo_2ply_p3_tpu_torch.ops.{module}")
+    return getattr(m, attr + ("_plain" if plain else ""))
+
+
+def measure_calls(torch, calls):
+    """measure() every captured call ({kernel: [args, ...]}); returns
+    {kernel: [row, ...]} over every kernel."""
+    from mlp_ppo_2ply_p3_tpu_torch.ops import compaction, doubles
+
+    work = {
+        "compact_rows": lambda a: (compaction_bytes(a[1], a[2],
+                                                    a[0].shape[2]), 0),
+        "dedup_compact_rows": lambda a: dedup_work(torch, compaction, *a),
+        "doubles_level": lambda a: level_work(doubles, a),
+        "nondoubles": lambda a: nondoubles_work(torch, compaction, a),
+        "doubles_final": lambda a: final_work(doubles, a),
+    }
+    return {name: [measure(torch, wrapper(name), wrapper(name, plain=True),
+                           a, *work[name](a),
+                           k_out=a[6] if name == "nondoubles" else None)
+                   for a in calls.get(name, ())]
+            for name in KERNELS}
+
+
+def log_rows(prefix, rows):
+    """One log line per measured call: kernel and plain time, bound."""
+    for name, calls in rows.items():
+        for row in calls:
+            log(f"{prefix}{name} {tuple(row['shape'])} -> {row['k_out']}: "
+                f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
+                f" bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+
+def _call_key(args):
+    return tuple(tuple(a.shape) if hasattr(a, "shape") else a for a in args)
 
 
 class Capture:
-    """Swaps the three kernel wrappers (``compact_rows``,
-    ``dedup_compact_rows``, ``doubles_level``) for ones that keep their
-    inputs and call the kernels (``record``), or for the plain versions
+    """Swaps every kernel wrapper (``WRAPPERS``) for one that keeps its
+    inputs and calls the kernel (``record``), or for its plain version
     (``plain``), and restores them on exit.  ``distinct`` keeps one call
-    per (shape, k_out)."""
+    per shape and widths.  ``calls``: {kernel: [args, ...]}."""
 
     def __init__(self, plain=False, distinct=False):
         self.plain, self.distinct = plain, distinct
-        self.compact, self.dedup, self.levels = [], [], []
+        self.calls = {name: [] for name in KERNELS}
 
     def _wrap(self, kept, fn):
-        def wrapper(*args):
-            key = (tuple(args[0].shape), args[-1])
-            if not self.distinct or key not in {
-                    (tuple(a[0].shape), a[-1]) for a in kept}:
+        def wrapped(*args):
+            if not self.distinct or _call_key(args) not in {
+                    _call_key(a) for a in kept}:
                 kept.append(args)
             return fn(*args)
-        return wrapper
+        return wrapped
 
     def __enter__(self):
-        from mlp_ppo_2ply_p3_tpu_torch.ops import compaction, doubles
+        import importlib
 
         self.saved = []
-        for m, name, kept in ((compaction, "compact_rows", "compact"),
-                              (compaction, "dedup_compact_rows", "dedup"),
-                              (doubles, "doubles_level", "levels")):
-            fn = getattr(m, name)
-            self.saved.append((m, name, fn))
-            setattr(m, name, getattr(m, name + "_plain") if self.plain
-                    else self._wrap(getattr(self, kept), fn))
+        for name, (module, attr) in WRAPPERS.items():
+            m = importlib.import_module(
+                f"mlp_ppo_2ply_p3_tpu_torch.ops.{module}")
+            fn = getattr(m, attr)
+            self.saved.append((m, attr, fn))
+            setattr(m, attr, getattr(m, attr + "_plain") if self.plain
+                    else self._wrap(self.calls[name], fn))
         return self
 
     def __exit__(self, *exc):
-        for m, name, fn in self.saved:
-            setattr(m, name, fn)
+        for m, attr, fn in self.saved:
+            setattr(m, attr, fn)
 
 
-def launches(compaction):
-    from mlp_ppo_2ply_p3_tpu_torch.ops import doubles
+def launches():
+    from mlp_ppo_2ply_p3_tpu_torch import ops
 
-    return {"compact_rows": compaction.compact_rows.launches,
-            "dedup_compact_rows": compaction.dedup_compact_rows.launches,
-            "doubles_level": doubles.doubles_level.launches}
+    return ops.launches()
 
 
-def zero_launches(compaction):
-    compaction.compact_rows.launches = 0
-    compaction.dedup_compact_rows.launches = 0
-    from mlp_ppo_2ply_p3_tpu_torch.ops import doubles
+def zero_launches():
+    from mlp_ppo_2ply_p3_tpu_torch import ops
 
-    doubles.doubles_level.launches = 0
+    ops.zero_launches()
 
 
 def per_call_launches(movegen, mg):
@@ -346,7 +426,9 @@ def per_call_launches(movegen, mg):
     widths ``mg``."""
     return {"compact_rows": movegen.compactions_per_call(mg),
             "dedup_compact_rows": movegen.dedups_per_call(mg),
-            "doubles_level": movegen.doubles_levels_per_call(mg)}
+            "doubles_level": movegen.doubles_levels_per_call(mg),
+            "nondoubles": movegen.nondoubles_per_call(mg),
+            "doubles_final": movegen.doubles_finals_per_call(mg)}
 
 
 # --- phase 3 -----------------------------------------------------------------
@@ -566,6 +648,139 @@ def doubles_cases(torch, doubles, dev, cases=None):
     return out
 
 
+# the 15 non-double rolls as (high, low)
+NONDOUBLE_ROLLS = [(h, lo) for h in range(2, 7) for lo in range(1, h)]
+
+
+def nondoubles_inputs(torch, dev, rng, g):
+    """Random ``nondoubles_batch`` inputs: ``random_frontier``'s boards
+    (negative counts, bars, bear-offs, game over, the edge boards), the
+    15 non-double rolls in turn, both mirrors, and a tenth of the games
+    all-zero padding rows of dice (0, 0)."""
+    b = random_frontier(torch, dev, rng, g, 1, True)[0][:, 0]
+    rolls = torch.tensor(NONDOUBLE_ROLLS, dtype=torch.int32, device=dev)[
+        torch.arange(g, device=dev) % len(NONDOUBLE_ROLLS)]
+    pad = torch.rand((g,), generator=rng, device=dev) < 0.1
+    b = torch.where(pad[:, None], 0, b).to(torch.int8).contiguous()
+    rolls = torch.where(pad[:, None], 0, rolls)
+    mirror = torch.rand((g,), generator=rng, device=dev) < 0.5
+    return b, rolls[:, 0].contiguous(), rolls[:, 1].contiguous(), mirror
+
+
+def nondoubles_cases(torch, nondoubles, dev, cases=None):
+    """nondoubles_batch against its plain version (boards, counts and
+    flags, bit for bit) on random inputs (``nondoubles_inputs``) at
+    ``cases`` of (G, k1, kd, M, dedup) (by default: train4096's sub-batch
+    at ``fast()`` and the default widths, the parity widths, both 2-ply
+    reply widths, widths that truncate the singles, the raw block and the
+    list, zero widths), each also with uint8 mirror flags and the boards
+    at an odd address; and the edge boards with every non-double roll,
+    unmirrored and mirrored.  Returns the cases checked."""
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(8)
+    default = [(3604, 16, 288, 256, True), (4096, 16, 384, 256, True),
+               (64, 16, 512, 500, True), (2048, 16, 288, 512, False),
+               (2048, 16, 288, 128, True), (300, 4, 16, 4, True),
+               (300, 3, 16, 5, False), (7, 16, 0, 0, True)]
+    out = []
+    for g, k1, kd, m, dedup in (default if cases is None else cases):
+        args = nondoubles_inputs(torch, dev, rng, g)
+        want = nondoubles.nondoubles_batch_plain(*args, k1, kd, m, dedup)
+        raw = torch.zeros(g * 52 + 3, dtype=torch.int8, device=dev)
+        raw[3:] = args[0].reshape(-1)
+        odd = (raw[3:].view(g, 52), *args[1:3], args[3].to(torch.uint8))
+        for variant in (args, odd):
+            got = nondoubles.nondoubles_batch(*variant, k1, kd, m, dedup)
+            torch.cuda.synchronize()
+            check(all(same(a, b) for a, b in zip(got, want)),
+                  f"nondoubles != plain at G={g}, widths {(k1, kd, m)}, "
+                  f"dedup {dedup}")
+        check(m == 0 or int(want[1].sum()) > 0, f"no move at all at G={g}")
+        out.append({"games": g, "widths": [k1, kd, m], "dedup": dedup,
+                    "exact": True})
+    if cases is None:
+        edges = edge_boards(torch, dev)
+        rolls = torch.tensor(NONDOUBLE_ROLLS, dtype=torch.int32, device=dev)
+        vecs = edges.repeat_interleave(2 * len(rolls), dim=0).contiguous()
+        hi, lo = (rolls[:, i].repeat(2 * len(edges)).contiguous()
+                  for i in (0, 1))
+        mirror = (torch.arange(len(vecs), device=dev) // len(rolls)) % 2 == 1
+        args = (vecs, hi, lo, mirror, 16, 288, 256, True)
+        got = nondoubles.nondoubles_batch(*args)
+        want = nondoubles.nondoubles_batch_plain(*args)
+        torch.cuda.synchronize()
+        check(all(same(a, b) for a, b in zip(got, want)),
+              "nondoubles != plain on the edge boards")
+        out.append({"games": len(vecs), "widths": [16, 288, 256],
+                    "dedup": True, "exact": "edge boards, every roll"})
+    return out
+
+
+def final_cases(torch, doubles, dev, cases=None):
+    """doubles_final against its plain version (list, counts and flags,
+    bit for bit) at ``cases`` of (G, k1, k2, k3, M) (by default:
+    train4096's doubles sub-batch at ``fast()`` and the default widths,
+    the 2-ply reply widths, the parity widths, L3 wider than M, widths
+    that the counts exceed, M = 0): L3 from ``random_frontier`` with a
+    third of its counts 0, random L1 and L2 rows that the kernel copies
+    as they are, with counts 0, within and above their widths; each also
+    with L3 at an odd address and uint8 mirror flags.  Then the edge
+    boards through three plain levels, every die, both mirrors.  Returns
+    the cases checked."""
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(9)
+    default = [(875, 16, 80, 192, 256), (1088, 16, 96, 224, 256),
+               (512, 16, 128, 256, 512), (64, 16, 128, 512, 500),
+               (300, 16, 96, 300, 100), (200, 5, 7, 9, 30),
+               (40, 16, 30, 40, 0)]
+
+    def ints(lo, hi, *shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=rng, device=dev,
+                             dtype=dtype)
+
+    out = []
+    for g, k1, k2, k3, m in (default if cases is None else cases):
+        f3b, f3r, n3, die, mirror = random_frontier(torch, dev, rng, g, k3,
+                                                    False)
+        n3 = torch.where(ints(0, 3, g) == 0, 0, n3).to(torch.int32)
+        n2 = torch.where(ints(0, 3, g) == 0, 0, ints(0, k2 + 3, g))
+        args = (ints(-2, 16, g, k1, 52, dtype=torch.int8), ints(0, k1 + 3, g),
+                ints(-2, 16, g, k2, 52, dtype=torch.int8), n2.contiguous(),
+                f3b, f3r, n3.contiguous(), die, mirror)
+        want = doubles.doubles_final_plain(*args, m)
+        raw = torch.zeros(f3b.numel() + 3, dtype=torch.int8, device=dev)
+        raw[3:] = f3b.reshape(-1)
+        odd = (*args[:4], raw[3:].view(f3b.shape), *args[5:8],
+               mirror.to(torch.uint8))
+        for variant in (args, odd):
+            got = doubles.doubles_final(*variant, m)
+            torch.cuda.synchronize()
+            check(all(same(a, b) for a, b in zip(got, want)),
+                  f"doubles_final != plain at {(g, k1, k2, k3)} -> {m}")
+        out.append({"games": g, "widths": [k1, k2, k3], "k_out": m,
+                    "exact": True})
+    if cases is None:
+        edges = edge_boards(torch, dev)
+        vecs = edges.repeat_interleave(12, dim=0)
+        die = torch.arange(1, 7, dtype=torch.int32, device=dev).repeat(12)
+        die[-12:] = 0                                  # the padding rows
+        mirror = (torch.arange(72, device=dev) % 12) >= 6
+        level, levels = (vecs[:, None, :].contiguous(), None, None), []
+        for k in (16, 80, 192):
+            level = doubles.doubles_level_plain(*level, die, mirror, k)
+            levels.append(level)
+        (f1b, _, n1), (f2b, _, n2), l3 = levels
+        args = (f1b, n1, f2b, n2, *l3, die, mirror, 256)
+        got = doubles.doubles_final(*args)
+        want = doubles.doubles_final_plain(*args)
+        torch.cuda.synchronize()
+        check(all(same(a, b) for a, b in zip(got, want)),
+              "doubles_final != plain on the edge boards")
+        out.append({"games": 72, "widths": [16, 80, 192], "k_out": 256,
+                    "exact": "edge boards, every die"})
+    return out
+
+
 # --- phase 4 -----------------------------------------------------------------
 
 
@@ -579,7 +794,7 @@ def play_boards(perf_twoply, env_cfg, batch, steps, dev):
     return vecs, es.dice, es.turn == 1
 
 
-def captured_movegen(torch, compaction, movegen, vecs, dice, mg, mirror,
+def captured_movegen(torch, movegen, vecs, dice, mg, mirror,
                      world=None):
     """One movegen call on the kernel path (a rank's, with a ``world``),
     checked equal to the plain path, with the expected number of kernel
@@ -594,19 +809,30 @@ def captured_movegen(torch, compaction, movegen, vecs, dice, mg, mirror,
     for g, w, name in zip(got, want, ("boards", "n_moves", "overflow")):
         check(same(g, w), f"movegen {name} at B={batch}: kernel path != "
               f"plain path")
-    counted = dict(zip(KERNELS, (len(cap.compact), len(cap.dedup),
-                                 len(cap.levels))))
+    counted = {name: len(calls) for name, calls in cap.calls.items()}
     check(counted == per_call_launches(movegen, mg),
           f"kernel calls {counted} per movegen call at B={batch}, expected "
           f"{per_call_launches(movegen, mg)}")
     return got, cap
 
 
-def movegen_phase(torch, compaction, movegen, perf_twoply, profiling,
+def dedup_input(nondoubles, args):
+    """``dedup_compact_rows``'s arguments at a captured non-doubles call:
+    the block that the plain version dedups (the kernel dedups on chip,
+    so the main path never builds it)."""
+    vecs, d_hi, d_lo, mirror, k1, kd, m, _ = args
+    cb, kv, _ = nondoubles.raw_block_plain(vecs, d_hi, d_lo, mirror.bool(),
+                                           k1, kd)
+    return cb, kv, m
+
+
+def movegen_phase(torch, movegen, perf_twoply, profiling,
                   env_cfg, dev):
+    from mlp_ppo_2ply_p3_tpu_torch.ops import nondoubles
+
     mg = env_cfg.movegen
     vecs, dice, mirror = play_boards(perf_twoply, env_cfg, 4096, 6, dev)
-    got, cap = captured_movegen(torch, compaction, movegen, vecs, dice, mg,
+    got, cap = captured_movegen(torch, movegen, vecs, dice, mg,
                                 mirror)
 
     # the whole batch on the CPU (the plain path)
@@ -616,23 +842,24 @@ def movegen_phase(torch, compaction, movegen, perf_twoply, profiling,
         check(same(g.cpu(), c), f"movegen {name}: card != CPU at B=4096")
     check(int(got[1].sum()) > 0, "no legal moves at all")
 
-    # time every kernel call of this movegen call: kernel vs plain
-    per_call, per_dedup, per_level = measure_calls(
-        torch, compaction, cap.compact, cap.dedup, cap.levels)
+    # time every kernel call of this movegen call: kernel vs plain; the
+    # dedup kernel, off the path, at the block the plain path dedups
+    calls = dict(cap.calls, dedup_compact_rows=[
+        dedup_input(nondoubles, a) for a in cap.calls["nondoubles"]])
+    rows = measure_calls(torch, calls)
 
     def one_call():
         movegen.legal_afterstates_batch(vecs, dice, mg, mirror)
 
     one_call()
     mg_ms = time_ms(one_call, 5)
-    # A movegen call is about a thousand launches, more than the launch
-    # queue holds, so the events above also see the host's launch rate
-    # wherever it is slower than the device.  Replaying the calls as a
-    # CUDA graph leaves the device's own time.
+    # Replaying the calls as a CUDA graph leaves the device's own time;
+    # the events above also see the host's launch rate wherever it is
+    # slower than the device.
     mg_graph_ms = profiling.timed_scan(
         lambda v, d, m: movegen.legal_afterstates_batch(v, d, mg, m),
         vecs, dice, mirror) * 1e3
-    return per_call, per_dedup, per_level, mg_ms, mg_graph_ms
+    return rows, mg_ms, mg_graph_ms
 
 
 def movegen_batches_phase(torch, compaction, movegen, perf_twoply, runs,
@@ -640,49 +867,50 @@ def movegen_batches_phase(torch, compaction, movegen, perf_twoply, runs,
     """Movegen at the other batch sizes and widths the paths run,
     ``runs`` of (label, EnvConfig, games): below 512 games both
     sub-batches are the whole batch (the doubles levels then hold every
-    game, the non-doubles ones as all-zero padding rows of die 0).  Each:
-    one movegen call on boards from a few env steps, kernel path ==
+    game, the non-doubles batch all-zero padding rows of dice (0, 0)).
+    Each: one movegen call on boards from a few env steps, kernel path ==
     plain path; every kernel call of it checked against its plain version
-    and timed (``measure``); and each call's shape once more with random
-    flags or a random frontier.  With a ``world`` each call is a rank's
-    (its shapes those of a shard of any number of ranks).  Returns a
-    report row per run."""
-    from mlp_ppo_2ply_p3_tpu_torch.ops import doubles
+    and timed beside its bound (``measure``); and each call's shape once
+    more with random flags or random inputs.  With a ``world`` each call
+    is a rank's (its shapes those of a shard of any number of ranks).
+    Returns a report row per run."""
+    from mlp_ppo_2ply_p3_tpu_torch.ops import doubles, nondoubles
 
     out = []
     for label, env_cfg, batch in runs:
         vecs, dice, mirror = play_boards(perf_twoply, env_cfg, batch, 6, dev)
-        _, cap = captured_movegen(torch, compaction, movegen, vecs, dice,
+        _, cap = captured_movegen(torch, movegen, vecs, dice,
                                   env_cfg.movegen, mirror, world)
-        per_call, per_dedup, per_level = measure_calls(
-            torch, compaction, cap.compact, cap.dedup, cap.levels)
-        # the same shapes at this call's share of valid flags, with an
-        # all-invalid and an all-valid row
+        rows = measure_calls(torch, cap.calls)
+        # the same shapes with random flags or inputs: the compactions at
+        # this call's share of valid flags, with an all-invalid and an
+        # all-valid row
+        calls = cap.calls
         flags = edge_cases(torch, compaction, dev, [
             (*a[0].shape, a[2], float(a[1].float().mean()))
-            for a in cap.compact])
-        dedups = dedup_cases(torch, compaction, dev, [
-            (*a[0].shape[:2], a[2], frac, planted, nibble)
-            for a in cap.dedup
-            for frac, planted, nibble in ((0.3, 0.3, False),
-                                          (0.9, 0.5, True))])
+            for a in calls["compact_rows"]])
         levels = doubles_cases(torch, doubles, dev, [
-            (*a[0].shape[:2], a[-1], a[1] is None) for a in cap.levels])
-        out.append({"label": label, "batch": batch, "compactions": per_call,
-                    "dedups": per_dedup, "levels": per_level,
-                    "random_flag_cases": len(flags) + len(dedups),
-                    "random_frontier_cases": len(levels)})
-        shapes = ", ".join(f"{tuple(r['shape'])}->{r['k_out']}"
-                           for r in per_call + per_dedup + per_level)
+            (*a[0].shape[:2], a[-1], a[1] is None)
+            for a in calls["doubles_level"]])
+        nds = nondoubles_cases(torch, nondoubles, dev, [
+            (a[0].shape[0], *a[4:]) for a in calls["nondoubles"]])
+        finals = final_cases(torch, doubles, dev, [
+            (a[4].shape[0], a[0].shape[1], a[2].shape[1], a[4].shape[1],
+             a[-1]) for a in calls["doubles_final"]])
+        out.append({"label": label, "batch": batch, "calls": rows,
+                    "random_flag_cases": len(flags),
+                    "random_input_cases": len(levels) + len(nds)
+                    + len(finals)})
         log(f"{label} movegen B={batch}: kernel path == plain path; every "
-            f"call == plain, also with random flags: {shapes}")
+            f"call == plain, also on random inputs of its shape")
+        log_rows(f"{label} B={batch}: ", rows)
     return out
 
 
 # --- phase 5 -----------------------------------------------------------------
 
 
-def train_phase(torch, compaction, movegen, bg_env, learner, cfg, batch, t,
+def train_phase(torch, movegen, bg_env, learner, cfg, batch, t,
                 dev, timed):
     """Warm-up + ``timed`` train_steps; returns a report dict."""
     ppo = dataclasses.replace(cfg.ppo, num_envs=batch, t_horizon=t)
@@ -695,13 +923,13 @@ def train_phase(torch, compaction, movegen, bg_env, learner, cfg, batch, t,
     torch.cuda.synchronize()
     warm_s = time.time() - t0
 
-    zero_launches(compaction)
+    zero_launches()
     t0 = time.time()
     for _ in range(timed):
         ts, es, metrics = learner.train_step(ts, es, cfg.env, cfg.model, ppo)
     torch.cuda.synchronize()
     dt = time.time() - t0
-    counted = launches(compaction)
+    counted = launches()
 
     for name, per_call in per_call_launches(movegen, cfg.env.movegen).items():
         expect = timed * t * per_call
@@ -825,20 +1053,20 @@ ARENA_PAIRS = (("oneply:pubeval", 512, 400),
                ("twoply:oneply", 64, TWOPLY_PLIES))
 
 
-def twoply_check(torch, compaction, twoply, bg_env, model, state, scfg):
+def twoply_check(torch, twoply, bg_env, model, state, scfg):
     """One 2-ply decision over the batch: exact launch counts; the kernel
     path equal to the plain path bit for bit; a 32-game slice on the CPU
     equal in actions where the best score leads by more than 1e-4, in
     overflow, and in backup scores within 1e-4.  Returns (report, the
-    decision's distinct compaction and dedup calls)."""
+    Capture of the decision's distinct kernel calls)."""
     import copy
 
     batch = state.turn.shape[0]
-    zero_launches(compaction)
+    zero_launches()
     with Capture(distinct=True) as cap:
         got = twoply.twoply_actions_values(model, state, scfg)
     torch.cuda.synchronize()
-    counted = launches(compaction)
+    counted = launches()
     expect = dict(zip(KERNELS, twoply.launches_per_decision(batch, scfg)))
     check(counted == expect, f"2-ply decision at B={batch}, reply width "
           f"{scfg.reply_max_moves}: launches {counted}, expected {expect}")
@@ -871,7 +1099,7 @@ def twoply_check(torch, compaction, twoply, bg_env, model, state, scfg):
     }, cap
 
 
-def twoply_phase(torch, compaction, twoply, perf_twoply, bg_env, cfg, model,
+def twoply_phase(torch, twoply, perf_twoply, bg_env, cfg, model,
                  dev):
     """The ``twoply`` preset on frozen_v1, positions after 12 random env
     steps: checked at B=256 at reply width 512 (no reply dedup) and 128
@@ -885,32 +1113,27 @@ def twoply_phase(torch, compaction, twoply, perf_twoply, bg_env, cfg, model,
     for batch, width in ((256, 512), (256, 128), (4096, 512)):
         scfg = dataclasses.replace(cfg.search, reply_max_moves=width)
         report, calls[batch, width] = twoply_check(
-            torch, compaction, twoply, bg_env, model, states[batch], scfg)
+            torch, twoply, bg_env, model, states[batch], scfg)
         out["checks"].append(report)
         clear = report["cpu_slice_clear_margin_games"]
         log(f"2-ply B={batch} reply width {width}: kernel path == plain "
             f"path, card == CPU on 32 games ({clear} with a clear margin, "
             f"backup within {report['cpu_slice_max_backup_diff']:.1e}); "
             f"launches {report['launches']}")
-    # B=4096 shares the doubles chunk with B=256; its non-doubles calls
-    # run at the port's game_chunk
-    reply = calls[256, 512].compact
-    seen = {(tuple(a[0].shape), a[2]) for a in reply}
-    reply = reply + [a for a in calls[4096, 512].compact
-                     if (tuple(a[0].shape), a[2]) not in seen]
-    # the doubles levels run at dbl_game_chunk games at every B; widths
-    # 512 and 128 give them other k2, k3 and M'
-    per_call, per_dedup, per_level = measure_calls(
-        torch, compaction, reply, calls[256, 128].dedup,
-        calls[256, 512].levels + calls[256, 128].levels)
-    out["reply_calls"], out["reply_dedups"] = per_call, per_dedup
-    out["reply_levels"] = per_level
-    for name, rows in (("compact", per_call), ("dedup", per_dedup),
-                       ("doubles level", per_level)):
-        for row in rows:
-            log(f"reply {name} {tuple(row['shape'])} -> {row['k_out']}: "
-                f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
-                f" bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    # the non-doubles replies at width 512 (no dedup) at the port's
+    # game_chunk for B=256 and B=4096, and at width 128 (the dedup on);
+    # the doubles levels and final levels run at dbl_game_chunk games at
+    # every B, and widths 512 and 128 give them other k2, k3 and M'
+    def distinct(*lists):
+        kept = {}
+        for a in (a for calls_ in lists for a in calls_):
+            kept.setdefault(_call_key(a), a)
+        return list(kept.values())
+
+    reply = {name: distinct(*(calls[key].calls[name] for key in calls))
+             for name in ("nondoubles", "doubles_level", "doubles_final")}
+    out["reply"] = measure_calls(torch, reply)
+    log_rows("reply ", out["reply"])
     del calls, reply
     for batch, reps in ((256, 3), (4096, 1)):
         row, _ = perf_twoply.time_decision(model, states[batch], cfg.search,
@@ -922,11 +1145,11 @@ def twoply_phase(torch, compaction, twoply, perf_twoply, bg_env, cfg, model,
     return out
 
 
-def arena_phase(torch, compaction, movegen, arena, league, twoply, cfg, dev):
+def arena_phase(torch, movegen, arena, league, twoply, cfg, dev):
     """The league CLI's ``run_pair`` on the card: 1-ply frozen_v1 against
     the pubeval heuristic over 512 games, then 2-ply against 1-ply (both
     frozen_v1) over 64 games for at most ``TWOPLY_PLIES`` plies; exact
-    launch counts of the three kernels for the plies that each played."""
+    launch counts of every kernel for the plies that each played."""
     import contextlib
 
     per_step = per_call_launches(movegen, cfg.env.movegen)
@@ -940,7 +1163,7 @@ def arena_phase(torch, compaction, movegen, arena, league, twoply, cfg, dev):
             played[0] += 1
             return inner(*a, **kw)
 
-        zero_launches(compaction)
+        zero_launches()
         arena._ply = counted_ply
         try:
             with contextlib.redirect_stdout(sys.stderr):
@@ -948,7 +1171,7 @@ def arena_phase(torch, compaction, movegen, arena, league, twoply, cfg, dev):
                                       params_from="frozen", device=dev)
         finally:
             arena._ply = inner
-        counted = launches(compaction)
+        counted = launches()
         ran = played[0]
         check(ran == plies or (0 < ran < plies and res["finished"] == games),
               f"arena {pair}: {ran} plies played of {plies}, "
@@ -1013,9 +1236,9 @@ class Timed:
         setattr(self.module, self.name, self.inner)
 
 
-def driver_run(torch, compaction, arena, train_mod, cfg, dev, **kw):
+def driver_run(torch, arena, train_mod, cfg, dev, **kw):
     """One ``train`` call on the card, its stdout sent to stderr; returns
-    (TrainState, EnvState, the launches of both kernels, the arenas'
+    (TrainState, EnvState, the launches of every kernel, the arenas'
     plies)."""
     import contextlib
 
@@ -1025,7 +1248,7 @@ def driver_run(torch, compaction, arena, train_mod, cfg, dev, **kw):
         plies[0] += 1
         return inner(*a, **k)
 
-    zero_launches(compaction)
+    zero_launches()
     arena._ply = counted_ply
     try:
         with contextlib.redirect_stdout(sys.stderr):
@@ -1033,7 +1256,7 @@ def driver_run(torch, compaction, arena, train_mod, cfg, dev, **kw):
     finally:
         arena._ply = inner
     torch.cuda.synchronize()
-    return ts, es, launches(compaction), plies[0]
+    return ts, es, launches(), plies[0]
 
 
 def state_tensors(ts, es):
@@ -1050,7 +1273,7 @@ def state_tensors(ts, es):
     return out
 
 
-def trainer_phase(torch, compaction, movegen, arena, train_mod, ckpt, cfg,
+def trainer_phase(torch, movegen, arena, train_mod, ckpt, cfg,
                   dev):
     """``ppo.train.train`` on the card at ``cfg``, in a temporary
     directory with a ``file://`` store:
@@ -1061,7 +1284,7 @@ def trainer_phase(torch, compaction, movegen, arena, train_mod, ckpt, cfg,
       checkpoints wiped, then ``resume=True`` to 3 updates, which must
       pull ``ckpt_2`` from the store;
 
-    B's final state must equal A's bit for bit, the three kernels'
+    B's final state must equal A's bit for bit, every kernel's
     launches must match every train() call exactly, the league metrics must have
     the JAX driver's keys with win rates in [0, 1] and games finished,
     and every loss must be finite."""
@@ -1094,7 +1317,7 @@ def trainer_phase(torch, compaction, movegen, arena, train_mod, ckpt, cfg,
         with Timed(torch, train_mod, "league_eval") as ev_timer, \
                 Timed(torch, ckpt, "save") as save_timer:
             ts_a, es_a, counted_a, plies_a = driver_run(
-                torch, compaction, arena, train_mod, cfg_a, dev,
+                torch, arena, train_mod, cfg_a, dev,
                 resume=False)
         check_launches("run A", counted_a, plies_a, 3, 1)
         lines = [json.loads(x) for x in open(cfg_a.metrics_path)]
@@ -1117,13 +1340,13 @@ def trainer_phase(torch, compaction, movegen, arena, train_mod, ckpt, cfg,
 
         cfg_b = run_cfg("b", 2)
         _, _, counted_b1, plies_b1 = driver_run(
-            torch, compaction, arena, train_mod, cfg_b, dev, resume=False)
+            torch, arena, train_mod, cfg_b, dev, resume=False)
         check_launches("run B, updates 0-1", counted_b1, plies_b1, 2, 1)
         shutil.rmtree(os.path.join(tmp, "b", "ckpts"))
         with Timed(torch, train_mod, "_pull_remote_latest") as pull, \
                 Timed(torch, ckpt, "restore") as restore:
             ts_b, es_b, counted_b2, plies_b2 = driver_run(
-                torch, compaction, arena, train_mod,
+                torch, arena, train_mod,
                 dataclasses.replace(cfg_b, num_updates=3), dev, resume=True)
         check_launches("run B, resumed to 3", counted_b2, plies_b2, 1, 0)
         check(len(pull.calls) == 1 and str(pull.calls[0][1]).endswith(
@@ -1200,7 +1423,6 @@ def dp_worker(rank, size, port, tmp) -> int:
     import torch
 
     sys.path.insert(0, HERE)
-    from mlp_ppo_2ply_p3_tpu_torch.ops import compaction
     from mlp_ppo_2ply_p3_tpu_torch.parallel import mesh
     from mlp_ppo_2ply_p3_tpu_torch.ppo import train as train_mod
     from mlp_ppo_2ply_p3_tpu_torch.utils.config import get_preset
@@ -1211,14 +1433,14 @@ def dp_worker(rank, size, port, tmp) -> int:
     check(world is not None and world.size == size, f"rank {rank}: no "
           f"process group of {size}")
     try:
-        zero_launches(compaction)
+        zero_launches()
         t0 = time.time()
         with contextlib.redirect_stdout(sys.stderr):
             train_mod.train(dp_cfg(get_preset, tmp, "dp"), resume=False,
                             device="cuda", world=world)
         torch.cuda.synchronize()
         out = {"rank": rank, "device": str(world.device),
-               "launches": launches(compaction), "wall_s": time.time() - t0}
+               "launches": launches(), "wall_s": time.time() - t0}
     finally:
         mesh.shutdown()
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -1304,7 +1526,7 @@ def nudged(torch, ppo_update):
     return run
 
 
-def dp_phase(torch, compaction, movegen, learner, train_mod, get_preset,
+def dp_phase(torch, movegen, learner, train_mod, get_preset,
              dev):
     """Phase 8: ``DP_RANKS`` gloo ranks sharing the card run the driver at
     ``dp_cfg`` (8192 games a rank); the same config runs in this process
@@ -1313,7 +1535,7 @@ def dp_phase(torch, compaction, movegen, learner, train_mod, get_preset,
     the parameters' update and Adam's moments within ``DP_FLOOR_FACTOR``
     times the difference that a one-ulp nudge makes in one process; the
     losses of both updates within ``DP_LOSS_TOL``; every rank and the
-    single run launch the three kernels exactly (the first reset and T
+    single run launch every kernel exactly (the first reset and T
     movegen calls an update)."""
     import contextlib
     import tempfile
@@ -1334,13 +1556,13 @@ def dp_phase(torch, compaction, movegen, learner, train_mod, get_preset,
         ranks = run_ranks(tmp, DP_RANKS)
         out["ranks_wall_s"] = time.time() - t0
         cfg = dp_cfg(get_preset, tmp, "single")
-        zero_launches(compaction)
+        zero_launches()
         t0 = time.time()
         with contextlib.redirect_stdout(sys.stderr):
             train_mod.train(cfg, resume=False, device=dev, shard=False)
         torch.cuda.synchronize()
         out["single_wall_s"] = time.time() - t0
-        single = launches(compaction)
+        single = launches()
         for label, counted in [(f"rank {r['rank']}", r["launches"])
                                for r in ranks] + [("single", single)]:
             check(counted == expect, f"data-parallel phase, {label}: "
@@ -1443,10 +1665,10 @@ def nccl_phase(torch, compaction, movegen, bg_env, learner, mesh,
             return state_tensors(ts, es), m
 
         plain, plain_m = step(None)
-        zero_launches(compaction)
+        zero_launches()
         sharded, sharded_m = step(world)
         torch.cuda.synchronize()
-        counted = launches(compaction)
+        counted = launches()
         per_rank = movegen_batches_phase(
             torch, compaction, movegen, perf_twoply,
             [("pod, one rank's shard", pod.env,
@@ -1568,7 +1790,7 @@ def distill_agreement(torch, np, twoply, learner, bg_env, frozen,
             "max_param_diff": param_diff}
 
 
-def distill_phase(torch, compaction, movegen, twoply, arena, learner, bg_env,
+def distill_phase(torch, movegen, twoply, arena, learner, bg_env,
                   frozen, run_distill, dev):
     """Phase 9: ``scripts/run_distill.main`` on the card, frozen_v1 at the
     script's 256 games, one iteration of ``DISTILL_PLIES`` plies and two
@@ -1592,7 +1814,7 @@ def distill_phase(torch, compaction, movegen, twoply, arena, learner, bg_env,
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "distill.jsonl")
-        zero_launches(compaction)
+        zero_launches()
         arena._ply = counted_ply
         t0 = time.time()
         try:
@@ -1606,7 +1828,7 @@ def distill_phase(torch, compaction, movegen, twoply, arena, learner, bg_env,
         finally:
             arena._ply = inner
         wall = time.time() - t0
-        counted = launches(compaction)
+        counted = launches()
         lines = [json.loads(x) for x in open(path)]
     check(len(lines) == 2 and lines == records,
           f"distill wrote {len(lines)} records")
@@ -1647,12 +1869,12 @@ BREAKDOWN_JAX_KEYS = (
     "update_ms", "rollout_sps", "train_sps", "movegen_share_of_step")
 BREAKDOWN_SCANS = ("movegen", "movegen_nondoubles",
                    "movegen_doubles_subbatch", "movegen_dedup")
-# (compact_rows, dedup_compact_rows, doubles_level) launches of one call
-# of each timed movegen piece: the k1 and raw-block compactions and the
-# dedup; the four doubles levels; the dedup alone
-PIECE_LAUNCHES = {"movegen_nondoubles": (2, 1, 0),
-                  "movegen_doubles_subbatch": (0, 0, 4),
-                  "movegen_dedup": (0, 1, 0)}
+# launches of one call of each timed movegen piece, in KERNELS order: the
+# non-doubles kernel; three doubles levels and the final one; the
+# non-doubles kernel alone, which holds the dedup
+PIECE_LAUNCHES = {"movegen_nondoubles": (0, 0, 0, 1, 0),
+                  "movegen_doubles_subbatch": (0, 0, 3, 0, 1),
+                  "movegen_dedup": (0, 0, 0, 1, 0)}
 
 
 def bench_run(movegen, bench):
@@ -1695,7 +1917,7 @@ def bench_run(movegen, bench):
             "stderr_tail": proc.stderr[-3000:]}
 
 
-def breakdown_run(torch, compaction, movegen, profiling, perf_breakdown,
+def breakdown_run(torch, movegen, profiling, perf_breakdown,
                   mgs, card):
     """``perf_breakdown.main(["4096"])`` in this process: every JAX key
     and its twin under both widths, each time positive, each graph time
@@ -1707,13 +1929,13 @@ def breakdown_run(torch, compaction, movegen, profiling, perf_breakdown,
     inner, scans = perf_breakdown.timed_scan, []
 
     def counted_scan(fn, *args, **kw):
-        before = launches(compaction)
+        before = launches()
         out = inner(fn, *args, **kw)
-        after = launches(compaction)
+        after = launches()
         scans.append(tuple(after[k] - before[k] for k in KERNELS))
         return out
 
-    zero_launches(compaction)
+    zero_launches()
     perf_breakdown.timed_scan = counted_scan
     t0 = time.time()
     try:
@@ -1723,7 +1945,7 @@ def breakdown_run(torch, compaction, movegen, profiling, perf_breakdown,
     finally:
         perf_breakdown.timed_scan = inner
     wall = time.time() - t0
-    counted = launches(compaction)
+    counted = launches()
     check(row["device"] == card, f"breakdown device {row['device']}")
     calls = 1 + profiling.SCAN_ITERS     # the warm-up, then the capture
     check(len(scans) == len(BREAKDOWN_SCANS) * len(mgs),
@@ -1758,12 +1980,12 @@ def breakdown_run(torch, compaction, movegen, profiling, perf_breakdown,
             "scan_launches": scans}
 
 
-def measuring_phase(torch, compaction, movegen, profiling, bench,
+def measuring_phase(torch, movegen, profiling, bench,
                     perf_breakdown, card):
     """Phase 10: the bench in a process of its own, then the breakdown at
     B=4096 in this one."""
     bench = bench_run(movegen, bench)
-    breakdown = breakdown_run(torch, compaction, movegen, profiling,
+    breakdown = breakdown_run(torch, movegen, profiling,
                               perf_breakdown, perf_breakdown.widths(), card)
     return {"bench": bench, "breakdown": breakdown}
 
@@ -1825,7 +2047,8 @@ def main(argv=None) -> int:
                                                       twoply)
         from mlp_ppo_2ply_p3_tpu_torch.core import movegen
         from mlp_ppo_2ply_p3_tpu_torch.env import bg_env
-        from mlp_ppo_2ply_p3_tpu_torch.ops import build, compaction, doubles
+        from mlp_ppo_2ply_p3_tpu_torch.ops import (build, compaction, doubles,
+                                                   nondoubles)
         from mlp_ppo_2ply_p3_tpu_torch.parallel import mesh
         from mlp_ppo_2ply_p3_tpu_torch.ppo import learner
         from mlp_ppo_2ply_p3_tpu_torch.ppo import train as train_mod
@@ -1866,19 +2089,21 @@ def main(argv=None) -> int:
     log(f"doubles_level == plain on "
         f"{len(report['phases']['doubles_cases'])} shapes")
 
+    report["phases"]["nondoubles_cases"] = nondoubles_cases(
+        torch, nondoubles, dev)
+    log(f"nondoubles_batch == plain on "
+        f"{len(report['phases']['nondoubles_cases'])} shapes")
+    report["phases"]["final_cases"] = final_cases(torch, doubles, dev)
+    log(f"doubles_final == plain on "
+        f"{len(report['phases']['final_cases'])} shapes")
+
     cfg = get_preset("train4096")
-    per_call, per_dedup, per_level, mg_ms, mg_graph_ms = movegen_phase(
-        torch, compaction, movegen, perf_twoply, profiling, cfg.env, dev)
+    main_rows, mg_ms, mg_graph_ms = movegen_phase(
+        torch, movegen, perf_twoply, profiling, cfg.env, dev)
     report["phases"]["movegen"] = {"ms_per_call": mg_ms,
                                    "graph_ms_per_call": mg_graph_ms,
-                                   "compactions": per_call,
-                                   "dedups": per_dedup, "levels": per_level}
-    for name, rows in (("compact", per_call), ("dedup", per_dedup),
-                       ("doubles level", per_level)):
-        for row in rows:
-            log(f"{name} {tuple(row['shape'])} -> {row['k_out']}: kernel "
-                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+                                   "calls": main_rows}
+    log_rows("", main_rows)
     log(f"movegen B=4096: {mg_ms:.3f} ms/call ({mg_graph_ms:.3f} ms as a "
         f"CUDA graph), kernel path == plain path == CPU")
     # the league eval's and the arenas' movegen batches, B=4096 at the
@@ -1901,7 +2126,7 @@ def main(argv=None) -> int:
     t = args.t
     if t != cfg.ppo.t_horizon:
         log(f"reduced: t_horizon {cfg.ppo.t_horizon} -> {t}")
-    main_path = train_phase(torch, compaction, movegen, bg_env, learner,
+    main_path = train_phase(torch, movegen, bg_env, learner,
                             cfg, 4096, t, dev, timed=2)
     report["phases"]["train4096"] = main_path
     log(f"train4096 B=4096 T={t}: {main_path['train_step_s']:.3f} s/step, "
@@ -1912,7 +2137,7 @@ def main(argv=None) -> int:
     after_cfg = dataclasses.replace(
         cfg, ppo=dataclasses.replace(cfg.ppo, policy_mode="afterstate"))
     report["phases"]["afterstate"] = train_phase(
-        torch, compaction, movegen, bg_env, learner, after_cfg, 512, 16,
+        torch, movegen, bg_env, learner, after_cfg, 512, 16,
         dev, timed=1)
     log(f"afterstate B=512 T=16: "
         f"{report['phases']['afterstate']['train_step_s']:.3f} s/step")
@@ -1921,13 +2146,13 @@ def main(argv=None) -> int:
     model, model_cfg = frozen.load_frozen(device=dev)
     check(model_cfg == eval_cfg.model, "frozen_v1 is not the twoply model")
     t0 = time.time()
-    two = twoply_phase(torch, compaction, twoply, perf_twoply, bg_env,
+    two = twoply_phase(torch, twoply, perf_twoply, bg_env,
                        eval_cfg, model, dev)
     report["phases"]["twoply"] = two
     log(f"2-ply phase: {time.time() - t0:.1f} s")
     log(f"reduced: 2-ply vs 1-ply arena max_plies 400 -> {TWOPLY_PLIES}")
     t0 = time.time()
-    arenas = arena_phase(torch, compaction, movegen, arena, league, twoply,
+    arenas = arena_phase(torch, movegen, arena, league, twoply,
                          eval_cfg, dev)
     report["phases"]["arena"] = arenas
     log(f"arena phase: {time.time() - t0:.1f} s; 1-ply frozen_v1 vs pubeval "
@@ -1936,7 +2161,7 @@ def main(argv=None) -> int:
 
     # the training driver, at the preset's horizon
     t0 = time.time()
-    trainer = trainer_phase(torch, compaction, movegen, arena, train_mod,
+    trainer = trainer_phase(torch, movegen, arena, train_mod,
                             ckpt, cfg, dev)
     report["phases"]["trainer"] = trainer
     league = trainer["league"]
@@ -1956,7 +2181,7 @@ def main(argv=None) -> int:
     # data-parallel training: two gloo ranks on the card against one
     # process, the kernels at one rank's movegen call, a NCCL world of one
     t0 = time.time()
-    dp = dp_phase(torch, compaction, movegen, learner, train_mod,
+    dp = dp_phase(torch, movegen, learner, train_mod,
                   get_preset, dev)
     log(f"reduced: pod t_horizon {pod.ppo.t_horizon} -> {DP_T}, "
         f"{DP_UPDATES} updates, no league eval")
@@ -1986,7 +2211,7 @@ def main(argv=None) -> int:
 
     # 2-ply distillation on frozen_v1
     t0 = time.time()
-    distill = distill_phase(torch, compaction, movegen, twoply, arena,
+    distill = distill_phase(torch, movegen, twoply, arena,
                             learner, bg_env, frozen, run_distill, dev)
     distill["phase_s"] = time.time() - t0
     report["phases"]["distill"] = distill
@@ -2002,7 +2227,7 @@ def main(argv=None) -> int:
 
     # the measuring entry points: the bench and the breakdown
     t0 = time.time()
-    measuring = measuring_phase(torch, compaction, movegen, profiling,
+    measuring = measuring_phase(torch, movegen, profiling,
                                 bench_mod, perf_breakdown, card)
     measuring["phase_s"] = time.time() - t0
     report["phases"]["measuring"] = measuring
@@ -2032,9 +2257,12 @@ def main(argv=None) -> int:
     by_path["breakdown"] = bd["launches"]
     for path, counted in by_path.items():
         for name in KERNELS:
-            # replies skip the dedup from width 482
-            if not (path.endswith("_reply512")
-                    and name == "dedup_compact_rows"):
+            # the non-doubles kernel dedups on chip, so no path calls
+            # dedup_compact_rows; a 2-ply decision splits no sub-batch
+            if name == "dedup_compact_rows" or (
+                    path.startswith("twoply_") and name == "compact_rows"):
+                check(counted[name] == 0, f"{path} launched {name}")
+            else:
                 check(counted[name] > 0, f"{path} never launched {name}")
 
     # last, so that the profiler's own cost cannot reach the timed steps
@@ -2048,9 +2276,12 @@ def main(argv=None) -> int:
                                                  eval_cfg.search))
         log(table)
 
-    def kernel_row(name, replaces, rows, source="compaction.cu"):
-        # times: one movegen call's launches (B=4096, train4096), summed;
-        # launches: every path's run, summed, and by path
+    def kernel_row(name, replaces, source):
+        # times: one movegen call's launches (B=4096, train4096), summed
+        # (dedup_compact_rows, off the path: at the block that the plain
+        # non-doubles batch dedups); launches: every path's run, summed,
+        # and by path
+        rows = main_rows[name]
         bytes_ms = sum(r["bytes_ms"] for r in rows)
         ops_ms = sum(r["ops_ms"] for r in rows)
         return {
@@ -2068,14 +2299,17 @@ def main(argv=None) -> int:
             # no single PyTorch call computes batched stable compaction,
             # nor ordered first-occurrence dedup at a fixed width
             # (torch.unique keeps neither the order nor a static shape),
-            # nor the expansion of a frontier by backgammon submoves
+            # nor the expansion of boards by backgammon submoves
             "library_ms": None,
         }
 
-    kernels = [kernel_row("compact_rows", TPU_KERNELS, per_call),
-               kernel_row("dedup_compact_rows", DEDUP_REPLACES, per_dedup),
-               kernel_row("doubles_level", DOUBLES_REPLACES, per_level,
-                          "doubles.cu")]
+    kernels = [kernel_row("compact_rows", TPU_KERNELS, "compaction.cu"),
+               kernel_row("dedup_compact_rows", DEDUP_REPLACES,
+                          "compaction.cu"),
+               kernel_row("doubles_level", DOUBLES_REPLACES, "doubles.cu"),
+               kernel_row("nondoubles", NONDOUBLES_REPLACES,
+                          "nondoubles.cu"),
+               kernel_row("doubles_final", FINAL_REPLACES, "doubles.cu")]
     report["kernels"] = kernels
     report["script_s"] = time.time() - t_script
     log(f"chip_smoke.py ran {report['script_s']:.1f} s")

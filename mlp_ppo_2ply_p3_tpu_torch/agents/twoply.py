@@ -124,16 +124,19 @@ def _reply_leg(model: MLP, vecs, us, dance, chunk: int, slot_chunk: int,
 
 
 def launches_per_decision(batch: int, scfg: SearchConfig = SearchConfig()):
-    """(compact_rows, dedup_compact_rows, doubles_level) launches of one
-    decision over ``batch`` games: per chunk, each non-doubles roll makes
-    the stacked k1 compaction and the raw one (then one dedup below width
-    482), each doubles die its four levels."""
+    """(compact_rows, dedup_compact_rows, doubles_level, nondoubles,
+    doubles_final) launches of one decision over ``batch`` games: per
+    chunk, each non-doubles roll makes one ``nondoubles`` launch (its
+    dedup, below width 482, runs inside it), each doubles die its three
+    levels and the final one; no sub-batch split, so no compaction."""
     rcfg = _reply_cfg(scfg)
     bk = batch * scfg.top_k
     nd = -(-bk // min(scfg.game_chunk, bk)) * len(_ND_IDX)
     db = -(-bk // min(scfg.dbl_game_chunk, bk)) * len(_DBL_IDX)
-    return (2 * nd, nd * MG.dedups_per_call(rcfg),
-            db * MG.doubles_levels_per_call(rcfg))
+    return (0, nd * MG.dedups_per_call(rcfg),
+            db * MG.doubles_levels_per_call(rcfg),
+            nd * MG.nondoubles_per_call(rcfg),
+            db * MG.doubles_finals_per_call(rcfg))
 
 
 @torch.no_grad()

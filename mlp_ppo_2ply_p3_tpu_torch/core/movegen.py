@@ -18,12 +18,16 @@ no host synchronisation and truncates exactly where the JAX package does.
   so levels are plain stable compactions.  The final list is the deepest
   non-empty level.
 
-Each doubles level (expansion, rank filter and compaction) is one
-``ops.doubles.doubles_level``; every other stable compaction, including
-the per-game k1 compaction and the doubles/non-doubles sub-batch split,
-goes through ``ops.compaction.compact_rows``, and the non-doubles dedup
-with the compaction after it through ``ops.compaction.dedup_compact_rows``:
-CUDA kernels on the card, their plain PyTorch versions on the CPU.  Output
+The non-doubles batch is one ``ops.nondoubles.nondoubles_batch`` (both
+die orders, the emission and max-submove rules, the dedup and the
+compaction into the list; JAX ``_nondoubles_candidates`` and
+``_nondoubles_batch``).  The doubles list is three
+``ops.doubles.doubles_level`` calls (expansion, rank filter and
+compaction) and one ``ops.doubles.doubles_final``, the fourth level that
+also writes the deepest non-empty level as the list.  The doubles /
+non-doubles sub-batch split, and every compaction of the ``exact_order``
+doubles path, go through ``ops.compaction.compact_rows``.  Each is a CUDA
+kernel on the card and its plain PyTorch version on the CPU.  Output
 lists, counts and overflow flags are bit-identical to the JAX package's.
 """
 
@@ -34,7 +38,7 @@ import math
 
 import torch
 
-from ..ops import compaction, doubles
+from ..ops import compaction, doubles, nondoubles
 from ..parallel import mesh
 from . import board as B
 from .constants import NUM_CHECKERS
@@ -95,24 +99,12 @@ class MovegenConfig:
         )
 
 
-# Candidate slots per die (the grid helpers live in ops.doubles)
-NSLOT = doubles.NSLOT
-
-
 def _arange_lt(k, n):
     """(G, k) prefix mask: slot j < n[g]."""
     return torch.arange(k, device=n.device)[None, :] < n[:, None]
 
 
 # --- building blocks --------------------------------------------------------
-
-
-def _first_die(vecs, die, mirror):
-    """One die from (G, 52) boards: (afterstates (G, 27, 52), valid
-    (G, 27), origin (G, 27)) in scan order."""
-    v, o, d, h = (doubles.perm_scan(a, mirror)
-                  for a in B.submoves_one_die(vecs, die))
-    return B.apply_submove(vecs[:, None, :], o, d, h), v, o
 
 
 def _compact_batch(payloads, valid, k_out: int):
@@ -155,90 +147,21 @@ def _dedup_pairwise(boards, valid):
     """First-occurrence dedup flags in ORIGINAL (generation) order for
     (G, K, 52) boards: keep[g, i] iff row i is valid and no earlier valid
     row holds the same board (``ops.compaction.first_occurrence_plain``).
-    Only the ``exact_order`` doubles levels use the flags themselves; the
-    non-doubles path dedups and compacts in one ``dedup_compact_rows``."""
+    Only the ``exact_order`` doubles levels use them; the non-doubles
+    kernel dedups on chip."""
     return compaction.first_occurrence_plain(boards, valid)
-
-
-def _embed(boards, n, m):
-    """Place (G, K, 52) frontiers into (G, M, 52) buffers (truncating if
-    K > M)."""
-    k = min(boards.shape[1], m)
-    out = boards.new_zeros((boards.shape[0], m, 52))
-    out[:, :k] = boards[:, :k]
-    return out, torch.clamp(n, max=m)
 
 
 # --- non-doubles ------------------------------------------------------------
 
 
-def _one_order(vecs, d_first, d_second, k1, mirror):
-    """One die order per game: returns (singles (G, k1, 52),
-    singles_valid, pair_boards (G, k1*27, 52), pair_valid, has2 (G,))."""
-    b1, v1, _ = _first_die(vecs, d_first, mirror)
-    (b1c,), n1 = _compact_batch((b1,), v1, k1)  # <= 15 valid: never overflows
-    v1c = _arange_lt(k1, n1)
-    pair_b, pair_v, _ = doubles.expand_one_die(b1c, v1c, d_second,
-                                               mirror)
-    return b1c, v1c, pair_b, pair_v, pair_v.any(dim=1)
-
-
-def _nondoubles_candidates(vecs, d_hi, d_lo, cfg: MovegenConfig, mirror):
-    """Per-game candidate blocks (G, 2*(k1*27 + k1), 52) with reference
-    emission semantics and the max-submove filter applied.  Both die
-    orders run as one stacked (2G) batch."""
-    g, k1 = vecs.shape[0], cfg.k1
-    both = _one_order(
-        torch.cat([vecs, vecs]), torch.cat([d_hi, d_lo]),
-        torch.cat([d_lo, d_hi]), k1, torch.cat([mirror, mirror]),
-    )
-    (a1b, b1b), (a1v, b1v), (a2b, b2b), (a2v, b2v), (has2_a, has2_b) = (
-        (x[:g], x[g:]) for x in both
-    )
-
-    # skip the reversed order iff pass A yielded exactly one unique
-    # single-submove move (distinct origins with one die always give
-    # distinct boards, so the unique count is a plain popcount)
-    not_a = torch.logical_not(has2_a)
-    uniq_singles_a = (a1v & not_a[:, None]).sum(dim=1)
-    run_b = torch.logical_not(not_a & (uniq_singles_a == 1))
-
-    cand_boards = torch.cat([a2b, a1b, b2b, b1b], dim=1)
-    cand_valid = torch.cat(
-        [
-            a2v & has2_a[:, None],
-            a1v & not_a[:, None],
-            b2v & (has2_b & run_b)[:, None],
-            b1v & (torch.logical_not(has2_b) & run_b)[:, None],
-        ],
-        dim=1,
-    )
-    one_order = torch.cat([
-        torch.full((k1 * NSLOT,), 2, dtype=I32, device=vecs.device),
-        torch.full((k1,), 1, dtype=I32, device=vecs.device),
-    ])
-    seqlen = torch.cat([one_order, one_order])
-    # max-submove filter before dedup: equal boards always have equal
-    # submove counts, so the order of the two does not matter
-    max_len = torch.where(cand_valid, seqlen, 0).amax(dim=1)
-    keep0 = cand_valid & (seqlen[None, :] == max_len[:, None])
-    return cand_boards, keep0
-
-
 def _nondoubles_batch(vecs, d_hi, d_lo, cfg: MovegenConfig, mirror):
-    """(G,)-batched non-doubles enumeration: candidate blocks, then
-    stable compaction -> per-game dedup and compaction into the M-wide
-    output (one ``dedup_compact_rows``)."""
-    cand, keep0 = _nondoubles_candidates(vecs, d_hi, d_lo, cfg, mirror)
-    if not cfg.dedup:
-        (out,), n = _compact_batch((cand,), keep0, cfg.max_moves)
-        return out, torch.clamp(n, max=cfg.max_moves), n > cfg.max_moves
-    kd = cfg.dedup_width
-    (cb,), n_raw = _compact_batch((cand,), keep0, kd)
-    kv = _arange_lt(kd, torch.clamp(n_raw, max=kd))
-    out, n = compaction.dedup_compact_rows(cb, kv, cfg.max_moves)
-    overflow = (n_raw > kd) | (n > cfg.max_moves)
-    return out, torch.clamp(n, max=cfg.max_moves), overflow
+    """(G,)-batched non-doubles enumeration: one
+    ``nondoubles.nondoubles_batch`` at the config's widths."""
+    return nondoubles.nondoubles_batch(
+        vecs.contiguous(), d_hi.contiguous(), d_lo.contiguous(),
+        mirror.contiguous(), cfg.k1, cfg.dedup_width, cfg.max_moves,
+        cfg.dedup)
 
 
 # --- doubles ----------------------------------------------------------------
@@ -247,10 +170,11 @@ def _nondoubles_batch(vecs, d_hi, d_lo, cfg: MovegenConfig, mirror):
 def _doubles_batch(vecs, die, cfg: MovegenConfig, mirror):
     """(G,)-batched depth-4 frontier expansion with non-decreasing-origin
     canonicalization and no dedup (distinct non-decreasing origin
-    sequences give distinct boards): four ``doubles.doubles_level``
+    sequences give distinct boards): three ``doubles.doubles_level``
     calls, the first on the roots as a one-row frontier with no rank
-    filter, each the level's expansion, rank filter and compaction."""
-    m = cfg.max_moves
+    filter, each the level's expansion, rank filter and compaction; then
+    one ``doubles.doubles_final``, the fourth level, which writes the
+    deepest non-empty level as the list with its count and overflow."""
     die, mirror = die.contiguous(), mirror.contiguous()
 
     def level(fb, fr, n, k_out):
@@ -259,26 +183,8 @@ def _doubles_batch(vecs, die, cfg: MovegenConfig, mirror):
     f1b, f1r, n1 = level(vecs.contiguous()[:, None, :], None, None, cfg.k1)
     f2b, f2r, n2 = level(f1b, f1r, n1, cfg.k2)
     f3b, f3r, n3 = level(f2b, f2r, n2, cfg.k3)
-    f4b, _, n4 = level(f3b, f3r, n3, m)
-    has2, has3, has4 = n2 > 0, n3 > 0, n4 > 0
-
-    # deepest non-empty level is the legal move list
-    l1b, l1n = _embed(f1b, n1, m)
-    l2b, l2n = _embed(f2b, n2, m)
-    l3b, l3n = _embed(f3b, n3, m)
-    w4, w3, w2 = (h[:, None, None] for h in (has4, has3, has2))
-    out = torch.where(w4, f4b, torch.where(w3, l3b, torch.where(w2, l2b, l1b)))
-    n = torch.where(has4, n4,
-                    torch.where(has3, l3n, torch.where(has2, l2n, l1n)))
-    not4, not3 = torch.logical_not(has4), torch.logical_not(has3)
-    overflow = (
-        (has2 & (n2 > cfg.k2))
-        | (has3 & (n3 > cfg.k3))
-        | (has4 & (n4 > m))
-        | (not4 & has3 & (n3 > m))
-        | (not3 & has2 & (n2 > m))
-    )
-    return out, torch.clamp(n, max=m), overflow
+    return doubles.doubles_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror,
+                                 cfg.max_moves)
 
 
 def _doubles_exact(vecs, die, cfg: MovegenConfig, mirror):
@@ -287,7 +193,7 @@ def _doubles_exact(vecs, die, cfg: MovegenConfig, mirror):
     board dedup at every level (see the JAX package's docstring for why
     levelwise dedup is exact)."""
     m = cfg.max_moves
-    b1, v1, _ = _first_die(vecs, die, mirror)
+    b1, v1, _ = doubles.first_die(vecs, die, mirror)
     # L1 boards are distinct (distinct origins): no L1 dedup
     (f1b,), n1 = _compact_batch((b1,), v1, cfg.k1)
     f1v = _arange_lt(cfg.k1, n1)
@@ -308,7 +214,7 @@ def _doubles_exact(vecs, die, cfg: MovegenConfig, mirror):
     (o4,), _ = _compact_batch((f4b,), f4k, m)
     (o3,), _ = _compact_batch((f3b,), f3k, m)
     (o2,), _ = _compact_batch((f2b,), f2k, m)
-    l1b, l1n = _embed(f1b, n1, m)
+    l1b, l1n = doubles.embed(f1b, n1, m)
     w4, w3, w2 = (h[:, None, None] for h in (has4, has3, has2))
     out = torch.where(w4, o4, torch.where(w3, o3, torch.where(w2, o2, l1b)))
     n = torch.where(has4, c4,
@@ -355,22 +261,35 @@ def nondoubles_capacity(batch_size: int,
 
 def compactions_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:
     """Number of ``compact_rows`` calls one ``legal_afterstates_batch``
-    makes: the two sub-batch splits, the stacked k1 compaction and the
-    raw non-doubles block, and under ``exact_order`` the seven of the
-    doubles levels."""
-    return 2 + 2 + (7 if cfg.exact_order else 0)
+    makes: the two sub-batch splits, and under ``exact_order`` the seven
+    of the doubles levels."""
+    return 2 + (7 if cfg.exact_order else 0)
+
+
+def nondoubles_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:
+    """Number of ``nondoubles_batch`` calls one ``legal_afterstates_batch``
+    makes: the non-doubles sub-batch."""
+    return 1
 
 
 def doubles_levels_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:
     """Number of ``doubles_level`` calls one ``legal_afterstates_batch``
-    makes: the four doubles levels, unless ``exact_order``."""
-    return 0 if cfg.exact_order else 4
+    makes: the first three doubles levels, unless ``exact_order``."""
+    return 0 if cfg.exact_order else 3
+
+
+def doubles_finals_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:
+    """Number of ``doubles_final`` calls one ``legal_afterstates_batch``
+    makes: the fourth doubles level with the list, unless
+    ``exact_order``."""
+    return 0 if cfg.exact_order else 1
 
 
 def dedups_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:
     """Number of ``dedup_compact_rows`` calls one
-    ``legal_afterstates_batch`` makes: the non-doubles dedup, if on."""
-    return 1 if cfg.dedup else 0
+    ``legal_afterstates_batch`` makes: none, since the non-doubles dedup
+    runs inside the ``nondoubles_batch`` kernel."""
+    return 0
 
 
 def _game_over(vecs):

@@ -1,7 +1,8 @@
-// One level of movegen's doubles frontier for Hopper (sm_90a): expand every
-// frontier row by the die over the 27 submove slots, in the reference's scan
-// order, keep the expansions whose origin rank does not fall below the row's
-// own, and stable-compact them into the next frontier.
+// Movegen's doubles frontier for Hopper (sm_90a): one level per launch.  A
+// level expands every frontier row by the die over the 27 submove slots, in
+// the reference's scan order, keeps the expansions whose origin rank does not
+// fall below the row's own, and stable-compacts them into the next frontier.
+// The last level also writes the final move list.
 //
 // doubles_level_launch replaces the jnp `level` of the JAX package's doubles
 // frontier, mlp_ppo_2ply_p3_tpu/core/movegen.py:406-416 (its compaction is
@@ -16,19 +17,30 @@
 //      valid candidates in (frontier row, scan position) order, then zeros;
 //      n (G,) int32: the number of valid candidates (may exceed k_out).
 //
-// Slots follow core/board.py::submoves_one_die (24 points, the bar, the
-// farthest bear-off, the exact bear-off from 24 - die) with its index clamps
-// and its sentinel 99 for "no checker at home"; the afterstate is
-// core/board.py::apply_submove, in int8 arithmetic.  Mirrored games scan the
-// bar first, then points 23..0, then the two bear-off slots
-// (ops/doubles.py::perm_scan).
+// doubles_final_launch is the fourth level together with the selection
+// after it, mlp_ppo_2ply_p3_tpu/core/movegen.py:420 (the L4 `level`) and
+// :422-439 (the deepest non-empty level is the list).  From L3 (boards,
+// ranks, n3) and the L1 and L2 frontiers with their unclamped counts, per
+// game, with M = k_out:
+//
+//   -> out (G, M, 52): L4's candidates if n4 > 0, else the first min(K, M)
+//      rows of L3 if n3 > 0, else of L2 if n2 > 0, else of L1, as they are
+//      (rows past a level's count are the level's own), then zeros;
+//      n (G,) int32: that level's count, clamped to M (even where it
+//      exceeds the level's width K);
+//      overflow (G,) uint8: (n2 > 0 & n2 > K2) | (n3 > 0 & n3 > K3) |
+//      (n4 > M) | (n4 == 0 & n3 > M) | (n3 == 0 & n2 > M).
+//
+// The rules (slot predicate, afterstate, scan order) are board.cuh's.
 //
 // What bounds it on this card: bytes, and at movegen's sizes latency.  The
 // function must read the valid frontier rows and write the next frontier:
 // about 27 MB over the four levels of a `fast` movegen call at B=4096 (39 MB
-// if every frontier row were read), 8 us at 3.35 TB/s.  The candidate grid it replaces, (G, K x 27, 53) before the
-// compaction (240 MB at the last level), is what cost the time.  What the
-// design does about it:
+// if every frontier row were read), 8 us at 3.35 TB/s; the final form adds
+// the earlier level's rows of the few games whose L4 is empty.  The candidate
+// grid it replaces, (G, K x 27, 53) before the compaction (240 MB at the last
+// level), and the selection's three (G, M, 52) embeddings and `where`s are
+// what cost the time.  What the design does about it:
 //
 // - One block per game.  The block walks the frontier's VALID rows only, 128
 //   rows a chunk (any K), staging each chunk in shared memory with 4-byte
@@ -44,132 +56,22 @@
 //   parent and stores it, so 13 lanes write one 52-byte row in one coalesced
 //   store; lane 13 writes its rank.  No candidate grid, valid mask or rank
 //   array ever reaches device memory.
-// - The zero tail is written with 4-byte stores.  Rows at or past k_out are
+// - The zero tail is written with 16-byte stores.  Rows at or past k_out are
 //   counted and never written.
+// - The final form knows the game's L4 count when its loop ends: where it is
+//   0 the block copies the chosen earlier level's rows word by word instead,
+//   so the selection costs no pass over the (G, M, 52) output.
 //
 // Nothing here allocates: the caller passes the outputs.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "board.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;             // a block: rows of a chunk
 constexpr int kWarps = kThreads / 32;
 constexpr int kHalfWarps = kThreads / 16;
-constexpr int kSlots = 27;
-constexpr int kBoard = 52;
-constexpr int kWords = kBoard / 4;        // 13
 constexpr int kMaxItems = kThreads * kSlots;
-constexpr int kPoints = 24;
-constexpr int kCheckers = 15;
-constexpr int kOriginBar = 24;
-constexpr int kDestOff = 24;
-constexpr int kNoChecker = 99;            // submoves_one_die's sentinel
-constexpr int kMyBar = 48, kOppBar = 49, kMyOff = 50;
-constexpr uint32_t kPointsAndBar = (1u << 25) - 1u;
-
-__device__ __forceinline__ int clamp_pt(int x) {
-  return x < 0 ? 0 : (x > kPoints - 1 ? kPoints - 1 : x);
-}
-
-// ops/doubles.py::rank_of as int8
-__device__ __forceinline__ int rank_of(int origin) {
-  return (int)(int8_t)(origin == kOriginBar ? -1 : origin);
-}
-
-// Farthest occupied home point (18..23), or the sentinel.
-__device__ __forceinline__ int farthest_home(const int8_t* b) {
-  int far = kNoChecker;
-#pragma unroll
-  for (int p = kPoints - 1; p >= 18; --p) {
-    if (b[p] > 0) far = p;
-  }
-  return far;
-}
-
-// Bit s: slot s (unpermuted) is a valid submove of board b whose rank is
-// at least `parent` (no filter for a root level).
-__device__ uint32_t slot_mask(const int8_t* b, int die, int parent,
-                              bool filter) {
-  const bool on_bar = b[kMyBar] > 0;
-  const bool live = b[kMyOff] < kCheckers;
-  if (!live) return 0u;
-  int home_sum = 0;
-#pragma unroll
-  for (int p = 0; p < 18; ++p) home_sum += b[p];
-  const bool all_home = !on_bar && home_sum == 0;
-  uint32_t m = 0u;
-  if (!on_bar) {
-#pragma unroll
-    for (int p = 0; p < kPoints; ++p) {
-      const int dp = p + die;
-      const bool in_board = dp < kPoints;
-      const int opp_at = in_board ? b[kPoints + clamp_pt(dp)] : 0;
-      if (b[p] > 0 && in_board && opp_at <= 1 && (!filter || p >= parent)) {
-        m |= 1u << p;
-      }
-    }
-  } else if (b[kPoints + clamp_pt(die - 1)] <= 1 && (!filter || -1 >= parent)) {
-    m |= 1u << kOriginBar;
-  }
-  if (all_home) {
-    const int far = farthest_home(b);
-    if (far < kNoChecker && far + die >= kPoints) {
-      const int o = far < 18 ? 18 : (far > 23 ? 23 : far);
-      if (!filter || o >= parent) m |= 1u << 25;
-    }
-    const int ex = kPoints - die;
-    if (b[clamp_pt(ex)] > 0 && ex != far &&
-        (!filter || rank_of(ex) >= parent)) {
-      m |= 1u << 26;
-    }
-  }
-  return m;
-}
-
-// (row, origin, dest, hit) of a valid slot, packed: row in bits 0-7,
-// origin and dest as int8 in bits 8-15 and 16-23, hit in bit 24.
-__device__ __forceinline__ uint32_t slot_item(const int8_t* b, int row,
-                                              int slot, int die) {
-  int o, d, h = 0;
-  if (slot < kPoints) {
-    o = slot;
-    d = slot + die;          // in the board: the slot is valid
-    h = b[kPoints + clamp_pt(d)] == 1;
-  } else if (slot == kOriginBar) {
-    o = kOriginBar;
-    d = die - 1;
-    h = b[kPoints + clamp_pt(d)] == 1;
-  } else if (slot == 25) {
-    const int far = farthest_home(b);
-    o = far < 18 ? 18 : (far > 23 ? 23 : far);
-    d = kDestOff;
-  } else {
-    o = kPoints - die;
-    d = kDestOff;
-  }
-  return (uint32_t)row | ((uint32_t)(uint8_t)(int8_t)o << 8) |
-         ((uint32_t)(uint8_t)(int8_t)d << 16) | ((uint32_t)h << 24);
-}
-
-// Byte p of apply_submove(b, o, d, h), in int8 arithmetic.
-__device__ __forceinline__ uint32_t after_byte(const int8_t* b, int p, int o,
-                                               int d, int h) {
-  int v = b[p];
-  if (p < kPoints) {
-    v += (p == d) - (p == o);
-  } else if (p < 2 * kPoints) {
-    v -= (p - kPoints == d) & h;
-  } else if (p == kMyBar) {
-    v -= o == kOriginBar;
-  } else if (p == kOppBar) {
-    v += h;
-  } else if (p == kMyOff) {
-    v += d == kDestOff;
-  }
-  return (uint32_t)(uint8_t)(int8_t)v;
-}
 
 struct Smem {
   uint32_t rows[kThreads * kWords];  // the chunk's frontier rows
@@ -177,29 +79,30 @@ struct Smem {
   int warp_tot[kWarps];
 };
 
-// Exclusive prefix of v over the block; `total` gets the sum.  The caller
-// syncs before warp_tot is written again.
-__device__ __forceinline__ int block_scan(int v, int* warp_tot, int& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
+// The L1 and L2 frontiers that the final form falls back on.
+struct Earlier {
+  const int8_t* f1b;
+  const int32_t* n1;
+  int k1;
+  const int8_t* f2b;
+  const int32_t* n2;
+  int k2;
+  uint8_t* overflow;
+};
+
+// Copy `rows` rows of 52 bytes from src to the 4-byte aligned dst.
+__device__ __forceinline__ void copy_rows(uint32_t* dst, const int8_t* src,
+                                          int rows, int t) {
+  if (((uintptr_t)src & 3) == 0) {
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+    for (int w = t; w < rows * kWords; w += kThreads) dst[w] = __ldg(s + w);
+  } else {
+    int8_t* d = reinterpret_cast<int8_t*>(dst);
+    for (int e = t; e < rows * kBoard; e += kThreads) d[e] = src[e];
   }
-  if (lane == 31) warp_tot[warp] = x;
-  __syncthreads();
-  int before = 0;
-  total = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const int t = warp_tot[w];
-    before += w < warp ? t : 0;
-    total += t;
-  }
-  return before + x - v;
 }
 
+template <bool kFinal>
 __global__ void __launch_bounds__(kThreads)
 doubles_level_kernel(const int8_t* __restrict__ boards,
                      const int8_t* __restrict__ ranks,
@@ -209,7 +112,7 @@ doubles_level_kernel(const int8_t* __restrict__ boards,
                      int8_t* __restrict__ boards_out,
                      int8_t* __restrict__ ranks_out,
                      int32_t* __restrict__ n_out, int k, int k_out,
-                     int words) {
+                     int words, Earlier early) {
   __shared__ Smem sm;
   const int g = blockIdx.x;
   const int t = threadIdx.x;
@@ -222,7 +125,7 @@ doubles_level_kernel(const int8_t* __restrict__ boards,
   const int8_t* src = boards + (size_t)g * k * kBoard;
   const int8_t* rsrc = filter ? ranks + (size_t)g * k : nullptr;
   int8_t* out = boards_out + (size_t)g * k_out * kBoard;
-  int8_t* rout = ranks_out + (size_t)g * k_out;
+  int8_t* rout = kFinal ? nullptr : ranks_out + (size_t)g * k_out;
   const int8_t* rows = reinterpret_cast<const int8_t*>(sm.rows);
 
   int seen = 0;  // valid candidates of the earlier chunks
@@ -244,48 +147,71 @@ doubles_level_kernel(const int8_t* __restrict__ boards,
     const int8_t* b = rows + t * kBoard;
     if (t < nrows) {
       const int parent = filter ? (int)rsrc[c0 + t] : 0;
-      m = slot_mask(b, die, parent, filter);
-      if (mir) {  // scan order: bar, points 23..0, then the bear-offs
-        m = (m & ~kPointsAndBar) | (__brev(m & kPointsAndBar) >> 7);
-      }
+      m = scan_order(slot_mask(b, die, parent, filter), mir);
     }
     int total;
-    const int excl = block_scan(__popc(m), sm.warp_tot, total);
+    const int excl = block_scan<kWarps>(__popc(m), sm.warp_tot, total);
     const int keep = max(0, min(total, k_out - seen));
     if (keep > 0) {
       int i = excl;
       for (uint32_t mm = m; mm != 0u && i < keep; mm &= mm - 1u, ++i) {
-        const int s = __ffs(mm) - 1;
-        const int slot = (mir && s < 25) ? 24 - s : s;
+        const int slot = scan_slot(__ffs(mm) - 1, mir);
         sm.items[i] = slot_item(b, t, slot, die);
       }
       __syncthreads();
       for (int i0 = hw; i0 < keep; i0 += kHalfWarps) {
         const uint32_t item = sm.items[i0];
         const int8_t* pb = rows + (item & 0xffu) * kBoard;
-        const int o = (int8_t)(item >> 8), d = (int8_t)(item >> 16);
-        const int h = (item >> 24) & 1;
         const size_t slot = (size_t)(seen + i0);
         if (hl < kWords) {
-          uint32_t word = 0u;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            word |= after_byte(pb, 4 * hl + q, o, d, h) << (8 * q);
-          }
-          reinterpret_cast<uint32_t*>(out + slot * kBoard)[hl] = word;
-        } else if (hl == kWords) {
-          rout[slot] = (int8_t)rank_of(o);
+          reinterpret_cast<uint32_t*>(out + slot * kBoard)[hl] =
+              after_word(pb, item, hl);
+        } else if (!kFinal && hl == kWords) {
+          rout[slot] = (int8_t)rank_of((int8_t)(item >> 8));
         }
       }
     }
     seen += total;
   }
 
-  const int filled = min(seen, k_out);
-  uint32_t* tail = reinterpret_cast<uint32_t*>(out) + (size_t)filled * kWords;
-  for (int w = t; w < (k_out - filled) * kWords; w += kThreads) tail[w] = 0u;
-  for (int e = filled + t; e < k_out; e += kThreads) rout[e] = 0;
-  if (t == 0) n_out[g] = seen;
+  uint32_t* out_w = reinterpret_cast<uint32_t*>(out);
+  if (!kFinal) {
+    const int filled = min(seen, k_out);
+    zero_words(out_w + (size_t)filled * kWords,
+               (long long)(k_out - filled) * kWords, t, kThreads);
+    for (int e = filled + t; e < k_out; e += kThreads) rout[e] = 0;
+    if (t == 0) n_out[g] = seen;
+    return;
+  }
+
+  // the final form: the deepest non-empty level is the list
+  const int n4 = seen;
+  const int n3 = n_in[g], n2 = early.n2[g], n1 = early.n1[g];
+  int filled = min(n4, k_out), n = filled;
+  if (n4 == 0) {
+    const int8_t* lsrc;
+    int kl, nl;
+    if (n3 > 0) {
+      lsrc = src, kl = k, nl = n3;
+    } else if (n2 > 0) {
+      lsrc = early.f2b + (size_t)g * early.k2 * kBoard, kl = early.k2, nl = n2;
+    } else {
+      lsrc = early.f1b + (size_t)g * early.k1 * kBoard, kl = early.k1, nl = n1;
+    }
+    filled = min(kl, k_out);
+    n = min(nl, k_out);
+    copy_rows(out_w, lsrc, filled, t);
+  }
+  zero_words(out_w + (size_t)filled * kWords,
+             (long long)(k_out - filled) * kWords, t, kThreads);
+  if (t == 0) {
+    n_out[g] = n;
+    const bool has2 = n2 > 0, has3 = n3 > 0, has4 = n4 > 0;
+    early.overflow[g] = (uint8_t)((has2 && n2 > early.k2) ||
+                                  (has3 && n3 > k) || (has4 && n4 > k_out) ||
+                                  (!has4 && has3 && n3 > k_out) ||
+                                  (!has3 && has2 && n2 > k_out));
+  }
 }
 
 }  // namespace
@@ -303,9 +229,35 @@ extern "C" int doubles_level_launch(const void* boards, const void* ranks,
     return (int)cudaErrorInvalidValue;
   }
   const int words = (uintptr_t)boards % 4 == 0 ? 1 : 0;
-  doubles_level_kernel<<<games, kThreads, 0, (cudaStream_t)stream>>>(
+  doubles_level_kernel<false><<<games, kThreads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)boards, (const int8_t*)ranks, (const int32_t*)n_in,
       (const int32_t*)dice, (const uint8_t*)mirror, (int8_t*)boards_out,
-      (int8_t*)ranks_out, (int32_t*)n_out, k, k_out, words);
+      (int8_t*)ranks_out, (int32_t*)n_out, k, k_out, words, Earlier{});
+  return (int)cudaGetLastError();
+}
+
+// The fourth level and the final list: f3b (G, k3, 52), f3r (G, k3), n3
+// (G,) as a level's inputs; f1b (G, k1, 52), f2b (G, k2, 52) and their
+// unclamped counts n1, n2; out (G, m, 52) on a 4-byte boundary, n (G,)
+// int32, overflow (G,) uint8.  Returns the CUDA error of the launch.
+extern "C" int doubles_final_launch(const void* f1b, const void* n1, int k1,
+                                    const void* f2b, const void* n2, int k2,
+                                    const void* f3b, const void* f3r,
+                                    const void* n3, int k3, const void* dice,
+                                    const void* mirror, void* out,
+                                    void* n_out, void* overflow, int games,
+                                    int m, void* stream) {
+  if (games <= 0) return (int)cudaGetLastError();
+  if (k1 < 0 || k2 < 0 || k3 < 0 || m < 0 || (uintptr_t)out % 4 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int words = (uintptr_t)f3b % 4 == 0 ? 1 : 0;
+  const Earlier early{(const int8_t*)f1b, (const int32_t*)n1, k1,
+                      (const int8_t*)f2b, (const int32_t*)n2, k2,
+                      (uint8_t*)overflow};
+  doubles_level_kernel<true><<<games, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)f3b, (const int8_t*)f3r, (const int32_t*)n3,
+      (const int32_t*)dice, (const uint8_t*)mirror, (int8_t*)out, nullptr,
+      (int32_t*)n_out, k3, m, words, early);
   return (int)cudaGetLastError();
 }

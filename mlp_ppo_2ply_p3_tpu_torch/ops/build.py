@@ -3,7 +3,9 @@
 Each source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, and loaded with ``ctypes``.
 Outputs go to ``mlp_ppo_2ply_p3_tpu_torch/build/`` (git-ignored), named
-by a hash of the source so an edited kernel is rebuilt.  Nothing is
+by a hash of the source, the headers it includes (``#include "x.cuh"``,
+followed recursively) and the flags, so an edited kernel or header is
+rebuilt.  Nothing is
 built when this module is imported.
 """
 
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,12 +47,28 @@ def find_nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header it includes with quotes,
+    recursively, each once, in the order first met."""
+    files, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def sources() -> tuple[str, ...]:

@@ -12,6 +12,9 @@ compaction after it, which the JAX package writes in jnp
 (``mlp_ppo_2ply_p3_tpu/core/movegen.py:256-273`` and ``:364``) and XLA
 fuses.  Its kernel, in the same source, finds first occurrences among a
 game's rows in shared memory, so no (K, K) block reaches device memory.
+Movegen no longer calls it: the non-doubles kernel
+(``ops/nondoubles.py``) dedups on chip; it stays a kernel of its own,
+timed by ``scripts/perf_movegen.py``'s dedup keys.
 
 Both are bound by bytes on an H100; the note at the top of
 ``csrc/compaction.cu`` says what each part of the design does about it.

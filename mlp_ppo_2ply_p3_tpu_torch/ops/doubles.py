@@ -1,6 +1,7 @@
-"""One level of movegen's doubles frontier: expand each frontier row by the
-die, keep the expansions whose origin rank does not fall below the row's,
-and stable-compact them into the next frontier.
+"""Movegen's doubles frontier, one level per call: expand each frontier row
+by the die, keep the expansions whose origin rank does not fall below the
+row's, and stable-compact them into the next frontier; the last level also
+writes the final move list.
 
 ``doubles_level`` ports the JAX package's doubles ``level``
 (``mlp_ppo_2ply_p3_tpu/core/movegen.py:406-416``), which XLA fuses and
@@ -11,13 +12,19 @@ and shared memory, so the (G, K x 27, 53) candidate grid that the plain
 version materialises never reaches device memory; the note at the top of
 the source says what bounds it on an H100.
 
-The candidate-grid helpers (``perm_scan``, ``expand_one_die``,
-``rank_of``) live here, and ``core.movegen`` takes them from here for its
-other paths.
+``doubles_final`` is the fourth level together with the selection after it
+(``mlp_ppo_2ply_p3_tpu/core/movegen.py:420``, ``:422-439``): the deepest
+non-empty level is the list.  The same kernel, in its final form, writes
+the list, its counts and overflow flags in the launch that expands L3, so
+no (G, M, 52) embedding of an earlier level is built.
 
-The wrapper dispatches on the tensors' device: CPU tensors take the plain
-PyTorch version, CUDA tensors launch the kernel or raise.  Its
-``launches`` attribute counts kernel launches.
+The candidate-grid helpers (``perm_scan``, ``first_die``,
+``expand_one_die``, ``rank_of``) live here, and ``core.movegen`` and
+``ops.nondoubles`` take them from here.
+
+Each wrapper dispatches on the tensors' device: CPU tensors take the plain
+PyTorch version, CUDA tensors launch the kernel or raise.  Their
+``launches`` attributes count kernel launches.
 """
 
 from __future__ import annotations
@@ -51,6 +58,14 @@ def perm_scan(x, mirror):
     flipped = torch.cat([torch.flip(x[..., :25], dims=(-1,)), x[..., 25:]],
                         dim=-1)
     return torch.where(_bcast(mirror, x), flipped, x)
+
+
+def first_die(vecs, die, mirror):
+    """One die from (G, 52) boards: (afterstates (G, 27, 52), valid
+    (G, 27), origin (G, 27)) in scan order."""
+    v, o, d, h = (perm_scan(a, mirror)
+                  for a in B.submoves_one_die(vecs, die))
+    return B.apply_submove(vecs[:, None, :], o, d, h), v, o
 
 
 def expand_one_die(boards, valid, die, mirror):
@@ -92,6 +107,43 @@ def doubles_level_plain(boards, ranks, n_in, die, mirror, k_out: int):
     return out[:, :, :52].contiguous(), out[:, :, 52].contiguous(), n
 
 
+def embed(boards, n, m):
+    """Place (G, K, 52) frontiers into (G, M, 52) buffers (truncating if
+    K > M), with the counts clamped to M (JAX ``_embed``)."""
+    k = min(boards.shape[1], m)
+    out = boards.new_zeros((boards.shape[0], m, 52))
+    out[:, :k] = boards[:, :k]
+    return out, torch.clamp(n, max=m)
+
+
+def doubles_final_plain(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror,
+                        m: int):
+    """Plain PyTorch fourth level and final list (any device):
+    ``doubles_level_plain`` from L3 into M rows, then the JAX selection
+    (``_doubles_batch``'s tail): the deepest non-empty level, embedded
+    into M rows; its count clamped to M; the five-term overflow flag
+    with K2 and K3 the widths of ``f2b`` and ``f3b``."""
+    f4b, _, n4 = doubles_level_plain(f3b, f3r, n3, die, mirror, m)
+    k2, k3 = f2b.shape[1], f3b.shape[1]
+    has2, has3, has4 = n2 > 0, n3 > 0, n4 > 0
+    l1b, l1n = embed(f1b, n1, m)
+    l2b, l2n = embed(f2b, n2, m)
+    l3b, l3n = embed(f3b, n3, m)
+    w4, w3, w2 = (h[:, None, None] for h in (has4, has3, has2))
+    out = torch.where(w4, f4b, torch.where(w3, l3b, torch.where(w2, l2b, l1b)))
+    n = torch.where(has4, n4,
+                    torch.where(has3, l3n, torch.where(has2, l2n, l1n)))
+    not4, not3 = torch.logical_not(has4), torch.logical_not(has3)
+    overflow = (
+        (has2 & (n2 > k2))
+        | (has3 & (n3 > k3))
+        | (has4 & (n4 > m))
+        | (not4 & has3 & (n3 > m))
+        | (not3 & has2 & (n2 > m))
+    )
+    return out, torch.clamp(n, max=m), overflow
+
+
 def _check(boards, ranks, n_in, die, mirror, k_out):
     if boards.dtype != I8 or boards.dim() != 3 or boards.shape[2] != 52:
         raise ValueError(f"boards must be (G, K, 52) int8, got "
@@ -126,15 +178,43 @@ def _check(boards, ranks, n_in, die, mirror, k_out):
         raise ValueError(f"unsupported device {boards.device}")
 
 
+def _check_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m):
+    if f3r is None or n3 is None:
+        raise ValueError("the final level needs L3's ranks and counts")
+    _check(f3b, f3r, n3, die, mirror, m)
+    g = f3b.shape[0]
+    for name, fb, n in (("f1b", f1b, n1), ("f2b", f2b, n2)):
+        if (fb.dtype != I8 or fb.dim() != 3 or fb.shape[0] != g
+                or fb.shape[2] != 52):
+            raise ValueError(f"{name} must be ({g}, K, 52) int8, got "
+                             f"{tuple(fb.shape)} {fb.dtype}")
+        if tuple(n.shape) != (g,) or n.dtype != I32:
+            raise ValueError(f"the count of {name} must be ({g},) int32, "
+                             f"got {(tuple(n.shape), n.dtype)}")
+        for x in (fb, n):
+            if x.device != f3b.device:
+                raise ValueError(f"{name} is on {x.device}, f3b on "
+                                 f"{f3b.device}")
+            if not x.is_contiguous():
+                raise ValueError(f"{name} and its count must be contiguous")
+        if fb.shape[1] * 52 >= 2**31:
+            raise ValueError(f"{name} {tuple(fb.shape)} too large")
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "doubles_level_launch": ([_P] * 8 + [_I] * 3 + [_P], _I),
+    "doubles_final_launch": ([_P, _P, _I, _P, _P, _I, _P, _P, _P, _I]
+                             + [_P] * 5 + [_I] * 2 + [_P], _I),
+}
 
 
-def _fn():
+def _fn(name):
     from .build import load
 
-    fn = load("doubles").doubles_level_launch
+    fn = getattr(load("doubles"), name)
     if fn.argtypes is None:
-        fn.argtypes, fn.restype = [_P] * 8 + [_I] * 3 + [_P], _I
+        fn.argtypes, fn.restype = _SIGNATURES[name]
     return fn
 
 
@@ -166,7 +246,7 @@ def doubles_level(boards, ranks, n_in, die, mirror, k_out: int):
         out = torch.empty((g, k_out, 52), dtype=I8, device=dev)
         rout = torch.empty((g, k_out), dtype=I8, device=dev)
         n = torch.empty((g,), dtype=I32, device=dev)
-        err = _fn()(
+        err = _fn("doubles_level_launch")(
             boards.data_ptr(), None if ranks is None else ranks.data_ptr(),
             None if n_in is None else n_in.data_ptr(), die.data_ptr(),
             mirror.data_ptr(), out.data_ptr(), rout.data_ptr(),
@@ -179,7 +259,46 @@ def doubles_level(boards, ranks, n_in, die, mirror, k_out: int):
     return out, rout, n
 
 
+def doubles_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m: int):
+    """The fourth doubles level and the final move list, for every game.
+
+    Args:
+      f1b, f2b: (G, K1, 52) and (G, K2, 52) int8 L1 and L2 frontiers.
+      n1, n2:   (G,) int32 their unclamped counts.
+      f3b, f3r, n3: the L3 frontier, its ranks and its unclamped counts,
+              as ``doubles_level`` takes a level's inputs.
+      die, mirror: as ``doubles_level``'s.
+      m:        list width (``max_moves``).
+
+    Returns (out (G, m, 52) int8, n (G,) int32 clamped to m, overflow (G,)
+    bool), equal to ``doubles_final_plain``: the deepest non-empty level's
+    first min(K, m) rows, then zeros.
+    """
+    _check_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m)
+    if f3b.device.type == "cpu":
+        return doubles_final_plain(f1b, n1, f2b, n2, f3b, f3r, n3, die,
+                                   mirror, m)
+    g = f3b.shape[0]
+    dev = f3b.device
+    with torch.cuda.device(dev):
+        out = torch.empty((g, m, 52), dtype=I8, device=dev)
+        n = torch.empty((g,), dtype=I32, device=dev)
+        overflow = torch.empty((g,), dtype=torch.bool, device=dev)
+        err = _fn("doubles_final_launch")(
+            f1b.data_ptr(), n1.data_ptr(), f1b.shape[1], f2b.data_ptr(),
+            n2.data_ptr(), f2b.shape[1], f3b.data_ptr(), f3r.data_ptr(),
+            n3.data_ptr(), f3b.shape[1], die.data_ptr(), mirror.data_ptr(),
+            out.data_ptr(), n.data_ptr(), overflow.data_ptr(), g, m,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"doubles_final kernel launch failed: CUDA error "
+                           f"{err} at shape {tuple(f3b.shape)} -> {m}")
+    _COUNTERS["doubles_final"].launches += 1
+    return out, n, overflow
+
+
 doubles_level.launches = 0
-# the function object that owns the count, so that a caller who wraps the
+doubles_final.launches = 0
+# the function objects that own the counts, so that a caller who wraps a
 # wrapper (to capture its inputs) still counts on the original
-_COUNTERS = {"doubles_level": doubles_level}
+_COUNTERS = {"doubles_level": doubles_level, "doubles_final": doubles_final}

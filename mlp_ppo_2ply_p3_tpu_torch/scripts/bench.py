@@ -60,11 +60,10 @@ from typing import NamedTuple
 
 import torch
 
-from .. import resolve_device
+from .. import ops, resolve_device
 from ..core.movegen import MovegenConfig
 from ..env import bg_env
 from ..models.mlp import ModelConfig
-from ..ops import compaction, doubles
 from ..ppo import learner
 from ..utils.config import get_preset
 from ..utils.profiling import device_label
@@ -206,9 +205,7 @@ def run(progress: Progress, env_cfg, model_cfg, ppo_cfg, timed_updates: int,
 
     steps_per_update = num_envs * t_horizon
     n_chips = 1     # the cards this process uses
-    compaction.compact_rows.launches = 0
-    compaction.dedup_compact_rows.launches = 0
-    doubles.doubles_level.launches = 0
+    ops.zero_launches()
     update_s, sps = [], 0.0
     for i in range(timed_updates):
         elapsed = time.time() - progress.t0
@@ -236,10 +233,7 @@ def run(progress: Progress, env_cfg, model_cfg, ppo_cfg, timed_updates: int,
         progress.log(f"median update {statistics.median(update_s):.3f}s "
                      f"over {len(update_s)}: "
                      f"{[round(x, 3) for x in update_s]}")
-    progress.log("launches " + json.dumps({
-        "compact_rows": compaction.compact_rows.launches,
-        "dedup_compact_rows": compaction.dedup_compact_rows.launches,
-        "doubles_level": doubles.doubles_level.launches}))
+    progress.log("launches " + json.dumps(ops.launches()))
     return BenchResult(ts, env_state, update_s, sps)
 
 

@@ -10,10 +10,11 @@ each width, each keeping the meaning of the JAX timer behind it:
   time of one call (``utils.profiling.timed_scan``: a CUDA graph of 20
   calls, replayed), as the JAX script's one jitted scan.  The pieces are
   the JAX script's: the non-doubles batch over all B games, the doubles
-  batch over the first ``doubles_capacity(B)`` games, and the dedup,
-  here ``dedup_compact_rows`` on the block that the non-doubles batch
-  hands it, at (B, ``dedup_width``) -> ``max_moves``: what the port's
-  movegen runs (JAX times its ``_dedup_pairwise`` for the same reason).
+  batch over the first ``doubles_capacity(B)`` games, and the dedup.
+  The port's dedup runs inside the non-doubles kernel
+  (``ops/nondoubles.py::nondoubles_batch``), so no dedup input is built
+  on the path; ``movegen_dedup`` times that kernel's launch alone, dedup
+  on, over all B games.
   Each has an ``_eager_ms`` twin: the same calls launched one by one
   (``timed_eager``), which follows the host's launch rate.
 - ``env_step_ms``, ``rollout_ms``, ``train_step_ms``: host wall time of
@@ -56,7 +57,7 @@ from ..core import board as Bd
 from ..core import movegen as MG
 from ..env import bg_env
 from ..models.mlp import ModelConfig
-from ..ops import compaction as OC
+from ..ops import nondoubles as OND
 from ..ppo import learner
 from ..utils.profiling import (device_busy, device_label, timed_eager,
                                timed_scan, wall_time)
@@ -75,19 +76,13 @@ def movegen_pieces(vecs, dice, cfg):
     """{key: (fn, args)} of the movegen pieces that the JAX script's
     ``movegen_phase_times`` times: the non-doubles batch over all B
     games, the doubles batch over the doubles sub-batch's capacity of
-    games, and the dedup on the candidate block that the non-doubles
-    batch passes it."""
+    games, and the non-doubles kernel that holds the dedup."""
     bsz = vecs.shape[0]
     d0 = dice[:, 0].to(torch.int32)
     d1 = dice[:, 1].to(torch.int32)
     d_hi, d_lo = torch.maximum(d0, d1), torch.minimum(d0, d1)
     mir = torch.zeros((bsz,), dtype=torch.bool, device=vecs.device)
     bd = MG.doubles_capacity(bsz, cfg)
-    # the dedup's input, as _nondoubles_batch builds it
-    cand, keep0 = MG._nondoubles_candidates(vecs, d_hi, d_lo, cfg, mir)
-    (block,), n_raw = MG._compact_batch((cand,), keep0, cfg.dedup_width)
-    live = MG._arange_lt(cfg.dedup_width,
-                         torch.clamp(n_raw, max=cfg.dedup_width))
     return {
         "movegen_nondoubles": (
             lambda v, h, lo: MG._nondoubles_batch(v, h, lo, cfg, mir),
@@ -95,8 +90,9 @@ def movegen_pieces(vecs, dice, cfg):
         "movegen_doubles_subbatch": (
             lambda v, d: MG._doubles_batch(v, d, cfg, mir[:bd]),
             (vecs[:bd], d0[:bd])),
-        "movegen_dedup": (OC.dedup_compact_rows,
-                          (block, live, cfg.max_moves)),
+        "movegen_dedup": (OND.nondoubles_batch,
+                          (vecs.contiguous(), d_hi, d_lo, mir, cfg.k1,
+                           cfg.dedup_width, cfg.max_moves, True)),
     }
 
 

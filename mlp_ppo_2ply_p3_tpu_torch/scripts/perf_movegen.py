@@ -9,8 +9,11 @@ counterpart of the JAX script's one jitted scan; beside it,
 ``<name>_eager_ms`` is the same calls launched one by one
 (``timed_eager``), which follows the host wherever the host is slower
 than the device.  On the CPU both are the CPU's time, and the line says
-``"device": "cpu"``.  ``dedup384_ms`` times ``dedup_compact_rows``, the
-dedup that the port's movegen runs, as the JAX key times JAX's.
+``"device": "cpu"``.  ``nondoubles_ms`` times the non-doubles batch, one
+``ops/nondoubles.py::nondoubles_batch`` launch that dedups on chip;
+``dedup384_ms`` times ``dedup_compact_rows``, the port's dedup kernel at
+the JAX key's shape, which movegen no longer calls; ``nd_one_order_ms``
+times the plain PyTorch enumeration of one die order.
 
 The JAX script's ``kernels`` section timed each compaction shape three
 ways: jnp and the two Pallas formulations (a global one-hot matmul and
@@ -42,6 +45,7 @@ from ..core import movegen as MG
 from ..env import bg_env
 from ..ops import compaction as OC
 from ..ops import doubles as OD
+from ..ops import nondoubles as OND
 from ..utils.profiling import device_label, timed_eager, timed_scan
 
 
@@ -109,7 +113,7 @@ def main(argv=None):
 
     if want("ndoo"):
         timed("nd_one_order_ms",
-              lambda v, h, lo: MG._one_order(v, h, lo, cfg.k1, mir),
+              lambda v, h, lo: OND.one_order(v, h, lo, cfg.k1, mir),
               vecs, d_hi, d_lo)
 
     n_raw = 2 * (cfg.k1 * 25 + cfg.k1)
@@ -122,7 +126,6 @@ def main(argv=None):
     cand2 = boards(bsz, cfg.dedup_width)
     val2 = flags(0.2, bsz, cfg.dedup_width)
     if want("dedup"):
-        # what the non-doubles path of movegen runs (core/movegen.py)
         timed("dedup384_ms", OC.dedup_compact_rows, cand2, val2,
               cfg.max_moves)
 

@@ -87,11 +87,18 @@ def test_unknown_movegen_preset_raises():
 def test_lines_and_state(monkeypatch, capsys):
     """One line per timed update, the 4-key line last; the state equals
     three direct ``train_step`` calls (the warm-up and two timed ones)
-    from the bench's seeds."""
+    from the bench's seeds; stderr logs the launches of every kernel, none
+    on the CPU."""
     for k, v in TINY.items():
         monkeypatch.setenv(k, v)
     res = bench.main(["--device", "cpu"])
-    lines = capsys.readouterr().out.strip().splitlines()
+    captured = capsys.readouterr()
+    lines = captured.out.strip().splitlines()
+    (launched,) = [json.loads(x.split("] launches ", 1)[1])
+                   for x in captured.err.splitlines() if "] launches " in x]
+    assert launched == {"compact_rows": 0, "dedup_compact_rows": 0,
+                        "doubles_level": 0, "nondoubles": 0,
+                        "doubles_final": 0}
     assert len(lines) == 2 and len(res.update_s) == 2
     for line in lines:
         got = json.loads(line)

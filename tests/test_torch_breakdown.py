@@ -3,12 +3,13 @@
 - At B=8, T=4: every key of the JAX script under both widths, with its
   eager twin; ``update_ms`` = train - rollout and the sps relations;
   every device-time key null, since there is no card.
-- ``movegen_dedup_ms`` times ``dedup_compact_rows`` at (B,
-  ``dedup_width``) -> ``max_moves``.
+- ``movegen_dedup_ms`` times the kernel that holds the dedup,
+  ``nondoubles_batch`` with the dedup on, over all B games at
+  (``k1``, ``dedup_width``, ``max_moves``).
 - The non-doubles and doubles-sub-batch callables that the script times
   give the JAX script's callables' boards, counts and overflow flags bit
   for bit, on the same numpy-seeded positions and dice; the dedup piece
-  gets the block that gives the non-doubles batch's output."""
+  gives the non-doubles batch's output."""
 
 import functools
 import json
@@ -21,7 +22,7 @@ import torch
 
 from mlp_ppo_2ply_p3_tpu.core import movegen as JM
 from mlp_ppo_2ply_p3_tpu_torch.core import movegen as TM
-from mlp_ppo_2ply_p3_tpu_torch.ops import compaction as TC
+from mlp_ppo_2ply_p3_tpu_torch.ops import nondoubles as TN
 from mlp_ppo_2ply_p3_tpu_torch.scripts import perf_breakdown
 from mlp_ppo_2ply_p3_tpu_torch.utils import profiling
 
@@ -43,15 +44,15 @@ DEVICE_KEYS = {"env_step_device_ms", "rollout_device_ms",
 
 @pytest.fixture(scope="module")
 def line():
-    """One run at B=8, T=4 on the CPU, with every ``dedup_compact_rows``
+    """One run at B=8, T=4 on the CPU, with every ``nondoubles_batch``
     call and every ``timed_scan`` call recorded."""
     mp = pytest.MonkeyPatch()
     dedups, scans = [], []
-    inner_dedup, inner_scan = TC.dedup_compact_rows, perf_breakdown.timed_scan
+    inner_dedup, inner_scan = TN.nondoubles_batch, perf_breakdown.timed_scan
 
-    def counted_dedup(boards, valid, k_out):
-        dedups.append((tuple(boards.shape), k_out))
-        return inner_dedup(boards, valid, k_out)
+    def counted_dedup(*args):
+        dedups.append((tuple(args[0].shape), args[4:]))
+        return inner_dedup(*args)
 
     def recorded_scan(fn, *args, **kw):
         before = len(dedups)
@@ -59,7 +60,7 @@ def line():
         scans.append((fn, args, len(dedups) - before))
         return out
 
-    mp.setattr(TC, "dedup_compact_rows", counted_dedup)
+    mp.setattr(TN, "nondoubles_batch", counted_dedup)
     mp.setattr(perf_breakdown, "timed_scan", recorded_scan)
     try:
         (row,) = perf_breakdown.main([str(B), "--t", str(T), "--device",
@@ -93,16 +94,17 @@ def test_keys_and_relations(line):
 
 
 def test_dedup_key_times_the_kernel_wrapper(line):
-    """The dedup piece's timer calls ``dedup_compact_rows`` (warm-up +
-    20 calls) at (B, dedup_width) -> max_moves for each width."""
+    """The dedup piece's timer calls ``nondoubles_batch`` (warm-up + 20
+    calls) over the B games at (k1, dedup_width, max_moves), dedup on, for
+    each width."""
     _, scans, counted_dedup = line
     dedup_scans = [(args, n) for fn, args, n in scans if fn is counted_dedup]
     assert len(scans) == 2 * len(SCANS) and len(dedup_scans) == 2
     for (args, n), (_, cfg) in zip(dedup_scans, perf_breakdown.widths()):
-        boards, valid, k_out = args
-        assert tuple(boards.shape) == (B, cfg.dedup_width, 52)
-        assert tuple(valid.shape) == (B, cfg.dedup_width)
-        assert k_out == cfg.max_moves
+        vecs, d_hi, d_lo, mirror, *widths = args
+        assert tuple(vecs.shape) == (B, 52)
+        assert d_hi.shape == d_lo.shape == mirror.shape == (B,)
+        assert widths == [cfg.k1, cfg.dedup_width, cfg.max_moves, True]
         assert n == 1 + profiling.SCAN_ITERS
 
 
@@ -150,11 +152,8 @@ def test_pieces_match_jax(width):
                                           err_msg=f"{key} {what}")
     assert int(np.asarray(want["movegen_nondoubles"][1]).sum()) > 0
 
-    # the dedup piece's input is the block the non-doubles batch dedups
+    # the dedup piece is the kernel of the non-doubles batch
     fn, args = pieces["movegen_dedup"]
-    out, n = fn(*args)
-    nd_out, nd_n, _ = pieces["movegen_nondoubles"][0](
-        *pieces["movegen_nondoubles"][1])
-    torch.testing.assert_close(out, nd_out, rtol=0, atol=0)
-    torch.testing.assert_close(torch.clamp(n, max=tcfg.max_moves), nd_n,
-                               rtol=0, atol=0)
+    for g, w in zip(fn(*args), pieces["movegen_nondoubles"][0](
+            *pieces["movegen_nondoubles"][1])):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)

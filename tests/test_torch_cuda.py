@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card (``csrc/compaction.cu``,
-``csrc/doubles.cu``).
+``csrc/doubles.cu``, ``csrc/nondoubles.cu``).
 
 Every test here needs an NVIDIA card and skips without one: a CUDA
 kernel has no CPU mode.  The file imports neither JAX nor the JAX
@@ -10,8 +10,8 @@ package, so it also runs on a machine that has only PyTorch:
 
 (``--noconftest`` because ``tests/conftest.py`` configures JAX).  The CPU
 parity of the plain versions with the JAX package is in
-``tests/test_torch_compaction.py``, ``tests/test_torch_dedup.py`` and
-``tests/test_torch_doubles.py``."""
+``tests/test_torch_compaction.py``, ``tests/test_torch_dedup.py``,
+``tests/test_torch_doubles.py`` and ``tests/test_torch_nondoubles.py``."""
 
 import dataclasses
 
@@ -23,6 +23,7 @@ from mlp_ppo_2ply_p3_tpu_torch.core import movegen as TM
 from mlp_ppo_2ply_p3_tpu_torch.env import bg_env as TE
 from mlp_ppo_2ply_p3_tpu_torch.ops import compaction as TC
 from mlp_ppo_2ply_p3_tpu_torch.ops import doubles as TD
+from mlp_ppo_2ply_p3_tpu_torch.ops import nondoubles as TN
 
 pytestmark = pytest.mark.cuda
 
@@ -315,6 +316,186 @@ def test_doubles_level_rejects_bad_inputs(card):
         TD.doubles_level(b[:, ::2], ranks[:, ::2], n, die, mirror, 4)
 
 
+# every kernel wrapper and its plain version, in the order of
+# agents/twoply.py::launches_per_decision
+WRAPPERS = ((TC, "compact_rows"), (TC, "dedup_compact_rows"),
+            (TD, "doubles_level"), (TN, "nondoubles_batch"),
+            (TD, "doubles_final"))
+
+
+def _launches():
+    return {name: getattr(m, name).launches for m, name in WRAPPERS}
+
+
+def _plain_wrappers(monkeypatch):
+    for m, name in WRAPPERS:
+        monkeypatch.setattr(m, name, getattr(m, name + "_plain"))
+
+
+def _played(card, batch, steps, seed, cfg=None):
+    """Canonical boards, dice and mirror flags of ``batch`` games after
+    ``steps`` random-play env steps."""
+    from mlp_ppo_2ply_p3_tpu_torch.core import board
+
+    cfg = cfg or TE.EnvConfig(movegen=TM.MovegenConfig.fast(256))
+    gen = torch.Generator(device=card).manual_seed(seed)
+    es = TE.reset(gen, cfg, batch, device=card)
+    for _ in range(steps):
+        u = torch.rand((batch,), generator=gen, device=card)
+        es, _ = TE.step(es, (u * es.n_moves.clamp(min=1)).to(torch.int32),
+                        gen, cfg)
+    vecs = board.to_canonical(es.points, es.bar, es.off, es.turn)
+    return vecs, es.dice, es.turn == 1
+
+
+# the 15 non-double rolls as (high, low)
+ROLLS = [(h, lo) for h in range(2, 7) for lo in range(1, h)]
+
+
+def _nondoubles_inputs(card, seed, g, kind):
+    """(vecs, d_hi, d_lo, mirror) on the card: ``played`` boards after
+    random env steps, or ``random`` sparse boards (``_doubles_frontier``'s
+    rows: negative counts, bars, bear-offs, game over, the edge boards);
+    the 15 non-double rolls in turn, both mirrors, and a tenth of the
+    games all-zero padding rows of dice (0, 0)."""
+    r = np.random.default_rng(seed)
+    if kind == "played":
+        vecs, _, _ = _played(card, g, 10, seed)
+        vecs = vecs.cpu().numpy()
+    else:
+        vecs = _doubles_frontier(seed, g, 1, True)[0][:, 0]
+    rolls = np.array(ROLLS, np.int32)[(np.arange(g) + seed) % 15]
+    mirror = r.random(g) < 0.5
+    pad = r.random(g) < 0.1
+    vecs = np.where(pad[:, None], 0, vecs).astype(np.int8)
+    rolls[pad] = 0
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(card)
+                 for x in (vecs, rolls[:, 0], rolls[:, 1], mirror))
+
+
+# (G, board kind, k1, kd, M, dedup): train4096's non-doubles sub-batch at
+# fast() and the default widths, the parity widths (dynamic shared memory
+# near 48 KB), the 2-ply reply widths (512 without dedup, 128 with), and
+# widths small enough to truncate the singles, the raw block and the list
+NONDOUBLES_CASES = [
+    (3604, "played", 16, 288, 256, True),
+    (3604, "played", 16, 384, 256, True),
+    (900, "random", 16, 384, 256, True),
+    (64, "played", 16, 512, 500, True),
+    (300, "random", 16, 512, 500, True),
+    (2048, "played", 16, 288, 512, False),
+    (500, "random", 16, 288, 512, False),
+    (2048, "played", 16, 288, 128, True),
+    (400, "random", 4, 16, 4, True),
+    (400, "played", 2, 8, 3, True),
+    (400, "random", 3, 16, 5, False),
+    (7, "random", 16, 0, 0, True),
+]
+
+
+@pytest.mark.parametrize("g,kind,k1,kd,m,dedup", NONDOUBLES_CASES)
+def test_nondoubles_matches_plain(card, g, kind, k1, kd, m, dedup):
+    args = _nondoubles_inputs(card, g + k1 + kd, g, kind)
+    before = TN.nondoubles_batch.launches
+    got = TN.nondoubles_batch(*args, k1, kd, m, dedup)
+    assert TN.nondoubles_batch.launches == before + 1
+    want = TN.nondoubles_batch_plain(*args, k1, kd, m, dedup)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    if m:
+        assert int(want[1].sum()) > 0
+    # uint8 mirror flags and boards at an odd address take the same kernel
+    raw = torch.zeros(args[0].numel() + 3, dtype=torch.int8, device=card)
+    raw[3:] = args[0].reshape(-1)
+    odd = raw[3:].view(args[0].shape)
+    got = TN.nondoubles_batch(odd, *args[1:3], args[3].to(torch.uint8), k1,
+                              kd, m, dedup)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_nondoubles_rejects_bad_inputs(card):
+    vecs = torch.zeros((4, 52), dtype=torch.int8, device=card)
+    d = torch.ones((4,), dtype=torch.int32, device=card)
+    mirror = torch.zeros((4,), dtype=torch.bool, device=card)
+    with pytest.raises(ValueError):
+        TN.nondoubles_batch(vecs.int(), d, d, mirror, 16, 288, 256, True)
+    with pytest.raises(ValueError):
+        TN.nondoubles_batch(vecs, d.cpu(), d, mirror, 16, 288, 256, True)
+    with pytest.raises(ValueError):
+        TN.nondoubles_batch(vecs, d.long(), d, mirror, 16, 288, 256, True)
+    with pytest.raises(ValueError):
+        TN.nondoubles_batch(vecs[:, ::2], d, d, mirror, 16, 288, 256, True)
+    # more shared memory than a block may have
+    with pytest.raises(RuntimeError):
+        TN.nondoubles_batch(vecs, d, d, mirror, 16, 4000, 256, True)
+
+
+def _final_inputs(card, seed, g, kind, widths):
+    """The inputs of ``doubles_final``: ``played`` boards' first three
+    doubles levels (plain) at ``widths`` (k1, k2, k3), or ``random``
+    frontiers of those widths with random counts (0, within and above
+    each width) and L1/L2 rows that the kernel must copy as they are."""
+    k1, k2, k3 = widths
+    if kind == "played":
+        vecs, dice, mirror = _played(card, g, 12, seed)
+        die = dice[:, 0].to(torch.int32).contiguous()
+        mirror = mirror.contiguous()
+        level = (vecs[:, None, :].contiguous(), None, None)
+        frontiers = []
+        for k in widths:
+            level = TD.doubles_level_plain(*level, die, mirror, k)
+            frontiers.append(level)
+        (f1b, _, n1), (f2b, _, n2), (f3b, f3r, n3) = frontiers
+        return f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror
+    r = np.random.default_rng(seed)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(card)
+    f3b, f3r, n3, die, mirror = _doubles_frontier(seed, g, k3, False)
+    f1b = r.integers(-2, 16, (g, k1, 52)).astype(np.int8)
+    f2b = r.integers(-2, 16, (g, k2, 52)).astype(np.int8)
+    n1 = r.integers(0, k1 + 3, g).astype(np.int32)
+    n2 = np.where(r.random(g) < 0.3, 0, r.integers(0, k2 + 3, g))
+    n3 = np.where(r.random(g) < 0.3, 0, n3)
+    return (t(f1b), t(n1), t(f2b), t(n2.astype(np.int32)), t(f3b), t(f3r),
+            t(n3.astype(np.int32)), t(die), t(mirror))
+
+
+# (G, kind, (k1, k2, k3), M): train4096's doubles sub-batch at fast() and
+# the default widths, the 2-ply reply widths (512), the parity widths,
+# L3 wider than M, and k3 small enough that n3 exceeds it
+FINAL_CASES = [
+    (875, "played", (16, 80, 192), 256),
+    (1088, "played", (16, 96, 224), 256),
+    (512, "played", (16, 128, 256), 512),
+    (64, "played", (16, 128, 512), 500),
+    (300, "random", (16, 80, 192), 256),
+    (300, "random", (16, 96, 300), 100),
+    (200, "random", (5, 7, 9), 30),
+    (200, "played", (16, 4, 3), 8),
+    (40, "random", (16, 30, 40), 0),
+]
+
+
+@pytest.mark.parametrize("g,kind,widths,m", FINAL_CASES)
+def test_doubles_final_matches_plain(card, g, kind, widths, m):
+    args = _final_inputs(card, g + m, g, kind, widths)
+    before = TD.doubles_final.launches
+    got = TD.doubles_final(*args, m)
+    assert TD.doubles_final.launches == before + 1
+    want = TD.doubles_final_plain(*args, m)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    # L3 at an odd address and uint8 mirror flags take the same kernel
+    raw = torch.zeros(args[4].numel() + 3, dtype=torch.int8, device=card)
+    raw[3:] = args[4].reshape(-1)
+    odd = (*args[:4], raw[3:].view(args[4].shape), *args[5:8],
+           args[8].to(torch.uint8))
+    for x, y in zip(TD.doubles_final(*odd, m), want):
+        assert torch.equal(x, y)
+
+
 def test_movegen_kernel_path_matches_plain_and_cpu(card, monkeypatch):
     """B=600 (>= 512: the sub-batch partition is active) on boards from
     a few random-play env steps."""
@@ -328,21 +509,21 @@ def test_movegen_kernel_path_matches_plain_and_cpu(card, monkeypatch):
     from mlp_ppo_2ply_p3_tpu_torch.core import board
     vecs = board.to_canonical(es.points, es.bar, es.off, es.turn)
     args = (vecs, es.dice, cfg.movegen, es.turn == 1)
-    before = TC.compact_rows.launches
-    before_dedup = TC.dedup_compact_rows.launches
-    before_level = TD.doubles_level.launches
+    before = _launches()
     got = TM.legal_afterstates_batch(*args)
-    assert (TC.compact_rows.launches - before
-            == TM.compactions_per_call(cfg.movegen) == 4)
-    assert (TC.dedup_compact_rows.launches - before_dedup
-            == TM.dedups_per_call(cfg.movegen) == 1)
-    assert (TD.doubles_level.launches - before_level
-            == TM.doubles_levels_per_call(cfg.movegen) == 4)
+    counted = {k: v - before[k] for k, v in _launches().items()}
+    assert counted == {"compact_rows": 2, "dedup_compact_rows": 0,
+                       "doubles_level": 3, "nondoubles_batch": 1,
+                       "doubles_final": 1}
+    assert counted == {
+        "compact_rows": TM.compactions_per_call(cfg.movegen),
+        "dedup_compact_rows": TM.dedups_per_call(cfg.movegen),
+        "doubles_level": TM.doubles_levels_per_call(cfg.movegen),
+        "nondoubles_batch": TM.nondoubles_per_call(cfg.movegen),
+        "doubles_final": TM.doubles_finals_per_call(cfg.movegen)}
     cpu = TM.legal_afterstates_batch(*(a.cpu() if torch.is_tensor(a) else a
                                        for a in args))
-    monkeypatch.setattr(TC, "compact_rows", TC.compact_rows_plain)
-    monkeypatch.setattr(TC, "dedup_compact_rows", TC.dedup_compact_rows_plain)
-    monkeypatch.setattr(TD, "doubles_level", TD.doubles_level_plain)
+    _plain_wrappers(monkeypatch)
     plain = TM.legal_afterstates_batch(*args)
     torch.cuda.synchronize()
     for g, p, c in zip(got, plain, cpu):
@@ -367,16 +548,12 @@ def test_twoply_kernel_path_matches_plain(card, monkeypatch, width):
         u = torch.rand((32,), generator=gen, device=card)
         es, _ = TE.step(es, (u * es.n_moves.clamp(min=1)).to(torch.int32),
                         gen, cfg.env)
-    before = (TC.compact_rows.launches, TC.dedup_compact_rows.launches,
-              TD.doubles_level.launches)
+    before = _launches()
     got = twoply.twoply_actions_values(model, es, scfg)
-    counted = (TC.compact_rows.launches - before[0],
-               TC.dedup_compact_rows.launches - before[1],
-               TD.doubles_level.launches - before[2])
+    counted = tuple(v - before[k] for k, v in _launches().items())
     assert counted == twoply.launches_per_decision(32, scfg)
-    monkeypatch.setattr(TC, "compact_rows", TC.compact_rows_plain)
-    monkeypatch.setattr(TC, "dedup_compact_rows", TC.dedup_compact_rows_plain)
-    monkeypatch.setattr(TD, "doubles_level", TD.doubles_level_plain)
+    assert counted[3] > 0 and counted[4] > 0
+    _plain_wrappers(monkeypatch)
     plain = twoply.twoply_actions_values(model, es, scfg)
     torch.cuda.synchronize()
     for g, p in zip(got, plain):

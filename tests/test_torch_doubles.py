@@ -229,9 +229,10 @@ def test_wrapper_on_cpu_and_its_checks():
 @pytest.mark.parametrize("name", ["fast", "default"])
 def test_movegen_through_levels_matches_jax(name, monkeypatch):
     """``legal_afterstates_batch`` with its doubles sub-batch on
-    ``doubles_level`` equals JAX at ``fast()`` and the default widths,
-    on a batch of doubles and non-doubles with the partition active
-    (B = 600), and makes ``doubles_levels_per_call`` level calls."""
+    ``doubles_level`` and ``doubles_final`` equals JAX at ``fast()`` and
+    the default widths, on a batch of doubles and non-doubles with the
+    partition active (B = 600), and makes ``doubles_levels_per_call``
+    level calls and ``doubles_finals_per_call`` final ones."""
     cfgs = {"fast": dict(max_moves=256, k2=80, k3=192, dedup_width=288,
                          dbl_div=5, dbl_add=56),
             "default": dict(max_moves=256)}
@@ -244,18 +245,172 @@ def test_movegen_through_levels_matches_jax(name, monkeypatch):
     vecs, mirror = canonical(boards, players), players == 1
     want = JM.legal_afterstates_batch(jnp.asarray(vecs), jnp.asarray(dice),
                                       jcfg, mirror=jnp.asarray(mirror))
-    calls = []
-    real = TD.doubles_level
+    calls, finals = [], []
+    real, real_final = TD.doubles_level, TD.doubles_final
 
     def counted(*a):
         calls.append(a[-1])
         return real(*a)
 
+    def counted_final(*a):
+        finals.append(a[-1])
+        return real_final(*a)
+
     monkeypatch.setattr(TD, "doubles_level", counted)
+    monkeypatch.setattr(TD, "doubles_final", counted_final)
     got = TM.legal_afterstates_batch(tt(vecs), tt(dice), tcfg,
                                      mirror=tt(mirror))
     for g, w, what in zip(got, want, ("boards", "n_moves", "overflow")):
         np.testing.assert_array_equal(nn_(g), np.asarray(w), err_msg=what)
-    assert calls == [tcfg.k1, tcfg.k2, tcfg.k3, tcfg.max_moves]
-    assert len(calls) == TM.doubles_levels_per_call(tcfg) == 4
+    assert calls == [tcfg.k1, tcfg.k2, tcfg.k3]
+    assert finals == [tcfg.max_moves]
+    assert len(calls) == TM.doubles_levels_per_call(tcfg) == 3
+    assert len(finals) == TM.doubles_finals_per_call(tcfg) == 1
     assert TM.doubles_levels_per_call(TM.MovegenConfig.parity()) == 0
+    assert TM.doubles_finals_per_call(TM.MovegenConfig.parity()) == 0
+
+
+@partial(jax.jit, static_argnames=("cfg",))
+def jax_doubles_batch(vecs, die, mirror, cfg):
+    return JM._doubles_batch(vecs, die, cfg, mirror)
+
+
+def _final_chain(vecs, die, mirror, k1, k2, k3, m):
+    """The port's three plain levels and ``doubles_final_plain`` against
+    the JAX ``_doubles_batch`` at (k1, k2, k3, M); returns the port's
+    (n1, n2, n3, n4) and the final output."""
+    d, mi = tt(die), tt(mirror)
+    f1b, _, n1 = l1 = TD.doubles_level_plain(tt(vecs)[:, None, :], None,
+                                             None, d, mi, k1)
+    f2b, _, n2 = l2 = TD.doubles_level_plain(*l1, d, mi, k2)
+    f3b, f3r, n3 = TD.doubles_level_plain(*l2, d, mi, k3)
+    got = TD.doubles_final_plain(f1b, n1, f2b, n2, f3b, f3r, n3, d, mi, m)
+    cfg = JM.MovegenConfig(max_moves=m, k1=k1, k2=k2, k3=k3)
+    want = jax_doubles_batch(vecs, die, mirror, cfg=cfg)
+    for g, w, what in zip(got, want, ("boards", "n", "overflow")):
+        np.testing.assert_array_equal(nn_(g), np.asarray(w), err_msg=what)
+    n4 = TD.doubles_level_plain(f3b, f3r, n3, d, mi, m)[2]
+    return [nn_(x) for x in (n1, n2, n3, n4)], got
+
+
+# (k1, k2, k3, M): fast() and the default widths, the 2-ply reply widths,
+# L3 wider than M (the selection truncates it), and k2, k3 so small that
+# the counts exceed them (rows past the width are zeros, n = min(n, M))
+FINAL_WIDTHS = {"fast": (16, 80, 192, 256), "default": (16, 96, 224, 256),
+                "reply": (16, 128, 256, 512), "l3_wider": (16, 96, 64, 12),
+                "narrow": (16, 6, 3, 40)}
+
+
+@pytest.mark.parametrize("name", sorted(FINAL_WIDTHS))
+def test_final_level_matches_jax(name):
+    """``doubles_final_plain`` on the three levels before it equals the
+    JAX ``_doubles_batch`` on random positions of every stage, the edge
+    boards and two bear-offs that end the game within two submoves, every
+    die, both mirrors, with padding rows of die 0; games whose L4 (and
+    L3, L2) is empty among them."""
+    k1, k2, k3, m = FINAL_WIDTHS[name]
+    rng = np.random.default_rng(77 + k3)
+    boards, players = zip(*(random_positions(rng, 10, stage)
+                            for stage in ("any", "bar", "bearoff")))
+    ending = [_board({22: 1, 23: 1}, {5: 2}, off=13),
+              _board({19: 1}, {}, off=14)]
+    vecs = np.concatenate([canonical(np.concatenate(boards),
+                                     np.concatenate(players)),
+                           np.stack(list(EDGE_BOARDS.values()) + ending)])
+    vecs = np.repeat(vecs, 6, axis=0).astype(np.int8)
+    die = np.tile(np.arange(1, 7, dtype=np.int32), len(vecs) // 6)
+    die[np.all(vecs == 0, axis=1)] = 0
+    mirror = np.arange(len(vecs)) % 4 >= 2
+    (n1, n2, n3, n4), (_, n, overflow) = _final_chain(vecs, die, mirror, k1,
+                                                      k2, k3, m)
+    assert ((n4 == 0) & (n3 > 0)).any()       # L4 empty: L3 is the list
+    assert ((n3 == 0) & (n2 > 0)).any() and (n1 == 0).any()
+    if name == "l3_wider":
+        assert (n3 > m).any() and bool(overflow.any())
+    if name == "narrow":
+        assert (n3 > k3).any() and (n2 > k2).any()
+        assert (nn_(n) > k3).any()            # n = min(n, M) past the width
+
+
+@partial(jax.jit, static_argnames=("m",))
+def jax_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m):
+    """The JAX package's fourth level and selection on given L1-L3
+    frontiers: its ``level`` (``jax_level``), then ``_doubles_batch``'s
+    tail (``mlp_ppo_2ply_p3_tpu/core/movegen.py:421-439``) with its own
+    ``_embed``."""
+    f4b, _, n4 = jax_level(f3b, f3r, n3, die, mirror, k_out=m)
+    k2, k3 = f2b.shape[1], f3b.shape[1]
+    has2, has3, has4 = n2 > 0, n3 > 0, n4 > 0
+    embed = jax.vmap(lambda b_, n_: JM._embed(b_, n_, m))
+    l1b, l1n = embed(f1b, n1)
+    l2b, l2n = embed(f2b, n2)
+    l3b, l3n = embed(f3b, n3)
+    w4, w3, w2 = (h[:, None, None] for h in (has4, has3, has2))
+    out = jnp.where(w4, f4b, jnp.where(w3, l3b, jnp.where(w2, l2b, l1b)))
+    n = jnp.where(has4, n4, jnp.where(has3, l3n, jnp.where(has2, l2n, l1n)))
+    overflow = ((has2 & (n2 > k2)) | (has3 & (n3 > k3)) | (has4 & (n4 > m))
+                | (jnp.logical_not(has4) & has3 & (n3 > m))
+                | (jnp.logical_not(has3) & has2 & (n2 > m)))
+    return out, jnp.minimum(n, m), overflow
+
+
+@pytest.mark.parametrize("m", [8, 100])
+def test_final_level_on_random_frontiers_matches_jax(m):
+    """Random L1-L3 frontiers (random positions, random counts within and
+    above each width, parent ranks so high that many L4s are empty): the
+    selection falls back on L3, L2 and L1, truncates a level wider than
+    M, and reports n = min(n, M) where a count exceeds its width."""
+    g, k1, k2, k3 = 64, 16, 24, 40
+    rng = np.random.default_rng(91 + m)
+    boards, players = random_positions(rng, g * (k1 + k2 + k3), "any")
+    rows = canonical(boards, players).astype(np.int8)
+    f1b = rows[:g * k1].reshape(g, k1, 52)
+    f2b = rows[g * k1:g * (k1 + k2)].reshape(g, k2, 52)
+    f3b = rows[g * (k1 + k2):].reshape(g, k3, 52)
+    f3r = np.where(rng.random((g, k3)) < 0.5, 23,
+                   rng.integers(-1, 24, (g, k3))).astype(np.int8)
+    f3r[: g // 2] = 24                    # no expansion at all: L4 empty
+    n1, n2, n3 = (rng.integers(0, k + 4, g).astype(np.int32)
+                  for k in (k1, k2, k3))
+    n3[::3], n2[::4] = 0, 0
+    die = rng.integers(1, 7, g).astype(np.int32)
+    mirror = rng.random(g) < 0.5
+    args = (f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror)
+    got = TD.doubles_final_plain(*(tt(x) for x in args), m)
+    want = jax_final(*args, m=m)
+    for g_, w, what in zip(got, want, ("boards", "n", "overflow")):
+        np.testing.assert_array_equal(nn_(g_), np.asarray(w), err_msg=what)
+    n4 = nn_(TD.doubles_level_plain(*(tt(x) for x in args[4:]), m)[2])
+    empty = n4 == 0
+    assert (empty & (n3 > k3)).any() and (empty & (n3 == 0) & (n2 > 0)).any()
+    if m < k3:                            # L3 truncated to M
+        assert (empty & (n3 > m)).any()
+    assert (empty & (n3 == 0) & (n2 == 0)).any()
+
+
+def test_final_wrapper_on_cpu_and_its_checks():
+    """On CPU tensors ``doubles_final`` is the plain version and launches
+    nothing; it refuses what the kernel does not take."""
+    vecs, die, mirror = _positions(9, 12, "bearoff")
+    d, mi = tt(die), tt(mirror)
+    l1 = TD.doubles_level_plain(tt(vecs)[:, None, :], None, None, d, mi, 16)
+    l2 = TD.doubles_level_plain(*l1, d, mi, 32)
+    l3 = TD.doubles_level_plain(*l2, d, mi, 48)
+    args = (l1[0], l1[2], l2[0], l2[2], *l3, d, mi)
+    before = TD.doubles_final.launches
+    for g, w in zip(TD.doubles_final(*args, 64),
+                    TD.doubles_final_plain(*args, 64)):
+        assert torch.equal(g, w)
+    assert TD.doubles_final.launches == before
+    bad = [
+        (l1[0].to(torch.int32), *args[1:]),
+        (args[0], args[1].to(torch.int64), *args[2:]),
+        (args[0][:5], *args[1:]),
+        (*args[:2], args[2].transpose(0, 1).contiguous().transpose(0, 1),
+         *args[3:]),
+        (*args[:5], None, None, *args[7:]),
+        (*args[:7], args[7].to(torch.int64), args[8]),
+    ]
+    for a in bad:
+        with pytest.raises(ValueError):
+            TD.doubles_final(*a, 64)

@@ -16,6 +16,7 @@ from mlp_ppo_2ply_p3_tpu.core import oracle
 from mlp_ppo_2ply_p3_tpu_torch.core import movegen as TM
 from mlp_ppo_2ply_p3_tpu_torch.ops import compaction as TC
 from mlp_ppo_2ply_p3_tpu_torch.ops import doubles as TD
+from mlp_ppo_2ply_p3_tpu_torch.ops import nondoubles as TN
 
 from .test_movegen import abs_to_canonical_np, canonical_to_abs_np
 from .test_torch_utils import canonical, nn_, random_positions, tt
@@ -213,27 +214,36 @@ def test_set_equality_with_oracle():
 ])
 def test_kernel_selectors_and_dedup_off(over, monkeypatch):
     """Every kernel selector gives the JAX result; dedup=False too.  The
-    numbers of compactions and doubles levels per call are what
-    compactions_per_call and doubles_levels_per_call say.
+    numbers of compactions, doubles levels, final levels and non-doubles
+    batches per call are what compactions_per_call,
+    doubles_levels_per_call, doubles_finals_per_call and
+    nondoubles_per_call say.
     (16 games: the JAX Pallas kernels run in interpret mode here.)"""
     b = 16
     rng = np.random.default_rng(17)
     boards, players = random_positions(rng, b, "any")
     dice = rng.integers(1, 7, (b, 2)).astype(np.int8)
-    calls, levels = [], []
-    real, real_level = TC.compact_rows, TD.doubles_level
+    calls = {"compact_rows": [], "doubles_level": [], "doubles_final": [],
+             "nondoubles_batch": []}
 
-    def counting(payload, valid, k_out):
-        calls.append(k_out)
-        return real(payload, valid, k_out)
+    def counting(module, name):
+        real = getattr(module, name)
 
-    def counting_level(*args):
-        levels.append(args[-1])
-        return real_level(*args)
+        def wrapper(*args):
+            calls[name].append(args[-1])
+            return real(*args)
+        monkeypatch.setattr(module, name, wrapper)
 
-    monkeypatch.setattr(TC, "compact_rows", counting)
-    monkeypatch.setattr(TD, "doubles_level", counting_level)
+    counting(TC, "compact_rows")
+    counting(TD, "doubles_level")
+    counting(TD, "doubles_final")
+    counting(TN, "nondoubles_batch")
     _batch(canonical(boards, players), dice, players == 1, "fast", **over)
     _, tcfg = _cfgs("fast", **over)
-    assert len(calls) == TM.compactions_per_call(tcfg) == 4
-    assert len(levels) == TM.doubles_levels_per_call(tcfg) == 4
+    assert len(calls["compact_rows"]) == TM.compactions_per_call(tcfg) == 2
+    assert (len(calls["doubles_level"])
+            == TM.doubles_levels_per_call(tcfg) == 3)
+    assert (len(calls["doubles_final"])
+            == TM.doubles_finals_per_call(tcfg) == 1)
+    assert (calls["nondoubles_batch"]
+            == [tcfg.dedup] * TM.nondoubles_per_call(tcfg))

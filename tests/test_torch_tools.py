@@ -120,10 +120,9 @@ def test_perf_movegen_on_cpu(capsys, monkeypatch):
     res = perf_movegen.main(["32", "dedup,c384", "--device", "cpu"])
     assert set(res) == {"B", "device", "dedup384_ms", "dedup384_eager_ms",
                         "compact384to256_ms", "compact384to256_eager_ms"}
-    # dedup384 times what movegen runs (the reset's movegen runs it once):
-    # warm-up + 20 calls, twice
-    assert calls == [((32, 384, 52), 256)] * (
-        1 + 2 * (1 + profiling.SCAN_ITERS))
+    # dedup384 times the dedup kernel (movegen's reset no longer runs it:
+    # the non-doubles kernel dedups on chip): warm-up + 20 calls, twice
+    assert calls == [((32, 384, 52), 256)] * (2 * (1 + profiling.SCAN_ITERS))
 
 
 def test_save_frozen_round_trip(tmp_path, monkeypatch, capsys):

@@ -29,6 +29,7 @@ from mlp_ppo_2ply_p3_tpu_torch.core import movegen as TMG
 from mlp_ppo_2ply_p3_tpu_torch.env import bg_env as TE
 from mlp_ppo_2ply_p3_tpu_torch.ops import compaction as TC
 from mlp_ppo_2ply_p3_tpu_torch.ops import doubles as TD
+from mlp_ppo_2ply_p3_tpu_torch.ops import nondoubles as TN
 from mlp_ppo_2ply_p3_tpu_torch.utils import convert
 from mlp_ppo_2ply_p3_tpu_torch.utils.config import SearchConfig, get_preset
 
@@ -151,7 +152,8 @@ def test_launches_per_decision(monkeypatch, width, chunk):
     formula that ``chip_smoke.py`` holds the card's launches to."""
     _, model = models(4)
     _, ts = both_states(17, 2)
-    calls = {"compact": 0, "dedup": 0, "level": 0}
+    calls = {"compact": 0, "dedup": 0, "level": 0, "nondoubles": 0,
+             "final": 0}
 
     def counted(name, fn):
         def wrapper(*args):
@@ -165,17 +167,21 @@ def test_launches_per_decision(monkeypatch, width, chunk):
                         counted("dedup", TC.dedup_compact_rows_plain))
     monkeypatch.setattr(TD, "doubles_level",
                         counted("level", TD.doubles_level_plain))
+    monkeypatch.setattr(TN, "nondoubles_batch",
+                        counted("nondoubles", TN.nondoubles_batch_plain))
+    monkeypatch.setattr(TD, "doubles_final",
+                        counted("final", TD.doubles_final_plain))
     scfg = SearchConfig(top_k=4, reply_max_moves=width, game_chunk=chunk,
                         dbl_game_chunk=chunk)
     TT.twoply_actions_values(model, ts, scfg)
-    assert (calls["compact"], calls["dedup"],
-            calls["level"]) == TT.launches_per_decision(2, scfg)
-    # B=256 at the JAX package's chunks: 1 x 15 x 2 compactions, no
-    # dedup, 4 x 6 x 4 doubles levels; at the port's, the doubles leg is
-    # one chunk: 1 x 6 x 4 levels
+    assert tuple(calls.values()) == TT.launches_per_decision(2, scfg)
+    # B=256 at the JAX package's chunks: 1 x 15 non-doubles launches, 4 x
+    # 6 x 3 doubles levels and 4 x 6 final ones; at the port's, the
+    # doubles leg is one chunk: 6 x 3 levels and 6 final ones; no
+    # compaction and no separate dedup
     jax_chunks = SearchConfig(game_chunk=2048, dbl_game_chunk=512)
-    assert TT.launches_per_decision(256, jax_chunks) == (30, 0, 96)
-    assert TT.launches_per_decision(256, SearchConfig()) == (30, 0, 24)
+    assert TT.launches_per_decision(256, jax_chunks) == (0, 0, 72, 15, 24)
+    assert TT.launches_per_decision(256, SearchConfig()) == (0, 0, 18, 15, 6)
 
 
 def test_twoply_matches_bruteforce():
