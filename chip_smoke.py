@@ -8,39 +8,45 @@ Phases (any failure exits non-zero and prints no result line):
 1. Device check: needs ``torch.cuda.is_available()``; prints the card's
    ``nvidia-smi`` name and power limit.
 2. Build: compiles ``csrc/compaction.cu`` (``compact_rows`` and
-   ``dedup_compact_rows``), ``csrc/doubles.cu`` (``doubles_level`` and
-   ``doubles_final``) and ``csrc/nondoubles.cu`` (``nondoubles``) with
-   nvcc for sm_90a, one nvcc process per source, started together.
+   ``dedup_compact_rows``), ``csrc/doubles.cu`` (``doubles_level``, the
+   first three doubles levels in one launch, and ``doubles_final``) and
+   ``csrc/nondoubles.cu`` (``nondoubles``) with nvcc for sm_90a, one nvcc
+   process per source, started together.
 3. Kernels vs plain versions, bit-exact (every output slot, zero tail
    included, counts and flags): ``compact_rows`` on ragged edge cases, on
    the split-N layout (one row of tens of thousands of flags), on the
    compaction call shapes of the ``train4096`` table and on the 2-ply
    reply shapes of earlier slices; ``dedup_compact_rows`` on planted
    duplicates, high-nibble copies, the old main-path shape and the reply
-   shape; ``doubles_level`` (boards, ranks and unclamped counts) on random
-   frontiers that reach every slot kind (bar entry on a blot, a block,
-   bear-off exact, overshooting and exact from a nearer point, game over,
-   all-zero padding rows of die 0, mirrored games), with ragged valid
-   counts, truncation, k_out = 0, boards at an odd address and the parity
-   width; ``nondoubles`` on random boards of the same kinds with every
+   shape; ``doubles_level`` (the three frontiers, L3's ranks and the
+   unclamped counts) on random roots that reach every slot kind (bar entry
+   on a blot, a block, bear-off exact, overshooting and exact from a nearer
+   point, game over, all-zero padding rows of die 0, mirrored games), at
+   the main-path, default, pod, reply and parity widths, with truncation
+   at each level, an empty L3 and roots at an odd address;
+   ``nondoubles`` on random boards of the same kinds with every
    non-double roll, both mirrors and padding games of dice (0, 0), at the
    main-path, default, parity and reply widths and at widths that
-   truncate the singles, the raw block and the list; ``doubles_final`` on
+   truncate the singles, the raw block and the list, and in place over
+   whole batches (random doubles rows to copy, both capacities binding,
+   at B=4096, pod's 16384 and truncating widths); ``doubles_final`` on
    random L1-L3 frontiers with counts 0, within and above their widths
    (L4 empty, L3 wider than M), and on the edge boards' real levels.
 4. Movegen on the card at B=4096 on boards from a few env steps: the
    kernel path is bit-exact against the plain-PyTorch path on the card
-   and against the CPU.  Every kernel call of one movegen call is
-   captured, checked against the plain version and timed (CUDA events)
-   beside its bound, and ``dedup_compact_rows``, off the path, at the
-   block that the plain non-doubles batch dedups.  The whole call is
+   and against the CPU.  Every kernel call of one movegen call (the
+   doubles split, the fused doubles levels, the final level, and the
+   non-doubles kernel in place over the whole batch) is captured, checked
+   against the plain version and timed (CUDA events) beside its bound,
+   and ``dedup_compact_rows``, off the path, at the block that the plain
+   non-doubles batch dedups.  The whole call is
    timed eagerly and as a CUDA graph replay (the device's own time).  The
    same at the other batch sizes and widths the paths below run movegen
    at: the league eval's 256 games (``train4096``'s movegen) and the
    arenas' 512 and 64 games (``twoply``'s), where both sub-batches are the
    whole batch, with padding rows; B=4096 at the default widths and
-   B=16384 (``pod``); each call's shape is checked once more with random
-   flags or random inputs.  Then
+   B=16384 (``pod``), each also against the CPU; each call's shape is
+   checked once more with random flags or random inputs.  Then
    one small ``train_step`` (B=64, T=8, full width) on the card and on
    the CPU from the same weights and draws: equal env integers,
    parameters and losses within 1e-4.
@@ -98,7 +104,8 @@ Phases (any failure exits non-zero and prints no result line):
    rank: its collectives are the identity, a ``train_step`` through the
    sharded code equals the plain one bit for bit, and one rank's movegen
    call (8192 games, with a rank's sub-batch widths) is held call by call
-   against the plain versions.  Two ranks on one card are no scaling
+   against the plain versions and whole against the CPU.  Two ranks on
+   one card are no scaling
    number.
 9. 2-ply distillation: ``scripts/run_distill.main`` on frozen_v1 at 256
    games, one iteration (plies cut 48 -> 8, eval games 512 -> 128):
@@ -149,11 +156,14 @@ TPU_KERNELS = ("mlp_ppo_2ply_p3_tpu/ops/compaction.py:178, "
 # after them, which XLA fused
 DEDUP_REPLACES = ("mlp_ppo_2ply_p3_tpu/core/movegen.py:256-273, "
                   "mlp_ppo_2ply_p3_tpu/core/movegen.py:364")
-# the jnp doubles level, whose compaction is the Pallas compact_rows
-DOUBLES_REPLACES = ("mlp_ppo_2ply_p3_tpu/core/movegen.py:406-416, "
+# the jnp doubles levels L1-L3, whose compactions are the Pallas
+# compact_rows
+DOUBLES_REPLACES = ("mlp_ppo_2ply_p3_tpu/core/movegen.py:395-419, "
                     "mlp_ppo_2ply_p3_tpu/ops/compaction.py:231")
-# the jnp non-doubles candidates, dedup and compactions
+# the jnp non-doubles candidates, dedup and compactions, and in place the
+# non-doubles split, the gather back and the selection
 NONDOUBLES_REPLACES = ("mlp_ppo_2ply_p3_tpu/core/movegen.py:286-369, "
+                       "mlp_ppo_2ply_p3_tpu/core/movegen.py:576-614, "
                        "mlp_ppo_2ply_p3_tpu/ops/compaction.py:231")
 # the fourth doubles level and the selection of the list after it
 FINAL_REPLACES = ("mlp_ppo_2ply_p3_tpu/core/movegen.py:406-439, "
@@ -162,7 +172,7 @@ FINAL_REPLACES = ("mlp_ppo_2ply_p3_tpu/core/movegen.py:406-439, "
 # (mlp_ppo_2ply_p3_tpu_torch/ops/__init__.py::KERNELS)
 WRAPPERS = {"compact_rows": ("compaction", "compact_rows"),
             "dedup_compact_rows": ("compaction", "dedup_compact_rows"),
-            "doubles_level": ("doubles", "doubles_level"),
+            "doubles_level": ("doubles", "doubles_levels"),
             "nondoubles": ("nondoubles", "nondoubles_batch"),
             "doubles_final": ("doubles", "doubles_final")}
 KERNELS = tuple(WRAPPERS)
@@ -236,21 +246,21 @@ def dedup_work(torch, compaction, boards, valid, k_out: int):
     return nbytes, 7 * (unique_pred + dups)
 
 
-def level_work(doubles, args):
-    """(bytes, integer operations) that one doubles level must spend on
-    these inputs: the valid frontier rows (52 bytes and a rank each) and
-    each game's valid count, die and mirror flag in, the next frontier
-    (53 bytes a row) and the counts out; 8 operations for each slot
-    predicate of a valid row (27 a row) and 2 for each byte of an
-    afterstate that lands in the output."""
-    boards, ranks, n_in, _, _, k_out = args
-    g, k, _ = boards.shape
-    rows = g * k if n_in is None else int(n_in.clamp(0, k).sum())
-    _, _, n = doubles.doubles_level_plain(*args)
-    landed = int(n.clamp(max=k_out).sum())
-    nbytes = (rows * (52 + (ranks is not None))
-              + g * (4 * (n_in is not None) + 4 + 1) + g * k_out * 53 + 4 * g)
-    return nbytes, rows * 27 * 8 + landed * 52 * 2
+def levels_work(doubles, args):
+    """(bytes, integer operations) that the first three doubles levels
+    must spend on these inputs: each game's root, die and mirror flag in;
+    the three frontiers (52 bytes a row, zero tails included), L3's ranks
+    and the three counts out; 8 operations for each slot predicate of a
+    valid frontier row (the root and the valid L1 and L2 rows, 27 a row)
+    and 2 for each byte of an afterstate that lands in a frontier."""
+    vecs, die, mirror, k1, k2, k3 = args
+    g = vecs.shape[0]
+    _, n1, _, n2, _, _, n3 = doubles.doubles_levels_plain(*args)
+    expanded = g + int(n1.clamp(max=k1).sum()) + int(n2.clamp(max=k2).sum())
+    landed = sum(int(n.clamp(max=k).sum())
+                 for n, k in ((n1, k1), (n2, k2), (n3, k3)))
+    nbytes = g * (52 + 4 + 1) + g * (k1 + k2 + k3) * 52 + g * k3 + 12 * g
+    return nbytes, expanded * 27 * 8 + landed * 52 * 2
 
 
 def nondoubles_work(torch, compaction, args):
@@ -259,11 +269,29 @@ def nondoubles_work(torch, compaction, args):
     (G, M, 52) list, the counts and the flags out; 8 operations for each
     slot predicate (27 a die: both orders' first die and the second die of
     every kept single), 2 for each byte of a listed candidate, and the
-    dedup's key compares (``dedup_work``) on the block it sees."""
+    dedup's key compares (``dedup_work``) on the block it sees.  In place
+    also each game's placement (5 bytes) and each doubles game's row of
+    the doubles list up to its last nonzero row (rows past it are zeros,
+    which the list has anyway) with its count and flag; the rules' work is
+    counted once for each game whose list the batch carries."""
     from mlp_ppo_2ply_p3_tpu_torch.ops import doubles, nondoubles
 
-    vecs, d_hi, d_lo, mirror, k1, kd, m, dedup = args
+    vecs, d_hi, d_lo, mirror, k1, kd, m, dedup = args[:8]
+    place = args[8] if len(args) > 8 else None
     g = vecs.shape[0]
+    nbytes = g * (52 + 4 + 4 + 1) + g * m * 52 + 5 * g
+    if place is not None:
+        src, _, db_out, _, _ = place
+        dbl = src < 0
+        rows = torch.arange(1, m + 1, device=db_out.device)
+        filled = torch.where((db_out != 0).any(dim=2), rows, 0)
+        width = filled.amax(dim=1) if m else filled.sum(dim=1)
+        read = int(width[(-1 - src[dbl]).long()].sum())
+        nbytes += 5 * g + read * 52 + 5 * int(dbl.sum())
+        keep = torch.unique(src[~dbl]).long()
+        vecs, d_hi, d_lo, mirror = (x[keep] for x in (vecs, d_hi, d_lo,
+                                                      mirror))
+    n_games = vecs.shape[0]
     singles = sum(int(doubles.first_die(vecs, d, mirror.bool())[1].sum(1)
                       .clamp(max=k1).sum()) for d in (d_hi, d_lo))
     limit = kd if dedup else m
@@ -271,14 +299,15 @@ def nondoubles_work(torch, compaction, args):
                                                mirror.bool(), k1, limit)
     listed = int(n_raw.clamp(max=limit).sum())
     compares = dedup_work(torch, compaction, cb, kv, m)[1] if dedup else 0
-    nbytes = g * (52 + 4 + 4 + 1) + g * m * 52 + 5 * g
-    return nbytes, (2 * g + singles) * 27 * 8 + listed * 52 * 2 + compares
+    return nbytes, ((2 * n_games + singles) * 27 * 8 + listed * 52 * 2
+                    + compares)
 
 
 def final_work(doubles, args):
     """(bytes, integer operations) that the final doubles level must
-    spend: the fourth level's (``level_work``: the valid L3 rows and
-    ranks, 8 operations a slot predicate, 2 a byte of a landing row), each
+    spend: the fourth level's (as ``levels_work`` counts a level: the
+    valid L3 rows and ranks, 8 operations a slot predicate, 2 a byte of a
+    landing row), each
     game's L1 and L2 counts, and the rows of the level that stands in
     where L4 is empty; the (G, M, 52) list, the counts and the flags
     out."""
@@ -349,7 +378,7 @@ def measure_calls(torch, calls):
         "compact_rows": lambda a: (compaction_bytes(a[1], a[2],
                                                     a[0].shape[2]), 0),
         "dedup_compact_rows": lambda a: dedup_work(torch, compaction, *a),
-        "doubles_level": lambda a: level_work(doubles, a),
+        "doubles_level": lambda a: levels_work(doubles, a),
         "nondoubles": lambda a: nondoubles_work(torch, compaction, a),
         "doubles_final": lambda a: final_work(doubles, a),
     }
@@ -597,54 +626,50 @@ def random_frontier(torch, dev, rng, g, k, root):
 
 
 def doubles_cases(torch, doubles, dev, cases=None):
-    """doubles_level against its plain version (boards, ranks and
-    unclamped counts, bit for bit) on random frontiers
-    (``random_frontier``) at ``cases`` of (G, K, k_out, root) (by
-    default: roots, the B=4096 levels at both widths, truncation, k_out =
-    0, several chunks of 128 rows, the parity width), each also with
-    uint8 mirror flags and the boards at an odd address; and the edge
-    boards through four levels, each with every die, unmirrored and
-    mirrored.  Returns the cases checked."""
+    """doubles_levels (the fused first three levels) against its plain
+    version (the three frontiers, L3's ranks and the unclamped counts, bit
+    for bit) on random roots (``random_frontier``'s one-row frontiers) at
+    ``cases`` of (G, k1, k2, k3) (by default: train4096's doubles sub-batch
+    at ``fast()`` and the default widths, pod's, the 2-ply reply widths,
+    the parity widths, widths that truncate each level, an empty L3), each
+    also with uint8 mirror flags and the roots at an odd address; and the
+    edge boards, each with every die, unmirrored and mirrored.  Returns
+    the cases checked."""
     rng = torch.Generator(device=dev)
     rng.manual_seed(6)
-    default = [(64, 1, 16, True), (875, 1, 16, True), (875, 16, 80, False),
-               (875, 80, 192, False), (875, 192, 256, False),
-               (1088, 96, 224, False), (1088, 224, 256, False),
-               (300, 40, 5, False), (64, 30, 0, False),
-               (40, 300, 500, False), (16, 512, 500, False),
-               (5, 129, 3000, False)]
+    default = [(875, 16, 80, 192), (1088, 16, 96, 224), (4160, 16, 96, 224),
+               (512, 16, 128, 256), (64, 16, 128, 512), (300, 3, 5, 7),
+               (300, 16, 6, 40), (40, 16, 30, 0)]
     out = []
-    for g, k, k_out, root in (default if cases is None else cases):
-        args = random_frontier(torch, dev, rng, g, k, root)
-        want = doubles.doubles_level_plain(*args, k_out)
-        raw = torch.zeros(args[0].numel() + 3, dtype=torch.int8, device=dev)
+    for g, k1, k2, k3 in (default if cases is None else cases):
+        vecs, _, _, die, mirror = random_frontier(torch, dev, rng, g, 1, True)
+        args = (vecs[:, 0].contiguous(), die, mirror)
+        want = doubles.doubles_levels_plain(*args, k1, k2, k3)
+        raw = torch.zeros(g * 52 + 3, dtype=torch.int8, device=dev)
         raw[3:] = args[0].reshape(-1)
-        odd = (raw[3:].view(args[0].shape), *args[1:4],
-               args[4].to(torch.uint8))
+        odd = (raw[3:].view(g, 52), die, mirror.to(torch.uint8))
         for variant in (args, odd):
-            got = doubles.doubles_level(*variant, k_out)
+            got = doubles.doubles_levels(*variant, k1, k2, k3)
             torch.cuda.synchronize()
             check(all(same(a, b) for a, b in zip(got, want)),
-                  f"doubles_level != plain at {(g, k)} -> {k_out}")
-        check(int(want[2].sum()) > 0, f"no valid candidate at {(g, k)}")
-        out.append({"shape": [g, k, 52], "k_out": k_out, "root": root,
-                    "exact": True})
+                  f"doubles_levels != plain at G={g}, widths "
+                  f"{(k1, k2, k3)}")
+        check(int(want[1].sum()) > 0, f"no valid candidate at G={g}")
+        out.append({"games": g, "widths": [k1, k2, k3], "exact": True})
     if cases is None:
         edges = edge_boards(torch, dev)
-        vecs = edges.repeat_interleave(12, dim=0)
+        vecs = edges.repeat_interleave(12, dim=0).contiguous()
         die = torch.arange(1, 7, dtype=torch.int32, device=dev).repeat(12)
         die[-12:] = 0                                  # the padding rows
         mirror = (torch.arange(72, device=dev) % 12) >= 6
-        level = (vecs[:, None, :].contiguous(), None, None)
-        for k_out in (16, 80, 192, 256):
-            got = doubles.doubles_level(*level, die, mirror, k_out)
-            want = doubles.doubles_level_plain(*level, die, mirror, k_out)
-            torch.cuda.synchronize()
-            check(all(same(a, b) for a, b in zip(got, want)),
-                  f"doubles_level != plain on the edge boards -> {k_out}")
-            level = want
-        out.append({"shape": [72, 1, 52], "k_out": 256, "root": "edge "
-                    "boards, four levels", "exact": True})
+        args = (vecs, die, mirror, 16, 80, 192)
+        got = doubles.doubles_levels(*args)
+        want = doubles.doubles_levels_plain(*args)
+        torch.cuda.synchronize()
+        check(all(same(a, b) for a, b in zip(got, want)),
+              "doubles_levels != plain on the edge boards")
+        out.append({"games": 72, "widths": [16, 80, 192],
+                    "exact": "edge boards, every die"})
     return out
 
 
@@ -667,37 +692,71 @@ def nondoubles_inputs(torch, dev, rng, g):
     return b, rolls[:, 0].contiguous(), rolls[:, 1].contiguous(), mirror
 
 
+def place_inputs(torch, dev, rng, g, m):
+    """A random in-place batch of ``g`` games: ``nondoubles_inputs``'s
+    games, a fifth of them doubles games, whose rows are random rows of a
+    random doubles list (random counts and flags); both capacities below
+    their kind's count, so that both slot clamps bind.  Returns
+    ((vecs, d_hi, d_lo, mirror), place)."""
+    from mlp_ppo_2ply_p3_tpu_torch.core import movegen
+
+    args = nondoubles_inputs(torch, dev, rng, g)
+    dbl = torch.rand((g,), generator=rng, device=dev) < 0.2
+    gd, bn = max(1, g // 7), max(1, g * 3 // 4)
+    src, fits, _, _ = movegen._placement(dbl, gd, bn)
+    db_out = torch.randint(-128, 128, (gd, m, 52), generator=rng, device=dev,
+                           dtype=torch.int8)
+    db_n = torch.randint(0, m + 1, (gd,), generator=rng, device=dev,
+                         dtype=torch.int32)
+    db_of = torch.rand((gd,), generator=rng, device=dev) < 0.3
+    return args, (src, fits, db_out, db_n, db_of)
+
+
 def nondoubles_cases(torch, nondoubles, dev, cases=None):
     """nondoubles_batch against its plain version (boards, counts and
     flags, bit for bit) on random inputs (``nondoubles_inputs``) at
-    ``cases`` of (G, k1, kd, M, dedup) (by default: train4096's sub-batch
-    at ``fast()`` and the default widths, the parity widths, both 2-ply
-    reply widths, widths that truncate the singles, the raw block and the
-    list, zero widths), each also with uint8 mirror flags and the boards
-    at an odd address; and the edge boards with every non-double roll,
-    unmirrored and mirrored.  Returns the cases checked."""
+    ``cases`` of (G, k1, kd, M, dedup, in place) (by default: train4096's
+    batch at ``fast()`` and the default widths, in place (``place_inputs``)
+    and as a sub-batch, pod's B=16384 in place, the parity widths, both
+    2-ply reply widths, widths that truncate the singles, the raw block
+    and the list, zero widths), each also with uint8 mirror flags and the
+    boards at an odd address; and the edge boards with every non-double
+    roll, unmirrored and mirrored.  Returns the cases checked."""
     rng = torch.Generator(device=dev)
     rng.manual_seed(8)
-    default = [(3604, 16, 288, 256, True), (4096, 16, 384, 256, True),
-               (64, 16, 512, 500, True), (2048, 16, 288, 512, False),
-               (2048, 16, 288, 128, True), (300, 4, 16, 4, True),
-               (300, 3, 16, 5, False), (7, 16, 0, 0, True)]
+    default = [(4096, 16, 288, 256, True, True),
+               (4096, 16, 384, 256, True, True),
+               (16384, 16, 384, 256, True, True),
+               (3604, 16, 288, 256, True, False),
+               (64, 16, 512, 500, True, False),
+               (2048, 16, 288, 512, False, False),
+               (2048, 16, 288, 128, True, False),
+               (300, 4, 16, 4, True, False), (600, 4, 16, 4, True, True),
+               (300, 3, 16, 5, False, False), (600, 3, 16, 5, False, True),
+               (7, 16, 0, 0, True, False)]
     out = []
-    for g, k1, kd, m, dedup in (default if cases is None else cases):
-        args = nondoubles_inputs(torch, dev, rng, g)
-        want = nondoubles.nondoubles_batch_plain(*args, k1, kd, m, dedup)
+    for g, k1, kd, m, dedup, in_place in (default if cases is None
+                                          else cases):
+        if in_place:
+            args, place = place_inputs(torch, dev, rng, g, m)
+            u8 = (*place[:4], place[4].to(torch.uint8))
+        else:
+            args, place = nondoubles_inputs(torch, dev, rng, g), None
+            u8 = None
+        want = nondoubles.nondoubles_batch_plain(*args, k1, kd, m, dedup,
+                                                 place)
         raw = torch.zeros(g * 52 + 3, dtype=torch.int8, device=dev)
         raw[3:] = args[0].reshape(-1)
         odd = (raw[3:].view(g, 52), *args[1:3], args[3].to(torch.uint8))
-        for variant in (args, odd):
-            got = nondoubles.nondoubles_batch(*variant, k1, kd, m, dedup)
+        for variant, pl in ((args, place), (odd, u8)):
+            got = nondoubles.nondoubles_batch(*variant, k1, kd, m, dedup, pl)
             torch.cuda.synchronize()
             check(all(same(a, b) for a, b in zip(got, want)),
                   f"nondoubles != plain at G={g}, widths {(k1, kd, m)}, "
-                  f"dedup {dedup}")
+                  f"dedup {dedup}, in place {in_place}")
         check(m == 0 or int(want[1].sum()) > 0, f"no move at all at G={g}")
         out.append({"games": g, "widths": [k1, kd, m], "dedup": dedup,
-                    "exact": True})
+                    "in_place": in_place, "exact": True})
     if cases is None:
         edges = edge_boards(torch, dev)
         rolls = torch.tensor(NONDOUBLE_ROLLS, dtype=torch.int32, device=dev)
@@ -816,11 +875,16 @@ def captured_movegen(torch, movegen, vecs, dice, mg, mirror,
     return got, cap
 
 
-def dedup_input(nondoubles, args):
+def dedup_input(torch, nondoubles, args):
     """``dedup_compact_rows``'s arguments at a captured non-doubles call:
     the block that the plain version dedups (the kernel dedups on chip,
     so the main path never builds it)."""
-    vecs, d_hi, d_lo, mirror, k1, kd, m, _ = args
+    vecs, d_hi, d_lo, mirror, k1, kd, m = args[:7]
+    if len(args) > 8:     # in place: the games whose lists the batch holds
+        src = args[8][0]
+        keep = torch.unique(src[src >= 0]).long()
+        vecs, d_hi, d_lo, mirror = (x[keep] for x in (vecs, d_hi, d_lo,
+                                                      mirror))
     cb, kv, _ = nondoubles.raw_block_plain(vecs, d_hi, d_lo, mirror.bool(),
                                            k1, kd)
     return cb, kv, m
@@ -845,7 +909,7 @@ def movegen_phase(torch, movegen, perf_twoply, profiling,
     # time every kernel call of this movegen call: kernel vs plain; the
     # dedup kernel, off the path, at the block the plain path dedups
     calls = dict(cap.calls, dedup_compact_rows=[
-        dedup_input(nondoubles, a) for a in cap.calls["nondoubles"]])
+        dedup_input(torch, nondoubles, a) for a in cap.calls["nondoubles"]])
     rows = measure_calls(torch, calls)
 
     def one_call():
@@ -869,7 +933,8 @@ def movegen_batches_phase(torch, compaction, movegen, perf_twoply, runs,
     sub-batches are the whole batch (the doubles levels then hold every
     game, the non-doubles batch all-zero padding rows of dice (0, 0)).
     Each: one movegen call on boards from a few env steps, kernel path ==
-    plain path; every kernel call of it checked against its plain version
+    plain path == the CPU (a world of one rank: its shard is the batch);
+    every kernel call of it checked against its plain version
     and timed beside its bound (``measure``); and each call's shape once
     more with random flags or random inputs.  With a ``world`` each call
     is a rank's (its shapes those of a shard of any number of ranks).
@@ -879,8 +944,13 @@ def movegen_batches_phase(torch, compaction, movegen, perf_twoply, runs,
     out = []
     for label, env_cfg, batch in runs:
         vecs, dice, mirror = play_boards(perf_twoply, env_cfg, batch, 6, dev)
-        _, cap = captured_movegen(torch, movegen, vecs, dice,
-                                  env_cfg.movegen, mirror, world)
+        got, cap = captured_movegen(torch, movegen, vecs, dice,
+                                    env_cfg.movegen, mirror, world)
+        if world is None or world.size == 1:   # the shard is the batch
+            cpu = movegen.legal_afterstates_batch(
+                vecs.cpu(), dice.cpu(), env_cfg.movegen, mirror.cpu())
+            check(all(same(g.cpu(), c) for g, c in zip(got, cpu)),
+                  f"{label} movegen B={batch}: card != CPU")
         rows = measure_calls(torch, cap.calls)
         # the same shapes with random flags or inputs: the compactions at
         # this call's share of valid flags, with an all-invalid and an
@@ -890,10 +960,10 @@ def movegen_batches_phase(torch, compaction, movegen, perf_twoply, runs,
             (*a[0].shape, a[2], float(a[1].float().mean()))
             for a in calls["compact_rows"]])
         levels = doubles_cases(torch, doubles, dev, [
-            (*a[0].shape[:2], a[-1], a[1] is None)
-            for a in calls["doubles_level"]])
+            (a[0].shape[0], *a[3:]) for a in calls["doubles_level"]])
         nds = nondoubles_cases(torch, nondoubles, dev, [
-            (a[0].shape[0], *a[4:]) for a in calls["nondoubles"]])
+            (a[0].shape[0], *a[4:8], len(a) > 8)
+            for a in calls["nondoubles"]])
         finals = final_cases(torch, doubles, dev, [
             (a[4].shape[0], a[0].shape[1], a[2].shape[1], a[4].shape[1],
              a[-1]) for a in calls["doubles_final"]])
@@ -901,8 +971,8 @@ def movegen_batches_phase(torch, compaction, movegen, perf_twoply, runs,
                     "random_flag_cases": len(flags),
                     "random_input_cases": len(levels) + len(nds)
                     + len(finals)})
-        log(f"{label} movegen B={batch}: kernel path == plain path; every "
-            f"call == plain, also on random inputs of its shape")
+        log(f"{label} movegen B={batch}: kernel path == plain path == CPU; "
+            f"every call == plain, also on random inputs of its shape")
         log_rows(f"{label} B={batch}: ", rows)
     return out
 
@@ -1626,7 +1696,8 @@ def nccl_phase(torch, compaction, movegen, bg_env, learner, mesh,
     ``train_step`` (B=64, T=8, full width) through the sharded code ==
     the plain ``train_step`` bit for bit.  Then one rank's movegen call
     at ``pod`` (8192 games: the sub-batches a rank of phase 8 holds) is
-    held call by call against the plain versions.  Returns (the sharded
+    held call by call against the plain versions, and whole against the
+    CPU.  Returns (the sharded
     step's launches, that movegen report)."""
     import torch.distributed as dist
 
@@ -1870,10 +1941,10 @@ BREAKDOWN_JAX_KEYS = (
 BREAKDOWN_SCANS = ("movegen", "movegen_nondoubles",
                    "movegen_doubles_subbatch", "movegen_dedup")
 # launches of one call of each timed movegen piece, in KERNELS order: the
-# non-doubles kernel; three doubles levels and the final one; the
+# non-doubles kernel; the fused doubles levels and the final one; the
 # non-doubles kernel alone, which holds the dedup
 PIECE_LAUNCHES = {"movegen_nondoubles": (0, 0, 0, 1, 0),
-                  "movegen_doubles_subbatch": (0, 0, 3, 0, 1),
+                  "movegen_doubles_subbatch": (0, 0, 1, 0, 1),
                   "movegen_dedup": (0, 0, 0, 1, 0)}
 
 

@@ -127,8 +127,9 @@ def launches_per_decision(batch: int, scfg: SearchConfig = SearchConfig()):
     """(compact_rows, dedup_compact_rows, doubles_level, nondoubles,
     doubles_final) launches of one decision over ``batch`` games: per
     chunk, each non-doubles roll makes one ``nondoubles`` launch (its
-    dedup, below width 482, runs inside it), each doubles die its three
-    levels and the final one; no sub-batch split, so no compaction."""
+    dedup, below width 482, runs inside it), each doubles die one launch of
+    its first three levels and one of the final level; no sub-batch
+    split, so no compaction."""
     rcfg = _reply_cfg(scfg)
     bk = batch * scfg.top_k
     nd = -(-bk // min(scfg.game_chunk, bk)) * len(_ND_IDX)

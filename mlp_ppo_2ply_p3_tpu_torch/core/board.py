@@ -168,6 +168,11 @@ def submoves_one_die(vec, die):
     return valid, origin, dest, hit
 
 
+def game_over(vec):
+    """(...,) bool: the mover has borne off all 15 checkers."""
+    return vec[..., MY_OFF].to(I32) >= NUM_CHECKERS
+
+
 def apply_submove(vec, origin, dest, hit):
     """Apply submoves to canonical boards (no validity check).  ``vec``
     (..., 52) broadcasts against ``origin``/``dest``/``hit`` (...), so a

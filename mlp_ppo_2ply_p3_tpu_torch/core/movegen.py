@@ -18,17 +18,23 @@ no host synchronisation and truncates exactly where the JAX package does.
   so levels are plain stable compactions.  The final list is the deepest
   non-empty level.
 
-The non-doubles batch is one ``ops.nondoubles.nondoubles_batch`` (both
-die orders, the emission and max-submove rules, the dedup and the
-compaction into the list; JAX ``_nondoubles_candidates`` and
-``_nondoubles_batch``).  The doubles list is three
-``ops.doubles.doubles_level`` calls (expansion, rank filter and
-compaction) and one ``ops.doubles.doubles_final``, the fourth level that
-also writes the deepest non-empty level as the list.  The doubles /
-non-doubles sub-batch split, and every compaction of the ``exact_order``
-doubles path, go through ``ops.compaction.compact_rows``.  Each is a CUDA
-kernel on the card and its plain PyTorch version on the CPU.  Output
-lists, counts and overflow flags are bit-identical to the JAX package's.
+``legal_afterstates_batch`` makes four kernel calls: one
+``ops.compaction.compact_rows`` that splits off the doubles sub-batch; one
+``ops.doubles.doubles_levels`` (its first three frontier levels) and one
+``ops.doubles.doubles_final`` (the fourth level, which also writes the
+deepest non-empty level as the list); and one
+``ops.nondoubles.nondoubles_batch`` in place over the whole batch, which
+writes each non-double game's list at its own row of the (B, M, 52) output
+(both die orders, the emission and max-submove rules, the dedup and the
+compaction; JAX ``_nondoubles_candidates`` and ``_nondoubles_batch``) and
+copies each doubles game's row from the sub-batch's list.  So the
+non-doubles sub-batch of the JAX package is never built, and no (B, M, 52)
+gather or ``where`` runs around the kernels; the placement (which game
+carries which list) is a few (B,) integer ops on the device.  Every
+compaction of the ``exact_order`` doubles path goes through
+``compact_rows`` as well.  Each is a CUDA kernel on the card and its plain
+PyTorch version on the CPU.  Output lists, counts and overflow flags are
+bit-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -41,7 +47,6 @@ import torch
 from ..ops import compaction, doubles, nondoubles
 from ..parallel import mesh
 from . import board as B
-from .constants import NUM_CHECKERS
 
 I8 = torch.int8
 I32 = torch.int32
@@ -170,21 +175,14 @@ def _nondoubles_batch(vecs, d_hi, d_lo, cfg: MovegenConfig, mirror):
 def _doubles_batch(vecs, die, cfg: MovegenConfig, mirror):
     """(G,)-batched depth-4 frontier expansion with non-decreasing-origin
     canonicalization and no dedup (distinct non-decreasing origin
-    sequences give distinct boards): three ``doubles.doubles_level``
-    calls, the first on the roots as a one-row frontier with no rank
-    filter, each the level's expansion, rank filter and compaction; then
+    sequences give distinct boards): one ``doubles.doubles_levels`` call,
+    L1 to L3 (each level's expansion, rank filter and compaction); then
     one ``doubles.doubles_final``, the fourth level, which writes the
     deepest non-empty level as the list with its count and overflow."""
     die, mirror = die.contiguous(), mirror.contiguous()
-
-    def level(fb, fr, n, k_out):
-        return doubles.doubles_level(fb, fr, n, die, mirror, k_out)
-
-    f1b, f1r, n1 = level(vecs.contiguous()[:, None, :], None, None, cfg.k1)
-    f2b, f2r, n2 = level(f1b, f1r, n1, cfg.k2)
-    f3b, f3r, n3 = level(f2b, f2r, n2, cfg.k3)
-    return doubles.doubles_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror,
-                                 cfg.max_moves)
+    levels = doubles.doubles_levels(vecs.contiguous(), die, mirror, cfg.k1,
+                                    cfg.k2, cfg.k3)
+    return doubles.doubles_final(*levels, die, mirror, cfg.max_moves)
 
 
 def _doubles_exact(vecs, die, cfg: MovegenConfig, mirror):
@@ -261,21 +259,22 @@ def nondoubles_capacity(batch_size: int,
 
 def compactions_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:
     """Number of ``compact_rows`` calls one ``legal_afterstates_batch``
-    makes: the two sub-batch splits, and under ``exact_order`` the seven
-    of the doubles levels."""
-    return 2 + (7 if cfg.exact_order else 0)
+    makes: the doubles sub-batch split, and under ``exact_order`` the
+    seven of the doubles levels."""
+    return 1 + (7 if cfg.exact_order else 0)
 
 
 def nondoubles_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:
     """Number of ``nondoubles_batch`` calls one ``legal_afterstates_batch``
-    makes: the non-doubles sub-batch."""
+    makes: the whole batch, in place."""
     return 1
 
 
 def doubles_levels_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:
-    """Number of ``doubles_level`` calls one ``legal_afterstates_batch``
-    makes: the first three doubles levels, unless ``exact_order``."""
-    return 0 if cfg.exact_order else 3
+    """Number of ``doubles_levels`` calls (the launch key
+    ``doubles_level``) one ``legal_afterstates_batch`` makes: the first
+    three doubles levels in one launch, unless ``exact_order``."""
+    return 0 if cfg.exact_order else 1
 
 
 def doubles_finals_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:
@@ -292,24 +291,47 @@ def dedups_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:
     return 0
 
 
-def _game_over(vecs):
-    return vecs[:, B.MY_OFF].to(I32) >= NUM_CHECKERS
+def _placement(is_double, bd: int, bn: int):
+    """Which list each game of the batch carries (``legal_afterstates_batch``
+    in place), on the device and without a host sync: the first ``bd``
+    doubles games (in batch order) fit the doubles sub-batch and the first
+    ``bn`` non-doubles games the non-doubles one; a game that does not fit
+    carries the list of its kind's last fitting game, slot capacity - 1
+    (the slot clamp).  Returns (src (B,) int32: -1 - the doubles game's
+    slot, or the game whose non-double list a non-double game carries;
+    fits (B,) bool; pos_d, pos_n: each game's 1-indexed position among its
+    kind)."""
+    not_double = torch.logical_not(is_double)
+    pos_d = torch.cumsum(is_double.to(I32), 0, dtype=I32)
+    pos_n = torch.cumsum(not_double.to(I32), 0, dtype=I32)
+    slot_d = torch.clamp(pos_d - 1, 0, bd - 1)
+    fits_n = pos_n <= bn
+    bsz = is_double.shape[0]
+    # the bn-th non-double: pos_n is non-decreasing
+    last_n = torch.clamp((pos_n < bn).sum(dtype=I32), max=bsz - 1)
+    own = torch.arange(bsz, dtype=I32, device=is_double.device)
+    src = torch.where(is_double, -1 - slot_d,
+                      torch.where(fits_n, own, last_n))
+    fits = torch.where(is_double, pos_d <= bd, fits_n)
+    return src, fits, pos_d, pos_n
 
 
-def _global_fit(world, cfg, pos_d, pos_n, db_out, nd_out):
-    """The sub-batch split of the global batch, for a shard of it (data
-    parallelism, ``world`` a ``parallel.mesh.World``): which of the
+def _global_fit(world, cfg, pos_d, pos_n, db_out, out):
+    """The sub-batch capacities of the global batch, for a shard of it
+    (data parallelism, ``world`` a ``parallel.mesh.World``): which of the
     shard's doubles and non-doubles games fit their global sub-batch's
     capacity, and the rows the games that do not fit carry.
 
     Unsharded, the first ``capacity`` games of each kind (in batch order)
     fit, and every other game of the kind gets n = 0, the overflow flag
-    and the list of the sub-batch's last game, global slot capacity - 1
+    and the list of the kind's last fitting game, global slot capacity - 1
     (the slot clamp).  It binds at a reset, whose first rolls are all
     non-doubles.  Here the counts of every shard are gathered, each game
     is placed by its global position, and the last game's list is
-    gathered from the shard that holds it.  Returns (fits_d, fits_n,
-    fill_d, fill_n)."""
+    gathered from the shard that holds it: a row of the doubles
+    sub-batch's list ``db_out``, or the row of the non-double game in the
+    shard's in-place output ``out``.  Returns (fits_d, fits_n, fill_d,
+    fill_n)."""
     gsz = pos_d.shape[0] * world.size
     caps = torch.tensor([doubles_capacity(gsz, cfg),
                          nondoubles_capacity(gsz, cfg)], dtype=I32,
@@ -319,11 +341,13 @@ def _global_fit(world, cfg, pos_d, pos_n, db_out, nd_out):
     before = torch.cumsum(every, 0, dtype=I32) - every   # earlier shards'
     last = caps - 1 - before          # the last fitting game's local slot
     owner = ((last >= 0) & (last < every)).to(I32).argmax(0)
-    mine = last[world.rank].long()
-    # index_select keeps the slots on the device (no host sync)
-    cand = torch.cat([
-        sub.index_select(0, k.clamp(0, sub.shape[0] - 1).reshape(1))
-        for sub, k in ((db_out, mine[0]), (nd_out, mine[1]))])
+    mine = last[world.rank]
+    # the shard's game at non-doubles slot mine[1]; index_select keeps the
+    # slots on the device (no host sync)
+    game_n = (pos_n <= mine[1]).sum().clamp(max=out.shape[0] - 1)
+    slot_d = mine[0].long().clamp(0, db_out.shape[0] - 1)
+    cand = torch.cat([db_out.index_select(0, slot_d.reshape(1)),
+                      out.index_select(0, game_n.reshape(1))])
     cands = mesh.gather_batch(cand[None], world)         # (W, 2, M, 52)
     fill = cands[owner, torch.arange(2, device=owner.device)]
     first = before[world.rank]
@@ -334,9 +358,12 @@ def _global_fit(world, cfg, pos_d, pos_n, db_out, nd_out):
 def legal_afterstates_batch(vecs, dice, cfg: MovegenConfig = MovegenConfig(),
                             mirror=None, world=None):
     """Batched legal-move enumeration with doubles partitioning: doubles
-    games are stable-compacted into a ``doubles_capacity(B)`` sub-batch
-    (the rest into ``nondoubles_capacity(B)``), expanded there, and
-    gathered back.  All shapes static.
+    games are stable-compacted into a ``doubles_capacity(B)`` sub-batch and
+    expanded there; one in-place ``nondoubles_batch`` then lists every
+    non-double game at its own row (the first ``nondoubles_capacity(B)``
+    of them; the rest carry the last fitting one's list, as the JAX
+    package's sub-batch and gather give) and copies every doubles game's
+    row from the sub-batch's list.  All shapes static, no host sync.
 
     Args:
       vecs:   (B, 52) int8 canonical boards (current player to move).
@@ -349,7 +376,7 @@ def legal_afterstates_batch(vecs, dice, cfg: MovegenConfig = MovegenConfig(),
               shard of a global batch of B x size games: every rank must
               call this at once (two collectives), and the result is the
               shard's rows of the global batch's, capacities included
-              (``_global_fit``).  The shard's non-doubles sub-batch is
+              (``_global_fit``).  The shard's non-doubles capacity is
               then all of its B games; its doubles one stays
               ``doubles_capacity(B)``, 12 sigma above the mean count
               (``fast()``: 8), which a shard's doubles exceed with a
@@ -363,46 +390,27 @@ def legal_afterstates_batch(vecs, dice, cfg: MovegenConfig = MovegenConfig(),
     d0 = dice[:, 0].to(I32)
     d1 = dice[:, 1].to(I32)
     is_double = d0 == d1
-    not_double = torch.logical_not(is_double)
     d_hi, d_lo = torch.maximum(d0, d1), torch.minimum(d0, d1)
-    mir8 = mirror.to(I8)
-
-    bn = bsz if world is not None else nondoubles_capacity(bsz, cfg)
-    (nvecs, nhi, nlo, nmir), _ = _compact_games(
-        (vecs, d_hi, d_lo, mir8), not_double, bn
-    )
-    nd_out, nd_n, nd_of = _nondoubles_batch(nvecs, nhi, nlo, cfg, nmir > 0)
 
     bd = doubles_capacity(bsz, cfg)
-    (dvecs, ddie, dmir), _ = _compact_games((vecs, d0, mir8), is_double, bd)
+    (dvecs, ddie, dmir), _ = _compact_games((vecs, d0, mirror.to(I8)),
+                                            is_double, bd)
     db_out, db_n, db_of = _doubles_dispatch_batch(dvecs, ddie, cfg, dmir > 0)
 
-    pos_d = torch.cumsum(is_double.to(I32), 0, dtype=I32)  # 1-indexed slots
-    slot_d = torch.clamp(pos_d - 1, 0, bd - 1).long()
-    fits_d = is_double & (pos_d <= bd)
-    pos_n = torch.cumsum(not_double.to(I32), 0, dtype=I32)
-    slot_n = torch.clamp(pos_n - 1, 0, bn - 1).long()
-    fits_n = not_double & (pos_n <= bn)
-    out_d, out_n = db_out[slot_d], nd_out[slot_n]
+    bn = bsz if world is not None else nondoubles_capacity(bsz, cfg)
+    src, fits, pos_d, pos_n = _placement(is_double, bd, bn)
+    out, n, of = nondoubles.nondoubles_batch(
+        vecs.contiguous(), d_hi, d_lo, mirror.contiguous(), cfg.k1,
+        cfg.dedup_width, cfg.max_moves, cfg.dedup,
+        (src, fits, db_out, db_n, db_of))
     if world is not None:
         g_fits_d, g_fits_n, fill_d, fill_n = _global_fit(
-            world, cfg, pos_d, pos_n, db_out, nd_out)
-        fits_d, fits_n = fits_d & g_fits_d, fits_n & g_fits_n
-        out_d = torch.where(fits_d[:, None, None], out_d, fill_d)
-        out_n = torch.where(fits_n[:, None, None], out_n, fill_n)
-
-    out = torch.where(is_double[:, None, None], out_d, out_n)
-    n = torch.where(
-        is_double,
-        torch.where(fits_d, db_n[slot_d], 0),
-        torch.where(fits_n, nd_n[slot_n], 0),
-    )
-    of = torch.where(
-        is_double,
-        db_of[slot_d] | torch.logical_not(fits_d),
-        nd_of[slot_n] | torch.logical_not(fits_n),
-    )
-    n = torch.where(_game_over(vecs), 0, n)
+            world, cfg, pos_d, pos_n, db_out, out)
+        keep = torch.where(is_double, (pos_d <= bd) & g_fits_d, g_fits_n)
+        fill = torch.where(is_double[:, None, None], fill_d, fill_n)
+        out = torch.where(keep[:, None, None], out, fill)
+        n = torch.where(keep, n, 0)
+        of = of | torch.logical_not(keep)
     return out, n, of
 
 
@@ -417,7 +425,7 @@ def nondoubles_afterstates_batch(vecs, d_hi, d_lo,
                              device=vecs.device)
     out, n, of = _nondoubles_batch(vecs, d_hi.to(I32), d_lo.to(I32), cfg,
                                    mirror)
-    return out, torch.where(_game_over(vecs), 0, n), of
+    return out, torch.where(B.game_over(vecs), 0, n), of
 
 
 def doubles_afterstates_batch(vecs, die, cfg: MovegenConfig = MovegenConfig(),
@@ -428,7 +436,7 @@ def doubles_afterstates_batch(vecs, die, cfg: MovegenConfig = MovegenConfig(),
         mirror = torch.zeros((vecs.shape[0],), dtype=torch.bool,
                              device=vecs.device)
     out, n, of = _doubles_dispatch_batch(vecs, die.to(I32), cfg, mirror)
-    return out, torch.where(_game_over(vecs), 0, n), of
+    return out, torch.where(B.game_over(vecs), 0, n), of
 
 
 def legal_afterstates(vec, dice, cfg: MovegenConfig = MovegenConfig(),
@@ -454,5 +462,5 @@ def legal_afterstates(vec, dice, cfg: MovegenConfig = MovegenConfig(),
     out = torch.where(is_double, db_out[0], nd_out[0])
     n = torch.where(is_double, db_n[0], nd_n[0])
     of = torch.where(is_double, db_of[0], nd_of[0])
-    n = torch.where(_game_over(vec[None])[0], 0, n)
+    n = torch.where(B.game_over(vec[None])[0], 0, n)
     return out, n, of

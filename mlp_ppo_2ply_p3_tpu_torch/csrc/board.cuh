@@ -13,6 +13,12 @@
 // (ops/doubles.py::perm_scan): scan_order() and scan_slot() map between the
 // two orders with one bit reversal.
 //
+// The rules work on a board's 13 words, not its bytes: four byte compares a
+// word (__vcmpgts4, __vcmpeq4) give the bit sets that the slot predicate
+// reads (my occupied points, the opponent's blocks and blots), so a slot
+// mask is a few shifts and ands; an afterstate word is its parent's word plus
+// the submove's byte deltas (__vadd4).  Dice lie in 0..6.
+//
 // Each source that includes this header is its own library, so everything
 // here has internal linkage.
 
@@ -31,7 +37,7 @@ constexpr int kCheckers = 15;
 constexpr int kOriginBar = 24;
 constexpr int kDestOff = 24;
 constexpr int kNoChecker = 99;            // submoves_one_die's sentinel
-constexpr int kMyBar = 48, kOppBar = 49, kMyOff = 50;
+constexpr int kMyOff = 50;
 constexpr uint32_t kPointsAndBar = (1u << 25) - 1u;
 
 __device__ __forceinline__ int clamp_pt(int x) {
@@ -43,49 +49,71 @@ __device__ __forceinline__ int rank_of(int origin) {
   return (int)(int8_t)(origin == kOriginBar ? -1 : origin);
 }
 
-// Farthest occupied home point (18..23), or the sentinel.
-__device__ __forceinline__ int farthest_home(const int8_t* b) {
-  int far = kNoChecker;
-#pragma unroll
-  for (int p = kPoints - 1; p >= 18; --p) {
-    if (b[p] > 0) far = p;
-  }
-  return far;
+// What the slot predicate reads of a board.
+struct Bits {
+  uint32_t mine;     // bit p: my point p holds a checker (count > 0)
+  uint32_t blocked;  // bit q: the opponent holds point q with 2 or more
+  uint32_t blot;     // bit q: the opponent holds point q with exactly 1
+  int home_sum;      // my points 0..17, summed
+  int bar, off;      // my bar and my off counts
+};
+
+// 0xff / 0x00 bytes -> one bit a byte.
+__device__ __forceinline__ uint32_t byte_bits(uint32_t cmp) {
+  return ((cmp & 0x08040201u) * 0x01010101u) >> 24;
 }
 
-// Bit s: slot s (unpermuted) is a valid submove of board b whose rank is
-// at least `parent` (no rank filter unless `filter`).
-__device__ uint32_t slot_mask(const int8_t* b, int die, int parent,
-                              bool filter) {
-  const bool on_bar = b[kMyBar] > 0;
-  const bool live = b[kMyOff] < kCheckers;
-  if (!live) return 0u;
-  int home_sum = 0;
+// The bits of the board whose 13 words start at row (4-byte aligned).
+__device__ __forceinline__ Bits row_bits(const uint32_t* row) {
+  Bits s;
+  s.mine = s.blocked = s.blot = 0u;
 #pragma unroll
-  for (int p = 0; p < 18; ++p) home_sum += b[p];
-  const bool all_home = !on_bar && home_sum == 0;
+  for (int i = 0; i < 6; ++i) {
+    const uint32_t mw = row[i], ow = row[6 + i];
+    s.mine |= byte_bits(__vcmpgts4(mw, 0u)) << (4 * i);
+    s.blocked |= byte_bits(__vcmpgts4(ow, 0x01010101u)) << (4 * i);
+    s.blot |= byte_bits(__vcmpeq4(ow, 0x01010101u)) << (4 * i);
+  }
+  int home = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) home = __dp4a((int)row[i], 0x01010101, home);
+  s.home_sum = __dp4a((int)row[4], 0x00000101, home);     // points 16, 17
+  const uint32_t tail = row[12];
+  s.bar = (int8_t)(tail & 0xffu);
+  s.off = (int8_t)((tail >> 16) & 0xffu);
+  return s;
+}
+
+// Farthest occupied home point (18..23), or the sentinel.
+__device__ __forceinline__ int farthest_home(const Bits& s) {
+  const uint32_t home = (s.mine >> 18) & 0x3fu;
+  return home ? 17 + __ffs(home) : kNoChecker;
+}
+
+// Bit s: slot s (unpermuted) is a valid submove of the board whose rank is
+// at least `parent` (no rank filter unless `filter`).
+__device__ __forceinline__ uint32_t slot_mask(const Bits& s, int die,
+                                              int parent, bool filter) {
+  if (s.off >= kCheckers) return 0u;
+  const bool on_bar = s.bar > 0;
+  uint32_t keep = 0xffffffffu;               // points p >= parent
+  if (filter) keep = parent <= 0 ? keep : (parent > 24 ? 0u : keep << parent);
   uint32_t m = 0u;
   if (!on_bar) {
-#pragma unroll
-    for (int p = 0; p < kPoints; ++p) {
-      const int dp = p + die;
-      const bool in_board = dp < kPoints;
-      const int opp_at = in_board ? b[kPoints + clamp_pt(dp)] : 0;
-      if (b[p] > 0 && in_board && opp_at <= 1 && (!filter || p >= parent)) {
-        m |= 1u << p;
-      }
-    }
-  } else if (b[kPoints + clamp_pt(die - 1)] <= 1 && (!filter || -1 >= parent)) {
-    m |= 1u << kOriginBar;
+    // p + die on the board, and not blocked there
+    m = s.mine & (0xffffffu >> die) & ~(s.blocked >> die) & keep & 0xffffffu;
+  } else if (!((s.blocked >> clamp_pt(die - 1)) & 1u) &&
+             (!filter || -1 >= parent)) {
+    m = 1u << kOriginBar;
   }
-  if (all_home) {
-    const int far = farthest_home(b);
-    if (far < kNoChecker && far + die >= kPoints) {
-      const int o = far < 18 ? 18 : (far > 23 ? 23 : far);
-      if (!filter || o >= parent) m |= 1u << 25;
+  if (!on_bar && s.home_sum == 0) {          // all home
+    const int far = farthest_home(s);
+    if (far < kNoChecker && far + die >= kPoints &&
+        (!filter || far >= parent)) {
+      m |= 1u << 25;
     }
     const int ex = kPoints - die;
-    if (b[clamp_pt(ex)] > 0 && ex != far &&
+    if (((s.mine >> clamp_pt(ex)) & 1u) && ex != far &&
         (!filter || rank_of(ex) >= parent)) {
       m |= 1u << 26;
     }
@@ -105,19 +133,19 @@ __device__ __forceinline__ int scan_slot(int s, bool mirror) {
 
 // (row, origin, dest, hit) of a valid slot, packed: row in bits 0-7,
 // origin and dest as int8 in bits 8-15 and 16-23, hit in bit 24.
-__device__ __forceinline__ uint32_t slot_item(const int8_t* b, int row,
+__device__ __forceinline__ uint32_t slot_item(const Bits& s, int row,
                                               int slot, int die) {
   int o, d, h = 0;
   if (slot < kPoints) {
     o = slot;
     d = slot + die;          // in the board: the slot is valid
-    h = b[kPoints + clamp_pt(d)] == 1;
+    h = (s.blot >> clamp_pt(d)) & 1u;
   } else if (slot == kOriginBar) {
     o = kOriginBar;
     d = die - 1;
-    h = b[kPoints + clamp_pt(d)] == 1;
+    h = (s.blot >> clamp_pt(d)) & 1u;
   } else if (slot == 25) {
-    const int far = farthest_home(b);
+    const int far = farthest_home(s);
     o = far < 18 ? 18 : (far > 23 ? 23 : far);
     d = kDestOff;
   } else {
@@ -134,36 +162,28 @@ __device__ __forceinline__ uint32_t identity_item(int row) {
   return (uint32_t)row | (0xffu << 8) | (0xffu << 16);
 }
 
-// Byte p of apply_submove(b, o, d, h), in int8 arithmetic.
-__device__ __forceinline__ uint32_t after_byte(const int8_t* b, int p, int o,
-                                               int d, int h) {
-  int v = b[p];
-  if (p < kPoints) {
-    v += (p == d) - (p == o);
-  } else if (p < 2 * kPoints) {
-    v -= (p - kPoints == d) & h;
-  } else if (p == kMyBar) {
-    v -= o == kOriginBar;
-  } else if (p == kOppBar) {
-    v += h;
-  } else if (p == kMyOff) {
-    v += d == kDestOff;
-  }
-  return (uint32_t)(uint8_t)(int8_t)v;
-}
-
-// Word w (bytes 4w..4w+3) of the afterstate that an item names, from the
-// item's parent board pb.
-__device__ __forceinline__ uint32_t after_word(const int8_t* pb,
-                                               uint32_t item, int w) {
+// Word w (bytes 4w..4w+3) of the afterstate that an item names, from word w
+// of its parent: +1 on my point dest, -1 on my point origin, -1 on the
+// opponent's point dest if hit; my bar -1 from the bar, the opponent's bar +1
+// if hit, my off +1 bearing off; bytewise, in int8 arithmetic.
+__device__ __forceinline__ uint32_t after_word(uint32_t word, uint32_t item,
+                                               int w) {
   const int o = (int8_t)(item >> 8), d = (int8_t)(item >> 16);
-  const int h = (item >> 24) & 1;
-  uint32_t word = 0u;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    word |= after_byte(pb, 4 * w + q, o, d, h) << (8 * q);
+  const uint32_t h = (item >> 24) & 1u;
+  const bool d_point = d >= 0 && d < kPoints;
+  uint32_t delta = 0u;
+  if (w < 6) {
+    if (d_point && (d >> 2) == w) delta = 1u << (8 * (d & 3));
+    if (o >= 0 && o < kPoints && (o >> 2) == w) {
+      delta = __vadd4(delta, 0xffu << (8 * (o & 3)));
+    }
+  } else if (w < 12) {
+    if (h && d_point && (d >> 2) == w - 6) delta = 0xffu << (8 * (d & 3));
+  } else {
+    delta = (o == kOriginBar ? 0xffu : 0u) | (h << 8) |
+            (d == kDestOff ? 0x10000u : 0u);
   }
-  return word;
+  return __vadd4(word, delta);
 }
 
 // Exclusive prefix of v over a block of kWarps warps; `total` gets the sum.

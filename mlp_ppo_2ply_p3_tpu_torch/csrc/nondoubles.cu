@@ -1,5 +1,6 @@
 // Movegen's non-doubles batch for Hopper (sm_90a): every legal afterstate of
-// a non-double roll, one launch for all games.
+// a non-double roll, one launch for all games, written where the batch's
+// caller wants each game's list.
 //
 // nondoubles_launch replaces the JAX package's `_nondoubles_candidates` and
 // `_nondoubles_batch`, mlp_ppo_2ply_p3_tpu/core/movegen.py:301-369: both die
@@ -7,7 +8,9 @@
 // (:311-343), the raw compaction, the first-occurrence dedup
 // (`_dedup_pairwise`, :256-273) and the compaction into the list (:354-367),
 // which XLA fused around the Pallas compact_rows
-// (mlp_ppo_2ply_p3_tpu/ops/compaction.py:231) under use_pallas.  Per game g:
+// (mlp_ppo_2ply_p3_tpu/ops/compaction.py:231) under use_pallas.  In place
+// (`src` given) it also takes over `legal_afterstates_batch`'s non-doubles
+// split, its gather back and its selection (:576-614).  Per game g:
 //
 //   vecs (G, 52) int8, d_hi and d_lo (G,) int32 in 0..6, mirror (G,)
 //   uint8/bool; widths k1 >= 1, kd, M; dedup
@@ -27,34 +30,49 @@
 //      (raw > kd) | (unique > M).  No dedup: the first M raw candidates,
 //      n = min(raw, M), overflow = raw > M.
 //
+// In place, with src (G,) int32, fits (G,) uint8 and the doubles sub-batch's
+// list db_out (Gd, M, 52), db_n (Gd,) int32, db_of (Gd,) uint8: src[g] >= 0
+// is a non-double game, whose row is the list of game src[g] (itself, or the
+// last non-double that fits the sub-batch's capacity); src[g] < 0 a doubles
+// game, whose row is db_out's row -1 - src[g] with its count and flag.  A game
+// that does not fit gets n = 0 and the flag; a game whose mover has borne
+// off 15 checkers gets n = 0.  Without src, game g lists its own moves.
+//
 // The rules (slot predicate, afterstate, scan order) are board.cuh's.
 //
-// What bounds it on this card: bytes.  The function must read 61 bytes a game
-// and write the (G, M, 52) list, zeros included: 48 MB at B=4096 (`fast`,
-// 3604 games), 14 us at 3.35 TB/s.  The jnp path it replaces wrote the
-// stacked first-die grid, the (2G, k1 x 27, 52) second-die grid and the
-// (G, 2 (k1 x 27 + k1), 52) candidate block to device memory before
-// compacting and deduplicating: about 160 MB a call at that size.  What the
-// design does about it:
+// What bounds it on this card: bytes.  In place the function must read 61
+// bytes a game and each doubles game's row of the doubles list, and write the
+// (B, M, 52) list, zeros included: 54.5 MB at B=4096 (M=256), 16 us at 3.35
+// TB/s.  The list is almost all zero tail (a game has about 20 moves of
+// 256), so the stores of one game's tail have to overlap the rules of the
+// others.  What the design does about it:
 //
-// - One block per game; the board and dice go to registers and shared
-//   memory.  Two threads build the two orders' first-die masks (27 bits,
-//   permuted into scan order by one bit reversal, counted with popc), and
-//   half-warps build the kept singles into shared memory (at most 2 x 32
-//   rows).
-// - Warp o holds order o, lane i its single i: each lane builds its second-
-//   die mask, and a warp scan of the popcounts gives every pair its rank
-//   within the order.  has2, the B-skip and the max-submove filter follow
-//   from the counts alone, before any row is built, so each candidate knows
-//   its raw rank and only those below kd (M without dedup) are listed, as
-//   (single, origin, dest, hit).
-// - Half-warps build one listed row each, lane l word l, straight into the
-//   output without dedup; with dedup into shared memory, where the packed
-//   keys are made.  One warp checks one row's predecessors, 32 at a time,
-//   and stops at the first equal key; a block scan of the survivors gives
-//   their ranks, and half-warps copy the first M out, 13 lanes a row.
-// - The zero tail goes out in 16-byte stores.  No candidate grid, raw block
-//   or (K, K) block reaches device memory.
+// - One warp per game, four games a block, every phase warp-synchronous: no
+//   block barrier, and a warp's finished stores never wait for another game.
+//   A game's shared memory is small (its board, the items and rows of its
+//   kept singles, and 8 bytes a listed candidate: 4.2 KB at `fast`, 16.6 KB
+//   a block); 61 registers, no spills, so 8 blocks an SM and every game of a
+//   B=4096 batch resident at once.
+// - The rules run on words (board.cuh): every lane reads the board's 13
+//   words and builds both first-die masks from its bit sets; the kept singles
+//   are built word by word.  Lane i holds single i of both orders: it builds
+//   their second-die masks the same way, and one warp scan of the two
+//   popcounts (packed in one word) gives every pair its rank within its
+//   order.  has2, the B-skip and the max-submove filter follow from the
+//   counts alone, so each candidate knows its raw rank and only those below
+//   kd (M without dedup) are listed, as (single, origin, dest, hit).
+// - As soon as the counts are known, the warp stores the list's zero tail
+//   past the listed candidates (16-byte stores).
+// - Dedup without rows: lane j builds its candidate's packed key from its
+//   single's words and the submove's byte deltas and keeps a 32-bit hash of
+//   it in shared memory.  It finds the first earlier candidate with an equal
+//   hash (broadcast reads); then the lanes that found one compare the two
+//   keys all at once, one pass a chunk of 32 (a hash collision looks on).
+//   The survivors' items are compacted in place (a ballot and popc).
+// - The list goes out word by word: lane x takes word x of the rows, so the
+//   warp stores consecutive words; each is its single's word plus the
+//   submove's byte deltas.
+// - A doubles game copies its row of db_out in 16-byte loads and stores.
 //
 // Nothing here allocates: the caller passes the outputs.
 
@@ -62,25 +80,78 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kHalfWarps = kThreads / 16;
-constexpr int kMaxSingles = 32;   // one die's valid slots: at most 26
+constexpr int kGames = 4;                 // games a block: a warp each
+constexpr int kThreads = 32 * kGames;
+constexpr int kMaxSingles = 26;           // one die's valid slots
 constexpr int kKeyWords = 7;
+constexpr int kRootWords = 16;
+constexpr uint32_t kFull = 0xffffffffu;
+constexpr uint32_t kDup = 1u << 31;       // an item's mark: a duplicate
 
-struct Static {
-  uint32_t root[kWords];
-  uint32_t singles[2 * kMaxSingles * kWords];  // [order][single] rows
-  uint32_t first_mask[2];
-  int n_single[2];                             // min(first-die slots, k1)
-  int pairs[2];
-  int warp_tot[kWarps];
-};
+// Words of dynamic shared memory a game takes: its board, the items and rows
+// of its kept singles (s a die order), and `limit` listed candidates (items,
+// and key hashes under dedup).
+__host__ __device__ inline int game_words(int s, int limit, bool dedup) {
+  return kRootWords + 2 * s * (1 + kWords) + limit * (dedup ? 2 : 1);
+}
 
-// Dynamic shared memory for `limit` listed candidates: their items, and with
-// dedup their rows, packed keys and the survivors' row indices.
-__host__ __device__ inline size_t dyn_bytes(int limit, bool dedup) {
-  return (size_t)limit * (4 + (dedup ? kBoard + 4 * kKeyWords + 2 : 0));
+// core/board.py::pack_key of the afterstate that an item names, from its
+// single's row: the low 4 bits of every count.
+__device__ __forceinline__ void cand_key(uint32_t (&k)[kKeyWords],
+                                         const uint32_t* singles,
+                                         uint32_t item) {
+  const uint32_t* pw = singles + (item & 0xffu) * kWords;
+  uint32_t a[kWords];
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) a[w] = after_word(pw[w], item, w);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    k[i] = (a[i] & 0x0f0f0f0fu) | ((a[6 + i] & 0x0f0f0f0fu) << 4);
+  }
+  k[6] = a[12] & 0x0f0f0f0fu;
+}
+
+__device__ __forceinline__ uint32_t key_hash(const uint32_t (&k)[kKeyWords]) {
+  uint32_t h = 2166136261u;
+#pragma unroll
+  for (int i = 0; i < kKeyWords; ++i) h = (h ^ k[i]) * 16777619u;
+  return h;
+}
+
+// Copy one game's row of the doubles list (nbytes) from src to dst.
+__device__ __forceinline__ void copy_list(int8_t* dst, const int8_t* src,
+                                          long long nbytes, int lane) {
+  if ((((uintptr_t)dst | (uintptr_t)src) & 15) == 0 && nbytes % 16 == 0) {
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    const long long nv = nbytes / 16;
+    long long i = lane;
+    for (; i + 96 < nv; i += 128) {  // four loads in flight a lane
+      const uint4 a = __ldg(s + i), b = __ldg(s + i + 32);
+      const uint4 c = __ldg(s + i + 64), e = __ldg(s + i + 96);
+      d[i] = a, d[i + 32] = b, d[i + 64] = c, d[i + 96] = e;
+    }
+    for (; i < nv; i += 32) d[i] = __ldg(s + i);
+  } else if ((((uintptr_t)dst | (uintptr_t)src) & 3) == 0 &&
+             nbytes % 4 == 0) {
+    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+    for (long long i = lane; i < nbytes / 4; i += 32) d[i] = __ldg(s + i);
+  } else {
+    for (long long i = lane; i < nbytes; i += 32) dst[i] = src[i];
+  }
+}
+
+// Rows [0, rows) of the list, word by word: row r is the afterstate that
+// items[r] names, from its single's row.
+__device__ __forceinline__ void write_rows(uint32_t* ow, const uint32_t* items,
+                                           const uint32_t* singles, int rows,
+                                           int lane) {
+  for (int x = lane; x < rows * kWords; x += 32) {
+    const int r = x / kWords, w = x - r * kWords;
+    const uint32_t item = items[r];
+    ow[x] = after_word(singles[(item & 0xffu) * kWords + w], item, w);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -88,213 +159,244 @@ nondoubles_kernel(const int8_t* __restrict__ vecs,
                   const int32_t* __restrict__ d_hi,
                   const int32_t* __restrict__ d_lo,
                   const uint8_t* __restrict__ mirror,
+                  const int32_t* __restrict__ src,
+                  const uint8_t* __restrict__ fits,
+                  const int8_t* __restrict__ db_out,
+                  const int32_t* __restrict__ db_n,
+                  const uint8_t* __restrict__ db_of,
                   int8_t* __restrict__ out, int32_t* __restrict__ n_out,
-                  uint8_t* __restrict__ overflow, int k1, int kd, int m,
-                  int dedup, int vec_words) {
-  extern __shared__ __align__(16) unsigned char dyn[];
-  __shared__ Static st;
-  const int g = blockIdx.x;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int hw = t >> 4, hl = t & 15;
-  const bool mir = mirror[g] != 0;
-  const int dh = d_hi[g], dl = d_lo[g];
+                  uint8_t* __restrict__ overflow, int games, int k1, int kd,
+                  int m, int dedup, int s) {
+  extern __shared__ __align__(16) uint32_t dyn[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = blockIdx.x * kGames + warp;
+  if (g >= games) return;
   const int limit = dedup ? kd : m;
-  uint32_t* items = reinterpret_cast<uint32_t*>(dyn);
-  uint32_t* rows = items + limit;
-  uint32_t* keys = rows + (size_t)limit * kWords;
-  uint16_t* uidx = reinterpret_cast<uint16_t*>(keys + (size_t)kKeyWords * limit);
-  const int8_t* root = reinterpret_cast<const int8_t*>(st.root);
-  const int8_t* singles = reinterpret_cast<const int8_t*>(st.singles);
+  uint32_t* root = dyn + (size_t)warp * game_words(s, limit, dedup != 0);
+  uint32_t* sitems = root + kRootWords;              // [order][single]
+  uint32_t* singles = sitems + 2 * s;                // rows, 13 words each
+  uint32_t* items = singles + 2 * s * kWords;
+  uint32_t* hashes = items + limit;
+  int8_t* og = out + (size_t)g * m * kBoard;
+  uint32_t* ow = reinterpret_cast<uint32_t*>(og);
+
+  int source = g;
+  bool fit = true;
+  if (src != nullptr) {
+    source = src[g];
+    fit = fits[g] != 0;
+  }
+  const bool game_over = vecs[(size_t)g * kBoard + kMyOff] >= kCheckers;
+
+  if (source < 0) {  // a doubles game: its row of the doubles list
+    const int slot = -1 - source;
+    copy_list(og, db_out + (size_t)slot * m * kBoard, (long long)m * kBoard,
+              lane);
+    if (lane == 0) {
+      n_out[g] = fit && !game_over ? db_n[slot] : 0;
+      overflow[g] = (db_of[slot] != 0 || !fit) ? 1 : 0;
+    }
+    return;
+  }
 
   // 1. the board
-  const int8_t* vg = vecs + (size_t)g * kBoard;
-  if (vec_words) {
-    if (t < kWords) st.root[t] = __ldg(reinterpret_cast<const uint32_t*>(vg) + t);
-  } else if (t < kBoard) {
-    reinterpret_cast<int8_t*>(st.root)[t] = vg[t];
+  const int8_t* vg = vecs + (size_t)source * kBoard;
+  const int dh = d_hi[source], dl = d_lo[source];
+  const bool mir = mirror[source] != 0;
+  if (((uintptr_t)vg & 3) == 0) {
+    if (lane < kWords) root[lane] = __ldg(reinterpret_cast<const uint32_t*>(vg) + lane);
+  } else {
+    for (int e = lane; e < kBoard; e += 32) {
+      reinterpret_cast<int8_t*>(root)[e] = vg[e];
+    }
   }
-  __syncthreads();
+  __syncwarp();
 
   // 2. each order's first die, in scan order
-  if (t < 2) {
-    const uint32_t m1 = scan_order(slot_mask(root, t == 0 ? dh : dl, 0, false),
-                                   mir);
-    st.first_mask[t] = m1;
-    st.n_single[t] = min(__popc(m1), k1);
-  }
-  __syncthreads();
+  const Bits rb = row_bits(root);
+  const uint32_t m1a = scan_order(slot_mask(rb, dh, 0, false), mir);
+  const uint32_t m1b = scan_order(slot_mask(rb, dl, 0, false), mir);
+  const int sa = min(__popc(m1a), k1), sb = min(__popc(m1b), k1);
 
-  // 3. the kept singles, a half-warp a row: single q = 32 o + i is the i-th
-  //    valid first-die slot of order o
-  for (int q = hw; q < 2 * kMaxSingles; q += kHalfWarps) {
-    const int o = q / kMaxSingles, i = q % kMaxSingles;
-    if (i >= st.n_single[o]) continue;
-    uint32_t mm = st.first_mask[o];
-    for (int j = 0; j < i; ++j) mm &= mm - 1u;
-    const uint32_t item = slot_item(root, q, scan_slot(__ffs(mm) - 1, mir),
-                                    o == 0 ? dh : dl);
-    if (hl < kWords) st.singles[q * kWords + hl] = after_word(root, item, hl);
-  }
-  __syncthreads();
-
-  // 4. the second die: warp o is order o, lane i its single i
-  const int o = warp;
-  const int q = o * kMaxSingles + lane;
-  const int d2 = o == 0 ? dl : dh;
-  uint32_t m2 = 0u;
-  int excl = 0;
-  if (warp < 2) {
-    if (lane < st.n_single[o]) {
-      m2 = scan_order(slot_mask(singles + q * kBoard, d2, 0, false), mir);
-    }
-    const int c = __popc(m2);
-    int x = c;
+  // 3. the kept singles: lane p holds scan position p of each order; single
+  //    q = o s + i is the i-th valid first-die slot of order o
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, d);
-      if (lane >= d) x += y;
+  for (int o = 0; o < 2; ++o) {
+    const uint32_t mo = o ? m1b : m1a;
+    if (lane < kSlots && ((mo >> lane) & 1u)) {
+      const int i = __popc(mo & ((1u << lane) - 1u));
+      if (i < (o ? sb : sa)) {
+        sitems[o * s + i] = slot_item(rb, o * s + i, scan_slot(lane, mir),
+                                      o ? dl : dh);
+      }
     }
-    excl = x - c;
-    if (lane == 31) st.pairs[o] = x;
   }
-  __syncthreads();
+  __syncwarp();
+#pragma unroll
+  for (int o = 0; o < 2; ++o) {
+    const int so = o ? sb : sa;
+    for (int x = lane; x < so * kWords; x += 32) {
+      const int i = x / kWords, w = x - i * kWords;
+      singles[(o * s + i) * kWords + w] =
+          after_word(root[w], sitems[o * s + i], w);
+    }
+  }
+  __syncwarp();
+
+  // 4. the second die: lane i is single i of both orders; one scan of the
+  //    two popcounts (order B's in the high half) ranks every pair
+  uint32_t m2a = 0u, m2b = 0u;
+  Bits ba, bb;
+  if (lane < sa) {
+    ba = row_bits(singles + lane * kWords);
+    m2a = scan_order(slot_mask(ba, dl, 0, false), mir);
+  }
+  if (lane < sb) {
+    bb = row_bits(singles + (s + lane) * kWords);
+    m2b = scan_order(slot_mask(bb, dh, 0, false), mir);
+  }
+  const int c = __popc(m2a) | (__popc(m2b) << 16);
+  int x = c;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
+  }
+  const int tot = __shfl_sync(kFull, x, 31);
+  const int excl = x - c;
+  const int pa = tot & 0xffff, pb = tot >> 16;
 
   // 5. emission and the max-submove filter, from the counts alone
-  const int sa = st.n_single[0], sb = st.n_single[1];
-  const int pa = st.pairs[0], pb = st.pairs[1];
   const bool run_b = !(pa == 0 && sa == 1);
   const bool any_pair = pa > 0 || (pb > 0 && run_b);
   // the segments' counts, in block order
-  const int cnt_ap = pa;
   const int cnt_as = any_pair ? 0 : sa;
   const int cnt_bp = run_b ? pb : 0;
   const int cnt_bs = (any_pair || !run_b) ? 0 : sb;
-  const int off_as = cnt_ap, off_bp = off_as + cnt_as, off_bs = off_bp + cnt_bp;
+  const int off_as = pa, off_bp = off_as + cnt_as, off_bs = off_bp + cnt_bp;
   const int n_raw = off_bs + cnt_bs;
   const int n_list = min(n_raw, limit);
 
+  // the list's zero tail past every listed candidate, now
+  const int listed = min(n_list, m);
+  zero_words(ow + (size_t)listed * kWords, (long long)(m - listed) * kWords,
+             lane, 32);
+
   // 6. list the candidates whose raw rank is below the limit
-  if (warp < 2) {
-    if (o == 0 ? cnt_ap > 0 : cnt_bp > 0) {
-      const int8_t* sbd = singles + q * kBoard;
-      int r = (o == 0 ? 0 : off_bp) + excl;
-      for (uint32_t mm = m2; mm != 0u && r < limit; mm &= mm - 1u, ++r) {
-        items[r] = slot_item(sbd, q, scan_slot(__ffs(mm) - 1, mir), d2);
-      }
-    }
-    const int r = (o == 0 ? off_as : off_bs) + lane;
-    if ((o == 0 ? cnt_as : cnt_bs) > lane && r < limit) {
-      items[r] = identity_item(q);
+  if (pa > 0) {
+    int r = excl & 0xffff;
+    for (uint32_t mm = m2a; mm != 0u && r < limit; mm &= mm - 1u, ++r) {
+      items[r] = slot_item(ba, lane, scan_slot(__ffs(mm) - 1, mir), dl);
     }
   }
-  __syncthreads();
+  if (lane < cnt_as && off_as + lane < limit) {
+    items[off_as + lane] = identity_item(lane);
+  }
+  if (cnt_bp > 0) {
+    int r = off_bp + (excl >> 16);
+    for (uint32_t mm = m2b; mm != 0u && r < limit; mm &= mm - 1u, ++r) {
+      items[r] = slot_item(bb, s + lane, scan_slot(__ffs(mm) - 1, mir), dh);
+    }
+  }
+  if (lane < cnt_bs && off_bs + lane < limit) {
+    items[off_bs + lane] = identity_item(s + lane);
+  }
+  __syncwarp();
 
-  uint32_t* ow = reinterpret_cast<uint32_t*>(out + (size_t)g * m * kBoard);
   int written, count;
   bool over;
   if (!dedup) {
     // 7. the raw candidates straight into the list
-    for (int r = hw; r < n_list; r += kHalfWarps) {
-      const uint32_t item = items[r];
-      if (hl < kWords) {
-        ow[(size_t)r * kWords + hl] =
-            after_word(singles + (item & 0xffu) * kBoard, item, hl);
-      }
-    }
     written = n_list;
     count = n_raw;
     over = n_raw > m;
   } else {
-    // 7. the listed rows into shared memory, then their packed keys
-    for (int r = hw; r < n_list; r += kHalfWarps) {
-      const uint32_t item = items[r];
-      if (hl < kWords) {
-        rows[r * kWords + hl] =
-            after_word(singles + (item & 0xffu) * kBoard, item, hl);
-      }
-    }
-    __syncthreads();
-    for (int r = t; r < n_list; r += kThreads) {
-      const uint8_t* b = reinterpret_cast<const uint8_t*>(rows + r * kWords);
-#pragma unroll
-      for (int w = 0; w < 6; ++w) {  // points: 4 (mine | opp << 4) bytes each
-        uint32_t word = 0u;
-#pragma unroll
-        for (int qq = 0; qq < 4; ++qq) {
-          const int p = 4 * w + qq;
-          word |= (uint32_t)((b[p] & 0xF) | ((b[24 + p] & 0xF) << 4))
-                  << (8 * qq);
-        }
-        keys[w * limit + r] = word;
-      }
-      keys[6 * limit + r] = (uint32_t)(b[48] & 0xF) |
-                            ((uint32_t)(b[49] & 0xF) << 8) |
-                            ((uint32_t)(b[50] & 0xF) << 16) |
-                            ((uint32_t)(b[51] & 0xF) << 24);
-    }
-    __syncthreads();
-
-    // 8. first occurrence: one warp a row, 32 predecessors at a time,
-    //    stopping at the first equal key; the flag goes where its item was
-    for (int j = warp; j < n_list; j += kWarps) {
+    // 7. first occurrence: lane j compares its key's hash with every
+    //    earlier candidate's, and the keys where the hashes are equal
+    for (int c0 = 0; c0 < n_list; c0 += 32) {
+      const int j = c0 + lane;
+      const bool mine = j < n_list;
       uint32_t kj[kKeyWords];
-#pragma unroll
-      for (int w = 0; w < kKeyWords; ++w) kj[w] = keys[w * limit + j];
+      uint32_t item = 0u, hj = 0u;
+      if (mine) {
+        item = items[j];
+        cand_key(kj, singles, item);
+        hj = key_hash(kj);
+        hashes[j] = hj;
+      }
+      __syncwarp();
+      // the first earlier candidate with an equal hash; then, all such
+      // lanes at once, its key; on a hash collision the next one
+      const int end = min(c0 + 32, n_list);
+      int match = -1;
+#pragma unroll 4
+      for (int i = 0; i < end; ++i) {
+        const uint32_t hi = hashes[i];
+        if (mine && match < 0 && i < j && hi == hj) match = i;
+      }
       bool dup = false;
-      for (int c0 = 0; c0 < j && !dup; c0 += 32) {
-        const int jp = c0 + lane;
-        bool eq = jp < j;
+      while (__any_sync(kFull, match >= 0)) {
+        if (match >= 0) {
+          uint32_t ki[kKeyWords];
+          cand_key(ki, singles, items[match]);
+          bool eq = true;
 #pragma unroll
-        for (int w = 0; w < kKeyWords; ++w) {
-          eq = eq && keys[w * limit + jp] == kj[w];
+          for (int w = 0; w < kKeyWords; ++w) eq = eq && ki[w] == kj[w];
+          int next = -1;
+          for (int i = match + 1; !eq && next < 0 && i < j; ++i) {
+            if (hashes[i] == hj) next = i;
+          }
+          dup = eq;
+          match = eq ? -1 : next;
         }
-        dup = __any_sync(0xffffffffu, eq);
       }
-      if (lane == 0) items[j] = dup ? 0u : 1u;
+      __syncwarp();
+      if (dup) items[j] = item | kDup;
     }
-    __syncthreads();
+    __syncwarp();
 
-    // 9. the survivors' ranks
+    // 8. the survivors' items to the front, in order
     int uniq = 0;
-    for (int j0 = 0; j0 < n_list; j0 += kThreads) {
-      const int j = j0 + t;
-      const int f = j < n_list ? (int)items[j] : 0;
-      int total;
-      const int u = uniq + block_scan<kWarps>(f, st.warp_tot, total);
-      if (f && u < m) uidx[u] = (uint16_t)j;
-      uniq += total;
-      __syncthreads();
+    for (int c0 = 0; c0 < n_list; c0 += 32) {
+      const int j = c0 + lane;
+      const uint32_t item = j < n_list ? items[j] : kDup;
+      const bool keep = (item & kDup) == 0u;
+      const uint32_t bal = __ballot_sync(kFull, keep);
+      const int u = uniq + __popc(bal & ((1u << lane) - 1u));
+      __syncwarp();
+      if (keep && u < m) items[u] = item;
+      uniq += __popc(bal);
     }
-
-    // 10. the first M survivors into the list, a half-warp a row
+    __syncwarp();
     written = min(uniq, m);
-    for (int u = hw; u < written; u += kHalfWarps) {
-      if (hl < kWords) {
-        ow[(size_t)u * kWords + hl] = rows[uidx[u] * kWords + hl];
-      }
-    }
     count = uniq;
     over = n_raw > kd || uniq > m;
+    // the rows between the survivors and the listed candidates
+    zero_words(ow + (size_t)written * kWords,
+               (long long)(listed - written) * kWords, lane, 32);
   }
-  zero_words(ow + (size_t)written * kWords,
-             (long long)(m - written) * kWords, t, kThreads);
-  if (t == 0) {
-    n_out[g] = min(count, m);
-    overflow[g] = over ? 1 : 0;
+  // 9. the list, word by word
+  write_rows(ow, items, singles, written, lane);
+  if (lane == 0) {
+    n_out[g] = fit && !game_over ? min(count, m) : 0;
+    overflow[g] = (over || !fit) ? 1 : 0;
   }
 }
 
 }  // namespace
 
-// Pointers are device pointers; out (G, m, 52) must start on a 4-byte
-// boundary.  Returns the CUDA error of the launch (0: launched);
-// cudaErrorInvalidValue where the widths need more shared memory than a
-// block may have.
+// Pointers are device pointers; src, fits, db_out, db_n and db_of are all
+// null (each game lists its own moves) or all given (in place, db_out (Gd,
+// m, 52)).  out (G, m, 52) must start on a 4-byte boundary.  Returns the CUDA
+// error of the launch (0: launched); cudaErrorInvalidValue where the widths
+// need more shared memory than a block may have.
 extern "C" int nondoubles_launch(const void* vecs, const void* d_hi,
                                  const void* d_lo, const void* mirror,
-                                 void* out, void* n_out, void* overflow,
-                                 int games, int k1, int kd, int m, int dedup,
-                                 void* stream) {
+                                 const void* src, const void* fits,
+                                 const void* db_out, const void* db_n,
+                                 const void* db_of, void* out, void* n_out,
+                                 void* overflow, int games, int k1, int kd,
+                                 int m, int dedup, void* stream) {
   static int max_dyn = -1;  // the most dynamic shared memory a block gets
   if (games <= 0) return (int)cudaGetLastError();
   const int limit = dedup ? kd : m;
@@ -320,12 +422,15 @@ extern "C" int nondoubles_launch(const void* vecs, const void* d_hi,
     if (err != cudaSuccess) return (int)err;
     max_dyn = most;
   }
-  const size_t smem = dyn_bytes(limit, dedup != 0);
+  const int s = k1 < kMaxSingles ? k1 : kMaxSingles;
+  const size_t smem = (size_t)4 * kGames * game_words(s, limit, dedup != 0);
   if (smem > (size_t)max_dyn) return (int)cudaErrorInvalidValue;
-  const int words = (uintptr_t)vecs % 4 == 0 ? 1 : 0;
-  nondoubles_kernel<<<games, kThreads, smem, (cudaStream_t)stream>>>(
+  nondoubles_kernel<<<(games + kGames - 1) / kGames, kThreads, smem,
+                      (cudaStream_t)stream>>>(
       (const int8_t*)vecs, (const int32_t*)d_hi, (const int32_t*)d_lo,
-      (const uint8_t*)mirror, (int8_t*)out, (int32_t*)n_out,
-      (uint8_t*)overflow, k1, kd, m, dedup, words);
+      (const uint8_t*)mirror, (const int32_t*)src, (const uint8_t*)fits,
+      (const int8_t*)db_out, (const int32_t*)db_n, (const uint8_t*)db_of,
+      (int8_t*)out, (int32_t*)n_out, (uint8_t*)overflow, games, k1, kd, m,
+      dedup, s);
   return (int)cudaGetLastError();
 }

@@ -1,30 +1,34 @@
-"""Movegen's doubles frontier, one level per call: expand each frontier row
-by the die, keep the expansions whose origin rank does not fall below the
-row's, and stable-compact them into the next frontier; the last level also
-writes the final move list.
+"""Movegen's doubles frontier: each level expands every frontier row by
+the die, keeps the expansions whose origin rank does not fall below the
+row's, and stable-compacts them into the next frontier; the fourth level
+also writes the final move list.
 
-``doubles_level`` ports the JAX package's doubles ``level``
-(``mlp_ppo_2ply_p3_tpu/core/movegen.py:406-416``), which XLA fuses and
-whose compaction is the Pallas ``compact_rows``
+``doubles_levels`` ports the JAX package's first three doubles levels
+(``first`` and its compaction, and two calls of its ``level``,
+``mlp_ppo_2ply_p3_tpu/core/movegen.py:395-419``), which XLA fuses and whose
+compactions are the Pallas ``compact_rows``
 (``mlp_ppo_2ply_p3_tpu/ops/compaction.py:231``) under ``use_pallas``.  Its
-kernel (``csrc/doubles.cu``) builds each row's candidates in registers
-and shared memory, so the (G, K x 27, 53) candidate grid that the plain
-version materialises never reaches device memory; the note at the top of
-the source says what bounds it on an H100.
+kernel (``csrc/doubles.cu``) runs L1, L2 and L3 of a game in one block,
+with L1 and L2 in shared memory as the next level's input, so neither the
+(G, K x 27, 53) candidate grids that the plain version materialises nor a
+frontier read back between levels touches device memory; the note at the
+top of the source says what bounds it on an H100.
 
 ``doubles_final`` is the fourth level together with the selection after it
 (``mlp_ppo_2ply_p3_tpu/core/movegen.py:420``, ``:422-439``): the deepest
-non-empty level is the list.  The same kernel, in its final form, writes
-the list, its counts and overflow flags in the launch that expands L3, so
-no (G, M, 52) embedding of an earlier level is built.
+non-empty level is the list.  Its kernel, in the same source, writes the
+list, its counts and overflow flags in the launch that expands L3, so no
+(G, M, 52) embedding of an earlier level is built.
 
 The candidate-grid helpers (``perm_scan``, ``first_die``,
-``expand_one_die``, ``rank_of``) live here, and ``core.movegen`` and
+``expand_one_die``, ``rank_of``) and the plain level
+(``doubles_level_plain``) live here, and ``core.movegen`` and
 ``ops.nondoubles`` take them from here.
 
 Each wrapper dispatches on the tensors' device: CPU tensors take the plain
 PyTorch version, CUDA tensors launch the kernel or raise.  Their
-``launches`` attributes count kernel launches.
+``launches`` attributes count kernel launches (``doubles_levels`` under
+the key ``doubles_level``).
 """
 
 from __future__ import annotations
@@ -107,6 +111,20 @@ def doubles_level_plain(boards, ranks, n_in, die, mirror, k_out: int):
     return out[:, :, :52].contiguous(), out[:, :, 52].contiguous(), n
 
 
+def doubles_levels_plain(vecs, die, mirror, k1: int, k2: int, k3: int):
+    """Plain PyTorch first three levels (any device): three
+    ``doubles_level_plain`` calls, the first on the roots as a one-row
+    frontier with no rank filter.  Returns (f1b, n1, f2b, n2, f3b, f3r,
+    n3): each level's frontier (zeros past its count) and unclamped
+    count, and L3's ranks."""
+    d, mi = die.to(I32), mirror.to(torch.bool)
+    f1b, f1r, n1 = doubles_level_plain(vecs[:, None, :], None, None, d, mi,
+                                       k1)
+    f2b, f2r, n2 = doubles_level_plain(f1b, f1r, n1, d, mi, k2)
+    f3b, f3r, n3 = doubles_level_plain(f2b, f2r, n2, d, mi, k3)
+    return f1b, n1, f2b, n2, f3b, f3r, n3
+
+
 def embed(boards, n, m):
     """Place (G, K, 52) frontiers into (G, M, 52) buffers (truncating if
     K > M), with the counts clamped to M (JAX ``_embed``)."""
@@ -144,21 +162,17 @@ def doubles_final_plain(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror,
     return out, torch.clamp(n, max=m), overflow
 
 
-def _check(boards, ranks, n_in, die, mirror, k_out):
+def _check_frontier(boards, ranks, n_in, die, mirror, k_out):
+    """A level's inputs: a (G, K, 52) frontier with its ranks and counts."""
     if boards.dtype != I8 or boards.dim() != 3 or boards.shape[2] != 52:
         raise ValueError(f"boards must be (G, K, 52) int8, got "
                          f"{tuple(boards.shape)} {boards.dtype}")
     g, k, _ = boards.shape
-    if (ranks is None) != (n_in is None):
-        raise ValueError("ranks and n_in are both given, or both None for "
-                         "a root level")
     want = {"ranks": (ranks, (g, k), (I8,)),
             "n_in": (n_in, (g,), (I32,)),
             "die": (die, (g,), (I32,)),
             "mirror": (mirror, (g,), (torch.bool, torch.uint8))}
     for name, (x, shape, dtypes) in want.items():
-        if x is None and name in ("ranks", "n_in"):
-            continue
         if x is None or tuple(x.shape) != shape or x.dtype not in dtypes:
             raise ValueError(
                 f"{name} must be {shape} of {dtypes}, got "
@@ -178,10 +192,34 @@ def _check(boards, ranks, n_in, die, mirror, k_out):
         raise ValueError(f"unsupported device {boards.device}")
 
 
+def _check_levels(vecs, die, mirror, k1, k2, k3):
+    if vecs.dtype != I8 or vecs.dim() != 2 or vecs.shape[1] != B.VEC:
+        raise ValueError(f"vecs must be (G, 52) int8, got "
+                         f"{tuple(vecs.shape)} {vecs.dtype}")
+    g = vecs.shape[0]
+    want = {"die": (die, (I32,)),
+            "mirror": (mirror, (torch.bool, torch.uint8))}
+    for name, (x, dtypes) in want.items():
+        if tuple(x.shape) != (g,) or x.dtype not in dtypes:
+            raise ValueError(f"{name} must be ({g},) of {dtypes}, got "
+                             f"{(tuple(x.shape), x.dtype)}")
+        if x.device != vecs.device:
+            raise ValueError(f"{name} is on {x.device}, vecs on "
+                             f"{vecs.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not vecs.is_contiguous():
+        raise ValueError("vecs must be contiguous")
+    if min(k1, k2, k3) < 0:
+        raise ValueError(f"widths must be >= 0, got {k1}, {k2}, {k3}")
+    if max(g, k1 * 52, k2 * 52, k3 * 52) >= 2**31:
+        raise ValueError(f"G={g}, widths {k1}, {k2}, {k3}: too large")
+    if vecs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {vecs.device}")
+
+
 def _check_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m):
-    if f3r is None or n3 is None:
-        raise ValueError("the final level needs L3's ranks and counts")
-    _check(f3b, f3r, n3, die, mirror, m)
+    _check_frontier(f3b, f3r, n3, die, mirror, m)
     g = f3b.shape[0]
     for name, fb, n in (("f1b", f1b, n1), ("f2b", f2b, n2)):
         if (fb.dtype != I8 or fb.dim() != 3 or fb.shape[0] != g
@@ -203,7 +241,7 @@ def _check_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "doubles_level_launch": ([_P] * 8 + [_I] * 3 + [_P], _I),
+    "doubles_levels_launch": ([_P] * 10 + [_I] * 4 + [_P], _I),
     "doubles_final_launch": ([_P, _P, _I, _P, _P, _I, _P, _P, _P, _I]
                              + [_P] * 5 + [_I] * 2 + [_P], _I),
 }
@@ -218,45 +256,47 @@ def _fn(name):
     return fn
 
 
-def doubles_level(boards, ranks, n_in, die, mirror, k_out: int):
-    """One doubles frontier level for every game.
+def doubles_levels(vecs, die, mirror, k1: int, k2: int, k3: int):
+    """The first three doubles frontier levels for every game, in one
+    launch.
 
     Args:
-      boards: (G, K, 52) int8 frontier, contiguous.
-      ranks:  (G, K) int8 origin rank of each row's last submove.
-      n_in:   (G,) int32 valid-row counts (row k is valid iff
-              k < min(n_in, K)).  ``ranks`` and ``n_in`` both None: a
-              root level, every row valid and no rank filter.
+      vecs:   (G, 52) int8 canonical root boards, contiguous.
       die:    (G,) int32 die of each game, 0..6 (0 only on all-zero
               padding rows).
       mirror: (G,) bool or uint8: the game's mover is player 2 (scan
               order).
-      k_out:  output width.
+      k1, k2, k3: the widths of L1, L2 and L3.
 
-    Returns (boards_out (G, k_out, 52) int8, ranks_out (G, k_out) int8,
-    n (G,) int32): the valid candidates in (row, scan position) order,
-    zero past the count; n is unclamped and may exceed k_out.
+    Returns (f1b (G, k1, 52), n1 (G,), f2b (G, k2, 52), n2, f3b (G, k3, 52),
+    f3r (G, k3) int8, n3): each level's valid candidates in (row, scan
+    position) order, zero past the count; the counts are int32 and
+    unclamped (they may exceed the width), L3's origin ranks beside it;
+    equal to ``doubles_levels_plain``.
     """
-    _check(boards, ranks, n_in, die, mirror, k_out)
-    if boards.device.type == "cpu":
-        return doubles_level_plain(boards, ranks, n_in, die, mirror, k_out)
-    g, k, _ = boards.shape
-    dev = boards.device
+    _check_levels(vecs, die, mirror, k1, k2, k3)
+    if vecs.device.type == "cpu":
+        return doubles_levels_plain(vecs, die, mirror, k1, k2, k3)
+    g = vecs.shape[0]
+    dev = vecs.device
     with torch.cuda.device(dev):
-        out = torch.empty((g, k_out, 52), dtype=I8, device=dev)
-        rout = torch.empty((g, k_out), dtype=I8, device=dev)
-        n = torch.empty((g,), dtype=I32, device=dev)
-        err = _fn("doubles_level_launch")(
-            boards.data_ptr(), None if ranks is None else ranks.data_ptr(),
-            None if n_in is None else n_in.data_ptr(), die.data_ptr(),
-            mirror.data_ptr(), out.data_ptr(), rout.data_ptr(),
-            n.data_ptr(), g, k, k_out,
+        f1b, f2b, f3b = (torch.empty((g, k, 52), dtype=I8, device=dev)
+                         for k in (k1, k2, k3))
+        f3r = torch.empty((g, k3), dtype=I8, device=dev)
+        n1, n2, n3 = (torch.empty((g,), dtype=I32, device=dev)
+                      for _ in range(3))
+        err = _fn("doubles_levels_launch")(
+            vecs.data_ptr(), die.data_ptr(), mirror.data_ptr(),
+            f1b.data_ptr(), n1.data_ptr(), f2b.data_ptr(), n2.data_ptr(),
+            f3b.data_ptr(), f3r.data_ptr(), n3.data_ptr(), g, k1, k2, k3,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"doubles_level kernel launch failed: CUDA error "
-                           f"{err} at shape {tuple(boards.shape)} -> {k_out}")
+        raise RuntimeError(
+            f"doubles_levels kernel launch failed: CUDA error {err} at G={g}, "
+            f"widths {k1}, {k2}, {k3} (shared memory: 53 bytes x "
+            f"(min(k1, 27) + k2) + 4 x max(k1, k2, k3) a block)")
     _COUNTERS["doubles_level"].launches += 1
-    return out, rout, n
+    return f1b, n1, f2b, n2, f3b, f3r, n3
 
 
 def doubles_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m: int):
@@ -265,9 +305,10 @@ def doubles_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m: int):
     Args:
       f1b, f2b: (G, K1, 52) and (G, K2, 52) int8 L1 and L2 frontiers.
       n1, n2:   (G,) int32 their unclamped counts.
-      f3b, f3r, n3: the L3 frontier, its ranks and its unclamped counts,
-              as ``doubles_level`` takes a level's inputs.
-      die, mirror: as ``doubles_level``'s.
+      f3b, f3r, n3: the L3 frontier (G, K3, 52), its ranks (G, K3) int8
+              and its unclamped counts (G,) int32, as ``doubles_levels``
+              returns them.
+      die, mirror: as ``doubles_levels``'s.
       m:        list width (``max_moves``).
 
     Returns (out (G, m, 52) int8, n (G,) int32 clamped to m, overflow (G,)
@@ -297,8 +338,8 @@ def doubles_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m: int):
     return out, n, overflow
 
 
-doubles_level.launches = 0
+doubles_levels.launches = 0
 doubles_final.launches = 0
 # the function objects that own the counts, so that a caller who wraps a
 # wrapper (to capture its inputs) still counts on the original
-_COUNTERS = {"doubles_level": doubles_level, "doubles_final": doubles_final}
+_COUNTERS = {"doubles_level": doubles_levels, "doubles_final": doubles_final}

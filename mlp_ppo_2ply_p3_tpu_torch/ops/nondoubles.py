@@ -12,6 +12,16 @@ and shared memory, so neither the candidate grids nor the raw block that
 the plain version materialises reaches device memory; the note at the top
 of the source says what bounds it on an H100.
 
+Given a ``place`` (the in-place form), the same kernel writes a whole
+batch's (B, M, 52) list: each non-double game's list at its own row (the
+last fitting non-double's where the game does not fit the non-doubles
+sub-batch's capacity), and each doubles game's row copied from the doubles
+sub-batch's list, with the counts and flags of
+``core.movegen.legal_afterstates_batch``.  That takes over the JAX
+package's non-doubles split, its gather back and its selection
+(``mlp_ppo_2ply_p3_tpu/core/movegen.py:576-614``), so no (B, M, 52) gather
+or ``where`` runs around the kernel.
+
 The wrapper dispatches on the tensors' device: CPU tensors take the plain
 PyTorch version, CUDA tensors launch the kernel or raise.  Its
 ``launches`` attribute counts kernel launches.
@@ -99,11 +109,15 @@ def raw_block_plain(vecs, d_hi, d_lo, mirror, k1: int, kd: int):
 
 
 def nondoubles_batch_plain(vecs, d_hi, d_lo, mirror, k1: int, kd: int,
-                           m: int, dedup: bool):
+                           m: int, dedup: bool, place=None):
     """Plain PyTorch non-doubles batch (any device): the candidate blocks,
     ``compaction.compact_rows_plain`` and, with ``dedup``,
     ``compaction.dedup_compact_rows_plain``, as the JAX
-    ``_nondoubles_batch`` computes it."""
+    ``_nondoubles_batch`` computes it; with a ``place``,
+    ``nondoubles_place_plain``."""
+    if place is not None:
+        return nondoubles_place_plain(vecs, d_hi, d_lo, mirror, k1, kd, m,
+                                      dedup, place)
     d_hi, d_lo, mirror = d_hi.to(I32), d_lo.to(I32), mirror.to(torch.bool)
     if not dedup:
         cand, keep0 = candidates_plain(vecs, d_hi, d_lo, mirror, k1)
@@ -112,6 +126,27 @@ def nondoubles_batch_plain(vecs, d_hi, d_lo, mirror, k1: int, kd: int,
     cb, kv, n_raw = raw_block_plain(vecs, d_hi, d_lo, mirror, k1, kd)
     out, n = compaction.dedup_compact_rows_plain(cb, kv, m)
     return out, torch.clamp(n, max=m), (n_raw > kd) | (n > m)
+
+
+def nondoubles_place_plain(vecs, d_hi, d_lo, mirror, k1: int, kd: int,
+                           m: int, dedup: bool, place):
+    """Plain PyTorch in-place form (any device): each game's row of
+    ``nondoubles_batch_plain`` on the games that ``src`` names, or its row
+    of the doubles list, with the sub-batch capacity's and the game-over
+    rules (``core.movegen.legal_afterstates_batch``'s gather and
+    ``where``s)."""
+    src, fits, db_out, db_n, db_of = place
+    nd = src >= 0
+    fits = fits.to(torch.bool)
+    own = torch.arange(src.shape[0], device=src.device)
+    rows = torch.where(nd, src.long(), own)
+    out, n, of = nondoubles_batch_plain(vecs[rows], d_hi[rows], d_lo[rows],
+                                        mirror[rows], k1, kd, m, dedup)
+    slot = torch.clamp(-1 - src.long(), min=0)
+    out = torch.where(nd[:, None, None], out, db_out[slot])
+    n = torch.where(fits, torch.where(nd, n, db_n[slot]), 0)
+    of = torch.where(nd, of, db_of[slot].to(torch.bool)) | ~fits
+    return out, torch.where(B.game_over(vecs), 0, n), of
 
 
 def _check(vecs, d_hi, d_lo, mirror, k1, kd, m):
@@ -141,6 +176,35 @@ def _check(vecs, d_hi, d_lo, mirror, k1, kd, m):
         raise ValueError(f"unsupported device {vecs.device}")
 
 
+def _check_place(vecs, m, place):
+    if not isinstance(place, tuple) or len(place) != 5:
+        raise ValueError("place must be (src, fits, db_out, db_n, db_of)")
+    src, fits, db_out, db_n, db_of = place
+    g = vecs.shape[0]
+    if (db_out.dtype != I8 or db_out.dim() != 3
+            or tuple(db_out.shape[1:]) != (m, B.VEC)):
+        raise ValueError(f"db_out must be (Gd, {m}, 52) int8, got "
+                         f"{tuple(db_out.shape)} {db_out.dtype}")
+    gd = db_out.shape[0]
+    want = {"src": (src, (g,), (I32,)),
+            "fits": (fits, (g,), (torch.bool, torch.uint8)),
+            "db_n": (db_n, (gd,), (I32,)),
+            "db_of": (db_of, (gd,), (torch.bool, torch.uint8))}
+    for name, (x, shape, dtypes) in want.items():
+        if tuple(x.shape) != shape or x.dtype not in dtypes:
+            raise ValueError(f"{name} must be {shape} of {dtypes}, got "
+                             f"{(tuple(x.shape), x.dtype)}")
+    for name, x in (("src", src), ("fits", fits), ("db_out", db_out),
+                    ("db_n", db_n), ("db_of", db_of)):
+        if x.device != vecs.device:
+            raise ValueError(f"{name} is on {x.device}, vecs on "
+                             f"{vecs.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if gd < 1:
+        raise ValueError("db_out needs at least one row")
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -149,12 +213,12 @@ def _fn():
 
     fn = load("nondoubles").nondoubles_launch
     if fn.argtypes is None:
-        fn.argtypes, fn.restype = [_P] * 7 + [_I] * 5 + [_P], _I
+        fn.argtypes, fn.restype = [_P] * 12 + [_I] * 5 + [_P], _I
     return fn
 
 
 def nondoubles_batch(vecs, d_hi, d_lo, mirror, k1: int, kd: int, m: int,
-                     dedup: bool):
+                     dedup: bool, place=None):
     """Every game's non-double move list.
 
     Args:
@@ -169,31 +233,44 @@ def nondoubles_batch(vecs, d_hi, d_lo, mirror, k1: int, kd: int, m: int,
       m:      list width (``max_moves``).
       dedup:  False: the raw candidates straight into the list (duplicates
               remain).
+      place:  None: game g's row is its own list.  Or the in-place form
+              over a batch, (src (G,) int32, fits (G,) bool or uint8,
+              db_out (Gd, m, 52) int8, db_n (Gd,) int32, db_of (Gd,) bool
+              or uint8), all contiguous: src[g] >= 0 makes game g's row
+              the list of game src[g] (its dice and mirror flag too), and
+              src[g] < 0 makes it row -1 - src[g] of db_out with that
+              row's count and flag; a game with fits[g] False gets n = 0
+              and the flag, one whose mover has borne off 15 checkers
+              n = 0.  Every src[g] must lie in [-Gd, G).
 
     Returns (out (G, m, 52) int8, n (G,) int32 clamped to m, overflow (G,)
     bool), equal to ``nondoubles_batch_plain``.
     """
     _check(vecs, d_hi, d_lo, mirror, k1, kd, m)
+    if place is not None:
+        _check_place(vecs, m, place)
     if vecs.device.type == "cpu":
         return nondoubles_batch_plain(vecs, d_hi, d_lo, mirror, k1, kd, m,
-                                      dedup)
+                                      dedup, place)
     g = vecs.shape[0]
     dev = vecs.device
+    ptrs = ((None,) * 5 if place is None
+            else tuple(x.data_ptr() for x in place))
     with torch.cuda.device(dev):
         out = torch.empty((g, m, 52), dtype=I8, device=dev)
         n = torch.empty((g,), dtype=I32, device=dev)
         overflow = torch.empty((g,), dtype=torch.bool, device=dev)
         err = _fn()(
             vecs.data_ptr(), d_hi.data_ptr(), d_lo.data_ptr(),
-            mirror.data_ptr(), out.data_ptr(), n.data_ptr(),
+            mirror.data_ptr(), *ptrs, out.data_ptr(), n.data_ptr(),
             overflow.data_ptr(), g, k1, kd, m, int(dedup),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"nondoubles kernel launch failed: CUDA error "
                            f"{err} at G={g}, k1 {k1}, kd {kd}, m {m}, "
-                           f"dedup {dedup} (shared memory: "
-                           f"{86 if dedup else 4} bytes x "
-                           f"{kd if dedup else m} a block)")
+                           f"dedup {dedup} (shared memory: 4 games a block, "
+                           f"{8 if dedup else 4} bytes a listed candidate "
+                           f"and 56 a kept single a game)")
     _COUNTERS["nondoubles"].launches += 1
     return out, n, overflow
 

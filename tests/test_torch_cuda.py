@@ -233,93 +233,104 @@ def _doubles_frontier(seed, g, k, root):
     return b, ranks, n_in, die, mirror
 
 
-# (G, K, k_out, root): roots (K = 1, no rank filter), the fast widths of
-# every level at B=4096's doubles sub-batch (875 games), counts above
-# k_out, k_out = 0, several chunks of 128 rows, the parity width
-DOUBLES_CASES = [
-    (7, 1, 16, True),
-    (875, 1, 16, True),
-    (875, 16, 80, False),
-    (875, 80, 192, False),
-    (875, 192, 256, False),
-    (300, 40, 5, False),
-    (64, 30, 0, False),
-    (40, 300, 500, False),
-    (16, 512, 500, False),
-    (5, 129, 3000, False),
+# (G, kind, (k1, k2, k3)): train4096's doubles sub-batch at fast() and
+# the default widths (875 and 1088 games), pod's (B=16384: 4160 games), the
+# 2-ply reply widths (512 games, k2 128, k3 256), the parity widths, widths
+# that truncate each level, and an empty L3
+LEVELS_CASES = [
+    (875, "played", (16, 80, 192)),
+    (875, "random", (16, 80, 192)),
+    (1088, "played", (16, 96, 224)),
+    (4160, "played", (16, 96, 224)),
+    (512, "played", (16, 128, 256)),
+    (64, "random", (16, 128, 512)),
+    (300, "random", (3, 5, 7)),
+    (300, "played", (16, 6, 40)),
+    (40, "random", (16, 30, 0)),
 ]
 
 
-@pytest.mark.parametrize("g,k,k_out,root", DOUBLES_CASES)
-def test_doubles_level_matches_plain(card, g, k, k_out, root):
-    b, ranks, n_in, die, mirror = _doubles_frontier(g * 31 + k, g, k, root)
-    t = lambda x: None if x is None else torch.from_numpy(x).to(card)
-    args = (t(b), t(ranks), t(n_in), t(die), t(mirror))
-    before = TD.doubles_level.launches
-    got = TD.doubles_level(*args, k_out)
-    assert TD.doubles_level.launches == before + 1
-    want = TD.doubles_level_plain(*args, k_out)
+def _levels_inputs(card, seed, g, kind):
+    """(vecs, die, mirror) on the card: ``played`` boards after random env
+    steps with random dice, or ``random`` roots (``_doubles_frontier``'s:
+    negative counts, bars, bear-offs, game over, the edge boards, padding
+    rows of die 0, mirrored games)."""
+    if kind == "played":
+        vecs, dice, mirror = _played(card, g, 12, seed)
+        return (vecs.contiguous(), dice[:, 0].to(torch.int32).contiguous(),
+                mirror.contiguous())
+    b, _, _, die, mirror = _doubles_frontier(seed, g, 1, True)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(card)
+                 for x in (b[:, 0], die, mirror))
+
+
+@pytest.mark.parametrize("g,kind,widths", LEVELS_CASES)
+def test_doubles_level_matches_plain(card, g, kind, widths):
+    """The fused L1-L3 launch against the three plain levels: every
+    frontier with its zero tail, L3's ranks and the unclamped counts."""
+    args = _levels_inputs(card, g + sum(widths), g, kind)
+    before = TD.doubles_levels.launches
+    got = TD.doubles_levels(*args, *widths)
+    assert TD.doubles_levels.launches == before + 1
+    want = TD.doubles_levels_plain(*args, *widths)
     torch.cuda.synchronize()
     for x, y in zip(got, want):
-        assert torch.equal(x, y)
-    assert int(want[2].sum()) > 0
-    # uint8 mirror flags and boards at an odd address take the same kernel
-    raw = torch.zeros(b.size + 3, dtype=torch.int8, device=card)
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert int(want[1].sum()) > 0
+    # uint8 mirror flags and roots at an odd address take the same kernel
+    raw = torch.zeros(args[0].numel() + 3, dtype=torch.int8, device=card)
     raw[3:] = args[0].reshape(-1)
     odd = raw[3:].view(args[0].shape)
-    got = TD.doubles_level(odd, *args[1:4], args[4].to(torch.uint8), k_out)
+    got = TD.doubles_levels(odd, args[1], args[2].to(torch.uint8), *widths)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
 
 
 def test_doubles_levels_on_played_boards(card):
-    """The four levels at ``fast()``'s widths on the boards of 900 games
-    after a few random env steps, every game given a double: kernel ==
-    plain at each level, on the plain level's own inputs."""
+    """The fused levels and the final one at ``fast()``'s widths on the
+    boards of 900 games after a few random env steps, every game given a
+    double: kernel == plain at each launch, on the plain's own inputs."""
     cfg = TE.EnvConfig(movegen=TM.MovegenConfig.fast(256))
-    gen = torch.Generator(device=card).manual_seed(5)
-    es = TE.reset(gen, cfg, 900, device=card)
-    for _ in range(10):
-        u = torch.rand((900,), generator=gen, device=card)
-        es, _ = TE.step(es, (u * es.n_moves.clamp(min=1)).to(torch.int32),
-                        gen, cfg)
-    from mlp_ppo_2ply_p3_tpu_torch.core import board
-
-    vecs = board.to_canonical(es.points, es.bar, es.off, es.turn)
-    die = es.dice[:, 0].to(torch.int32).contiguous()
-    mirror = (es.turn == 1).contiguous()
-    level = (vecs[:, None, :].contiguous(), None, None)
+    vecs, dice, mirror = _played(card, 900, 10, 5, cfg)
+    die = dice[:, 0].to(torch.int32).contiguous()
+    mirror = mirror.contiguous()
     mg = cfg.movegen
-    for k_out in (mg.k1, mg.k2, mg.k3, mg.max_moves):
-        got = TD.doubles_level(*level, die, mirror, k_out)
-        want = TD.doubles_level_plain(*level, die, mirror, k_out)
-        torch.cuda.synchronize()
-        for x, y in zip(got, want):
-            assert torch.equal(x, y)
-        level = want
-    assert int(level[2].sum()) > 0
+    widths = (mg.k1, mg.k2, mg.k3)
+    got = TD.doubles_levels(vecs.contiguous(), die, mirror, *widths)
+    want = TD.doubles_levels_plain(vecs, die, mirror, *widths)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    final = TD.doubles_final(*want, die, mirror, mg.max_moves)
+    for x, y in zip(final, TD.doubles_final_plain(*want, die, mirror,
+                                                  mg.max_moves)):
+        assert torch.equal(x, y)
+    assert int(want[6].sum()) > 0
 
 
 def test_doubles_level_rejects_bad_inputs(card):
-    b = torch.zeros((2, 8, 52), dtype=torch.int8, device=card)
-    ranks = torch.zeros((2, 8), dtype=torch.int8, device=card)
-    n = torch.full((2,), 8, dtype=torch.int32, device=card)
+    vecs = torch.zeros((2, 52), dtype=torch.int8, device=card)
     die = torch.ones((2,), dtype=torch.int32, device=card)
     mirror = torch.zeros((2,), dtype=torch.bool, device=card)
     with pytest.raises(ValueError):
-        TD.doubles_level(b.int(), ranks, n, die, mirror, 4)
+        TD.doubles_levels(vecs.int(), die, mirror, 16, 80, 192)
     with pytest.raises(ValueError):
-        TD.doubles_level(b, ranks, n, die.cpu(), mirror, 4)
+        TD.doubles_levels(vecs, die.cpu(), mirror, 16, 80, 192)
     with pytest.raises(ValueError):
-        TD.doubles_level(b, ranks, n, die.long(), mirror, 4)
+        TD.doubles_levels(vecs, die.long(), mirror, 16, 80, 192)
     with pytest.raises(ValueError):
-        TD.doubles_level(b[:, ::2], ranks[:, ::2], n, die, mirror, 4)
+        TD.doubles_levels(vecs[:, ::2], die, mirror, 16, 80, 192)
+    # more shared memory than a block may have: no fallback
+    with pytest.raises(RuntimeError):
+        TD.doubles_levels(vecs, die, mirror, 16, 80, 60000)
+    with pytest.raises(RuntimeError):
+        TD.doubles_levels(vecs, die, mirror, 16, 5000, 192)
 
 
 # every kernel wrapper and its plain version, in the order of
 # agents/twoply.py::launches_per_decision
 WRAPPERS = ((TC, "compact_rows"), (TC, "dedup_compact_rows"),
-            (TD, "doubles_level"), (TN, "nondoubles_batch"),
+            (TD, "doubles_levels"), (TN, "nondoubles_batch"),
             (TD, "doubles_final"))
 
 
@@ -415,6 +426,106 @@ def test_nondoubles_matches_plain(card, g, kind, k1, kd, m, dedup):
         assert torch.equal(x, y)
 
 
+# (B, board kind, widths): the in-place form at train4096's B=4096
+# (fast() and the default widths), a reset (all rolls non-doubles: the
+# slot clamp of the non-doubles capacity), pod's B=16384, the batches the
+# league and the arenas run movegen at (256, 512 and 64 games), and widths
+# that truncate the singles, the raw block and the list
+IN_PLACE_CASES = [
+    (4096, "played", dict()),
+    (4096, "reset", dict()),
+    (4096, "played", dict(k2=96, k3=224, dedup_width=384, dbl_div=4,
+                          dbl_add=64)),
+    (16384, "played", dict(k2=96, k3=224, dedup_width=384, dbl_div=4,
+                           dbl_add=64)),
+    (256, "played", dict()),
+    (512, "reset", dict()),
+    (64, "random", dict()),
+    (600, "random", dict(max_moves=4, k1=4, dedup_width=12)),
+    (600, "reset", dict(dedup=False)),
+]
+
+
+def _in_place_args(card, b, kind, mg):
+    """The in-place form's arguments as ``legal_afterstates_batch`` makes
+    them, its doubles list from the plain doubles levels: ``played`` boards
+    after random env steps, a fresh ``reset``, or ``random`` roots
+    (``_doubles_frontier``'s) with random dice in 0..6."""
+    seed = b + len(kind)
+    if kind == "random":
+        r = np.random.default_rng(seed)
+        vecs = torch.from_numpy(_doubles_frontier(seed, b, 1, True)[0][:, 0])
+        dice = torch.from_numpy(r.integers(0, 7, (b, 2)).astype(np.int8))
+        mirror = torch.from_numpy(r.random(b) < 0.5)
+        vecs, dice, mirror = vecs.to(card), dice.to(card), mirror.to(card)
+    else:
+        cfg = TE.EnvConfig(movegen=mg)
+        vecs, dice, mirror = _played(card, b, 12 if kind == "played" else 0,
+                                     seed, cfg)
+    d0, d1 = dice[:, 0].to(torch.int32), dice[:, 1].to(torch.int32)
+    is_double = d0 == d1
+    bd, bn = TM.doubles_capacity(b, mg), TM.nondoubles_capacity(b, mg)
+    (dv, dd, dm), _ = TM._compact_games((vecs, d0, mirror.to(torch.int8)),
+                                        is_double, bd)
+    dm = (dm > 0).contiguous()
+    levels = TD.doubles_levels_plain(dv.contiguous(), dd, dm, mg.k1, mg.k2,
+                                     mg.k3)
+    db = TD.doubles_final_plain(*levels, dd, dm, mg.max_moves)
+    src, fits, _, _ = TM._placement(is_double, bd, bn)
+    return ((vecs.contiguous(), torch.maximum(d0, d1), torch.minimum(d0, d1),
+             mirror.contiguous(), mg.k1, mg.dedup_width, mg.max_moves,
+             mg.dedup), (src, fits, *(x.contiguous() for x in db)))
+
+
+@pytest.mark.parametrize("b,kind,widths", IN_PLACE_CASES)
+def test_nondoubles_in_place_matches_plain(card, b, kind, widths):
+    """The in-place form against its plain version, bit for bit: every
+    row of the (B, M, 52) output with its zero tail, the counts and the
+    flags; then with the boards at an odd address and uint8 flags."""
+    mg = TM.MovegenConfig(**{**dataclasses.asdict(
+        TM.MovegenConfig.fast(256)), **widths})
+    args, place = _in_place_args(card, b, kind, mg)
+    before = TN.nondoubles_batch.launches
+    got = TN.nondoubles_batch(*args, place)
+    assert TN.nondoubles_batch.launches == before + 1
+    want = TN.nondoubles_place_plain(*args, place)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    src, fits = place[:2]
+    if kind == "reset" and b >= 512:
+        assert bool((~fits & (src >= 0)).any())    # the slot clamp
+    assert bool((src < 0).any()) or kind == "reset"
+    raw = torch.zeros(args[0].numel() + 3, dtype=torch.int8, device=card)
+    raw[3:] = args[0].reshape(-1)
+    odd = (raw[3:].view(args[0].shape), *args[1:3],
+           args[3].to(torch.uint8), *args[4:])
+    u8 = (*place[:4], place[4].to(torch.uint8))
+    for x, y in zip(TN.nondoubles_batch(*odd, u8), want):
+        assert torch.equal(x, y)
+
+
+def test_movegen_in_place_in_a_cuda_graph(card):
+    """One movegen call at B=4096 on a reset (the slot clamp binds)
+    captured in a CUDA graph and replayed equals the eager call: the
+    placement needs no host sync."""
+    vecs, dice, mg = _movegen_args(card, 4096)
+    want = TM.legal_afterstates_batch(vecs, dice, mg)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        TM.legal_afterstates_batch(vecs, dice, mg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = TM.legal_afterstates_batch(vecs, dice, mg)
+    graph.replay()
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert int(want[1].sum()) > 0 and bool(want[2].any())
+
+
 def test_nondoubles_rejects_bad_inputs(card):
     vecs = torch.zeros((4, 52), dtype=torch.int8, device=card)
     d = torch.ones((4,), dtype=torch.int32, device=card)
@@ -427,9 +538,24 @@ def test_nondoubles_rejects_bad_inputs(card):
         TN.nondoubles_batch(vecs, d.long(), d, mirror, 16, 288, 256, True)
     with pytest.raises(ValueError):
         TN.nondoubles_batch(vecs[:, ::2], d, d, mirror, 16, 288, 256, True)
-    # more shared memory than a block may have
+    # more shared memory than a block may have: no fallback
     with pytest.raises(RuntimeError):
-        TN.nondoubles_batch(vecs, d, d, mirror, 16, 4000, 256, True)
+        TN.nondoubles_batch(vecs, d, d, mirror, 16, 8000, 256, True)
+    with pytest.raises(RuntimeError):
+        TN.nondoubles_batch(vecs, d, d, mirror, 16, 288, 60000, False)
+    # the in-place form's inputs
+    db = (torch.zeros((3, 256, 52), dtype=torch.int8, device=card),
+          torch.zeros((3,), dtype=torch.int32, device=card),
+          torch.zeros((3,), dtype=torch.bool, device=card))
+    src = torch.arange(4, dtype=torch.int32, device=card)
+    fits = torch.ones((4,), dtype=torch.bool, device=card)
+    for place in ((src.long(), fits, *db), (src, fits[:3], *db),
+                  (src, fits, db[0][:, :128].contiguous(), *db[1:]),
+                  (src.cpu(), fits, *db), (src, fits, db[0], db[1].long(),
+                                           db[2])):
+        with pytest.raises(ValueError):
+            TN.nondoubles_batch(vecs, d, d, mirror, 16, 288, 256, True,
+                                place)
 
 
 def _final_inputs(card, seed, g, kind, widths):
@@ -512,13 +638,13 @@ def test_movegen_kernel_path_matches_plain_and_cpu(card, monkeypatch):
     before = _launches()
     got = TM.legal_afterstates_batch(*args)
     counted = {k: v - before[k] for k, v in _launches().items()}
-    assert counted == {"compact_rows": 2, "dedup_compact_rows": 0,
-                       "doubles_level": 3, "nondoubles_batch": 1,
+    assert counted == {"compact_rows": 1, "dedup_compact_rows": 0,
+                       "doubles_levels": 1, "nondoubles_batch": 1,
                        "doubles_final": 1}
     assert counted == {
         "compact_rows": TM.compactions_per_call(cfg.movegen),
         "dedup_compact_rows": TM.dedups_per_call(cfg.movegen),
-        "doubles_level": TM.doubles_levels_per_call(cfg.movegen),
+        "doubles_levels": TM.doubles_levels_per_call(cfg.movegen),
         "nondoubles_batch": TM.nondoubles_per_call(cfg.movegen),
         "doubles_final": TM.doubles_finals_per_call(cfg.movegen)}
     cpu = TM.legal_afterstates_batch(*(a.cpu() if torch.is_tensor(a) else a

@@ -1,8 +1,9 @@
-"""Port parity: one doubles frontier level (``ops/doubles.py``).
+"""Port parity: the doubles frontier levels (``ops/doubles.py``).
 
-``doubles_level_plain`` (what ``doubles_level`` runs on the CPU, and what
+``doubles_level_plain`` (one level) and ``doubles_levels_plain`` (L1-L3
+chained, what ``doubles_levels`` runs on the CPU, and what
 ``chip_smoke.py`` holds the CUDA kernel against on the card) must give the
-JAX package's level bit for bit: the next frontier's boards, its origin
+JAX package's levels bit for bit: each frontier's boards, its origin
 ranks and the unclamped candidate counts.  The JAX level is built here
 from the JAX package's own module functions, as its ``_doubles_batch``
 builds it (``mlp_ppo_2ply_p3_tpu/core/movegen.py:395-416``, with the jnp
@@ -195,44 +196,92 @@ def test_random_levels_match_jax(seed, stage, k_out, parent):
         fb, fr, n = (nn_(x) for x in got)
 
 
+# (k1, k2, k3): fast() and the default widths, the 2-ply reply widths,
+# the parity widths, and widths that truncate each level in turn
+LEVELS_WIDTHS = {"fast": (16, 80, 192), "default": (16, 96, 224),
+                 "reply": (16, 128, 256), "parity": (16, 128, 512),
+                 "cut_l1": (3, 96, 224), "cut_l2": (16, 5, 224),
+                 "cut_l3": (16, 96, 7), "zero_l3": (16, 40, 0)}
+
+
+@pytest.mark.parametrize("name", sorted(LEVELS_WIDTHS))
+def test_levels_match_three_jax_levels(name):
+    """``doubles_levels_plain`` (L1-L3 chained) equals the JAX root level
+    and two JAX levels on random positions of every stage, the edge
+    boards with every die, both mirrors, a padding row of die 0 and a
+    game-over board; where a width cuts, the count above it is kept."""
+    k1, k2, k3 = LEVELS_WIDTHS[name]
+    rng = np.random.default_rng(300 + k1 + k2 + k3)
+    boards, players = zip(*(random_positions(rng, 8, stage)
+                            for stage in ("any", "bar", "bearoff")))
+    edge = np.repeat(np.stack(list(EDGE_BOARDS.values())), 6, axis=0)
+    vecs = np.concatenate([canonical(np.concatenate(boards),
+                                     np.concatenate(players)),
+                           edge]).astype(np.int8)
+    g = len(vecs)
+    die = np.concatenate([rng.integers(1, 7, 24),
+                          np.tile(np.arange(1, 7), len(EDGE_BOARDS))])
+    die = die.astype(np.int32)
+    die[np.all(vecs == 0, axis=1)] = 0
+    mirror = np.arange(g) % 2 == 1
+    got = TD.doubles_levels_plain(tt(vecs), tt(die), tt(mirror), k1, k2, k3)
+    f1 = jax_root(vecs, die, mirror, k_out=k1)
+    f2 = jax_level(*f1, die, mirror, k_out=k2)
+    f3 = jax_level(*f2, die, mirror, k_out=k3)
+    want = (f1[0], f1[2], f2[0], f2[2], f3[0], f3[1], f3[2])
+    for x, w, what in zip(got, want, ("f1b", "n1", "f2b", "n2", "f3b", "f3r",
+                                      "n3")):
+        np.testing.assert_array_equal(nn_(x), np.asarray(w),
+                                      err_msg=f"{name}: {what}")
+    n1, n2, n3 = (nn_(got[i]) for i in (1, 3, 6))
+    assert n3.sum() > 0 or k3 == 0
+    for n, k, cut in ((n1, k1, "cut_l1"), (n2, k2, "cut_l2"),
+                      (n3, k3, "cut_l3")):
+        if name == cut:
+            assert (n > k).any()
+
+
 def test_wrapper_on_cpu_and_its_checks():
-    """On CPU tensors the wrapper is the plain version and launches
-    nothing; it refuses what the kernel does not take."""
+    """On CPU tensors the fused levels' wrapper is the plain version and
+    launches nothing (uint8 mirror flags too); it refuses what the kernel
+    does not take."""
     vecs, die, mirror = _positions(3, 6, "any")
-    args = (tt(vecs)[:, None, :], None, None, tt(die), tt(mirror))
-    before = TD.doubles_level.launches
-    got = TD.doubles_level(*args, 16)
-    want = TD.doubles_level_plain(*args, 16)
-    assert TD.doubles_level.launches == before
+    args = (tt(vecs), tt(die), tt(mirror))
+    before = TD.doubles_levels.launches
+    got = TD.doubles_levels(*args, 16, 40, 9)
+    want = TD.doubles_levels_plain(*args, 16, 40, 9)
+    assert TD.doubles_levels.launches == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    fb, fr, n = got
-    u8 = TD.doubles_level(fb, fr, n, tt(die), tt(mirror).to(torch.uint8), 9)
-    for g, w in zip(u8, TD.doubles_level_plain(fb, fr, n, tt(die),
-                                               tt(mirror), 9)):
+    u8 = TD.doubles_levels(tt(vecs), tt(die), tt(mirror).to(torch.uint8), 16,
+                           40, 9)
+    for g, w in zip(u8, want):
         assert torch.equal(g, w)
+    v, d, m = args
+    meta = torch.zeros(d.shape, dtype=torch.int32, device="meta")
     bad = [
-        (fb.to(torch.int32), fr, n, tt(die), tt(mirror), 4),
-        (fb, fr.to(torch.int32), n, tt(die), tt(mirror), 4),
-        (fb, fr, n.to(torch.int64), tt(die), tt(mirror), 4),
-        (fb, fr, n, tt(die)[:3], tt(mirror), 4),
-        (fb, fr, n, tt(die), tt(mirror), -1),
-        (fb, None, n, tt(die), tt(mirror), 4),
-        (fb.transpose(0, 1).contiguous().transpose(0, 1), fr, n, tt(die),
-         tt(mirror), 4),
+        (v.to(torch.int32), d, m, 16, 40, 9),
+        (v[:, :51].contiguous(), d, m, 16, 40, 9),
+        (v, d.to(torch.int64), m, 16, 40, 9),
+        (v, d[:3], m, 16, 40, 9),
+        (v, meta, m, 16, 40, 9),
+        (v, d, m.to(torch.int32), 16, 40, 9),
+        (v, d, m, 16, 40, -1),
+        (v, d, m, -1, 40, 9),
+        (v.t().contiguous().t(), d, m, 16, 40, 9),
     ]
     for a in bad:
         with pytest.raises(ValueError):
-            TD.doubles_level(*a)
+            TD.doubles_levels(*a)
 
 
 @pytest.mark.parametrize("name", ["fast", "default"])
 def test_movegen_through_levels_matches_jax(name, monkeypatch):
     """``legal_afterstates_batch`` with its doubles sub-batch on
-    ``doubles_level`` and ``doubles_final`` equals JAX at ``fast()`` and
+    ``doubles_levels`` and ``doubles_final`` equals JAX at ``fast()`` and
     the default widths, on a batch of doubles and non-doubles with the
     partition active (B = 600), and makes ``doubles_levels_per_call``
-    level calls and ``doubles_finals_per_call`` final ones."""
+    fused-levels calls and ``doubles_finals_per_call`` final ones."""
     cfgs = {"fast": dict(max_moves=256, k2=80, k3=192, dedup_width=288,
                          dbl_div=5, dbl_add=56),
             "default": dict(max_moves=256)}
@@ -246,25 +295,25 @@ def test_movegen_through_levels_matches_jax(name, monkeypatch):
     want = JM.legal_afterstates_batch(jnp.asarray(vecs), jnp.asarray(dice),
                                       jcfg, mirror=jnp.asarray(mirror))
     calls, finals = [], []
-    real, real_final = TD.doubles_level, TD.doubles_final
+    real, real_final = TD.doubles_levels, TD.doubles_final
 
     def counted(*a):
-        calls.append(a[-1])
+        calls.append(a[3:])
         return real(*a)
 
     def counted_final(*a):
         finals.append(a[-1])
         return real_final(*a)
 
-    monkeypatch.setattr(TD, "doubles_level", counted)
+    monkeypatch.setattr(TD, "doubles_levels", counted)
     monkeypatch.setattr(TD, "doubles_final", counted_final)
     got = TM.legal_afterstates_batch(tt(vecs), tt(dice), tcfg,
                                      mirror=tt(mirror))
     for g, w, what in zip(got, want, ("boards", "n_moves", "overflow")):
         np.testing.assert_array_equal(nn_(g), np.asarray(w), err_msg=what)
-    assert calls == [tcfg.k1, tcfg.k2, tcfg.k3]
+    assert calls == [(tcfg.k1, tcfg.k2, tcfg.k3)]
     assert finals == [tcfg.max_moves]
-    assert len(calls) == TM.doubles_levels_per_call(tcfg) == 3
+    assert len(calls) == TM.doubles_levels_per_call(tcfg) == 1
     assert len(finals) == TM.doubles_finals_per_call(tcfg) == 1
     assert TM.doubles_levels_per_call(TM.MovegenConfig.parity()) == 0
     assert TM.doubles_finals_per_call(TM.MovegenConfig.parity()) == 0

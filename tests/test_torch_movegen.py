@@ -223,27 +223,79 @@ def test_kernel_selectors_and_dedup_off(over, monkeypatch):
     rng = np.random.default_rng(17)
     boards, players = random_positions(rng, b, "any")
     dice = rng.integers(1, 7, (b, 2)).astype(np.int8)
-    calls = {"compact_rows": [], "doubles_level": [], "doubles_final": [],
+    calls = {"compact_rows": [], "doubles_levels": [], "doubles_final": [],
              "nondoubles_batch": []}
 
-    def counting(module, name):
+    def counting(module, name, keep):
         real = getattr(module, name)
 
         def wrapper(*args):
-            calls[name].append(args[-1])
+            calls[name].append(keep(args))
             return real(*args)
         monkeypatch.setattr(module, name, wrapper)
 
-    counting(TC, "compact_rows")
-    counting(TD, "doubles_level")
-    counting(TD, "doubles_final")
-    counting(TN, "nondoubles_batch")
+    counting(TC, "compact_rows", lambda a: a[-1])
+    counting(TD, "doubles_levels", lambda a: a[3:])
+    counting(TD, "doubles_final", lambda a: a[-1])
+    # (dedup, the in-place form's placement given)
+    counting(TN, "nondoubles_batch", lambda a: (a[7], len(a) == 9))
     _batch(canonical(boards, players), dice, players == 1, "fast", **over)
     _, tcfg = _cfgs("fast", **over)
-    assert len(calls["compact_rows"]) == TM.compactions_per_call(tcfg) == 2
-    assert (len(calls["doubles_level"])
-            == TM.doubles_levels_per_call(tcfg) == 3)
+    assert len(calls["compact_rows"]) == TM.compactions_per_call(tcfg) == 1
+    assert (calls["doubles_levels"]
+            == [(tcfg.k1, tcfg.k2, tcfg.k3)]
+            * TM.doubles_levels_per_call(tcfg))
+    assert TM.doubles_levels_per_call(tcfg) == 1
     assert (len(calls["doubles_final"])
             == TM.doubles_finals_per_call(tcfg) == 1)
     assert (calls["nondoubles_batch"]
-            == [tcfg.dedup] * TM.nondoubles_per_call(tcfg))
+            == [(tcfg.dedup, True)] * TM.nondoubles_per_call(tcfg))
+
+
+def test_no_batch_wide_assembly_around_the_kernels(monkeypatch):
+    """Unsharded, ``legal_afterstates_batch`` builds nothing of the
+    (B, M, 52) output's size outside its four kernel calls (no gather, no
+    ``where``, no non-doubles split): every torch op it runs between them
+    is counted, and the largest tensor any makes is a (B,)-sized
+    placement or the doubles sub-batch's inputs."""
+    from torch.overrides import TorchFunctionMode
+
+    b = 600
+    _, tcfg = _cfgs("fast")
+    rng = np.random.default_rng(61)
+    boards, players = random_positions(rng, b, "any")
+    dice = rng.integers(1, 7, (b, 2)).astype(np.int8)
+    inside, seen = [0], []
+
+    class Record(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not inside[0]:
+                for x in out if isinstance(out, tuple) else (out,):
+                    if isinstance(x, torch.Tensor):
+                        seen.append((getattr(func, "__name__", str(func)),
+                                     x.numel()))
+            return out
+
+    def kernel(module, name):
+        real = getattr(module, name)
+
+        def call(*args):
+            inside[0] += 1
+            try:
+                return real(*args)
+            finally:
+                inside[0] -= 1
+        monkeypatch.setattr(module, name, call)
+
+    for module, name in ((TC, "compact_rows"), (TD, "doubles_levels"),
+                         (TD, "doubles_final"), (TN, "nondoubles_batch")):
+        kernel(module, name)
+    vecs, mirror = tt(canonical(boards, players)), tt(players == 1)
+    with Record():
+        got = TM.legal_afterstates_batch(vecs, tt(dice), tcfg, mirror=mirror)
+    want = TM.legal_afterstates_batch(vecs, tt(dice), tcfg, mirror=mirror)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert seen and max(n for _, n in seen) <= b * 54
+    assert not [f for f, n in seen if f in ("gather", "where") and n > b]

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from mlp_ppo_2ply_p3_tpu.core import movegen as JM
+from mlp_ppo_2ply_p3_tpu.core import oracle
 from mlp_ppo_2ply_p3_tpu_torch.core import movegen as TM
 from mlp_ppo_2ply_p3_tpu_torch.ops import nondoubles as TN
 
@@ -206,3 +207,64 @@ def test_wrapper_on_cpu_and_its_checks():
     for a in bad:
         with pytest.raises(ValueError):
             TN.nondoubles_batch(*a, True)
+
+
+def _reset_batch(seed, b=600):
+    """(vecs, dice, mirror) of ``b`` games: the first b - 40 at the
+    opening position with a non-double first roll (a reset, whose rolls
+    are all non-doubles: the non-doubles capacity binds), then 32 random
+    positions and 8 game-over boards with random rolls; movers at
+    random."""
+    rng = np.random.default_rng(seed)
+    players = rng.integers(0, 2, b)
+    opening = np.repeat(oracle.initial_board()[None], b - 40, axis=0)
+    boards, _ = random_positions(rng, 32, "any")
+    vecs = canonical(np.concatenate([opening, boards]), players[:b - 8])
+    vecs = np.concatenate([vecs, np.repeat(EDGE_BOARDS["game_over"][None],
+                                           8, axis=0)])
+    dice = np.concatenate([ROLLS[rng.integers(0, 15, b - 40)],
+                           rng.integers(1, 7, (40, 2))]).astype(np.int8)
+    return vecs.astype(np.int8), dice, players == 1
+
+
+# (widths, dedup): fast() and the default widths and a width that
+# truncates the singles, the raw block and the list, each with the dedup on
+# and off
+IN_PLACE = [(name, dedup) for name in ("fast", "default", "tiny")
+            for dedup in (True, False)]
+
+
+@pytest.mark.parametrize("name,dedup", IN_PLACE)
+def test_in_place_plain_matches_jax(name, dedup):
+    """``nondoubles_place_plain`` (the in-place form's plain version, which
+    ``nondoubles_batch`` runs on the CPU) on ``legal_afterstates_batch``'s
+    own placement and doubles list equals the JAX package's
+    ``legal_afterstates_batch`` at B = 600: the slot clamp of the
+    non-doubles capacity, doubles games, game-over games, both movers."""
+    kw = dict(WIDTHS[name], dedup=dedup)
+    jcfg, tcfg = JM.MovegenConfig(**kw), TM.MovegenConfig(**kw)
+    vecs, dice, mirror = _reset_batch(17 + len(name) + dedup)
+    b = len(vecs)
+    want = JM.legal_afterstates_batch(jnp.asarray(vecs), jnp.asarray(dice),
+                                      jcfg, mirror=jnp.asarray(mirror))
+    tv, tm = tt(vecs), tt(mirror)
+    d0, d1 = (tt(dice)[:, i].to(torch.int32) for i in (0, 1))
+    is_double = d0 == d1
+    bd, bn = TM.doubles_capacity(b, tcfg), TM.nondoubles_capacity(b, tcfg)
+    (dv, dd, dm), _ = TM._compact_games((tv, d0, tm.to(torch.int8)),
+                                        is_double, bd)
+    db = TM._doubles_dispatch_batch(dv, dd, tcfg, dm > 0)
+    src, fits, _, _ = TM._placement(is_double, bd, bn)
+    got = TN.nondoubles_place_plain(
+        tv, torch.maximum(d0, d1), torch.minimum(d0, d1), tm, tcfg.k1,
+        tcfg.dedup_width, tcfg.max_moves, tcfg.dedup, (src, fits, *db))
+    for g, w, what in zip(got, want, ("boards", "n_moves", "overflow")):
+        np.testing.assert_array_equal(nn_(g), np.asarray(w),
+                                      err_msg=f"{name}: {what}")
+    clamped = ~fits & ~is_double
+    assert bool(clamped.any()) and bool(is_double.any())
+    assert bool((src[clamped] == src[clamped][0]).all())
+    assert int(got[1][clamped].abs().sum()) == 0
+    assert bool(got[2][clamped].all())
+    assert int(got[1][-8:].abs().sum()) == 0 and int(got[1].sum()) > 0
+    assert bool(mirror.any()) and not bool(mirror.all())

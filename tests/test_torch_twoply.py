@@ -165,8 +165,8 @@ def test_launches_per_decision(monkeypatch, width, chunk):
                         counted("compact", TC.compact_rows_plain))
     monkeypatch.setattr(TC, "dedup_compact_rows",
                         counted("dedup", TC.dedup_compact_rows_plain))
-    monkeypatch.setattr(TD, "doubles_level",
-                        counted("level", TD.doubles_level_plain))
+    monkeypatch.setattr(TD, "doubles_levels",
+                        counted("level", TD.doubles_levels_plain))
     monkeypatch.setattr(TN, "nondoubles_batch",
                         counted("nondoubles", TN.nondoubles_batch_plain))
     monkeypatch.setattr(TD, "doubles_final",
@@ -176,12 +176,12 @@ def test_launches_per_decision(monkeypatch, width, chunk):
     TT.twoply_actions_values(model, ts, scfg)
     assert tuple(calls.values()) == TT.launches_per_decision(2, scfg)
     # B=256 at the JAX package's chunks: 1 x 15 non-doubles launches, 4 x
-    # 6 x 3 doubles levels and 4 x 6 final ones; at the port's, the
-    # doubles leg is one chunk: 6 x 3 levels and 6 final ones; no
-    # compaction and no separate dedup
+    # 6 fused doubles levels (L1-L3 in one launch) and 4 x 6 final ones; at
+    # the port's, the doubles leg is one chunk: 6 fused levels and 6 final
+    # ones; no compaction and no separate dedup
     jax_chunks = SearchConfig(game_chunk=2048, dbl_game_chunk=512)
-    assert TT.launches_per_decision(256, jax_chunks) == (0, 0, 72, 15, 24)
-    assert TT.launches_per_decision(256, SearchConfig()) == (0, 0, 18, 15, 6)
+    assert TT.launches_per_decision(256, jax_chunks) == (0, 0, 24, 15, 24)
+    assert TT.launches_per_decision(256, SearchConfig()) == (0, 0, 6, 15, 6)
 
 
 def test_twoply_matches_bruteforce():
