@@ -31,12 +31,16 @@ Phases (any failure exits non-zero and prints no result line):
    whole batches (random doubles rows to copy, both capacities binding,
    at B=4096, pod's 16384 and truncating widths); ``doubles_final`` on
    random L1-L3 frontiers with counts 0, within and above their widths
-   (L4 empty, L3 wider than M), and on the edge boards' real levels.
+   (L4 empty, L3 wider than M), also in place (each slot's list at a
+   random row of a wider output, a fifth of the slots empty, the whole
+   output compared, also at an odd row offset), and on the edge boards'
+   real levels.
 4. Movegen on the card at B=4096 on boards from a few env steps: the
    kernel path is bit-exact against the plain-PyTorch path on the card
    and against the CPU.  Every kernel call of one movegen call (the
-   doubles split, the fused doubles levels, the final level, and the
-   non-doubles kernel in place over the whole batch) is captured, checked
+   doubles split, the fused doubles levels, the final level writing each
+   doubles game's list into the batch's output, and the non-doubles
+   kernel in place over the rest of it) is captured, checked
    against the plain version and timed (CUDA events) beside its bound,
    and ``dedup_compact_rows``, off the path, at the block that the plain
    non-doubles batch dedups.  The whole call is
@@ -138,6 +142,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import inspect
 import json
 import math
 import os
@@ -270,24 +276,32 @@ def nondoubles_work(torch, compaction, args):
     slot predicate (27 a die: both orders' first die and the second die of
     every kept single), 2 for each byte of a listed candidate, and the
     dedup's key compares (``dedup_work``) on the block it sees.  In place
-    also each game's placement (5 bytes) and each doubles game's row of
-    the doubles list up to its last nonzero row (rows past it are zeros,
-    which the list has anyway) with its count and flag; the rules' work is
-    counted once for each game whose list the batch carries."""
+    each game's placement (5 bytes) in; a doubles game's list is
+    ``doubles_final``'s, so a doubles game reads its off count, its slot's
+    row, count and flag (9 bytes) and writes its count and flag alone,
+    but for the games past the doubles capacity, which write their row,
+    copied from the output's row of the last fitting doubles game up to
+    its last nonzero row (a later row is zero, and the row has zeros
+    anyway); the rules' work is counted once for each game whose list the
+    batch carries."""
     from mlp_ppo_2ply_p3_tpu_torch.ops import doubles, nondoubles
 
     vecs, d_hi, d_lo, mirror, k1, kd, m, dedup = args[:8]
-    place = args[8] if len(args) > 8 else None
+    place = given("nondoubles", args, "place")
     g = vecs.shape[0]
     nbytes = g * (52 + 4 + 4 + 1) + g * m * 52 + 5 * g
     if place is not None:
-        src, _, db_out, _, _ = place
+        out = given("nondoubles", args, "out")
+        src, fits, dst, _, _ = place
         dbl = src < 0
-        rows = torch.arange(1, m + 1, device=db_out.device)
-        filled = torch.where((db_out != 0).any(dim=2), rows, 0)
-        width = filled.amax(dim=1) if m else filled.sum(dim=1)
-        read = int(width[(-1 - src[dbl]).long()].sum())
-        nbytes += 5 * g + read * 52 + 5 * int(dbl.sum())
+        past = dbl & ~fits.bool()
+        from_row = dst.long()[(-1 - src[past]).long()]
+        rows = torch.arange(1, m + 1, device=out.device)
+        filled = torch.where((out[from_row] != 0).any(dim=2), rows, 0)
+        read = int((filled.amax(dim=1) if m else filled.sum(dim=1)).sum())
+        n_dbl, n_past = int(dbl.sum()), int(past.sum())
+        nbytes = (5 * g + (g - n_dbl) * (52 + 4 + 4 + 1) + n_dbl * (1 + 9)
+                  + (g - n_dbl + n_past) * m * 52 + read * 52 + 5 * g)
         keep = torch.unique(src[~dbl]).long()
         vecs, d_hi, d_lo, mirror = (x[keep] for x in (vecs, d_hi, d_lo,
                                                       mirror))
@@ -303,25 +317,29 @@ def nondoubles_work(torch, compaction, args):
                     + compares)
 
 
-def final_work(doubles, args):
+def final_work(torch, doubles, args):
     """(bytes, integer operations) that the final doubles level must
-    spend: the fourth level's (as ``levels_work`` counts a level: the
-    valid L3 rows and ranks, 8 operations a slot predicate, 2 a byte of a
-    landing row), each
-    game's L1 and L2 counts, and the rows of the level that stands in
-    where L4 is empty; the (G, M, 52) list, the counts and the flags
-    out."""
-    f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m = args
+    spend on each slot that holds a game: the fourth level's (as
+    ``levels_work`` counts a level: the valid L3 rows and ranks, 8
+    operations a slot predicate, 2 a byte of a landing row), the slot's
+    L1, L2 and L3 counts, die and mirror flag, and the rows of the level
+    that stands in where L4 is empty, in; its (M, 52) list, its count and
+    its flag out.  In place (``dst`` given) every slot reads its row of
+    ``dst``, and an empty slot (-1) writes its count and flag alone."""
+    f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m = args[:10]
+    dst = given("doubles_final", args, "dst")
     g, k3, _ = f3b.shape
-    rows3 = int(n3.clamp(0, k3).sum())
+    held = torch.ones_like(n3, dtype=torch.bool) if dst is None else dst >= 0
+    rows3 = int((n3.clamp(0, k3) * held).sum())
     n4 = doubles.doubles_level_plain(f3b, f3r, n3, die, mirror, m)[2]
-    landed = int(n4.clamp(max=m).sum())
-    empty = n4 == 0
+    landed = int((n4.clamp(max=m) * held).sum())
+    empty = (n4 == 0) & held
     width = (f3b.shape[1] * (n3 > 0) + f2b.shape[1] * ((n3 <= 0) & (n2 > 0))
              + f1b.shape[1] * ((n3 <= 0) & (n2 <= 0))).clamp(max=m)
     copied = int(width[empty].sum())
-    nbytes = (rows3 * 53 + g * (4 * 4 + 1) + copied * 52
-              + g * m * 52 + 5 * g)
+    lists = int(held.sum())
+    nbytes = (rows3 * 53 + lists * (4 * 4 + 1) + copied * 52
+              + lists * m * 52 + 5 * g + (0 if dst is None else 4 * g))
     return nbytes, rows3 * 27 * 8 + landed * 52 * 2
 
 
@@ -329,24 +347,56 @@ def same(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
 
 
-def measure(torch, fn, plain_fn, args, nbytes, ops=0, k_out=None):
+def _param_index(name, param):
+    """The position of kernel ``name``'s wrapper's parameter ``param``
+    (read from its plain version's signature, which a Capture never
+    swaps), or None where it has none."""
+    names = list(inspect.signature(wrapper(name, plain=True)).parameters)
+    return names.index(param) if param in names else None
+
+
+def given(name, args, param):
+    """The argument ``param`` of a captured call of kernel ``name``'s
+    wrapper; None where the call did not give it."""
+    at = _param_index(name, param)
+    return args[at] if at is not None and at < len(args) else None
+
+
+def out_index(name, args):
+    """Where an in-place call of kernel ``name`` holds the output that it
+    writes into (its wrapper's ``out``, given); None for every other
+    call."""
+    return (_param_index(name, "out") if given(name, args, "out") is not None
+            else None)
+
+
+def measure(torch, fn, plain_fn, args, nbytes, ops=0, k_out=None, at=None):
     """Check fn against plain_fn on args (every output bit for bit), then
     time both in turns (plain, kernel, kernel, plain) beside the
-    bound.  ``k_out``: the output width (by default the last argument)."""
+    bound.  ``k_out``: the output width (by default the last argument).
+    ``at``: where an in-place call holds its output (``out_index``); it
+    writes into a copy of its own."""
     k_out = args[-1] if k_out is None else k_out
-    got = fn(*args)
-    want = plain_fn(*args)
+
+    def fresh():
+        return (args if at is None
+                else (*args[:at], args[at].clone(), *args[at + 1:]))
+
+    got = fn(*fresh())
+    want = plain_fn(*fresh())
     torch.cuda.synchronize()
     shape = f"{tuple(args[0].shape)}->{k_out}"
     check(all(same(g, w) for g, w in zip(got, want)),
           f"kernel != plain on captured {shape}")
     err = max(int((g.int() - w.int()).abs().max()) if g.numel() else 0
               for g, w in zip(got, want))
+    del got, want
     iters = 20
-    plain = time_ms(lambda: plain_fn(*args), iters)
-    kern = time_ms(lambda: fn(*args), iters)
-    kern2 = time_ms(lambda: fn(*args), iters)
-    plain2 = time_ms(lambda: plain_fn(*args), iters)
+    kargs, pargs = fresh(), fresh()
+    plain = time_ms(lambda: plain_fn(*pargs), iters)
+    kern = time_ms(lambda: fn(*kargs), iters)
+    kern2 = time_ms(lambda: fn(*kargs), iters)
+    plain2 = time_ms(lambda: plain_fn(*pargs), iters)
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_OPS_PER_S * 1e3
     return {
@@ -380,11 +430,13 @@ def measure_calls(torch, calls):
         "dedup_compact_rows": lambda a: dedup_work(torch, compaction, *a),
         "doubles_level": lambda a: levels_work(doubles, a),
         "nondoubles": lambda a: nondoubles_work(torch, compaction, a),
-        "doubles_final": lambda a: final_work(doubles, a),
+        "doubles_final": lambda a: final_work(torch, doubles, a),
     }
+    k_out = {"nondoubles": 6, "doubles_final": 9}
     return {name: [measure(torch, wrapper(name), wrapper(name, plain=True),
                            a, *work[name](a),
-                           k_out=a[6] if name == "nondoubles" else None)
+                           k_out=a[k_out[name]] if name in k_out else None,
+                           at=out_index(name, a))
                    for a in calls.get(name, ())]
             for name in KERNELS}
 
@@ -413,6 +465,7 @@ class Capture:
         self.calls = {name: [] for name in KERNELS}
 
     def _wrap(self, kept, fn):
+        @functools.wraps(fn)
         def wrapped(*args):
             if not self.distinct or _call_key(args) not in {
                     _call_key(a) for a in kept}:
@@ -694,22 +747,22 @@ def nondoubles_inputs(torch, dev, rng, g):
 
 def place_inputs(torch, dev, rng, g, m):
     """A random in-place batch of ``g`` games: ``nondoubles_inputs``'s
-    games, a fifth of them doubles games, whose rows are random rows of a
-    random doubles list (random counts and flags); both capacities below
-    their kind's count, so that both slot clamps bind.  Returns
-    ((vecs, d_hi, d_lo, mirror), place)."""
+    games, a fifth of them doubles games, whose rows of the output hold
+    random lists (as ``doubles_final`` leaves them) with random counts and
+    flags; both capacities below their kind's count, so that both slot
+    clamps bind.  Returns ((vecs, d_hi, d_lo, mirror), place, out)."""
     from mlp_ppo_2ply_p3_tpu_torch.core import movegen
 
     args = nondoubles_inputs(torch, dev, rng, g)
     dbl = torch.rand((g,), generator=rng, device=dev) < 0.2
     gd, bn = max(1, g // 7), max(1, g * 3 // 4)
-    src, fits, _, _ = movegen._placement(dbl, gd, bn)
-    db_out = torch.randint(-128, 128, (gd, m, 52), generator=rng, device=dev,
-                           dtype=torch.int8)
+    src, fits, _, _, dst = movegen._placement(dbl, gd, bn)
+    out = torch.randint(-128, 128, (g, m, 52), generator=rng, device=dev,
+                        dtype=torch.int8)
     db_n = torch.randint(0, m + 1, (gd,), generator=rng, device=dev,
                          dtype=torch.int32)
     db_of = torch.rand((gd,), generator=rng, device=dev) < 0.3
-    return args, (src, fits, db_out, db_n, db_of)
+    return args, (src, fits, dst, db_n, db_of), out
 
 
 def nondoubles_cases(torch, nondoubles, dev, cases=None):
@@ -738,18 +791,26 @@ def nondoubles_cases(torch, nondoubles, dev, cases=None):
     for g, k1, kd, m, dedup, in_place in (default if cases is None
                                           else cases):
         if in_place:
-            args, place = place_inputs(torch, dev, rng, g, m)
+            args, place, lists = place_inputs(torch, dev, rng, g, m)
             u8 = (*place[:4], place[4].to(torch.uint8))
         else:
             args, place = nondoubles_inputs(torch, dev, rng, g), None
-            u8 = None
+            lists = u8 = None
+
+        def fresh():
+            return None if lists is None else lists.clone()
+
         want = nondoubles.nondoubles_batch_plain(*args, k1, kd, m, dedup,
-                                                 place)
+                                                 place, fresh())
+        if in_place:   # the doubles games past the capacity copy a row
+            check(bool((~place[1] & (place[0] < 0)).any()),
+                  f"no doubles game past the capacity at G={g}")
         raw = torch.zeros(g * 52 + 3, dtype=torch.int8, device=dev)
         raw[3:] = args[0].reshape(-1)
         odd = (raw[3:].view(g, 52), *args[1:3], args[3].to(torch.uint8))
         for variant, pl in ((args, place), (odd, u8)):
-            got = nondoubles.nondoubles_batch(*variant, k1, kd, m, dedup, pl)
+            got = nondoubles.nondoubles_batch(*variant, k1, kd, m, dedup, pl,
+                                              fresh())
             torch.cuda.synchronize()
             check(all(same(a, b) for a, b in zip(got, want)),
                   f"nondoubles != plain at G={g}, widths {(k1, kd, m)}, "
@@ -777,28 +838,37 @@ def nondoubles_cases(torch, nondoubles, dev, cases=None):
 
 def final_cases(torch, doubles, dev, cases=None):
     """doubles_final against its plain version (list, counts and flags,
-    bit for bit) at ``cases`` of (G, k1, k2, k3, M) (by default:
+    bit for bit) at ``cases`` of (G, k1, k2, k3, M, in place) (by default:
     train4096's doubles sub-batch at ``fast()`` and the default widths,
-    the 2-ply reply widths, the parity widths, L3 wider than M, widths
-    that the counts exceed, M = 0): L3 from ``random_frontier`` with a
-    third of its counts 0, random L1 and L2 rows that the kernel copies
-    as they are, with counts 0, within and above their widths; each also
-    with L3 at an odd address and uint8 mirror flags.  Then the edge
-    boards through three plain levels, every die, both mirrors.  Returns
-    the cases checked."""
+    pod's, the 2-ply reply widths, the parity widths, L3 wider than M,
+    widths that the counts exceed, M = 0; the main-path ones also in
+    place): L3 from ``random_frontier`` with a third of its counts 0,
+    random L1 and L2 rows that the kernel copies as they are, with counts
+    0, within and above their widths; each also with L3 at an odd address
+    and uint8 mirror flags.  In place, slot g's list goes to row dst[g] of
+    a random (B, M, 52) output of a third more rows, dst a random
+    permutation with a fifth of the slots empty (-1): the whole output is
+    compared (no other row may change), also at an odd row offset.  Then
+    the edge boards through three plain levels, every die, both mirrors.
+    Returns the cases checked."""
     rng = torch.Generator(device=dev)
     rng.manual_seed(9)
-    default = [(875, 16, 80, 192, 256), (1088, 16, 96, 224, 256),
-               (512, 16, 128, 256, 512), (64, 16, 128, 512, 500),
-               (300, 16, 96, 300, 100), (200, 5, 7, 9, 30),
-               (40, 16, 30, 40, 0)]
+    default = [(875, 16, 80, 192, 256, False), (875, 16, 80, 192, 256, True),
+               (1088, 16, 96, 224, 256, False),
+               (1088, 16, 96, 224, 256, True),
+               (4160, 16, 96, 224, 256, True),
+               (512, 16, 128, 256, 512, False), (64, 16, 128, 512, 500, False),
+               (64, 16, 128, 512, 500, True),
+               (300, 16, 96, 300, 100, False), (300, 16, 96, 300, 100, True),
+               (200, 5, 7, 9, 30, False), (200, 5, 7, 9, 30, True),
+               (40, 16, 30, 40, 0, False), (40, 16, 30, 40, 0, True)]
 
     def ints(lo, hi, *shape, dtype=torch.int32):
         return torch.randint(lo, hi, shape, generator=rng, device=dev,
                              dtype=dtype)
 
     out = []
-    for g, k1, k2, k3, m in (default if cases is None else cases):
+    for g, k1, k2, k3, m, in_place in (default if cases is None else cases):
         f3b, f3r, n3, die, mirror = random_frontier(torch, dev, rng, g, k3,
                                                     False)
         n3 = torch.where(ints(0, 3, g) == 0, 0, n3).to(torch.int32)
@@ -806,18 +876,36 @@ def final_cases(torch, doubles, dev, cases=None):
         args = (ints(-2, 16, g, k1, 52, dtype=torch.int8), ints(0, k1 + 3, g),
                 ints(-2, 16, g, k2, 52, dtype=torch.int8), n2.contiguous(),
                 f3b, f3r, n3.contiguous(), die, mirror)
-        want = doubles.doubles_final_plain(*args, m)
+        base = dst = None
+        if in_place:
+            b = g + g // 3
+            rows = torch.randperm(b, generator=rng, device=dev)[:g]
+            empty = torch.rand((g,), generator=rng, device=dev) < 0.2
+            dst = torch.where(empty, -1, rows).to(torch.int32)
+            base = ints(-128, 128, b, m, 52, dtype=torch.int8)
+
+        def place(shift=0):
+            """A copy of the output, ``shift`` rows into a buffer."""
+            if base is None:
+                return ()
+            buf = torch.empty((b + shift, m, 52), dtype=torch.int8,
+                              device=dev)
+            buf[shift:] = base
+            return buf[shift:], dst
+
+        want = doubles.doubles_final_plain(*args, m, *place())
         raw = torch.zeros(f3b.numel() + 3, dtype=torch.int8, device=dev)
         raw[3:] = f3b.reshape(-1)
         odd = (*args[:4], raw[3:].view(f3b.shape), *args[5:8],
                mirror.to(torch.uint8))
-        for variant in (args, odd):
-            got = doubles.doubles_final(*variant, m)
+        for variant, shift in ((args, 0), (odd, 1)):
+            got = doubles.doubles_final(*variant, m, *place(shift))
             torch.cuda.synchronize()
-            check(all(same(a, b) for a, b in zip(got, want)),
-                  f"doubles_final != plain at {(g, k1, k2, k3)} -> {m}")
+            check(all(same(a, b_) for a, b_ in zip(got, want)),
+                  f"doubles_final != plain at {(g, k1, k2, k3)} -> {m}, "
+                  f"in place {in_place}")
         out.append({"games": g, "widths": [k1, k2, k3], "k_out": m,
-                    "exact": True})
+                    "in_place": in_place, "exact": True})
     if cases is None:
         edges = edge_boards(torch, dev)
         vecs = edges.repeat_interleave(12, dim=0)
@@ -966,7 +1054,8 @@ def movegen_batches_phase(torch, compaction, movegen, perf_twoply, runs,
             for a in calls["nondoubles"]])
         finals = final_cases(torch, doubles, dev, [
             (a[4].shape[0], a[0].shape[1], a[2].shape[1], a[4].shape[1],
-             a[-1]) for a in calls["doubles_final"]])
+             a[9], out_index("doubles_final", a) is not None)
+            for a in calls["doubles_final"]])
         out.append({"label": label, "batch": batch, "calls": rows,
                     "random_flag_cases": len(flags),
                     "random_input_cases": len(levels) + len(nds)

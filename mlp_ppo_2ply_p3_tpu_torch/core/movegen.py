@@ -18,23 +18,26 @@ no host synchronisation and truncates exactly where the JAX package does.
   so levels are plain stable compactions.  The final list is the deepest
   non-empty level.
 
-``legal_afterstates_batch`` makes four kernel calls: one
+``legal_afterstates_batch`` allocates its (B, M, 52) output once and makes
+four kernel calls that write it in place: one
 ``ops.compaction.compact_rows`` that splits off the doubles sub-batch; one
-``ops.doubles.doubles_levels`` (its first three frontier levels) and one
-``ops.doubles.doubles_final`` (the fourth level, which also writes the
-deepest non-empty level as the list); and one
-``ops.nondoubles.nondoubles_batch`` in place over the whole batch, which
-writes each non-double game's list at its own row of the (B, M, 52) output
-(both die orders, the emission and max-submove rules, the dedup and the
-compaction; JAX ``_nondoubles_candidates`` and ``_nondoubles_batch``) and
-copies each doubles game's row from the sub-batch's list.  So the
-non-doubles sub-batch of the JAX package is never built, and no (B, M, 52)
-gather or ``where`` runs around the kernels; the placement (which game
-carries which list) is a few (B,) integer ops on the device.  Every
-compaction of the ``exact_order`` doubles path goes through
-``compact_rows`` as well.  Each is a CUDA kernel on the card and its plain
-PyTorch version on the CPU.  Output lists, counts and overflow flags are
-bit-identical to the JAX package's.
+``ops.doubles.doubles_levels`` (its first three frontier levels); one
+``ops.doubles.doubles_final`` (the fourth level, which writes the deepest
+non-empty level as each fitting doubles game's list, straight into that
+game's row of the output); and one ``ops.nondoubles.nondoubles_batch`` in
+place over the whole batch, which writes each non-double game's list at
+its own row (both die orders, the emission and max-submove rules, the
+dedup and the compaction; JAX ``_nondoubles_candidates`` and
+``_nondoubles_batch``), copies the last fitting doubles game's row to the
+doubles games past the sub-batch's capacity, and sets every count and
+flag.  So neither sub-batch's list of the JAX package is ever built, and
+no (B, M, 52) gather or ``where`` runs around the kernels; the placement
+(which game carries which list, and which row each doubles slot fills)
+is a few (B,) integer ops on the device.  Every compaction of the
+``exact_order`` doubles path goes through ``compact_rows`` as well.  Each
+is a CUDA kernel on the card and its plain PyTorch version on the CPU.
+Output lists, counts and overflow flags are bit-identical to the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -172,17 +175,21 @@ def _nondoubles_batch(vecs, d_hi, d_lo, cfg: MovegenConfig, mirror):
 # --- doubles ----------------------------------------------------------------
 
 
-def _doubles_batch(vecs, die, cfg: MovegenConfig, mirror):
+def _doubles_batch(vecs, die, cfg: MovegenConfig, mirror, out=None,
+                   dst=None):
     """(G,)-batched depth-4 frontier expansion with non-decreasing-origin
     canonicalization and no dedup (distinct non-decreasing origin
     sequences give distinct boards): one ``doubles.doubles_levels`` call,
     L1 to L3 (each level's expansion, rank filter and compaction); then
     one ``doubles.doubles_final``, the fourth level, which writes the
-    deepest non-empty level as the list with its count and overflow."""
+    deepest non-empty level as the list with its count and overflow:
+    into a (G, M, 52) tensor of its own, or, given ``out`` and ``dst``,
+    slot g's list at row ``dst[g]`` of ``out``."""
     die, mirror = die.contiguous(), mirror.contiguous()
     levels = doubles.doubles_levels(vecs.contiguous(), die, mirror, cfg.k1,
                                     cfg.k2, cfg.k3)
-    return doubles.doubles_final(*levels, die, mirror, cfg.max_moves)
+    return doubles.doubles_final(*levels, die, mirror, cfg.max_moves, out,
+                                 dst)
 
 
 def _doubles_exact(vecs, die, cfg: MovegenConfig, mirror):
@@ -226,10 +233,27 @@ def _doubles_exact(vecs, die, cfg: MovegenConfig, mirror):
     return out, torch.clamp(n, max=m), overflow
 
 
-def _doubles_dispatch_batch(vecs, die, cfg: MovegenConfig, mirror):
-    if cfg.exact_order:
-        return _doubles_exact(vecs, die, cfg, mirror)
-    return _doubles_batch(vecs, die, cfg, mirror)
+def _doubles_dispatch_batch(vecs, die, cfg: MovegenConfig, mirror,
+                            out=None, dst=None):
+    """The doubles sub-batch's lists, counts and flags as
+    ``doubles.doubles_final`` gives them, in place given ``out`` and
+    ``dst``: the kernels' frontier, or under ``exact_order`` the
+    reference-order enumeration."""
+    if not cfg.exact_order:
+        return _doubles_batch(vecs, die, cfg, mirror, out, dst)
+    lists, n, of = _doubles_exact(vecs, die, cfg, mirror)
+    if dst is None:
+        return lists, n, of
+    # one index_copy_ and no host sync: the empty slots' lists all go to
+    # the first row that no slot fills, which the caller writes afterwards
+    # (an empty slot leaves such a row, as the slots are at most the rows)
+    bsz = out.shape[0]
+    filled = dst >= 0
+    taken = torch.zeros((bsz + 1,), dtype=torch.bool, device=out.device)
+    taken.index_fill_(0, torch.where(filled, dst, bsz).long(), True)
+    spare = torch.logical_not(taken[:bsz]).to(I32).argmax().to(I32)
+    out.index_copy_(0, torch.where(filled, dst, spare).long(), lists)
+    return out, torch.where(filled, n, 0), of & filled
 
 
 # --- public entry -----------------------------------------------------------
@@ -299,24 +323,30 @@ def _placement(is_double, bd: int, bn: int):
     carries the list of its kind's last fitting game, slot capacity - 1
     (the slot clamp).  Returns (src (B,) int32: -1 - the doubles game's
     slot, or the game whose non-double list a non-double game carries;
-    fits (B,) bool; pos_d, pos_n: each game's 1-indexed position among its
-    kind)."""
-    not_double = torch.logical_not(is_double)
-    pos_d = torch.cumsum(is_double.to(I32), 0, dtype=I32)
-    pos_n = torch.cumsum(not_double.to(I32), 0, dtype=I32)
-    slot_d = torch.clamp(pos_d - 1, 0, bd - 1)
-    fits_n = pos_n <= bn
+    fits (B,) bool; pos_d: each game's 1-indexed position among the
+    doubles games; ord_n: its 0-indexed one among the non-doubles; dst
+    (bd,) int32: the game whose row each doubles slot's list fills, -1 for
+    an empty slot).  Each line is one small kernel on the card, so they
+    are few."""
     bsz = is_double.shape[0]
-    # the bn-th non-double: pos_n is non-decreasing
-    last_n = torch.clamp((pos_n < bn).sum(dtype=I32), max=bsz - 1)
+    pos_d = torch.cumsum(is_double, 0, dtype=I32)
     own = torch.arange(bsz, dtype=I32, device=is_double.device)
-    src = torch.where(is_double, -1 - slot_d,
+    ord_n = own - pos_d
+    fits_n = ord_n < bn
+    # the bn-th non-double: ord_n is non-decreasing
+    last_n = torch.searchsorted(ord_n, bn - 1, out_int32=True).clamp(
+        max=bsz - 1)
+    src = torch.where(is_double, torch.clamp(-pos_d, -bd, -1),
                       torch.where(fits_n, own, last_n))
     fits = torch.where(is_double, pos_d <= bd, fits_n)
-    return src, fits, pos_d, pos_n
+    # slot s holds the (s + 1)-th doubles game, if there is one
+    slots = torch.arange(1, bd + 1, dtype=I32, device=is_double.device)
+    dst = torch.searchsorted(pos_d, slots, out_int32=True)
+    dst = torch.where(dst < bsz, dst, -1)
+    return src, fits, pos_d, ord_n, dst
 
 
-def _global_fit(world, cfg, pos_d, pos_n, db_out, out):
+def _global_fit(world, cfg, pos_d, ord_n, dst, out):
     """The sub-batch capacities of the global batch, for a shard of it
     (data parallelism, ``world`` a ``parallel.mesh.World``): which of the
     shard's doubles and non-doubles games fit their global sub-batch's
@@ -328,30 +358,30 @@ def _global_fit(world, cfg, pos_d, pos_n, db_out, out):
     (the slot clamp).  It binds at a reset, whose first rolls are all
     non-doubles.  Here the counts of every shard are gathered, each game
     is placed by its global position, and the last game's list is
-    gathered from the shard that holds it: a row of the doubles
-    sub-batch's list ``db_out``, or the row of the non-double game in the
-    shard's in-place output ``out``.  Returns (fits_d, fits_n, fill_d,
-    fill_n)."""
+    gathered from the shard that holds it: the row of the shard's in-place
+    output ``out`` that holds that doubles slot's list (``dst``) or that
+    non-double game's.  Returns (fits_d, fits_n, fill_d, fill_n)."""
     gsz = pos_d.shape[0] * world.size
     caps = torch.tensor([doubles_capacity(gsz, cfg),
                          nondoubles_capacity(gsz, cfg)], dtype=I32,
                         device=pos_d.device)
-    every = mesh.gather_batch(torch.stack([pos_d[-1], pos_n[-1]])[None],
+    every = mesh.gather_batch(torch.stack([pos_d[-1], ord_n[-1] + 1])[None],
                               world)                     # (W, 2) counts
     before = torch.cumsum(every, 0, dtype=I32) - every   # earlier shards'
     last = caps - 1 - before          # the last fitting game's local slot
     owner = ((last >= 0) & (last < every)).to(I32).argmax(0)
     mine = last[world.rank]
-    # the shard's game at non-doubles slot mine[1]; index_select keeps the
-    # slots on the device (no host sync)
-    game_n = (pos_n <= mine[1]).sum().clamp(max=out.shape[0] - 1)
-    slot_d = mine[0].long().clamp(0, db_out.shape[0] - 1)
-    cand = torch.cat([db_out.index_select(0, slot_d.reshape(1)),
-                      out.index_select(0, game_n.reshape(1))])
+    # the shard's games at doubles slot mine[0] and non-doubles slot
+    # mine[1]; index_select keeps the slots on the device (no host sync)
+    slot_d = mine[0].long().clamp(0, dst.shape[0] - 1)
+    game_d = dst.index_select(0, slot_d.reshape(1)).clamp(min=0)
+    game_n = (ord_n < mine[1]).sum().clamp(max=out.shape[0] - 1)
+    cand = out.index_select(0, torch.cat([game_d.long(),
+                                          game_n.reshape(1)]))
     cands = mesh.gather_batch(cand[None], world)         # (W, 2, M, 52)
     fill = cands[owner, torch.arange(2, device=owner.device)]
     first = before[world.rank]
-    return (pos_d + first[0] <= caps[0], pos_n + first[1] <= caps[1],
+    return (pos_d + first[0] <= caps[0], ord_n + first[1] < caps[1],
             fill[0], fill[1])
 
 
@@ -359,11 +389,14 @@ def legal_afterstates_batch(vecs, dice, cfg: MovegenConfig = MovegenConfig(),
                             mirror=None, world=None):
     """Batched legal-move enumeration with doubles partitioning: doubles
     games are stable-compacted into a ``doubles_capacity(B)`` sub-batch and
-    expanded there; one in-place ``nondoubles_batch`` then lists every
-    non-double game at its own row (the first ``nondoubles_capacity(B)``
-    of them; the rest carry the last fitting one's list, as the JAX
-    package's sub-batch and gather give) and copies every doubles game's
-    row from the sub-batch's list.  All shapes static, no host sync.
+    expanded there, and ``doubles_final`` writes each fitting doubles
+    game's list straight into its row of the (B, M, 52) output; one
+    in-place ``nondoubles_batch`` then lists every non-double game at its
+    own row of the same output (the first ``nondoubles_capacity(B)`` of
+    them; the rest carry the last fitting one's list, as the JAX package's
+    sub-batch and gather give), copies the last fitting doubles game's row
+    to the doubles games past the capacity, and sets every count and
+    flag.  All shapes static, no host sync.
 
     Args:
       vecs:   (B, 52) int8 canonical boards (current player to move).
@@ -393,19 +426,21 @@ def legal_afterstates_batch(vecs, dice, cfg: MovegenConfig = MovegenConfig(),
     d_hi, d_lo = torch.maximum(d0, d1), torch.minimum(d0, d1)
 
     bd = doubles_capacity(bsz, cfg)
-    (dvecs, ddie, dmir), _ = _compact_games((vecs, d0, mirror.to(I8)),
-                                            is_double, bd)
-    db_out, db_n, db_of = _doubles_dispatch_batch(dvecs, ddie, cfg, dmir > 0)
-
     bn = bsz if world is not None else nondoubles_capacity(bsz, cfg)
-    src, fits, pos_d, pos_n = _placement(is_double, bd, bn)
+    src, fits, pos_d, ord_n, dst = _placement(is_double, bd, bn)
+    mir8 = mirror.view(I8) if mirror.dtype == torch.bool else mirror.to(I8)
+    (dvecs, ddie, dmir), _ = _compact_games((vecs, d0, mir8), is_double, bd)
+    out = torch.empty((bsz, cfg.max_moves, B.VEC), dtype=I8,
+                      device=vecs.device)
+    _, db_n, db_of = _doubles_dispatch_batch(dvecs, ddie, cfg, dmir > 0,
+                                             out, dst)
     out, n, of = nondoubles.nondoubles_batch(
         vecs.contiguous(), d_hi, d_lo, mirror.contiguous(), cfg.k1,
         cfg.dedup_width, cfg.max_moves, cfg.dedup,
-        (src, fits, db_out, db_n, db_of))
+        (src, fits, dst, db_n, db_of), out)
     if world is not None:
         g_fits_d, g_fits_n, fill_d, fill_n = _global_fit(
-            world, cfg, pos_d, pos_n, db_out, out)
+            world, cfg, pos_d, ord_n, dst, out)
         keep = torch.where(is_double, (pos_d <= bd) & g_fits_d, g_fits_n)
         fill = torch.where(is_double[:, None, None], fill_d, fill_n)
         out = torch.where(keep[:, None, None], out, fill)

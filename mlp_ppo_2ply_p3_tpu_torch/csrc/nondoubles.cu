@@ -30,20 +30,24 @@
 //      (raw > kd) | (unique > M).  No dedup: the first M raw candidates,
 //      n = min(raw, M), overflow = raw > M.
 //
-// In place, with src (G,) int32, fits (G,) uint8 and the doubles sub-batch's
-// list db_out (Gd, M, 52), db_n (Gd,) int32, db_of (Gd,) uint8: src[g] >= 0
+// In place, with src (G,) int32, fits (G,) uint8, and of the doubles
+// sub-batch dst (Gd,) int32, db_n (Gd,) int32 and db_of (Gd,) uint8, into an
+// out that doubles_final has written the doubles games' rows of: src[g] >= 0
 // is a non-double game, whose row is the list of game src[g] (itself, or the
 // last non-double that fits the sub-batch's capacity); src[g] < 0 a doubles
-// game, whose row is db_out's row -1 - src[g] with its count and flag.  A game
-// that does not fit gets n = 0 and the flag; a game whose mover has borne
-// off 15 checkers gets n = 0.  Without src, game g lists its own moves.
+// game of slot s = -1 - src[g], whose row is already there, with count
+// db_n[s] and flag db_of[s].  A game that does not fit gets n = 0 and the
+// flag, and a doubles one the row dst[s] of out (the last fitting doubles
+// game's: s is then the last slot); a game whose mover has borne off 15
+// checkers gets n = 0.  Without src, game g lists its own moves.
 //
 // The rules (slot predicate, afterstate, scan order) are board.cuh's.
 //
 // What bounds it on this card: bytes.  In place the function must read 61
-// bytes a game and each doubles game's row of the doubles list, and write the
-// (B, M, 52) list, zeros included: 54.5 MB at B=4096 (M=256), 16 us at 3.35
-// TB/s.  The list is almost all zero tail (a game has about 20 moves of
+// bytes a non-double game and 10 a doubles game, and write the non-double
+// games' rows of the (B, M, 52) list, zeros included, and every count and
+// flag: about 40 MB at B=4096 (M=256), 12 us at 3.35 TB/s.  A doubles game
+// past the doubles capacity also reads and writes a row.  The list is almost all zero tail (a game has about 20 moves of
 // 256), so the stores of one game's tail have to overlap the rules of the
 // others.  What the design does about it:
 //
@@ -51,8 +55,9 @@
 //   block barrier, and a warp's finished stores never wait for another game.
 //   A game's shared memory is small (its board, the items and rows of its
 //   kept singles, and 8 bytes a listed candidate: 4.2 KB at `fast`, 16.6 KB
-//   a block); 61 registers, no spills, so 8 blocks an SM and every game of a
-//   B=4096 batch resident at once.
+//   a block); 72 registers, no spills, so 7 blocks an SM and 3,696 games
+//   resident at once (a doubles game's branch is a function of its own:
+//   inlined, it made the compiler spill).
 // - The rules run on words (board.cuh): every lane reads the board's 13
 //   words and builds both first-die masks from its bit sets; the kept singles
 //   are built word by word.  Lane i holds single i of both orders: it builds
@@ -72,7 +77,8 @@
 // - The list goes out word by word: lane x takes word x of the rows, so the
 //   warp stores consecutive words; each is its single's word plus the
 //   submove's byte deltas.
-// - A doubles game copies its row of db_out in 16-byte loads and stores.
+// - A doubles game writes its count and flag alone; one past the doubles
+//   capacity copies its row from out in 16-byte loads and stores.
 //
 // Nothing here allocates: the caller passes the outputs.
 
@@ -118,7 +124,7 @@ __device__ __forceinline__ uint32_t key_hash(const uint32_t (&k)[kKeyWords]) {
   return h;
 }
 
-// Copy one game's row of the doubles list (nbytes) from src to dst.
+// Copy one game's list (nbytes) from src to dst.
 __device__ __forceinline__ void copy_list(int8_t* dst, const int8_t* src,
                                           long long nbytes, int lane) {
   if ((((uintptr_t)dst | (uintptr_t)src) & 15) == 0 && nbytes % 16 == 0) {
@@ -142,6 +148,28 @@ __device__ __forceinline__ void copy_list(int8_t* dst, const int8_t* src,
   }
 }
 
+// A doubles game of slot `slot` (in place): its count and flag; past the
+// doubles capacity (not `fit`) also the row of out that dst gives the slot
+// (the last fitting doubles game's).  Not inlined, so that the rare copy
+// takes none of the kernel's registers.
+__device__ __noinline__ void place_doubles(int slot, bool fit, bool game_over,
+                                           const int32_t* dst,
+                                           const int32_t* db_n,
+                                           const uint8_t* db_of, int8_t* out,
+                                           int8_t* og, int32_t* n_g,
+                                           uint8_t* overflow_g, int m,
+                                           int lane) {
+  const int from = dst[slot];
+  if (!fit && from >= 0) {
+    copy_list(og, out + (size_t)from * m * kBoard, (long long)m * kBoard,
+              lane);
+  }
+  if (lane == 0) {
+    *n_g = fit && !game_over ? db_n[slot] : 0;
+    *overflow_g = (db_of[slot] != 0 || !fit) ? 1 : 0;
+  }
+}
+
 // Rows [0, rows) of the list, word by word: row r is the afterstate that
 // items[r] names, from its single's row.
 __device__ __forceinline__ void write_rows(uint32_t* ow, const uint32_t* items,
@@ -161,7 +189,7 @@ nondoubles_kernel(const int8_t* __restrict__ vecs,
                   const uint8_t* __restrict__ mirror,
                   const int32_t* __restrict__ src,
                   const uint8_t* __restrict__ fits,
-                  const int8_t* __restrict__ db_out,
+                  const int32_t* __restrict__ dst,
                   const int32_t* __restrict__ db_n,
                   const uint8_t* __restrict__ db_of,
                   int8_t* __restrict__ out, int32_t* __restrict__ n_out,
@@ -188,14 +216,9 @@ nondoubles_kernel(const int8_t* __restrict__ vecs,
   }
   const bool game_over = vecs[(size_t)g * kBoard + kMyOff] >= kCheckers;
 
-  if (source < 0) {  // a doubles game: its row of the doubles list
-    const int slot = -1 - source;
-    copy_list(og, db_out + (size_t)slot * m * kBoard, (long long)m * kBoard,
-              lane);
-    if (lane == 0) {
-      n_out[g] = fit && !game_over ? db_n[slot] : 0;
-      overflow[g] = (db_of[slot] != 0 || !fit) ? 1 : 0;
-    }
+  if (source < 0) {  // a doubles game: doubles_final wrote its list
+    place_doubles(-1 - source, fit, game_over, dst, db_n, db_of, out, og,
+                  n_out + g, overflow + g, m, lane);
     return;
   }
 
@@ -385,15 +408,16 @@ nondoubles_kernel(const int8_t* __restrict__ vecs,
 
 }  // namespace
 
-// Pointers are device pointers; src, fits, db_out, db_n and db_of are all
-// null (each game lists its own moves) or all given (in place, db_out (Gd,
-// m, 52)).  out (G, m, 52) must start on a 4-byte boundary.  Returns the CUDA
+// Pointers are device pointers; src, fits, dst, db_n and db_of are all null
+// (each game lists its own moves) or all given (in place, dst (Gd,) int32,
+// out holding the rows doubles_final wrote).  out (G, m, 52) must start on a
+// 4-byte boundary.  Returns the CUDA
 // error of the launch (0: launched); cudaErrorInvalidValue where the widths
 // need more shared memory than a block may have.
 extern "C" int nondoubles_launch(const void* vecs, const void* d_hi,
                                  const void* d_lo, const void* mirror,
                                  const void* src, const void* fits,
-                                 const void* db_out, const void* db_n,
+                                 const void* dst, const void* db_n,
                                  const void* db_of, void* out, void* n_out,
                                  void* overflow, int games, int k1, int kd,
                                  int m, int dedup, void* stream) {
@@ -429,7 +453,7 @@ extern "C" int nondoubles_launch(const void* vecs, const void* d_hi,
                       (cudaStream_t)stream>>>(
       (const int8_t*)vecs, (const int32_t*)d_hi, (const int32_t*)d_lo,
       (const uint8_t*)mirror, (const int32_t*)src, (const uint8_t*)fits,
-      (const int8_t*)db_out, (const int32_t*)db_n, (const uint8_t*)db_of,
+      (const int32_t*)dst, (const int32_t*)db_n, (const uint8_t*)db_of,
       (int8_t*)out, (int32_t*)n_out, (uint8_t*)overflow, games, k1, kd, m,
       dedup, s);
   return (int)cudaGetLastError();

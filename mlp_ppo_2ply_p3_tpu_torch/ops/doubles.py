@@ -18,7 +18,10 @@ top of the source says what bounds it on an H100.
 (``mlp_ppo_2ply_p3_tpu/core/movegen.py:420``, ``:422-439``): the deepest
 non-empty level is the list.  Its kernel, in the same source, writes the
 list, its counts and overflow flags in the launch that expands L3, so no
-(G, M, 52) embedding of an earlier level is built.
+(G, M, 52) embedding of an earlier level is built.  In place (``out`` and
+``dst``), as ``core.movegen.legal_afterstates_batch`` calls it, each slot's
+list goes straight to its game's row of the batch's (B, M, 52) output, so
+no doubles list of its own is allocated either.
 
 The candidate-grid helpers (``perm_scan``, ``first_die``,
 ``expand_one_die``, ``rank_of``) and the plain level
@@ -135,12 +138,14 @@ def embed(boards, n, m):
 
 
 def doubles_final_plain(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror,
-                        m: int):
+                        m: int, out=None, dst=None):
     """Plain PyTorch fourth level and final list (any device):
     ``doubles_level_plain`` from L3 into M rows, then the JAX selection
     (``_doubles_batch``'s tail): the deepest non-empty level, embedded
     into M rows; its count clamped to M; the five-term overflow flag
-    with K2 and K3 the widths of ``f2b`` and ``f3b``."""
+    with K2 and K3 the widths of ``f2b`` and ``f3b``.  With ``dst``, slot
+    g's list goes to row ``dst[g]`` of ``out`` (none where it is -1, whose
+    count and flag are 0), and ``out`` is returned."""
     f4b, _, n4 = doubles_level_plain(f3b, f3r, n3, die, mirror, m)
     k2, k3 = f2b.shape[1], f3b.shape[1]
     has2, has3, has4 = n2 > 0, n3 > 0, n4 > 0
@@ -148,7 +153,8 @@ def doubles_final_plain(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror,
     l2b, l2n = embed(f2b, n2, m)
     l3b, l3n = embed(f3b, n3, m)
     w4, w3, w2 = (h[:, None, None] for h in (has4, has3, has2))
-    out = torch.where(w4, f4b, torch.where(w3, l3b, torch.where(w2, l2b, l1b)))
+    lists = torch.where(w4, f4b,
+                        torch.where(w3, l3b, torch.where(w2, l2b, l1b)))
     n = torch.where(has4, n4,
                     torch.where(has3, l3n, torch.where(has2, l2n, l1n)))
     not4, not3 = torch.logical_not(has4), torch.logical_not(has3)
@@ -159,7 +165,15 @@ def doubles_final_plain(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror,
         | (not4 & has3 & (n3 > m))
         | (not3 & has2 & (n2 > m))
     )
-    return out, torch.clamp(n, max=m), overflow
+    n = torch.clamp(n, max=m)
+    if dst is None:
+        return lists, n, overflow
+    if dst.numel() and (int(dst.min()) < -1
+                        or int(dst.max()) >= out.shape[0]):
+        raise IndexError(f"dst holds a row outside [-1, {out.shape[0]})")
+    filled = dst >= 0
+    out[dst[filled].long()] = lists[filled]
+    return out, torch.where(filled, n, 0), overflow & filled
 
 
 def _check_frontier(boards, ranks, n_in, die, mirror, k_out):
@@ -218,7 +232,8 @@ def _check_levels(vecs, die, mirror, k1, k2, k3):
         raise ValueError(f"unsupported device {vecs.device}")
 
 
-def _check_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m):
+def _check_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m, out,
+                 dst):
     _check_frontier(f3b, f3r, n3, die, mirror, m)
     g = f3b.shape[0]
     for name, fb, n in (("f1b", f1b, n1), ("f2b", f2b, n2)):
@@ -237,13 +252,32 @@ def _check_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m):
                 raise ValueError(f"{name} and its count must be contiguous")
         if fb.shape[1] * 52 >= 2**31:
             raise ValueError(f"{name} {tuple(fb.shape)} too large")
+    if (out is None) != (dst is None):
+        raise ValueError("the in-place form needs both out and dst")
+    if dst is None:
+        return
+    if tuple(dst.shape) != (g,) or dst.dtype != I32:
+        raise ValueError(f"dst must be ({g},) int32, got "
+                         f"{(tuple(dst.shape), dst.dtype)}")
+    if out.dtype != I8 or out.dim() != 3 or tuple(out.shape[1:]) != (m, 52):
+        raise ValueError(f"out must be (B, {m}, 52) int8, got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    for name, x in (("dst", dst), ("out", out)):
+        if x.device != f3b.device:
+            raise ValueError(f"{name} is on {x.device}, f3b on "
+                             f"{f3b.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if out.shape[0] >= 2**31:
+        raise ValueError(f"out {tuple(out.shape)} too large")
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "doubles_levels_launch": ([_P] * 10 + [_I] * 4 + [_P], _I),
     "doubles_final_launch": ([_P, _P, _I, _P, _P, _I, _P, _P, _P, _I]
-                             + [_P] * 5 + [_I] * 2 + [_P], _I),
+                             + [_P] * 4 + [_I] + [_P] * 2 + [_I] * 2 + [_P],
+                             _I),
 }
 
 
@@ -299,7 +333,8 @@ def doubles_levels(vecs, die, mirror, k1: int, k2: int, k3: int):
     return f1b, n1, f2b, n2, f3b, f3r, n3
 
 
-def doubles_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m: int):
+def doubles_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m: int,
+                  out=None, dst=None):
     """The fourth doubles level and the final move list, for every game.
 
     Args:
@@ -310,26 +345,37 @@ def doubles_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m: int):
               returns them.
       die, mirror: as ``doubles_levels``'s.
       m:        list width (``max_moves``).
+      out, dst: None: the lists are a new (G, m, 52) tensor.  Or the
+              in-place form: slot g's list goes to row ``dst[g]`` of
+              ``out`` ((B, m, 52) int8, contiguous; ``dst`` (G,) int32,
+              contiguous, its rows in [0, B) and distinct), none where
+              ``dst[g]`` is -1; no other row of ``out`` is written.  A
+              row outside [-1, B) raises ``IndexError`` on the CPU and
+              fails the launch on the card (a sticky CUDA error, as
+              torch's device-side index asserts), writing nothing.
 
-    Returns (out (G, m, 52) int8, n (G,) int32 clamped to m, overflow (G,)
-    bool), equal to ``doubles_final_plain``: the deepest non-empty level's
-    first min(K, m) rows, then zeros.
+    Returns (lists, n (G,) int32 clamped to m, overflow (G,) bool), equal
+    to ``doubles_final_plain``: the deepest non-empty level's first
+    min(K, m) rows, then zeros; ``lists`` is ``out`` in the in-place
+    form, where an empty slot's count and flag are 0.
     """
-    _check_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m)
+    _check_final(f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m, out, dst)
     if f3b.device.type == "cpu":
         return doubles_final_plain(f1b, n1, f2b, n2, f3b, f3r, n3, die,
-                                   mirror, m)
+                                   mirror, m, out, dst)
     g = f3b.shape[0]
     dev = f3b.device
     with torch.cuda.device(dev):
-        out = torch.empty((g, m, 52), dtype=I8, device=dev)
+        if out is None:
+            out = torch.empty((g, m, 52), dtype=I8, device=dev)
         n = torch.empty((g,), dtype=I32, device=dev)
         overflow = torch.empty((g,), dtype=torch.bool, device=dev)
         err = _fn("doubles_final_launch")(
             f1b.data_ptr(), n1.data_ptr(), f1b.shape[1], f2b.data_ptr(),
             n2.data_ptr(), f2b.shape[1], f3b.data_ptr(), f3r.data_ptr(),
             n3.data_ptr(), f3b.shape[1], die.data_ptr(), mirror.data_ptr(),
-            out.data_ptr(), n.data_ptr(), overflow.data_ptr(), g, m,
+            None if dst is None else dst.data_ptr(), out.data_ptr(),
+            out.shape[0], n.data_ptr(), overflow.data_ptr(), g, m,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"doubles_final kernel launch failed: CUDA error "

@@ -12,11 +12,12 @@ and shared memory, so neither the candidate grids nor the raw block that
 the plain version materialises reaches device memory; the note at the top
 of the source says what bounds it on an H100.
 
-Given a ``place`` (the in-place form), the same kernel writes a whole
-batch's (B, M, 52) list: each non-double game's list at its own row (the
-last fitting non-double's where the game does not fit the non-doubles
-sub-batch's capacity), and each doubles game's row copied from the doubles
-sub-batch's list, with the counts and flags of
+Given a ``place`` (the in-place form), the same kernel completes a whole
+batch's (B, M, 52) list, whose doubles games' rows ``doubles_final`` has
+written: each non-double game's list at its own row (the last fitting
+non-double's where the game does not fit the non-doubles sub-batch's
+capacity), the last fitting doubles game's row copied to each doubles
+game past the doubles capacity, and the counts and flags of
 ``core.movegen.legal_afterstates_batch``.  That takes over the JAX
 package's non-doubles split, its gather back and its selection
 (``mlp_ppo_2ply_p3_tpu/core/movegen.py:576-614``), so no (B, M, 52) gather
@@ -109,7 +110,7 @@ def raw_block_plain(vecs, d_hi, d_lo, mirror, k1: int, kd: int):
 
 
 def nondoubles_batch_plain(vecs, d_hi, d_lo, mirror, k1: int, kd: int,
-                           m: int, dedup: bool, place=None):
+                           m: int, dedup: bool, place=None, out=None):
     """Plain PyTorch non-doubles batch (any device): the candidate blocks,
     ``compaction.compact_rows_plain`` and, with ``dedup``,
     ``compaction.dedup_compact_rows_plain``, as the JAX
@@ -117,33 +118,40 @@ def nondoubles_batch_plain(vecs, d_hi, d_lo, mirror, k1: int, kd: int,
     ``nondoubles_place_plain``."""
     if place is not None:
         return nondoubles_place_plain(vecs, d_hi, d_lo, mirror, k1, kd, m,
-                                      dedup, place)
+                                      dedup, place, out)
     d_hi, d_lo, mirror = d_hi.to(I32), d_lo.to(I32), mirror.to(torch.bool)
     if not dedup:
         cand, keep0 = candidates_plain(vecs, d_hi, d_lo, mirror, k1)
-        out, n = compaction.compact_rows_plain(cand, keep0, m)
-        return out, torch.clamp(n, max=m), n > m
+        lists, n = compaction.compact_rows_plain(cand, keep0, m)
+        return lists, torch.clamp(n, max=m), n > m
     cb, kv, n_raw = raw_block_plain(vecs, d_hi, d_lo, mirror, k1, kd)
-    out, n = compaction.dedup_compact_rows_plain(cb, kv, m)
-    return out, torch.clamp(n, max=m), (n_raw > kd) | (n > m)
+    lists, n = compaction.dedup_compact_rows_plain(cb, kv, m)
+    return lists, torch.clamp(n, max=m), (n_raw > kd) | (n > m)
 
 
 def nondoubles_place_plain(vecs, d_hi, d_lo, mirror, k1: int, kd: int,
-                           m: int, dedup: bool, place):
-    """Plain PyTorch in-place form (any device): each game's row of
-    ``nondoubles_batch_plain`` on the games that ``src`` names, or its row
-    of the doubles list, with the sub-batch capacity's and the game-over
+                           m: int, dedup: bool, place, out):
+    """Plain PyTorch in-place form (any device), into ``out``: each
+    non-double game's row of ``nondoubles_batch_plain`` on the games that
+    ``src`` names; a doubles game's row as it is (``doubles_final`` wrote
+    it), or, past the doubles capacity, the row ``dst`` gives its slot;
+    the counts and flags with the sub-batch capacity's and the game-over
     rules (``core.movegen.legal_afterstates_batch``'s gather and
-    ``where``s)."""
-    src, fits, db_out, db_n, db_of = place
+    ``where``s).  Returns ``out`` with them."""
+    src, fits, dst, db_n, db_of = place
     nd = src >= 0
     fits = fits.to(torch.bool)
     own = torch.arange(src.shape[0], device=src.device)
     rows = torch.where(nd, src.long(), own)
-    out, n, of = nondoubles_batch_plain(vecs[rows], d_hi[rows], d_lo[rows],
-                                        mirror[rows], k1, kd, m, dedup)
+    lists, n, of = nondoubles_batch_plain(vecs[rows], d_hi[rows],
+                                          d_lo[rows], mirror[rows], k1, kd,
+                                          m, dedup)
     slot = torch.clamp(-1 - src.long(), min=0)
-    out = torch.where(nd[:, None, None], out, db_out[slot])
+    from_row = dst.long()[slot]
+    copy = ~nd & ~fits & (from_row >= 0)
+    fill = out.index_select(0, from_row.clamp(min=0))
+    out.copy_(torch.where(nd[:, None, None], lists,
+                          torch.where(copy[:, None, None], fill, out)))
     n = torch.where(fits, torch.where(nd, n, db_n[slot]), 0)
     of = torch.where(nd, of, db_of[slot].to(torch.bool)) | ~fits
     return out, torch.where(B.game_over(vecs), 0, n), of
@@ -176,33 +184,33 @@ def _check(vecs, d_hi, d_lo, mirror, k1, kd, m):
         raise ValueError(f"unsupported device {vecs.device}")
 
 
-def _check_place(vecs, m, place):
+def _check_place(vecs, m, place, out):
     if not isinstance(place, tuple) or len(place) != 5:
-        raise ValueError("place must be (src, fits, db_out, db_n, db_of)")
-    src, fits, db_out, db_n, db_of = place
+        raise ValueError("place must be (src, fits, dst, db_n, db_of)")
+    src, fits, dst, db_n, db_of = place
     g = vecs.shape[0]
-    if (db_out.dtype != I8 or db_out.dim() != 3
-            or tuple(db_out.shape[1:]) != (m, B.VEC)):
-        raise ValueError(f"db_out must be (Gd, {m}, 52) int8, got "
-                         f"{tuple(db_out.shape)} {db_out.dtype}")
-    gd = db_out.shape[0]
+    if out is None or out.dtype != I8 or tuple(out.shape) != (g, m, B.VEC):
+        raise ValueError(f"the in-place form needs out ({g}, {m}, 52) int8, "
+                         f"got {None if out is None else tuple(out.shape)}")
+    gd = dst.shape[0] if dst.dim() == 1 else -1
     want = {"src": (src, (g,), (I32,)),
             "fits": (fits, (g,), (torch.bool, torch.uint8)),
+            "dst": (dst, (gd,), (I32,)),
             "db_n": (db_n, (gd,), (I32,)),
             "db_of": (db_of, (gd,), (torch.bool, torch.uint8))}
     for name, (x, shape, dtypes) in want.items():
         if tuple(x.shape) != shape or x.dtype not in dtypes:
             raise ValueError(f"{name} must be {shape} of {dtypes}, got "
                              f"{(tuple(x.shape), x.dtype)}")
-    for name, x in (("src", src), ("fits", fits), ("db_out", db_out),
-                    ("db_n", db_n), ("db_of", db_of)):
+    for name, x in (("src", src), ("fits", fits), ("dst", dst),
+                    ("db_n", db_n), ("db_of", db_of), ("out", out)):
         if x.device != vecs.device:
             raise ValueError(f"{name} is on {x.device}, vecs on "
                              f"{vecs.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if gd < 1:
-        raise ValueError("db_out needs at least one row")
+        raise ValueError("dst needs at least one slot")
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -218,7 +226,7 @@ def _fn():
 
 
 def nondoubles_batch(vecs, d_hi, d_lo, mirror, k1: int, kd: int, m: int,
-                     dedup: bool, place=None):
+                     dedup: bool, place=None, out=None):
     """Every game's non-double move list.
 
     Args:
@@ -235,29 +243,36 @@ def nondoubles_batch(vecs, d_hi, d_lo, mirror, k1: int, kd: int, m: int,
               remain).
       place:  None: game g's row is its own list.  Or the in-place form
               over a batch, (src (G,) int32, fits (G,) bool or uint8,
-              db_out (Gd, m, 52) int8, db_n (Gd,) int32, db_of (Gd,) bool
-              or uint8), all contiguous: src[g] >= 0 makes game g's row
-              the list of game src[g] (its dice and mirror flag too), and
-              src[g] < 0 makes it row -1 - src[g] of db_out with that
-              row's count and flag; a game with fits[g] False gets n = 0
-              and the flag, one whose mover has borne off 15 checkers
-              n = 0.  Every src[g] must lie in [-Gd, G).
+              dst (Gd,) int32, db_n (Gd,) int32, db_of (Gd,) bool or
+              uint8), all contiguous: src[g] >= 0 makes game g's row the
+              list of game src[g] (its dice and mirror flag too); src[g] <
+              0 makes game g the doubles game of slot s = -1 - src[g],
+              whose row ``doubles_final`` wrote, with count db_n[s] and
+              flag db_of[s]; a game with fits[g] False gets n = 0 and the
+              flag, and a doubles one the row dst[s] of ``out`` (the slot
+              clamp); one whose mover has borne off 15 checkers n = 0.
+              Every src[g] must lie in [-Gd, G).
+      out:    the in-place form's (G, m, 52) int8 list, contiguous, which
+              ``doubles_final`` has written the doubles games' rows of.
 
     Returns (out (G, m, 52) int8, n (G,) int32 clamped to m, overflow (G,)
     bool), equal to ``nondoubles_batch_plain``.
     """
     _check(vecs, d_hi, d_lo, mirror, k1, kd, m)
     if place is not None:
-        _check_place(vecs, m, place)
+        _check_place(vecs, m, place, out)
+    elif out is not None:
+        raise ValueError("out is the in-place form's: give a place")
     if vecs.device.type == "cpu":
         return nondoubles_batch_plain(vecs, d_hi, d_lo, mirror, k1, kd, m,
-                                      dedup, place)
+                                      dedup, place, out)
     g = vecs.shape[0]
     dev = vecs.device
     ptrs = ((None,) * 5 if place is None
             else tuple(x.data_ptr() for x in place))
     with torch.cuda.device(dev):
-        out = torch.empty((g, m, 52), dtype=I8, device=dev)
+        if out is None:
+            out = torch.empty((g, m, 52), dtype=I8, device=dev)
         n = torch.empty((g,), dtype=I32, device=dev)
         overflow = torch.empty((g,), dtype=torch.bool, device=dev)
         err = _fn()(

@@ -14,6 +14,9 @@ parity of the plain versions with the JAX package is in
 ``tests/test_torch_doubles.py`` and ``tests/test_torch_nondoubles.py``."""
 
 import dataclasses
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -448,7 +451,8 @@ IN_PLACE_CASES = [
 
 def _in_place_args(card, b, kind, mg):
     """The in-place form's arguments as ``legal_afterstates_batch`` makes
-    them, its doubles list from the plain doubles levels: ``played`` boards
+    them (the doubles games' rows written in place by the plain final
+    level on the plain doubles levels): ``played`` boards
     after random env steps, a fresh ``reset``, or ``random`` roots
     (``_doubles_frontier``'s) with random dice in 0..6."""
     seed = b + len(kind)
@@ -470,11 +474,14 @@ def _in_place_args(card, b, kind, mg):
     dm = (dm > 0).contiguous()
     levels = TD.doubles_levels_plain(dv.contiguous(), dd, dm, mg.k1, mg.k2,
                                      mg.k3)
-    db = TD.doubles_final_plain(*levels, dd, dm, mg.max_moves)
-    src, fits, _, _ = TM._placement(is_double, bd, bn)
+    src, fits, _, _, dst = TM._placement(is_double, bd, bn)
+    out = torch.full((b, mg.max_moves, 52), -77, dtype=torch.int8,
+                     device=card)
+    _, db_n, db_of = TD.doubles_final_plain(*levels, dd, dm, mg.max_moves,
+                                            out, dst)
     return ((vecs.contiguous(), torch.maximum(d0, d1), torch.minimum(d0, d1),
              mirror.contiguous(), mg.k1, mg.dedup_width, mg.max_moves,
-             mg.dedup), (src, fits, *(x.contiguous() for x in db)))
+             mg.dedup), (src, fits, dst, db_n, db_of), out)
 
 
 @pytest.mark.parametrize("b,kind,widths", IN_PLACE_CASES)
@@ -484,11 +491,11 @@ def test_nondoubles_in_place_matches_plain(card, b, kind, widths):
     flags; then with the boards at an odd address and uint8 flags."""
     mg = TM.MovegenConfig(**{**dataclasses.asdict(
         TM.MovegenConfig.fast(256)), **widths})
-    args, place = _in_place_args(card, b, kind, mg)
+    args, place, out = _in_place_args(card, b, kind, mg)
     before = TN.nondoubles_batch.launches
-    got = TN.nondoubles_batch(*args, place)
+    got = TN.nondoubles_batch(*args, place, out.clone())
     assert TN.nondoubles_batch.launches == before + 1
-    want = TN.nondoubles_place_plain(*args, place)
+    want = TN.nondoubles_place_plain(*args, place, out.clone())
     torch.cuda.synchronize()
     for x, y in zip(got, want):
         assert x.dtype == y.dtype and torch.equal(x, y)
@@ -501,8 +508,38 @@ def test_nondoubles_in_place_matches_plain(card, b, kind, widths):
     odd = (raw[3:].view(args[0].shape), *args[1:3],
            args[3].to(torch.uint8), *args[4:])
     u8 = (*place[:4], place[4].to(torch.uint8))
-    for x, y in zip(TN.nondoubles_batch(*odd, u8), want):
+    for x, y in zip(TN.nondoubles_batch(*odd, u8, out.clone()), want):
         assert torch.equal(x, y)
+
+
+def test_movegen_past_the_doubles_capacity(card, monkeypatch):
+    """Doubles only at B=600 (``fast()``: 176 fit), on boards after a few
+    random env steps: the kernel path equals the plain path and the CPU;
+    each game past the doubles capacity carries the row that
+    ``doubles_final`` wrote for the last fitting one (the non-doubles
+    kernel copies it from the output itself), n = 0 and the flag."""
+    mg = TM.MovegenConfig.fast(256)
+    vecs, dice, mirror = _played(card, 600, 10, 600, TE.EnvConfig(movegen=mg))
+    dice = torch.stack([dice[:, 0], dice[:, 0]], 1).contiguous()
+    args = (vecs, dice, mg, mirror)
+    before = _launches()
+    got = TM.legal_afterstates_batch(*args)
+    counted = {k: v - before[k] for k, v in _launches().items()}
+    assert counted == {"compact_rows": 1, "dedup_compact_rows": 0,
+                       "doubles_levels": 1, "nondoubles_batch": 1,
+                       "doubles_final": 1}
+    cpu = TM.legal_afterstates_batch(*(a.cpu() if torch.is_tensor(a) else a
+                                       for a in args))
+    _plain_wrappers(monkeypatch)
+    plain = TM.legal_afterstates_batch(*args)
+    torch.cuda.synchronize()
+    for g, p, c in zip(got, plain, cpu):
+        assert torch.equal(g, p) and torch.equal(g.cpu(), c)
+    bd = TM.doubles_capacity(600, mg)
+    assert bd == 176
+    assert torch.equal(got[0][bd:], got[0][bd - 1].expand(600 - bd, -1, -1))
+    assert int(got[1][bd:].abs().sum()) == 0 and bool(got[2][bd:].all())
+    assert int(got[1][:bd].sum()) > 0
 
 
 def test_movegen_in_place_in_a_cuda_graph(card):
@@ -544,18 +581,22 @@ def test_nondoubles_rejects_bad_inputs(card):
     with pytest.raises(RuntimeError):
         TN.nondoubles_batch(vecs, d, d, mirror, 16, 288, 60000, False)
     # the in-place form's inputs
-    db = (torch.zeros((3, 256, 52), dtype=torch.int8, device=card),
+    db = (torch.full((3,), -1, dtype=torch.int32, device=card),
           torch.zeros((3,), dtype=torch.int32, device=card),
           torch.zeros((3,), dtype=torch.bool, device=card))
     src = torch.arange(4, dtype=torch.int32, device=card)
     fits = torch.ones((4,), dtype=torch.bool, device=card)
-    for place in ((src.long(), fits, *db), (src, fits[:3], *db),
-                  (src, fits, db[0][:, :128].contiguous(), *db[1:]),
-                  (src.cpu(), fits, *db), (src, fits, db[0], db[1].long(),
-                                           db[2])):
+    out = torch.empty((4, 256, 52), dtype=torch.int8, device=card)
+    for place, o in (((src.long(), fits, *db), out),
+                     ((src, fits[:3], *db), out),
+                     ((src, fits, db[0].long(), *db[1:]), out),
+                     ((src.cpu(), fits, *db), out),
+                     ((src, fits, db[0], db[1].long(), db[2]), out),
+                     ((src, fits, *db), None), ((src, fits, *db), out.cpu()),
+                     ((src, fits, *db), out[:, :128].contiguous())):
         with pytest.raises(ValueError):
             TN.nondoubles_batch(vecs, d, d, mirror, 16, 288, 256, True,
-                                place)
+                                place, o)
 
 
 def _final_inputs(card, seed, g, kind, widths):
@@ -620,6 +661,87 @@ def test_doubles_final_matches_plain(card, g, kind, widths, m):
            args[8].to(torch.uint8))
     for x, y in zip(TD.doubles_final(*odd, m), want):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("g,kind,widths,m", FINAL_CASES)
+def test_doubles_final_in_place_matches_plain(card, g, kind, widths, m):
+    """The in-place form: slot g's list at row dst[g] of a wider (B, M, 52)
+    output, dst a random permutation with a fifth of the slots empty (-1);
+    kernel == plain bit for bit over the whole output (the rows no slot
+    names stay as they were), the counts and the flags (0 at an empty
+    slot); then L3 at an odd address, uint8 mirror flags and the output
+    at an odd row offset."""
+    args = _final_inputs(card, g + m + 1, g, kind, widths)
+    r = np.random.default_rng(g + m)
+    b = g + g // 3
+    rows = r.permutation(b)[:g].astype(np.int32)
+    rows[r.random(g) < 0.2] = -1
+    dst = torch.from_numpy(rows).to(card)
+    base = torch.randint(-128, 128, (b, m, 52), dtype=torch.int8,
+                         device=card)
+    before = TD.doubles_final.launches
+    out = base.clone()
+    got = TD.doubles_final(*args, m, out, dst)
+    assert TD.doubles_final.launches == before + 1 and got[0] is out
+    want = TD.doubles_final_plain(*args, m, base.clone(), dst)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert bool((dst < 0).any())
+    raw = torch.zeros(args[4].numel() + 3, dtype=torch.int8, device=card)
+    raw[3:] = args[4].reshape(-1)
+    odd = (*args[:4], raw[3:].view(args[4].shape), *args[5:8],
+           args[8].to(torch.uint8))
+    shifted = torch.full((b + 1, m, 52), 7, dtype=torch.int8, device=card)
+    shifted[1:] = base
+    got = TD.doubles_final(*odd, m, shifted[1:], dst)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert bool((shifted[0] == 7).all())
+
+
+# A doubles_final call in place whose dst holds a row outside [-1, B): the
+# kernel traps, which leaves the CUDA context unusable, so it runs in a
+# process of its own, after a call with valid rows
+BAD_ROW = r"""
+import sys
+import torch
+from mlp_ppo_2ply_p3_tpu_torch.ops import doubles as TD
+
+dev = torch.device("cuda", 0)
+g, m, b = 4, 64, 6
+
+
+def z(*shape, dtype=torch.int8):
+    return torch.zeros(shape, dtype=dtype, device=dev)
+
+
+args = (z(g, 16, 52), z(g, dtype=torch.int32), z(g, 32, 52),
+        z(g, dtype=torch.int32), z(g, 48, 52), z(g, 48),
+        z(g, dtype=torch.int32), torch.full((g,), 3, dtype=torch.int32,
+                                            device=dev),
+        z(g, dtype=torch.bool))
+out = torch.full((b, m, 52), 9, dtype=torch.int8, device=dev)
+for row, said in ((3, "valid rows: done"), (int(sys.argv[1]), "bad: done")):
+    dst = torch.tensor([0, -1, row, 2], dtype=torch.int32, device=dev)
+    TD.doubles_final(*args, m, out, dst)
+    torch.cuda.synchronize()
+    print(said, flush=True)
+"""
+
+
+@pytest.mark.parametrize("row", [6, -2])
+def test_doubles_final_in_place_refuses_rows_outside_the_output(card, row):
+    """On the card, as on the CPU (``IndexError``), a ``dst`` row outside
+    [-1, B) fails: the kernel traps before it writes (B = 6, so row 6
+    would land past the output's end), and the error surfaces at the next
+    synchronize."""
+    proc = subprocess.run([sys.executable, "-c", BAD_ROW, str(row)],
+                          cwd=Path(__file__).resolve().parents[1],
+                          capture_output=True, text=True, timeout=300)
+    assert "valid rows: done" in proc.stdout, proc.stderr[-2000:]
+    assert "bad: done" not in proc.stdout
+    assert proc.returncode != 0
 
 
 def test_movegen_kernel_path_matches_plain_and_cpu(card, monkeypatch):

@@ -302,7 +302,7 @@ def test_movegen_through_levels_matches_jax(name, monkeypatch):
         return real(*a)
 
     def counted_final(*a):
-        finals.append(a[-1])
+        finals.append(a[9])
         return real_final(*a)
 
     monkeypatch.setattr(TD, "doubles_levels", counted)
@@ -437,6 +437,74 @@ def test_final_level_on_random_frontiers_matches_jax(m):
     assert (empty & (n3 == 0) & (n2 == 0)).any()
 
 
+# (widths, B, share of doubles): below 512 games the doubles sub-batch is
+# the whole batch, so its slots past the doubles games are empty; at
+# B = 600 with doubles only the capacity binds
+IN_PLACE_FINAL = [("fast", 96, 0.5), ("default", 96, 0.5),
+                  ("fast", 600, 1.0)]
+
+
+@pytest.mark.parametrize("name,b,share", IN_PLACE_FINAL)
+def test_final_in_place_matches_jax(name, b, share):
+    """``doubles_final_plain`` in place, on ``legal_afterstates_batch``'s
+    own doubles sub-batch and placement (``dst``): each fitting doubles
+    game's row of the batch's (B, M, 52) output, its count (with the
+    game-over rule) and its flag equal the JAX package's
+    ``legal_afterstates_batch`` (``_doubles_batch`` gathered back) bit for
+    bit; every other row stays as it was; an empty slot's count and flag
+    are 0.  Positions of every stage, game-over boards, both movers."""
+    from mlp_ppo_2ply_p3_tpu_torch.core import board as TB
+
+    cfgs = {"fast": dict(max_moves=256, k2=80, k3=192, dedup_width=288,
+                         dbl_div=5, dbl_add=56),
+            "default": dict(max_moves=256)}
+    jcfg, tcfg = (JM.MovegenConfig(**cfgs[name]),
+                  TM.MovegenConfig(**cfgs[name]))
+    m = tcfg.max_moves
+    rng = np.random.default_rng(b + len(name))
+    boards, players = zip(*(random_positions(rng, b // 3, stage)
+                            for stage in ("any", "bar", "bearoff")))
+    players = np.concatenate(players)
+    vecs = canonical(np.concatenate(boards), players)
+    vecs[::12] = EDGE_BOARDS["game_over"]
+    dice = rng.integers(1, 7, (b, 2)).astype(np.int8)
+    dbl = rng.random(b) < share
+    dbl[::12] = True
+    dice[dbl, 1] = dice[dbl, 0]
+    dice[~dbl, 1] = dice[~dbl, 0] % 6 + 1
+    mirror = players == 1
+    jb, jn, jof = (np.asarray(x) for x in JM.legal_afterstates_batch(
+        jnp.asarray(vecs), jnp.asarray(dice), jcfg,
+        mirror=jnp.asarray(mirror)))
+
+    tv, tm = tt(vecs), tt(mirror)
+    d0, d1 = (tt(dice)[:, i].to(torch.int32) for i in (0, 1))
+    is_double = d0 == d1
+    bd = TM.doubles_capacity(b, tcfg)
+    src, fits, _, _, dst = TM._placement(
+        is_double, bd, TM.nondoubles_capacity(b, tcfg))
+    (dv, dd, dm), _ = TM._compact_games((tv, d0, tm.to(torch.int8)),
+                                        is_double, bd)
+    dm = dm > 0
+    levels = TD.doubles_levels_plain(dv, dd, dm, tcfg.k1, tcfg.k2, tcfg.k3)
+    out = torch.full((b, m, 52), -77, dtype=torch.int8)
+    got, n, of = TD.doubles_final_plain(*levels, dd, dm, m, out, dst)
+    assert got is out
+    wrote = nn_(is_double & fits)
+    np.testing.assert_array_equal(nn_(out)[wrote], jb[wrote])
+    assert bool((out[tt(~wrote)] == -77).all())
+    slot = torch.clamp(-1 - src.long(), min=0)
+    n_game = nn_(torch.where(TB.game_over(tv), 0, n[slot]))
+    np.testing.assert_array_equal(n_game[wrote], jn[wrote])
+    np.testing.assert_array_equal(nn_(of[slot])[wrote], jof[wrote])
+    empty = dst < 0
+    assert int(n[empty].abs().sum()) == 0 and not bool(of[empty].any())
+    assert bool(empty.any()) == (b < 512)
+    assert bool((is_double & ~fits).any()) == (b >= 512)
+    assert (jn[wrote] > 0).any() and (n_game[wrote] == 0).any()
+    assert mirror[wrote].any() and not mirror[wrote].all()
+
+
 def test_final_wrapper_on_cpu_and_its_checks():
     """On CPU tensors ``doubles_final`` is the plain version and launches
     nothing; it refuses what the kernel does not take."""
@@ -463,3 +531,44 @@ def test_final_wrapper_on_cpu_and_its_checks():
     for a in bad:
         with pytest.raises(ValueError):
             TD.doubles_final(*a, 64)
+    # the in-place form: slot g's list at row dst[g] of out, none at -1
+    dst = torch.tensor([5, -1, 0, 7, 2, -1, 9, 11, 1, 3, -1, 4],
+                       dtype=torch.int32)
+    out = torch.full((14, 64, 52), 9, dtype=torch.int8)
+    want = TD.doubles_final_plain(*args, 64)
+    got = TD.doubles_final(*args, 64, out, dst)
+    assert got[0] is out and TD.doubles_final.launches == before
+    filled = dst >= 0
+    assert torch.equal(out[dst[filled].long()], want[0][filled])
+    rest = torch.ones(14, dtype=torch.bool)
+    rest[dst[filled].long()] = False
+    assert bool((out[rest] == 9).all())
+    assert torch.equal(got[1], torch.where(filled, want[1], 0))
+    assert torch.equal(got[2], want[2] & filled)
+    bad_in_place = [
+        (out, None), (None, dst), (out, dst.long()), (out, dst[:5]),
+        (out[:, :32].contiguous(), dst), (out.to(torch.int32), dst),
+        (out.transpose(0, 1).contiguous().transpose(0, 1), dst),
+    ]
+    for o, d in bad_in_place:
+        with pytest.raises(ValueError):
+            TD.doubles_final(*args, 64, o, d)
+
+
+@pytest.mark.parametrize("row", [14, 40, -2])
+def test_final_in_place_refuses_rows_outside_the_output(row):
+    """A ``dst`` row outside [-1, B) raises ``IndexError`` on the CPU and
+    writes nothing, as the kernel refuses it on the card (the card's case
+    is in tests/test_torch_cuda.py)."""
+    vecs, die, mirror = _positions(9, 12, "bearoff")
+    d, mi = tt(die), tt(mirror)
+    l1 = TD.doubles_level_plain(tt(vecs)[:, None, :], None, None, d, mi, 16)
+    l2 = TD.doubles_level_plain(*l1, d, mi, 32)
+    l3 = TD.doubles_level_plain(*l2, d, mi, 48)
+    args = (l1[0], l1[2], l2[0], l2[2], *l3, d, mi)
+    dst = torch.tensor([5, -1, 0, 7, 2, -1, 9, 11, 1, 3, -1, row],
+                       dtype=torch.int32)
+    out = torch.full((14, 64, 52), 9, dtype=torch.int8)
+    with pytest.raises(IndexError):
+        TD.doubles_final(*args, 64, out, dst)
+    assert bool((out == 9).all())

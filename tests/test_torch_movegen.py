@@ -19,6 +19,7 @@ from mlp_ppo_2ply_p3_tpu_torch.ops import doubles as TD
 from mlp_ppo_2ply_p3_tpu_torch.ops import nondoubles as TN
 
 from .test_movegen import abs_to_canonical_np, canonical_to_abs_np
+from .test_torch_doubles import EDGE_BOARDS
 from .test_torch_utils import canonical, nn_, random_positions, tt
 
 # the JAX package jits only two of its four entries; compile the other
@@ -188,6 +189,41 @@ def test_partitioned_batch_uniform_dice():
     assert int(got[1].sum()) > 0
 
 
+@pytest.mark.parametrize("name,kind", [("fast", "doubles"),
+                                       ("wide", "doubles"),
+                                       ("wide", "uniform")])
+def test_partitioned_batch_doubles_capacity(name, kind):
+    """B = 600 with doubles only (the doubles capacity binds: the games
+    past it carry the last fitting doubles game's list, which the
+    non-doubles kernel copies from that game's row of the output) or
+    uniform dice, positions of every stage, game-over boards and both
+    movers: equal to JAX bit for bit."""
+    b = 600
+    _, tcfg = _cfgs(name)
+    rng = np.random.default_rng(601 + len(name) + len(kind))
+    boards, players = zip(*(random_positions(rng, b // 3, stage)
+                            for stage in STAGES))
+    players = np.concatenate(players)
+    vecs = canonical(np.concatenate(boards), players)
+    vecs[::50] = EDGE_BOARDS["game_over"]
+    dice = rng.integers(1, 7, (b, 2)).astype(np.int8)
+    if kind == "doubles":
+        dice[:, 1] = dice[:, 0]
+    got = _batch(vecs, dice, players == 1, name)
+    bd = TM.doubles_capacity(b, tcfg)
+    is_double = dice[:, 0] == dice[:, 1]
+    past = is_double & (np.cumsum(is_double) > bd)
+    if kind == "doubles":
+        last = np.flatnonzero(is_double)[bd - 1]
+        assert past.sum() == b - bd
+        assert torch.equal(got[0][tt(past)],
+                           got[0][last].expand(int(past.sum()), -1, -1))
+        assert int(got[1][tt(past)].abs().sum()) == 0
+        assert bool(got[2][tt(past)].all())
+    assert int(got[1][::50].abs().sum()) == 0 and int(got[1].sum()) > 0
+    assert players.any() and not players.all()
+
+
 def test_set_equality_with_oracle():
     """A sample of positions: the port's lists (parity caps) hold exactly
     the oracle's afterstates, with no duplicates."""
@@ -236,9 +272,14 @@ def test_kernel_selectors_and_dedup_off(over, monkeypatch):
 
     counting(TC, "compact_rows", lambda a: a[-1])
     counting(TD, "doubles_levels", lambda a: a[3:])
-    counting(TD, "doubles_final", lambda a: a[-1])
-    # (dedup, the in-place form's placement given)
-    counting(TN, "nondoubles_batch", lambda a: (a[7], len(a) == 9))
+    # (M, the in-place form's out and dst given)
+    counting(TD, "doubles_final",
+             lambda a: (a[9], len(a) == 12
+                       and all(x is not None for x in a[10:])))
+    # (dedup, the in-place form's placement and out given)
+    counting(TN, "nondoubles_batch",
+             lambda a: (a[7], len(a) == 10
+                       and all(x is not None for x in a[8:])))
     _batch(canonical(boards, players), dice, players == 1, "fast", **over)
     _, tcfg = _cfgs("fast", **over)
     assert len(calls["compact_rows"]) == TM.compactions_per_call(tcfg) == 1
@@ -248,6 +289,7 @@ def test_kernel_selectors_and_dedup_off(over, monkeypatch):
     assert TM.doubles_levels_per_call(tcfg) == 1
     assert (len(calls["doubles_final"])
             == TM.doubles_finals_per_call(tcfg) == 1)
+    assert calls["doubles_final"] == [(tcfg.max_moves, True)]
     assert (calls["nondoubles_batch"]
             == [(tcfg.dedup, True)] * TM.nondoubles_per_call(tcfg))
 
@@ -255,26 +297,36 @@ def test_kernel_selectors_and_dedup_off(over, monkeypatch):
 def test_no_batch_wide_assembly_around_the_kernels(monkeypatch):
     """Unsharded, ``legal_afterstates_batch`` builds nothing of the
     (B, M, 52) output's size outside its four kernel calls (no gather, no
-    ``where``, no non-doubles split): every torch op it runs between them
-    is counted, and the largest tensor any makes is a (B,)-sized
-    placement or the doubles sub-batch's inputs."""
+    ``where``, no non-doubles split): every torch op it and the kernels'
+    wrappers run outside the kernels' plain versions is counted, and the
+    largest tensor any makes is a (B,)-sized placement or the doubles
+    sub-batch's inputs, but for the one output, which it allocates for
+    the kernels to write.  Every tensor with an (M, 52) tail that those
+    ops or a kernel make (what a wrapper allocates on the card) is that
+    output: no doubles list of its own is allocated."""
     from torch.overrides import TorchFunctionMode
 
     b = 600
     _, tcfg = _cfgs("fast")
+    m = tcfg.max_moves
     rng = np.random.default_rng(61)
     boards, players = random_positions(rng, b, "any")
     dice = rng.integers(1, 7, (b, 2)).astype(np.int8)
-    inside, seen = [0], []
+    inside, seen, lists = [0], [], []
+
+    def tensors(out):
+        return [x for x in (out if isinstance(out, tuple) else (out,))
+                if isinstance(x, torch.Tensor)]
 
     class Record(TorchFunctionMode):
         def __torch_function__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             if not inside[0]:
-                for x in out if isinstance(out, tuple) else (out,):
-                    if isinstance(x, torch.Tensor):
-                        seen.append((getattr(func, "__name__", str(func)),
-                                     x.numel()))
+                for x in tensors(out):
+                    seen.append((getattr(func, "__name__", str(func)),
+                                 x.numel()))
+                    if x.dim() == 3 and tuple(x.shape[1:]) == (m, 52):
+                        lists.append(x)
             return out
 
     def kernel(module, name):
@@ -283,19 +335,32 @@ def test_no_batch_wide_assembly_around_the_kernels(monkeypatch):
         def call(*args):
             inside[0] += 1
             try:
-                return real(*args)
+                out = real(*args)
             finally:
                 inside[0] -= 1
+            if not inside[0]:    # what the kernel writes
+                lists.extend(x for x in tensors(out)
+                             if x.dim() == 3 and tuple(x.shape[1:]) == (m, 52))
+            return out
         monkeypatch.setattr(module, name, call)
 
-    for module, name in ((TC, "compact_rows"), (TD, "doubles_levels"),
-                         (TD, "doubles_final"), (TN, "nondoubles_batch")):
+    for module, name in ((TC, "compact_rows_plain"),
+                         (TD, "doubles_levels_plain"),
+                         (TD, "doubles_final_plain"),
+                         (TN, "nondoubles_batch_plain")):
         kernel(module, name)
     vecs, mirror = tt(canonical(boards, players)), tt(players == 1)
     with Record():
         got = TM.legal_afterstates_batch(vecs, tt(dice), tcfg, mirror=mirror)
+    kept = len(lists)
     want = TM.legal_afterstates_batch(vecs, tt(dice), tcfg, mirror=mirror)
+    del lists[kept:]
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert seen and max(n for _, n in seen) <= b * 54
+    store = got[0].untyped_storage().data_ptr()
+    assert {x.untyped_storage().data_ptr() for x in lists} == {store}
+    assert len(lists) >= 3
+    allocs = [(f, n) for f, n in seen if n == got[0].numel()]
+    assert allocs == [("empty", b * m * 52)]
+    assert seen and max(n for f, n in seen if (f, n) not in allocs) <= b * 54
     assert not [f for f, n in seen if f in ("gather", "where") and n > b]

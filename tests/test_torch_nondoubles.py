@@ -207,6 +207,26 @@ def test_wrapper_on_cpu_and_its_checks():
     for a in bad:
         with pytest.raises(ValueError):
             TN.nondoubles_batch(*a, True)
+    # the in-place form takes the caller's out, and only with a place
+    g = vecs.shape[0]
+    src = torch.arange(g, dtype=torch.int32)
+    fits = torch.ones((g,), dtype=torch.bool)
+    dst = torch.full((3,), -1, dtype=torch.int32)
+    place = (src, fits, dst, torch.zeros((3,), dtype=torch.int32),
+             torch.zeros((3,), dtype=torch.bool))
+    out = torch.empty((g, 256, 52), dtype=torch.int8)
+    got = TN.nondoubles_batch(vecs, d_hi, d_lo, mirror, 16, 288, 256, True,
+                              place, out)
+    assert got[0] is out and TN.nondoubles_batch.launches == before
+    for g_, w in zip(got, want):
+        assert torch.equal(g_, w)
+    for pl, o in ((place, None), (None, out), (place, out[:, :128]),
+                  (place, out.to(torch.int32)),
+                  ((src, fits, dst.long(), *place[3:]), out),
+                  ((src, fits, dst, place[3][:2], place[4]), out)):
+        with pytest.raises(ValueError):
+            TN.nondoubles_batch(vecs, d_hi, d_lo, mirror, 16, 288, 256,
+                                True, pl, o)
 
 
 def _reset_batch(seed, b=600):
@@ -238,7 +258,8 @@ IN_PLACE = [(name, dedup) for name in ("fast", "default", "tiny")
 def test_in_place_plain_matches_jax(name, dedup):
     """``nondoubles_place_plain`` (the in-place form's plain version, which
     ``nondoubles_batch`` runs on the CPU) on ``legal_afterstates_batch``'s
-    own placement and doubles list equals the JAX package's
+    own placement, into an output whose doubles rows ``doubles_final``
+    wrote in place, equals the JAX package's
     ``legal_afterstates_batch`` at B = 600: the slot clamp of the
     non-doubles capacity, doubles games, game-over games, both movers."""
     kw = dict(WIDTHS[name], dedup=dedup)
@@ -253,11 +274,14 @@ def test_in_place_plain_matches_jax(name, dedup):
     bd, bn = TM.doubles_capacity(b, tcfg), TM.nondoubles_capacity(b, tcfg)
     (dv, dd, dm), _ = TM._compact_games((tv, d0, tm.to(torch.int8)),
                                         is_double, bd)
-    db = TM._doubles_dispatch_batch(dv, dd, tcfg, dm > 0)
-    src, fits, _, _ = TM._placement(is_double, bd, bn)
+    src, fits, _, _, dst = TM._placement(is_double, bd, bn)
+    out = torch.full((b, tcfg.max_moves, 52), -77, dtype=torch.int8)
+    _, db_n, db_of = TM._doubles_batch(dv, dd, tcfg, dm > 0, out, dst)
     got = TN.nondoubles_place_plain(
         tv, torch.maximum(d0, d1), torch.minimum(d0, d1), tm, tcfg.k1,
-        tcfg.dedup_width, tcfg.max_moves, tcfg.dedup, (src, fits, *db))
+        tcfg.dedup_width, tcfg.max_moves, tcfg.dedup,
+        (src, fits, dst, db_n, db_of), out)
+    assert got[0] is out
     for g, w, what in zip(got, want, ("boards", "n_moves", "overflow")):
         np.testing.assert_array_equal(nn_(g), np.asarray(w),
                                       err_msg=f"{name}: {what}")
