@@ -9,9 +9,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``nvidia-smi`` name and power limit.
 2. Build: compiles ``csrc/compaction.cu`` (``compact_rows`` and
    ``dedup_compact_rows``), ``csrc/doubles.cu`` (``doubles_level``, the
-   first three doubles levels in one launch, and ``doubles_final``) and
-   ``csrc/nondoubles.cu`` (``nondoubles``) with nvcc for sm_90a, one nvcc
-   process per source, started together.
+   first three doubles levels in one launch, and ``doubles_final``),
+   ``csrc/nondoubles.cu`` (``nondoubles``) and ``csrc/afterstate.cu``
+   (``afterstate_eval`` and ``afterstate_eval_backward``) with nvcc for
+   sm_90a, one nvcc process per source, started together.
 3. Kernels vs plain versions, bit-exact (every output slot, zero tail
    included, counts and flags): ``compact_rows`` on ragged edge cases, on
    the split-N layout (one row of tens of thousands of flags), on the
@@ -34,7 +35,17 @@ Phases (any failure exits non-zero and prints no result line):
    (L4 empty, L3 wider than M), also in place (each slot's list at a
    random row of a wider output, a fifth of the slots empty, the whole
    output compared, also at an odd row offset), and on the edge boards'
-   real levels.
+   real levels.  The afterstate pass, to a tolerance (the features
+   exact, the sums of fc1 and the head in another order): the forward
+   within 1e-5 of its plain version on random boards with every epilogue,
+   both views, hidden 128 and 256 and odd R and M, at every path's shape
+   (the rollout's (4096, 256), a minibatch's (8192, 256), the league's
+   and the arenas' 256 and 512 x 256, the dances, the 2-ply replies'
+   (2048, 512), (2048, 128) and (8192, 512)); the backward at a minibatch
+   of both widths, distillation's and an odd shape, its gradients within
+   4 times the distance that a one-ulp nudge of the parameters moves the
+   plain gradients; both the same bits on a second launch; each timed
+   beside its bound and its library call.
 4. Movegen on the card at B=4096 on boards from a few env steps: the
    kernel path is bit-exact against the plain-PyTorch path on the card
    and against the CPU.  Every kernel call of one movegen call (the
@@ -50,10 +61,15 @@ Phases (any failure exits non-zero and prints no result line):
    arenas' 512 and 64 games (``twoply``'s), where both sub-batches are the
    whole batch, with padding rows; B=4096 at the default widths and
    B=16384 (``pod``), each also against the CPU; each call's shape is
-   checked once more with random flags or random inputs.  Then
-   one small ``train_step`` (B=64, T=8, full width) on the card and on
-   the CPU from the same weights and draws: equal env integers,
-   parameters and losses within 1e-4.
+   checked once more with random flags or random inputs.  Movegen at
+   ``MovegenConfig.parity()`` (the ``exact_order`` doubles path, its list
+   put in place by one ``index_copy_``) at B=600 with a tenth of the
+   games over, on the played dice and on doubles only: card == CPU.
+   Then one small ``train_step`` (B=64, T=8, full width) on the card and
+   on the CPU from the same weights and draws, in ``index`` and in
+   ``afterstate`` mode: equal env integers, parameters and losses within
+   1e-4 (the score head's bias, whose exact gradient is zero, within 2 lr
+   a step).
 5. Training path: ``get_preset("train4096")`` at B=4096, M=256, hidden
    128: one warm-up ``train_step`` and two timed ones (T=64 by default;
    the preset's 128 is cut to keep the run short).  Losses must be
@@ -61,8 +77,14 @@ Phases (any failure exits non-zero and prints no result line):
    per-call count (``compactions_per_call``, ``dedups_per_call`` = 0,
    ``doubles_levels_per_call``, ``nondoubles_per_call``,
    ``doubles_finals_per_call``) x T per step.  One more rollout and
-   update are timed apart.  Then one
-   ``afterstate``-mode ``train_step`` at B=512.
+   update are timed apart.  Then ``afterstate4096`` at its own widths
+   (B=4096, T=64, M=256, hidden 128, 32 minibatches): one warm-up and one
+   timed ``train_step``, finite losses, peak device memory, launches
+   exact (the afterstate pass T times a rollout and once a minibatch
+   step, its backward once a minibatch step), the rollout and the update
+   timed apart by wall time and ``device_busy``, and the pass's first
+   rollout call, first minibatch call and first backward checked and
+   timed on the run's own boards.
 6. Evaluation path, the ``twoply`` preset on the committed frozen_v1
    net, positions after 12 random env steps: one 2-ply decision at
    B=256 at reply width 512 and at 128 (the reply dedup branch), and one
@@ -72,8 +94,11 @@ Phases (any failure exits non-zero and prints no result line):
    scores within 1e-4); every distinct reply call of those decisions
    (``nondoubles`` at width 512 with the dedup off and at 128 with it on,
    the doubles levels and final levels at ``dbl_game_chunk`` games)
-   checked against its plain version and timed beside its bound;
-   decisions timed at B=256 and B=4096.  Then the league runner on the
+   checked against its plain version and timed beside its bound; the
+   afterstate pass's plain version in the decision's place: backup scores
+   within 1e-5, actions equal where the best score leads by more than
+   1e-4, and each of its distinct calls checked and timed; decisions
+   timed at B=256 and B=4096.  Then the league runner on the
    card: 1-ply vs the pubeval heuristic over 512 games and 400 plies
    (the win rate must lie within 0.072 of the JAX package's 0.818), and
    2-ply vs 1-ply over 64 games for at most 100 plies (cut from 400),
@@ -117,8 +142,9 @@ Phases (any failure exits non-zero and prints no result line):
    2-ply ``collect`` of 2 plies at 16 games and one update on the card
    against the CPU.
 10. The measuring entry points: ``scripts/bench.py`` in a process of its
-   own at its defaults (``train4096``'s widths, B=4096, T=64) with
-   ``BENCH_UPDATES=2``: exit 0, one line per update, the last line the
+   own at its defaults (``train4096``'s widths, B=4096, T=64), and again
+   at ``BENCH_PRESET=afterstate4096``, each with ``BENCH_UPDATES=2``:
+   exit 0, one line per update, the last line the
    4-key JSON line (``env_steps_per_sec_per_chip``, value > 0,
    ``vs_baseline`` = value / 1000), and the launches of every kernel
    that it logs exact.  Then ``scripts/perf_breakdown.main(["4096"])`` here:
@@ -126,10 +152,13 @@ Phases (any failure exits non-zero and prints no result line):
    time positive, each movegen piece's CUDA-graph time at most 1.05 times
    its eager time, both idle shares in [0, 1], and each graph's launches
    at capture exact (its replays count none).
-11. Checks that every path launched each of its kernels (no path calls
-   ``dedup_compact_rows``, and a 2-ply decision no ``compact_rows``) and
-   prints the ``kernels`` JSON line of all five (launches summed over
-   every path's run, and by path), then the device line
+11. Checks that every path launched each of its kernels and no other (no
+   path calls ``dedup_compact_rows``, a 2-ply decision no
+   ``compact_rows``, an update no movegen kernel; the afterstate pass on
+   afterstate4096's rollout and update, the league, the arenas, 2-ply and
+   distillation, its backward on the update and distillation) and prints
+   the ``kernels`` JSON line of all seven (launches summed over every
+   path's run, and by path), then the device line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--profile`` adds ``torch.profiler`` breakdowns of four env steps and of
@@ -180,8 +209,14 @@ WRAPPERS = {"compact_rows": ("compaction", "compact_rows"),
             "dedup_compact_rows": ("compaction", "dedup_compact_rows"),
             "doubles_level": ("doubles", "doubles_levels"),
             "nondoubles": ("nondoubles", "nondoubles_batch"),
-            "doubles_final": ("doubles", "doubles_final")}
+            "doubles_final": ("doubles", "doubles_final"),
+            "afterstate_eval": ("afterstate", "afterstate_eval"),
+            "afterstate_eval_backward": ("afterstate",
+                                         "afterstate_eval_backward")}
 KERNELS = tuple(WRAPPERS)
+# movegen's kernels, bit-exact: what a Capture swaps by default
+MOVEGEN_KERNELS = KERNELS[:5]
+AFTERSTATE_KERNELS = KERNELS[5:]
 
 
 def log(msg: str) -> None:
@@ -438,7 +473,7 @@ def measure_calls(torch, calls):
                            k_out=a[k_out[name]] if name in k_out else None,
                            at=out_index(name, a))
                    for a in calls.get(name, ())]
-            for name in KERNELS}
+            for name in MOVEGEN_KERNELS}
 
 
 def log_rows(prefix, rows):
@@ -455,13 +490,14 @@ def _call_key(args):
 
 
 class Capture:
-    """Swaps every kernel wrapper (``WRAPPERS``) for one that keeps its
-    inputs and calls the kernel (``record``), or for its plain version
-    (``plain``), and restores them on exit.  ``distinct`` keeps one call
-    per shape and widths.  ``calls``: {kernel: [args, ...]}."""
+    """Swaps the wrappers of ``kernels`` (by default movegen's, which are
+    bit-exact) for ones that keep their inputs and call the kernel, or for
+    their plain versions (``plain``), and restores them on exit.
+    ``distinct`` keeps one call per shape and widths.  ``calls``:
+    {kernel: [args, ...]} over every kernel."""
 
-    def __init__(self, plain=False, distinct=False):
-        self.plain, self.distinct = plain, distinct
+    def __init__(self, plain=False, distinct=False, kernels=MOVEGEN_KERNELS):
+        self.plain, self.distinct, self.kernels = plain, distinct, kernels
         self.calls = {name: [] for name in KERNELS}
 
     def _wrap(self, kept, fn):
@@ -477,7 +513,8 @@ class Capture:
         import importlib
 
         self.saved = []
-        for name, (module, attr) in WRAPPERS.items():
+        for name in self.kernels:
+            module, attr = WRAPPERS[name]
             m = importlib.import_module(
                 f"mlp_ppo_2ply_p3_tpu_torch.ops.{module}")
             fn = getattr(m, attr)
@@ -505,12 +542,31 @@ def zero_launches():
 
 def per_call_launches(movegen, mg):
     """Each kernel's launches in one ``legal_afterstates_batch`` call at
-    widths ``mg``."""
+    widths ``mg`` (none of the afterstate pass)."""
     return {"compact_rows": movegen.compactions_per_call(mg),
             "dedup_compact_rows": movegen.dedups_per_call(mg),
             "doubles_level": movegen.doubles_levels_per_call(mg),
             "nondoubles": movegen.nondoubles_per_call(mg),
-            "doubles_final": movegen.doubles_finals_per_call(mg)}
+            "doubles_final": movegen.doubles_finals_per_call(mg),
+            "afterstate_eval": 0, "afterstate_eval_backward": 0}
+
+
+def afterstate_launches(fwd=0, bwd=0):
+    """The afterstate pass's launches as a tuple in ``KERNELS`` order."""
+    return (0,) * len(MOVEGEN_KERNELS) + (fwd, bwd)
+
+
+def train_step_launches(movegen, env_cfg, ppo):
+    """Each kernel's launches in one ``train_step``: a movegen call an env
+    step; in ``afterstate`` mode also the afterstate pass an env step and
+    a minibatch step, and its backward a minibatch step."""
+    out = {k: ppo.t_horizon * v
+           for k, v in per_call_launches(movegen, env_cfg.movegen).items()}
+    if ppo.policy_mode == "afterstate":
+        steps = ppo.num_epochs * ppo.num_minibatches
+        out["afterstate_eval"] = ppo.t_horizon + steps
+        out["afterstate_eval_backward"] = steps
+    return out
 
 
 # --- phase 3 -----------------------------------------------------------------
@@ -928,6 +984,285 @@ def final_cases(torch, doubles, dev, cases=None):
     return out
 
 
+# --- phase 3: the afterstate pass --------------------------------------------
+
+# the jnp that XLA fuses in the JAX package and afterstate.cu replaces
+AFTERSTATE_REPLACES = ("mlp_ppo_2ply_p3_tpu/ppo/learner.py:143-152, "
+                       "mlp_ppo_2ply_p3_tpu/agents/basic.py:36-53, "
+                       "mlp_ppo_2ply_p3_tpu/agents/basic.py:82-86, "
+                       "mlp_ppo_2ply_p3_tpu/agents/twoply.py:108-131, "
+                       "mlp_ppo_2ply_p3_tpu/agents/twoply.py:203-207")
+# the gradient of the same composition: XLA's autodiff of _loss_fn
+AFTERSTATE_BACKWARD_REPLACES = ("mlp_ppo_2ply_p3_tpu/ppo/learner.py:143-152,"
+                                " mlp_ppo_2ply_p3_tpu/ppo/learner.py:204-208")
+# the forward pass against its plain version (features exact, the sums
+# in another order); the gradients within this many times what a one-ulp
+# nudge of the parameters moves the plain gradient (phase 8's calibration)
+AFTERSTATE_TOL = 1e-5
+AFTERSTATE_NUDGE_FACTOR = 4.0
+# phase 3's shapes: (label, R, M, hidden, epilogue, opponent view, sign):
+# the rollout, a minibatch, the league's and the arenas' 1-ply (256 and 512
+# games), the score-head policy, the dances (top-k 8), the 2-ply replies at
+# the chunks of a B=256 decision (2048 candidates) at both reply widths and
+# of a B=4096 one (8192), and odd shapes
+AFTERSTATE_CASES = [
+    ("rollout", 4096, 256, 128, "logits", False, 1.0),
+    ("rollout h256", 4096, 256, 256, "logits", False, 1.0),
+    ("minibatch", 8192, 256, 128, "logits", False, 1.0),
+    ("league 1-ply", 256, 256, 128, "masked", True, -1.0),
+    ("arena 1-ply", 512, 256, 128, "masked", True, -1.0),
+    ("score policy", 256, 256, 256, "masked", False, 1.0),
+    ("dances", 256, 8, 128, "masked", False, 1.0),
+    ("reply 512", 2048, 512, 128, "min", True, 1.0),
+    ("reply 128", 2048, 128, 128, "min", True, 1.0),
+    ("reply B=4096", 8192, 512, 128, "min", True, 1.0),
+    ("odd", 37, 29, 256, "masked", True, -1.0),
+    ("odd", 301, 255, 256, "logits", False, 1.0),
+    ("odd", 513, 511, 256, "min", False, 1.0),
+    ("odd", 1, 1, 128, "min", True, 1.0),
+    ("empty", 0, 3, 128, "logits", False, 1.0),
+]
+# the backward at a minibatch (both widths), distillation's minibatch and
+# an odd shape
+AFTERSTATE_BACKWARD_CASES = [
+    ("minibatch", 8192, 256, 128, "logits", False, 1.0),
+    ("minibatch h256", 8192, 256, 256, "logits", False, 1.0),
+    ("distill minibatch", 1024, 256, 128, "logits", False, 1.0),
+    ("odd", 301, 255, 256, "masked", True, -1.0),
+]
+
+
+def afterstate_inputs(torch, dev, seed, r, m, hidden):
+    """Random (R, M, 52) int8 boards (about a quarter of the points
+    occupied, 1-15 checkers, bars and borne-off counts, a few negative
+    bytes, a tenth all-zero rows), movers 0 and 1, n with 0, M and values
+    between; random float32 weights of ``hidden`` units (fc1 and a
+    head)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    pts = ints(1, 16, r, m, 48) * (rand(r, m, 48) < 0.25)
+    boards = torch.cat([pts, ints(0, 4, r, m, 2), ints(0, 16, r, m, 2)],
+                       dim=2).to(torch.int8)
+    boards[rand(r, m, 52) < 0.002] = -3
+    boards[rand(r, m) < 0.1] = 0
+    mover = ints(0, 2, r).to(torch.int32)
+    n = ints(0, m + 1, r).to(torch.int32)
+    n[::7] = 0
+    n[1::5] = m
+    w = [torch.randn(shape, generator=g, device=dev) * scale
+         for shape, scale in (((hidden, 198), 0.2), ((hidden,), 0.1),
+                              ((1, hidden), 0.2), ((1,), 0.1))]
+    return boards, mover, n, *w
+
+
+def afterstate_work(torch, afterstate, args, backward=False):
+    """(bytes, operations, dense operations) of the pass on these inputs.
+    Bytes: the kept boards (52 each: the rest need none), mover and n, the
+    weights in, the output out (and for the backward the kept boards'
+    gradients in, the weights' gradients out).  Operations, counted on the
+    data: 2 H for each non-zero feature of a kept board (a point of c
+    checkers sets min(c, 3) + [c > 3], a bar or off count one, the
+    one-hot one) and 3 H + 1 a board for the bias, ReLU and head; the
+    backward twice the feature products (the recomputed pre-activations,
+    dW1) and 5 H a board.  Dense: 2 x 198 x H + 3 H for every board, the
+    dense product that the plain version does."""
+    boards, mover, n, w1 = args[:4]
+    epilogue = args[8]
+    r, m, _ = boards.shape
+    h = w1.shape[0]
+    kept = afterstate._valid(n, m, "masked" if epilogue == "min"
+                             else epilogue)
+    b = boards.to(torch.int32)
+    pts = b[..., :48]
+    nnz = ((pts.clamp(0, 3) + (pts > 3)).sum(-1) + (b[..., 48:] != 0).sum(-1)
+           + ((mover == 0) | (mover == 1))[:, None])
+    n_kept = int(kept.sum())
+    n_feat = int((nnz * kept).sum())
+    params = h * 198 + 2 * h + 1
+    out = r if epilogue == "min" else r * m
+    nbytes = n_kept * 52 + 8 * r + 4 * params + 4 * out
+    ops = 2 * n_feat * h + n_kept * (3 * h + 1)
+    if backward:
+        nbytes = n_kept * (52 + 4) + 8 * r + 4 * params + 4 * params
+        ops = 4 * n_feat * h + n_kept * 5 * h
+    dense = r * m * (2 * 198 * h + 3 * h) * (2 if backward else 1)
+    return nbytes, ops, dense, n_kept
+
+
+def nudged_params(torch, params):
+    """Every parameter moved up by one ulp."""
+    return [torch.nextafter(p, torch.full_like(p, math.inf)) for p in params]
+
+
+def afterstate_measure(torch, afterstate, features, args, label, iters=5):
+    """The forward kernel against its plain version on ``args``: within
+    AFTERSTATE_TOL, the floor and an empty min's +1e9 exact, the same bits
+    on a second launch; kernel, plain and library times (CUDA events;
+    the library: ``Fn.linear`` for fc1 alone on prebuilt (R M, 198)
+    features) beside the bound from ``afterstate_work``."""
+    from torch.nn import functional as Fn
+
+    with torch.no_grad():
+        return _afterstate_measure(torch, Fn, afterstate, features, args,
+                                   label, iters)
+
+
+def _afterstate_measure(torch, Fn, afterstate, features, args, label,
+                        iters):
+    args = tuple(args[:10])
+    got = afterstate.afterstate_eval(*args)
+    again = afterstate.afterstate_eval(*args)
+    want = afterstate.afterstate_eval_plain(*args, 128)
+    torch.cuda.synchronize()
+    shape = tuple(args[0].shape)
+    check(got.shape == want.shape and same(got, again),
+          f"afterstate_eval {label} {shape}: two launches differ")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    check(err <= AFTERSTATE_TOL, f"afterstate_eval {label} {shape} "
+          f"hidden {args[3].shape[0]}: {err} from the plain version")
+    special = (want == afterstate.FLOOR) | (want == afterstate.POS_INF)
+    check(same(got[special], want[special]),
+          f"afterstate_eval {label} {shape}: masked entries differ")
+    del got, again, want
+    nbytes, ops, dense, n_kept = afterstate_work(torch, afterstate, args)
+    row = {"label": label, "shape": list(shape),
+           "hidden": args[3].shape[0], "epilogue": args[8],
+           "opponent": args[7], "kept_boards": n_kept,
+           "max_abs_err": err}
+    if not args[0].numel():
+        return row
+    boards, mover, n, w1, b1 = args[:5]
+    view = afterstate.Bd.opponent_view(boards) if args[7] else boards
+    feats = features.encode_canonical(view, mover[:, None]).reshape(-1, 198)
+    del view
+    plain = time_ms(lambda: afterstate.afterstate_eval_plain(*args, 128),
+                    iters)
+    kern = time_ms(lambda: afterstate.afterstate_eval(*args), iters)
+    kern2 = time_ms(lambda: afterstate.afterstate_eval(*args), iters)
+    plain2 = time_ms(lambda: afterstate.afterstate_eval_plain(*args, 128),
+                     iters)
+    lib = time_ms(lambda: Fn.linear(feats, w1, b1), iters)
+    del feats
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_OPS_PER_S * 1e3
+    row.update({
+        "ms": (kern + kern2) / 2, "plain_ms": (plain + plain2) / 2,
+        "library_ms": lib, "bytes": nbytes, "ops": ops,
+        "dense_ops": dense, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "dense_ops_ms": dense / H100_OPS_PER_S * 1e3,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+    return row
+
+
+def afterstate_backward_measure(torch, afterstate, args, label, iters=5):
+    """The backward kernel against its plain version (torch's autograd of
+    the plain pass) on ``args`` (the forward's, then the output's
+    gradient): the gradients' distance from the plain ones at most
+    AFTERSTATE_NUDGE_FACTOR times the distance that a one-ulp nudge of the
+    parameters moves the plain ones (norms over all four), the same bits
+    on a second launch; kernel, plain and library times (the library:
+    ``torch.mm`` of an (H, R M) by an (R M, 198) matrix, dW1's product)
+    beside the bound."""
+    args = tuple(args[:11])
+    fwd, grad = args[:10], args[10]
+    got = afterstate.afterstate_eval_backward(*args)
+    again = afterstate.afterstate_eval_backward(*args)
+    want = afterstate.afterstate_eval_backward_plain(*args)
+    nudged = afterstate.afterstate_eval_backward_plain(
+        *fwd[:3], *nudged_params(torch, fwd[3:7]), *fwd[7:], grad)
+    torch.cuda.synchronize()
+    shape = tuple(args[0].shape)
+    check(all(same(a, b) for a, b in zip(got, again)),
+          f"afterstate_eval_backward {label} {shape}: two launches differ")
+
+    def dist(xs, ys):
+        return math.sqrt(sum(float(((x - y).double() ** 2).sum())
+                             for x, y in zip(xs, ys)))
+
+    err, floor = dist(got, want), dist(nudged, want)
+    norm = math.sqrt(sum(float((w.double() ** 2).sum()) for w in want))
+    max_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(err <= AFTERSTATE_NUDGE_FACTOR * floor,
+          f"afterstate_eval_backward {label} {shape}: the gradients differ "
+          f"from the plain ones by {err:.3e} (norm {norm:.3e}), a one-ulp "
+          f"nudge moves them by {floor:.3e}")
+    del got, again, want, nudged
+    nbytes, ops, dense, n_kept = afterstate_work(torch, afterstate, fwd,
+                                                 backward=True)
+    row = {"label": label, "shape": list(shape), "hidden": fwd[3].shape[0],
+           "epilogue": fwd[8], "kept_boards": n_kept, "max_abs_err": max_err,
+           "err_norm": err, "nudge_norm": floor, "grad_norm": norm}
+    if not args[0].numel():
+        return row
+    r, m, _ = args[0].shape
+    h = fwd[3].shape[0]
+    dh = torch.randn((h, r * m), device=args[0].device)
+    feats = torch.randn((r * m, 198), device=args[0].device)
+    plain = time_ms(lambda: afterstate.afterstate_eval_backward_plain(*args),
+                    iters)
+    kern = time_ms(lambda: afterstate.afterstate_eval_backward(*args), iters)
+    kern2 = time_ms(lambda: afterstate.afterstate_eval_backward(*args),
+                    iters)
+    plain2 = time_ms(lambda: afterstate.afterstate_eval_backward_plain(
+        *args), iters)
+    lib = time_ms(lambda: torch.mm(dh, feats), iters)
+    del dh, feats
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_OPS_PER_S * 1e3
+    row.update({
+        "ms": (kern + kern2) / 2, "plain_ms": (plain + plain2) / 2,
+        "library_ms": lib, "bytes": nbytes, "ops": ops, "dense_ops": dense,
+        "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "dense_ops_ms": dense / H100_OPS_PER_S * 1e3,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+    return row
+
+
+def log_afterstate_rows(prefix, rows):
+    for row in rows:
+        if "ms" not in row:
+            continue
+        log(f"{prefix}{row['label']} {tuple(row['shape'])} hidden "
+            f"{row['hidden']} {row['epilogue']}: kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f}"
+            f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; dense "
+            f"{row['dense_ops_ms']:.4f} ms), {row['kept_boards']} boards "
+            f"kept, max err {row['max_abs_err']:.2e}")
+
+
+def afterstate_cases(torch, afterstate, features, dev):
+    """Phase 3's afterstate pass: the forward at AFTERSTATE_CASES and the
+    backward at AFTERSTATE_BACKWARD_CASES on random inputs
+    (``afterstate_inputs``), each checked and timed.  Returns (forward
+    rows, backward rows)."""
+    fwd, bwd = [], []
+    for i, (label, r, m, h, epilogue, opponent, sign) in enumerate(
+            AFTERSTATE_CASES):
+        args = (*afterstate_inputs(torch, dev, 100 + i, r, m, h), opponent,
+                epilogue, sign)
+        fwd.append(afterstate_measure(torch, afterstate, features, args,
+                                      label))
+    for i, (label, r, m, h, epilogue, opponent, sign) in enumerate(
+            AFTERSTATE_BACKWARD_CASES):
+        args = (*afterstate_inputs(torch, dev, 200 + i, r, m, h), opponent,
+                epilogue, sign)
+        g = torch.Generator(device=dev)
+        g.manual_seed(300 + i)
+        grad = torch.randn((r, m), generator=g, device=dev)
+        bwd.append(afterstate_backward_measure(torch, afterstate,
+                                               (*args, grad), label))
+    return fwd, bwd
+
+
 # --- phase 4 -----------------------------------------------------------------
 
 
@@ -1068,10 +1403,21 @@ def movegen_batches_phase(torch, compaction, movegen, perf_twoply, runs,
 
 # --- phase 5 -----------------------------------------------------------------
 
+LOSS_KEYS = ("loss", "policy_loss", "value_loss", "entropy")
+
 
 def train_phase(torch, movegen, bg_env, learner, cfg, batch, t,
-                dev, timed):
-    """Warm-up + ``timed`` train_steps; returns a report dict."""
+                dev, timed, detail=None):
+    """Warm-up + ``timed`` train_steps; then one more rollout and update,
+    timed apart.  Losses finite; each kernel's launches as
+    ``train_step_launches`` counts them.  With ``detail`` (the modules
+    ``(profiling, afterstate, features)``), also the timed steps' peak
+    device memory, the rollout's and the update's device time
+    (``device_busy``), and the afterstate pass's first rollout call,
+    first minibatch call and first backward, each checked and timed on
+    this run's data.  Returns a report dict."""
+    import contextlib
+
     ppo = dataclasses.replace(cfg.ppo, num_envs=batch, t_horizon=t)
     ts = learner.init_train_state(0, cfg.model, ppo, device=dev)
     gen = torch.Generator(device=dev)
@@ -1083,46 +1429,86 @@ def train_phase(torch, movegen, bg_env, learner, cfg, batch, t,
     warm_s = time.time() - t0
 
     zero_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cap = Capture(distinct=True, kernels=AFTERSTATE_KERNELS)
     t0 = time.time()
-    for _ in range(timed):
-        ts, es, metrics = learner.train_step(ts, es, cfg.env, cfg.model, ppo)
-    torch.cuda.synchronize()
+    with cap if detail else contextlib.nullcontext():
+        for _ in range(timed):
+            ts, es, metrics = learner.train_step(ts, es, cfg.env, cfg.model,
+                                                 ppo)
+        torch.cuda.synchronize()
     dt = time.time() - t0
     counted = launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
-    for name, per_call in per_call_launches(movegen, cfg.env.movegen).items():
-        expect = timed * t * per_call
+    for name, per_step in train_step_launches(movegen, cfg.env, ppo).items():
+        expect = timed * per_step
         check(counted[name] == expect,
               f"{name} launched {counted[name]} times in {timed} "
               f"train_steps, expected {expect}")
     vals = {k: float(v) for k, v in metrics.items()}
-    for k in ("loss", "policy_loss", "value_loss", "entropy"):
+    for k in LOSS_KEYS:
         check(math.isfinite(vals[k]), f"{k} not finite: {vals[k]}")
     for p in ts.model.parameters():
         check(bool(torch.isfinite(p).all()), "non-finite parameter")
     check(int(ts.update_idx) == 1 + timed, "update_idx did not advance")
 
     # where a step's time goes: the rollout and the update, each timed
-    # on its own (host clock around synchronised work)
+    # on its own (host clock around synchronised work), launches counted
+    # from 0 before each
     sampler = learner.Sampler(ts.gen)
+    zero_launches()
     t0 = time.time()
     es, traj, last_value, last_turn = learner.rollout(ts.model, es, sampler,
                                                       cfg.env, ppo)
     torch.cuda.synchronize()
     rollout_s = time.time() - t0
+    rollout_launches = launches()
+    zero_launches()
     t0 = time.time()
     learner.ppo_update(ts, traj, last_value, last_turn, cfg.env, ppo,
                        sampler)
     torch.cuda.synchronize()
     update_s = time.time() - t0
-    return {
+    update_launches = launches()
+    out = {
         "batch": batch, "t_horizon": t, "timed_steps": timed,
         "policy_mode": ppo.policy_mode, "warmup_s": warm_s,
         "train_step_s": dt / timed,
         "env_steps_per_s": batch * t * timed / dt,
         "rollout_s": rollout_s, "update_s": update_s,
-        "launches": counted, "metrics": vals,
+        "launches": counted, "rollout_launches": rollout_launches,
+        "update_launches": update_launches, "metrics": vals,
     }
+    if detail:
+        profiling, afterstate, features = detail
+        out["peak_gb"] = peak_gb
+        out["rollout_device_s"] = profiling.device_busy(
+            lambda: learner.rollout(ts.model, es, sampler, cfg.env, ppo),
+            dev)
+        out["update_device_s"] = profiling.device_busy(
+            lambda: learner.ppo_update(ts, traj, last_value, last_turn,
+                                       cfg.env, ppo, sampler), dev)
+        out["rollout_idle_share"] = max(
+            0.0, 1 - out["rollout_device_s"] / rollout_s)
+        out["update_idle_share"] = max(
+            0.0, 1 - out["update_device_s"] / update_s)
+        del traj
+        fwd = cap.calls["afterstate_eval"]
+        bwd = cap.calls["afterstate_eval_backward"]
+        # a rollout's shape, then a minibatch's (one shape where they meet)
+        shapes = 1 + (batch != batch * t // ppo.num_minibatches)
+        check(len(fwd) == shapes and len(bwd) == 1,
+              f"captured afterstate calls: {len(fwd)} forward shapes, "
+              f"{len(bwd)} backward")
+        out["afterstate_calls"] = [
+            afterstate_measure(torch, afterstate, features, fwd[0],
+                               "rollout (played)"),
+            afterstate_measure(torch, afterstate, features, fwd[-1],
+                               "minibatch (played)")]
+        out["afterstate_backward_calls"] = [afterstate_backward_measure(
+            torch, afterstate, bwd[0], "minibatch (played)")]
+    return out
 
 
 class RecordingSampler:
@@ -1163,15 +1549,19 @@ class ReplaySampler:
         return next(self.perms)
 
 
-def small_agreement_phase(torch, bg_env, learner, cfg, dev):
+def small_agreement_phase(torch, bg_env, learner, cfg, dev,
+                          policy_mode="index"):
     """One train_step at B=64, T=8, hidden 128 on the card (kernel path)
     and on the CPU (plain path) from the same weights and the same draws:
     the rollouts must agree exactly in their integers, and parameters and
-    losses to 1e-4 (float32 sums in another order on each side).
-    Returns the largest parameter difference."""
+    losses to 1e-4 (float32 sums in another order on each side).  In
+    ``afterstate`` mode the score head's bias, whose exact gradient is
+    zero (softmax is shift invariant), may move by Adam's lr a step
+    either way on each side, as ``tests/test_torch_learner.py`` bounds
+    it.  Returns the largest parameter difference."""
     batch, t = 64, 8
     ppo = dataclasses.replace(cfg.ppo, num_envs=batch, t_horizon=t,
-                              num_minibatches=4)
+                              num_minibatches=4, policy_mode=policy_mode)
     gen = torch.Generator(device=dev).manual_seed(2)
     start = bg_env.reset(gen, cfg.env, batch, device=dev)
     rec = RecordingSampler(learner, gen)
@@ -1188,14 +1578,62 @@ def small_agreement_phase(torch, bg_env, learner, cfg, dev):
                                       sampler))
     (g_ts, g_es, g_m), (c_ts, c_es, c_m) = out
     for name, g, c in zip(g_es._fields, g_es, c_es):
-        check(same(g.cpu(), c), f"small train_step: env {name} card != CPU")
-    diff = max(float((g.detach().cpu() - c.detach()).abs().max()) for g, c in
-               zip(g_ts.model.parameters(), c_ts.model.parameters()))
-    check(diff < 1e-4, f"small train_step: parameters differ by {diff}")
-    for k in ("loss", "policy_loss", "value_loss", "entropy"):
+        check(same(g.cpu(), c), f"small train_step {policy_mode}: env "
+              f"{name} card != CPU")
+    steps = ppo.num_epochs * ppo.num_minibatches
+    diff = 0.0
+    for (name, g), c in zip(g_ts.model.named_parameters(),
+                            c_ts.model.parameters()):
+        d = float((g.detach().cpu() - c.detach()).abs().max())
+        if policy_mode == "afterstate" and name == "layers.score.bias":
+            check(d <= 2 * steps * ppo.learning_rate, f"small train_step "
+                  f"{policy_mode}: {name} differs by {d}")
+            continue
+        diff = max(diff, d)
+    check(diff < 1e-4, f"small train_step {policy_mode}: parameters differ "
+          f"by {diff}")
+    for k in LOSS_KEYS:
         d = abs(float(g_m[k]) - float(c_m[k]))
-        check(d < 1e-4, f"small train_step: {k} differs by {d}")
+        check(d < 1e-4, f"small train_step {policy_mode}: {k} differs by "
+              f"{d}")
     return diff
+
+
+def exact_order_phase(torch, movegen, perf_twoply, bg_env, dev):
+    """``legal_afterstates_batch`` at ``MovegenConfig.parity()`` (the
+    reference-order doubles path: its doubles list goes into the output
+    with one ``index_copy_``, every empty slot onto one spare row) at
+    B=600 on boards from a few env steps, a tenth of the games over: on
+    the played dice (empty doubles slots) and on doubles only (the
+    doubles capacity binds).  Card == CPU bit for bit, with the launches
+    of ``per_call_launches``.  Returns a report."""
+    mg = movegen.MovegenConfig.parity()
+    vecs, dice, mirror = play_boards(
+        perf_twoply, bg_env.EnvConfig(movegen=mg), 600, 6, dev)
+    over = torch.arange(600, device=dev) % 10 == 3
+    vecs[over, :24] = 0
+    vecs[over, 48] = 0
+    vecs[over, 50] = 15
+    out = {"batch": 600, "games_over": int(over.sum()),
+           "doubles_capacity": movegen.doubles_capacity(600, mg)}
+    for label, d in (("played", dice), ("doubles only", torch.stack(
+            [dice[:, 0], dice[:, 0]], 1).contiguous())):
+        zero_launches()
+        got = movegen.legal_afterstates_batch(vecs, d, mg, mirror)
+        torch.cuda.synchronize()
+        counted = launches()
+        check(counted == per_call_launches(movegen, mg),
+              f"exact_order movegen ({label}): launches {counted}")
+        cpu = movegen.legal_afterstates_batch(vecs.cpu(), d.cpu(), mg,
+                                              mirror.cpu())
+        for g, c, name in zip(got, cpu, ("boards", "n_moves", "overflow")):
+            check(same(g.cpu(), c), f"exact_order movegen ({label}) {name}: "
+                  f"card != CPU")
+        out[label] = {"doubles": int((d[:, 0] == d[:, 1]).sum()),
+                      "overflow_games": int(got[2].sum())}
+    check(0 < out["played"]["doubles"] < out["doubles_capacity"] < 600,
+          f"exact_order movegen: {out}")
+    return out
 
 
 # --- phase 6: the evaluation path --------------------------------------------
@@ -1213,17 +1651,32 @@ ARENA_PAIRS = (("oneply:pubeval", 512, 400),
 
 
 def twoply_check(torch, twoply, bg_env, model, state, scfg):
-    """One 2-ply decision over the batch: exact launch counts; the kernel
-    path equal to the plain path bit for bit; a 32-game slice on the CPU
-    equal in actions where the best score leads by more than 1e-4, in
-    overflow, and in backup scores within 1e-4.  Returns (report, the
-    Capture of the decision's distinct kernel calls)."""
+    """One 2-ply decision over the batch: exact launch counts; the
+    movegen kernels' path equal to their plain path bit for bit; the
+    afterstate pass's plain path equal in overflow, in actions where the
+    best score leads by more than 1e-4, and in backup scores within
+    AFTERSTATE_TOL; a 32-game slice on the CPU equal in actions where the
+    best score leads by more than 1e-4, in overflow, and in backup scores
+    within 1e-4.  Returns (report, the Capture of the decision's distinct
+    kernel calls)."""
     import copy
 
     batch = state.turn.shape[0]
+    inner, margins = twoply.candidate_scores, []
+
+    def recorded(*a, **kw):
+        top_idx, score2, ovf = inner(*a, **kw)
+        top2 = torch.topk(score2, 2, dim=1).values
+        margins.append(top2[:, 0] - top2[:, 1])
+        return top_idx, score2, ovf
+
     zero_launches()
-    with Capture(distinct=True) as cap:
-        got = twoply.twoply_actions_values(model, state, scfg)
+    twoply.candidate_scores = recorded
+    try:
+        with Capture(distinct=True, kernels=KERNELS) as cap:
+            got = twoply.twoply_actions_values(model, state, scfg)
+    finally:
+        twoply.candidate_scores = inner
     torch.cuda.synchronize()
     counted = launches()
     expect = dict(zip(KERNELS, twoply.launches_per_decision(batch, scfg)))
@@ -1233,6 +1686,15 @@ def twoply_check(torch, twoply, bg_env, model, state, scfg):
         plain = twoply.twoply_actions_values(model, state, scfg)
     for g, p, name in zip(got, plain, ("actions", "backup", "overflow")):
         check(same(g, p), f"2-ply {name}: kernel path != plain path")
+    with Capture(plain=True, kernels=AFTERSTATE_KERNELS):
+        plain = twoply.twoply_actions_values(model, state, scfg)
+    decided = margins[0] > 1e-4
+    check(same(got[0][decided], plain[0][decided])
+          and same(got[2], plain[2]),
+          "2-ply actions or overflow: afterstate kernel != plain")
+    value_diff = float((got[1] - plain[1]).abs().max())
+    check(value_diff <= AFTERSTATE_TOL, f"2-ply backup: afterstate kernel "
+          f"and plain differ by {value_diff}")
 
     k = 32
     cpu_model = copy.deepcopy(model).cpu()
@@ -1251,20 +1713,23 @@ def twoply_check(torch, twoply, bg_env, model, state, scfg):
     check(diff <= 1e-4, f"2-ply backup: card and CPU differ by {diff}")
     return {
         "batch": batch, "reply_max_moves": scfg.reply_max_moves,
-        "launches": counted, "cpu_slice_games": k,
+        "launches": counted, "afterstate_plain_max_backup_diff": value_diff,
+        "afterstate_plain_clear_margin_games": int(decided.sum()),
+        "cpu_slice_games": k,
         "cpu_slice_clear_margin_games": int(clear.sum()),
         "cpu_slice_max_backup_diff": diff,
         "overflow_games": int(got[2].sum()),
     }, cap
 
 
-def twoply_phase(torch, twoply, perf_twoply, bg_env, cfg, model,
-                 dev):
+def twoply_phase(torch, twoply, perf_twoply, bg_env, afterstate, features,
+                 cfg, model, dev):
     """The ``twoply`` preset on frozen_v1, positions after 12 random env
     steps: checked at B=256 at reply width 512 (no reply dedup) and 128
     (the dedup branch), and at B=4096 at width 512; the distinct reply
     calls of those decisions checked and timed against their plain
-    versions; decisions timed at B=256 and B=4096."""
+    versions, and the afterstate pass's distinct calls against its plain
+    version; decisions timed at B=256 and B=4096."""
     states = {b: perf_twoply.realistic_state(cfg.env, b, 12, device=dev)
               for b in (256, 4096)}
     out = {"checks": [], "timing": []}
@@ -1293,6 +1758,14 @@ def twoply_phase(torch, twoply, perf_twoply, bg_env, cfg, model,
              for name in ("nondoubles", "doubles_level", "doubles_final")}
     out["reply"] = measure_calls(torch, reply)
     log_rows("reply ", out["reply"])
+    # the afterstate pass's distinct calls: the 1-ply values and the
+    # dances of each batch, the reply lists' min at each width and chunk
+    out["afterstate"] = [
+        afterstate_measure(torch, afterstate, features, a,
+                           f"2-ply {a[8]}")
+        for a in distinct(*(calls[key].calls["afterstate_eval"]
+                            for key in calls))]
+    log_afterstate_rows("2-ply afterstate ", out["afterstate"])
     del calls, reply
     for batch, reps in ((256, 3), (4096, 1)):
         row, _ = perf_twoply.time_decision(model, states[batch], cfg.search,
@@ -1335,12 +1808,16 @@ def arena_phase(torch, movegen, arena, league, twoply, cfg, dev):
         check(ran == plies or (0 < ran < plies and res["finished"] == games),
               f"arena {pair}: {ran} plies played of {plies}, "
               f"{res['finished']} of {games} games finished")
-        # the reset and every ply list the moves of all games; the 2-ply
-        # side decides for every game every ply
-        search = (twoply.launches_per_decision(games, cfg.search)
-                  if pair.startswith("twoply") else (0,) * len(KERNELS))
+        # the reset and every ply list the moves of all games; each side
+        # decides for every game every ply: a 2-ply decision, or one
+        # afterstate pass of the 1-ply agent
+        per_ply = [sum(x) for x in zip(*(
+            twoply.launches_per_decision(games, cfg.search)
+            if agent == "twoply" else afterstate_launches(fwd=1)
+            if agent in ("oneply", "frozen") else (0,) * len(KERNELS)
+            for agent in pair.split(":")))]
         expect = {name: (1 + ran) * per_step[name] + ran * extra
-                  for name, extra in zip(KERNELS, search)}
+                  for name, extra in zip(KERNELS, per_ply)}
         check(counted == expect,
               f"arena {pair}: launches {counted}, expected {expect}")
         res["launches"] = counted
@@ -1466,9 +1943,11 @@ def trainer_phase(torch, movegen, arena, train_mod, ckpt, cfg,
                   f"{label}: {plies} arena plies, expected "
                   f"{2 * LEAGUE_PLIES * evals}")
             # the first reset, T env steps per update, and per eval two
-            # arenas of a reset and 400 plies: one movegen call each
+            # arenas of a reset and 400 plies: one movegen call each; the
+            # frozen_v1 arena's greedy 1-ply side one afterstate pass a ply
             calls = 1 + updates * t + evals * 2 * (1 + LEAGUE_PLIES)
             expect = {k: calls * v for k, v in per_step.items()}
+            expect["afterstate_eval"] = evals * LEAGUE_PLIES
             check(counted == expect,
                   f"{label}: launches {counted}, expected {expect}")
 
@@ -1483,7 +1962,7 @@ def trainer_phase(torch, movegen, arena, train_mod, ckpt, cfg,
         check([r["step"] for r in lines] == [0, 1, 2],
               f"run A logged steps {[r['step'] for r in lines]}")
         for r in lines:
-            for k in ("loss", "policy_loss", "value_loss", "entropy"):
+            for k in LOSS_KEYS:
                 check(math.isfinite(r[k]), f"run A update {r['step']}: "
                       f"{k} = {r[k]}")
         league = {k: v for k, v in lines[1].items()
@@ -1766,7 +2245,7 @@ def dp_phase(torch, movegen, learner, train_mod, get_preset,
               f"{dp_lines[0][k]} vs {single_lines[0][k]}")
     out["loss_max_abs_diff"] = [0.0, 0.0]
     for i, (a, b) in enumerate(zip(dp_lines, single_lines)):
-        for k in ("loss", "policy_loss", "value_loss", "entropy"):
+        for k in LOSS_KEYS:
             check(math.isfinite(a[k]), f"data-parallel {k} = {a[k]}")
             d = abs(a[k] - b[k])
             out["loss_max_abs_diff"][i] = max(out["loss_max_abs_diff"][i], d)
@@ -2003,13 +2482,18 @@ def distill_phase(torch, movegen, twoply, arena, learner, bg_env,
           f"distill states {rec['states']}")
     check(plies[0] == 2 * 400, f"distill evals played {plies[0]} plies")
     # the reset, each ply's env step and each eval's reset and plies list
-    # every game's moves; each ply's 2-ply decision adds its own
+    # every game's moves; each ply's 2-ply decision adds its own; each
+    # update step (the script's 2 epochs of 1024-state minibatches) one
+    # afterstate pass and its backward; both greedy 1-ply sides of the
+    # evals one pass a ply
     mg = env_cfg.movegen
     calls = 1 + DISTILL_PLIES + 2 + plies[0]
     search = twoply.launches_per_decision(DISTILL_ENVS, scfg)
+    updates = 2 * (DISTILL_PLIES * DISTILL_ENVS // 1024)
+    train = afterstate_launches(fwd=updates + 2 * plies[0], bwd=updates)
     per = per_call_launches(movegen, mg)
-    expect = {name: calls * per[name] + DISTILL_PLIES * extra
-              for name, extra in zip(KERNELS, search)}
+    expect = {name: calls * per[name] + DISTILL_PLIES * extra + more
+              for name, extra, more in zip(KERNELS, search, train)}
     check(counted == expect, f"distill launches {counted}, expected {expect}")
     agree = distill_agreement(torch, np, twoply, learner, bg_env, frozen,
                               run_distill, env_cfg, scfg, dev)
@@ -2032,19 +2516,20 @@ BREAKDOWN_SCANS = ("movegen", "movegen_nondoubles",
 # launches of one call of each timed movegen piece, in KERNELS order: the
 # non-doubles kernel; the fused doubles levels and the final one; the
 # non-doubles kernel alone, which holds the dedup
-PIECE_LAUNCHES = {"movegen_nondoubles": (0, 0, 0, 1, 0),
-                  "movegen_doubles_subbatch": (0, 0, 1, 0, 1),
-                  "movegen_dedup": (0, 0, 0, 1, 0)}
+PIECE_LAUNCHES = {"movegen_nondoubles": (0, 0, 0, 1, 0, 0, 0),
+                  "movegen_doubles_subbatch": (0, 0, 1, 0, 1, 0, 0),
+                  "movegen_dedup": (0, 0, 0, 1, 0, 0, 0)}
 
 
-def bench_run(movegen, bench):
+def bench_run(movegen, bench, preset=None):
     """``python -m mlp_ppo_2ply_p3_tpu_torch.scripts.bench`` at its
-    defaults (train4096's widths, T=64) with BENCH_UPDATES=2, in a
-    process of its own: its stdout contract and its launches, which it
-    logs to stderr."""
-    env_cfg, _, ppo = bench.resolve_config({})
+    defaults (train4096's widths, T=64), or at ``BENCH_PRESET=preset``,
+    with BENCH_UPDATES=2, in a process of its own: its stdout contract and
+    its launches, which it logs to stderr."""
+    settings = {"BENCH_PRESET": preset} if preset else {}
+    env_cfg, _, ppo = bench.resolve_config(settings)
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
-    env["BENCH_UPDATES"] = str(BENCH_UPDATES)
+    env.update(settings, BENCH_UPDATES=str(BENCH_UPDATES))
     t0 = time.time()
     proc = subprocess.run(
         [sys.executable, "-m", "mlp_ppo_2ply_p3_tpu_torch.scripts.bench"],
@@ -2067,12 +2552,13 @@ def bench_run(movegen, bench):
     for line in proc.stderr.splitlines():
         if "] launches " in line:
             counted = json.loads(line.split("] launches ", 1)[1])
-    expect = {name: BENCH_UPDATES * ppo.t_horizon * per for name, per in
-              per_call_launches(movegen, env_cfg.movegen).items()}
+    expect = {name: BENCH_UPDATES * per for name, per in
+              train_step_launches(movegen, env_cfg, ppo).items()}
     check(counted == expect, f"bench launches {counted}, expected {expect}")
     updates = [float(x.split("update ", 1)[1].split(": ", 1)[1].split("s ")[0])
                for x in proc.stderr.splitlines() if "] update " in x]
-    return {"wall_s": wall, "t_horizon": ppo.t_horizon, "line": last,
+    return {"wall_s": wall, "preset": preset or "train4096 widths",
+            "t_horizon": ppo.t_horizon, "line": last,
             "update_s": updates, "launches": counted,
             "stderr_tail": proc.stderr[-3000:]}
 
@@ -2142,12 +2628,14 @@ def breakdown_run(torch, movegen, profiling, perf_breakdown,
 
 def measuring_phase(torch, movegen, profiling, bench,
                     perf_breakdown, card):
-    """Phase 10: the bench in a process of its own, then the breakdown at
-    B=4096 in this one."""
-    bench = bench_run(movegen, bench)
+    """Phase 10: the bench in a process of its own, at its defaults and at
+    ``afterstate4096``, then the breakdown at B=4096 in this one."""
+    runs = [bench_run(movegen, bench), bench_run(movegen, bench,
+                                                 "afterstate4096")]
     breakdown = breakdown_run(torch, movegen, profiling,
                               perf_breakdown, perf_breakdown.widths(), card)
-    return {"bench": bench, "breakdown": breakdown}
+    return {"bench": runs[0], "bench_afterstate4096": runs[1],
+            "breakdown": breakdown}
 
 
 def profile_phase(torch, bg_env, env_cfg, dev, decide):
@@ -2205,9 +2693,10 @@ def main(argv=None) -> int:
     try:
         from mlp_ppo_2ply_p3_tpu_torch.agents import (arena, frozen, league,
                                                       twoply)
-        from mlp_ppo_2ply_p3_tpu_torch.core import movegen
+        from mlp_ppo_2ply_p3_tpu_torch.core import features, movegen
         from mlp_ppo_2ply_p3_tpu_torch.env import bg_env
-        from mlp_ppo_2ply_p3_tpu_torch.ops import (build, compaction, doubles,
+        from mlp_ppo_2ply_p3_tpu_torch.ops import (afterstate, build,
+                                                   compaction, doubles,
                                                    nondoubles)
         from mlp_ppo_2ply_p3_tpu_torch.parallel import mesh
         from mlp_ppo_2ply_p3_tpu_torch.ppo import learner
@@ -2256,6 +2745,18 @@ def main(argv=None) -> int:
     report["phases"]["final_cases"] = final_cases(torch, doubles, dev)
     log(f"doubles_final == plain on "
         f"{len(report['phases']['final_cases'])} shapes")
+    t0 = time.time()
+    fwd_rows, bwd_rows = afterstate_cases(torch, afterstate, features, dev)
+    report["phases"]["afterstate_cases"] = fwd_rows
+    report["phases"]["afterstate_backward_cases"] = bwd_rows
+    log_afterstate_rows("afterstate_eval ", fwd_rows)
+    log_afterstate_rows("afterstate_eval_backward ", bwd_rows)
+    errs = ", ".join(f"{r['err_norm']:.2e} (nudge {r['nudge_norm']:.2e})"
+                     for r in bwd_rows)
+    log(f"afterstate_eval within {AFTERSTATE_TOL} of plain on {len(fwd_rows)}"
+        f" shapes, afterstate_eval_backward within "
+        f"{AFTERSTATE_NUDGE_FACTOR} x a one-ulp nudge on {len(bwd_rows)}: "
+        f"{errs}; both deterministic; {time.time() - t0:.1f} s")
 
     cfg = get_preset("train4096")
     main_rows, mg_ms, mg_graph_ms = movegen_phase(
@@ -2278,10 +2779,18 @@ def main(argv=None) -> int:
         + [("default widths", eval_cfg.env, 4096),
            ("pod", pod.env, pod.ppo.num_envs)], dev)
 
-    diff = small_agreement_phase(torch, bg_env, learner, cfg, dev)
-    report["phases"]["small_train_step_max_param_diff"] = diff
-    log(f"train_step B=64 T=8: card == CPU in every env integer, "
-        f"parameters within {diff:.2e}")
+    t0 = time.time()
+    report["phases"]["exact_order"] = exact_order_phase(
+        torch, movegen, perf_twoply, bg_env, dev)
+    log(f"exact_order movegen (parity widths) B=600: card == CPU on the "
+        f"played dice and on doubles only, {time.time() - t0:.1f} s; "
+        f"{json.dumps(report['phases']['exact_order'])}")
+
+    for mode in ("index", "afterstate"):
+        diff = small_agreement_phase(torch, bg_env, learner, cfg, dev, mode)
+        report["phases"][f"small_train_step_max_param_diff_{mode}"] = diff
+        log(f"train_step B=64 T=8 {mode}: card == CPU in every env integer, "
+            f"parameters within {diff:.2e}")
 
     t = args.t
     if t != cfg.ppo.t_horizon:
@@ -2294,20 +2803,34 @@ def main(argv=None) -> int:
         f"launches {main_path['launches']}; one more step: "
         f"rollout {main_path['rollout_s']:.3f} s, update "
         f"{main_path['update_s']:.3f} s")
-    after_cfg = dataclasses.replace(
-        cfg, ppo=dataclasses.replace(cfg.ppo, policy_mode="afterstate"))
-    report["phases"]["afterstate"] = train_phase(
-        torch, movegen, bg_env, learner, after_cfg, 512, 16,
-        dev, timed=1)
-    log(f"afterstate B=512 T=16: "
-        f"{report['phases']['afterstate']['train_step_s']:.3f} s/step")
+    # afterstate4096 at its own widths: B=4096, T=64, M=256, hidden 128
+    after_cfg = get_preset("afterstate4096")
+    t0 = time.time()
+    after = train_phase(torch, movegen, bg_env, learner, after_cfg,
+                        after_cfg.ppo.num_envs, after_cfg.ppo.t_horizon, dev,
+                        timed=1, detail=(profiling, afterstate, features))
+    report["phases"]["afterstate4096"] = after
+    log(f"afterstate4096 B={after['batch']} T={after['t_horizon']}: "
+        f"{after['train_step_s']:.3f} s/step, "
+        f"{after['env_steps_per_s']:.0f} env-steps/s, peak "
+        f"{after['peak_gb']:.2f} GB on {card}; rollout "
+        f"{after['rollout_s']:.3f}"
+        f" s (device {after['rollout_device_s']:.4f} s, idle "
+        f"{after['rollout_idle_share']:.3f}), update {after['update_s']:.3f} s"
+        f" (device {after['update_device_s']:.4f} s, idle "
+        f"{after['update_idle_share']:.3f}); losses "
+        f"{json.dumps({k: after['metrics'][k] for k in LOSS_KEYS})}"
+        f"; launches {after['launches']}; phase {time.time() - t0:.1f} s")
+    log_afterstate_rows("afterstate4096 ", after["afterstate_calls"])
+    log_afterstate_rows("afterstate4096 backward ",
+                        after["afterstate_backward_calls"])
 
     # the evaluation path: the twoply preset on the committed frozen_v1 net
     model, model_cfg = frozen.load_frozen(device=dev)
     check(model_cfg == eval_cfg.model, "frozen_v1 is not the twoply model")
     t0 = time.time()
-    two = twoply_phase(torch, twoply, perf_twoply, bg_env,
-                       eval_cfg, model, dev)
+    two = twoply_phase(torch, twoply, perf_twoply, bg_env, afterstate,
+                       features, eval_cfg, model, dev)
     report["phases"]["twoply"] = two
     log(f"2-ply phase: {time.time() - t0:.1f} s")
     log(f"reduced: 2-ply vs 1-ply arena max_plies 400 -> {TWOPLY_PLIES}")
@@ -2392,16 +2915,22 @@ def main(argv=None) -> int:
     measuring["phase_s"] = time.time() - t0
     report["phases"]["measuring"] = measuring
     bench, bd = measuring["bench"], measuring["breakdown"]
+    bench_as = measuring["bench_afterstate4096"]
     log(f"measuring phase: {measuring['phase_s']:.1f} s; bench "
         f"({bench['wall_s']:.1f} s, B=4096 T={bench['t_horizon']}): "
         f"{json.dumps(bench['line'])}, updates {bench['update_s']} s, "
-        f"launches {bench['launches']}; breakdown B={BREAKDOWN_B} "
+        f"launches {bench['launches']}; bench afterstate4096 "
+        f"({bench_as['wall_s']:.1f} s, T={bench_as['t_horizon']}): "
+        f"{json.dumps(bench_as['line'])}, updates {bench_as['update_s']} s, "
+        f"launches {bench_as['launches']}; breakdown B={BREAKDOWN_B} "
         f"({bd['wall_s']:.1f} s) on {card}: {json.dumps(bd['row'])}; "
         f"launches {bd['launches']}")
 
     # each path's launches, counted from 0 just before it
     by_path = {"train4096": main_path["launches"],
-               "afterstate": report["phases"]["afterstate"]["launches"]}
+               "afterstate4096": after["launches"],
+               "afterstate4096_rollout": after["rollout_launches"],
+               "afterstate4096_update": after["update_launches"]}
     for row in two["checks"]:
         by_path[f"twoply_b{row['batch']}_reply{row['reply_max_moves']}"] = (
             row["launches"])
@@ -2414,16 +2943,32 @@ def main(argv=None) -> int:
     by_path["nccl_world1"] = dp["nccl_world1_launches"]
     by_path["distill"] = distill["launches"]
     by_path["bench"] = bench["launches"]
+    by_path["bench_afterstate4096"] = bench_as["launches"]
     by_path["breakdown"] = bd["launches"]
+    # the kernels each path must launch; it may launch no other.  The
+    # non-doubles kernel dedups on chip, so no path calls
+    # dedup_compact_rows; a 2-ply decision splits no sub-batch; an update
+    # lists no moves; the afterstate pass runs in afterstate mode, in
+    # every 1-ply and 2-ply agent and in distillation, its backward in
+    # every update of the afterstate scores
+    movegen_set = {"compact_rows", "doubles_level", "nondoubles",
+                   "doubles_final"}
+    fwd, bwd = {"afterstate_eval"}, {"afterstate_eval_backward"}
     for path, counted in by_path.items():
+        want = set(movegen_set)
+        if path.startswith("twoply_"):
+            want = movegen_set - {"compact_rows"} | fwd
+        elif path == "afterstate4096_update":
+            want = fwd | bwd
+        elif path in ("afterstate4096", "distill", "bench_afterstate4096"):
+            want |= fwd | bwd
+        elif path.startswith(("arena_", "afterstate4096_", "trainer")):
+            want |= fwd
         for name in KERNELS:
-            # the non-doubles kernel dedups on chip, so no path calls
-            # dedup_compact_rows; a 2-ply decision splits no sub-batch
-            if name == "dedup_compact_rows" or (
-                    path.startswith("twoply_") and name == "compact_rows"):
-                check(counted[name] == 0, f"{path} launched {name}")
-            else:
+            if name in want:
                 check(counted[name] > 0, f"{path} never launched {name}")
+            else:
+                check(counted[name] == 0, f"{path} launched {name}")
 
     # last, so that the profiler's own cost cannot reach the timed steps
     table = None
@@ -2463,13 +3008,39 @@ def main(argv=None) -> int:
             "library_ms": None,
         }
 
+    def afterstate_row(name, replaces, row, checked):
+        # times: afterstate4096's first rollout call (forward) or its first
+        # minibatch backward, on this run's boards; the error: the largest
+        # over every call checked (phases 3, 5 and 6)
+        return {
+            "name": name, "route": "cuda",
+            "source": "mlp_ppo_2ply_p3_tpu_torch/csrc/afterstate.cu",
+            "replaces": replaces,
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in checked),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            # Fn.linear for fc1 alone on prebuilt features (forward);
+            # torch.mm for dW1's product alone (backward)
+            "library_ms": row["library_ms"],
+        }
+
     kernels = [kernel_row("compact_rows", TPU_KERNELS, "compaction.cu"),
                kernel_row("dedup_compact_rows", DEDUP_REPLACES,
                           "compaction.cu"),
                kernel_row("doubles_level", DOUBLES_REPLACES, "doubles.cu"),
                kernel_row("nondoubles", NONDOUBLES_REPLACES,
                           "nondoubles.cu"),
-               kernel_row("doubles_final", FINAL_REPLACES, "doubles.cu")]
+               kernel_row("doubles_final", FINAL_REPLACES, "doubles.cu"),
+               afterstate_row("afterstate_eval", AFTERSTATE_REPLACES,
+                              after["afterstate_calls"][0],
+                              fwd_rows + after["afterstate_calls"]
+                              + two["afterstate"]),
+               afterstate_row("afterstate_eval_backward",
+                              AFTERSTATE_BACKWARD_REPLACES,
+                              after["afterstate_backward_calls"][0],
+                              bwd_rows + after["afterstate_backward_calls"])]
     report["kernels"] = kernels
     report["script_s"] = time.time() - t_script
     log(f"chip_smoke.py ran {report['script_s']:.1f} s")

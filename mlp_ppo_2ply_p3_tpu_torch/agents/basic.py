@@ -22,10 +22,9 @@ from __future__ import annotations
 
 import torch
 
-from ..core import board as Bd
-from ..core import features as F
 from ..env import bg_env
 from ..models.mlp import MLP
+from ..ops import afterstate as AE
 from ..ppo.learner import Rand, categorical, uniforms  # noqa: F401
 
 NEG_INF = -1e9
@@ -41,16 +40,17 @@ def afterstate_values(model: MLP, state: bg_env.EnvState):
     """(B, M) value of each legal afterstate FOR THE MOVER:
     -V(opponent_view(after), mover = opponent), since the value head is
     trained on states encoded for the player about to move and an
-    afterstate has the opponent to move next."""
-    opp = Bd.opponent_view(state.after)                       # (B, M, 52)
-    feats = F.encode_canonical(opp, (1 - state.turn.to(torch.int32))[:, None])
-    return -model.value(feats)
+    afterstate has the opponent to move next.  Only the legal prefix is
+    evaluated (``ops.afterstate``'s ``masked`` epilogue); the slots past
+    it hold NEG_INF, where the JAX twin returns the padding boards' values
+    that each of its callers then masks."""
+    return AE.evaluate(model, state.after, 1 - state.turn.to(torch.int32),
+                       state.n_moves, "value", opponent=True,
+                       epilogue="masked", sign=-1.0)
 
 
 def greedy_1ply(model: MLP, state: bg_env.EnvState):
-    vals = afterstate_values(model, state)
-    mask = bg_env.action_mask(state)
-    return torch.argmax(torch.where(mask, vals, NEG_INF),
+    return torch.argmax(afterstate_values(model, state),
                         dim=-1).to(torch.int32)
 
 
@@ -74,8 +74,10 @@ def index_policy(model: MLP, state, rand: Rand, sample: bool = True):
 
 
 def afterstate_policy_logits(model: MLP, state: bg_env.EnvState):
-    scores = model.score(bg_env.afterstate_features(state))  # (B, M)
-    return torch.where(bg_env.action_mask(state), scores, NEG_INF)
+    """(B, M) score-head logits of the legal afterstates, NEG_INF past
+    the legal prefix."""
+    return AE.evaluate(model, state.after, state.turn, state.n_moves,
+                       "score", epilogue="masked")
 
 
 def afterstate_policy(model: MLP, state, rand: Rand, sample: bool = True):

@@ -35,10 +35,10 @@ import torch
 
 from ..core import board as Bd
 from ..core import dice as D
-from ..core import features as F
 from ..core import movegen as MG
 from ..env import bg_env
 from ..models.mlp import MLP
+from ..ops import afterstate as AE
 from ..utils.config import SearchConfig
 from .basic import afterstate_values
 
@@ -74,24 +74,12 @@ def _masked_min_values(model: MLP, boards, n, us, slot_chunk: int):
     """(C,) min value over each game's valid reply prefix; +POS_INF where
     n == 0.  ``boards`` (C, M, 52) are in the OPPONENT's canonical frame
     (they just replied); flipped back to ours they are encoded with
-    mover ``us`` (C,).  The reply axis is walked in ``slot_chunk``-wide
-    blocks, so features are never built at (C, M, 198) at once."""
-    c, m, _ = boards.shape
-    sc = min(slot_chunk, m)
-    pad = (-m) % sc
-    if pad:
-        boards = torch.nn.functional.pad(boards, (0, 0, 0, pad))
-    ours = Bd.opponent_view(boards)
-    slots = torch.arange(sc, device=boards.device)
-    worst = torch.full((c,), POS_INF, dtype=torch.float32,
-                       device=boards.device)
-    for s0 in range(0, m + pad, sc):
-        feats = F.encode_canonical(ours[:, s0:s0 + sc], us[:, None])
-        vals = model.value(feats)                              # (C, sc)
-        valid = (s0 + slots)[None, :] < n[:, None]
-        blk = torch.where(valid, vals, POS_INF).amin(dim=1)
-        worst = torch.minimum(worst, blk)
-    return worst
+    mover ``us`` (C,): ``ops.afterstate``'s ``min`` epilogue.  Its kernel
+    takes the whole reply width in one launch; its plain version walks
+    the reply axis in ``slot_chunk``-wide blocks, so features are never
+    built at (C, M, 198) at once."""
+    return AE.evaluate(model, boards, us, n, "value", opponent=True,
+                       epilogue="min", chunk=slot_chunk)
 
 
 def _reply_leg(model: MLP, vecs, us, dance, chunk: int, slot_chunk: int,
@@ -124,12 +112,15 @@ def _reply_leg(model: MLP, vecs, us, dance, chunk: int, slot_chunk: int,
 
 
 def launches_per_decision(batch: int, scfg: SearchConfig = SearchConfig()):
-    """(compact_rows, dedup_compact_rows, doubles_level, nondoubles,
-    doubles_final) launches of one decision over ``batch`` games: per
-    chunk, each non-doubles roll makes one ``nondoubles`` launch (its
-    dedup, below width 482, runs inside it), each doubles die one launch of
-    its first three levels and one of the final level; no sub-batch
-    split, so no compaction."""
+    """Launches of one decision over ``batch`` games, in ``ops.KERNELS``
+    order (compact_rows, dedup_compact_rows, doubles_level, nondoubles,
+    doubles_final, afterstate_eval, afterstate_eval_backward): per chunk,
+    each non-doubles roll makes one ``nondoubles`` launch (its dedup,
+    below width 482, runs inside it), each doubles die one launch of its
+    first three levels and one of the final level, and each reply list
+    one ``afterstate_eval`` (its min); two more value the 1-ply moves and
+    the top-k's dances.  No sub-batch split, so no compaction; no
+    gradient."""
     rcfg = _reply_cfg(scfg)
     bk = batch * scfg.top_k
     nd = -(-bk // min(scfg.game_chunk, bk)) * len(_ND_IDX)
@@ -137,7 +128,7 @@ def launches_per_decision(batch: int, scfg: SearchConfig = SearchConfig()):
     return (0, nd * MG.dedups_per_call(rcfg),
             db * MG.doubles_levels_per_call(rcfg),
             nd * MG.nondoubles_per_call(rcfg),
-            db * MG.doubles_finals_per_call(rcfg))
+            db * MG.doubles_finals_per_call(rcfg), 2 + nd + db, 0)
 
 
 @torch.no_grad()
@@ -148,17 +139,17 @@ def candidate_scores(model: MLP, state: bg_env.EnvState,
     k = scfg.top_k
     b = state.turn.shape[0]
     dev = state.turn.device
-    mask = bg_env.action_mask(state)
 
     # ---- 1-ply scores and top-k pruning -------------------------------
-    v1 = torch.where(mask, afterstate_values(model, state), NEG_INF)
+    v1 = afterstate_values(model, state)
     top_v, top_idx = torch.sort(v1, dim=-1, descending=True, stable=True)
     top_v, top_idx = top_v[:, :k], top_idx[:, :k]
     top_valid = top_v > NEG_INF / 2
     cand = torch.gather(state.after, 1,
                         top_idx[:, :, None].expand(b, k, 52))  # (B, k, 52)
     # our value of a candidate when it is our turn again (opponent dance)
-    v_dance = model.value(F.encode_canonical(cand, state.turn[:, None]))
+    v_dance = AE.evaluate(model, cand, state.turn, torch.full_like(
+        state.n_moves, k), "value", epilogue="masked")
 
     # ---- opponent chance/reply sweep (static roll split) --------------
     rcfg = _reply_cfg(scfg)

@@ -30,6 +30,7 @@
 namespace {
 
 constexpr int kSlots = 27;
+constexpr int kMaxDevices = 64;           // launch settings kept per card
 constexpr int kBoard = 52;
 constexpr int kWords = kBoard / 4;        // 13
 constexpr int kPoints = 24;

@@ -427,20 +427,23 @@ extern "C" int doubles_levels_launch(const void* vecs, const void* dice,
                                      void* f2b, void* n2, void* f3b,
                                      void* f3r, void* n3, int games, int k1,
                                      int k2, int k3, void* stream) {
-  static int max_dyn = -1;  // the most dynamic shared memory a block gets
+  // the most dynamic shared memory a block gets, for each card apart (the
+  // opt-in is the current card's); 0: not set yet
+  static int max_dyn[kMaxDevices] = {};
   if (games <= 0) return (int)cudaGetLastError();
   if (k1 < 0 || k2 < 0 || k3 < 0 ||
       (((uintptr_t)f1b | (uintptr_t)f2b | (uintptr_t)f3b) & 3) != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  if (max_dyn < 0) {  // once, before any capture: the most the card allows
-    int dev = 0, optin = 0;
+  int dev = -1;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
+    return (int)cudaErrorInvalidDevice;
+  }
+  if (max_dyn[dev] == 0) {  // once a card, before any capture: its most
+    int optin = 0;
     cudaFuncAttributes attr;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(
-          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    }
+    cudaError_t err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess) {
       err = cudaFuncGetAttributes(&attr, doubles_levels_kernel);
     }
@@ -451,10 +454,10 @@ extern "C" int doubles_levels_launch(const void* vecs, const void* dice,
                                  most);
     }
     if (err != cudaSuccess) return (int)err;
-    max_dyn = most;
+    max_dyn[dev] = most;
   }
   const size_t smem = (size_t)4 * levels_words(k1, k2, k3);
-  if (smem > (size_t)max_dyn) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)max_dyn[dev]) return (int)cudaErrorInvalidValue;
   doubles_levels_kernel<<<games, kThreads, smem, (cudaStream_t)stream>>>(
       (const int8_t*)vecs, (const int32_t*)dice, (const uint8_t*)mirror,
       (int8_t*)f1b, (int32_t*)n1, (int8_t*)f2b, (int32_t*)n2, (int8_t*)f3b,

@@ -421,21 +421,24 @@ extern "C" int nondoubles_launch(const void* vecs, const void* d_hi,
                                  const void* db_of, void* out, void* n_out,
                                  void* overflow, int games, int k1, int kd,
                                  int m, int dedup, void* stream) {
-  static int max_dyn = -1;  // the most dynamic shared memory a block gets
+  // the most dynamic shared memory a block gets, for each card apart (the
+  // opt-in is the current card's); 0: not set yet
+  static int max_dyn[kMaxDevices] = {};
   if (games <= 0) return (int)cudaGetLastError();
   const int limit = dedup ? kd : m;
   if (k1 < 1 || kd < 0 || m < 0 || limit > 65535 ||
       (uintptr_t)out % 4 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  if (max_dyn < 0) {  // once, before any capture: the most the card allows
-    int dev = 0, optin = 0;
+  int dev = -1;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
+    return (int)cudaErrorInvalidDevice;
+  }
+  if (max_dyn[dev] == 0) {  // once a card, before any capture: its most
+    int optin = 0;
     cudaFuncAttributes attr;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(
-          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    }
+    cudaError_t err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, nondoubles_kernel);
     const int most = optin - (int)attr.sharedSizeBytes;
     if (err == cudaSuccess) {
@@ -444,11 +447,11 @@ extern "C" int nondoubles_launch(const void* vecs, const void* d_hi,
                                  most);
     }
     if (err != cudaSuccess) return (int)err;
-    max_dyn = most;
+    max_dyn[dev] = most;
   }
   const int s = k1 < kMaxSingles ? k1 : kMaxSingles;
   const size_t smem = (size_t)4 * kGames * game_words(s, limit, dedup != 0);
-  if (smem > (size_t)max_dyn) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)max_dyn[dev]) return (int)cudaErrorInvalidValue;
   nondoubles_kernel<<<(games + kGames - 1) / kGames, kThreads, smem,
                       (cudaStream_t)stream>>>(
       (const int8_t*)vecs, (const int32_t*)d_hi, (const int32_t*)d_lo,

@@ -1,0 +1,291 @@
+"""The afterstate evaluation pass: int8 candidate boards through the
+198 TD-Gammon features, ``fc1``, ReLU and one head, then an epilogue.
+
+    feats = encode_canonical(view(boards), mover)
+    h     = relu(feats @ W1^T + b1)
+    y     = h @ w_head^T + b_head
+
+The JAX package writes this pass in jnp and XLA fuses it:
+``mlp_ppo_2ply_p3_tpu/ppo/learner.py:143-152`` (``_afterstate_logits``),
+``agents/basic.py::afterstate_values`` and ``::afterstate_policy_logits``,
+``agents/twoply.py:108-131`` (``_masked_min_values``).  Its kernels
+(``csrc/afterstate.cu``) read the 52 bytes of each board and nothing of
+the (R, M, 198) features or the (R, M, H) hidden layer reaches device
+memory; the note at the top of the source says what bounds them on an
+H100.
+
+- ``view``: the identity, or ``core.board.opponent_view`` (``opponent``).
+- ``mover``: (R,) int32, the one-hot and the frame of the encoding.
+- ``n``: (R,) int32 valid-prefix lengths of the M slots.
+- ``epilogue``: ``"logits"`` (``y`` where slot < n, else -1e9; a row with
+  n == 0 keeps its raw ``y``, as ``ppo.learner._prefix_mask``),
+  ``"masked"`` (``sign * y`` where slot < n, else -1e9; ``n = M`` gives
+  the raw values) or ``"min"`` (the (R,) minimum of ``y`` over the valid
+  prefix, +1e9 where n == 0).
+
+``afterstate_eval`` dispatches on the boards' device: CPU tensors take
+``afterstate_eval_plain`` (the former composition of
+``features.encode_canonical`` and ``MLP.score``/``value``, moved here
+unchanged), CUDA tensors launch the kernel or raise.  On the card its
+gradient is ``torch.autograd.Function`` whose backward is the second
+kernel, ``afterstate_eval_backward`` (the parameters' gradients; the
+boards carry none).  The two wrappers' ``launches`` attributes count
+kernel launches.  ``evaluate`` takes the weights from an ``MLP``.
+
+The kernels compute in float32 with float32 accumulation, features bit
+for bit; only the summation order of ``fc1`` and the head differs from
+torch's, so their results are held to a tolerance.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+from torch.nn import functional as Fn
+
+from ..core import board as Bd
+from ..core import features as F
+
+FLOOR = -1e9     # the masked entries (ppo.learner.MASK_FLOOR, basic.NEG_INF)
+POS_INF = 1e9    # a min over no reply (agents.twoply.POS_INF)
+EPILOGUES = {"logits": 0, "masked": 1, "min": 2}
+# the hidden widths the kernels are built for: every preset and frozen_v1
+# (128), the h256 learning run (256)
+HIDDEN = (128, 256)
+ROADMAP_ITEM = "ROADMAP.md, queue 1, item 20"
+
+
+def _valid(n, m, epilogue):
+    """(R, M) bool: the slots whose value the epilogue keeps."""
+    slots = torch.arange(m, device=n.device)[None, :]
+    valid = slots < n[:, None]
+    if epilogue == "logits":
+        valid = valid | (n <= 0)[:, None]
+    return valid
+
+
+def _head(feats, w1, b1, w_head, b_head):
+    dt = w1.dtype
+    h = torch.relu(Fn.linear(feats.to(dt), w1, b1))
+    return Fn.linear(h, w_head, b_head).float()[..., 0]
+
+
+def afterstate_eval_plain(boards, mover, n, w1, b1, w_head, b_head,
+                          opponent, epilogue, sign, chunk=0):
+    """Plain PyTorch version (any device; differentiable in the weights).
+    ``chunk`` > 0 walks the slot axis of the ``min`` epilogue in blocks of
+    that width, so that the features are never built at (R, M, 198) at
+    once; it changes no result."""
+    r, m, _ = boards.shape
+    if epilogue == "min":
+        worst = torch.full((r,), POS_INF, dtype=torch.float32,
+                           device=boards.device)
+        sc = min(chunk, m) if chunk > 0 else m
+        pad = (-m) % sc if m else 0
+        if pad:
+            boards = Fn.pad(boards, (0, 0, 0, pad))
+        view = Bd.opponent_view(boards) if opponent else boards
+        slots = torch.arange(sc, device=boards.device)
+        for s0 in range(0, m + pad, max(sc, 1)):
+            feats = F.encode_canonical(view[:, s0:s0 + sc], mover[:, None])
+            vals = _head(feats, w1, b1, w_head, b_head)
+            valid = (s0 + slots)[None, :] < n[:, None]
+            blk = torch.where(valid, vals, POS_INF).amin(dim=1)
+            worst = torch.minimum(worst, blk)
+        return worst
+    view = Bd.opponent_view(boards) if opponent else boards
+    y = _head(F.encode_canonical(view, mover[:, None]), w1, b1, w_head,
+              b_head)
+    if sign < 0:
+        y = -y
+    return torch.where(_valid(n, m, epilogue), y, FLOOR)
+
+
+def afterstate_eval_backward_plain(boards, mover, n, w1, b1, w_head, b_head,
+                                   opponent, epilogue, sign, grad):
+    """(dW1, db1, dw_head, db_head) of ``sum(grad * afterstate_eval_plain(
+    ...))``: the plain version's gradients by torch's autograd."""
+    with torch.enable_grad():
+        params = [p.detach().requires_grad_() for p in (w1, b1, w_head,
+                                                        b_head)]
+        y = afterstate_eval_plain(boards, mover, n, *params, opponent,
+                                  epilogue, sign)
+        return torch.autograd.grad(y, params, grad)
+
+
+def _check(boards, mover, n, w1, b1, w_head, b_head, opponent, epilogue,
+           sign):
+    if boards.dtype != torch.int8 or boards.dim() != 3 or \
+            boards.shape[2] != 52:
+        raise TypeError(f"boards must be (R, M, 52) int8, got "
+                        f"{tuple(boards.shape)} {boards.dtype}")
+    r, m, _ = boards.shape
+    for name, x in (("mover", mover), ("n", n)):
+        if x.dtype != torch.int32 or tuple(x.shape) != (r,):
+            raise TypeError(f"{name} must be ({r},) int32, got "
+                            f"{tuple(x.shape)} {x.dtype}")
+    h = w1.shape[0]
+    shapes = ((w1, (h, 198)), (b1, (h,)), (w_head, (1, h)), (b_head, (1,)))
+    for x, want in shapes:
+        if tuple(x.shape) != want:
+            raise ValueError(f"weights must be (H, 198), (H,), (1, H), (1,);"
+                             f" got {[tuple(p.shape) for p, _ in shapes]}")
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"epilogue must be one of {tuple(EPILOGUES)}, got "
+                         f"{epilogue!r}")
+    if sign not in (1.0, -1.0) or (epilogue == "min" and sign != 1.0):
+        raise ValueError(f"sign must be 1 or -1 (1 for the min), got "
+                         f"{sign}")
+    if not isinstance(opponent, bool):
+        raise TypeError(f"opponent must be a bool, got {opponent!r}")
+    tensors = (boards, mover, n, w1, b1, w_head, b_head)
+    if any(x.device != boards.device for x in tensors):
+        raise ValueError("boards, mover, n and the weights are on different "
+                         "devices")
+    if boards.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {boards.device}")
+    if boards.device.type == "cuda":
+        if h not in HIDDEN or any(p.dtype != torch.float32
+                                  for p in tensors[3:]):
+            raise ValueError(
+                f"the afterstate kernels take float32 weights at hidden "
+                f"width {HIDDEN}, got {h} {w1.dtype}: see {ROADMAP_ITEM}")
+        if not all(x.is_contiguous() for x in tensors):
+            raise ValueError("the afterstate kernels need contiguous inputs")
+        if r * m >= 2**31:
+            raise ValueError(f"{r} x {m} boards is too many for one launch")
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "afterstate_eval_launch": ([_P] * 8 + [_I] * 5 + [_F, _P], _I),
+    "afterstate_backward_scratch_floats": ([_I, _I, _I], ctypes.c_longlong),
+    "afterstate_backward_launch": ([_P] * 10 + [_I] * 5 + [_F, _P], _I),
+}
+
+
+def _fn(name):
+    from .build import load
+
+    fn = getattr(load("afterstate"), name)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = _SIGNATURES[name]
+    return fn
+
+
+def _forward_kernel(boards, mover, n, w1, b1, w_head, b_head, opponent,
+                    epilogue, sign):
+    r, m, _ = boards.shape
+    h = w1.shape[0]
+    with torch.cuda.device(boards.device):
+        shape = (r,) if epilogue == "min" else (r, m)
+        out = torch.empty(shape, dtype=torch.float32, device=boards.device)
+        err = _fn("afterstate_eval_launch")(
+            boards.data_ptr(), mover.data_ptr(), n.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w_head.data_ptr(),
+            b_head.data_ptr(), out.data_ptr(), r, m, h, int(opponent),
+            EPILOGUES[epilogue], sign,
+            torch.cuda.current_stream(boards.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"afterstate_eval kernel launch failed: CUDA "
+                           f"error {err} at {r} x {m} boards, hidden {h}")
+    _COUNTERS["afterstate_eval"].launches += 1
+    return out
+
+
+class _Eval(torch.autograd.Function):
+    """The kernel as a differentiable function of the four weights."""
+
+    @staticmethod
+    def forward(ctx, boards, mover, n, w1, b1, w_head, b_head, opponent,
+                epilogue, sign):
+        ctx.save_for_backward(boards, mover, n, w1, b1, w_head, b_head)
+        ctx.cfg = (opponent, epilogue, sign)
+        return _forward_kernel(boards, mover, n, w1, b1, w_head, b_head,
+                               opponent, epilogue, sign)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grads = afterstate_eval_backward(*ctx.saved_tensors, *ctx.cfg, grad)
+        return (None, None, None, *grads, None, None, None)
+
+
+def afterstate_eval(boards, mover, n, w1, b1, w_head, b_head, opponent,
+                    epilogue, sign, chunk=0):
+    """The pass over (R, M, 52) int8 ``boards``; returns (R, M) float32,
+    or (R,) for ``epilogue="min"``.  ``w1`` (H, 198), ``b1`` (H,),
+    ``w_head`` (1, H), ``b_head`` (1,) are ``nn.Linear``'s layouts;
+    ``opponent`` a bool, ``sign`` +-1.0 (``masked`` only).  ``chunk``
+    reaches only the plain version (the kernel takes the whole width in
+    one launch)."""
+    _check(boards, mover, n, w1, b1, w_head, b_head, opponent, epilogue,
+           sign)
+    if boards.device.type == "cpu":
+        return afterstate_eval_plain(boards, mover, n, w1, b1, w_head,
+                                     b_head, opponent, epilogue, sign, chunk)
+    return _Eval.apply(boards, mover, n, w1, b1, w_head, b_head, opponent,
+                       epilogue, sign)
+
+
+def afterstate_eval_backward(boards, mover, n, w1, b1, w_head, b_head,
+                             opponent, epilogue, sign, grad):
+    """(dW1 (H, 198), db1 (H,), dw_head (1, H), db_head (1,)) of
+    ``sum(grad * afterstate_eval(...))`` for ``grad`` shaped as the
+    forward's output.  Entries that the epilogue masks carry no gradient.
+    The ``min`` epilogue has none (its callers run without gradients)."""
+    _check(boards, mover, n, w1, b1, w_head, b_head, opponent, epilogue,
+           sign)
+    r, m, _ = boards.shape
+    if epilogue == "min":
+        raise NotImplementedError("the min epilogue has no gradient")
+    if tuple(grad.shape) != (r, m) or grad.device != boards.device:
+        raise ValueError(f"grad must be ({r}, {m}) on {boards.device}, got "
+                         f"{tuple(grad.shape)} on {grad.device}")
+    if boards.device.type == "cpu":
+        return afterstate_eval_backward_plain(
+            boards, mover, n, w1, b1, w_head, b_head, opponent, epilogue,
+            sign, grad)
+    h = w1.shape[0]
+    grad = grad.to(torch.float32).contiguous()
+    dev = boards.device
+    with torch.cuda.device(dev):
+        floats = _fn("afterstate_backward_scratch_floats")(r, m, h)
+        scratch = torch.empty((max(floats, 1),), dtype=torch.float32,
+                              device=dev)
+        flat = torch.empty((h * 198 + 2 * h + 1,), dtype=torch.float32,
+                           device=dev)
+        err = _fn("afterstate_backward_launch")(
+            boards.data_ptr(), mover.data_ptr(), n.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w_head.data_ptr(),
+            b_head.data_ptr(), grad.data_ptr(), scratch.data_ptr(),
+            flat.data_ptr(), r, m, h, int(opponent), EPILOGUES[epilogue],
+            sign, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"afterstate_eval_backward kernel launch failed: "
+                           f"CUDA error {err} at {r} x {m} boards, hidden {h}")
+    _COUNTERS["afterstate_eval_backward"].launches += 1
+    hw = h * 198
+    return (flat[:hw].view(h, 198), flat[hw:hw + h],
+            flat[hw + h:hw + 2 * h].view(1, h), flat[hw + 2 * h:])
+
+
+def evaluate(model, boards, mover, n, head, opponent=False,
+             epilogue="logits", sign=1.0, chunk=0):
+    """``afterstate_eval`` with the weights of ``model`` (an ``MLP``):
+    ``fc1`` and the head ``head`` ("score" or "value"), cast to its
+    compute dtype (the kernels take float32 alone and raise on another)."""
+    dt = model.dtype
+    fc1, out = model.layers["fc1"], model.layers[head]
+    weights = [p.to(dt) for p in (fc1.weight, fc1.bias, out.weight,
+                                  out.bias)]
+    return afterstate_eval(boards, mover.to(torch.int32), n.to(torch.int32),
+                           *weights, opponent, epilogue, sign, chunk)
+
+
+afterstate_eval.launches = 0
+afterstate_eval_backward.launches = 0
+# the function objects that own the counts, so that a caller who wraps a
+# wrapper (to capture its inputs) still counts on the original
+_COUNTERS = {"afterstate_eval": afterstate_eval,
+             "afterstate_eval_backward": afterstate_eval_backward}

@@ -43,9 +43,9 @@ import torch
 from torch.nn import functional as Fn
 
 from .. import resolve_device
-from ..core import features as F
 from ..env import bg_env
 from ..models.mlp import MLP, ModelConfig
+from ..ops import afterstate as AE
 from ..parallel import mesh
 from . import gae as gae_mod
 
@@ -221,12 +221,12 @@ def _masked_logits(model: MLP, obs, n_moves, m):
     return torch.where(_prefix_mask(n_moves, m), logits, MASK_FLOOR), value
 
 
-def _afterstate_logits(model: MLP, after, turn, n_moves, m):
+def _afterstate_logits(model: MLP, after, turn, n_moves):
     """Score-head logits over legal afterstates; ``after`` (B, M, 52),
-    ``turn`` (B,) mover."""
-    feats = F.encode_canonical(after, turn[:, None])  # (B, M, 198)
-    scores = model.score(feats)                        # (B, M)
-    return torch.where(_prefix_mask(n_moves, m), scores, MASK_FLOOR)
+    ``turn`` (B,) mover: ``ops.afterstate``'s ``logits`` epilogue (the
+    ``_prefix_mask`` above, with the MASK_FLOOR), a kernel on the card
+    and differentiable in the weights."""
+    return AE.evaluate(model, after, turn, n_moves, "score")
 
 
 @torch.no_grad()
@@ -243,8 +243,8 @@ def rollout(model: MLP, env_state, sampler: Sampler, env_cfg,
         obs = bg_env.observe(es)
         if afterstate:
             _, value = model(obs)
-            masked = _afterstate_logits(model, es.after, es.turn, es.n_moves,
-                                        m)
+            masked = _afterstate_logits(model, es.after, es.turn,
+                                        es.n_moves)
         else:
             masked, value = _masked_logits(model, obs, es.n_moves, m)
         action = sampler.actions(masked)
@@ -272,7 +272,7 @@ def _loss_fn(model: MLP, batch, ent_coef, m, cfg: PPOConfig):
     if cfg.policy_mode == "afterstate":
         obs, n_moves, action, old_logp, returns, adv, after, turn = batch
         _, value = model(obs)
-        masked = _afterstate_logits(model, after, turn, n_moves, m)
+        masked = _afterstate_logits(model, after, turn, n_moves)
     else:
         obs, n_moves, action, old_logp, returns, adv = batch
         masked, value = _masked_logits(model, obs, n_moves, m)

@@ -132,7 +132,7 @@ def make_update(model, m, lr, value_coef, policy_coef):
         obs, after, n_moves, turn, action, target_v = mb
         valid = n_moves > 0
         nvalid = valid.sum().clamp(min=1)
-        logits = learner._afterstate_logits(model, after, turn, n_moves, m)
+        logits = learner._afterstate_logits(model, after, turn, n_moves)
         logp = Fn.log_softmax(logits, dim=-1)
         ce = -torch.gather(logp, 1, action[:, None].long())[:, 0]
         ce = torch.where(valid, ce, 0.0).sum() / nvalid

@@ -189,6 +189,12 @@ def timed_scan(fn, *args, iters: int = SCAN_ITERS) -> float:
     return start.elapsed_time(end) / 1e3 / (GRAPH_REPLAYS * iters)
 
 
+# two traces of one call agree when they differ by at most this share of
+# the larger; a call is traced at most MAX_TRACES times (``device_busy``)
+AGREE = 0.02
+MAX_TRACES = 6
+
+
 def busy_seconds(intervals) -> float:
     """Length of the union of (start, end) intervals, in their unit."""
     total, reach = 0.0, None
@@ -205,30 +211,41 @@ def busy_seconds(intervals) -> float:
 def device_busy(fn, device="cuda") -> float:
     """Seconds in which the card ran work of one ``fn()`` call: the union
     of its kernels', copies' and fills' intervals in a ``torch.profiler``
-    trace of the call (CUDA activity only).  The call is traced twice and
-    the larger union kept: the profiler now and then drops records of a
-    long trace (on an H100, a ``train_step`` at B=16384 once read
-    160 ms short), and
-    a dropped record can only shorten the union.  The profiler slows the
-    host, so read the call's wall time from an untraced run.  Raises
-    without a card."""
+    trace of the call (CUDA activity only).  The call is traced until two
+    traces in a row agree within ``AGREE`` of the larger (at most
+    ``MAX_TRACES`` traces), and the larger of those two is kept; where no
+    two agree, the largest reading.  One trace alone can mislead either
+    way: the profiler now and then drops records of a trace (on an H100,
+    a ``train_step`` at B=16384 once read 160 ms short), which can only
+    shorten the union, and a card whose clocks are still rising runs the
+    first call slower.  ``device_busy.traces`` keeps the last call's
+    readings as (seconds, CUDA records).  The profiler slows the host, so
+    read the call's wall time from an untraced run.  Raises without a
+    card."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError(f"device_busy needs a card, got {dev}")
     cuda = torch.autograd.DeviceType.CUDA
-    best = 0.0
-    for _ in range(2):
+    traces = device_busy.traces = []
+    for _ in range(MAX_TRACES):
         torch.cuda.synchronize(dev)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize(dev)
-        events = prof.profiler.kineto_results.events()
-        best = max(best, busy_seconds((e.start_ns(), e.end_ns())
-                                      for e in events
-                                      if e.device_type() == cuda))
-    return best / 1e9
+        spans = [(e.start_ns(), e.end_ns())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == cuda]
+        traces.append((busy_seconds(spans) / 1e9, len(spans)))
+        if len(traces) >= 2:
+            a, b = traces[-2][0], traces[-1][0]
+            if abs(a - b) <= AGREE * max(a, b):
+                return max(a, b)
+    return max(t for t, _ in traces)
+
+
+device_busy.traces = []
 
 
 def device_label(device) -> str:

@@ -1,0 +1,396 @@
+"""Port parity: the afterstate evaluation pass (``ops/afterstate.py``).
+
+``afterstate_eval_plain`` against the JAX package's compositions on the
+same inputs, made with numpy from seeds: ``ppo/learner.py::
+_afterstate_logits`` (logits), the negated value of the opponent's view
+and the score head masked to the legal prefix
+(``agents/basic.py::afterstate_values`` / ``::afterstate_policy_logits``),
+and ``agents/twoply.py::_masked_min_values`` (min).  Boards of every stage
+(bar and borne-off checkers, zero padding rows), both movers, n = 0,
+n = M and n in between, M a multiple of no tile, hidden 32 and 128.
+Forward within 1e-5 (float32 sums in another order); the gradients of a
+scalar loss through the logits against ``jax.grad`` of the same loss
+within 1e-5 of the gradient's norm.
+
+Then the wrapper's contract on the CPU, the autograd function of the card
+path with the plain versions standing in for the two kernels, and every
+path that scores candidate boards: with the wrapper standing in for the
+card, none calls ``afterstate_eval_plain``, ``features.encode_canonical``
+or ``MLP.score``/``value`` on candidate boards itself, and each makes the
+launches counted from its code (a 2-ply decision
+``launches_per_decision``'s)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mlp_ppo_2ply_p3_tpu.agents import twoply as JT
+from mlp_ppo_2ply_p3_tpu.core import features as JF
+from mlp_ppo_2ply_p3_tpu.core.board import opponent_view as j_opponent_view
+from mlp_ppo_2ply_p3_tpu.models import mlp as JMLP
+from mlp_ppo_2ply_p3_tpu.ppo import learner as JL
+from mlp_ppo_2ply_p3_tpu_torch import ops
+from mlp_ppo_2ply_p3_tpu_torch.agents import basic as TB
+from mlp_ppo_2ply_p3_tpu_torch.agents import twoply as TT
+from mlp_ppo_2ply_p3_tpu_torch.core import board as TBd
+from mlp_ppo_2ply_p3_tpu_torch.core import features as TF
+from mlp_ppo_2ply_p3_tpu_torch.core.movegen import MovegenConfig
+from mlp_ppo_2ply_p3_tpu_torch.env import bg_env as TE
+from mlp_ppo_2ply_p3_tpu_torch.models import mlp as TMLP
+from mlp_ppo_2ply_p3_tpu_torch.ops import afterstate as TAS
+from mlp_ppo_2ply_p3_tpu_torch.ppo import learner as TL
+from mlp_ppo_2ply_p3_tpu_torch.scripts import run_distill as TD
+from mlp_ppo_2ply_p3_tpu_torch.utils import convert
+from mlp_ppo_2ply_p3_tpu_torch.utils.config import SearchConfig
+
+from .test_torch_utils import canonical, nn_, random_positions, tt
+
+R, M = 37, 29   # no tile's multiple
+
+
+def candidate_boards(seed, r=R, m=M):
+    """(r, m, 52) int8 canonical boards of random positions of every
+    stage (bar entries, bear-offs), each for a random player, and a tenth
+    of the rows all-zero padding; (r,) int32 movers of both colours; n
+    with 0, m and values in between."""
+    rng = np.random.default_rng(seed)
+    boards, players = [], []
+    for stage in ("any", "bearoff", "bar"):
+        b, p = random_positions(rng, r * m // 3 + 1, stage)
+        boards.append(b)
+        players.append(p)
+    pick = rng.permutation(sum(len(b) for b in boards))[:r * m]
+    boards = canonical(np.concatenate(boards)[pick],
+                       np.concatenate(players)[pick])
+    boards = boards.reshape(r, m, 52).astype(np.int8)
+    boards[rng.random((r, m)) < 0.1] = 0
+    mover = rng.integers(0, 2, r).astype(np.int32)
+    n = rng.integers(1, m, r).astype(np.int32)
+    n[::5] = 0
+    n[1::7] = m
+    return boards, mover, n
+
+
+def jax_params(seed, hidden):
+    cfg = JMLP.ModelConfig(hidden_size=hidden, action_size=M)
+    params = JMLP.init_params(jax.random.PRNGKey(seed), cfg)
+    return jax.tree_util.tree_map(np.asarray, params), cfg
+
+
+def port_weights(model, head):
+    return (model.layers["fc1"].weight, model.layers["fc1"].bias,
+            model.layers[head].weight, model.layers[head].bias)
+
+
+def _jax_masked(vals, n, sign):
+    valid = jnp.arange(vals.shape[1])[None, :] < n[:, None]
+    return jnp.where(valid, sign * vals, -1e9)
+
+
+def jax_eval(params, cfg, boards, mover, n, head, opponent, epilogue, sign):
+    """The JAX package's composition of each epilogue."""
+    if epilogue == "logits":
+        return JL._afterstate_logits(params, boards, mover, n,
+                                     boards.shape[1], cfg)
+    if epilogue == "min":
+        return JT._masked_min_values(params, boards, n, mover, cfg, 8)
+    view = j_opponent_view(boards) if opponent else boards
+    feats = jax.vmap(JF.encode_canonical)(view, mover)
+    vals = getattr(JMLP, head)(params, feats, cfg)
+    return _jax_masked(vals, n, sign)
+
+
+# (head, opponent view, epilogue, sign): the learner's logits, the 1-ply
+# values (negated, the opponent's view), the score-head policy logits, the
+# dances' raw values (n = M), the replies' min
+FORMS = [("score", False, "logits", 1.0), ("value", True, "masked", -1.0),
+         ("score", False, "masked", 1.0), ("value", False, "raw", 1.0),
+         ("value", True, "min", 1.0)]
+
+
+@pytest.mark.parametrize("hidden", [32, 128])
+@pytest.mark.parametrize("form", FORMS, ids=lambda f: f"{f[0]}-{f[2]}")
+def test_plain_matches_jax(form, hidden):
+    head, opponent, epilogue, sign = form
+    boards, mover, n = candidate_boards(hidden + len(epilogue))
+    if epilogue == "raw":
+        epilogue, n = "masked", np.full_like(n, M)
+    params, cfg = jax_params(1, hidden)
+    model = convert.params_from_jax(params, device="cpu")
+    args = (jnp.asarray(boards), jnp.asarray(mover), jnp.asarray(n))
+    want = np.asarray(jax.jit(jax_eval, static_argnums=(1, 5, 6, 7, 8))(
+        jax.tree_util.tree_map(jnp.asarray, params), cfg, *args, head,
+        opponent, epilogue, sign))
+    got = TAS.afterstate_eval_plain(tt(boards), tt(mover), tt(n),
+                                    *port_weights(model, head), opponent,
+                                    epilogue, sign, 8)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(nn_(got), want, atol=1e-5)
+    if epilogue == "min":
+        assert (nn_(got)[n == 0] == TAS.POS_INF).all()
+    else:
+        assert (nn_(got)[np.arange(M)[None, :] >= np.maximum(
+            n, M * (n == 0) * (epilogue == "logits"))[:, None]]
+            == TAS.FLOOR).all()
+
+
+@pytest.mark.parametrize("hidden", [32, 128])
+def test_gradients_match_jax(hidden):
+    """d/dparams of sum(c * log_softmax(logits)) (a policy-loss shape over
+    the logits epilogue), against jax.grad, within 1e-5 of each gradient's
+    norm; masked entries carry none."""
+    boards, mover, n = candidate_boards(7 + hidden)
+    coef = np.random.default_rng(3).standard_normal((R, M)).astype(
+        np.float32)
+    params, cfg = jax_params(2, hidden)
+
+    def jloss(p):
+        logits = JL._afterstate_logits(p, jnp.asarray(boards),
+                                       jnp.asarray(mover), jnp.asarray(n),
+                                       M, cfg)
+        return jnp.sum(jnp.asarray(coef) * jax.nn.log_softmax(logits, -1))
+
+    want = jax.jit(jax.grad(jloss))(jax.tree_util.tree_map(jnp.asarray,
+                                                           params))
+    model = convert.params_from_jax(params, device="cpu")
+    logits = TAS.evaluate(model, tt(boards), tt(mover), tt(n), "score")
+    loss = torch.sum(tt(coef) * torch.log_softmax(logits, -1))
+    loss.backward()
+    for layer in ("fc1", "score"):
+        lin = model.layers[layer]
+        for got, w in ((lin.weight.grad.T, want[layer]["w"]),
+                       (lin.bias.grad, want[layer]["b"])):
+            w = np.asarray(w)
+            assert np.abs(nn_(got) - w).max() <= 1e-5 * np.linalg.norm(w)
+    assert model.layers["value"].weight.grad is None
+
+
+def test_wrapper_on_cpu_and_its_checks(monkeypatch):
+    """CPU tensors take the plain version (no library is loaded) and
+    count no launch; the launch keys are registered; bad inputs raise."""
+    boards, mover, n = candidate_boards(5, 6, 9)
+    model = TMLP.MLP(TMLP.ModelConfig(hidden_size=64), device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+    w = port_weights(model, "value")
+
+    def no_library(name):
+        raise AssertionError(f"the CPU path loaded {name}")
+
+    monkeypatch.setattr(TAS, "_fn", no_library)
+    before = ops.launches()
+    args = (tt(boards), tt(mover), tt(n), *w)
+    for epilogue, sign in (("logits", 1.0), ("masked", -1.0), ("min", 1.0)):
+        got = TAS.afterstate_eval(*args, True, epilogue, sign)
+        assert torch.equal(got, TAS.afterstate_eval_plain(
+            *args, True, epilogue, sign))
+    grad = torch.ones((6, 9))
+    got = TAS.afterstate_eval_backward(*args, False, "logits", 1.0, grad)
+    want = TAS.afterstate_eval_backward_plain(*args, False, "logits", 1.0,
+                                              grad)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+    assert [tuple(g.shape) for g in got] == [(64, 198), (64,), (1, 64), (1,)]
+    assert ops.launches() == before
+    assert ops.KERNELS[-2:] == ("afterstate_eval", "afterstate_eval_backward")
+    assert ops.counters()["afterstate_eval"] is TAS._COUNTERS[
+        "afterstate_eval"]
+    bad = [
+        ((tt(boards).int(), *args[1:], False, "logits", 1.0), TypeError),
+        ((tt(boards)[:, :, :51], *args[1:], False, "logits", 1.0),
+         TypeError),
+        ((args[0], tt(mover).long(), *args[2:], False, "logits", 1.0),
+         TypeError),
+        ((*args[:3], w[0].T, *w[1:], False, "logits", 1.0), ValueError),
+        ((*args, False, "max", 1.0), ValueError),
+        ((*args, False, "masked", 0.5), ValueError),
+        ((*args, False, "min", -1.0), ValueError),
+        ((*args, 1, "logits", 1.0), TypeError),
+    ]
+    for call, err in bad:
+        with pytest.raises(err):
+            TAS.afterstate_eval(*call)
+    with pytest.raises(NotImplementedError):
+        TAS.afterstate_eval_backward(*args, True, "min", 1.0, torch.ones(6))
+    with pytest.raises(ValueError):
+        TAS.afterstate_eval_backward(*args, True, "logits", 1.0,
+                                     torch.ones(6))
+
+
+def _standing_in(monkeypatch, calls):
+    """Swaps the two kernels for their plain versions behind the card
+    path's own glue (the autograd function, the backward wrapper), counts
+    the wrappers' calls into ``calls``, and counts in ``calls["outside"]``
+    every call of the plain pass's pieces on candidate boards that does
+    not come from inside a stand-in."""
+    inside = [0]
+    fwd, bwd = TAS.afterstate_eval_plain, TAS.afterstate_eval_backward
+
+    def kernel(*args):
+        inside[0] += 1
+        try:
+            return fwd(*args)
+        finally:
+            inside[0] -= 1
+
+    def wrapper(*args):
+        calls["afterstate_eval"] += 1
+        return TAS._Eval.apply(*args[:10])
+
+    def backward(*args):
+        calls["afterstate_eval_backward"] += 1
+        inside[0] += 1
+        try:
+            return bwd(*args)
+        finally:
+            inside[0] -= 1
+
+    def outside(fn, candidate=lambda *a: True):
+        def counted(*args, **kw):
+            if not inside[0] and candidate(*args):
+                calls["outside"] += 1
+            return fn(*args, **kw)
+        return counted
+
+    monkeypatch.setattr(TAS, "_forward_kernel",
+                        lambda *a: kernel(*a[:10]))
+    monkeypatch.setattr(TAS, "afterstate_eval", wrapper)
+    monkeypatch.setattr(TAS, "afterstate_eval_backward", backward)
+    monkeypatch.setattr(TAS, "afterstate_eval_plain", outside(fwd))
+    monkeypatch.setattr(TF, "encode_canonical", outside(TF.encode_canonical))
+    monkeypatch.setattr(TMLP.MLP, "score", outside(TMLP.MLP.score))
+    monkeypatch.setattr(TMLP.MLP, "value", outside(
+        TMLP.MLP.value, lambda self, x: x.dim() > 2))
+
+
+def test_autograd_function_with_plain_kernels(monkeypatch):
+    """The card path's ``torch.autograd.Function`` with the plain versions
+    in the kernels' place gives the plain gradients exactly: its backward
+    passes the weights' gradients in order and the boards none."""
+    calls = {"afterstate_eval": 0, "afterstate_eval_backward": 0,
+             "outside": 0}
+    boards, mover, n = candidate_boards(11, 8, 13)
+    model = TMLP.MLP(TMLP.ModelConfig(hidden_size=32), device="cpu",
+                     generator=torch.Generator().manual_seed(1))
+    coef = torch.randn((8, 13), generator=torch.Generator().manual_seed(2))
+    want = []
+    for stand_in in (False, True):
+        if stand_in:
+            _standing_in(monkeypatch, calls)
+        model.zero_grad()
+        out = TAS.evaluate(model, tt(boards), tt(mover), tt(n), "value",
+                           opponent=True, epilogue="masked", sign=-1.0)
+        torch.sum(coef * out).backward()
+        grads = [p.grad.clone() for p in port_weights(model, "value")]
+        if stand_in:
+            assert all(torch.equal(g, w) for g, w in zip(grads, want))
+        want = grads
+    assert calls == {"afterstate_eval": 1, "afterstate_eval_backward": 1,
+                     "outside": 0}
+
+
+def test_paths_score_through_the_wrapper(monkeypatch):
+    """With the wrapper standing in for the card (``_standing_in``), the
+    afterstate rollout and update, greedy 1-ply, the score-head policy, a
+    2-ply decision and a distillation step score every candidate board
+    through it: no call of the plain pass's pieces from outside, and the
+    wrapper's calls as counted from the code."""
+    calls = {"afterstate_eval": 0, "afterstate_eval_backward": 0,
+             "outside": 0}
+    _standing_in(monkeypatch, calls)
+    widths = dict(max_moves=M, k2=64, k3=64)
+    env = TE.EnvConfig(movegen=MovegenConfig(**widths))
+    mcfg = TMLP.ModelConfig(hidden_size=32, action_size=M)
+    ppo = TL.PPOConfig(num_envs=8, t_horizon=3, num_epochs=2,
+                       num_minibatches=2, policy_mode="afterstate")
+    ts = TL.init_train_state(0, mcfg, ppo, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    es = TE.reset(gen, env, 8, device="cpu")
+
+    def expect(fwd, bwd):
+        assert calls == {"afterstate_eval": fwd,
+                         "afterstate_eval_backward": bwd, "outside": 0}
+        calls.update(afterstate_eval=0, afterstate_eval_backward=0)
+
+    ts, es, metrics = TL.train_step(ts, es, env, mcfg, ppo)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    steps = ppo.num_epochs * ppo.num_minibatches
+    expect(ppo.t_horizon + steps, steps)
+    TB.greedy_1ply(ts.model, es)
+    expect(1, 0)
+    TB.afterstate_policy(ts.model, es, TL.uniforms(gen))
+    expect(1, 0)
+    scfg = SearchConfig(top_k=2, reply_max_moves=M, game_chunk=5,
+                        dbl_game_chunk=3)
+    TT.twoply_actions_values(ts.model, es, scfg)
+    expect(TT.launches_per_decision(8, scfg)[5], 0)
+    opt = TL.init_optimizer(ts.model)
+    update = TD.make_update(ts.model, M, 1e-3, 1.0, 1.0)
+    mb = (TE.observe(es), es.after, es.n_moves, es.turn,
+          torch.zeros(8, dtype=torch.int32), torch.zeros(8))
+    update(opt, mb)
+    expect(1, 1)
+
+
+def test_masked_min_chunking_changes_nothing():
+    """The min's plain version walks the reply axis in blocks; every block
+    width gives the same bits as one block."""
+    boards, mover, n = candidate_boards(13, 16, 40)
+    model = TMLP.MLP(TMLP.ModelConfig(hidden_size=32), device="cpu",
+                     generator=torch.Generator().manual_seed(4))
+    args = (tt(boards), tt(mover), tt(n), *port_weights(model, "value"),
+            True, "min", 1.0)
+    whole = TAS.afterstate_eval_plain(*args, 0)
+    for chunk in (1, 7, 16, 40, 64):
+        assert torch.equal(TAS.afterstate_eval_plain(*args, chunk), whole)
+    empty = TAS.afterstate_eval_plain(tt(boards[:, :0].copy()), *args[1:], 8)
+    assert (empty == TAS.POS_INF).all()
+
+
+def test_afterstate_train_step_matches_plain_composition():
+    """The afterstate ``train_step`` through the wrapper equals, bit for
+    bit on the CPU, the same step with the learner's former composition
+    (``features.encode_canonical`` + ``MLP.score`` + the prefix mask)."""
+    widths = dict(max_moves=M, k2=64, k3=64)
+    env = TE.EnvConfig(movegen=MovegenConfig(**widths))
+    mcfg = TMLP.ModelConfig(hidden_size=32, action_size=M)
+    ppo = TL.PPOConfig(num_envs=8, t_horizon=3, num_epochs=1,
+                       num_minibatches=2, policy_mode="afterstate")
+
+    def former(model, after, turn, n_moves):
+        feats = TF.encode_canonical(after, turn[:, None])
+        return torch.where(TL._prefix_mask(n_moves, after.shape[1]),
+                           model.score(feats), TL.MASK_FLOOR)
+
+    out = []
+    for logits in (TL._afterstate_logits, former):
+        ts = TL.init_train_state(0, mcfg, ppo, device="cpu")
+        es = TE.reset(torch.Generator().manual_seed(5), env, 8, device="cpu")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(TL, "_afterstate_logits", logits)
+            ts, es, metrics = TL.train_step(ts, es, env, mcfg, ppo)
+        out.append(([p.detach() for p in ts.model.parameters()], list(es),
+                    metrics))
+    (pa, ea, ma), (pb, eb, mb) = out
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+    assert all(torch.equal(a, b) for a, b in zip(ea, eb))
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+
+
+def test_masked_forms_equal_the_agents_former_masks():
+    """``afterstate_values`` (``greedy_1ply``'s and 2-ply's values) equals
+    the former composition, ``where(action_mask, -V(opponent_view(after),
+    1 - turn), NEG_INF)``, bit for bit."""
+    boards, mover, n = candidate_boards(17, 8, M)
+    model = TMLP.MLP(TMLP.ModelConfig(hidden_size=32, action_size=M),
+                     device="cpu", generator=torch.Generator().manual_seed(6))
+    es = TE.reset(torch.Generator().manual_seed(7),
+                  TE.EnvConfig(movegen=MovegenConfig(max_moves=M, k2=64,
+                                                     k3=64)), 8,
+                  device="cpu")
+    es = es._replace(after=tt(boards), n_moves=tt(n),
+                     turn=tt(mover.astype(np.int8)))
+    feats = TF.encode_canonical(TBd.opponent_view(es.after),
+                                (1 - es.turn.to(torch.int32))[:, None])
+    former = torch.where(TE.action_mask(es), -model.value(feats), TB.NEG_INF)
+    assert torch.equal(TB.afterstate_values(model, es), former)

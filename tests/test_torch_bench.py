@@ -98,7 +98,8 @@ def test_lines_and_state(monkeypatch, capsys):
                    for x in captured.err.splitlines() if "] launches " in x]
     assert launched == {"compact_rows": 0, "dedup_compact_rows": 0,
                         "doubles_level": 0, "nondoubles": 0,
-                        "doubles_final": 0}
+                        "doubles_final": 0, "afterstate_eval": 0,
+                        "afterstate_eval_backward": 0}
     assert len(lines) == 2 and len(res.update_s) == 2
     for line in lines:
         got = json.loads(line)

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card (``csrc/compaction.cu``,
-``csrc/doubles.cu``, ``csrc/nondoubles.cu``).
+``csrc/doubles.cu``, ``csrc/nondoubles.cu``, ``csrc/afterstate.cu``).
 
 Every test here needs an NVIDIA card and skips without one: a CUDA
 kernel has no CPU mode.  The file imports neither JAX nor the JAX
@@ -11,8 +11,10 @@ package, so it also runs on a machine that has only PyTorch:
 (``--noconftest`` because ``tests/conftest.py`` configures JAX).  The CPU
 parity of the plain versions with the JAX package is in
 ``tests/test_torch_compaction.py``, ``tests/test_torch_dedup.py``,
-``tests/test_torch_doubles.py`` and ``tests/test_torch_nondoubles.py``."""
+``tests/test_torch_doubles.py``, ``tests/test_torch_nondoubles.py`` and
+``tests/test_torch_afterstate.py``."""
 
+import copy
 import dataclasses
 import subprocess
 import sys
@@ -24,6 +26,7 @@ import torch
 
 from mlp_ppo_2ply_p3_tpu_torch.core import movegen as TM
 from mlp_ppo_2ply_p3_tpu_torch.env import bg_env as TE
+from mlp_ppo_2ply_p3_tpu_torch.ops import afterstate as TAS
 from mlp_ppo_2ply_p3_tpu_torch.ops import compaction as TC
 from mlp_ppo_2ply_p3_tpu_torch.ops import doubles as TD
 from mlp_ppo_2ply_p3_tpu_torch.ops import nondoubles as TN
@@ -330,18 +333,22 @@ def test_doubles_level_rejects_bad_inputs(card):
         TD.doubles_levels(vecs, die, mirror, 16, 5000, 192)
 
 
-# every kernel wrapper and its plain version, in the order of
-# agents/twoply.py::launches_per_decision
+# every movegen kernel wrapper and its plain version, then the afterstate
+# pass's two, in the order of agents/twoply.py::launches_per_decision
 WRAPPERS = ((TC, "compact_rows"), (TC, "dedup_compact_rows"),
             (TD, "doubles_levels"), (TN, "nondoubles_batch"),
             (TD, "doubles_final"))
+AFTERSTATE = ((TAS, "afterstate_eval"), (TAS, "afterstate_eval_backward"))
 
 
-def _launches():
-    return {name: getattr(m, name).launches for m, name in WRAPPERS}
+def _launches(wrappers=WRAPPERS):
+    return {name: getattr(m, name).launches for m, name in wrappers}
 
 
 def _plain_wrappers(monkeypatch):
+    """The movegen kernels' plain versions in their place (the afterstate
+    pass keeps its kernel: it is deterministic, so both paths score the
+    same boards to the same bits)."""
     for m, name in WRAPPERS:
         monkeypatch.setattr(m, name, getattr(m, name + "_plain"))
 
@@ -796,16 +803,206 @@ def test_twoply_kernel_path_matches_plain(card, monkeypatch, width):
         u = torch.rand((32,), generator=gen, device=card)
         es, _ = TE.step(es, (u * es.n_moves.clamp(min=1)).to(torch.int32),
                         gen, cfg.env)
-    before = _launches()
+    before = _launches(WRAPPERS + AFTERSTATE)
     got = twoply.twoply_actions_values(model, es, scfg)
-    counted = tuple(v - before[k] for k, v in _launches().items())
+    counted = tuple(v - before[k] for k, v in
+                    _launches(WRAPPERS + AFTERSTATE).items())
     assert counted == twoply.launches_per_decision(32, scfg)
-    assert counted[3] > 0 and counted[4] > 0
+    assert counted[3] > 0 and counted[4] > 0 and counted[5] > 0
     _plain_wrappers(monkeypatch)
     plain = twoply.twoply_actions_values(model, es, scfg)
     torch.cuda.synchronize()
     for g, p in zip(got, plain):
         assert torch.equal(g, p)
+
+
+# --- the afterstate pass (csrc/afterstate.cu) --------------------------------
+
+
+def afterstate_inputs(card, seed, r, m, hidden):
+    """Random (r, m, 52) int8 boards (sparse small counts on the points,
+    bars, borne-off counts, a few negative bytes, a tenth all-zero rows),
+    movers 0 and 1 (and one 2), n with 0, m and values between; random
+    float32 weights of ``hidden`` units (fc1 and one head)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.integers(1, 16, (r, m, 48)) * (rng.random((r, m, 48)) < 0.25)
+    tail = np.concatenate([rng.integers(0, 4, (r, m, 2)),
+                           rng.integers(0, 16, (r, m, 2))], axis=2)
+    boards = np.concatenate([pts, tail], axis=2).astype(np.int8)
+    boards[rng.random((r, m, 52)) < 0.002] = -3
+    boards[rng.random((r, m)) < 0.1] = 0
+    mover = rng.integers(0, 2, r).astype(np.int32)
+    mover[r // 2:r // 2 + 1] = 2
+    n = rng.integers(0, m + 1, r).astype(np.int32)
+    n[::7] = 0
+    n[1::5] = m
+    w = [rng.standard_normal(shape).astype(np.float32) * scale
+         for shape, scale in (((hidden, 198), 0.2), ((hidden,), 0.1),
+                              ((1, hidden), 0.2), ((1,), 0.1))]
+    return [torch.from_numpy(x).to(card) for x in (boards, mover, n, *w)]
+
+
+# (R, M, hidden, epilogue, opponent view, sign): odd shapes, both widths,
+# every epilogue and view, empty batches
+AFTERSTATE_CASES = [
+    (37, 29, 128, "logits", False, 1.0),
+    (37, 29, 256, "masked", True, -1.0),
+    (300, 256, 128, "logits", False, 1.0),
+    (301, 255, 256, "masked", False, 1.0),
+    (257, 256, 128, "masked", True, -1.0),
+    (1, 1, 128, "min", True, 1.0),
+    (513, 512, 128, "min", True, 1.0),
+    (64, 8, 256, "min", False, 1.0),
+    (0, 5, 128, "logits", False, 1.0),
+    (5, 0, 128, "min", True, 1.0),
+]
+
+
+@pytest.mark.parametrize("r,m,hidden,epilogue,opponent,sign",
+                         AFTERSTATE_CASES)
+def test_afterstate_eval_matches_plain(card, r, m, hidden, epilogue,
+                                       opponent, sign):
+    """Within 1e-5 of the plain version (the features exact, the sums of
+    fc1 and the head in another order), the floor and the +1e9 of an empty
+    min exact; the same bits on a second launch; one launch counted."""
+    args = (*afterstate_inputs(card, r * 31 + m, r, m, hidden), opponent,
+            epilogue, sign)
+    before = TAS.afterstate_eval.launches
+    got = TAS.afterstate_eval(*args)
+    again = TAS.afterstate_eval(*args)
+    want = TAS.afterstate_eval_plain(*args)
+    torch.cuda.synchronize()
+    assert TAS.afterstate_eval.launches == before + 2
+    assert got.shape == want.shape and torch.equal(got, again)
+    assert torch.allclose(got, want, rtol=0, atol=1e-5), float(
+        (got - want).abs().max())
+    special = (want == TAS.FLOOR) | (want == TAS.POS_INF)
+    assert torch.equal(got[special], want[special])
+
+
+@pytest.mark.parametrize("r,m,hidden,epilogue,opponent,sign", [
+    (37, 29, 128, "logits", False, 1.0),
+    (300, 256, 256, "masked", True, -1.0),
+    (2049, 256, 128, "logits", False, 1.0),
+    (0, 7, 128, "logits", False, 1.0),
+])
+def test_afterstate_backward_matches_plain(card, r, m, hidden, epilogue,
+                                           opponent, sign):
+    """The four weights' gradients within 1e-5 of each one's norm (block
+    partials summed in block order, against torch's autograd); the same
+    bits on a second launch."""
+    args = (*afterstate_inputs(card, r + m, r, m, hidden), opponent,
+            epilogue, sign)
+    grad = torch.randn((r, m), device=card,
+                       generator=torch.Generator(device=card).manual_seed(r))
+    before = TAS.afterstate_eval_backward.launches
+    got = TAS.afterstate_eval_backward(*args, grad)
+    again = TAS.afterstate_eval_backward(*args, grad)
+    want = TAS.afterstate_eval_backward_plain(*args, grad)
+    torch.cuda.synchronize()
+    assert TAS.afterstate_eval_backward.launches == before + 2
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and torch.equal(g, a)
+        assert float((g - w).abs().max()) <= 1e-5 * max(float(w.norm()),
+                                                        1e-30)
+
+
+def test_afterstate_autograd_on_card(card):
+    """A loss through ``evaluate`` on the card backpropagates through the
+    backward kernel: the model's gradients equal the CPU's (the plain
+    path) within 1e-5 of their norm, one launch each way."""
+    from mlp_ppo_2ply_p3_tpu_torch.models import mlp as TMLP
+
+    boards, mover, n, *_ = afterstate_inputs(card, 5, 96, 64, 128)
+    coef = torch.randn((96, 64), generator=torch.Generator().manual_seed(0))
+    grads = []
+    start = TMLP.MLP(TMLP.ModelConfig(), device="cpu",
+                     generator=torch.Generator().manual_seed(1))
+    for dev in (card, torch.device("cpu")):
+        model = copy.deepcopy(start).to(dev)
+        before = _launches(AFTERSTATE)
+        out = TAS.evaluate(model, boards.to(dev), mover.to(dev), n.to(dev),
+                           "score")
+        torch.sum(coef.to(dev) * torch.log_softmax(out, -1)).backward()
+        counted = {k: v - before[k] for k, v in _launches(AFTERSTATE).items()}
+        assert counted == ({"afterstate_eval": 1,
+                            "afterstate_eval_backward": 1} if dev == card
+                           else {"afterstate_eval": 0,
+                                 "afterstate_eval_backward": 0})
+        grads.append([p.grad.cpu() for p in (
+            model.layers["fc1"].weight, model.layers["fc1"].bias,
+            model.layers["score"].weight, model.layers["score"].bias)])
+    for g, w in zip(*grads):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.norm())
+
+
+def test_afterstate_rejects_what_it_has_no_kernel_for(card):
+    """On the card a width other than 128 and 256, weights other than
+    float32 and non-contiguous inputs raise (naming the ROADMAP item for
+    the first two); no fallback."""
+    boards, mover, n, *w = afterstate_inputs(card, 3, 4, 6, 64)
+    with pytest.raises(ValueError, match="item 20"):
+        TAS.afterstate_eval(boards, mover, n, *w, False, "logits", 1.0)
+    boards, mover, n, *w = afterstate_inputs(card, 3, 4, 6, 128)
+    with pytest.raises(ValueError, match="item 20"):
+        TAS.afterstate_eval(boards, mover, n, *(x.bfloat16() for x in w),
+                            False, "logits", 1.0)
+    with pytest.raises(ValueError):
+        TAS.afterstate_eval(boards[:, ::2], mover[:], n, *w, False,
+                            "logits", 1.0)
+
+
+def test_exact_order_movegen_card_equals_cpu(card):
+    """``legal_afterstates_batch`` at ``MovegenConfig.parity()`` (the
+    reference-order doubles path, whose list goes into the output with one
+    ``index_copy_``: every empty doubles slot onto one spare row): the card
+    equals the CPU bit for bit on played boards with empty doubles slots
+    and a tenth of the games over, and on doubles only, where the doubles
+    capacity binds."""
+    mg = TM.MovegenConfig.parity()
+    vecs, dice, mirror = _played(card, 600, 10, 31,
+                                 TE.EnvConfig(movegen=mg))
+    over = torch.arange(600, device=card) % 10 == 3
+    vecs[over, :24] = 0
+    vecs[over, 48] = 0
+    vecs[over, 50] = 15
+    doubles = torch.stack([dice[:, 0], dice[:, 0]], 1).contiguous()
+    for d in (dice, doubles):
+        got = TM.legal_afterstates_batch(vecs, d, mg, mirror)
+        cpu = TM.legal_afterstates_batch(vecs.cpu(), d.cpu(), mg,
+                                         mirror.cpu())
+        torch.cuda.synchronize()
+        for g, c in zip(got, cpu):
+            assert torch.equal(g.cpu(), c)
+    n_dbl = int((dice[:, 0] == dice[:, 1]).sum())
+    assert 0 < n_dbl < TM.doubles_capacity(600, mg) < 600
+
+
+def test_device_busy_against_graph_replay(card):
+    """``device_busy`` of one captured movegen call (B=4096, ``fast``)
+    replayed from a CUDA graph lies between half and 1.1 times the call's
+    ``timed_scan`` time (the graph's replay time a call: the union of its
+    kernels cannot be longer, and they fill most of it), and its traces
+    agree."""
+    from mlp_ppo_2ply_p3_tpu_torch.utils import profiling
+
+    vecs, dice, mg = _movegen_args(card, 4096)
+    scan_s = profiling.timed_scan(
+        lambda v, d: TM.legal_afterstates_batch(v, d, mg), vecs, dice)
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        TM.legal_afterstates_batch(vecs, dice, mg)
+    torch.cuda.current_stream(card).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        TM.legal_afterstates_batch(vecs, dice, mg)
+    graph.replay()
+    busy_s = profiling.device_busy(graph.replay, card)
+    traces = profiling.device_busy.traces
+    assert 0.5 * scan_s <= busy_s <= 1.1 * scan_s, (busy_s, scan_s, traces)
+    a, b = traces[-2][0], traces[-1][0]
+    assert abs(a - b) <= profiling.AGREE * max(a, b), traces
 
 
 def _train_state_tensors(ts, env, gen=True):
@@ -928,10 +1125,12 @@ def test_device_busy_reads_the_kernels(card):
     from mlp_ppo_2ply_p3_tpu_torch.utils import profiling
 
     one = profiling.device_busy(lambda: torch.cuda._sleep(20_000_000), card)
+    one_traces = profiling.device_busy.traces
     two = profiling.device_busy(lambda: [torch.cuda._sleep(20_000_000)
                                          for _ in range(2)], card)
-    assert 2e-3 < one < 5e-2
-    assert 1.6 * one < two < 2.4 * one
+    readings = (one_traces, profiling.device_busy.traces)
+    assert 2e-3 < one < 5e-2, readings
+    assert 1.6 * one < two < 2.4 * one, readings
 
 
 def test_breakdown_device_keys_on_card(card, capsys):

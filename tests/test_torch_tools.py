@@ -94,6 +94,79 @@ def test_busy_seconds_is_a_union():
     assert profiling.device_label("cpu") == "cpu"
 
 
+@pytest.mark.parametrize("readings,want,traces", [
+    ([5, 10, 10], 10, 3),           # a dropped record shortens the first
+    ([30, 10, 10.1], 10.1, 3),      # the clocks still rising at first
+    ([10, 9.9], 10, 2),
+    ([1, 2, 3, 4, 5, 6], 6, 6),     # no two agree: the largest
+])
+def test_device_busy_traces_until_two_agree(monkeypatch, readings, want,
+                                            traces):
+    """``device_busy`` with scripted traces in the profiler's place (one
+    CUDA record of each reading's length, in ms): it traces until two in a
+    row agree within ``AGREE`` and keeps the larger of the two."""
+    import torch.profiler
+
+    script = iter(readings)
+
+    class Event:
+        def __init__(self, ms):
+            self.ms = ms
+
+        def start_ns(self):
+            return 0
+
+        def end_ns(self):
+            return int(self.ms * 1e6)
+
+        def device_type(self):
+            return torch.autograd.DeviceType.CUDA
+
+    class Trace:
+        def __init__(self, **kw):
+            self.profiler = self
+
+        def __enter__(self):
+            self.kineto_results = self
+            self.ms = next(script)
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [Event(self.ms)]
+
+    monkeypatch.setattr(torch.profiler, "profile", Trace)
+    monkeypatch.setattr(profiling, "resolve_device",
+                        lambda d: torch.device("cuda", 0))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    got = profiling.device_busy(lambda: None, "cuda")
+    assert got == pytest.approx(want * 1e-3)
+    assert [t for t, _ in profiling.device_busy.traces] == pytest.approx(
+        [r * 1e-3 for r in readings[:traces]])
+
+
+def test_perf_step_on_cpu(capsys):
+    """``scripts/perf_step.py`` at afterstate4096's flags, 8 games and
+    T=8 (2 states a minibatch) on the CPU: one JSON line with every key,
+    the device keys null."""
+    from mlp_ppo_2ply_p3_tpu_torch.scripts import perf_step
+
+    row = perf_step.main(["--envs", "8", "--t", "8", "--device", "cpu"])
+    (line,) = capsys.readouterr().out.splitlines()
+    assert json.loads(line) == row
+    assert (row["preset"], row["B"], row["T"], row["policy_mode"],
+            row["device"]) == ("afterstate4096", 8, 8, "afterstate", "cpu")
+    for k in ("warmup_s", "train_step_s", "env_steps_per_s", "rollout_s",
+              "update_s"):
+        assert row[k] > 0, k
+    for k in ("peak_gb", "rollout_device_s", "update_device_s",
+              "rollout_idle_share", "update_idle_share"):
+        assert row[k] is None, k
+    assert np.isfinite(row["loss"])
+
+
 def test_perf_movegen_on_cpu(capsys, monkeypatch):
     torch.manual_seed(0)
     res = perf_movegen.main(["32", "--device", "cpu"])

@@ -27,6 +27,7 @@ from mlp_ppo_2ply_p3_tpu.utils.config import SearchConfig as JSearchConfig
 from mlp_ppo_2ply_p3_tpu_torch.agents import twoply as TT
 from mlp_ppo_2ply_p3_tpu_torch.core import movegen as TMG
 from mlp_ppo_2ply_p3_tpu_torch.env import bg_env as TE
+from mlp_ppo_2ply_p3_tpu_torch.ops import afterstate as TAS
 from mlp_ppo_2ply_p3_tpu_torch.ops import compaction as TC
 from mlp_ppo_2ply_p3_tpu_torch.ops import doubles as TD
 from mlp_ppo_2ply_p3_tpu_torch.ops import nondoubles as TN
@@ -153,7 +154,7 @@ def test_launches_per_decision(monkeypatch, width, chunk):
     _, model = models(4)
     _, ts = both_states(17, 2)
     calls = {"compact": 0, "dedup": 0, "level": 0, "nondoubles": 0,
-             "final": 0}
+             "final": 0, "afterstate": 0, "afterstate_backward": 0}
 
     def counted(name, fn):
         def wrapper(*args):
@@ -171,6 +172,11 @@ def test_launches_per_decision(monkeypatch, width, chunk):
                         counted("nondoubles", TN.nondoubles_batch_plain))
     monkeypatch.setattr(TD, "doubles_final",
                         counted("final", TD.doubles_final_plain))
+    monkeypatch.setattr(TAS, "afterstate_eval",
+                        counted("afterstate", TAS.afterstate_eval_plain))
+    monkeypatch.setattr(TAS, "afterstate_eval_backward",
+                        counted("afterstate_backward",
+                                TAS.afterstate_eval_backward_plain))
     scfg = SearchConfig(top_k=4, reply_max_moves=width, game_chunk=chunk,
                         dbl_game_chunk=chunk)
     TT.twoply_actions_values(model, ts, scfg)
@@ -178,10 +184,13 @@ def test_launches_per_decision(monkeypatch, width, chunk):
     # B=256 at the JAX package's chunks: 1 x 15 non-doubles launches, 4 x
     # 6 fused doubles levels (L1-L3 in one launch) and 4 x 6 final ones; at
     # the port's, the doubles leg is one chunk: 6 fused levels and 6 final
-    # ones; no compaction and no separate dedup
+    # ones; no compaction and no separate dedup; one afterstate pass per
+    # reply list and two more (the 1-ply values, the dances), no gradient
     jax_chunks = SearchConfig(game_chunk=2048, dbl_game_chunk=512)
-    assert TT.launches_per_decision(256, jax_chunks) == (0, 0, 24, 15, 24)
-    assert TT.launches_per_decision(256, SearchConfig()) == (0, 0, 6, 15, 6)
+    assert TT.launches_per_decision(256, jax_chunks) == (0, 0, 24, 15, 24,
+                                                         41, 0)
+    assert TT.launches_per_decision(256, SearchConfig()) == (0, 0, 6, 15, 6,
+                                                             23, 0)
 
 
 def test_twoply_matches_bruteforce():
