@@ -185,6 +185,9 @@ H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 # CUDA-core rate for 32-bit operations outside the tensor cores (the H100
 # SXM data sheet's float32 figure; the key compares are int32)
 H100_OPS_PER_S = 67e12
+# dense bf16 rate of the tensor cores (the same data sheet), for the
+# afterstate pass's tensor-core figure (logged, no gate)
+H100_BF16_OPS_PER_S = 989e12
 TPU_KERNELS = ("mlp_ppo_2ply_p3_tpu/ops/compaction.py:178, "
                "mlp_ppo_2ply_p3_tpu/ops/compaction.py:231")
 # jnp in the JAX package (no Pallas): the dedup flags and the compaction
@@ -1062,6 +1065,16 @@ def afterstate_inputs(torch, dev, seed, r, m, hidden):
     return boards, mover, n, *w
 
 
+def afterstate_tensor_ms(n_kept, hidden, backward=False):
+    """The kernels' tensor-core products as one dense bf16 product each over
+    the kept boards (2 x 208 x H flops a board: fc1, and dW1 in the
+    backward) at the tensor cores' dense rate, in ms: a figure logged beside
+    the bound, not a bound (the kernels run each product three times, once
+    for each bf16 part of W1 or dpre)."""
+    flops = n_kept * 2 * 208 * hidden * (2 if backward else 1)
+    return flops / H100_BF16_OPS_PER_S * 1e3
+
+
 def afterstate_work(torch, afterstate, args, backward=False):
     """(bytes, operations, dense operations) of the pass on these inputs.
     Bytes: the kept boards (52 each: the rest need none), mover and n, the
@@ -1157,6 +1170,7 @@ def _afterstate_measure(torch, Fn, afterstate, features, args, label,
         "library_ms": lib, "bytes": nbytes, "ops": ops,
         "dense_ops": dense, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
         "dense_ops_ms": dense / H100_OPS_PER_S * 1e3,
+        "tensor_ms": afterstate_tensor_ms(n_kept, w1.shape[0]),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
     return row
@@ -1220,6 +1234,7 @@ def afterstate_backward_measure(torch, afterstate, args, label, iters=5):
     row.update({
         "ms": (kern + kern2) / 2, "plain_ms": (plain + plain2) / 2,
         "library_ms": lib, "bytes": nbytes, "ops": ops, "dense_ops": dense,
+        "tensor_ms": afterstate_tensor_ms(n_kept, h, backward=True),
         "bytes_ms": bytes_ms, "ops_ms": ops_ms,
         "dense_ops_ms": dense / H100_OPS_PER_S * 1e3,
         "bound_ms": max(bytes_ms, ops_ms),
@@ -1235,8 +1250,9 @@ def log_afterstate_rows(prefix, rows):
             f"{row['hidden']} {row['epilogue']}: kernel {row['ms']:.4f} ms, "
             f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f}"
             f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; dense "
-            f"{row['dense_ops_ms']:.4f} ms), {row['kept_boards']} boards "
-            f"kept, max err {row['max_abs_err']:.2e}")
+            f"{row['dense_ops_ms']:.4f} ms; tensor cores, dense over the kept"
+            f" boards, {row['tensor_ms']:.4f} ms), {row['kept_boards']} "
+            f"boards kept, max err {row['max_abs_err']:.2e}")
 
 
 def afterstate_cases(torch, afterstate, features, dev):

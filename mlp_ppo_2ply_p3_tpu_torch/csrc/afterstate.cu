@@ -15,77 +15,208 @@
 // the score head of ppo/learner.py:143-152 (_afterstate_logits), the value
 // head of agents/basic.py::afterstate_values and the score head of
 // ::afterstate_policy_logits, and agents/twoply.py:108-131
-// (_masked_min_values), all in mlp_ppo_2ply_p3_tpu/.
+// (_masked_min_values), all in mlp_ppo_2ply_p3_tpu/; the backward replaces
+// XLA's autodiff of the same (ppo/learner.py:204-208).
 //
-// Arithmetic: float32 with float32 accumulation, no tensor cores.  The
-// features are built bit for bit as core/features.py builds them (small
-// integers, halves, and off * float32(1/15) by __fmul_rn); only the order of
-// the sums of fc1 and the head differs from torch's, so the results are held
-// to a tolerance.  nvcc contracts a * b + c into an FMA here, which the
-// tolerance allows.  No float atomics: every sum runs in an order fixed by
-// the inputs' shapes, so a launch gives the same bits every time.
+// What bounds it on this card.  Only the kept boards need work (slot <
+// row_limit: about 32 of a row's 256 slots at a rollout step).  Counted on
+// their non-zero features the pass is a few GFLOP and its bound is set by
+// operations at the float32 rate (0.0088 ms a rollout step, 0.0355 ms a
+// minibatch's backward); as dense products, 2 x 198 x H flops a kept board
+// and as much again for dW1, about 13 GFLOP a minibatch, which the bf16
+// tensor cores do in about 0.013 ms a product.  So the design runs the
+// dense products on the tensor cores, exactly (below), and keeps the rest
+// (bytes, decoding, reductions) off their way:
 //
-// What bounds it on this card.  A board is 52 bytes, so bytes set a bound of
-// 58.7 MB (boards and scores) = 0.018 ms a rollout step at B=4096, M=256;
-// the dense fc1 is 2 x 198 x H flops a board, 53 GFLOP = 0.79 ms a step at
-// the float32 rate.  Operations bind, and the design cuts them instead:
+// - Tiles of kept boards, not rows.  The kept boards, row by row in slot
+//   order, are numbered 0 .. N-1 and cut into tiles of 64 (the last one
+//   short).  Every block scans row_limit over all rows itself (a thread a
+//   run of rows, then one block scan), so it knows N and the row and
+//   offset where its tiles start; a block takes a contiguous range of
+//   tiles, so every block gets the same number of full tiles whatever the
+//   rows hold, and a row may straddle tiles and blocks.  It maps each
+//   tile's boards to their (row, slot) by a binary search in a window of
+//   256 rows' offsets, scanned again when the tiles pass its end.
+// - The boards' 52 bytes (and the backward's output gradients) come into a
+//   ring of two tiles by cp.async a tile ahead, so their DRAM latency hides
+//   behind the previous tile's products.  Two block barriers a tile.
+// - Each kept board is decoded once a block, four threads a board (12
+//   point bytes each, read as three words): the (64 x 208) bf16 feature
+//   tile (198 features and 10 zero columns).  Every feature but the two
+//   off ones (97, 195) is exact in bf16 for every int8 byte: 0, 1,
+//   (c - 3) / 2, c / 2 and the one-hot.  The off features,
+//   __fmul_rn(c, float32(1/15)) as core/features.py computes them, are
+//   kept in float32 beside the tile and their columns are zero.  The frame
+//   flip and opponent_view are index arithmetic on the board's bytes.
+// - fc1 is wgmma m64n64k16 (bf16 in, float32 out) as units x boards:
+//   warpgroup q takes units 64 q .. 64 q + 63 of W1, resident in shared
+//   memory as three bf16 parts hi + mid + lo (the off columns zero).  hi +
+//   mid + lo == W1 exactly for every float32 |w| in [2^-110, 2^127) (each
+//   part takes the next 8 of the 24 bits; below 2^-110 lo falls under
+//   bf16's smallest subnormal, an error under 2^-134), and a feature (at
+//   most 7 significant bits) times a part (8 bits) is exact in float32, so
+//   the products are W1's own and only the order of the sums changes.  Each
+//   k-step's three products (lo, mid, hi) go into a fragment that the
+//   first one overwrites, which is then added to the running sum in
+//   float32, so the tensor core's rounding of its sums reaches one
+//   16-feature partial only.  (Two bf16 parts leave up to 2^-16 of W1 out,
+//   1e-4 of a pre-activation; a TF32 split needs 32-bit parts, 4/3 of the
+//   shared memory, at half the rate.)  The forward runs two such fragments
+//   in turn, so the next k-step's products run while one is added; the
+//   backward, short of registers, waits for each.  Operands sit in shared
+//   memory in 8 x 8 core matrices without swizzle, the layout the wgmma
+//   descriptors read; W1's parts take 156 KB, the tile 26 KB, 205 KB in
+//   all, one block of 256 threads an SM.  The off columns, the bias, ReLU,
+//   the head's dot product (a reduce-scatter over lanes, then over the
+//   warps in shared memory), sign, floor and min run in registers.
+// - Backward, in the same block: the tile's pre-activations as in the
+//   forward, dpre = d w_head [pre > 0] with d = sign grad in place, and
+//   dW1 += dpre^T X by mma.sync m16n8k16: a warp's accumulator fragments
+//   (16 units x 64 boards) are the A operands as they stand, split in three
+//   bf16 parts like W1, and ldmatrix.trans reads the feature tile as B.  A
+//   warp's (16 units x 208 features) of dW1 stay in registers over the
+//   block's tiles, each 16-board step's three products again in a zeroed
+//   fragment added in float32.  db1, dw_head, dW1's off columns and
+//   db_head are float32 sums in a fixed order.  Nothing of the forward is
+//   saved for the backward: recomputing pre costs a third of the block's
+//   products, keeping it would cost (R, M, H) floats.
+// - Hidden 128 is a block's 128 units.  Hidden 256 does not fit (312 KB
+//   of parts): the forward runs clusters of two blocks, each with its half
+//   of the units, both decoding the same tiles, and the head's two partial
+//   sums meet through distributed shared memory (rank 0 adds rank 1's and
+//   writes); the backward runs a grid of two unit halves, which share
+//   nothing but d.
+// - Deterministic: every board's value is computed the same way wherever
+//   it runs, the min is an atomic min on the float's bits (exact in any
+//   order; a first kernel writes the +1e9), and no float sum uses an
+//   atomic.  The backward's blocks are min(tiles of R x M, 132 x 128 / H),
+//   a number of the shapes (never of the card), each with a contiguous
+//   range of tiles of the data; each writes its partial gradient and a
+//   second kernel sums the partials of each entry in block order.  The
+//   forward's grid may follow the card.
 //
-// - Only the boards the epilogue keeps are evaluated (slot < n; every slot
-//   of a logits row with n <= 0); the rest are a store of the floor.  A
-//   position has about 20-30 moves of M = 256 slots.
-// - fc1 is a sum of W1 columns over the board's non-zero features: a point
-//   holding c checkers sets min(c, 3) + [c > 3] <= c of them, so a board has
-//   at most 35 of 198 (15 checkers a side, bar and off, the turn).  A warp
-//   ballots the board's non-zero bytes and walks them; each sets its
-//   features' columns, at most a fifth of the dense products.
-// - Forward: W1 sits transposed in shared memory (198 x (H + 4) floats: 104
-//   KB at H=128, 2 blocks of 512 threads an SM; 206 KB at H=256, one block),
-//   one warp per board, lane l holding hidden units 128 g + 4 l + t, so a
-//   feature's column is one conflict-free 16-byte load a lane.  The head is
-//   a warp shuffle sum.  Persistent blocks walk the rows, one row at a time,
-//   its kept slots dealt out to the 16 warps in turn (the min: each warp's,
-//   then the block's), so the 101-206 KB of W1 are staged once a block and a
-//   row's boards, 20-30 or all 256 of a row without a move, spread over the
-//   block.  (Work items of 32 slots dealt out in row order, the first
-//   design, gave every slot-0 item to one warp in eight: 0.466 ms at a
-//   rollout step on an H100.)
-// - Backward: dW1 (H x 198), db1, dw_head and db_head summed over R x M
-//   boards (2,097,152 at a full-width minibatch).  A block takes rows p,
-//   p + P, ... and a tile of 32 hidden units (grid P x H/32); it lists the
-//   kept boards of its rows in shared memory, 256 at a time, recomputes
-//   each one's pre-activations for its tile (one warp a board, lane =
-//   unit), and then every thread adds the list's dpre x feature products
-//   into the entries of dW1 it owns (lane = unit, warp = 3 of the 48
-//   points and one scalar feature), in list order.  A block's partial
-//   gradient (198 x H + 2 H + 1 floats; 101 KB at H=128, 203 KB at H=256)
-//   goes to device memory and a second kernel sums the P partials of each
-//   entry in block order.
+// nvcc contracts a * b + c into an FMA in the epilogues, which the
+// tolerance allows.
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kBoard = 52;
 constexpr int kFeatures = 198;
-constexpr int kPerPlayer = 98;   // 24 points x 4, bar, off
+constexpr int kOff0 = 97, kOff1 = 195;  // the off features, kept in float32
 constexpr float kInvCheckers = 0x1.111112p-4f;  // float32(1 / 15)
 constexpr float kFloor = -1e9f;
 constexpr float kPosInf = 1e9f;
 constexpr int kLogits = 0, kMasked = 1, kMin = 2;
 constexpr unsigned kFull = 0xffffffffu;
 
-constexpr int kFwdThreads = 512;
-constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 64;               // kept boards a tile
+constexpr int kUnits = 128;             // hidden units a block
+constexpr int kK = 208;                 // the features padded to 13 x 16
+constexpr int kKSteps = kK / 16;
+constexpr int kWords = kK / 2;          // bf16 pairs a feature row
+// Shared operands are tiled in 8 x 8 bf16 core matrices (128 contiguous
+// bytes, rows of 16 bytes), the 26 of a group of 8 rows in feature order:
+// wgmma's layout without swizzle, whose descriptor takes the stride between
+// core matrices along K (128 bytes) and between row groups (3,328).
+constexpr int kKG = kK / 8;             // core matrices a row group
+constexpr int kGroupBytes = kKG * 128;  // 3,328
+constexpr int kParts = 3;               // hi, mid, lo
+constexpr int kWindow = 256;            // rows a scan window
+constexpr int kBwdBlocks = 132;         // backward blocks of 128 units
 
-constexpr int kBwdThreads = 512;
-constexpr int kBwdWarps = kBwdThreads / 32;
-constexpr int kTile = 32;        // hidden units a backward block
-constexpr int kTilePitch = kTile + 1;
-constexpr int kList = 256;       // kept boards staged at most
-constexpr int kPointsPerWarp = 48 / kBwdWarps;
-constexpr int kMaxBlocks = 264;  // backward: row blocks at most
+// Shared memory of a block, carved in this order (every piece a multiple
+// of 16 bytes but the last).
+constexpr size_t kPartBytes = (size_t)kUnits / 8 * kGroupBytes;  // 53,248
+constexpr size_t kSmemW = kParts * kPartBytes;               // 159,744
+constexpr size_t kSmemX = (size_t)kTile / 8 * kGroupBytes;   // 26,624
+constexpr size_t kSmemRing = 2ull * kTile * kBoard;          // 6,656
+constexpr size_t kSmemUnit = 4ull * 8 * kUnits;   // b1 wh w97 w195, sums
+constexpr size_t kSmemTileF = 4ull * (2 * kTile + kWarps * kTile + 2 * kTile +
+                                      kTile);  // offv ysum yx dval
+constexpr size_t kSmemTileI = 4ull * 4 * 2 * kTile;   // e row mover grad x2
+constexpr size_t kSmemWin = 4ull * (2 * kWindow + 1 + 16);
+constexpr size_t kSmem = kSmemW + kSmemX + kSmemRing + kSmemUnit +
+                         kSmemTileF + kSmemTileI + kSmemWin;
+
+struct Args {
+  const int8_t* boards;
+  const int32_t* mover;
+  const int32_t* n;
+  const float* w1;
+  const float* b1;
+  const float* wh;
+  const float* bh;
+  const float* grad;   // backward only
+  float* out;          // forward: the output; backward: the partials
+  int rows, m, hidden, opponent, epilogue;
+  float sign;
+  int aligned;         // boards 4-byte aligned: cp.async, else byte loads
+};
+
+// A block's shared memory.
+struct Smem {
+  uint16_t* w;      // [3] W1's parts (bf16 bits), 128 units x 208 features
+  uint16_t* x;      // the tile's features (bf16 bits), 64 boards x 208
+  int8_t* ring;     // [2][64][52] the boards' bytes
+  float* b1;        // [128]
+  float* wh;        // [128]
+  float* w97;       // [128] W1's off columns
+  float* w195;      // [128]
+  float* gsum;      // [4][128] the backward's db1, dw_head, dW1[:, 97], [195]
+  float* offv;      // [64][2] the tile's off features
+  float* ysum;      // [8][64] the warps' head partials
+  float* yx;        // [2][64] the cluster's head partials
+  float* dval;      // [64] sign grad
+  int* te;          // [2][64] element r m + s, -1 past the tile's end
+  int* trow;        // [2][64]
+  int* tmv;         // [2][64] mover
+  float* tgrad;     // [2][64]
+  int* woff;        // [257] the window's offsets
+  int* wmv;         // [256] the window's movers
+  int* sc;          // [16] scan partials, [8] start row, [9] its offset,
+                    // [10] kept boards, [11] the window's first row
+};
+
+__device__ __forceinline__ Smem carve(unsigned char* p) {
+  Smem s;
+  s.w = reinterpret_cast<uint16_t*>(p);
+  p += kSmemW;
+  s.x = reinterpret_cast<uint16_t*>(p);
+  p += kSmemX;
+  s.ring = reinterpret_cast<int8_t*>(p);
+  p += kSmemRing;
+  float* f = reinterpret_cast<float*>(p);
+  s.b1 = f;
+  s.wh = f + kUnits;
+  s.w97 = f + 2 * kUnits;
+  s.w195 = f + 3 * kUnits;
+  s.gsum = f + 4 * kUnits;
+  f += 8 * kUnits;
+  s.offv = f;
+  s.ysum = f + 2 * kTile;
+  s.yx = s.ysum + kWarps * kTile;
+  s.dval = s.yx + 2 * kTile;
+  int* i = reinterpret_cast<int*>(s.dval + kTile);
+  s.te = i;
+  s.trow = i + 2 * kTile;
+  s.tmv = i + 4 * kTile;
+  s.tgrad = reinterpret_cast<float*>(i + 6 * kTile);
+  i += 8 * kTile;
+  s.woff = i;
+  s.wmv = i + kWindow + 1;
+  s.sc = s.wmv + kWindow;
+  return s;
+}
 
 // The slots [0, limit) of a row that its epilogue keeps.
 __device__ __forceinline__ int row_limit(int n, int m, int epilogue) {
@@ -93,336 +224,773 @@ __device__ __forceinline__ int row_limit(int n, int m, int epilogue) {
   return n < 0 ? 0 : (n > m ? m : n);
 }
 
-// add(f, v) for each non-zero feature that byte k (count c != 0) of a
-// canonical board sets, for the frame flip = (mover != 0) ^ opponent: the
-// byte's absolute point a (player a / 24, point a % 24), or player q's bar or
-// off.  The values are core/features.py's, bit for bit.
-template <typename Add>
-__device__ __forceinline__ void byte_features(int k, int c, int flip,
-                                              Add&& add) {
-  if (k < 48) {
-    if (c <= 0) return;
-    const int a = flip ? 47 - k : k;
-    const int q = a >= 24;
-    const int base = q * kPerPlayer + 4 * (a - 24 * q);
-    add(base, 1.0f);
-    if (c >= 2) add(base + 1, 1.0f);
-    if (c >= 3) add(base + 2, 1.0f);
-    if (c > 3) add(base + 3, (float)(c - 3) * 0.5f);
-  } else if (k < 50) {
-    add(((k - 48) ^ flip) * kPerPlayer + 96, (float)c * 0.5f);
-  } else {
-    add(((k - 50) ^ flip) * kPerPlayer + 97,
-        __fmul_rn((float)c, kInvCheckers));
+__device__ __forceinline__ int limit_of(const Args& a, int r) {
+  return row_limit(a.n[r], a.m, a.epilogue);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// The 32-bit word (features 2 w, 2 w + 1) of row r in the core-matrix
+// layout.
+__device__ __forceinline__ int cm_word(int r, int w) {
+  return ((r >> 3) * kKG + (w >> 2)) * 32 + (r & 7) * 4 + (w & 3);
+}
+
+// The operands written by threads become visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// x = hi + mid + lo, each bf16 rounded to nearest from what is left.
+__device__ __forceinline__ void split3(float x, uint32_t (&p)[kParts]) {
+  float r = x;
+#pragma unroll
+  for (int k = 0; k < kParts; ++k) {
+    const __nv_bfloat16 b = __float2bfloat16_rn(r);
+    p[k] = __bfloat16_as_ushort(b);
+    r = r - __bfloat162float(b);
   }
 }
 
-// The turn one-hot's feature of a mover (none for a mover outside {0, 1},
-// as core/features.py's (t == 0, t == 1)).
-__device__ __forceinline__ int hot_feature(int mover) {
-  return mover == 0 ? 196 : (mover == 1 ? 197 : -1);
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
-// A warp walks one board's non-zero bytes (lanes hold bytes lane and
-// 32 + lane) and calls add for each feature, the one-hot first.
-template <typename Add>
-__device__ __forceinline__ void board_features(int c_lo, int c_hi, int flip,
-                                               int hot, Add&& add) {
-  unsigned lo = __ballot_sync(kFull, c_lo != 0);
-  unsigned hi = __ballot_sync(kFull, c_hi != 0);
-  if (hot >= 0) add(hot, 1.0f);
-  while (lo) {
-    const int k = __ffs(lo) - 1;
-    lo &= lo - 1;
-    byte_features(k, __shfl_sync(kFull, c_lo, k), flip, add);
-  }
-  while (hi) {
-    const int k = __ffs(hi) - 1;
-    hi &= hi - 1;
-    byte_features(32 + k, __shfl_sync(kFull, c_hi, k), flip, add);
-  }
+// d += a b on the tensor cores (m16n8k16, bf16 in, float32 out).
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int H>
-__global__ void __launch_bounds__(kFwdThreads, H == 128 ? 2 : 1)
-afterstate_eval_kernel(const int8_t* __restrict__ boards,
-                       const int32_t* __restrict__ mover,
-                       const int32_t* __restrict__ n_valid,
-                       const float* __restrict__ w1,
-                       const float* __restrict__ b1,
-                       const float* __restrict__ wh,
-                       const float* __restrict__ bh, float* __restrict__ out,
-                       int rows, int m, int opponent, int epilogue,
-                       float sign) {
-  constexpr int kPitch = H + 4;   // 16-byte rows, 4-way conflicts at staging
-  constexpr int kUnits = H / 32;  // a lane's: 128 g + 4 lane + t
-  extern __shared__ __align__(16) float w1t[];  // [198][kPitch], W1^T
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The exclusive prefix of v over the block's threads; total gets the sum.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* part,
+                                                    int& total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j = warp; j < H; j += kFwdWarps) {
-    for (int f = lane; f < kFeatures; f += 32) {
-      w1t[f * kPitch + j] = w1[j * kFeatures + f];
-    }
-  }
-  float b1r[kUnits], whr[kUnits];
+  int x = v;
 #pragma unroll
-  for (int u = 0; u < kUnits; ++u) {
-    const int j = 128 * (u / 4) + 4 * lane + (u % 4);
-    b1r[u] = b1[j];
-    whr[u] = wh[j];
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
   }
-  const float bias = bh[0];
-  __syncthreads();
-
-  __shared__ float warp_min[kFwdWarps];
-  // one row at a time, its kept slots dealt out to the warps in turn
-  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
-    const int limit = row_limit(n_valid[r], m, epilogue);
-    const int mv = mover[r];
-    const int flip = (mv != 0) ^ opponent;
-    const int hot = hot_feature(mv);
-    float* orow = out + (size_t)r * m;
-    if (epilogue != kMin) {
-      for (int s = limit + threadIdx.x; s < m; s += kFwdThreads) {
-        orow[s] = kFloor;
-      }
-    }
-    const int8_t* b = boards + ((size_t)r * m + warp) * kBoard;
-    int c_lo = 0, c_hi = 0;
-    if (warp < limit) {
-      c_lo = b[lane];
-      c_hi = lane < kBoard - 32 ? b[32 + lane] : 0;
-    }
-    float best = kPosInf;
-    for (int s = warp; s < limit; s += kFwdWarps) {
-      // the next board's bytes, loaded while this one is evaluated
-      int n_lo = 0, n_hi = 0;
-      if (s + kFwdWarps < limit) {
-        n_lo = b[kFwdWarps * kBoard + lane];
-        n_hi = lane < kBoard - 32 ? b[kFwdWarps * kBoard + 32 + lane] : 0;
-      }
-      float acc[kUnits];
-#pragma unroll
-      for (int u = 0; u < kUnits; ++u) acc[u] = 0.0f;
-      board_features(c_lo, c_hi, flip, hot, [&](int f, float v) {
-        const float* col = w1t + f * kPitch + 4 * lane;
-#pragma unroll
-        for (int g = 0; g < kUnits / 4; ++g) {
-          const float4 w = *reinterpret_cast<const float4*>(col + 128 * g);
-          acc[4 * g + 0] = fmaf(v, w.x, acc[4 * g + 0]);
-          acc[4 * g + 1] = fmaf(v, w.y, acc[4 * g + 1]);
-          acc[4 * g + 2] = fmaf(v, w.z, acc[4 * g + 2]);
-          acc[4 * g + 3] = fmaf(v, w.w, acc[4 * g + 3]);
-        }
-      });
-      float part = 0.0f;
-#pragma unroll
-      for (int u = 0; u < kUnits; ++u) {
-        part = fmaf(whr[u], fmaxf(acc[u] + b1r[u], 0.0f), part);
-      }
-      // a butterfly: every lane ends with the same sum
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(kFull, part, o);
-      const float y = part + bias;
-      if (epilogue == kMin) {
-        best = fminf(best, y);
-      } else if (lane == 0) {
-        orow[s] = sign * y;
-      }
-      c_lo = n_lo;
-      c_hi = n_hi;
-      b += kFwdWarps * kBoard;
-    }
-    if (epilogue == kMin) {   // the warps' minima; a min is exact in any order
-      if (lane == 0) warp_min[warp] = best;
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        float row_min = kPosInf;
-        for (int w = 0; w < kFwdWarps; ++w) {
-          row_min = fminf(row_min, warp_min[w]);
-        }
-        out[r] = row_min;
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Dynamic shared memory of a backward block, carved in this order.
-struct BwdSmem {
-  static constexpr size_t w1s = sizeof(float) * kFeatures * kTilePitch;
-  static constexpr size_t dpre = sizeof(float) * kList * kTile;
-  static constexpr size_t red = sizeof(float) * 3 * kBwdWarps * kTile;
-  static constexpr size_t list = sizeof(int) * kList;
-  static constexpr size_t hots = sizeof(int) * kList;
-  static constexpr size_t bs = kBoard * kList;
-  static constexpr size_t flips = kList;
-  static constexpr size_t total =
-      w1s + dpre + red + list + hots + bs + flips;
-};
-
-// Grid (P, H / 32): block (p, t) sums the gradient of rows p, p + P, ...
-// for hidden units 32 t .. 32 t + 31 into its slab of part, P slabs of
-// 198 H + 2 H + 1 floats laid out as the flat output: dW1 (H, 198), db1
-// (H), dw_head (H), db_head.
-__global__ void __launch_bounds__(kBwdThreads, 2)
-afterstate_backward_kernel(const int8_t* __restrict__ boards,
-                           const int32_t* __restrict__ mover,
-                           const int32_t* __restrict__ n_valid,
-                           const float* __restrict__ w1,
-                           const float* __restrict__ b1,
-                           const float* __restrict__ wh,
-                           const float* __restrict__ grad,
-                           float* __restrict__ part, int rows, int m,
-                           int hidden, int opponent, int epilogue,
-                           float sign) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* w1s = reinterpret_cast<float*>(smem);        // [198][33]
-  float* dpre = w1s + kFeatures * kTilePitch;          // [kList][32]
-  float* red = dpre + kList * kTile;                   // [3][warps][32]
-  int* list = reinterpret_cast<int*>(red + 3 * kBwdWarps * kTile);
-  int* hots = list + kList;                            // [kList]
-  int8_t* bs = reinterpret_cast<int8_t*>(hots + kList);  // [kList][52]
-  int8_t* flips = bs + kBoard * kList;                 // [kList]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int unit = blockIdx.y * kTile + lane;
-  for (int u = warp; u < kTile; u += kBwdWarps) {
-    const float* row = w1 + (size_t)(blockIdx.y * kTile + u) * kFeatures;
-    for (int f = lane; f < kFeatures; f += 32) {
-      w1s[f * kTilePitch + u] = row[f];
-    }
-  }
-  const float b1j = b1[unit], whj = wh[unit];
-  __syncthreads();
-
-  // dW1 entries this thread owns: unit `unit`, points a = warp + 16 t (4
-  // features each), and one scalar (bar, off or the turn one-hot)
-  float pts[kPointsPerWarp][4];
-#pragma unroll
-  for (int t = 0; t < kPointsPerWarp; ++t) {
-    pts[t][0] = pts[t][1] = pts[t][2] = pts[t][3] = 0.0f;
-  }
-  float scalar = 0.0f;
-  float g_b1 = 0.0f, g_wh = 0.0f, g_bh = 0.0f;   // this warp's boards
-
-  // the listed boards' gradients into the sums above, in list order
-  auto flush = [&](int count) {
-    __syncthreads();
-    // 2. each listed board's pre-activations for this tile, one warp a
-    //    board: dpre = d w_head (pre > 0), d = sign grad
-    for (int i = warp; i < count; i += kBwdWarps) {
-      const int e = list[i];
-      const int r = e / m;
-      const int8_t* b = boards + (size_t)e * kBoard;
-      const int c_lo = b[lane];
-      const int c_hi = lane < kBoard - 32 ? b[32 + lane] : 0;
-      bs[i * kBoard + lane] = (int8_t)c_lo;
-      if (lane < kBoard - 32) bs[i * kBoard + 32 + lane] = (int8_t)c_hi;
-      const int mv = mover[r];
-      const int flip = (mv != 0) ^ opponent;
-      const int hot = hot_feature(mv);
-      float acc = 0.0f;
-      board_features(c_lo, c_hi, flip, hot, [&](int f, float v) {
-        acc = fmaf(v, w1s[f * kTilePitch + lane], acc);
-      });
-      const float pre = acc + b1j;
-      const float d = sign * grad[e];
-      const float dp = pre > 0.0f ? d * whj : 0.0f;
-      dpre[i * kTile + lane] = dp;
-      g_wh = fmaf(d, fmaxf(pre, 0.0f), g_wh);
-      g_b1 += dp;
-      g_bh += d;
-      if (lane == 0) {
-        flips[i] = (int8_t)flip;
-        hots[i] = hot;
-      }
-    }
-    __syncthreads();
-    // 3. the dW1 entries this thread owns, over the list in order
-    for (int i = 0; i < count; ++i) {
-      const float dp = dpre[i * kTile + lane];
-      const int flip = flips[i];
-      const int8_t* bb = bs + i * kBoard;
-#pragma unroll
-      for (int t = 0; t < kPointsPerWarp; ++t) {
-        const int a = warp + kBwdWarps * t;
-        const int c = bb[flip ? 47 - a : a];
-        if (c > 0) {
-          pts[t][0] += dp;
-          if (c >= 2) pts[t][1] += dp;
-          if (c >= 3) pts[t][2] += dp;
-          if (c > 3) pts[t][3] = fmaf((float)(c - 3) * 0.5f, dp, pts[t][3]);
-        }
-      }
-      if (warp < 4) {         // bar (warps 0, 1), off (2, 3) of q = warp & 1
-        const int c = bb[(warp < 2 ? 48 : 50) + ((warp & 1) ^ flip)];
-        if (c != 0) {
-          const float v = warp < 2 ? (float)c * 0.5f
-                                   : __fmul_rn((float)c, kInvCheckers);
-          scalar = fmaf(v, dp, scalar);
-        }
-      } else if (warp < 6) {  // the one-hot of mover warp - 4
-        if (hots[i] == 196 + (warp - 4)) scalar += dp;
-      }
-    }
-    __syncthreads();          // before the list is refilled
-  };
-
-  // 1. list the kept boards of this block's rows, a row's kept slots in
-  //    order, and flush the list whenever it is full
-  int count = 0;
-  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
-    const int limit = row_limit(n_valid[r], m, epilogue);
-    for (int s0 = 0; s0 < limit;) {
-      const int take = min(limit - s0, kList - count);
-      if (threadIdx.x < take) {
-        list[count + threadIdx.x] = r * m + s0 + threadIdx.x;
-      }
-      count += take;
-      s0 += take;
-      if (count == kList) {
-        flush(count);
-        count = 0;
-      }
-    }
-  }
-  if (count > 0) flush(count);
-
-  // 4. this block's partial sums into its slab
-  const size_t slab_floats = (size_t)kFeatures * hidden + 2 * hidden + 1;
-  float* slab = part + (size_t)blockIdx.x * slab_floats;
-  float* dw = slab + (size_t)unit * kFeatures;
-#pragma unroll
-  for (int t = 0; t < kPointsPerWarp; ++t) {
-    const int a = warp + kBwdWarps * t;
-    const int q = a >= 24;
-    const int f = q * kPerPlayer + 4 * (a - 24 * q);
-    dw[f] = pts[t][0];
-    dw[f + 1] = pts[t][1];
-    dw[f + 2] = pts[t][2];
-    dw[f + 3] = pts[t][3];
-  }
-  if (warp < 4) {
-    dw[(warp & 1) * kPerPlayer + (warp < 2 ? 96 : 97)] = scalar;
-  } else if (warp < 6) {
-    dw[196 + (warp - 4)] = scalar;
-  }
-  red[(0 * kBwdWarps + warp) * kTile + lane] = g_b1;
-  red[(1 * kBwdWarps + warp) * kTile + lane] = g_wh;
-  red[(2 * kBwdWarps + warp) * kTile + lane] = g_bh;
+  if (lane == 31) part[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    float s_b1 = 0.0f, s_wh = 0.0f, s_bh = 0.0f;
-    for (int w = 0; w < kBwdWarps; ++w) {     // in warp order
-      s_b1 += red[(0 * kBwdWarps + w) * kTile + lane];
-      s_wh += red[(1 * kBwdWarps + w) * kTile + lane];
-      s_bh += red[(2 * kBwdWarps + w) * kTile + lane];
+    int w = lane < kWarps ? part[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < kWarps; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += y;
     }
-    float* tail = slab + (size_t)kFeatures * hidden;
-    tail[unit] = s_b1;
-    tail[hidden + unit] = s_wh;
-    if (blockIdx.y == 0 && lane == 0) tail[2 * hidden] = s_bh;
+    if (lane < kWarps) part[lane] = w;
   }
+  __syncthreads();
+  const int base = warp ? part[warp - 1] : 0;
+  total = part[kWarps - 1];
+  __syncthreads();
+  return base + x - v;
+}
+
+// Every block's view of the kept boards: their number N (sc[10]) and, for
+// the block's tiles [t0, t1) of ceil(N / 64) cut into `groups` contiguous
+// ranges, the row holding board 64 t0 and the number of kept boards before
+// that row (sc[8], sc[9]).
+__device__ void locate(const Args& a, const Smem& s, int group, int groups,
+                       int& t0, int& t1) {
+  const int per = (a.rows + kThreads - 1) / kThreads;
+  const int r_lo = min(a.rows, (int)threadIdx.x * per);
+  const int r_hi = min(a.rows, r_lo + per);
+  int sum = 0;
+#pragma unroll 16
+  for (int r = r_lo; r < r_hi; ++r) sum += limit_of(a, r);
+  int total;
+  const int base = block_exclusive_scan(sum, s.sc, total);
+  const long long tiles = (total + kTile - 1) / kTile;
+  t0 = (int)(tiles * group / groups);
+  t1 = (int)(tiles * (group + 1) / groups);
+  const int g0 = t0 * kTile;
+  if (t0 < t1 && base <= g0 && g0 < base + sum) {
+    int off = base, row = r_lo, row_off = base;
+#pragma unroll 16
+    for (int r = r_lo; r < r_hi; ++r) {   // no break: the loads overlap
+      const int l = limit_of(a, r);
+      if (off <= g0 && g0 < off + l) {
+        row = r;
+        row_off = off;
+      }
+      off += l;
+    }
+    s.sc[8] = row;
+    s.sc[9] = row_off;
+  }
+  if (threadIdx.x == 0) s.sc[10] = total;
+  __syncthreads();
+}
+
+// Rows row0 .. row0 + 255 (past the end: empty) into the window, their first
+// kept boards' numbers from off0 on.
+__device__ void load_window(const Args& a, const Smem& s, int row0,
+                            int off0) {
+  const int r = row0 + (int)threadIdx.x;
+  int l = 0, mv = 0;
+  if (r < a.rows) {
+    l = limit_of(a, r);
+    mv = a.mover[r];
+  }
+  int total;
+  const int ex = block_exclusive_scan(l, s.sc, total);
+  s.woff[threadIdx.x] = off0 + ex;
+  s.wmv[threadIdx.x] = mv;
+  if (threadIdx.x == 0) {
+    s.woff[kWindow] = off0 + total;
+    s.sc[11] = row0;
+  }
+  __syncthreads();
+}
+
+// The tile of kept boards g .. g + cnt - 1 into slot buf: each board's
+// element, row and mover, and its bytes (and the backward's gradient)
+// copied in by cp.async (not waited for).
+__device__ void map_tile(const Args& a, const Smem& s, int buf, int g,
+                         int cnt, bool backward) {
+  const int b = threadIdx.x;
+  int done = 0;
+  for (;;) {
+    const int wend = s.woff[kWindow];
+    if (g + done >= wend) {   // the window is spent: the next 256 rows
+      const int row0 = s.sc[11] + kWindow;
+      __syncthreads();
+      load_window(a, s, row0, wend);
+      continue;
+    }
+    const int upto = min(cnt, wend - g);
+    if (b >= done && b < upto) {
+      const int gb = g + b;
+      int lo = 0, hi = kWindow - 1;   // the last row starting at or before gb
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (s.woff[mid] <= gb) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+      const int row = s.sc[11] + lo;
+      const int e = row * a.m + (gb - s.woff[lo]);
+      const int k = buf * kTile + b;
+      s.te[k] = e;
+      s.trow[k] = row;
+      s.tmv[k] = s.wmv[lo];
+      const int8_t* src = a.boards + (size_t)e * kBoard;
+      int8_t* dst = s.ring + k * kBoard;
+      if (a.aligned) {
+#pragma unroll
+        for (int q = 0; q < kBoard; q += 4) cp_async4(dst + q, src + q);
+      } else {
+        for (int q = 0; q < kBoard; ++q) dst[q] = src[q];
+      }
+      if (backward) cp_async4(s.tgrad + k, a.grad + e);
+    }
+    done = upto;
+    if (done >= cnt) break;
+    __syncthreads();
+  }
+  if (b >= cnt && b < kTile) {
+    const int k = buf * kTile + b;
+    s.te[k] = -1;
+    s.trow[k] = -1;
+    s.tmv[k] = 0;
+  }
+}
+
+// bf16 bits of the exact values a byte sets, two features a 32-bit word.
+constexpr uint32_t kOne = 0x3f80u;   // bf16 1.0
+
+// The word of features 4 p, 4 p + 1 (c >= 1, c >= 2) and of 4 p + 2, 4 p + 3
+// (c >= 3, (c - 3) / 2 where c > 3) of a point holding c; (c - 3) / 2 and
+// c / 2 have at most 8 significant bits, so a float's top half is its bf16.
+__device__ __forceinline__ uint32_t point_lo(int c) {
+  return (c >= 1 ? kOne : 0u) | (c >= 2 ? kOne << 16 : 0u);
+}
+__device__ __forceinline__ uint32_t point_hi(int c) {
+  return (c >= 3 ? kOne : 0u) |
+         (c > 3 ? __float_as_uint((float)(c - 3) * 0.5f) & 0xffff0000u : 0u);
+}
+
+// The tile in slot buf into the feature tile (bf16, the off columns zero,
+// rows past the tile's end zero), the off features into offv and, for the
+// backward, sign grad (0 past the end) into dval.  Four threads a board:
+// thread (b, q, h) writes points 12 h .. 12 h + 11 of player q (12 bytes of
+// the board, read as three words), h = 1 also player q's bar word and q = h
+// = 1 the one-hot and the padding.
+__device__ void decode_tile(const Args& a, const Smem& s, int buf,
+                            bool backward) {
+  const int b = threadIdx.x >> 2, q = (threadIdx.x >> 1) & 1,
+            h = threadIdx.x & 1;
+  const int k = buf * kTile + b;
+  const int e = s.te[k];
+  uint32_t* x32 = reinterpret_cast<uint32_t*>(s.x);
+  const int w0 = 49 * q + 24 * h;   // this thread's first point word
+  if (e < 0) {
+#pragma unroll
+    for (int i = 0; i < 24; ++i) x32[cm_word(b, w0 + i)] = 0u;
+    if (h) x32[cm_word(b, 49 * q + 48)] = 0u;
+    if (q & h) {
+#pragma unroll
+      for (int w = 98; w < kWords; ++w) x32[cm_word(b, w)] = 0u;
+    }
+  } else {
+    const int mv = s.tmv[k];
+    const int flip = (mv != 0) ^ a.opponent;
+    const int8_t* bb = s.ring + k * kBoard;
+    // points 12 h + i of player q are bytes start + i, or start + 11 - i
+    // flipped (absolute point 24 q + 12 h + i is canonical byte 47 - it)
+    const int start = flip ? 36 - 24 * q - 12 * h : 24 * q + 12 * h;
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(bb + start);
+    const uint32_t w[3] = {src[0], src[1], src[2]};
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      const int straight = (int8_t)(w[i >> 2] >> (8 * (i & 3)));
+      const int reversed = (int8_t)(w[(11 - i) >> 2] >> (8 * ((11 - i) & 3)));
+      const int c = flip ? reversed : straight;
+      x32[cm_word(b, w0 + 2 * i)] = point_lo(c);
+      x32[cm_word(b, w0 + 2 * i + 1)] = point_hi(c);
+    }
+    if (h) {   // player q's bar; its off feature is kept in float32
+      x32[cm_word(b, 49 * q + 48)] =
+          __float_as_uint((float)bb[48 + (q ^ flip)] * 0.5f) >> 16;
+    }
+    if (q & h) {
+      x32[cm_word(b, 98)] =
+          (mv == 0 ? kOne : 0u) | (mv == 1 ? kOne << 16 : 0u);
+#pragma unroll
+      for (int w = 99; w < kWords; ++w) x32[cm_word(b, w)] = 0u;
+    }
+  }
+  fence_async_shared();
+  if (threadIdx.x < 2 * kTile) {
+    const int bo = threadIdx.x >> 1, qo = threadIdx.x & 1;
+    const int ko = buf * kTile + bo;
+    int c = 0;
+    if (s.te[ko] >= 0) {
+      const int flip = (s.tmv[ko] != 0) ^ a.opponent;
+      c = s.ring[ko * kBoard + 50 + (qo ^ flip)];
+    }
+    s.offv[threadIdx.x] = __fmul_rn((float)c, kInvCheckers);
+  }
+  if (backward && threadIdx.x < kTile) {
+    const int kd = buf * kTile + threadIdx.x;
+    s.dval[threadIdx.x] = s.te[kd] >= 0 ? a.sign * s.tgrad[kd] : 0.0f;
+  }
+}
+
+// W1's rows u0 .. u0 + 127 into shared memory as three bf16 parts (the off
+// columns and the padding zero), and b1, w_head and the off columns of
+// those units in float32.  A thread's 52 feature pairs: every load issued
+// before any is used.
+__device__ void stage_weights(const Args& a, const Smem& s, int u0) {
+  constexpr int kPer = kUnits * kWords / kThreads;   // 52
+  constexpr int kBatch = kPer;
+  uint32_t* w32 = reinterpret_cast<uint32_t*>(s.w);
+#pragma unroll 1
+  for (int b0 = 0; b0 < kPer; b0 += kBatch) {
+    float v[kBatch][2];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int i = threadIdx.x + (b0 + k) * kThreads;
+      const int j = i / kWords, f = 2 * (i - j * kWords);
+      const float* row = a.w1 + (size_t)(u0 + j) * kFeatures;
+      // f is even, so never an off column; f + 1 may be
+      v[k][0] = f < kFeatures ? row[f] : 0.0f;
+      v[k][1] = f + 1 < kFeatures && f + 1 != kOff0 && f + 1 != kOff1
+                    ? row[f + 1]
+                    : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int i = threadIdx.x + (b0 + k) * kThreads;
+      const int j = i / kWords, w = i - j * kWords;
+      uint32_t p0[kParts], p1[kParts];
+      split3(v[k][0], p0);
+      split3(v[k][1], p1);
+#pragma unroll
+      for (int p = 0; p < kParts; ++p) {
+        w32[p * (kPartBytes / 4) + cm_word(j, w)] = p0[p] | (p1[p] << 16);
+      }
+    }
+  }
+  fence_async_shared();
+  if (threadIdx.x < kUnits) {
+    const int j = threadIdx.x;
+    const float* row = a.w1 + (size_t)(u0 + j) * kFeatures;
+    s.b1[j] = a.b1[u0 + j];
+    s.wh[j] = a.wh[u0 + j];
+    s.w97[j] = row[kOff0];
+    s.w195[j] = row[kOff1];
+  }
+}
+
+// A shared-memory matrix descriptor of the core-matrix layout at addr.
+__device__ __forceinline__ uint64_t cm_desc(unsigned addr) {
+  return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(kGroupBytes >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (+)= A B^T for a warpgroup: A 64 x 16 and B 64 x 16 bf16, both K-major
+// in shared memory (descriptors), d 64 x 64 float32; scale 0 overwrites d.
+__device__ __forceinline__ void wgmma64(float (&d)[32], uint64_t da,
+                                        uint64_t db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+// The tile's pre-activations without the off columns and the bias, as
+// units x boards: warpgroup q computes units 64 q .. 64 q + 63 of the
+// block's 128 for the 64 boards, so warp w holds units 16 w + g and
+// 16 w + g + 8 (acc[4 i + 0, 1] and acc[4 i + 2, 3]) of boards 8 i + 2 t
+// and 8 i + 2 t + 1.  A k-step's three products (lo, mid, hi) go into a
+// fragment they overwrite first; it is added to acc once they are done,
+// while the next k-step's run (two fragments in turn).
+// kLean (the backward, whose dW1 holds 104 registers a thread): one such
+// fragment, each k-step waited for.
+template <bool kLean>
+__device__ __forceinline__ void fc1_tile(const Smem& s, float (&acc)[32]) {
+  const int wg = threadIdx.x >> 7;
+  const unsigned wa = smem_addr(s.w) + 8 * wg * kGroupBytes;
+  const unsigned xa = smem_addr(s.x);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  if constexpr (kLean) {
+    float t[32];
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      const unsigned k = 256 * kk;
+      const uint64_t dx = cm_desc(xa + k);
+      wgmma_fence();
+      wgmma64(t, cm_desc(wa + 2 * (unsigned)kPartBytes + k), dx, 0);
+      wgmma64(t, cm_desc(wa + (unsigned)kPartBytes + k), dx, 1);
+      wgmma64(t, cm_desc(wa + k), dx, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += t[i];
+    }
+  } else {
+    float ta[32], tb[32];
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      float (&t)[32] = (kk & 1) ? tb : ta;
+      const unsigned k = 256 * kk;   // two core matrices a k-step
+      const uint64_t dx = cm_desc(xa + k);
+      wgmma_fence();
+      wgmma64(t, cm_desc(wa + 2 * (unsigned)kPartBytes + k), dx, 0);
+      wgmma64(t, cm_desc(wa + (unsigned)kPartBytes + k), dx, 1);
+      wgmma64(t, cm_desc(wa + k), dx, 1);
+      wgmma_commit();
+      if (kk > 0) {
+        wgmma_wait<1>();
+        float (&done)[32] = (kk & 1) ? ta : tb;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] += done[i];
+      }
+    }
+    wgmma_wait<0>();
+    float (&last)[32] = ((kKSteps - 1) & 1) ? tb : ta;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += last[i];
+  }
+}
+
+// pre = acc + off0 w97 + off1 w195 + b1 for the fragment entry of board
+// `row`, unit j.
+__device__ __forceinline__ float pre_act(const Smem& s, float acc, int row,
+                                         int j) {
+  float pre = fmaf(s.offv[2 * row], s.w97[j], acc);
+  pre = fmaf(s.offv[2 * row + 1], s.w195[j], pre);
+  return pre + s.b1[j];
+}
+
+__device__ __forceinline__ void atomic_min_float(float* addr, float v) {
+  if (!signbit(v)) {
+    atomicMin(reinterpret_cast<int*>(addr), __float_as_int(v));
+  } else {
+    atomicMax(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
+  }
+}
+
+// One step of a reduce-scatter over lanes: the lane and its partner (lane ^
+// mask) each keep one half of v[0, 2N), summed, in v[0, N).
+template <int N>
+__device__ __forceinline__ void halve(float (&v)[16], int upper, int mask) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const float send = upper ? v[k] : v[k + N];
+    const float recv = __shfl_xor_sync(kFull, send, mask);
+    v[k] = (upper ? v[k + N] : v[k]) + recv;
+  }
+}
+
+// Blocks write the floor of the slots that their share of the rows does not
+// keep (logits and masked): 256 rows' limits at a time into the window's
+// array (free until the window is loaded), then the stores.
+__device__ void write_floors(const Args& a, const Smem& s, int block,
+                             int blocks) {
+  const int r0 = (int)((long long)a.rows * block / blocks);
+  const int r1 = (int)((long long)a.rows * (block + 1) / blocks);
+  for (int c0 = r0; c0 < r1; c0 += kThreads) {
+    const int r = c0 + (int)threadIdx.x;
+    s.woff[threadIdx.x] = r < r1 ? limit_of(a, r) : a.m;
+    __syncthreads();
+    const int cnt = min(kThreads, r1 - c0);
+    for (int i = 0; i < cnt; ++i) {
+      float* orow = a.out + (size_t)(c0 + i) * a.m;
+      for (int sl = s.woff[i] + threadIdx.x; sl < a.m; sl += kThreads) {
+        orow[sl] = kFloor;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The forward.  kPair: hidden 256 as clusters of two blocks, rank q with
+// units 128 q .. 128 q + 127.
+template <bool kPair>
+__global__ void __launch_bounds__(kThreads, 1)
+afterstate_eval_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Smem s = carve(smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rank = kPair ? (int)(blockIdx.x & 1) : 0;
+  const int group = kPair ? (int)(blockIdx.x >> 1) : (int)blockIdx.x;
+  const int groups = kPair ? (int)(gridDim.x >> 1) : (int)gridDim.x;
+
+  if (a.epilogue != kMin) write_floors(a, s, blockIdx.x, gridDim.x);
+  int t0, t1;
+  locate(a, s, group, groups, t0, t1);
+  if (t0 >= t1) return;   // both blocks of a pair alike
+  const int n_kept = s.sc[10];
+  // the first tile's boards fly while W1 is staged
+  load_window(a, s, s.sc[8], s.sc[9]);
+  map_tile(a, s, 0, t0 * kTile, min(kTile, n_kept - t0 * kTile), false);
+  cp_async_commit();
+  stage_weights(a, s, kUnits * rank);
+  cp_async_wait<0>();
+  __syncthreads();
+  // this thread's units 16 warp + g + 8 r: bias, head and off weights
+  float b1r[2], whr[2], w97r[2], w195r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = 16 * warp + g + 8 * r;
+    b1r[r] = s.b1[j];
+    whr[r] = s.wh[j];
+    w97r[r] = s.w97[j];
+    w195r[r] = s.w195[j];
+  }
+  const float bias = a.bh[0];
+  float* remote_yx = nullptr;
+  if constexpr (kPair) {
+    remote_yx = cg::this_cluster().map_shared_rank(s.yx, 1);
+  }
+
+  for (int tile = t0; tile < t1; ++tile) {
+    const int buf = (tile - t0) & 1;
+    decode_tile(a, s, buf, false);
+    // the tile's features are in; every thread is done with the previous
+    // tile, whose slot the next tile's boards now take
+    __syncthreads();
+    if (tile + 1 < t1) {
+      const int g1 = (tile + 1) * kTile;
+      map_tile(a, s, buf ^ 1, g1, min(kTile, n_kept - g1), false);
+      cp_async_commit();
+    }
+    float acc[32];
+    fc1_tile<false>(s, acc);
+    // the head over this thread's two units for its 16 boards, then over
+    // the warp's 16 units: a reduce-scatter over the 8 lanes of a t (each
+    // step keeps half the boards), so lane (g, t) ends with boards
+    // 8 i + 2 t + c, i = 4 (g & 1) + 2 ((g >> 1) & 1) + (g >> 2)
+    float v[16];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int b = 8 * i + 2 * t + c;
+        const float o0 = s.offv[2 * b], o1 = s.offv[2 * b + 1];
+        float part = 0.0f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float pre = fmaf(o0, w97r[r], acc[4 * i + 2 * r + c]);
+          pre = fmaf(o1, w195r[r], pre) + b1r[r];
+          part = fmaf(whr[r], fmaxf(pre, 0.0f), part);
+        }
+        v[2 * i + c] = part;
+      }
+    }
+    halve<8>(v, g & 1, 4);
+    halve<4>(v, (g >> 1) & 1, 8);
+    halve<2>(v, (g >> 2) & 1, 16);
+    {
+      const int i = 4 * (g & 1) + 2 * ((g >> 1) & 1) + (g >> 2);
+      s.ysum[warp * kTile + 8 * i + 2 * t] = v[0];
+      s.ysum[warp * kTile + 8 * i + 2 * t + 1] = v[1];
+    }
+    cp_async_wait<0>();   // the next tile's boards, for the next decode
+    __syncthreads();
+    float y = 0.0f;
+    if (threadIdx.x < kTile) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) y += s.ysum[w * kTile + threadIdx.x];
+      if constexpr (kPair) s.yx[buf * kTile + threadIdx.x] = y;
+    }
+    if constexpr (kPair) {
+      cg::this_cluster().sync();   // both halves' partials are written
+      if (threadIdx.x < kTile) y += remote_yx[buf * kTile + threadIdx.x];
+    }
+    if (rank == 0 && threadIdx.x < kTile) {
+      const int k = buf * kTile + threadIdx.x;
+      const int e = s.te[k];
+      y += bias;
+      if (a.epilogue != kMin) {
+        if (e >= 0) a.out[e] = a.sign * y;
+      } else {
+        // the tile's boards are in row order: a segmented min over the
+        // warp, then one atomic a row and warp
+        const int row = s.trow[k];
+        float v = e >= 0 ? y : __int_as_float(0x7f800000);
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const float ov = __shfl_down_sync(kFull, v, o);
+          const int orow = __shfl_down_sync(kFull, row, o);
+          if (lane + o < 32 && orow == row) v = fminf(v, ov);
+        }
+        const int prev = __shfl_up_sync(kFull, row, 1);
+        if (row >= 0 && (lane == 0 || prev != row)) {
+          atomic_min_float(a.out + row, v);
+        }
+      }
+    }
+  }
+  if constexpr (kPair) {
+    cg::this_cluster().sync();   // rank 1's shared memory outlives the reads
+  }
+}
+
+// The backward.  Grid (P, H / 128): block (p, q) sums the gradient of its
+// range of tiles for units 128 q .. 128 q + 127 into slab p of part, P
+// slabs of 198 H + 2 H + 1 floats laid out as the flat output: dW1 (H,
+// 198), db1 (H), dw_head (H), db_head.
+__global__ void __launch_bounds__(kThreads, 1)
+afterstate_backward_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Smem s = carve(smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int u0 = kUnits * blockIdx.y;
+
+  // dW1 of units u0 + 16 warp + g (+ 8) x features 8 nf + 2 t (+ 1)
+  float dw[kK / 8][4];
+#pragma unroll
+  for (int nf = 0; nf < kK / 8; ++nf) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dw[nf][i] = 0.0f;
+  }
+  float gbh = 0.0f;
+  for (int i = threadIdx.x; i < 4 * kUnits; i += kThreads) s.gsum[i] = 0.0f;
+
+  int t0, t1;
+  locate(a, s, blockIdx.x, gridDim.x, t0, t1);
+  if (t0 < t1) {
+    const int n_kept = s.sc[10];
+    load_window(a, s, s.sc[8], s.sc[9]);
+    map_tile(a, s, 0, t0 * kTile, min(kTile, n_kept - t0 * kTile), true);
+    cp_async_commit();
+    stage_weights(a, s, u0);
+    cp_async_wait<0>();
+    __syncthreads();
+    // ldmatrix.trans rows of the feature tile: boards 16 kk + 8 ((l >> 3) &
+    // 1) + (l & 7) of feature group 2 nb + (l >> 4), lane l
+    const unsigned xt = smem_addr(s.x) +
+                        (((lane >> 3) & 1) * kKG + (lane >> 4)) * 128 +
+                        (lane & 7) * 16;
+    for (int tile = t0; tile < t1; ++tile) {
+      const int buf = (tile - t0) & 1;
+      decode_tile(a, s, buf, true);
+      __syncthreads();   // as in the forward
+      if (tile + 1 < t1) {
+        const int g1 = (tile + 1) * kTile;
+        map_tile(a, s, buf ^ 1, g1, min(kTile, n_kept - g1), true);
+        cp_async_commit();
+      }
+      if (warp == 0) {   // the tile's sum of d, then into the block's
+        float v = s.dval[lane] + s.dval[lane + 32];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+        gbh += v;
+      }
+      float acc[32];
+      fc1_tile<true>(s, acc);
+      {
+        // dpre in place of pre, and the tile's db1, dw_head, dW1[:, 97],
+        // dW1[:, 195] of units 16 warp + g + 8 r: this thread's 16 boards,
+        // then the 4 lanes of a g in a fixed order, then into the block's
+        // sums
+        float sums[4][2] = {};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int b = 8 * i + 2 * t + c;
+            const float d = s.dval[b];
+            const float o0 = s.offv[2 * b], o1 = s.offv[2 * b + 1];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int j = 16 * warp + g + 8 * r;
+              const float pre = pre_act(s, acc[4 * i + 2 * r + c], b, j);
+              const float dp = pre > 0.0f ? d * s.wh[j] : 0.0f;
+              sums[0][r] += dp;
+              sums[1][r] = fmaf(d, fmaxf(pre, 0.0f), sums[1][r]);
+              sums[2][r] = fmaf(o0, dp, sums[2][r]);
+              sums[3][r] = fmaf(o1, dp, sums[3][r]);
+              acc[4 * i + 2 * r + c] = dp;
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float v = sums[k][r];
+            v += __shfl_xor_sync(kFull, v, 1);
+            v += __shfl_xor_sync(kFull, v, 2);
+            if (t == 0) s.gsum[k * kUnits + 16 * warp + g + 8 * r] += v;
+          }
+        }
+      }
+      // boards 16 mt .. 16 mt + 15 are dW1's k-step mt: dpre's fragments
+      // of boards 8 (2 mt) .. and 8 (2 mt + 1) .. are its A operand
+      // (units x boards) as they stand, in three bf16 parts
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        uint32_t at[kParts][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          // q: (boards 16 mt + 2 t.., unit g), (.., unit g + 8), then the
+          // same 8 boards on
+          const int base = 4 * (2 * mt + (q >> 1)) + 2 * (q & 1);
+          uint32_t lo[kParts], hi[kParts];
+          split3(acc[base], lo);
+          split3(acc[base + 1], hi);
+#pragma unroll
+          for (int k = 0; k < kParts; ++k) at[k][q] = lo[k] | (hi[k] << 16);
+        }
+        // four feature fragments at a time: each part's four products
+        // between two that depend, into zeroed fragments, then into dw
+#pragma unroll
+        for (int nb = 0; nb < kK / 16; nb += 2) {
+          constexpr int kLast = kK / 16 - 1;
+          uint32_t xb[2][4];
+          const unsigned at_k = xt + (2 * mt * kKG + 2 * nb) * 128;
+          ldsm_x4_trans(xb[0], at_k);
+          if (nb < kLast) ldsm_x4_trans(xb[1], at_k + 2 * 128);
+          const int nq = nb < kLast ? 4 : 2;
+          float tq[4][4] = {};
+#pragma unroll
+          for (int k = kParts - 1; k >= 0; --k) {
+#pragma unroll
+            for (int f = 0; f < 4; ++f) {
+              if (f < nq) {
+                mma(tq[f], at[k], xb[f >> 1][2 * (f & 1)],
+                    xb[f >> 1][2 * (f & 1) + 1]);
+              }
+            }
+          }
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            if (f < nq) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) dw[2 * nb + f][i] += tq[f][i];
+            }
+          }
+        }
+      }
+      cp_async_wait<0>();
+      __syncthreads();   // the tile's features are read
+    }
+  }
+  __syncthreads();
+
+  // this block's partial sums into its slab
+  const size_t slab_floats = (size_t)kFeatures * a.hidden + 2 * a.hidden + 1;
+  float* slab = a.out + (size_t)blockIdx.x * slab_floats;
+#pragma unroll
+  for (int nf = 0; nf < kK / 8; ++nf) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int f = 8 * nf + 2 * t + c;
+      if (f < kFeatures && f != kOff0 && f != kOff1) {
+        const int j = u0 + 16 * warp + g;
+        slab[(size_t)j * kFeatures + f] = dw[nf][c];
+        slab[(size_t)(j + 8) * kFeatures + f] = dw[nf][2 + c];
+      }
+    }
+  }
+  float* tail = slab + (size_t)kFeatures * a.hidden;
+  if (threadIdx.x < kUnits) {
+    const int j = threadIdx.x;
+    tail[u0 + j] = s.gsum[j];
+    tail[a.hidden + u0 + j] = s.gsum[kUnits + j];
+    slab[(size_t)(u0 + j) * kFeatures + kOff0] = s.gsum[2 * kUnits + j];
+    slab[(size_t)(u0 + j) * kFeatures + kOff1] = s.gsum[3 * kUnits + j];
+  }
+  if (blockIdx.y == 0 && threadIdx.x == 0) tail[2 * a.hidden] = gbh;
 }
 
 // out[e] = the sum of the blocks' partials of entry e, in block order.
@@ -436,8 +1004,15 @@ __global__ void afterstate_reduce_kernel(const float* __restrict__ part,
   out[e] = s;
 }
 
-// What the launches cache (the >48 KB opt-in, the SM count, the resident
-// blocks) is the current card's, so it is kept for each card apart.
+// An empty min's +1e9 in every row, before the forward's atomics.
+__global__ void afterstate_fill_kernel(float* __restrict__ out, int n,
+                                       float v) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = v;
+}
+
+// What the launches cache (the >48 KB opt-in, the resident blocks) is the
+// current card's, so it is kept for each card apart.
 constexpr int kMaxDevices = 64;
 
 // The current card's index, or -1.
@@ -449,56 +1024,115 @@ int current_device() {
   return dev;
 }
 
-int sm_count(int dev) {
-  static int n[kMaxDevices] = {};  // 0: not read yet
+// Resident groups of the forward (blocks, or pairs of blocks) on the card.
+template <bool kPair>
+int forward_groups(int dev) {
+  static int n[kMaxDevices] = {};  // 0: not read yet (before any capture)
   if (n[dev] == 0) {
+    auto* kernel = afterstate_eval_kernel<kPair>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
     int got = 0;
-    if (cudaDeviceGetAttribute(&got, cudaDevAttrMultiProcessorCount, dev) !=
-        cudaSuccess) {
-      return -1;
+    if (err == cudaSuccess && kPair) {
+      cudaLaunchConfig_t cfg = {};
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = 2;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.gridDim = dim3(2);
+      cfg.blockDim = dim3(kThreads);
+      cfg.dynamicSmemBytes = kSmem;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      err = cudaOccupancyMaxActiveClusters(&got, kernel, &cfg);
+    } else if (err == cudaSuccess) {
+      int per_sm = 0, sms = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, kSmem);
+      if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      }
+      got = per_sm * sms;
     }
+    if (err != cudaSuccess) return -(int)err;
+    if (got < 1) return -(int)cudaErrorInvalidConfiguration;
     n[dev] = got;
   }
   return n[dev];
 }
 
-template <int H>
-int launch_forward(const int8_t* boards, const int32_t* mover,
-                   const int32_t* n, const float* w1, const float* b1,
-                   const float* wh, const float* bh, float* out, int rows,
-                   int m, int opponent, int epilogue, float sign,
-                   cudaStream_t stream) {
-  static int per_sm[kMaxDevices] = {};  // resident blocks an SM; 0: unread
-  const size_t smem = sizeof(float) * kFeatures * (H + 4);
+template <bool kPair>
+int launch_forward(const Args& a, cudaStream_t stream) {
   const int dev = current_device();
   if (dev < 0) return (int)cudaErrorInvalidDevice;
-  if (per_sm[dev] == 0) {    // before any capture: the >48 KB opt-in
-    cudaError_t err = cudaFuncSetAttribute(
-        afterstate_eval_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    int got = 0;
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &got, afterstate_eval_kernel<H>, kFwdThreads, smem);
-    }
+  const int resident = forward_groups<kPair>(dev);
+  if (resident < 0) return -resident;
+  if (a.epilogue == kMin && a.rows > 0) {
+    afterstate_fill_kernel<<<(a.rows + 255) / 256, 256, 0, stream>>>(
+        a.out, a.rows, kPosInf);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    if (got < 1 || sm_count(dev) < 1) {
-      return (int)cudaErrorInvalidConfiguration;
-    }
-    per_sm[dev] = got;
   }
-  const int blocks = std::min(rows, per_sm[dev] * sm_count(dev));
-  if (blocks <= 0) return (int)cudaGetLastError();
-  afterstate_eval_kernel<H><<<blocks, kFwdThreads, smem, stream>>>(
-      boards, mover, n, w1, b1, wh, bh, out, rows, m, opponent, epilogue,
-      sign);
+  const long long boards = (long long)a.rows * a.m;
+  if (boards == 0) return (int)cudaGetLastError();
+  const int groups = (int)std::min<long long>((boards + kTile - 1) / kTile,
+                                              resident);
+  if (!kPair) {
+    afterstate_eval_kernel<false><<<groups, kThreads, kSmem, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(2 * groups);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, afterstate_eval_kernel<true>, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// The backward's row blocks, from the shapes alone (so that the sums run
-// in the same order on every card).
-int backward_blocks(int rows, int m) {
-  return rows > 0 && m > 0 ? std::min(rows, kMaxBlocks) : 0;
+// The backward's partials: blocks of 128 units over the tiles of the
+// shapes' R x M boards, from the shapes alone (so that the sums run in the
+// same order on every card).
+int backward_groups(int rows, int m, int hidden) {
+  const long long boards = (long long)rows * m;
+  if (boards <= 0 || hidden <= 0) return 0;
+  const long long cap = (long long)kBwdBlocks * kUnits / hidden;
+  return (int)std::min((boards + kTile - 1) / kTile, std::max(cap, 1LL));
+}
+
+Args make_args(const void* boards, const void* mover, const void* n,
+               const void* w1, const void* b1, const void* wh,
+               const void* bh, const void* grad, void* out, int rows, int m,
+               int hidden, int opponent, int epilogue, float sign) {
+  Args a;
+  a.boards = (const int8_t*)boards;
+  a.mover = (const int32_t*)mover;
+  a.n = (const int32_t*)n;
+  a.w1 = (const float*)w1;
+  a.b1 = (const float*)b1;
+  a.wh = (const float*)wh;
+  a.bh = (const float*)bh;
+  a.grad = (const float*)grad;
+  a.out = (float*)out;
+  a.rows = rows;
+  a.m = m;
+  a.hidden = hidden;
+  a.opponent = opponent != 0;
+  a.epilogue = epilogue;
+  a.sign = sign;
+  a.aligned = ((uintptr_t)boards & 3) == 0;
+  return a;
 }
 
 }  // namespace
@@ -517,30 +1151,18 @@ extern "C" int afterstate_eval_launch(const void* boards, const void* mover,
   if (rows < 0 || m < 0 || epilogue < kLogits || epilogue > kMin) {
     return (int)cudaErrorInvalidValue;
   }
-  const auto* bd = (const int8_t*)boards;
-  const auto* mv = (const int32_t*)mover;
-  const auto* nv = (const int32_t*)n;
-  const auto* pw1 = (const float*)w1;
-  const auto* pb1 = (const float*)b1;
-  const auto* pwh = (const float*)wh;
-  const auto* pbh = (const float*)bh;
-  auto* po = (float*)out;
+  const Args a = make_args(boards, mover, n, w1, b1, wh, bh, nullptr, out,
+                           rows, m, hidden, opponent, epilogue, sign);
   const auto st = (cudaStream_t)stream;
-  if (hidden == 128) {
-    return launch_forward<128>(bd, mv, nv, pw1, pb1, pwh, pbh, po, rows, m,
-                               opponent != 0, epilogue, sign, st);
-  }
-  if (hidden == 256) {
-    return launch_forward<256>(bd, mv, nv, pw1, pb1, pwh, pbh, po, rows, m,
-                               opponent != 0, epilogue, sign, st);
-  }
+  if (hidden == 128) return launch_forward<false>(a, st);
+  if (hidden == 256) return launch_forward<true>(a, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // Floats of scratch the backward needs for these shapes.
 extern "C" long long afterstate_backward_scratch_floats(int rows, int m,
                                                         int hidden) {
-  return (long long)backward_blocks(rows, m) *
+  return (long long)backward_groups(rows, m, hidden) *
          ((long long)kFeatures * hidden + 2 * hidden + 1);
 }
 
@@ -558,7 +1180,6 @@ extern "C" int afterstate_backward_launch(const void* boards,
                                           int epilogue, float sign,
                                           void* stream) {
   static bool opted[kMaxDevices] = {};
-  (void)bh;
   if (rows < 0 || m < 0 || (hidden != 128 && hidden != 256) ||
       (epilogue != kLogits && epilogue != kMasked)) {
     return (int)cudaErrorInvalidValue;
@@ -568,24 +1189,22 @@ extern "C" int afterstate_backward_launch(const void* boards,
   if (!opted[dev]) {         // before any capture: the >48 KB opt-in
     const cudaError_t err = cudaFuncSetAttribute(
         afterstate_backward_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BwdSmem::total);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
     if (err != cudaSuccess) return (int)err;
     opted[dev] = true;
   }
-  const int blocks = backward_blocks(rows, m);
+  const Args a = make_args(boards, mover, n, w1, b1, wh, bh, grad, scratch,
+                           rows, m, hidden, opponent, epilogue, sign);
+  const int groups = backward_groups(rows, m, hidden);
   const auto st = (cudaStream_t)stream;
-  if (blocks > 0) {
-    afterstate_backward_kernel<<<dim3(blocks, hidden / kTile), kBwdThreads,
-                                 BwdSmem::total, st>>>(
-        (const int8_t*)boards, (const int32_t*)mover, (const int32_t*)n,
-        (const float*)w1, (const float*)b1, (const float*)wh,
-        (const float*)grad, (float*)scratch, rows, m, hidden, opponent != 0,
-        epilogue, sign);
+  if (groups > 0) {
+    afterstate_backward_kernel<<<dim3(groups, hidden / kUnits), kThreads,
+                                 kSmem, st>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const int entries = kFeatures * hidden + 2 * hidden + 1;
   afterstate_reduce_kernel<<<(entries + 255) / 256, 256, 0, st>>>(
-      (const float*)scratch, (float*)dparams, blocks, entries);
+      (const float*)scratch, (float*)dparams, groups, entries);
   return (int)cudaGetLastError();
 }

@@ -9,10 +9,9 @@ The JAX package writes this pass in jnp and XLA fuses it:
 ``mlp_ppo_2ply_p3_tpu/ppo/learner.py:143-152`` (``_afterstate_logits``),
 ``agents/basic.py::afterstate_values`` and ``::afterstate_policy_logits``,
 ``agents/twoply.py:108-131`` (``_masked_min_values``).  Its kernels
-(``csrc/afterstate.cu``) read the 52 bytes of each board and nothing of
-the (R, M, 198) features or the (R, M, H) hidden layer reaches device
-memory; the note at the top of the source says what bounds them on an
-H100.
+(``csrc/afterstate.cu``) read the 52 bytes of each kept board and nothing
+of the (R, M, 198) features or the (R, M, H) hidden layer reaches device
+memory.
 
 - ``view``: the identity, or ``core.board.opponent_view`` (``opponent``).
 - ``mover``: (R,) int32, the one-hot and the frame of the encoding.
@@ -30,11 +29,24 @@ unchanged), CUDA tensors launch the kernel or raise.  On the card its
 gradient is ``torch.autograd.Function`` whose backward is the second
 kernel, ``afterstate_eval_backward`` (the parameters' gradients; the
 boards carry none).  The two wrappers' ``launches`` attributes count
-kernel launches.  ``evaluate`` takes the weights from an ``MLP``.
+their calls on the card, one a call however many CUDA kernels it runs
+(the min's forward and the backward run two).  ``evaluate`` takes the
+weights from an ``MLP``.
 
-The kernels compute in float32 with float32 accumulation, features bit
-for bit; only the summation order of ``fc1`` and the head differs from
-torch's, so their results are held to a tolerance.
+What bounds the kernels on an H100, and the design (the note at the top
+of the source says more): only the kept boards (slot < n) are worked on,
+in tiles of 64 taken from their global order, so rows cost nothing; each
+block decodes a tile once into a bf16 feature tile in shared memory, and
+``fc1`` is a tensor-core product (``wgmma``) against W1 held in shared
+memory as three bf16 parts (``split_bf16``), whose sum is W1 exactly; the
+backward's dW1 is a second tensor-core product (``mma.sync``) of dpre,
+split the same way, with the same tile.  Every feature but the two off
+columns (``FLOAT32_COLUMNS``) is exact in bf16, so every product is exact
+and only the order of the float32 sums differs from torch's: the results
+are held to a tolerance.  The off columns, the bias, ReLU, the head and
+the epilogue run in float32 on the CUDA cores.  Hidden 256 runs the
+forward as two-block clusters (a half of the units each), the backward as
+two unit halves.
 """
 
 from __future__ import annotations
@@ -54,6 +66,24 @@ EPILOGUES = {"logits": 0, "masked": 1, "min": 2}
 # (128), the h256 learning run (256)
 HIDDEN = (128, 256)
 ROADMAP_ITEM = "ROADMAP.md, queue 1, item 20"
+# the feature columns the kernels keep in float32 beside the bf16 feature
+# tile: the two off features, c * float32(1/15), are not bf16 numbers
+FLOAT32_COLUMNS = (97, 195)
+
+
+def split_bf16(x, parts=3):
+    """``x`` as ``parts`` bf16 tensors, each rounded to nearest from what
+    the ones before leave, as the kernels split W1 and dpre.  Each part
+    takes the next 8 of float32's 24 significant bits, so three sum back
+    to a float32 ``x`` exactly where 2^-110 <= |x| < 2^127 (below, the
+    last part falls under bf16's smallest subnormal: off by at most
+    2^-134)."""
+    rest, out = x.float(), []
+    for _ in range(parts):
+        part = rest.bfloat16()
+        out.append(part)
+        rest = rest - part.float()
+    return out
 
 
 def _valid(n, m, epilogue):

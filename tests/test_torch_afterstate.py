@@ -394,3 +394,137 @@ def test_masked_forms_equal_the_agents_former_masks():
                                 (1 - es.turn.to(torch.int32))[:, None])
     former = torch.where(TE.action_mask(es), -model.value(feats), TB.NEG_INF)
     assert torch.equal(TB.afterstate_values(model, es), former)
+
+
+# --- the numerics the kernels rely on (csrc/afterstate.cu) -------------------
+
+
+def _byte_boards(kind):
+    """(256, 52) int8 boards, board i with the bytes of ``kind`` set to the
+    int8 value i - 128: every point byte, both bar bytes or both borne-off
+    bytes."""
+    boards = np.zeros((256, 52), np.int8)
+    cols = {"point": slice(0, 48), "bar": slice(48, 50),
+            "off": slice(50, 52)}[kind]
+    boards[:, cols] = np.arange(-128, 128).astype(np.int8)[:, None]
+    return boards
+
+
+@pytest.mark.parametrize("mover", [0, 1])
+@pytest.mark.parametrize("kind", ["point", "bar", "off"])
+def test_features_exact_in_bf16_but_off(kind, mover):
+    """Every int8 byte's features, as the port and JAX's compiled encoder
+    build them (equal bit for bit): the point and bar features and the
+    one-hot are bf16 numbers, so the kernels' bf16 feature tile holds them
+    exactly; the off features are not, and they are the only ones that are
+    not (``FLOAT32_COLUMNS``, which the kernels keep in float32)."""
+    boards = _byte_boards(kind)
+    movers = np.full(256, mover, np.int32)
+    feats = TF.encode_canonical(torch.from_numpy(boards),
+                                torch.from_numpy(movers))
+    want = np.asarray(jax.jit(jax.vmap(JF.encode_canonical))(boards, movers))
+    assert np.array_equal(feats.numpy(), want)
+    inexact = (feats.bfloat16().float() != feats).any(dim=0)
+    assert inexact.nonzero().flatten().tolist() == (
+        list(TAS.FLOAT32_COLUMNS) if kind == "off" else [])
+
+
+@pytest.mark.parametrize("lo,hi", [(-110, -60), (-60, 0), (0, 60),
+                                   (60, 127)])
+def test_split_bf16_reconstructs_float32(lo, hi):
+    """Three bf16 parts (``split_bf16``, the kernels' split of W1 and of
+    dpre) sum back to float32 numbers in [2^lo, 2^hi) exactly, either
+    sign; two parts leave up to 2^-16 of them out."""
+    rng = np.random.default_rng(lo + 1000)
+    x = (rng.choice([-1.0, 1.0], 20000) * rng.uniform(1, 2, 20000)
+         * 2.0 ** rng.integers(lo, hi, 20000)).astype(np.float32)
+    x = torch.from_numpy(x)
+    parts = TAS.split_bf16(x)
+    assert [p.dtype for p in parts] == [torch.bfloat16] * 3
+    assert torch.equal(sum(p.double() for p in parts), x.double())
+    two = sum(p.double() for p in TAS.split_bf16(x, 2))
+    rel = float(((two - x.double()) / x.double()).abs().max())
+    assert 0 < rel <= 2.0 ** -16
+
+
+def test_split_bf16_at_the_edges():
+    """Zero splits into zeros; below 2^-110 (float32's subnormals too) the
+    last part falls under bf16's smallest subnormal, off by at most
+    2^-134; the largest float32 under 2^127 splits exactly."""
+    tiny = torch.tensor([2.0 ** -111, -3 * 2.0 ** -130, 2.0 ** -149,
+                         1.2345e-38, 0.0], dtype=torch.float32)
+    err = (sum(p.double() for p in TAS.split_bf16(tiny)) - tiny.double())
+    assert float(err.abs().max()) <= 2.0 ** -134
+    assert all(float(p[-1]) == 0.0 for p in TAS.split_bf16(tiny))
+    big = torch.tensor([np.nextafter(np.float32(2.0 ** 127), np.float32(0)),
+                        -1.5 * 2.0 ** 126], dtype=torch.float32)
+    assert torch.equal(sum(p.double() for p in TAS.split_bf16(big)),
+                       big.double())
+
+
+@pytest.mark.parametrize("hidden", [32, 128])
+def test_split_fc1_is_exact(hidden):
+    """The kernels' fc1 on candidate boards, summed in float64: the bf16
+    feature tile (``FLOAT32_COLUMNS`` zeroed) times each of W1's three
+    bf16 parts, plus the float32 off features times W1's off columns,
+    equals the float32 features times W1: the split changes no
+    product, only the order of the sums."""
+    boards, mover, _ = candidate_boards(5)
+    feats = TF.encode_canonical(torch.from_numpy(boards),
+                                torch.from_numpy(mover)[:, None])
+    feats = feats.reshape(-1, 198)
+    rng = np.random.default_rng(hidden)
+    w1 = torch.from_numpy(
+        (rng.standard_normal((hidden, 198)) * 0.2).astype(np.float32))
+    cols = list(TAS.FLOAT32_COLUMNS)
+    kept = feats.clone()
+    kept[:, cols] = 0.0
+    tile = kept.bfloat16()
+    assert torch.equal(tile.float(), kept)
+    split = sum(tile.double() @ p.double().T for p in TAS.split_bf16(w1))
+    split = split + feats[:, cols].double() @ w1[:, cols].double().T
+    want = feats.double() @ w1.double().T
+    assert torch.allclose(split, want, rtol=1e-13, atol=1e-13)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module: its helpers import torch lazily and
+    its top level runs nothing."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_afterstate_inputs():
+    """The inputs ``chip_smoke.py``'s phase 3 holds both kernels to: the
+    pass's argument types and shapes, n with 0 and M among its values,
+    the same tensors from the same seed, here on the CPU."""
+    cs = _chip_smoke()
+    cpu = torch.device("cpu")
+    got = cs.afterstate_inputs(torch, cpu, 7, 9, 13, 128)
+    boards, mover, n, *w = got
+    assert boards.shape == (9, 13, 52) and boards.dtype == torch.int8
+    assert mover.dtype == n.dtype == torch.int32
+    assert {0, 13} <= set(n.tolist())
+    assert [tuple(x.shape) for x in w] == [(128, 198), (128,), (1, 128),
+                                          (1,)]
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, cs.afterstate_inputs(torch, cpu, 7, 9, 13, 128)))
+    args = (*got, False, "logits", 1.0)
+    assert TAS.afterstate_eval(*args).shape == (9, 13)
+
+
+def test_chip_smoke_needs_a_card(monkeypatch, capsys):
+    """Without a card ``chip_smoke.py`` exits non-zero before its first
+    phase and prints nothing on stdout: the kernels have no CPU mode."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exit_:
+        cs.main([])
+    assert exit_.value.code != 0
+    assert capsys.readouterr().out == ""

@@ -907,6 +907,118 @@ def test_afterstate_backward_matches_plain(card, r, m, hidden, epilogue,
                                                         1e-30)
 
 
+def test_afterstate_backward_at_a_minibatch_h256(card):
+    """The backward at a minibatch's shape, (8192, 256), hidden 256, against
+    the plain version: over 2M boards a float32 sum flips the ReLU's kink
+    of some boards whose pre-activation is near 0 (the plain version in
+    float32 and this kernel alike, against the plain one in float64), so
+    the four gradients are held as ``chip_smoke.py`` holds them, their
+    distance from the plain ones at most 4 times the distance that a
+    one-ulp nudge of the parameters moves the plain ones; the same bits on
+    a second launch, one launch counted each."""
+    args = (*afterstate_inputs(card, 8448, 8192, 256, 256), False, "logits",
+            1.0)
+    grad = torch.randn((8192, 256), device=card,
+                       generator=torch.Generator(device=card).manual_seed(8))
+    before = TAS.afterstate_eval_backward.launches
+    got = TAS.afterstate_eval_backward(*args, grad)
+    again = TAS.afterstate_eval_backward(*args, grad)
+    torch.cuda.synchronize()
+    assert TAS.afterstate_eval_backward.launches == before + 2
+    want = TAS.afterstate_eval_backward_plain(*args, grad)
+    nudged = TAS.afterstate_eval_backward_plain(
+        *args[:3], *(torch.nextafter(p, torch.full_like(p, np.inf))
+                     for p in args[3:7]), *args[7:], grad)
+
+    def dist(xs, ys):
+        return sum(float(((x - y).double() ** 2).sum())
+                   for x, y in zip(xs, ys)) ** 0.5
+
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and torch.equal(g, a)
+    assert dist(got, want) <= 4 * dist(nudged, want)
+
+
+def _tile_edge_inputs(card, seed, r, m, hidden):
+    """``afterstate_inputs`` with the kernels' tile edges in them: the rows'
+    n cycle through 63, 64, 65 (around a 64-board tile), m, 0 (every slot
+    of a ``logits`` row kept, none of a ``min`` row), 1 and 129, so that
+    tiles and blocks start and end inside rows and a row of m kept boards
+    spans several tiles; one byte in fifty anywhere in [-128, 127]."""
+    boards, mover, n, *w = afterstate_inputs(card, seed, r, m, hidden)
+    rng = np.random.default_rng(seed + 1)
+    b = boards.cpu().numpy()
+    pick = rng.random(b.shape) < 0.02
+    b[pick] = rng.integers(-128, 128, int(pick.sum()))
+    b[::3, :, 5] = 127
+    b[1::3, :, 50] = -128
+    cycle = np.array([63, 64, 65, m, 0, 1, 129], dtype=np.int32)
+    n = np.resize(cycle, r)
+    return [torch.from_numpy(b).to(card), mover,
+            torch.from_numpy(n).to(card), *w]
+
+
+@pytest.mark.parametrize("hidden", [128, 256])
+@pytest.mark.parametrize("epilogue,opponent,sign", [
+    ("logits", False, 1.0), ("masked", True, -1.0), ("min", True, 1.0)])
+def test_afterstate_tile_edges(card, hidden, epilogue, opponent, sign):
+    """Kept boards straddling the 64-board tiles and the blocks (rows of
+    n = 63, 64, 65 and M; ``logits`` rows with n = 0; ``min`` rows split
+    across tiles), extreme and negative bytes: the forward against the
+    plain version and, but for the min, the backward; two launches give
+    the same bits.  Bytes of 127 make values in the tens, whose float32
+    sums differ in more than 1e-5: the forward is held to 1e-5 of the
+    largest kept value (at least 1e-5), the floor and +1e9 exactly."""
+    r, m = 173, 200
+    args = (*_tile_edge_inputs(card, 7 * hidden + len(epilogue), r, m,
+                               hidden), opponent, epilogue, sign)
+    got = TAS.afterstate_eval(*args)
+    again = TAS.afterstate_eval(*args)
+    want = TAS.afterstate_eval_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, again)
+    special = (want == TAS.FLOOR) | (want == TAS.POS_INF)
+    assert torch.equal(got[special], want[special])
+    scale = max(1.0, float(want[~special].abs().max()))
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    if epilogue == "min":
+        return
+    grad = torch.randn((r, m), device=card,
+                       generator=torch.Generator(device=card).manual_seed(9))
+    got = TAS.afterstate_eval_backward(*args, grad)
+    again = TAS.afterstate_eval_backward(*args, grad)
+    want = TAS.afterstate_eval_backward_plain(*args, grad)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and torch.equal(g, a)
+        assert float((g - w).abs().max()) <= 1e-5 * max(float(w.norm()),
+                                                        1e-30)
+
+
+def test_afterstate_boards_at_an_odd_address(card):
+    """Contiguous boards that start at an odd byte (a view one byte into a
+    buffer), which the kernels copy byte by byte instead of by 4-byte
+    ``cp.async``: the forward and the backward equal their results on the
+    same boards at an aligned address, bit for bit."""
+    args = afterstate_inputs(card, 11, 77, 40, 128)
+    boards = args[0]
+    shifted = torch.empty(boards.numel() + 1, dtype=torch.int8,
+                          device=card)[1:].view(boards.shape)
+    shifted.copy_(boards)
+    assert shifted.data_ptr() % 4 and shifted.is_contiguous()
+    grad = torch.randn((77, 40), device=card,
+                       generator=torch.Generator(device=card).manual_seed(4))
+    for b in (boards, shifted):
+        b_args = (b, *args[1:], False, "logits", 1.0)
+        out = TAS.afterstate_eval(*b_args)
+        back = TAS.afterstate_eval_backward(*b_args, grad)
+        if b is boards:
+            want, want_back = out, back
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert all(torch.equal(g, w) for g, w in zip(back, want_back))
+
+
 def test_afterstate_autograd_on_card(card):
     """A loss through ``evaluate`` on the card backpropagates through the
     backward kernel: the model's gradients equal the CPU's (the plain
