@@ -41,11 +41,17 @@ Phases (any failure exits non-zero and prints no result line):
    both views, hidden 128 and 256 and odd R and M, at every path's shape
    (the rollout's (4096, 256), a minibatch's (8192, 256), the league's
    and the arenas' 256 and 512 x 256, the dances, the 2-ply replies'
-   (2048, 512), (2048, 128) and (8192, 512)); the backward at a minibatch
-   of both widths, distillation's and an odd shape, its gradients within
-   4 times the distance that a one-ulp nudge of the parameters moves the
-   plain gradients; both the same bits on a second launch; each timed
-   beside its bound and its library call.
+   (2048, 512), (2048, 128) and (8192, 512)); at the other widths (1, 32,
+   64, 100, 200, 384, 512, 1024: past 256 within 4 times the drift that a
+   one-ulp nudge of the weights makes) and in bfloat16 (32, 128, 256,
+   512: within 1e-2 of the values, at least 1), with every epilogue and
+   view, the rollout and a minibatch at hidden 512 and in bf16 at 128;
+   the backward at a minibatch of both widths, distillation's and an odd
+   shape, and at other widths and in bf16, its gradients within 4 times
+   the distance that a one-ulp nudge of the parameters (bf16's ulp for
+   bf16) moves the plain gradients; both the same bits on a second
+   launch; each timed beside its bound (operations at the float32 rate,
+   in bf16 at the tensor cores' dense rate) and its library call.
 4. Movegen on the card at B=4096 on boards from a few env steps: the
    kernel path is bit-exact against the plain-PyTorch path on the card
    and against the CPU.  Every kernel call of one movegen call (the
@@ -67,9 +73,12 @@ Phases (any failure exits non-zero and prints no result line):
    games over, on the played dice and on doubles only: card == CPU.
    Then one small ``train_step`` (B=64, T=8, full width) on the card and
    on the CPU from the same weights and draws, in ``index`` and in
-   ``afterstate`` mode: equal env integers, parameters and losses within
-   1e-4 (the score head's bias, whose exact gradient is zero, within 2 lr
-   a step).
+   ``afterstate`` mode, and in ``afterstate`` mode at hidden 64 and in
+   bf16: equal env integers, parameters and losses within 1e-4 (the
+   score head's bias, whose exact gradient is zero, within 2 lr a step);
+   in bf16 the parameters within 4 times what a one-ulp bf16 nudge of
+   the initial ones makes on the CPU, the losses within 1e-2 of their
+   size.
 5. Training path: ``get_preset("train4096")`` at B=4096, M=256, hidden
    128: one warm-up ``train_step`` and two timed ones (T=64 by default;
    the preset's 128 is cut to keep the run short).  Losses must be
@@ -84,7 +93,8 @@ Phases (any failure exits non-zero and prints no result line):
    step, its backward once a minibatch step), the rollout and the update
    timed apart by wall time and ``device_busy``, and the pass's first
    rollout call, first minibatch call and first backward checked and
-   timed on the run's own boards.
+   timed on the run's own boards.  The same at hidden 512 (``run_learning
+   --hidden 512``'s config) and at hidden 128 computing in bf16.
 6. Evaluation path, the ``twoply`` preset on the committed frozen_v1
    net, positions after 12 random env steps: one 2-ply decision at
    B=256 at reply width 512 and at 128 (the reply dedup branch), and one
@@ -102,7 +112,12 @@ Phases (any failure exits non-zero and prints no result line):
    card: 1-ply vs the pubeval heuristic over 512 games and 400 plies
    (the win rate must lie within 0.072 of the JAX package's 0.818), and
    2-ply vs 1-ply over 64 games for at most 100 plies (cut from 400),
-   both with exact launch counts for the plies played.
+   both with exact launch counts for the plies played.  Then frozen_v1
+   computing in bf16: one 2-ply decision at B=256, reply width 512, its
+   afterstate kernels against the plain path (backup scores within 1e-2
+   of their size, actions equal where the best leads by more than twice
+   that) and the 1-ply league against pubeval over 512 games, its win
+   rate recorded beside the float32 one.
 7. Training driver: ``ppo.train.train`` at ``train4096``'s width (B=4096,
    M=256, hidden 128, 32 minibatches, the preset's T=128) in a
    temporary directory with a ``file://``
@@ -158,7 +173,9 @@ Phases (any failure exits non-zero and prints no result line):
    afterstate4096's rollout and update, the league, the arenas, 2-ply and
    distillation, its backward on the update and distillation) and prints
    the ``kernels`` JSON line of all seven (launches summed over every
-   path's run, and by path), then the device line
+   path's run, and by path; the afterstate rows also with the widths and
+   dtypes held and their times at hidden 512 and in bf16), then the
+   device line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--profile`` adds ``torch.profiler`` breakdowns of four env steps and of
@@ -999,10 +1016,18 @@ AFTERSTATE_REPLACES = ("mlp_ppo_2ply_p3_tpu/ppo/learner.py:143-152, "
 AFTERSTATE_BACKWARD_REPLACES = ("mlp_ppo_2ply_p3_tpu/ppo/learner.py:143-152,"
                                 " mlp_ppo_2ply_p3_tpu/ppo/learner.py:204-208")
 # the forward pass against its plain version (features exact, the sums
-# in another order); the gradients within this many times what a one-ulp
-# nudge of the parameters moves the plain gradient (phase 8's calibration)
+# in another order) in float32 up to 256 units; past 256 units within this
+# many times the largest drift that a one-ulp nudge of the weights makes of
+# the plain version's values, as the gradients are held at every width
+# (phase 8's calibration)
 AFTERSTATE_TOL = 1e-5
 AFTERSTATE_NUDGE_FACTOR = 4.0
+# bf16 weights (compute_dtype "bfloat16"): the kernels round where the JAX
+# package does, the plain version's bf16 linear once after the bias; within
+# this share of the largest kept value (at least 1), under
+# tests/test_torch_models.py's bf16 2e-2 (the plain version against JAX on
+# the CPU: at most 4.9e-3, tests/test_torch_afterstate.py)
+AFTERSTATE_BF16_TOL = 1e-2
 # phase 3's shapes: (label, R, M, hidden, epilogue, opponent view, sign):
 # the rollout, a minibatch, the league's and the arenas' 1-ply (256 and 512
 # games), the score-head policy, the dances (top-k 8), the 2-ply replies at
@@ -1025,6 +1050,34 @@ AFTERSTATE_CASES = [
     ("odd", 1, 1, 128, "min", True, 1.0),
     ("empty", 0, 3, 128, "logits", False, 1.0),
 ]
+# every other width (a part of one unit group, a pair padded, 3 to 8 groups)
+# and bf16, with every epilogue and view and odd shapes: the rollout and a
+# minibatch at hidden 512 (run_learning --hidden 512) and in bf16 at 128,
+# the league's 1-ply and the replies at 512 and in bf16; (label, R, M,
+# hidden, epilogue, opponent view, sign, dtype)
+AFTERSTATE_WIDTH_CASES = [
+    ("h1 odd", 37, 29, 1, "logits", False, 1.0, "float32"),
+    ("h32 odd", 301, 255, 32, "masked", True, -1.0, "float32"),
+    ("h64 dances", 256, 8, 64, "masked", False, 1.0, "float32"),
+    ("h100 reply 128", 2048, 128, 100, "min", True, 1.0, "float32"),
+    ("h200 odd", 513, 511, 200, "min", False, 1.0, "float32"),
+    ("h384 odd", 301, 255, 384, "masked", True, -1.0, "float32"),
+    ("rollout h512", 4096, 256, 512, "logits", False, 1.0, "float32"),
+    ("minibatch h512", 8192, 256, 512, "logits", False, 1.0, "float32"),
+    ("league 1-ply h512", 256, 256, 512, "masked", True, -1.0, "float32"),
+    ("reply 512 h512", 2048, 512, 512, "min", True, 1.0, "float32"),
+    ("h1024 odd", 513, 255, 1024, "min", True, 1.0, "float32"),
+    ("h1024 odd", 37, 29, 1024, "logits", False, 1.0, "float32"),
+    ("bf16 odd", 37, 29, 32, "logits", False, 1.0, "bfloat16"),
+    ("rollout bf16", 4096, 256, 128, "logits", False, 1.0, "bfloat16"),
+    ("minibatch bf16", 8192, 256, 128, "logits", False, 1.0, "bfloat16"),
+    ("reply 512 bf16", 2048, 512, 128, "min", True, 1.0, "bfloat16"),
+    ("league 1-ply bf16 h256", 256, 256, 256, "masked", True, -1.0,
+     "bfloat16"),
+    ("bf16 h512 odd", 513, 511, 512, "min", False, 1.0, "bfloat16"),
+    ("rollout bf16 h512", 4096, 256, 512, "logits", False, 1.0,
+     "bfloat16"),
+]
 # the backward at a minibatch (both widths), distillation's minibatch and
 # an odd shape
 AFTERSTATE_BACKWARD_CASES = [
@@ -1033,14 +1086,25 @@ AFTERSTATE_BACKWARD_CASES = [
     ("distill minibatch", 1024, 256, 128, "logits", False, 1.0),
     ("odd", 301, 255, 256, "masked", True, -1.0),
 ]
+AFTERSTATE_BACKWARD_WIDTH_CASES = [
+    ("h1 odd", 37, 29, 1, "logits", False, 1.0, "float32"),
+    ("h100 odd", 301, 255, 100, "masked", True, -1.0, "float32"),
+    ("minibatch h512", 8192, 256, 512, "logits", False, 1.0, "float32"),
+    ("h1024 odd", 300, 256, 1024, "logits", False, 1.0, "float32"),
+    ("bf16 odd", 37, 29, 32, "logits", False, 1.0, "bfloat16"),
+    ("minibatch bf16", 8192, 256, 128, "logits", False, 1.0, "bfloat16"),
+    ("bf16 h512 odd", 301, 255, 512, "masked", True, -1.0, "bfloat16"),
+]
 
 
-def afterstate_inputs(torch, dev, seed, r, m, hidden):
+def afterstate_inputs(torch, dev, seed, r, m, hidden, dtype="float32"):
     """Random (R, M, 52) int8 boards (about a quarter of the points
     occupied, 1-15 checkers, bars and borne-off counts, a few negative
     bytes, a tenth all-zero rows), movers 0 and 1, n with 0, M and values
-    between; random float32 weights of ``hidden`` units (fc1 and a
-    head)."""
+    between; random float32 weights of ``hidden`` units (fc1 and a head);
+    ``dtype="bfloat16"``: bf16 weights at ``nn.Linear``'s scale,
+    U(-1/sqrt(fan in), 1/sqrt(fan in)), as a model computing in bf16 has
+    them."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
 
@@ -1059,9 +1123,15 @@ def afterstate_inputs(torch, dev, seed, r, m, hidden):
     n = ints(0, m + 1, r).to(torch.int32)
     n[::7] = 0
     n[1::5] = m
-    w = [torch.randn(shape, generator=g, device=dev) * scale
-         for shape, scale in (((hidden, 198), 0.2), ((hidden,), 0.1),
-                              ((1, hidden), 0.2), ((1,), 0.1))]
+    if dtype == "float32":
+        w = [torch.randn(shape, generator=g, device=dev) * scale
+             for shape, scale in (((hidden, 198), 0.2), ((hidden,), 0.1),
+                                  ((1, hidden), 0.2), ((1,), 0.1))]
+    else:
+        w = [((rand(*shape) * 2 - 1) / math.sqrt(fan_in)).to(
+                getattr(torch, dtype))
+             for shape, fan_in in (((hidden, 198), 198), ((hidden,), 198),
+                                   ((1, hidden), hidden), ((1,), hidden))]
     return boards, mover, n, *w
 
 
@@ -1069,8 +1139,8 @@ def afterstate_tensor_ms(n_kept, hidden, backward=False):
     """The kernels' tensor-core products as one dense bf16 product each over
     the kept boards (2 x 208 x H flops a board: fc1, and dW1 in the
     backward) at the tensor cores' dense rate, in ms: a figure logged beside
-    the bound, not a bound (the kernels run each product three times, once
-    for each bf16 part of W1 or dpre)."""
+    the bound, not a bound (in float32 the kernels run each product three
+    times, once for each bf16 part of W1 or dpre; in bf16 once)."""
     flops = n_kept * 2 * 208 * hidden * (2 if backward else 1)
     return flops / H100_BF16_OPS_PER_S * 1e3
 
@@ -1085,11 +1155,13 @@ def afterstate_work(torch, afterstate, args, backward=False):
     one-hot one) and 3 H + 1 a board for the bias, ReLU and head; the
     backward twice the feature products (the recomputed pre-activations,
     dW1) and 5 H a board.  Dense: 2 x 198 x H + 3 H for every board, the
-    dense product that the plain version does."""
+    dense product that the plain version does.  bf16 weights are read as 2
+    bytes each (the gradients still written as float32)."""
     boards, mover, n, w1 = args[:4]
     epilogue = args[8]
     r, m, _ = boards.shape
     h = w1.shape[0]
+    wbytes = w1.element_size()
     kept = afterstate._valid(n, m, "masked" if epilogue == "min"
                              else epilogue)
     b = boards.to(torch.int32)
@@ -1100,26 +1172,65 @@ def afterstate_work(torch, afterstate, args, backward=False):
     n_feat = int((nnz * kept).sum())
     params = h * 198 + 2 * h + 1
     out = r if epilogue == "min" else r * m
-    nbytes = n_kept * 52 + 8 * r + 4 * params + 4 * out
+    nbytes = n_kept * 52 + 8 * r + wbytes * params + 4 * out
     ops = 2 * n_feat * h + n_kept * (3 * h + 1)
     if backward:
-        nbytes = n_kept * (52 + 4) + 8 * r + 4 * params + 4 * params
+        nbytes = n_kept * (52 + 4) + 8 * r + wbytes * params + 4 * params
         ops = 4 * n_feat * h + n_kept * 5 * h
     dense = r * m * (2 * 198 * h + 3 * h) * (2 if backward else 1)
     return nbytes, ops, dense, n_kept
 
 
 def nudged_params(torch, params):
-    """Every parameter moved up by one ulp."""
-    return [torch.nextafter(p, torch.full_like(p, math.inf)) for p in params]
+    """Every parameter moved up by one ulp of its dtype (bf16 by its
+    bits: +1 above zero, -1 below, the smallest subnormal at zero)."""
+    out = []
+    for p in params:
+        if p.dtype != torch.bfloat16:
+            out.append(torch.nextafter(p, torch.full_like(p, math.inf)))
+            continue
+        b = p.view(torch.int16)
+        up = torch.where(p > 0, b + 1, torch.where(p < 0, b - 1,
+                                                    torch.ones_like(b)))
+        out.append(up.view(torch.bfloat16))
+    return out
+
+
+def afterstate_tol(torch, afterstate, args, want):
+    """The forward's gate against its plain version ``want`` on ``args``:
+    float32 up to 256 units AFTERSTATE_TOL; past 256,
+    AFTERSTATE_NUDGE_FACTOR times the largest drift that a one-ulp nudge of
+    the four weights makes of the plain version's kept values; bf16
+    AFTERSTATE_BF16_TOL of the largest kept value (at least 1)."""
+    special = (want == afterstate.FLOOR) | (want == afterstate.POS_INF)
+    w1 = args[3]
+    if w1.dtype == torch.bfloat16:
+        kept = want[~special]
+        return AFTERSTATE_BF16_TOL * max(
+            1.0, float(kept.abs().max()) if kept.numel() else 1.0)
+    if w1.shape[0] <= 256:
+        return AFTERSTATE_TOL
+    nudged = afterstate.afterstate_eval_plain(
+        *args[:3], *nudged_params(torch, args[3:7]), *args[7:10], 128)
+    drift = (nudged - want)[~special]
+    return AFTERSTATE_NUDGE_FACTOR * (float(drift.abs().max())
+                                      if drift.numel() else 0.0)
+
+
+def ops_rate(torch, w1):
+    """The card's peak rate for the pass's operations: float32 outside the
+    tensor cores, or the tensor cores' dense bf16 rate for bf16 weights."""
+    return H100_BF16_OPS_PER_S if w1.dtype == torch.bfloat16 \
+        else H100_OPS_PER_S
 
 
 def afterstate_measure(torch, afterstate, features, args, label, iters=5):
     """The forward kernel against its plain version on ``args``: within
-    AFTERSTATE_TOL, the floor and an empty min's +1e9 exact, the same bits
-    on a second launch; kernel, plain and library times (CUDA events;
+    ``afterstate_tol``, the floor and an empty min's +1e9 exact, the same
+    bits on a second launch; kernel, plain and library times (CUDA events;
     the library: ``Fn.linear`` for fc1 alone on prebuilt (R M, 198)
-    features) beside the bound from ``afterstate_work``."""
+    features, in the weights' dtype) beside the bound from
+    ``afterstate_work`` (operations at ``ops_rate``)."""
     from torch.nn import functional as Fn
 
     with torch.no_grad():
@@ -1138,22 +1249,26 @@ def _afterstate_measure(torch, Fn, afterstate, features, args, label,
     check(got.shape == want.shape and same(got, again),
           f"afterstate_eval {label} {shape}: two launches differ")
     err = float((got - want).abs().max()) if got.numel() else 0.0
-    check(err <= AFTERSTATE_TOL, f"afterstate_eval {label} {shape} "
-          f"hidden {args[3].shape[0]}: {err} from the plain version")
+    tol = afterstate_tol(torch, afterstate, args, want)
+    dtype = str(args[3].dtype).replace("torch.", "")
+    check(err <= tol, f"afterstate_eval {label} {shape} hidden "
+          f"{args[3].shape[0]} {dtype}: {err} from the plain version (gate "
+          f"{tol})")
     special = (want == afterstate.FLOOR) | (want == afterstate.POS_INF)
     check(same(got[special], want[special]),
           f"afterstate_eval {label} {shape}: masked entries differ")
     del got, again, want
     nbytes, ops, dense, n_kept = afterstate_work(torch, afterstate, args)
     row = {"label": label, "shape": list(shape),
-           "hidden": args[3].shape[0], "epilogue": args[8],
+           "hidden": args[3].shape[0], "dtype": dtype, "epilogue": args[8],
            "opponent": args[7], "kept_boards": n_kept,
-           "max_abs_err": err}
+           "max_abs_err": err, "tol": tol}
     if not args[0].numel():
         return row
     boards, mover, n, w1, b1 = args[:5]
     view = afterstate.Bd.opponent_view(boards) if args[7] else boards
-    feats = features.encode_canonical(view, mover[:, None]).reshape(-1, 198)
+    feats = features.encode_canonical(view, mover[:, None]).reshape(
+        -1, 198).to(w1.dtype)
     del view
     plain = time_ms(lambda: afterstate.afterstate_eval_plain(*args, 128),
                     iters)
@@ -1164,12 +1279,12 @@ def _afterstate_measure(torch, Fn, afterstate, features, args, label,
     lib = time_ms(lambda: Fn.linear(feats, w1, b1), iters)
     del feats
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = ops / H100_OPS_PER_S * 1e3
+    ops_ms = ops / ops_rate(torch, w1) * 1e3
     row.update({
         "ms": (kern + kern2) / 2, "plain_ms": (plain + plain2) / 2,
         "library_ms": lib, "bytes": nbytes, "ops": ops,
         "dense_ops": dense, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-        "dense_ops_ms": dense / H100_OPS_PER_S * 1e3,
+        "dense_ops_ms": dense / ops_rate(torch, w1) * 1e3,
         "tensor_ms": afterstate_tensor_ms(n_kept, w1.shape[0]),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
@@ -1182,9 +1297,10 @@ def afterstate_backward_measure(torch, afterstate, args, label, iters=5):
     gradient): the gradients' distance from the plain ones at most
     AFTERSTATE_NUDGE_FACTOR times the distance that a one-ulp nudge of the
     parameters moves the plain ones (norms over all four), the same bits
-    on a second launch; kernel, plain and library times (the library:
-    ``torch.mm`` of an (H, R M) by an (R M, 198) matrix, dW1's product)
-    beside the bound."""
+    on a second launch (float32 tensors, of bf16 numbers for bf16
+    weights, the nudge then one bf16 ulp); kernel, plain and library times
+    (the library: ``torch.mm`` of an (H, R M) by an (R M, 198) matrix in
+    the weights' dtype, dW1's product) beside the bound."""
     args = tuple(args[:11])
     fwd, grad = args[:10], args[10]
     got = afterstate.afterstate_eval_backward(*args)
@@ -1196,6 +1312,10 @@ def afterstate_backward_measure(torch, afterstate, args, label, iters=5):
     shape = tuple(args[0].shape)
     check(all(same(a, b) for a, b in zip(got, again)),
           f"afterstate_eval_backward {label} {shape}: two launches differ")
+    wdt = fwd[3].dtype
+    check(all(g.dtype == torch.float32 and same(g, g.to(wdt).float())
+              for g in got), f"afterstate_eval_backward {label} {shape}: "
+          f"not float32 gradients of {wdt} numbers")
 
     def dist(xs, ys):
         return math.sqrt(sum(float(((x - y).double() ** 2).sum())
@@ -1212,14 +1332,15 @@ def afterstate_backward_measure(torch, afterstate, args, label, iters=5):
     nbytes, ops, dense, n_kept = afterstate_work(torch, afterstate, fwd,
                                                  backward=True)
     row = {"label": label, "shape": list(shape), "hidden": fwd[3].shape[0],
-           "epilogue": fwd[8], "kept_boards": n_kept, "max_abs_err": max_err,
+           "dtype": str(wdt).replace("torch.", ""), "epilogue": fwd[8],
+           "kept_boards": n_kept, "max_abs_err": max_err,
            "err_norm": err, "nudge_norm": floor, "grad_norm": norm}
     if not args[0].numel():
         return row
     r, m, _ = args[0].shape
     h = fwd[3].shape[0]
-    dh = torch.randn((h, r * m), device=args[0].device)
-    feats = torch.randn((r * m, 198), device=args[0].device)
+    dh = torch.randn((h, r * m), device=args[0].device).to(wdt)
+    feats = torch.randn((r * m, 198), device=args[0].device).to(wdt)
     plain = time_ms(lambda: afterstate.afterstate_eval_backward_plain(*args),
                     iters)
     kern = time_ms(lambda: afterstate.afterstate_eval_backward(*args), iters)
@@ -1230,13 +1351,13 @@ def afterstate_backward_measure(torch, afterstate, args, label, iters=5):
     lib = time_ms(lambda: torch.mm(dh, feats), iters)
     del dh, feats
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = ops / H100_OPS_PER_S * 1e3
+    ops_ms = ops / ops_rate(torch, fwd[3]) * 1e3
     row.update({
         "ms": (kern + kern2) / 2, "plain_ms": (plain + plain2) / 2,
         "library_ms": lib, "bytes": nbytes, "ops": ops, "dense_ops": dense,
         "tensor_ms": afterstate_tensor_ms(n_kept, h, backward=True),
         "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-        "dense_ops_ms": dense / H100_OPS_PER_S * 1e3,
+        "dense_ops_ms": dense / ops_rate(torch, fwd[3]) * 1e3,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
     return row
@@ -1247,7 +1368,8 @@ def log_afterstate_rows(prefix, rows):
         if "ms" not in row:
             continue
         log(f"{prefix}{row['label']} {tuple(row['shape'])} hidden "
-            f"{row['hidden']} {row['epilogue']}: kernel {row['ms']:.4f} ms, "
+            f"{row['hidden']} {row['dtype']} {row['epilogue']}: kernel "
+            f"{row['ms']:.4f} ms, "
             f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f}"
             f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; dense "
             f"{row['dense_ops_ms']:.4f} ms; tensor cores, dense over the kept"
@@ -1256,21 +1378,27 @@ def log_afterstate_rows(prefix, rows):
 
 
 def afterstate_cases(torch, afterstate, features, dev):
-    """Phase 3's afterstate pass: the forward at AFTERSTATE_CASES and the
-    backward at AFTERSTATE_BACKWARD_CASES on random inputs
-    (``afterstate_inputs``), each checked and timed.  Returns (forward
-    rows, backward rows)."""
+    """Phase 3's afterstate pass: the forward at AFTERSTATE_CASES and
+    AFTERSTATE_WIDTH_CASES and the backward at AFTERSTATE_BACKWARD_CASES
+    and AFTERSTATE_BACKWARD_WIDTH_CASES on random inputs
+    (``afterstate_inputs``; the seeds of the first lists as before), each
+    checked and timed.  Returns (forward rows, backward rows)."""
     fwd, bwd = [], []
-    for i, (label, r, m, h, epilogue, opponent, sign) in enumerate(
-            AFTERSTATE_CASES):
-        args = (*afterstate_inputs(torch, dev, 100 + i, r, m, h), opponent,
+    cases = [(100 + i, (*c, "float32"))
+             for i, c in enumerate(AFTERSTATE_CASES)]
+    cases += [(400 + i, c) for i, c in enumerate(AFTERSTATE_WIDTH_CASES)]
+    for seed, (label, r, m, h, epilogue, opponent, sign, dt) in cases:
+        args = (*afterstate_inputs(torch, dev, seed, r, m, h, dt), opponent,
                 epilogue, sign)
         fwd.append(afterstate_measure(torch, afterstate, features, args,
                                       label))
-    for i, (label, r, m, h, epilogue, opponent, sign) in enumerate(
-            AFTERSTATE_BACKWARD_CASES):
-        args = (*afterstate_inputs(torch, dev, 200 + i, r, m, h), opponent,
-                epilogue, sign)
+    cases = [(i, (*c, "float32"))
+             for i, c in enumerate(AFTERSTATE_BACKWARD_CASES)]
+    cases += [(500 + i, c)
+              for i, c in enumerate(AFTERSTATE_BACKWARD_WIDTH_CASES)]
+    for i, (label, r, m, h, epilogue, opponent, sign, dt) in cases:
+        args = (*afterstate_inputs(torch, dev, 200 + i, r, m, h, dt),
+                opponent, epilogue, sign)
         g = torch.Generator(device=dev)
         g.manual_seed(300 + i)
         grad = torch.randn((r, m), generator=g, device=dev)
@@ -1566,25 +1694,43 @@ class ReplaySampler:
 
 
 def small_agreement_phase(torch, bg_env, learner, cfg, dev,
-                          policy_mode="index"):
-    """One train_step at B=64, T=8, hidden 128 on the card (kernel path)
-    and on the CPU (plain path) from the same weights and the same draws:
-    the rollouts must agree exactly in their integers, and parameters and
-    losses to 1e-4 (float32 sums in another order on each side).  In
-    ``afterstate`` mode the score head's bias, whose exact gradient is
-    zero (softmax is shift invariant), may move by Adam's lr a step
-    either way on each side, as ``tests/test_torch_learner.py`` bounds
-    it.  Returns the largest parameter difference."""
+                          policy_mode="index", model_cfg=None):
+    """One train_step at B=64, T=8 (the model ``model_cfg``, by default
+    ``cfg``'s, hidden 128) on the card (kernel path) and on the CPU (plain
+    path) from the same weights and the same draws: the rollouts must
+    agree exactly in their integers, and parameters and losses to 1e-4
+    (float32 sums in another order on each side).  In ``afterstate`` mode
+    the score head's bias, whose exact gradient is zero (softmax is shift
+    invariant), may move by Adam's lr a step either way on each side, as
+    ``tests/test_torch_learner.py`` bounds it.  A bf16 model
+    (``compute_dtype``): the parameters' distance (the norm over all) at
+    most AFTERSTATE_NUDGE_FACTOR times what one bf16 rounding does, the
+    CPU run once more from every parameter's bf16 rounding moved up one
+    bf16 ulp; losses within AFTERSTATE_BF16_TOL of their size (at least
+    1).  Returns the largest parameter difference."""
     batch, t = 64, 8
+    if model_cfg is not None:
+        cfg = dataclasses.replace(cfg, model=model_cfg)
+    bf16 = cfg.model.compute_dtype == "bfloat16"
     ppo = dataclasses.replace(cfg.ppo, num_envs=batch, t_horizon=t,
                               num_minibatches=4, policy_mode=policy_mode)
     gen = torch.Generator(device=dev).manual_seed(2)
     start = bg_env.reset(gen, cfg.env, batch, device=dev)
     rec = RecordingSampler(learner, gen)
     out = []
-    for where, sampler in ((dev, rec), (torch.device("cpu"), None)):
+    cpu = torch.device("cpu")
+    runs = [(dev, rec, False), (cpu, None, False)]
+    if bf16:   # the CPU once more, from the nudged parameters
+        runs.append((cpu, None, True))
+    for where, sampler, nudge in runs:
         # the same seeded weights on both sides
         ts = learner.init_train_state(0, cfg.model, ppo, device="cpu")
+        if nudge:
+            params = list(ts.model.parameters())
+            with torch.no_grad():
+                for p, q in zip(params, nudged_params(
+                        torch, [p.bfloat16() for p in params])):
+                    p.copy_(q.float())
         model = ts.model.to(where)
         ts = ts._replace(model=model,
                          opt_state=learner.init_optimizer(model))
@@ -1592,25 +1738,49 @@ def small_agreement_phase(torch, bg_env, learner, cfg, dev,
         es = bg_env.EnvState(*(x.to(where) for x in start))
         out.append(learner.train_step(ts, es, cfg.env, cfg.model, ppo,
                                       sampler))
-    (g_ts, g_es, g_m), (c_ts, c_es, c_m) = out
+    (g_ts, g_es, g_m), (c_ts, c_es, c_m) = out[:2]
+    tag = (f"{policy_mode} hidden {cfg.model.hidden_size} "
+           f"{cfg.model.compute_dtype}")
     for name, g, c in zip(g_es._fields, g_es, c_es):
-        check(same(g.cpu(), c), f"small train_step {policy_mode}: env "
+        check(same(g.cpu(), c), f"small train_step {tag}: env "
               f"{name} card != CPU")
     steps = ppo.num_epochs * ppo.num_minibatches
+    if bf16:
+        def dist(a, b):
+            return math.sqrt(sum(
+                float(((x.detach().cpu().double() - y.detach().double())
+                       ** 2).sum())
+                for x, y in zip(a.parameters(), b.parameters())))
+
+        err = dist(g_ts.model, c_ts.model)
+        floor = dist(out[2][0].model, c_ts.model)
+        check(err <= AFTERSTATE_NUDGE_FACTOR * floor, f"small train_step "
+              f"{tag}: parameters {err:.3e} apart, a bf16 nudge moves "
+              f"them {floor:.3e}")
+        for k in LOSS_KEYS:
+            c = float(c_m[k])
+            d = abs(float(g_m[k]) - c)
+            check(d <= AFTERSTATE_BF16_TOL * max(1.0, abs(c)),
+                  f"small train_step {tag}: {k} differs by {d}")
+        log(f"train_step B=64 T=8 {tag}: parameters {err:.3e} apart (a "
+            f"bf16 nudge {floor:.3e})")
+        return max(float((g.detach().cpu() - c.detach()).abs().max())
+                   for g, c in zip(g_ts.model.parameters(),
+                                   c_ts.model.parameters()))
     diff = 0.0
     for (name, g), c in zip(g_ts.model.named_parameters(),
                             c_ts.model.parameters()):
         d = float((g.detach().cpu() - c.detach()).abs().max())
         if policy_mode == "afterstate" and name == "layers.score.bias":
             check(d <= 2 * steps * ppo.learning_rate, f"small train_step "
-                  f"{policy_mode}: {name} differs by {d}")
+                  f"{tag}: {name} differs by {d}")
             continue
         diff = max(diff, d)
-    check(diff < 1e-4, f"small train_step {policy_mode}: parameters differ "
+    check(diff < 1e-4, f"small train_step {tag}: parameters differ "
           f"by {diff}")
     for k in LOSS_KEYS:
         d = abs(float(g_m[k]) - float(c_m[k]))
-        check(d < 1e-4, f"small train_step {policy_mode}: {k} differs by "
+        check(d < 1e-4, f"small train_step {tag}: {k} differs by "
               f"{d}")
     return diff
 
@@ -1793,52 +1963,62 @@ def twoply_phase(torch, twoply, perf_twoply, bg_env, afterstate, features,
     return out
 
 
+def run_arena(movegen, arena, league, twoply, cfg, dev, pair, games,
+              plies, model=None):
+    """The league CLI's ``run_pair`` on the card (frozen_v1, or ``model``
+    as the network), with exact launch counts of every kernel for the
+    plies played.  Returns its result dict."""
+    import contextlib
+
+    per_step = per_call_launches(movegen, cfg.env.movegen)
+    # count the plies played: the 2-ply pair's host loop stops once every
+    # game is over
+    inner, played = arena._ply, [0]
+
+    def counted_ply(*a, **kw):
+        played[0] += 1
+        return inner(*a, **kw)
+
+    zero_launches()
+    arena._ply = counted_ply
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            res = league.run_pair(cfg, pair, games, plies, 11, params=model,
+                                  params_from="frozen", device=dev)
+    finally:
+        arena._ply = inner
+    counted = launches()
+    ran = played[0]
+    check(ran == plies or (0 < ran < plies and res["finished"] == games),
+          f"arena {pair}: {ran} plies played of {plies}, "
+          f"{res['finished']} of {games} games finished")
+    # the reset and every ply list the moves of all games; each side
+    # decides for every game every ply: a 2-ply decision, or one
+    # afterstate pass of the 1-ply agent
+    per_ply = [sum(x) for x in zip(*(
+        twoply.launches_per_decision(games, cfg.search)
+        if agent == "twoply" else afterstate_launches(fwd=1)
+        if agent in ("oneply", "frozen") else (0,) * len(KERNELS)
+        for agent in pair.split(":")))]
+    expect = {name: (1 + ran) * per_step[name] + ran * extra
+              for name, extra in zip(KERNELS, per_ply)}
+    check(counted == expect,
+          f"arena {pair}: launches {counted}, expected {expect}")
+    res["launches"] = counted
+    res["max_plies"] = plies
+    res["plies_played"] = ran
+    return res
+
+
 def arena_phase(torch, movegen, arena, league, twoply, cfg, dev):
     """The league CLI's ``run_pair`` on the card: 1-ply frozen_v1 against
     the pubeval heuristic over 512 games, then 2-ply against 1-ply (both
     frozen_v1) over 64 games for at most ``TWOPLY_PLIES`` plies; exact
     launch counts of every kernel for the plies that each played."""
-    import contextlib
-
-    per_step = per_call_launches(movegen, cfg.env.movegen)
     out = {}
     for pair, games, plies in ARENA_PAIRS:
-        # count the plies played: the 2-ply pair's host loop stops once
-        # every game is over
-        inner, played = arena._ply, [0]
-
-        def counted_ply(*a, **kw):
-            played[0] += 1
-            return inner(*a, **kw)
-
-        zero_launches()
-        arena._ply = counted_ply
-        try:
-            with contextlib.redirect_stdout(sys.stderr):
-                res = league.run_pair(cfg, pair, games, plies, 11,
-                                      params_from="frozen", device=dev)
-        finally:
-            arena._ply = inner
-        counted = launches()
-        ran = played[0]
-        check(ran == plies or (0 < ran < plies and res["finished"] == games),
-              f"arena {pair}: {ran} plies played of {plies}, "
-              f"{res['finished']} of {games} games finished")
-        # the reset and every ply list the moves of all games; each side
-        # decides for every game every ply: a 2-ply decision, or one
-        # afterstate pass of the 1-ply agent
-        per_ply = [sum(x) for x in zip(*(
-            twoply.launches_per_decision(games, cfg.search)
-            if agent == "twoply" else afterstate_launches(fwd=1)
-            if agent in ("oneply", "frozen") else (0,) * len(KERNELS)
-            for agent in pair.split(":")))]
-        expect = {name: (1 + ran) * per_step[name] + ran * extra
-                  for name, extra in zip(KERNELS, per_ply)}
-        check(counted == expect,
-              f"arena {pair}: launches {counted}, expected {expect}")
-        res["launches"] = counted
-        res["max_plies"] = plies
-        res["plies_played"] = ran
+        res = run_arena(movegen, arena, league, twoply, cfg, dev, pair,
+                        games, plies)
         out[pair] = res
         log(f"arena {pair}: {json.dumps(res)}")
     wr = out["oneply:pubeval"]["win_rate_a"]
@@ -1847,6 +2027,92 @@ def arena_phase(torch, movegen, arena, league, twoply, cfg, dev):
     check(abs(wr - JAX_ONEPLY_VS_HEURISTIC) <= WIN_RATE_BAND,
           f"1-ply frozen_v1 vs pubeval: win rate {wr}, JAX "
           f"{JAX_ONEPLY_VS_HEURISTIC} +- {WIN_RATE_BAND}")
+    return out
+
+
+def bf16_eval_phase(torch, movegen, twoply, perf_twoply, arena, league,
+                    cfg, model, dev):
+    """frozen_v1 computing in bfloat16 (``compute_dtype``), the afterstate
+    kernels' bf16 form: one 2-ply decision at B=256, reply width 512, with
+    exact launch counts, its kernel path against the afterstate pass's
+    plain path on the card (backup scores within AFTERSTATE_BF16_TOL of
+    their size, at least 1; actions equal where the best score leads by
+    more than twice that; the +-1e9 of a game without moves or replies
+    exact); the score-head policy's logits (one launch) against the plain
+    path within the same gate; then the league's 1-ply against the pubeval
+    heuristic over 512 games, its win rate recorded (no gate)."""
+    import copy
+
+    bmodel = copy.deepcopy(model)
+    bmodel.cfg = dataclasses.replace(model.cfg, compute_dtype="bfloat16")
+    state = perf_twoply.realistic_state(cfg.env, 256, 12, device=dev)
+    scfg = dataclasses.replace(cfg.search, reply_max_moves=512)
+    inner, margins = twoply.candidate_scores, []
+
+    def recorded(*a, **kw):
+        top_idx, score2, ovf = inner(*a, **kw)
+        top2 = torch.topk(score2, 2, dim=1).values
+        margins.append(top2[:, 0] - top2[:, 1])
+        return top_idx, score2, ovf
+
+    zero_launches()
+    twoply.candidate_scores = recorded
+    try:
+        got = twoply.twoply_actions_values(bmodel, state, scfg)
+    finally:
+        twoply.candidate_scores = inner
+    torch.cuda.synchronize()
+    counted = launches()
+    expect = dict(zip(KERNELS, twoply.launches_per_decision(
+        state.turn.shape[0], scfg)))
+    check(counted == expect, f"bf16 2-ply decision: launches {counted}, "
+          f"expected {expect}")
+    with Capture(plain=True, kernels=AFTERSTATE_KERNELS):
+        plain = twoply.twoply_actions_values(bmodel, state, scfg)
+    # the +-1e9 of a game without moves or replies must match exactly
+    special = plain[1].abs() >= twoply.POS_INF / 2
+    check(same(got[1][special], plain[1][special]),
+          "bf16 2-ply backup: the +-1e9 entries differ")
+    values = plain[1][~special]
+    tol = AFTERSTATE_BF16_TOL * max(
+        1.0, float(values.abs().max()) if values.numel() else 1.0)
+    diff = float((got[1] - plain[1])[~special].abs().max()) \
+        if values.numel() else 0.0
+    check(diff <= tol, f"bf16 2-ply backup: afterstate kernel and plain "
+          f"differ by {diff} (gate {tol})")
+    decided = margins[0] > 2 * tol
+    check(same(got[0][decided], plain[0][decided]),
+          "bf16 2-ply actions: afterstate kernel != plain")
+    out = {"batch": 256, "reply_max_moves": 512, "launches": counted,
+           "max_backup_diff": diff, "tol": tol,
+           "clear_margin_games": int(decided.sum())}
+    log(f"bf16 2-ply B=256 reply width 512: backups within {diff:.2e} of "
+        f"the plain path (gate {tol:.2e}), actions equal on "
+        f"{out['clear_margin_games']} games with a clear margin")
+    # the score-head policy's logits (agents/basic.py), one launch
+    from mlp_ppo_2ply_p3_tpu_torch.agents import basic
+
+    zero_launches()
+    with torch.no_grad():
+        got = basic.afterstate_policy_logits(bmodel, state)
+        torch.cuda.synchronize()
+        check(launches() == dict(zip(KERNELS, afterstate_launches(fwd=1))),
+              f"bf16 score-head policy: launches {launches()}")
+        with Capture(plain=True, kernels=AFTERSTATE_KERNELS):
+            plain = basic.afterstate_policy_logits(bmodel, state)
+    special = plain == basic.NEG_INF
+    kept = plain[~special]
+    tol = AFTERSTATE_BF16_TOL * max(
+        1.0, float(kept.abs().max()) if kept.numel() else 1.0)
+    diff = float((got - plain)[~special].abs().max()) if kept.numel() \
+        else 0.0
+    check(same(got[special], plain[special]) and diff <= tol,
+          f"bf16 score-head policy logits: kernel and plain differ by "
+          f"{diff} (gate {tol})")
+    out["policy_logits_max_diff"] = diff
+    res = run_arena(movegen, arena, league, twoply, cfg, dev,
+                    "oneply:pubeval", 512, 400, model=bmodel)
+    out["oneply:pubeval"] = res
     return out
 
 
@@ -2769,8 +3035,12 @@ def main(argv=None) -> int:
     log_afterstate_rows("afterstate_eval_backward ", bwd_rows)
     errs = ", ".join(f"{r['err_norm']:.2e} (nudge {r['nudge_norm']:.2e})"
                      for r in bwd_rows)
-    log(f"afterstate_eval within {AFTERSTATE_TOL} of plain on {len(fwd_rows)}"
-        f" shapes, afterstate_eval_backward within "
+    widths = sorted({(r["hidden"], r["dtype"]) for r in fwd_rows})
+    log(f"afterstate_eval within its gate of plain on {len(fwd_rows)} shapes"
+        f" ({AFTERSTATE_TOL} in float32 up to 256 units, "
+        f"{AFTERSTATE_NUDGE_FACTOR} x a one-ulp nudge's drift past 256, "
+        f"{AFTERSTATE_BF16_TOL} of the values in bf16; widths and dtypes "
+        f"{widths}), afterstate_eval_backward within "
         f"{AFTERSTATE_NUDGE_FACTOR} x a one-ulp nudge on {len(bwd_rows)}: "
         f"{errs}; both deterministic; {time.time() - t0:.1f} s")
 
@@ -2807,6 +3077,17 @@ def main(argv=None) -> int:
         report["phases"][f"small_train_step_max_param_diff_{mode}"] = diff
         log(f"train_step B=64 T=8 {mode}: card == CPU in every env integer, "
             f"parameters within {diff:.2e}")
+    # the afterstate kernels at another width and in bf16
+    for tag, model_cfg in (
+            ("h64", dataclasses.replace(cfg.model, hidden_size=64)),
+            ("bf16", dataclasses.replace(cfg.model,
+                                         compute_dtype="bfloat16"))):
+        diff = small_agreement_phase(torch, bg_env, learner, cfg, dev,
+                                     "afterstate", model_cfg)
+        report["phases"][
+            f"small_train_step_max_param_diff_afterstate_{tag}"] = diff
+        log(f"train_step B=64 T=8 afterstate {tag}: card == CPU in every "
+            f"env integer, parameters within {diff:.2e}")
 
     t = args.t
     if t != cfg.ppo.t_horizon:
@@ -2840,6 +3121,34 @@ def main(argv=None) -> int:
     log_afterstate_rows("afterstate4096 ", after["afterstate_calls"])
     log_afterstate_rows("afterstate4096 backward ",
                         after["afterstate_backward_calls"])
+    # the same preset at run_learning --hidden 512, and computing in bf16
+    forms = {}
+    for tag, model_cfg in (
+            ("h512", dataclasses.replace(after_cfg.model, hidden_size=512)),
+            ("bf16", dataclasses.replace(after_cfg.model,
+                                         compute_dtype="bfloat16"))):
+        t0 = time.time()
+        run = train_phase(torch, movegen, bg_env, learner,
+                          dataclasses.replace(after_cfg, model=model_cfg),
+                          after_cfg.ppo.num_envs, after_cfg.ppo.t_horizon,
+                          dev, timed=1,
+                          detail=(profiling, afterstate, features))
+        run["hidden"] = model_cfg.hidden_size
+        run["compute_dtype"] = model_cfg.compute_dtype
+        forms[tag] = run
+        report["phases"][f"afterstate4096_{tag}"] = run
+        log(f"afterstate4096 {tag} (hidden {model_cfg.hidden_size}, "
+            f"{model_cfg.compute_dtype}): {run['train_step_s']:.3f} s/step, "
+            f"peak {run['peak_gb']:.2f} GB on {card}; rollout device "
+            f"{run['rollout_device_s']:.4f} s (idle "
+            f"{run['rollout_idle_share']:.3f}), update device "
+            f"{run['update_device_s']:.4f} s (idle "
+            f"{run['update_idle_share']:.3f}); losses "
+            f"{json.dumps({k: run['metrics'][k] for k in LOSS_KEYS})}; "
+            f"launches {run['launches']}; phase {time.time() - t0:.1f} s")
+        log_afterstate_rows(f"afterstate4096 {tag} ", run["afterstate_calls"])
+        log_afterstate_rows(f"afterstate4096 {tag} backward ",
+                            run["afterstate_backward_calls"])
 
     # the evaluation path: the twoply preset on the committed frozen_v1 net
     model, model_cfg = frozen.load_frozen(device=dev)
@@ -2857,6 +3166,16 @@ def main(argv=None) -> int:
     log(f"arena phase: {time.time() - t0:.1f} s; 1-ply frozen_v1 vs pubeval "
         f"heuristic {arenas['oneply:pubeval']['win_rate_a']:.3f} over 512 "
         f"games (JAX {JAX_ONEPLY_VS_HEURISTIC})")
+    # frozen_v1 computing in bf16: a 2-ply decision and the 1-ply league
+    t0 = time.time()
+    bf16_eval = bf16_eval_phase(torch, movegen, twoply, perf_twoply, arena,
+                                league, eval_cfg, model, dev)
+    report["phases"]["bf16_eval"] = bf16_eval
+    log(f"bf16 evaluation phase: {time.time() - t0:.1f} s; 1-ply frozen_v1 "
+        f"in bf16 vs pubeval heuristic "
+        f"{bf16_eval['oneply:pubeval']['win_rate_a']:.3f} over 512 games "
+        f"(float32 {arenas['oneply:pubeval']['win_rate_a']:.3f}, recorded "
+        f"only)")
 
     # the training driver, at the preset's horizon
     t0 = time.time()
@@ -2943,15 +3262,21 @@ def main(argv=None) -> int:
         f"launches {bd['launches']}")
 
     # each path's launches, counted from 0 just before it
-    by_path = {"train4096": main_path["launches"],
-               "afterstate4096": after["launches"],
-               "afterstate4096_rollout": after["rollout_launches"],
-               "afterstate4096_update": after["update_launches"]}
+    by_path = {"train4096": main_path["launches"]}
+    for tag, run in (("afterstate4096", after),
+                     ("afterstate4096_h512", forms["h512"]),
+                     ("afterstate4096_bf16", forms["bf16"])):
+        by_path[tag] = run["launches"]
+        by_path[f"{tag}_rollout"] = run["rollout_launches"]
+        by_path[f"{tag}_update"] = run["update_launches"]
     for row in two["checks"]:
         by_path[f"twoply_b{row['batch']}_reply{row['reply_max_moves']}"] = (
             row["launches"])
+    by_path["twoply_bf16_b256_reply512"] = bf16_eval["launches"]
     for pair, res in arenas.items():
         by_path[f"arena_{pair.replace(':', '_vs_')}"] = res["launches"]
+    by_path["arena_bf16_oneply_vs_pubeval"] = bf16_eval["oneply:pubeval"][
+        "launches"]
     by_path["trainer"] = trainer["launches"]
     by_path["dp_rank0"] = dp["launches"]["rank0"]
     by_path["dp_rank1"] = dp["launches"]["rank1"]
@@ -2974,11 +3299,15 @@ def main(argv=None) -> int:
         want = set(movegen_set)
         if path.startswith("twoply_"):
             want = movegen_set - {"compact_rows"} | fwd
-        elif path == "afterstate4096_update":
+        elif path.startswith("afterstate4096") and path.endswith("_update"):
             want = fwd | bwd
-        elif path in ("afterstate4096", "distill", "bench_afterstate4096"):
+        elif path.startswith("afterstate4096") and path.endswith(
+                "_rollout"):
+            want |= fwd
+        elif path.startswith("afterstate4096") or path in (
+                "distill", "bench_afterstate4096"):
             want |= fwd | bwd
-        elif path.startswith(("arena_", "afterstate4096_", "trainer")):
+        elif path.startswith(("arena_", "trainer")):
             want |= fwd
         for name in KERNELS:
             if name in want:
@@ -3024,10 +3353,20 @@ def main(argv=None) -> int:
             "library_ms": None,
         }
 
-    def afterstate_row(name, replaces, row, checked):
+    def afterstate_row(name, replaces, key, checked):
         # times: afterstate4096's first rollout call (forward) or its first
-        # minibatch backward, on this run's boards; the error: the largest
-        # over every call checked (phases 3, 5 and 6)
+        # minibatch backward, on this run's boards (hidden 128, float32),
+        # and the same at hidden 512 and in bf16 ("forms"); the error: the
+        # largest over every call checked (phases 3, 5 and 6), float32 and
+        # bf16 apart; the widths and dtypes held
+        row = after[key][0]
+
+        def form(run):
+            r = run[key][0]
+            return {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms",
+                                      "max_abs_err")}
+
         return {
             "name": name, "route": "cuda",
             "source": "mlp_ppo_2ply_p3_tpu_torch/csrc/afterstate.cu",
@@ -3035,11 +3374,19 @@ def main(argv=None) -> int:
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in checked),
+            "max_abs_err_by_dtype": {
+                dt: max(r["max_abs_err"] for r in checked
+                        if r["dtype"] == dt)
+                for dt in sorted({r["dtype"] for r in checked})},
+            "widths_held": sorted({(r["hidden"], r["dtype"])
+                                   for r in checked}),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             # Fn.linear for fc1 alone on prebuilt features (forward);
             # torch.mm for dW1's product alone (backward)
             "library_ms": row["library_ms"],
+            "forms": {"hidden 512 float32": form(forms["h512"]),
+                      "hidden 128 bfloat16": form(forms["bf16"])},
         }
 
     kernels = [kernel_row("compact_rows", TPU_KERNELS, "compaction.cu"),
@@ -3050,13 +3397,16 @@ def main(argv=None) -> int:
                           "nondoubles.cu"),
                kernel_row("doubles_final", FINAL_REPLACES, "doubles.cu"),
                afterstate_row("afterstate_eval", AFTERSTATE_REPLACES,
-                              after["afterstate_calls"][0],
-                              fwd_rows + after["afterstate_calls"]
-                              + two["afterstate"]),
+                              "afterstate_calls",
+                              fwd_rows + two["afterstate"] + [
+                                  r for run in (after, *forms.values())
+                                  for r in run["afterstate_calls"]]),
                afterstate_row("afterstate_eval_backward",
                               AFTERSTATE_BACKWARD_REPLACES,
-                              after["afterstate_backward_calls"][0],
-                              bwd_rows + after["afterstate_backward_calls"])]
+                              "afterstate_backward_calls",
+                              bwd_rows + [
+                                  r for run in (after, *forms.values())
+                                  for r in run["afterstate_backward_calls"]])]
     report["kernels"] = kernels
     report["script_s"] = time.time() - t_script
     log(f"chip_smoke.py ran {report['script_s']:.1f} s")

@@ -80,20 +80,42 @@
 //   db_head are float32 sums in a fixed order.  Nothing of the forward is
 //   saved for the backward: recomputing pre costs a third of the block's
 //   products, keeping it would cost (R, M, H) floats.
-// - Hidden 128 is a block's 128 units.  Hidden 256 does not fit (312 KB
-//   of parts): the forward runs clusters of two blocks, each with its half
-//   of the units, both decoding the same tiles, and the head's two partial
-//   sums meet through distributed shared memory (rank 0 adds rank 1's and
-//   writes); the backward runs a grid of two unit halves, which share
-//   nothing but d.
+// - Any hidden width H >= 1, in unit groups of 128: a block stages the
+//   128 units of its group, and the units at or past H as zero W1 rows, zero
+//   b1 and zero w_head, so that each adds relu(0) x 0 = 0 exactly (H < 128
+//   stages one whole group).  H <= 128 is one block's group.  128 < H <=
+//   256 does not fit one block (312 KB of parts): the forward runs clusters
+//   of two blocks, each with its group, both decoding the same tiles, and
+//   the head's two partial sums meet through distributed shared memory
+//   (rank 0 adds rank 1's and writes).  H > 256: a grid of tile ranges x
+//   ceil(H / 128) groups, each block writing its group's head partial of
+//   every kept board into scratch ((groups, R x M) floats), and a second
+//   kernel that sums the groups in order, adds b_head and applies the
+//   epilogue (the min a warp a row).  The backward runs a grid of
+//   ceil(H / 128) unit groups at every width, which share nothing but d.
+// - bfloat16 (compute_dtype "bfloat16", bf16 weights), the form the JAX
+//   package computes (models/mlp.py:_dense): the features are rounded to
+//   bf16, the off columns too, so they sit in the tile; W1 is one bf16
+//   part (52 KB a group); fc1 accumulates in float32 on wgmma over all 13
+//   k-steps, is rounded to bf16, b1 is added and the sum rounded (JAX's two
+//   roundings; torch's bf16 linear rounds once, after the bias), ReLU; the
+//   head's dot product accumulates in float32, is rounded, b_head added and
+//   rounded, then widened to float32.  Backward: d = bf16(sign grad), dpre
+//   = bf16(d w_head) where pre > 0, dW1 += dpre^T X on mma.sync with one
+//   part (dpre and X are bf16 numbers), db1, dw_head, db_head float32 sums;
+//   every gradient rounded to bf16 once, after the block partials are
+//   summed (the cotangent of JAX's astype(bfloat16)).  The shared layouts
+//   are the float32 form's (part 0 of W1's), so the wgmma descriptors are
+//   the same.
 // - Deterministic: every board's value is computed the same way wherever
 //   it runs, the min is an atomic min on the float's bits (exact in any
-//   order; a first kernel writes the +1e9), and no float sum uses an
-//   atomic.  The backward's blocks are min(tiles of R x M, 132 x 128 / H),
-//   a number of the shapes (never of the card), each with a contiguous
-//   range of tiles of the data; each writes its partial gradient and a
-//   second kernel sums the partials of each entry in block order.  The
-//   forward's grid may follow the card.
+//   order; a first kernel writes the +1e9) or, past 256 units, a warp's
+//   fixed-order min, and no float sum uses an atomic.  The backward's
+//   blocks are min(tiles of R x M, max(132 / groups, 1)), a number of the
+//   shapes (never of the card; ops/afterstate.py::backward_blocks), each
+//   with a contiguous range of tiles of the data; each writes its partial
+//   gradient and a second kernel sums the partials of each entry in block
+//   order.  The forward's grid may follow the card.
 //
 // nvcc contracts a * b + c into an FMA in the epilogues, which the
 // tolerance allows.
@@ -116,6 +138,9 @@ constexpr float kFloor = -1e9f;
 constexpr float kPosInf = 1e9f;
 constexpr int kLogits = 0, kMasked = 1, kMin = 2;
 constexpr unsigned kFull = 0xffffffffu;
+// the forward's grids: one block's unit group (H <= 128), a cluster of two
+// (H <= 256), tile ranges x unit groups with a second kernel (H > 256)
+constexpr int kSingle = 0, kPair = 1, kSplit = 2;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -132,7 +157,6 @@ constexpr int kKG = kK / 8;             // core matrices a row group
 constexpr int kGroupBytes = kKG * 128;  // 3,328
 constexpr int kParts = 3;               // hi, mid, lo
 constexpr int kWindow = 256;            // rows a scan window
-constexpr int kBwdBlocks = 132;         // backward blocks of 128 units
 
 // Shared memory of a block, carved in this order (every piece a multiple
 // of 16 bytes but the last).
@@ -152,12 +176,13 @@ struct Args {
   const int8_t* boards;
   const int32_t* mover;
   const int32_t* n;
-  const float* w1;
-  const float* b1;
-  const float* wh;
-  const float* bh;
+  const void* w1;      // the weights: float32, or bf16 in the bf16 form
+  const void* b1;
+  const void* wh;
+  const void* bh;
   const float* grad;   // backward only
   float* out;          // forward: the output; backward: the partials
+  float* part;         // the forward past 256 units: (groups, rows m)
   int rows, m, hidden, opponent, epilogue;
   float sign;
   int aligned;         // boards 4-byte aligned: cp.async, else byte loads
@@ -166,11 +191,12 @@ struct Args {
 // A block's shared memory.
 struct Smem {
   uint16_t* w;      // [3] W1's parts (bf16 bits), 128 units x 208 features
+                    // (the bf16 form: part 0 alone)
   uint16_t* x;      // the tile's features (bf16 bits), 64 boards x 208
   int8_t* ring;     // [2][64][52] the boards' bytes
   float* b1;        // [128]
   float* wh;        // [128]
-  float* w97;       // [128] W1's off columns
+  float* w97;       // [128] W1's off columns (float32 form)
   float* w195;      // [128]
   float* gsum;      // [4][128] the backward's db1, dw_head, dW1[:, 97], [195]
   float* offv;      // [64][2] the tile's off features
@@ -241,6 +267,21 @@ __device__ __forceinline__ int cm_word(int r, int w) {
 // The operands written by threads become visible to wgmma's reads.
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// x rounded to bf16 (to nearest, ties to even), as a float.
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Entry i of a weight tensor, float32 or (kBf16) bf16.
+template <bool kBf16>
+__device__ __forceinline__ float weight(const void* p, size_t i) {
+  if constexpr (kBf16) {
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  } else {
+    return static_cast<const float*>(p)[i];
+  }
 }
 
 // x = hi + mid + lo, each bf16 rounded to nearest from what is left.
@@ -446,7 +487,9 @@ __device__ __forceinline__ uint32_t point_hi(int c) {
 // backward, sign grad (0 past the end) into dval.  Four threads a board:
 // thread (b, q, h) writes points 12 h .. 12 h + 11 of player q (12 bytes of
 // the board, read as three words), h = 1 also player q's bar word and q = h
-// = 1 the one-hot and the padding.
+// = 1 the one-hot and the padding.  kBf16: the off features rounded to bf16
+// in their columns (no offv), and dval rounded to bf16.
+template <bool kBf16>
 __device__ void decode_tile(const Args& a, const Smem& s, int buf,
                             bool backward) {
   const int b = threadIdx.x >> 2, q = (threadIdx.x >> 1) & 1,
@@ -481,8 +524,12 @@ __device__ void decode_tile(const Args& a, const Smem& s, int buf,
       x32[cm_word(b, w0 + 2 * i + 1)] = point_hi(c);
     }
     if (h) {   // player q's bar; its off feature is kept in float32
-      x32[cm_word(b, 49 * q + 48)] =
-          __float_as_uint((float)bb[48 + (q ^ flip)] * 0.5f) >> 16;
+      uint32_t word = __float_as_uint((float)bb[48 + (q ^ flip)] * 0.5f) >> 16;
+      if constexpr (kBf16) {   // or rounded to bf16 in its column
+        const float off = __fmul_rn((float)bb[50 + (q ^ flip)], kInvCheckers);
+        word |= (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(off)) << 16;
+      }
+      x32[cm_word(b, 49 * q + 48)] = word;
     }
     if (q & h) {
       x32[cm_word(b, 98)] =
@@ -492,7 +539,7 @@ __device__ void decode_tile(const Args& a, const Smem& s, int buf,
     }
   }
   fence_async_shared();
-  if (threadIdx.x < 2 * kTile) {
+  if (!kBf16 && threadIdx.x < 2 * kTile) {
     const int bo = threadIdx.x >> 1, qo = threadIdx.x & 1;
     const int ko = buf * kTile + bo;
     int c = 0;
@@ -504,53 +551,84 @@ __device__ void decode_tile(const Args& a, const Smem& s, int buf,
   }
   if (backward && threadIdx.x < kTile) {
     const int kd = buf * kTile + threadIdx.x;
-    s.dval[threadIdx.x] = s.te[kd] >= 0 ? a.sign * s.tgrad[kd] : 0.0f;
+    const float d = s.te[kd] >= 0 ? a.sign * s.tgrad[kd] : 0.0f;
+    s.dval[threadIdx.x] = kBf16 ? bf16r(d) : d;
   }
 }
 
 // W1's rows u0 .. u0 + 127 into shared memory as three bf16 parts (the off
 // columns and the padding zero), and b1, w_head and the off columns of
-// those units in float32.  A thread's 52 feature pairs: every load issued
-// before any is used.
+// those units in float32; units at or past H as zeros.  A thread's 52
+// feature pairs: every load issued before any is used.  kBf16: W1's bf16
+// rows as they are, one part, the off columns in it.
+template <bool kBf16>
 __device__ void stage_weights(const Args& a, const Smem& s, int u0) {
   constexpr int kPer = kUnits * kWords / kThreads;   // 52
   constexpr int kBatch = kPer;
   uint32_t* w32 = reinterpret_cast<uint32_t*>(s.w);
-#pragma unroll 1
-  for (int b0 = 0; b0 < kPer; b0 += kBatch) {
-    float v[kBatch][2];
+  if constexpr (kBf16) {
+    const uint16_t* w1 = static_cast<const uint16_t*>(a.w1);
+    uint32_t v[kPer];
 #pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      const int i = threadIdx.x + (b0 + k) * kThreads;
+    for (int k = 0; k < kPer; ++k) {
+      const int i = threadIdx.x + k * kThreads;
       const int j = i / kWords, f = 2 * (i - j * kWords);
-      const float* row = a.w1 + (size_t)(u0 + j) * kFeatures;
-      // f is even, so never an off column; f + 1 may be
-      v[k][0] = f < kFeatures ? row[f] : 0.0f;
-      v[k][1] = f + 1 < kFeatures && f + 1 != kOff0 && f + 1 != kOff1
-                    ? row[f + 1]
-                    : 0.0f;
+      const bool live = u0 + j < a.hidden;
+      const uint16_t* row = w1 + (size_t)(u0 + j) * kFeatures;
+      const uint32_t lo = live && f < kFeatures ? row[f] : 0u;
+      const uint32_t hi = live && f + 1 < kFeatures ? row[f + 1] : 0u;
+      v[k] = lo | (hi << 16);
     }
 #pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      const int i = threadIdx.x + (b0 + k) * kThreads;
+    for (int k = 0; k < kPer; ++k) {
+      const int i = threadIdx.x + k * kThreads;
       const int j = i / kWords, w = i - j * kWords;
-      uint32_t p0[kParts], p1[kParts];
-      split3(v[k][0], p0);
-      split3(v[k][1], p1);
+      w32[cm_word(j, w)] = v[k];
+    }
+  } else {
+    const float* w1 = static_cast<const float*>(a.w1);
+#pragma unroll 1
+    for (int b0 = 0; b0 < kPer; b0 += kBatch) {
+      float v[kBatch][2];
 #pragma unroll
-      for (int p = 0; p < kParts; ++p) {
-        w32[p * (kPartBytes / 4) + cm_word(j, w)] = p0[p] | (p1[p] << 16);
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = threadIdx.x + (b0 + k) * kThreads;
+        const int j = i / kWords, f = 2 * (i - j * kWords);
+        const bool live = u0 + j < a.hidden;
+        const float* row = w1 + (size_t)(u0 + j) * kFeatures;
+        // f is even, so never an off column; f + 1 may be
+        v[k][0] = live && f < kFeatures ? row[f] : 0.0f;
+        v[k][1] = live && f + 1 < kFeatures && f + 1 != kOff0 &&
+                          f + 1 != kOff1
+                      ? row[f + 1]
+                      : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = threadIdx.x + (b0 + k) * kThreads;
+        const int j = i / kWords, w = i - j * kWords;
+        uint32_t p0[kParts], p1[kParts];
+        split3(v[k][0], p0);
+        split3(v[k][1], p1);
+#pragma unroll
+        for (int p = 0; p < kParts; ++p) {
+          w32[p * (kPartBytes / 4) + cm_word(j, w)] = p0[p] | (p1[p] << 16);
+        }
       }
     }
   }
   fence_async_shared();
   if (threadIdx.x < kUnits) {
-    const int j = threadIdx.x;
-    const float* row = a.w1 + (size_t)(u0 + j) * kFeatures;
-    s.b1[j] = a.b1[u0 + j];
-    s.wh[j] = a.wh[u0 + j];
-    s.w97[j] = row[kOff0];
-    s.w195[j] = row[kOff1];
+    const int j = threadIdx.x, u = u0 + j;
+    const bool live = u < a.hidden;
+    s.b1[j] = live ? weight<kBf16>(a.b1, u) : 0.0f;
+    s.wh[j] = live ? weight<kBf16>(a.wh, u) : 0.0f;
+    if constexpr (!kBf16) {
+      const float* row =
+          static_cast<const float*>(a.w1) + (size_t)u * kFeatures;
+      s.w97[j] = live ? row[kOff0] : 0.0f;
+      s.w195[j] = live ? row[kOff1] : 0.0f;
+    }
   }
 }
 
@@ -599,15 +677,25 @@ __device__ __forceinline__ void wgmma64(float (&d)[32], uint64_t da,
 // fragment they overwrite first; it is added to acc once they are done,
 // while the next k-step's run (two fragments in turn).
 // kLean (the backward, whose dW1 holds 104 registers a thread): one such
-// fragment, each k-step waited for.
-template <bool kLean>
+// fragment, each k-step waited for.  kBf16: W1's one part, every k-step
+// into acc on the tensor cores.
+template <bool kLean, bool kBf16>
 __device__ __forceinline__ void fc1_tile(const Smem& s, float (&acc)[32]) {
   const int wg = threadIdx.x >> 7;
   const unsigned wa = smem_addr(s.w) + 8 * wg * kGroupBytes;
   const unsigned xa = smem_addr(s.x);
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
-  if constexpr (kLean) {
+  if constexpr (kBf16) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      const unsigned k = 256 * kk;
+      wgmma64(acc, cm_desc(wa + k), cm_desc(xa + k), kk > 0 ? 1 : 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+  } else if constexpr (kLean) {
     float t[32];
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk) {
@@ -699,20 +787,27 @@ __device__ void write_floors(const Args& a, const Smem& s, int block,
   }
 }
 
-// The forward.  kPair: hidden 256 as clusters of two blocks, rank q with
-// units 128 q .. 128 q + 127.
-template <bool kPair>
+// The forward.  kMode kSingle: one unit group a block; kPair: clusters
+// of two blocks, rank q with units 128 q .. 128 q + 127; kSplit: block (p,
+// q) takes tile range p for units 128 q .. 128 q + 127 and writes the
+// group's head partials into a.part (afterstate_finish_kernel ends the
+// pass).
+template <int kMode, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 afterstate_eval_kernel(Args a) {
+  constexpr bool kPair_ = kMode == kPair, kSplit_ = kMode == kSplit;
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem s = carve(smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int rank = kPair ? (int)(blockIdx.x & 1) : 0;
-  const int group = kPair ? (int)(blockIdx.x >> 1) : (int)blockIdx.x;
-  const int groups = kPair ? (int)(gridDim.x >> 1) : (int)gridDim.x;
+  const int rank = kPair_ ? (int)(blockIdx.x & 1)
+                          : kSplit_ ? (int)blockIdx.y : 0;
+  const int group = kPair_ ? (int)(blockIdx.x >> 1) : (int)blockIdx.x;
+  const int groups = kPair_ ? (int)(gridDim.x >> 1) : (int)gridDim.x;
 
-  if (a.epilogue != kMin) write_floors(a, s, blockIdx.x, gridDim.x);
+  if (!kSplit_ && a.epilogue != kMin) {
+    write_floors(a, s, blockIdx.x, gridDim.x);
+  }
   int t0, t1;
   locate(a, s, group, groups, t0, t1);
   if (t0 >= t1) return;   // both blocks of a pair alike
@@ -721,7 +816,7 @@ afterstate_eval_kernel(Args a) {
   load_window(a, s, s.sc[8], s.sc[9]);
   map_tile(a, s, 0, t0 * kTile, min(kTile, n_kept - t0 * kTile), false);
   cp_async_commit();
-  stage_weights(a, s, kUnits * rank);
+  stage_weights<kBf16>(a, s, kUnits * rank);
   cp_async_wait<0>();
   __syncthreads();
   // this thread's units 16 warp + g + 8 r: bias, head and off weights
@@ -731,18 +826,18 @@ afterstate_eval_kernel(Args a) {
     const int j = 16 * warp + g + 8 * r;
     b1r[r] = s.b1[j];
     whr[r] = s.wh[j];
-    w97r[r] = s.w97[j];
-    w195r[r] = s.w195[j];
+    w97r[r] = kBf16 ? 0.0f : s.w97[j];
+    w195r[r] = kBf16 ? 0.0f : s.w195[j];
   }
-  const float bias = a.bh[0];
+  const float bias = weight<kBf16>(a.bh, 0);
   float* remote_yx = nullptr;
-  if constexpr (kPair) {
+  if constexpr (kPair_) {
     remote_yx = cg::this_cluster().map_shared_rank(s.yx, 1);
   }
 
   for (int tile = t0; tile < t1; ++tile) {
     const int buf = (tile - t0) & 1;
-    decode_tile(a, s, buf, false);
+    decode_tile<kBf16>(a, s, buf, false);
     // the tile's features are in; every thread is done with the previous
     // tile, whose slot the next tile's boards now take
     __syncthreads();
@@ -752,7 +847,7 @@ afterstate_eval_kernel(Args a) {
       cp_async_commit();
     }
     float acc[32];
-    fc1_tile<false>(s, acc);
+    fc1_tile<false, kBf16>(s, acc);
     // the head over this thread's two units for its 16 boards, then over
     // the warp's 16 units: a reduce-scatter over the 8 lanes of a t (each
     // step keeps half the boards), so lane (g, t) ends with boards
@@ -763,12 +858,18 @@ afterstate_eval_kernel(Args a) {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int b = 8 * i + 2 * t + c;
-        const float o0 = s.offv[2 * b], o1 = s.offv[2 * b + 1];
+        const float o0 = kBf16 ? 0.0f : s.offv[2 * b];
+        const float o1 = kBf16 ? 0.0f : s.offv[2 * b + 1];
         float part = 0.0f;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          float pre = fmaf(o0, w97r[r], acc[4 * i + 2 * r + c]);
-          pre = fmaf(o1, w195r[r], pre) + b1r[r];
+          float pre;
+          if constexpr (kBf16) {   // JAX's roundings: the product, the sum
+            pre = bf16r(bf16r(acc[4 * i + 2 * r + c]) + b1r[r]);
+          } else {
+            pre = fmaf(o0, w97r[r], acc[4 * i + 2 * r + c]);
+            pre = fmaf(o1, w195r[r], pre) + b1r[r];
+          }
           part = fmaf(whr[r], fmaxf(pre, 0.0f), part);
         }
         v[2 * i + c] = part;
@@ -788,16 +889,25 @@ afterstate_eval_kernel(Args a) {
     if (threadIdx.x < kTile) {
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) y += s.ysum[w * kTile + threadIdx.x];
-      if constexpr (kPair) s.yx[buf * kTile + threadIdx.x] = y;
+      if constexpr (kPair_) s.yx[buf * kTile + threadIdx.x] = y;
+      if constexpr (kSplit_) {
+        const int e = s.te[buf * kTile + threadIdx.x];
+        if (e >= 0) a.part[(size_t)rank * a.rows * a.m + e] = y;
+      }
     }
-    if constexpr (kPair) {
+    if constexpr (kSplit_) continue;
+    if constexpr (kPair_) {
       cg::this_cluster().sync();   // both halves' partials are written
       if (threadIdx.x < kTile) y += remote_yx[buf * kTile + threadIdx.x];
     }
     if (rank == 0 && threadIdx.x < kTile) {
       const int k = buf * kTile + threadIdx.x;
       const int e = s.te[k];
-      y += bias;
+      if constexpr (kBf16) {
+        y = bf16r(bf16r(y) + bias);
+      } else {
+        y += bias;
+      }
       if (a.epilogue != kMin) {
         if (e >= 0) a.out[e] = a.sign * y;
       } else {
@@ -818,15 +928,54 @@ afterstate_eval_kernel(Args a) {
       }
     }
   }
-  if constexpr (kPair) {
+  if constexpr (kPair_) {
     cg::this_cluster().sync();   // rank 1's shared memory outlives the reads
   }
 }
 
-// The backward.  Grid (P, H / 128): block (p, q) sums the gradient of its
-// range of tiles for units 128 q .. 128 q + 127 into slab p of part, P
-// slabs of 198 H + 2 H + 1 floats laid out as the flat output: dW1 (H,
-// 198), db1 (H), dw_head (H), db_head.
+// The value of element e past 256 units: the groups' head partials summed
+// in group order, then b_head (kBf16: JAX's two roundings).
+template <bool kBf16>
+__device__ __forceinline__ float split_value(const Args& a, int groups,
+                                             size_t e, float bias) {
+  const size_t stride = (size_t)a.rows * a.m;
+  float y = 0.0f;
+  for (int q = 0; q < groups; ++q) y += a.part[q * stride + e];
+  return kBf16 ? bf16r(bf16r(y) + bias) : y + bias;
+}
+
+// The epilogue past 256 units: logits and masked a thread an element (the
+// floor where the row keeps none), the min a warp a row (+1e9 where the
+// row keeps none, as the fill and the atomics give it below 256 units).
+template <bool kBf16>
+__global__ void afterstate_finish_kernel(Args a, int groups) {
+  const float bias = weight<kBf16>(a.bh, 0);
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (a.epilogue != kMin) {
+    if (i >= (size_t)a.rows * a.m) return;
+    const int r = (int)(i / a.m), sl = (int)(i - (size_t)r * a.m);
+    a.out[i] = sl < limit_of(a, r)
+                   ? a.sign * split_value<kBf16>(a, groups, i, bias)
+                   : kFloor;
+    return;
+  }
+  const int r = (int)(i >> 5), lane = threadIdx.x & 31;
+  if (r >= a.rows) return;   // the whole warp
+  const int lim = limit_of(a, r);
+  float v = kPosInf;
+  for (int sl = lane; sl < lim; sl += 32) {
+    v = fminf(v, split_value<kBf16>(a, groups, (size_t)r * a.m + sl, bias));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
+  if (lane == 0) a.out[r] = v;
+}
+
+// The backward.  Grid (P, ceil(H / 128)): block (p, q) sums the gradient
+// of its range of tiles for units 128 q .. min(128 q + 127, H - 1) into
+// slab p of part, P slabs of 198 H + 2 H + 1 floats laid out as the flat
+// output: dW1 (H, 198), db1 (H), dw_head (H), db_head.
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 afterstate_backward_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -852,7 +1001,7 @@ afterstate_backward_kernel(Args a) {
     load_window(a, s, s.sc[8], s.sc[9]);
     map_tile(a, s, 0, t0 * kTile, min(kTile, n_kept - t0 * kTile), true);
     cp_async_commit();
-    stage_weights(a, s, u0);
+    stage_weights<kBf16>(a, s, u0);
     cp_async_wait<0>();
     __syncthreads();
     // ldmatrix.trans rows of the feature tile: boards 16 kk + 8 ((l >> 3) &
@@ -862,7 +1011,7 @@ afterstate_backward_kernel(Args a) {
                         (lane & 7) * 16;
     for (int tile = t0; tile < t1; ++tile) {
       const int buf = (tile - t0) & 1;
-      decode_tile(a, s, buf, true);
+      decode_tile<kBf16>(a, s, buf, true);
       __syncthreads();   // as in the forward
       if (tile + 1 < t1) {
         const int g1 = (tile + 1) * kTile;
@@ -876,12 +1025,13 @@ afterstate_backward_kernel(Args a) {
         gbh += v;
       }
       float acc[32];
-      fc1_tile<true>(s, acc);
+      fc1_tile<true, kBf16>(s, acc);
       {
         // dpre in place of pre, and the tile's db1, dw_head, dW1[:, 97],
         // dW1[:, 195] of units 16 warp + g + 8 r: this thread's 16 boards,
         // then the 4 lanes of a g in a fixed order, then into the block's
-        // sums
+        // sums (kBf16: the off columns are in the tile, so the first two)
+        constexpr int kSums = kBf16 ? 2 : 4;
         float sums[4][2] = {};
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
@@ -889,22 +1039,31 @@ afterstate_backward_kernel(Args a) {
           for (int c = 0; c < 2; ++c) {
             const int b = 8 * i + 2 * t + c;
             const float d = s.dval[b];
-            const float o0 = s.offv[2 * b], o1 = s.offv[2 * b + 1];
+            const float o0 = kBf16 ? 0.0f : s.offv[2 * b];
+            const float o1 = kBf16 ? 0.0f : s.offv[2 * b + 1];
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
               const int j = 16 * warp + g + 8 * r;
-              const float pre = pre_act(s, acc[4 * i + 2 * r + c], b, j);
-              const float dp = pre > 0.0f ? d * s.wh[j] : 0.0f;
+              float pre, dp;
+              if constexpr (kBf16) {   // the forward's roundings; dh's
+                pre = bf16r(bf16r(acc[4 * i + 2 * r + c]) + s.b1[j]);
+                dp = pre > 0.0f ? bf16r(d * s.wh[j]) : 0.0f;
+              } else {
+                pre = pre_act(s, acc[4 * i + 2 * r + c], b, j);
+                dp = pre > 0.0f ? d * s.wh[j] : 0.0f;
+              }
               sums[0][r] += dp;
               sums[1][r] = fmaf(d, fmaxf(pre, 0.0f), sums[1][r]);
-              sums[2][r] = fmaf(o0, dp, sums[2][r]);
-              sums[3][r] = fmaf(o1, dp, sums[3][r]);
+              if constexpr (!kBf16) {
+                sums[2][r] = fmaf(o0, dp, sums[2][r]);
+                sums[3][r] = fmaf(o1, dp, sums[3][r]);
+              }
               acc[4 * i + 2 * r + c] = dp;
             }
           }
         }
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
+        for (int k = 0; k < kSums; ++k) {
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             float v = sums[k][r];
@@ -916,10 +1075,12 @@ afterstate_backward_kernel(Args a) {
       }
       // boards 16 mt .. 16 mt + 15 are dW1's k-step mt: dpre's fragments
       // of boards 8 (2 mt) .. and 8 (2 mt + 1) .. are its A operand
-      // (units x boards) as they stand, in three bf16 parts
+      // (units x boards) as they stand, in three bf16 parts (kBf16: dpre
+      // is a bf16 number, one part)
+      constexpr int kNP = kBf16 ? 1 : kParts;
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
-        uint32_t at[kParts][4];
+        uint32_t at[kNP][4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           // q: (boards 16 mt + 2 t.., unit g), (.., unit g + 8), then the
@@ -929,10 +1090,11 @@ afterstate_backward_kernel(Args a) {
           split3(acc[base], lo);
           split3(acc[base + 1], hi);
 #pragma unroll
-          for (int k = 0; k < kParts; ++k) at[k][q] = lo[k] | (hi[k] << 16);
+          for (int k = 0; k < kNP; ++k) at[k][q] = lo[k] | (hi[k] << 16);
         }
         // four feature fragments at a time: each part's four products
         // between two that depend, into zeroed fragments, then into dw
+        // (kBf16: the one part's products straight into dw)
 #pragma unroll
         for (int nb = 0; nb < kK / 16; nb += 2) {
           constexpr int kLast = kK / 16 - 1;
@@ -941,22 +1103,32 @@ afterstate_backward_kernel(Args a) {
           ldsm_x4_trans(xb[0], at_k);
           if (nb < kLast) ldsm_x4_trans(xb[1], at_k + 2 * 128);
           const int nq = nb < kLast ? 4 : 2;
-          float tq[4][4] = {};
-#pragma unroll
-          for (int k = kParts - 1; k >= 0; --k) {
+          if constexpr (kBf16) {
 #pragma unroll
             for (int f = 0; f < 4; ++f) {
               if (f < nq) {
-                mma(tq[f], at[k], xb[f >> 1][2 * (f & 1)],
+                mma(dw[2 * nb + f], at[0], xb[f >> 1][2 * (f & 1)],
                     xb[f >> 1][2 * (f & 1) + 1]);
               }
             }
-          }
+          } else {
+            float tq[4][4] = {};
 #pragma unroll
-          for (int f = 0; f < 4; ++f) {
-            if (f < nq) {
+            for (int k = kParts - 1; k >= 0; --k) {
 #pragma unroll
-              for (int i = 0; i < 4; ++i) dw[2 * nb + f][i] += tq[f][i];
+              for (int f = 0; f < 4; ++f) {
+                if (f < nq) {
+                  mma(tq[f], at[k], xb[f >> 1][2 * (f & 1)],
+                      xb[f >> 1][2 * (f & 1) + 1]);
+                }
+              }
+            }
+#pragma unroll
+            for (int f = 0; f < 4; ++f) {
+              if (f < nq) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) dw[2 * nb + f][i] += tq[f][i];
+              }
             }
           }
         }
@@ -975,25 +1147,31 @@ afterstate_backward_kernel(Args a) {
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int f = 8 * nf + 2 * t + c;
-      if (f < kFeatures && f != kOff0 && f != kOff1) {
+      if (f < kFeatures && (kBf16 || (f != kOff0 && f != kOff1))) {
         const int j = u0 + 16 * warp + g;
-        slab[(size_t)j * kFeatures + f] = dw[nf][c];
-        slab[(size_t)(j + 8) * kFeatures + f] = dw[nf][2 + c];
+        if (j < a.hidden) slab[(size_t)j * kFeatures + f] = dw[nf][c];
+        if (j + 8 < a.hidden) {
+          slab[(size_t)(j + 8) * kFeatures + f] = dw[nf][2 + c];
+        }
       }
     }
   }
   float* tail = slab + (size_t)kFeatures * a.hidden;
-  if (threadIdx.x < kUnits) {
+  if (threadIdx.x < kUnits && u0 + (int)threadIdx.x < a.hidden) {
     const int j = threadIdx.x;
     tail[u0 + j] = s.gsum[j];
     tail[a.hidden + u0 + j] = s.gsum[kUnits + j];
-    slab[(size_t)(u0 + j) * kFeatures + kOff0] = s.gsum[2 * kUnits + j];
-    slab[(size_t)(u0 + j) * kFeatures + kOff1] = s.gsum[3 * kUnits + j];
+    if constexpr (!kBf16) {
+      slab[(size_t)(u0 + j) * kFeatures + kOff0] = s.gsum[2 * kUnits + j];
+      slab[(size_t)(u0 + j) * kFeatures + kOff1] = s.gsum[3 * kUnits + j];
+    }
   }
   if (blockIdx.y == 0 && threadIdx.x == 0) tail[2 * a.hidden] = gbh;
 }
 
-// out[e] = the sum of the blocks' partials of entry e, in block order.
+// out[e] = the sum of the blocks' partials of entry e, in block order
+// (kBf16: rounded to bf16 once, as a float).
+template <bool kBf16>
 __global__ void afterstate_reduce_kernel(const float* __restrict__ part,
                                          float* __restrict__ out, int blocks,
                                          int entries) {
@@ -1001,7 +1179,7 @@ __global__ void afterstate_reduce_kernel(const float* __restrict__ part,
   if (e >= entries) return;
   float s = 0.0f;
   for (int p = 0; p < blocks; ++p) s += part[(size_t)p * entries + e];
-  out[e] = s;
+  out[e] = kBf16 ? bf16r(s) : s;
 }
 
 // An empty min's +1e9 in every row, before the forward's atomics.
@@ -1014,6 +1192,7 @@ __global__ void afterstate_fill_kernel(float* __restrict__ out, int n,
 // What the launches cache (the >48 KB opt-in, the resident blocks) is the
 // current card's, so it is kept for each card apart.
 constexpr int kMaxDevices = 64;
+constexpr int kMaxGroups = 65535;   // unit groups: the grid's y extent
 
 // The current card's index, or -1.
 int current_device() {
@@ -1025,15 +1204,15 @@ int current_device() {
 }
 
 // Resident groups of the forward (blocks, or pairs of blocks) on the card.
-template <bool kPair>
+template <int kMode, bool kBf16>
 int forward_groups(int dev) {
   static int n[kMaxDevices] = {};  // 0: not read yet (before any capture)
   if (n[dev] == 0) {
-    auto* kernel = afterstate_eval_kernel<kPair>;
+    auto* kernel = afterstate_eval_kernel<kMode, kBf16>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
     int got = 0;
-    if (err == cudaSuccess && kPair) {
+    if (err == cudaSuccess && kMode == kPair) {
       cudaLaunchConfig_t cfg = {};
       cudaLaunchAttribute attr[1];
       attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1063,11 +1242,13 @@ int forward_groups(int dev) {
   return n[dev];
 }
 
-template <bool kPair>
+// H <= 256: one launch (after the min's fill), one block or a pair a range
+// of tiles.
+template <int kMode, bool kBf16>
 int launch_forward(const Args& a, cudaStream_t stream) {
   const int dev = current_device();
   if (dev < 0) return (int)cudaErrorInvalidDevice;
-  const int resident = forward_groups<kPair>(dev);
+  const int resident = forward_groups<kMode, kBf16>(dev);
   if (resident < 0) return -resident;
   if (a.epilogue == kMin && a.rows > 0) {
     afterstate_fill_kernel<<<(a.rows + 255) / 256, 256, 0, stream>>>(
@@ -1079,8 +1260,9 @@ int launch_forward(const Args& a, cudaStream_t stream) {
   if (boards == 0) return (int)cudaGetLastError();
   const int groups = (int)std::min<long long>((boards + kTile - 1) / kTile,
                                               resident);
-  if (!kPair) {
-    afterstate_eval_kernel<false><<<groups, kThreads, kSmem, stream>>>(a);
+  if (kMode == kSingle) {
+    afterstate_eval_kernel<kSingle, kBf16>
+        <<<groups, kThreads, kSmem, stream>>>(a);
     return (int)cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -1096,35 +1278,52 @@ int launch_forward(const Args& a, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, afterstate_eval_kernel<true>, a);
+      cudaLaunchKernelEx(&cfg, afterstate_eval_kernel<kPair, kBf16>, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// The backward's partials: blocks of 128 units over the tiles of the
-// shapes' R x M boards, from the shapes alone (so that the sums run in the
-// same order on every card).
-int backward_groups(int rows, int m, int hidden) {
-  const long long boards = (long long)rows * m;
-  if (boards <= 0 || hidden <= 0) return 0;
-  const long long cap = (long long)kBwdBlocks * kUnits / hidden;
-  return (int)std::min((boards + kTile - 1) / kTile, std::max(cap, 1LL));
+// H > 256: tile ranges x unit groups (about one wave), then the finish.
+template <bool kBf16>
+int launch_split(const Args& a, int unit_groups, cudaStream_t stream) {
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  const int resident = forward_groups<kSplit, kBf16>(dev);
+  if (resident < 0) return -resident;
+  const long long boards = (long long)a.rows * a.m;
+  if (boards > 0) {
+    const int ranges = (int)std::min<long long>(
+        (boards + kTile - 1) / kTile, std::max(resident / unit_groups, 1));
+    afterstate_eval_kernel<kSplit, kBf16>
+        <<<dim3(ranges, unit_groups), kThreads, kSmem, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long threads = a.epilogue == kMin ? 32LL * a.rows : boards;
+  if (threads > 0) {
+    afterstate_finish_kernel<kBf16>
+        <<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
+            a, unit_groups);
+  }
+  return (int)cudaGetLastError();
 }
 
 Args make_args(const void* boards, const void* mover, const void* n,
                const void* w1, const void* b1, const void* wh,
-               const void* bh, const void* grad, void* out, int rows, int m,
-               int hidden, int opponent, int epilogue, float sign) {
+               const void* bh, const void* grad, void* out, void* part,
+               int rows, int m, int hidden, int opponent, int epilogue,
+               float sign) {
   Args a;
   a.boards = (const int8_t*)boards;
   a.mover = (const int32_t*)mover;
   a.n = (const int32_t*)n;
-  a.w1 = (const float*)w1;
-  a.b1 = (const float*)b1;
-  a.wh = (const float*)wh;
-  a.bh = (const float*)bh;
+  a.w1 = w1;
+  a.b1 = b1;
+  a.wh = wh;
+  a.bh = bh;
   a.grad = (const float*)grad;
   a.out = (float*)out;
+  a.part = (float*)part;
   a.rows = rows;
   a.m = m;
   a.hidden = hidden;
@@ -1135,76 +1334,109 @@ Args make_args(const void* boards, const void* mover, const void* n,
   return a;
 }
 
-}  // namespace
-
-// The forward pass.  boards (rows, m, 52) int8, mover and n (rows,) int32,
-// w1 (hidden, 198), b1 (hidden), wh (1, hidden), bh (1) float32; out
-// (rows, m) float32, or (rows) for the min epilogue (2).  hidden is 128 or
-// 256; epilogue 0 logits, 1 masked, 2 min.
-extern "C" int afterstate_eval_launch(const void* boards, const void* mover,
-                                      const void* n, const void* w1,
-                                      const void* b1, const void* wh,
-                                      const void* bh, void* out, int rows,
-                                      int m, int hidden, int opponent,
-                                      int epilogue, float sign,
-                                      void* stream) {
-  if (rows < 0 || m < 0 || epilogue < kLogits || epilogue > kMin) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Args a = make_args(boards, mover, n, w1, b1, wh, bh, nullptr, out,
-                           rows, m, hidden, opponent, epilogue, sign);
-  const auto st = (cudaStream_t)stream;
-  if (hidden == 128) return launch_forward<false>(a, st);
-  if (hidden == 256) return launch_forward<true>(a, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Floats of scratch the backward needs for these shapes.
-extern "C" long long afterstate_backward_scratch_floats(int rows, int m,
-                                                        int hidden) {
-  return (long long)backward_groups(rows, m, hidden) *
-         ((long long)kFeatures * hidden + 2 * hidden + 1);
-}
-
-// The backward pass: grad (rows, m) float32 is the output's gradient (the
-// logits or masked epilogue); dparams (198 hidden + 2 hidden + 1) float32
-// gets dW1 (hidden, 198), db1, dw_head, db_head; scratch holds
-// afterstate_backward_scratch_floats floats.  bh is not read.
-extern "C" int afterstate_backward_launch(const void* boards,
-                                          const void* mover, const void* n,
-                                          const void* w1, const void* b1,
-                                          const void* wh, const void* bh,
-                                          const void* grad, void* scratch,
-                                          void* dparams, int rows, int m,
-                                          int hidden, int opponent,
-                                          int epilogue, float sign,
-                                          void* stream) {
+// The >48 KB opt-in of the backward, before any capture.
+template <bool kBf16>
+int backward_opt_in(int dev) {
   static bool opted[kMaxDevices] = {};
-  if (rows < 0 || m < 0 || (hidden != 128 && hidden != 256) ||
-      (epilogue != kLogits && epilogue != kMasked)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int dev = current_device();
-  if (dev < 0) return (int)cudaErrorInvalidDevice;
-  if (!opted[dev]) {         // before any capture: the >48 KB opt-in
+  if (!opted[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        afterstate_backward_kernel,
+        afterstate_backward_kernel<kBf16>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
     if (err != cudaSuccess) return (int)err;
     opted[dev] = true;
   }
-  const Args a = make_args(boards, mover, n, w1, b1, wh, bh, grad, scratch,
-                           rows, m, hidden, opponent, epilogue, sign);
-  const int groups = backward_groups(rows, m, hidden);
-  const auto st = (cudaStream_t)stream;
-  if (groups > 0) {
-    afterstate_backward_kernel<<<dim3(groups, hidden / kUnits), kThreads,
-                                 kSmem, st>>>(a);
+  return 0;
+}
+
+template <bool kBf16>
+int launch_backward(const Args& a, const float* scratch, float* dparams,
+                    int blocks, int unit_groups, cudaStream_t stream) {
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  const int opt = backward_opt_in<kBf16>(dev);
+  if (opt != 0) return opt;
+  if (blocks > 0) {
+    afterstate_backward_kernel<kBf16>
+        <<<dim3(blocks, unit_groups), kThreads, kSmem, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const int entries = kFeatures * hidden + 2 * hidden + 1;
-  afterstate_reduce_kernel<<<(entries + 255) / 256, 256, 0, st>>>(
-      (const float*)scratch, (float*)dparams, groups, entries);
+  const int entries = kFeatures * a.hidden + 2 * a.hidden + 1;
+  afterstate_reduce_kernel<kBf16><<<(entries + 255) / 256, 256, 0, stream>>>(
+      scratch, dparams, blocks, entries);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The forward pass.  boards (rows, m, 52) int8, mover and n (rows,) int32,
+// w1 (hidden, 198), b1 (hidden), wh (1, hidden), bh (1), float32 (dtype 0)
+// or bf16 (dtype 1); out (rows, m) float32, or (rows) for the min epilogue
+// (2).  Any hidden >= 1 (at most 65,535 groups of 128); past 256 units
+// scratch holds at least ceil(hidden / 128) rows m floats
+// (ops/afterstate.py::forward_scratch_floats).  epilogue 0 logits, 1
+// masked, 2 min.
+extern "C" int afterstate_eval_launch(const void* boards, const void* mover,
+                                      const void* n, const void* w1,
+                                      const void* b1, const void* wh,
+                                      const void* bh, void* out,
+                                      void* scratch, long long scratch_floats,
+                                      int rows, int m, int hidden,
+                                      int opponent, int epilogue, float sign,
+                                      int dtype, void* stream) {
+  const int unit_groups = (hidden + kUnits - 1) / kUnits;
+  if (rows < 0 || m < 0 || hidden < 1 || unit_groups > kMaxGroups ||
+      epilogue < kLogits || epilogue > kMin || (dtype != 0 && dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Args a = make_args(boards, mover, n, w1, b1, wh, bh, nullptr, out,
+                           scratch, rows, m, hidden, opponent, epilogue,
+                           sign);
+  const auto st = (cudaStream_t)stream;
+  if (hidden <= kUnits) {
+    return dtype ? launch_forward<kSingle, true>(a, st)
+                 : launch_forward<kSingle, false>(a, st);
+  }
+  if (hidden <= 2 * kUnits) {
+    return dtype ? launch_forward<kPair, true>(a, st)
+                 : launch_forward<kPair, false>(a, st);
+  }
+  if (scratch_floats < (long long)unit_groups * rows * m) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return dtype ? launch_split<true>(a, unit_groups, st)
+               : launch_split<false>(a, unit_groups, st);
+}
+
+// The backward pass: grad (rows, m) float32 is the output's gradient (the
+// logits or masked epilogue); dparams (198 hidden + 2 hidden + 1) float32
+// gets dW1 (hidden, 198), db1, dw_head, db_head (dtype 1: each a bf16
+// number); blocks is ops/afterstate.py::backward_blocks of the shapes and
+// scratch holds at least blocks (198 hidden + 2 hidden + 1) floats.  bh is
+// not read.
+extern "C" int afterstate_backward_launch(
+    const void* boards, const void* mover, const void* n, const void* w1,
+    const void* b1, const void* wh, const void* bh, const void* grad,
+    void* scratch, long long scratch_floats, void* dparams, int blocks,
+    int rows, int m, int hidden, int opponent, int epilogue, float sign,
+    int dtype, void* stream) {
+  const int unit_groups = (hidden + kUnits - 1) / kUnits;
+  const long long slab = (long long)kFeatures * hidden + 2LL * hidden + 1;
+  if (rows < 0 || m < 0 || hidden < 1 || unit_groups > kMaxGroups ||
+      blocks < 0 || (blocks == 0 && (long long)rows * m > 0) ||
+      scratch_floats < blocks * slab ||
+      (epilogue != kLogits && epilogue != kMasked) ||
+      (dtype != 0 && dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Args a = make_args(boards, mover, n, w1, b1, wh, bh, grad, scratch,
+                           nullptr, rows, m, hidden, opponent, epilogue,
+                           sign);
+  const auto st = (cudaStream_t)stream;
+  return dtype ? launch_backward<true>(a, (const float*)scratch,
+                                       (float*)dparams, blocks, unit_groups,
+                                       st)
+               : launch_backward<false>(a, (const float*)scratch,
+                                        (float*)dparams, blocks, unit_groups,
+                                        st);
 }

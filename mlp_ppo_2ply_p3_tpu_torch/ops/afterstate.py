@@ -25,13 +25,15 @@ memory.
 ``afterstate_eval`` dispatches on the boards' device: CPU tensors take
 ``afterstate_eval_plain`` (the former composition of
 ``features.encode_canonical`` and ``MLP.score``/``value``, moved here
-unchanged), CUDA tensors launch the kernel or raise.  On the card its
-gradient is ``torch.autograd.Function`` whose backward is the second
-kernel, ``afterstate_eval_backward`` (the parameters' gradients; the
-boards carry none).  The two wrappers' ``launches`` attributes count
-their calls on the card, one a call however many CUDA kernels it runs
-(the min's forward and the backward run two).  ``evaluate`` takes the
-weights from an ``MLP``.
+unchanged), CUDA tensors launch the kernel or raise.  The kernels take
+every hidden width H >= 1 and four float32 or four bfloat16 weights (the
+``MLP``'s ``compute_dtype``); float16, float64 and mixed weights raise.
+On the card its gradient is ``torch.autograd.Function`` whose backward
+is the second kernel, ``afterstate_eval_backward`` (the parameters'
+gradients; the boards carry none).  The two wrappers' ``launches``
+attributes count their calls on the card, one a call however many CUDA
+kernels it runs (the min's forward, the backward and the forward past
+256 units run two).  ``evaluate`` takes the weights from an ``MLP``.
 
 What bounds the kernels on an H100, and the design (the note at the top
 of the source says more): only the kept boards (slot < n) are worked on,
@@ -44,9 +46,18 @@ split the same way, with the same tile.  Every feature but the two off
 columns (``FLOAT32_COLUMNS``) is exact in bf16, so every product is exact
 and only the order of the float32 sums differs from torch's: the results
 are held to a tolerance.  The off columns, the bias, ReLU, the head and
-the epilogue run in float32 on the CUDA cores.  Hidden 256 runs the
-forward as two-block clusters (a half of the units each), the backward as
-two unit halves.
+the epilogue run in float32 on the CUDA cores.  A block holds 128 units
+(``UNITS``; the units past H staged as zeros, which add nothing): up to
+128 the forward is one block a range of tiles, up to 256 a two-block
+cluster, past 256 a grid of unit groups whose head partials a second
+kernel sums (``forward_scratch_floats``); the backward is a grid of unit
+groups at every width (``backward_blocks``).  bfloat16 weights run the
+JAX package's bf16 composition (``models/mlp.py::_dense``): the features
+and W1 in bf16 (one part), fc1 rounded to bf16 before and after the bias,
+the head rounded before and after its bias; the gradients come back as
+float32 tensors of bf16 numbers, each rounded once (the cotangent of
+``astype(bfloat16)``).  torch's bf16 ``linear``, the plain version's,
+rounds once after the bias, so the two are held to a bf16 tolerance.
 """
 
 from __future__ import annotations
@@ -62,10 +73,14 @@ from ..core import features as F
 FLOOR = -1e9     # the masked entries (ppo.learner.MASK_FLOOR, basic.NEG_INF)
 POS_INF = 1e9    # a min over no reply (agents.twoply.POS_INF)
 EPILOGUES = {"logits": 0, "masked": 1, "min": 2}
-# the hidden widths the kernels are built for: every preset and frozen_v1
-# (128), the h256 learning run (256)
-HIDDEN = (128, 256)
+# the weight dtypes the kernels take, as the launches' dtype argument
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROADMAP_ITEM = "ROADMAP.md, queue 1, item 20"
+UNITS = 128          # hidden units a block stages (a unit group)
+TILE = 64            # kept boards a tile
+# backward blocks of one unit group: a number of the shapes, never of the
+# card, so that the gradients' sums run in one order on every card
+BACKWARD_BLOCKS = 132
 # the feature columns the kernels keep in float32 beside the bf16 feature
 # tile: the two off features, c * float32(1/15), are not bf16 numbers
 FLOAT32_COLUMNS = (97, 195)
@@ -84,6 +99,34 @@ def split_bf16(x, parts=3):
         out.append(part)
         rest = rest - part.float()
     return out
+
+
+def unit_groups(h):
+    """The 128-unit groups of hidden width ``h`` (the last one padded
+    with zero units)."""
+    return -(-h // UNITS)
+
+
+def forward_scratch_floats(r, m, h):
+    """Floats of scratch the forward takes: past 256 units each unit
+    group's head partial of every board, (groups, R M); none below."""
+    return unit_groups(h) * r * m if h > 2 * UNITS else 0
+
+
+def backward_blocks(r, m, h):
+    """Blocks of each unit group in the backward: one a 64-board tile of
+    the R M boards, at most ``BACKWARD_BLOCKS`` // groups (at least 1), so
+    that the partials stay near 132 x 128 units' worth at every width."""
+    boards = r * m
+    if boards <= 0:
+        return 0
+    return min(-(-boards // TILE), max(BACKWARD_BLOCKS // unit_groups(h), 1))
+
+
+def backward_scratch_floats(r, m, h):
+    """Floats of the backward's block partials: a slab of the flat
+    gradient, 198 H + 2 H + 1 floats, a block."""
+    return backward_blocks(r, m, h) * (198 * h + 2 * h + 1)
 
 
 def _valid(n, m, epilogue):
@@ -175,23 +218,41 @@ def _check(boards, mover, n, w1, b1, w_head, b_head, opponent, epilogue,
                          "devices")
     if boards.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {boards.device}")
-    if boards.device.type == "cuda":
-        if h not in HIDDEN or any(p.dtype != torch.float32
-                                  for p in tensors[3:]):
-            raise ValueError(
-                f"the afterstate kernels take float32 weights at hidden "
-                f"width {HIDDEN}, got {h} {w1.dtype}: see {ROADMAP_ITEM}")
+    if _on_card(boards):
+        kernel_dtype(w1, b1, w_head, b_head)
+        if h < 1:
+            raise ValueError(f"the afterstate kernels need hidden >= 1, got "
+                             f"{h}")
         if not all(x.is_contiguous() for x in tensors):
             raise ValueError("the afterstate kernels need contiguous inputs")
         if r * m >= 2**31:
             raise ValueError(f"{r} x {m} boards is too many for one launch")
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+def kernel_dtype(*weights):
+    """The kernels' dtype argument for these weights: 0 for four float32,
+    1 for four bfloat16; anything else raises."""
+    dtypes = {w.dtype for w in weights}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in DTYPES:
+        raise ValueError(
+            f"the afterstate kernels take four float32 or four bfloat16 "
+            f"weights, got {[str(w.dtype) for w in weights]}: see "
+            f"{ROADMAP_ITEM}")
+    return DTYPES[weights[0].dtype]
+
+
+def _on_card(x):
+    """Whether the pass on ``x`` runs the kernels (a CUDA tensor)."""
+    return x.device.type == "cuda"
+
+
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 _SIGNATURES = {
-    "afterstate_eval_launch": ([_P] * 8 + [_I] * 5 + [_F, _P], _I),
-    "afterstate_backward_scratch_floats": ([_I, _I, _I], ctypes.c_longlong),
-    "afterstate_backward_launch": ([_P] * 10 + [_I] * 5 + [_F, _P], _I),
+    "afterstate_eval_launch": ([_P] * 9 + [_L] + [_I] * 5 + [_F, _I, _P],
+                               _I),
+    "afterstate_backward_launch": ([_P] * 9 + [_L, _P] + [_I] * 6
+                                   + [_F, _I, _P], _I),
 }
 
 
@@ -204,22 +265,41 @@ def _fn(name):
     return fn
 
 
+def _launch(name, dev, *args):
+    """The C entry point ``name`` called on ``dev``'s current stream; its
+    CUDA error code."""
+    with torch.cuda.device(dev):
+        return _fn(name)(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _scratch(floats, dev):
+    """A float32 scratch buffer of ``floats``, or None for none."""
+    if not floats:
+        return None
+    return torch.empty((floats,), dtype=torch.float32, device=dev)
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 def _forward_kernel(boards, mover, n, w1, b1, w_head, b_head, opponent,
                     epilogue, sign):
     r, m, _ = boards.shape
-    h = w1.shape[0]
-    with torch.cuda.device(boards.device):
-        shape = (r,) if epilogue == "min" else (r, m)
-        out = torch.empty(shape, dtype=torch.float32, device=boards.device)
-        err = _fn("afterstate_eval_launch")(
-            boards.data_ptr(), mover.data_ptr(), n.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w_head.data_ptr(),
-            b_head.data_ptr(), out.data_ptr(), r, m, h, int(opponent),
-            EPILOGUES[epilogue], sign,
-            torch.cuda.current_stream(boards.device).cuda_stream)
+    h, dev = w1.shape[0], boards.device
+    shape = (r,) if epilogue == "min" else (r, m)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    floats = forward_scratch_floats(r, m, h)
+    scratch = _scratch(floats, dev)
+    err = _launch(
+        "afterstate_eval_launch", dev, boards.data_ptr(), mover.data_ptr(),
+        n.data_ptr(), w1.data_ptr(), b1.data_ptr(), w_head.data_ptr(),
+        b_head.data_ptr(), out.data_ptr(), _ptr(scratch), floats, r, m, h,
+        int(opponent), EPILOGUES[epilogue], sign, DTYPES[w1.dtype])
     if err != 0:
         raise RuntimeError(f"afterstate_eval kernel launch failed: CUDA "
-                           f"error {err} at {r} x {m} boards, hidden {h}")
+                           f"error {err} at {r} x {m} boards, hidden {h} "
+                           f"{w1.dtype}")
     _COUNTERS["afterstate_eval"].launches += 1
     return out
 
@@ -245,13 +325,13 @@ def afterstate_eval(boards, mover, n, w1, b1, w_head, b_head, opponent,
                     epilogue, sign, chunk=0):
     """The pass over (R, M, 52) int8 ``boards``; returns (R, M) float32,
     or (R,) for ``epilogue="min"``.  ``w1`` (H, 198), ``b1`` (H,),
-    ``w_head`` (1, H), ``b_head`` (1,) are ``nn.Linear``'s layouts;
-    ``opponent`` a bool, ``sign`` +-1.0 (``masked`` only).  ``chunk``
-    reaches only the plain version (the kernel takes the whole width in
-    one launch)."""
+    ``w_head`` (1, H), ``b_head`` (1,) are ``nn.Linear``'s layouts, all
+    float32 or all bfloat16 (the compute dtype); ``opponent`` a bool,
+    ``sign`` +-1.0 (``masked`` only).  ``chunk`` reaches only the plain
+    version (the kernel takes the whole width in one launch)."""
     _check(boards, mover, n, w1, b1, w_head, b_head, opponent, epilogue,
            sign)
-    if boards.device.type == "cpu":
+    if not _on_card(boards):
         return afterstate_eval_plain(boards, mover, n, w1, b1, w_head,
                                      b_head, opponent, epilogue, sign, chunk)
     return _Eval.apply(boards, mover, n, w1, b1, w_head, b_head, opponent,
@@ -263,7 +343,10 @@ def afterstate_eval_backward(boards, mover, n, w1, b1, w_head, b_head,
     """(dW1 (H, 198), db1 (H,), dw_head (1, H), db_head (1,)) of
     ``sum(grad * afterstate_eval(...))`` for ``grad`` shaped as the
     forward's output.  Entries that the epilogue masks carry no gradient.
-    The ``min`` epilogue has none (its callers run without gradients)."""
+    The ``min`` epilogue has none (its callers run without gradients).  On
+    the card the gradients are float32; of bfloat16 weights, bf16 numbers
+    (each rounded once, where JAX's cotangent of ``astype(bfloat16)``
+    rounds it)."""
     _check(boards, mover, n, w1, b1, w_head, b_head, opponent, epilogue,
            sign)
     r, m, _ = boards.shape
@@ -272,28 +355,26 @@ def afterstate_eval_backward(boards, mover, n, w1, b1, w_head, b_head,
     if tuple(grad.shape) != (r, m) or grad.device != boards.device:
         raise ValueError(f"grad must be ({r}, {m}) on {boards.device}, got "
                          f"{tuple(grad.shape)} on {grad.device}")
-    if boards.device.type == "cpu":
+    if not _on_card(boards):
         return afterstate_eval_backward_plain(
             boards, mover, n, w1, b1, w_head, b_head, opponent, epilogue,
             sign, grad)
-    h = w1.shape[0]
+    h, dev = w1.shape[0], boards.device
     grad = grad.to(torch.float32).contiguous()
-    dev = boards.device
-    with torch.cuda.device(dev):
-        floats = _fn("afterstate_backward_scratch_floats")(r, m, h)
-        scratch = torch.empty((max(floats, 1),), dtype=torch.float32,
-                              device=dev)
-        flat = torch.empty((h * 198 + 2 * h + 1,), dtype=torch.float32,
-                           device=dev)
-        err = _fn("afterstate_backward_launch")(
-            boards.data_ptr(), mover.data_ptr(), n.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w_head.data_ptr(),
-            b_head.data_ptr(), grad.data_ptr(), scratch.data_ptr(),
-            flat.data_ptr(), r, m, h, int(opponent), EPILOGUES[epilogue],
-            sign, torch.cuda.current_stream(dev).cuda_stream)
+    floats = backward_scratch_floats(r, m, h)
+    scratch = _scratch(floats, dev)
+    flat = torch.empty((h * 198 + 2 * h + 1,), dtype=torch.float32,
+                       device=dev)
+    err = _launch(
+        "afterstate_backward_launch", dev, boards.data_ptr(),
+        mover.data_ptr(), n.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w_head.data_ptr(), b_head.data_ptr(), grad.data_ptr(),
+        _ptr(scratch), floats, flat.data_ptr(), backward_blocks(r, m, h), r,
+        m, h, int(opponent), EPILOGUES[epilogue], sign, DTYPES[w1.dtype])
     if err != 0:
         raise RuntimeError(f"afterstate_eval_backward kernel launch failed: "
-                           f"CUDA error {err} at {r} x {m} boards, hidden {h}")
+                           f"CUDA error {err} at {r} x {m} boards, hidden {h} "
+                           f"{w1.dtype}")
     _COUNTERS["afterstate_eval_backward"].launches += 1
     hw = h * 198
     return (flat[:hw].view(h, 198), flat[hw:hw + h],
@@ -304,7 +385,8 @@ def evaluate(model, boards, mover, n, head, opponent=False,
              epilogue="logits", sign=1.0, chunk=0):
     """``afterstate_eval`` with the weights of ``model`` (an ``MLP``):
     ``fc1`` and the head ``head`` ("score" or "value"), cast to its
-    compute dtype (the kernels take float32 alone and raise on another)."""
+    compute dtype, which the kernels take as it is (float32 or
+    bfloat16)."""
     dt = model.dtype
     fc1, out = model.layers["fc1"], model.layers[head]
     weights = [p.to(dt) for p in (fc1.weight, fc1.bias, out.weight,

@@ -7,10 +7,14 @@ and the score head masked to the legal prefix
 (``agents/basic.py::afterstate_values`` / ``::afterstate_policy_logits``),
 and ``agents/twoply.py::_masked_min_values`` (min).  Boards of every stage
 (bar and borne-off checkers, zero padding rows), both movers, n = 0,
-n = M and n in between, M a multiple of no tile, hidden 32 and 128.
-Forward within 1e-5 (float32 sums in another order); the gradients of a
+n = M and n in between, M a multiple of no tile, hidden 1, 32, 100, 128,
+200 and 512 in float32 and in bfloat16 (``compute_dtype``).  float32:
+forward within 1e-5 (float32 sums in another order); the gradients of a
 scalar loss through the logits against ``jax.grad`` of the same loss
-within 1e-5 of the gradient's norm.
+within 1e-5 of the gradient's norm.  bfloat16: forward within
+``BF16_TOL`` (torch's bf16 ``linear`` rounds once after the bias, JAX
+rounds the product and then the sum); the gradients within 4 times the
+distance that a one-ulp bf16 nudge of the parameters moves JAX's.
 
 Then the wrapper's contract on the CPU, the autograd function of the card
 path with the plain versions standing in for the two kernels, and every
@@ -48,6 +52,23 @@ from mlp_ppo_2ply_p3_tpu_torch.utils.config import SearchConfig
 from .test_torch_utils import canonical, nn_, random_positions, tt
 
 R, M = 37, 29   # no tile's multiple
+# the bf16 forms against JAX's compute_dtype="bfloat16" and the kernels'
+# plain version: at most 4.9e-3 read here (hidden 1; 1.0e-3 to 2.0e-3 at
+# 32 to 512), under tests/test_torch_models.py's bf16 2e-2
+BF16_TOL = 1e-2
+# the gradients' distance from JAX's within this many times the distance
+# that a one-ulp bf16 nudge of every parameter moves JAX's (0.14 to 0.86
+# of a nudge read here)
+BF16_NUDGE_FACTOR = 4.0
+# (hidden, compute dtype): the ids of the float32 forms are the widths
+# alone
+WIDTHS = [(h, "float32") for h in (32, 128, 1, 100, 200, 512)] + [
+    (h, "bfloat16") for h in (1, 32, 100, 128, 200, 512)]
+
+
+def width_id(case):
+    h, dtype = case
+    return str(h) if dtype == "float32" else f"{h}-bf16"
 
 
 def candidate_boards(seed, r=R, m=M):
@@ -73,10 +94,19 @@ def candidate_boards(seed, r=R, m=M):
     return boards, mover, n
 
 
-def jax_params(seed, hidden):
-    cfg = JMLP.ModelConfig(hidden_size=hidden, action_size=M)
+def jax_params(seed, hidden, dtype="float32"):
+    cfg = JMLP.ModelConfig(hidden_size=hidden, action_size=M,
+                           compute_dtype=dtype)
     params = JMLP.init_params(jax.random.PRNGKey(seed), cfg)
     return jax.tree_util.tree_map(np.asarray, params), cfg
+
+
+def port_model(params, cfg):
+    """The port's ``MLP`` of JAX ``params`` with ``cfg``'s widths and
+    compute dtype, on the CPU."""
+    return convert.params_from_jax(params, TMLP.ModelConfig(
+        hidden_size=cfg.hidden_size, action_size=cfg.action_size,
+        compute_dtype=cfg.compute_dtype), device="cpu")
 
 
 def port_weights(model, head):
@@ -110,24 +140,25 @@ FORMS = [("score", False, "logits", 1.0), ("value", True, "masked", -1.0),
          ("value", True, "min", 1.0)]
 
 
-@pytest.mark.parametrize("hidden", [32, 128])
+@pytest.mark.parametrize("hidden,dtype", WIDTHS, ids=map(width_id, WIDTHS))
 @pytest.mark.parametrize("form", FORMS, ids=lambda f: f"{f[0]}-{f[2]}")
-def test_plain_matches_jax(form, hidden):
+def test_plain_matches_jax(form, hidden, dtype):
     head, opponent, epilogue, sign = form
     boards, mover, n = candidate_boards(hidden + len(epilogue))
     if epilogue == "raw":
         epilogue, n = "masked", np.full_like(n, M)
-    params, cfg = jax_params(1, hidden)
-    model = convert.params_from_jax(params, device="cpu")
+    params, cfg = jax_params(1, hidden, dtype)
+    model = port_model(params, cfg)
     args = (jnp.asarray(boards), jnp.asarray(mover), jnp.asarray(n))
     want = np.asarray(jax.jit(jax_eval, static_argnums=(1, 5, 6, 7, 8))(
         jax.tree_util.tree_map(jnp.asarray, params), cfg, *args, head,
         opponent, epilogue, sign))
-    got = TAS.afterstate_eval_plain(tt(boards), tt(mover), tt(n),
-                                    *port_weights(model, head), opponent,
-                                    epilogue, sign, 8)
+    weights = [w.to(model.dtype) for w in port_weights(model, head)]
+    got = TAS.afterstate_eval_plain(tt(boards), tt(mover), tt(n), *weights,
+                                    opponent, epilogue, sign, 8)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
-    np.testing.assert_allclose(nn_(got), want, atol=1e-5)
+    np.testing.assert_allclose(nn_(got), want, atol=1e-5 if dtype ==
+                               "float32" else BF16_TOL)
     if epilogue == "min":
         assert (nn_(got)[n == 0] == TAS.POS_INF).all()
     else:
@@ -136,15 +167,26 @@ def test_plain_matches_jax(form, hidden):
             == TAS.FLOOR).all()
 
 
-@pytest.mark.parametrize("hidden", [32, 128])
-def test_gradients_match_jax(hidden):
+def bf16_nudged(x):
+    """``x`` rounded to bf16 and moved up by one bf16 ulp, as float32."""
+    b = torch.from_numpy(np.asarray(x, np.float32)).bfloat16()
+    return torch.nextafter(b, torch.full_like(b, np.inf)).float().numpy()
+
+
+@pytest.mark.parametrize("hidden,dtype", WIDTHS, ids=map(width_id, WIDTHS))
+def test_gradients_match_jax(hidden, dtype):
     """d/dparams of sum(c * log_softmax(logits)) (a policy-loss shape over
-    the logits epilogue), against jax.grad, within 1e-5 of each gradient's
-    norm; masked entries carry none."""
+    the logits epilogue), against jax.grad; masked entries carry none.
+    float32: within 1e-5 of each gradient's norm.  bfloat16: the four
+    gradients' distance from JAX's (the norm over all four) within
+    BF16_NUDGE_FACTOR times the distance that a one-ulp bf16 nudge of
+    every parameter moves JAX's: a gradient entry is a sum of hundreds of
+    bf16-rounded terms, which the two frameworks round at other points, and
+    the nudge measures what one rounding of the parameters does to them."""
     boards, mover, n = candidate_boards(7 + hidden)
     coef = np.random.default_rng(3).standard_normal((R, M)).astype(
         np.float32)
-    params, cfg = jax_params(2, hidden)
+    params, cfg = jax_params(2, hidden, dtype)
 
     def jloss(p):
         logits = JL._afterstate_logits(p, jnp.asarray(boards),
@@ -152,19 +194,36 @@ def test_gradients_match_jax(hidden):
                                        M, cfg)
         return jnp.sum(jnp.asarray(coef) * jax.nn.log_softmax(logits, -1))
 
-    want = jax.jit(jax.grad(jloss))(jax.tree_util.tree_map(jnp.asarray,
-                                                           params))
-    model = convert.params_from_jax(params, device="cpu")
+    jgrad = jax.jit(jax.grad(jloss))
+    want = jgrad(jax.tree_util.tree_map(jnp.asarray, params))
+    model = port_model(params, cfg)
     logits = TAS.evaluate(model, tt(boards), tt(mover), tt(n), "score")
     loss = torch.sum(tt(coef) * torch.log_softmax(logits, -1))
     loss.backward()
-    for layer in ("fc1", "score"):
-        lin = model.layers[layer]
-        for got, w in ((lin.weight.grad.T, want[layer]["w"]),
-                       (lin.bias.grad, want[layer]["b"])):
-            w = np.asarray(w)
-            assert np.abs(nn_(got) - w).max() <= 1e-5 * np.linalg.norm(w)
     assert model.layers["value"].weight.grad is None
+    pairs = [(nn_(lin.weight.grad.T), np.asarray(want[layer]["w"]))
+             for layer, lin in ((k, model.layers[k]) for k in ("fc1",
+                                                               "score"))]
+    pairs += [(nn_(model.layers[k].bias.grad), np.asarray(want[k]["b"]))
+              for k in ("fc1", "score")]
+    if dtype == "float32":
+        for got, w in pairs:
+            assert np.abs(got - w).max() <= 1e-5 * np.linalg.norm(w)
+        return
+    nudged = jgrad(jax.tree_util.tree_map(
+        lambda x: jnp.asarray(bf16_nudged(x)), params))
+    moved = [np.asarray(nudged[k][p]) for k, p in (("fc1", "w"),
+                                                   ("score", "w"),
+                                                   ("fc1", "b"),
+                                                   ("score", "b"))]
+
+    def dist(xs, ys):
+        return np.sqrt(sum(((x.astype(np.float64) - y) ** 2).sum()
+                           for x, y in zip(xs, ys)))
+
+    wants = [w for _, w in pairs]
+    err, floor = dist([g for g, _ in pairs], wants), dist(moved, wants)
+    assert 0 < floor and err <= BF16_NUDGE_FACTOR * floor, (err, floor)
 
 
 def test_wrapper_on_cpu_and_its_checks(monkeypatch):
@@ -287,6 +346,107 @@ def test_autograd_function_with_plain_kernels(monkeypatch):
         want = grads
     assert calls == {"afterstate_eval": 1, "afterstate_eval_backward": 1,
                      "outside": 0}
+
+
+def test_launch_sizes():
+    """The wrapper's sizes for the kernels' grids: unit groups of 128 (the
+    last one padded), the forward's scratch past 256 units ((groups, R M)
+    head partials, none below), the backward's blocks (a tile of 64
+    boards each, at most 132 // groups, at least one; 132 and 66 at
+    hidden 128 and 256 as before) and their slabs."""
+    assert [TAS.unit_groups(h) for h in (1, 127, 128, 129, 256, 257, 512,
+                                         1024)] == [1, 1, 1, 2, 2, 3, 4, 8]
+    assert [TAS.forward_scratch_floats(10, 7, h) for h in (1, 128, 200,
+                                                           256)] == [0] * 4
+    assert TAS.forward_scratch_floats(10, 7, 257) == 3 * 70
+    assert TAS.forward_scratch_floats(4096, 256, 512) == 4 * 4096 * 256
+    assert TAS.backward_blocks(0, 9, 128) == TAS.backward_blocks(9, 0, 128) \
+        == 0
+    assert TAS.backward_blocks(1, 1, 1) == 1
+    assert TAS.backward_blocks(3, 64, 100) == 3
+    assert [TAS.backward_blocks(8192, 256, h) for h in (1, 64, 128, 256,
+                                                        384, 512, 1024,
+                                                        17000)] == [
+        132, 132, 132, 66, 44, 33, 16, 1]
+    for h in (1, 100, 128, 256, 512, 1024):
+        floats = TAS.backward_scratch_floats(8192, 256, h)
+        assert floats == TAS.backward_blocks(8192, 256, h) * (200 * h + 1)
+        assert floats <= 132 * (200 * 128 + 1)   # hidden 128's 13.5 MB
+    assert TAS.kernel_dtype(*[torch.zeros(2)] * 4) == 0
+    assert TAS.kernel_dtype(*[torch.zeros(2, dtype=torch.bfloat16)] * 4) == 1
+
+
+def test_kernel_dispatch_any_width_and_bf16(monkeypatch):
+    """The card path with the tensors taken for CUDA ones and a recorder in
+    the C entry points' place: every width and both dtypes reach the
+    launchers (no plain version), with the dtype argument of the weights,
+    the scratch sizes and blocks of ``test_launch_sizes``; a bf16 model's
+    loss reaches the backward with dtype 1 and its float32 gradients reach
+    the model's float32 parameters; float16, float64, mixed weights and
+    non-contiguous inputs raise (the dtypes naming the ROADMAP item)."""
+    calls = []
+
+    def record(name, dev, *args):
+        calls.append((name, args))
+        return 0
+
+    def no_plain(*args, **kw):
+        raise AssertionError("the card path took the plain version")
+
+    monkeypatch.setattr(TAS, "_on_card", lambda x: True)
+    monkeypatch.setattr(TAS, "_launch", record)
+    monkeypatch.setattr(TAS, "afterstate_eval_plain", no_plain)
+    monkeypatch.setattr(TAS, "afterstate_eval_backward_plain", no_plain)
+    r, m = 6, 9
+    boards, mover, n = (tt(x) for x in candidate_boards(5, r, m))
+    before = ops.launches()
+    for h in (1, 32, 100, 200, 384, 512, 1024):
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            model = TMLP.MLP(TMLP.ModelConfig(hidden_size=h), device="cpu",
+                             generator=torch.Generator().manual_seed(h))
+            w = [x.to(dtype) for x in port_weights(model, "value")]
+            for epilogue in ("logits", "min"):
+                out = TAS.afterstate_eval(boards, mover, n, *w, True,
+                                          epilogue, 1.0)
+                assert out.shape == ((r,) if epilogue == "min" else (r, m))
+                name, args = calls.pop()
+                floats = TAS.forward_scratch_floats(r, m, h)
+                assert name == "afterstate_eval_launch"
+                assert args[8:] == (
+                    args[8], floats, r, m, h, 1, TAS.EPILOGUES[epilogue],
+                    1.0, code)
+                assert (args[8] is None) == (floats == 0)
+            grads = TAS.afterstate_eval_backward(
+                boards, mover, n, *w, False, "masked", -1.0,
+                torch.ones((r, m)))
+            name, args = calls.pop()
+            assert name == "afterstate_backward_launch"
+            blocks = TAS.backward_blocks(r, m, h)
+            assert args[9] == TAS.backward_scratch_floats(r, m, h)
+            assert args[11:] == (blocks, r, m, h, 0, 1, -1.0, code)
+            assert [g.dtype for g in grads] == [torch.float32] * 4
+            assert [tuple(g.shape) for g in grads] == [(h, 198), (h,),
+                                                      (1, h), (1,)]
+    assert ops.launches()["afterstate_eval"] - before["afterstate_eval"] \
+        == 28
+    model = TMLP.MLP(TMLP.ModelConfig(hidden_size=200,
+                                      compute_dtype="bfloat16"),
+                     device="cpu", generator=torch.Generator().manual_seed(0))
+    TAS.evaluate(model, boards, mover, n, "score").sum().backward()
+    assert [(c[0], c[1][-1]) for c in calls] == [
+        ("afterstate_eval_launch", 1), ("afterstate_backward_launch", 1)]
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               for p in port_weights(model, "score"))
+    w = port_weights(model, "score")
+    bad = [[x.half() for x in w], [x.double() for x in w],
+           [w[0].bfloat16(), *w[1:]]]
+    for weights in bad:
+        with pytest.raises(ValueError, match="item 20"):
+            TAS.afterstate_eval(boards, mover, n, *weights, False, "logits",
+                                1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        TAS.afterstate_eval(boards[:, ::2], mover, n, *w, False, "logits",
+                            1.0)
 
 
 def test_paths_score_through_the_wrapper(monkeypatch):

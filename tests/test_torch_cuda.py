@@ -819,11 +819,13 @@ def test_twoply_kernel_path_matches_plain(card, monkeypatch, width):
 # --- the afterstate pass (csrc/afterstate.cu) --------------------------------
 
 
-def afterstate_inputs(card, seed, r, m, hidden):
+def afterstate_inputs(card, seed, r, m, hidden, dtype=torch.float32):
     """Random (r, m, 52) int8 boards (sparse small counts on the points,
     bars, borne-off counts, a few negative bytes, a tenth all-zero rows),
     movers 0 and 1 (and one 2), n with 0, m and values between; random
-    float32 weights of ``hidden`` units (fc1 and one head)."""
+    float32 weights of ``hidden`` units (fc1 and one head); bfloat16
+    weights at ``nn.Linear``'s scale, U(-1/sqrt(fan in), 1/sqrt(fan in)),
+    as a model that computes in bf16 has them."""
     rng = np.random.default_rng(seed)
     pts = rng.integers(1, 16, (r, m, 48)) * (rng.random((r, m, 48)) < 0.25)
     tail = np.concatenate([rng.integers(0, 4, (r, m, 2)),
@@ -836,10 +838,70 @@ def afterstate_inputs(card, seed, r, m, hidden):
     n = rng.integers(0, m + 1, r).astype(np.int32)
     n[::7] = 0
     n[1::5] = m
-    w = [rng.standard_normal(shape).astype(np.float32) * scale
-         for shape, scale in (((hidden, 198), 0.2), ((hidden,), 0.1),
-                              ((1, hidden), 0.2), ((1,), 0.1))]
-    return [torch.from_numpy(x).to(card) for x in (boards, mover, n, *w)]
+    if dtype == torch.float32:
+        w = [rng.standard_normal(shape).astype(np.float32) * scale
+             for shape, scale in (((hidden, 198), 0.2), ((hidden,), 0.1),
+                                  ((1, hidden), 0.2), ((1,), 0.1))]
+    else:
+        w = [rng.uniform(-1, 1, shape).astype(np.float32) / np.sqrt(fan_in)
+             for shape, fan_in in (((hidden, 198), 198), ((hidden,), 198),
+                                   ((1, hidden), hidden), ((1,), hidden))]
+    out = [torch.from_numpy(x).to(card) for x in (boards, mover, n, *w)]
+    return out[:3] + [x.to(dtype) for x in out[3:]]
+
+
+# bf16 forms against the plain version (torch's bf16 linear rounds once
+# after the bias, the kernels where JAX does): within 1e-2 of the largest
+# kept value (at least 1), under test_torch_models.py's bf16 2e-2
+BF16_TOL = 1e-2
+NUDGE_FACTOR = 4.0
+
+
+def nudged_up(w):
+    """Every weight one ulp up, in its own dtype (bf16 by its bits)."""
+    if w.dtype != torch.bfloat16:
+        return torch.nextafter(w, torch.full_like(w, np.inf))
+    b = w.view(torch.int16)
+    up = torch.where(w > 0, b + 1, torch.where(w < 0, b - 1,
+                                                torch.ones_like(b)))
+    return up.view(torch.bfloat16)
+
+
+def forward_tol(args, want):
+    """The forward's gate against the plain version: float32 1e-5 up to
+    256 units; past 256, 4 times the largest drift that a one-ulp nudge of
+    the weights makes of the plain version's kept values; bf16 BF16_TOL
+    of the largest kept value (at least 1)."""
+    special = (want == TAS.FLOOR) | (want == TAS.POS_INF)
+    kept = want[~special]
+    if args[3].dtype == torch.bfloat16:
+        scale = max(1.0, float(kept.abs().max())) if kept.numel() else 1.0
+        return BF16_TOL * scale
+    if args[3].shape[0] <= 256:
+        return 1e-5
+    nudged = TAS.afterstate_eval_plain(
+        *args[:3], *(nudged_up(w) for w in args[3:7]), *args[7:])
+    drift = (nudged - want)[~special]
+    return NUDGE_FACTOR * (float(drift.abs().max()) if drift.numel() else 0)
+
+
+def backward_within(args, grad, got, want):
+    """The backward's gate: float32 up to 256 units, each gradient within
+    1e-5 of its norm; past 256 and in bf16 the four gradients' distance
+    from the plain ones at most 4 times the distance that a one-ulp nudge
+    of the weights (in their dtype) moves the plain ones."""
+    if args[3].dtype == torch.float32 and args[3].shape[0] <= 256:
+        return all(float((g - w).abs().max())
+                   <= 1e-5 * max(float(w.norm()), 1e-30)
+                   for g, w in zip(got, want))
+    nudged = TAS.afterstate_eval_backward_plain(
+        *args[:3], *(nudged_up(w) for w in args[3:7]), *args[7:], grad)
+
+    def dist(xs, ys):
+        return sum(float(((x.double() - y.double()) ** 2).sum())
+                   for x, y in zip(xs, ys)) ** 0.5
+
+    return dist(got, want) <= NUDGE_FACTOR * dist(nudged, want)
 
 
 # (R, M, hidden, epilogue, opponent view, sign): odd shapes, both widths,
@@ -856,17 +918,51 @@ AFTERSTATE_CASES = [
     (0, 5, 128, "logits", False, 1.0),
     (5, 0, 128, "min", True, 1.0),
 ]
+# every other width (a part of a group, a pair with padding, 3 to 8
+# groups) and bf16, with every epilogue and view and odd shapes:
+# (R, M, hidden, epilogue, opponent view, sign, dtype)
+F32, BF16 = torch.float32, torch.bfloat16
+AFTERSTATE_WIDTH_CASES = [
+    (37, 29, 1, "logits", False, 1.0, F32),
+    (301, 255, 32, "masked", True, -1.0, F32),
+    (64, 8, 64, "min", False, 1.0, F32),
+    (257, 256, 100, "min", True, 1.0, F32),
+    (300, 256, 200, "logits", False, 1.0, F32),
+    (37, 29, 384, "masked", True, -1.0, F32),
+    (513, 511, 512, "min", True, 1.0, F32),
+    (301, 255, 512, "logits", False, 1.0, F32),
+    (1, 1, 512, "min", True, 1.0, F32),
+    (0, 5, 512, "logits", False, 1.0, F32),
+    (5, 0, 1024, "min", True, 1.0, F32),
+    (130, 77, 1024, "masked", False, 1.0, F32),
+    (37, 29, 32, "logits", False, 1.0, BF16),
+    (300, 256, 128, "logits", False, 1.0, BF16),
+    (257, 256, 128, "min", True, 1.0, BF16),
+    (301, 255, 256, "masked", True, -1.0, BF16),
+    (513, 511, 512, "min", False, 1.0, BF16),
+    (130, 77, 512, "logits", False, 1.0, BF16),
+]
+AFTERSTATE_ALL = [(*c, F32) for c in AFTERSTATE_CASES] + \
+    AFTERSTATE_WIDTH_CASES
 
 
-@pytest.mark.parametrize("r,m,hidden,epilogue,opponent,sign",
-                         AFTERSTATE_CASES)
+def afterstate_id(case):
+    """The case's values joined, float32's without its dtype."""
+    return "-".join(str(x) for x in case[:6]) + (
+        "" if case[6] == F32 else "-bf16")
+
+
+@pytest.mark.parametrize("r,m,hidden,epilogue,opponent,sign,dtype",
+                         AFTERSTATE_ALL, ids=map(afterstate_id,
+                                                 AFTERSTATE_ALL))
 def test_afterstate_eval_matches_plain(card, r, m, hidden, epilogue,
-                                       opponent, sign):
-    """Within 1e-5 of the plain version (the features exact, the sums of
-    fc1 and the head in another order), the floor and the +1e9 of an empty
-    min exact; the same bits on a second launch; one launch counted."""
-    args = (*afterstate_inputs(card, r * 31 + m, r, m, hidden), opponent,
-            epilogue, sign)
+                                       opponent, sign, dtype):
+    """Within ``forward_tol`` of the plain version (float32 up to 256
+    units: 1e-5, the features exact, the sums of fc1 and the head in
+    another order), the floor and the +1e9 of an empty min exact; the same
+    bits on a second launch; one launch counted."""
+    args = (*afterstate_inputs(card, r * 31 + m, r, m, hidden, dtype),
+            opponent, epilogue, sign)
     before = TAS.afterstate_eval.launches
     got = TAS.afterstate_eval(*args)
     again = TAS.afterstate_eval(*args)
@@ -874,24 +970,43 @@ def test_afterstate_eval_matches_plain(card, r, m, hidden, epilogue,
     torch.cuda.synchronize()
     assert TAS.afterstate_eval.launches == before + 2
     assert got.shape == want.shape and torch.equal(got, again)
-    assert torch.allclose(got, want, rtol=0, atol=1e-5), float(
-        (got - want).abs().max())
+    tol = forward_tol(args, want)
+    assert torch.allclose(got, want, rtol=0, atol=tol), (float(
+        (got - want).abs().max()), tol)
     special = (want == TAS.FLOOR) | (want == TAS.POS_INF)
     assert torch.equal(got[special], want[special])
 
 
-@pytest.mark.parametrize("r,m,hidden,epilogue,opponent,sign", [
-    (37, 29, 128, "logits", False, 1.0),
-    (300, 256, 256, "masked", True, -1.0),
-    (2049, 256, 128, "logits", False, 1.0),
-    (0, 7, 128, "logits", False, 1.0),
-])
+AFTERSTATE_BACKWARD_ALL = [
+    (37, 29, 128, "logits", False, 1.0, F32),
+    (300, 256, 256, "masked", True, -1.0, F32),
+    (2049, 256, 128, "logits", False, 1.0, F32),
+    (0, 7, 128, "logits", False, 1.0, F32),
+    (37, 29, 1, "logits", False, 1.0, F32),
+    (301, 255, 100, "masked", True, -1.0, F32),
+    (300, 256, 200, "logits", False, 1.0, F32),
+    (300, 256, 384, "masked", False, 1.0, F32),
+    (2049, 256, 512, "logits", False, 1.0, F32),
+    (130, 77, 1024, "logits", False, 1.0, F32),
+    (0, 7, 512, "logits", False, 1.0, F32),
+    (37, 29, 32, "logits", False, 1.0, BF16),
+    (2049, 256, 128, "logits", False, 1.0, BF16),
+    (300, 256, 256, "masked", True, -1.0, BF16),
+    (301, 255, 512, "logits", False, 1.0, BF16),
+]
+
+
+@pytest.mark.parametrize("r,m,hidden,epilogue,opponent,sign,dtype",
+                         AFTERSTATE_BACKWARD_ALL,
+                         ids=map(afterstate_id, AFTERSTATE_BACKWARD_ALL))
 def test_afterstate_backward_matches_plain(card, r, m, hidden, epilogue,
-                                           opponent, sign):
-    """The four weights' gradients within 1e-5 of each one's norm (block
-    partials summed in block order, against torch's autograd); the same
-    bits on a second launch."""
-    args = (*afterstate_inputs(card, r + m, r, m, hidden), opponent,
+                                           opponent, sign, dtype):
+    """The four weights' gradients within ``backward_within`` of the
+    plain ones (float32 up to 256 units: 1e-5 of each one's norm; block
+    partials summed in block order, against torch's autograd), float32
+    tensors (of bf16 numbers for bf16 weights); the same bits on a second
+    launch."""
+    args = (*afterstate_inputs(card, r + m, r, m, hidden, dtype), opponent,
             epilogue, sign)
     grad = torch.randn((r, m), device=card,
                        generator=torch.Generator(device=card).manual_seed(r))
@@ -903,8 +1018,9 @@ def test_afterstate_backward_matches_plain(card, r, m, hidden, epilogue,
     assert TAS.afterstate_eval_backward.launches == before + 2
     for g, a, w in zip(got, again, want):
         assert g.shape == w.shape and torch.equal(g, a)
-        assert float((g - w).abs().max()) <= 1e-5 * max(float(w.norm()),
-                                                        1e-30)
+        assert g.dtype == torch.float32
+        assert torch.equal(g, g.to(dtype).float())
+    assert backward_within(args, grad, got, want)
 
 
 def test_afterstate_backward_at_a_minibatch_h256(card):
@@ -939,13 +1055,13 @@ def test_afterstate_backward_at_a_minibatch_h256(card):
     assert dist(got, want) <= 4 * dist(nudged, want)
 
 
-def _tile_edge_inputs(card, seed, r, m, hidden):
+def _tile_edge_inputs(card, seed, r, m, hidden, dtype=torch.float32):
     """``afterstate_inputs`` with the kernels' tile edges in them: the rows'
     n cycle through 63, 64, 65 (around a 64-board tile), m, 0 (every slot
     of a ``logits`` row kept, none of a ``min`` row), 1 and 129, so that
     tiles and blocks start and end inside rows and a row of m kept boards
     spans several tiles; one byte in fifty anywhere in [-128, 127]."""
-    boards, mover, n, *w = afterstate_inputs(card, seed, r, m, hidden)
+    boards, mover, n, *w = afterstate_inputs(card, seed, r, m, hidden, dtype)
     rng = np.random.default_rng(seed + 1)
     b = boards.cpu().numpy()
     pick = rng.random(b.shape) < 0.02
@@ -958,20 +1074,28 @@ def _tile_edge_inputs(card, seed, r, m, hidden):
             torch.from_numpy(n).to(card), *w]
 
 
-@pytest.mark.parametrize("hidden", [128, 256])
+TILE_EDGE_WIDTHS = [(128, F32), (256, F32), (1, F32), (200, F32),
+                    (512, F32), (128, BF16), (512, BF16)]
+
+
+@pytest.mark.parametrize("hidden,dtype", TILE_EDGE_WIDTHS, ids=[
+    f"{h}" if d == F32 else f"{h}-bf16" for h, d in TILE_EDGE_WIDTHS])
 @pytest.mark.parametrize("epilogue,opponent,sign", [
     ("logits", False, 1.0), ("masked", True, -1.0), ("min", True, 1.0)])
-def test_afterstate_tile_edges(card, hidden, epilogue, opponent, sign):
+def test_afterstate_tile_edges(card, hidden, dtype, epilogue, opponent,
+                               sign):
     """Kept boards straddling the 64-board tiles and the blocks (rows of
     n = 63, 64, 65 and M; ``logits`` rows with n = 0; ``min`` rows split
     across tiles), extreme and negative bytes: the forward against the
     plain version and, but for the min, the backward; two launches give
     the same bits.  Bytes of 127 make values in the tens, whose float32
-    sums differ in more than 1e-5: the forward is held to 1e-5 of the
-    largest kept value (at least 1e-5), the floor and +1e9 exactly."""
+    sums differ in more than 1e-5: the float32 forward up to 256 units is
+    held to 1e-5 of the largest kept value (at least 1e-5), past 256 to 4
+    one-ulp nudges' drift scaled the same way, bf16 to ``forward_tol``;
+    the floor and +1e9 exactly."""
     r, m = 173, 200
     args = (*_tile_edge_inputs(card, 7 * hidden + len(epilogue), r, m,
-                               hidden), opponent, epilogue, sign)
+                               hidden, dtype), opponent, epilogue, sign)
     got = TAS.afterstate_eval(*args)
     again = TAS.afterstate_eval(*args)
     want = TAS.afterstate_eval_plain(*args)
@@ -980,7 +1104,10 @@ def test_afterstate_tile_edges(card, hidden, epilogue, opponent, sign):
     special = (want == TAS.FLOOR) | (want == TAS.POS_INF)
     assert torch.equal(got[special], want[special])
     scale = max(1.0, float(want[~special].abs().max()))
-    assert float((got - want).abs().max()) <= 1e-5 * scale
+    if dtype == F32 and hidden <= 256:
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+    else:
+        assert float((got - want).abs().max()) <= forward_tol(args, want)
     if epilogue == "min":
         return
     grad = torch.randn((r, m), device=card,
@@ -991,8 +1118,7 @@ def test_afterstate_tile_edges(card, hidden, epilogue, opponent, sign):
     torch.cuda.synchronize()
     for g, a, w in zip(got, again, want):
         assert g.shape == w.shape and torch.equal(g, a)
-        assert float((g - w).abs().max()) <= 1e-5 * max(float(w.norm()),
-                                                        1e-30)
+    assert backward_within(args, grad, got, want)
 
 
 def test_afterstate_boards_at_an_odd_address(card):
@@ -1048,17 +1174,16 @@ def test_afterstate_autograd_on_card(card):
         assert float((g - w).abs().max()) <= 1e-5 * float(w.norm())
 
 
-def test_afterstate_rejects_what_it_has_no_kernel_for(card):
-    """On the card a width other than 128 and 256, weights other than
-    float32 and non-contiguous inputs raise (naming the ROADMAP item for
-    the first two); no fallback."""
+def test_afterstate_rejects_what_the_kernels_do_not_take(card):
+    """On the card float16, float64 and mixed weights raise (naming the
+    ROADMAP item that lists them), and so do non-contiguous inputs; no
+    fallback."""
     boards, mover, n, *w = afterstate_inputs(card, 3, 4, 6, 64)
-    with pytest.raises(ValueError, match="item 20"):
-        TAS.afterstate_eval(boards, mover, n, *w, False, "logits", 1.0)
-    boards, mover, n, *w = afterstate_inputs(card, 3, 4, 6, 128)
-    with pytest.raises(ValueError, match="item 20"):
-        TAS.afterstate_eval(boards, mover, n, *(x.bfloat16() for x in w),
-                            False, "logits", 1.0)
+    for weights in ([x.half() for x in w], [x.double() for x in w],
+                    [w[0].bfloat16(), *w[1:]]):
+        with pytest.raises(ValueError, match="item 20"):
+            TAS.afterstate_eval(boards, mover, n, *weights, False, "logits",
+                                1.0)
     with pytest.raises(ValueError):
         TAS.afterstate_eval(boards[:, ::2], mover[:], n, *w, False,
                             "logits", 1.0)
