@@ -1,0 +1,9 @@
+"""afterstate_eval_roofline.train: The afterstate forward kernel's least
+time on its inputs over its summed device time, in one traced update.
+"""
+
+from benchmark.yardstick import work
+
+
+def read(r):
+    return work.roofline_share(r, "train", "afterstate_eval")
