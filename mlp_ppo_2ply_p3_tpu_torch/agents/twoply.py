@@ -40,6 +40,7 @@ from ..env import bg_env
 from ..models.mlp import MLP
 from ..ops import afterstate as AE
 from ..utils.config import SearchConfig
+from ..utils.profiling import span
 from .basic import afterstate_values
 
 NEG_INF = -1e9
@@ -102,8 +103,10 @@ def _reply_leg(model: MLP, vecs, us, dance, chunk: int, slot_chunk: int,
         rows, any_ovf = [], torch.zeros((c,), dtype=torch.bool,
                                         device=vecs.device)
         for d in dice_xs:
-            boards, n, ovf = movegen_fn(cv, d)
-            worst = _masked_min_values(model, boards, n, cu, slot_chunk)
+            with span("reply_movegen"):
+                boards, n, ovf = movegen_fn(cv, d)
+            with span("reply_eval"):
+                worst = _masked_min_values(model, boards, n, cu, slot_chunk)
             rows.append(torch.where(n > 0, worst, cd))
             any_ovf = any_ovf | ovf
         worsts.append(torch.stack(rows))                     # (R, C)
@@ -141,15 +144,17 @@ def candidate_scores(model: MLP, state: bg_env.EnvState,
     dev = state.turn.device
 
     # ---- 1-ply scores and top-k pruning -------------------------------
-    v1 = afterstate_values(model, state)
-    top_v, top_idx = torch.sort(v1, dim=-1, descending=True, stable=True)
-    top_v, top_idx = top_v[:, :k], top_idx[:, :k]
-    top_valid = top_v > NEG_INF / 2
-    cand = torch.gather(state.after, 1,
-                        top_idx[:, :, None].expand(b, k, 52))  # (B, k, 52)
-    # our value of a candidate when it is our turn again (opponent dance)
-    v_dance = AE.evaluate(model, cand, state.turn, torch.full_like(
-        state.n_moves, k), "value", epilogue="masked")
+    with span("one_ply"):
+        v1 = afterstate_values(model, state)
+        top_v, top_idx = torch.sort(v1, dim=-1, descending=True,
+                                    stable=True)
+        top_v, top_idx = top_v[:, :k], top_idx[:, :k]
+        top_valid = top_v > NEG_INF / 2
+        cand = torch.gather(state.after, 1,       # (B, k, 52)
+                            top_idx[:, :, None].expand(b, k, 52))
+        # our value of a candidate when it is our turn again (opponent dance)
+        v_dance = AE.evaluate(model, cand, state.turn, torch.full_like(
+            state.n_moves, k), "value", epilogue="masked")
 
     # ---- opponent chance/reply sweep (static roll split) --------------
     rcfg = _reply_cfg(scfg)
@@ -190,11 +195,12 @@ def twoply_actions_values(model: MLP, state: bg_env.EnvState,
     expert-iteration interface.  The backup score of the chosen move is
     the 2-ply expectimax value of the state for the mover, the value-head
     distillation target."""
-    top_idx, score2, overflow = candidate_scores(model, state, scfg)
-    best_k = torch.argmax(score2, dim=-1, keepdim=True)       # (B, 1)
-    best2 = torch.gather(score2, 1, best_k)[:, 0]
-    action = torch.gather(top_idx, 1, best_k)[:, 0]
-    return action.to(I32), best2, overflow
+    with span("decision"):
+        top_idx, score2, overflow = candidate_scores(model, state, scfg)
+        best_k = torch.argmax(score2, dim=-1, keepdim=True)       # (B, 1)
+        best2 = torch.gather(score2, 1, best_k)[:, 0]
+        action = torch.gather(top_idx, 1, best_k)[:, 0]
+        return action.to(I32), best2, overflow
 
 
 def twoply_actions_report(model: MLP, state: bg_env.EnvState,

@@ -49,6 +49,7 @@ import torch
 
 from ..ops import compaction, doubles, nondoubles
 from ..parallel import mesh
+from ..utils.profiling import span
 from . import board as B
 
 I8 = torch.int8
@@ -417,36 +418,38 @@ def legal_afterstates_batch(vecs, dice, cfg: MovegenConfig = MovegenConfig(),
 
     Returns: (boards (B, M, 52) int8, n_moves (B,) int32, overflow (B,)).
     """
-    bsz = vecs.shape[0]
-    if mirror is None:
-        mirror = torch.zeros((bsz,), dtype=torch.bool, device=vecs.device)
-    d0 = dice[:, 0].to(I32)
-    d1 = dice[:, 1].to(I32)
-    is_double = d0 == d1
-    d_hi, d_lo = torch.maximum(d0, d1), torch.minimum(d0, d1)
+    with span("movegen"):
+        bsz = vecs.shape[0]
+        if mirror is None:
+            mirror = torch.zeros((bsz,), dtype=torch.bool, device=vecs.device)
+        d0 = dice[:, 0].to(I32)
+        d1 = dice[:, 1].to(I32)
+        is_double = d0 == d1
+        d_hi, d_lo = torch.maximum(d0, d1), torch.minimum(d0, d1)
 
-    bd = doubles_capacity(bsz, cfg)
-    bn = bsz if world is not None else nondoubles_capacity(bsz, cfg)
-    src, fits, pos_d, ord_n, dst = _placement(is_double, bd, bn)
-    mir8 = mirror.view(I8) if mirror.dtype == torch.bool else mirror.to(I8)
-    (dvecs, ddie, dmir), _ = _compact_games((vecs, d0, mir8), is_double, bd)
-    out = torch.empty((bsz, cfg.max_moves, B.VEC), dtype=I8,
-                      device=vecs.device)
-    _, db_n, db_of = _doubles_dispatch_batch(dvecs, ddie, cfg, dmir > 0,
-                                             out, dst)
-    out, n, of = nondoubles.nondoubles_batch(
-        vecs.contiguous(), d_hi, d_lo, mirror.contiguous(), cfg.k1,
-        cfg.dedup_width, cfg.max_moves, cfg.dedup,
-        (src, fits, dst, db_n, db_of), out)
-    if world is not None:
-        g_fits_d, g_fits_n, fill_d, fill_n = _global_fit(
-            world, cfg, pos_d, ord_n, dst, out)
-        keep = torch.where(is_double, (pos_d <= bd) & g_fits_d, g_fits_n)
-        fill = torch.where(is_double[:, None, None], fill_d, fill_n)
-        out = torch.where(keep[:, None, None], out, fill)
-        n = torch.where(keep, n, 0)
-        of = of | torch.logical_not(keep)
-    return out, n, of
+        bd = doubles_capacity(bsz, cfg)
+        bn = bsz if world is not None else nondoubles_capacity(bsz, cfg)
+        src, fits, pos_d, ord_n, dst = _placement(is_double, bd, bn)
+        mir8 = mirror.view(I8) if mirror.dtype == torch.bool else mirror.to(I8)
+        (dvecs, ddie, dmir), _ = _compact_games((vecs, d0, mir8), is_double,
+                                                bd)
+        out = torch.empty((bsz, cfg.max_moves, B.VEC), dtype=I8,
+                          device=vecs.device)
+        _, db_n, db_of = _doubles_dispatch_batch(dvecs, ddie, cfg, dmir > 0,
+                                                 out, dst)
+        out, n, of = nondoubles.nondoubles_batch(
+            vecs.contiguous(), d_hi, d_lo, mirror.contiguous(), cfg.k1,
+            cfg.dedup_width, cfg.max_moves, cfg.dedup,
+            (src, fits, dst, db_n, db_of), out)
+        if world is not None:
+            g_fits_d, g_fits_n, fill_d, fill_n = _global_fit(
+                world, cfg, pos_d, ord_n, dst, out)
+            keep = torch.where(is_double, (pos_d <= bd) & g_fits_d, g_fits_n)
+            fill = torch.where(is_double[:, None, None], fill_d, fill_n)
+            out = torch.where(keep[:, None, None], out, fill)
+            n = torch.where(keep, n, 0)
+            of = of | torch.logical_not(keep)
+        return out, n, of
 
 
 def nondoubles_afterstates_batch(vecs, d_hi, d_lo,

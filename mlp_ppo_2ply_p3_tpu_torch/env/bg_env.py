@@ -45,6 +45,7 @@ from ..core.constants import (
 )
 from ..core.movegen import MovegenConfig, legal_afterstates_batch
 from ..parallel import mesh
+from ..utils.profiling import span
 
 I8 = torch.int8
 I32 = torch.int32
@@ -181,92 +182,93 @@ def step_with_draws(state: EnvState, actions, draws: StepDraws,
     Returns (state', StepInfo).  With a ``world`` the games are this
     rank's shard (and ``draws`` its rows): every rank must call, since
     movegen places the games in the global batch."""
-    s = state
-    bsz = s.turn.shape[0]
-    dev = s.turn.device
-    not_ = torch.logical_not
+    with span("env_step"):
+        s = state
+        bsz = s.turn.shape[0]
+        dev = s.turn.device
+        not_ = torch.logical_not
 
-    was_over = s.game_over
-    no_moves = not_(was_over) & (s.n_moves == 0)
-    action = actions.to(I32)
-    live = not_(was_over) & not_(no_moves)
-    invalid = live & ((action < 0) | (action >= s.n_moves))
-    commit = live & not_(invalid)
+        was_over = s.game_over
+        no_moves = not_(was_over) & (s.n_moves == 0)
+        action = actions.to(I32)
+        live = not_(was_over) & not_(no_moves)
+        invalid = live & ((action < 0) | (action >= s.n_moves))
+        commit = live & not_(invalid)
 
-    idx = action.clamp(0, cfg.max_moves - 1).long()
-    chosen = torch.gather(
-        s.after, 1, idx[:, None, None].expand(bsz, 1, 52))[:, 0]  # (B, 52)
-    win = commit & (chosen[:, B.MY_OFF].to(I32) >= NUM_CHECKERS)
-    # gammon / backgammon in the canonical frame: loser bore off none;
-    # backgammon adds loser checkers in the winner's home (canonical
-    # 18..23) or on the bar
-    opp_off0 = chosen[:, B.OPP_OFF].to(I32) == 0
-    opp_in_home = chosen[:, 24 + 18:48].to(I32).sum(-1) > 0
-    opp_on_bar = chosen[:, B.OPP_BAR].to(I32) > 0
-    is_backgammon = win & opp_off0 & (opp_in_home | opp_on_bar)
-    is_gammon = win & opp_off0 & not_(is_backgammon)
-    game_score = torch.where(
-        win,
-        torch.where(is_backgammon, 3, torch.where(is_gammon, 2, 1)),
-        0,
-    ).to(I32)
-    win_reward = torch.where(
-        is_backgammon, REWARD_WIN_BACKGAMMON,
-        torch.where(is_gammon, REWARD_WIN_GAMMON, REWARD_WIN_NORMAL),
-    )
-    reward = (
-        torch.where(invalid, REWARD_INVALID_ACTION, 0.0)
-        + torch.where(win, win_reward, 0.0)
-    ).to(torch.float32)
-    done = was_over | win
+        idx = action.clamp(0, cfg.max_moves - 1).long()
+        chosen = torch.gather(
+            s.after, 1, idx[:, None, None].expand(bsz, 1, 52))[:, 0]  # (B, 52)
+        win = commit & (chosen[:, B.MY_OFF].to(I32) >= NUM_CHECKERS)
+        # gammon / backgammon in the canonical frame: loser bore off none;
+        # backgammon adds loser checkers in the winner's home (canonical
+        # 18..23) or on the bar
+        opp_off0 = chosen[:, B.OPP_OFF].to(I32) == 0
+        opp_in_home = chosen[:, 24 + 18:48].to(I32).sum(-1) > 0
+        opp_on_bar = chosen[:, B.OPP_BAR].to(I32) > 0
+        is_backgammon = win & opp_off0 & (opp_in_home | opp_on_bar)
+        is_gammon = win & opp_off0 & not_(is_backgammon)
+        game_score = torch.where(
+            win,
+            torch.where(is_backgammon, 3, torch.where(is_gammon, 2, 1)),
+            0,
+        ).to(I32)
+        win_reward = torch.where(
+            is_backgammon, REWARD_WIN_BACKGAMMON,
+            torch.where(is_gammon, REWARD_WIN_GAMMON, REWARD_WIN_NORMAL),
+        )
+        reward = (
+            torch.where(invalid, REWARD_INVALID_ACTION, 0.0)
+            + torch.where(win, win_reward, 0.0)
+        ).to(torch.float32)
+        done = was_over | win
 
-    # --- next board / turn / dice ------------------------------------------
-    c_pts, c_bar, c_off = B.from_canonical(chosen, s.turn)
-    f_pts = initial_points(dev)
-    zero2 = torch.zeros((2,), dtype=I8, device=dev)
-    cm, wo = commit[:, None], was_over[:, None]
-    n_pts = torch.where(wo[:, :, None], f_pts,
-                        torch.where(cm[:, :, None], c_pts, s.points))
-    n_bar = torch.where(wo, zero2, torch.where(cm, c_bar, s.bar))
-    n_off = torch.where(wo, zero2, torch.where(cm, c_off, s.off))
+        # --- next board / turn / dice --------------------------------------
+        c_pts, c_bar, c_off = B.from_canonical(chosen, s.turn)
+        f_pts = initial_points(dev)
+        zero2 = torch.zeros((2,), dtype=I8, device=dev)
+        cm, wo = commit[:, None], was_over[:, None]
+        n_pts = torch.where(wo[:, :, None], f_pts,
+                            torch.where(cm[:, :, None], c_pts, s.points))
+        n_bar = torch.where(wo, zero2, torch.where(cm, c_bar, s.bar))
+        n_off = torch.where(wo, zero2, torch.where(cm, c_off, s.off))
 
-    flip = no_moves | (commit & not_(win))
-    n_turn = torch.where(was_over, draws.fresh_turn,
-                         (s.turn + flip.to(I8)) % 2).to(I8)
-    n_dice = torch.where(
-        wo, draws.fresh_dice,
-        torch.where(flip[:, None], draws.rolled, s.dice),
-    ).to(I8)
+        flip = no_moves | (commit & not_(win))
+        n_turn = torch.where(was_over, draws.fresh_turn,
+                             (s.turn + flip.to(I8)) % 2).to(I8)
+        n_dice = torch.where(
+            wo, draws.fresh_dice,
+            torch.where(flip[:, None], draws.rolled, s.dice),
+        ).to(I8)
 
-    # --- scores / flags -----------------------------------------------------
-    score = torch.where((was_over & s.match_over)[:, None], 0, s.score)
-    is_mover = (torch.arange(2, device=dev)[None, :]
-                == s.turn.to(I32)[:, None])
-    win_add = torch.where(win[:, None] & is_mover, game_score[:, None], 0)
-    score = (score + win_add).to(I32)
-    match_over = torch.where(
-        was_over, False,
-        s.match_over | (win & (score.amax(-1) >= cfg.match_length)),
-    )
-    game_over = torch.where(was_over, False, s.game_over | win)
+        # --- scores / flags -------------------------------------------------
+        score = torch.where((was_over & s.match_over)[:, None], 0, s.score)
+        is_mover = (torch.arange(2, device=dev)[None, :]
+                    == s.turn.to(I32)[:, None])
+        win_add = torch.where(win[:, None] & is_mover, game_score[:, None], 0)
+        score = (score + win_add).to(I32)
+        match_over = torch.where(
+            was_over, False,
+            s.match_over | (win & (score.amax(-1) >= cfg.match_length)),
+        )
+        game_over = torch.where(was_over, False, s.game_over | win)
 
-    after, n_mv, ovf = _movegen_batch(n_pts, n_bar, n_off, n_turn, n_dice,
-                                      cfg, world)
-    n_mv = torch.where(game_over, 0, n_mv)
-    ns = EnvState(
-        points=n_pts, bar=n_bar, off=n_off, turn=n_turn, dice=n_dice,
-        score=score, game_over=game_over, match_over=match_over,
-        after=after, n_moves=n_mv, overflow=ovf,
-    )
-    info = StepInfo(
-        reward=reward,
-        done=done,
-        winner=torch.where(win, s.turn, -1).to(I8),
-        game_score=game_score,
-        invalid=invalid,
-        passed=no_moves,
-    )
-    return ns, info
+        after, n_mv, ovf = _movegen_batch(n_pts, n_bar, n_off, n_turn, n_dice,
+                                          cfg, world)
+        n_mv = torch.where(game_over, 0, n_mv)
+        ns = EnvState(
+            points=n_pts, bar=n_bar, off=n_off, turn=n_turn, dice=n_dice,
+            score=score, game_over=game_over, match_over=match_over,
+            after=after, n_moves=n_mv, overflow=ovf,
+        )
+        info = StepInfo(
+            reward=reward,
+            done=done,
+            winner=torch.where(win, s.turn, -1).to(I8),
+            game_score=game_score,
+            invalid=invalid,
+            passed=no_moves,
+        )
+        return ns, info
 
 
 def step(state: EnvState, actions, gen: torch.Generator, cfg: EnvConfig):

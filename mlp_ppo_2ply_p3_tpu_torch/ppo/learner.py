@@ -47,6 +47,7 @@ from ..env import bg_env
 from ..models.mlp import MLP, ModelConfig
 from ..ops import afterstate as AE
 from ..parallel import mesh
+from ..utils.profiling import span
 from . import gae as gae_mod
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -177,24 +178,25 @@ def init_train_state(seed: int, model_cfg: ModelConfig, cfg: PPOConfig,
 def adam_step(params, grads, state: AdamState, cfg: PPOConfig) -> AdamState:
     """clip_by_global_norm -> scale_by_adam -> scale(-lr), in place on
     ``params``; returns the new optimizer state."""
-    if cfg.max_grad_norm > 0:
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        keep = g_norm < cfg.max_grad_norm
-        grads = [torch.where(keep, g, (g / g_norm) * cfg.max_grad_norm)
-                 for g in grads]
-    count = state.count + 1
-    c = count.to(torch.float32)
-    bc1 = 1 - ADAM_B1 ** c
-    bc2 = 1 - ADAM_B2 ** c
-    mu, nu = [], []
-    for p, g, m, v in zip(params, grads, state.mu, state.nu):
-        m = (1 - ADAM_B1) * g + ADAM_B1 * m
-        v = (1 - ADAM_B2) * (g * g) + ADAM_B2 * v
-        upd = (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
-        p.add_(upd * (-cfg.learning_rate))
-        mu.append(m)
-        nu.append(v)
-    return AdamState(count, mu, nu)
+    with span("adam_step"):
+        if cfg.max_grad_norm > 0:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            keep = g_norm < cfg.max_grad_norm
+            grads = [torch.where(keep, g, (g / g_norm) * cfg.max_grad_norm)
+                     for g in grads]
+        count = state.count + 1
+        c = count.to(torch.float32)
+        bc1 = 1 - ADAM_B1 ** c
+        bc2 = 1 - ADAM_B2 ** c
+        mu, nu = [], []
+        for p, g, m, v in zip(params, grads, state.mu, state.nu):
+            m = (1 - ADAM_B1) * g + ADAM_B1 * m
+            v = (1 - ADAM_B2) * (g * g) + ADAM_B2 * v
+            upd = (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
+            p.add_(upd * (-cfg.learning_rate))
+            mu.append(m)
+            nu.append(v)
+        return AdamState(count, mu, nu)
 
 
 def entropy_coef(cfg: PPOConfig, episodes):
@@ -234,38 +236,41 @@ def rollout(model: MLP, env_state, sampler: Sampler, env_cfg,
             cfg: PPOConfig, world=None):
     """Collect T steps; returns (env_state', Rollout, last_value,
     last_turn).  With a ``world``, ``env_state`` is this rank's shard."""
-    m = env_cfg.max_moves
-    afterstate = cfg.policy_mode == "afterstate"
-    bsz = env_state.turn.shape[0]
-    steps = []
-    es = env_state
-    for _ in range(cfg.t_horizon):
-        obs = bg_env.observe(es)
-        if afterstate:
-            _, value = model(obs)
-            masked = _afterstate_logits(model, es.after, es.turn,
-                                        es.n_moves)
-        else:
-            masked, value = _masked_logits(model, obs, es.n_moves, m)
-        action = sampler.actions(masked)
-        logp = torch.gather(Fn.log_softmax(masked, dim=-1), 1,
-                            action[:, None].long())[:, 0]
-        pre = es
-        es, info = bg_env.step_with_draws(es, action,
-                                          sampler.env_draws(bsz), env_cfg,
-                                          world)
-        steps.append(Rollout(
-            obs=obs, n_moves=pre.n_moves, action=action, logp=logp,
-            value=value, reward=info.reward, done=info.done, turn=pre.turn,
-            # every step's movegen truncations, for the overflow policy
-            overflow=es.overflow.sum(dtype=torch.int32),
-            after=pre.after if afterstate else None,
+    with span("rollout"):
+        m = env_cfg.max_moves
+        afterstate = cfg.policy_mode == "afterstate"
+        bsz = env_state.turn.shape[0]
+        steps = []
+        es = env_state
+        for _ in range(cfg.t_horizon):
+            with span("policy"):
+                obs = bg_env.observe(es)
+                if afterstate:
+                    _, value = model(obs)
+                    masked = _afterstate_logits(model, es.after, es.turn,
+                                                es.n_moves)
+                else:
+                    masked, value = _masked_logits(model, obs, es.n_moves,
+                                                   m)
+                action = sampler.actions(masked)
+                logp = torch.gather(Fn.log_softmax(masked, dim=-1), 1,
+                                    action[:, None].long())[:, 0]
+            pre = es
+            es, info = bg_env.step_with_draws(
+                es, action, sampler.env_draws(bsz), env_cfg, world)
+            steps.append(Rollout(
+                obs=obs, n_moves=pre.n_moves, action=action, logp=logp,
+                value=value, reward=info.reward, done=info.done,
+                turn=pre.turn,
+                # every step's movegen truncations, for the overflow policy
+                overflow=es.overflow.sum(dtype=torch.int32),
+                after=pre.after if afterstate else None,
+            ))
+        traj = Rollout(*(
+            None if f[0] is None else torch.stack(f) for f in zip(*steps)
         ))
-    traj = Rollout(*(
-        None if f[0] is None else torch.stack(f) for f in zip(*steps)
-    ))
-    _, last_value = model(bg_env.observe(es))
-    return es, traj, last_value, es.turn
+        _, last_value = model(bg_env.observe(es))
+        return es, traj, last_value, es.turn
 
 
 def _loss_fn(model: MLP, batch, ent_coef, m, cfg: PPOConfig):
@@ -298,19 +303,20 @@ def minibatch_step(model: MLP, opt_state: AdamState, batch, ent_coef, m,
     minibatch: its mean loss, divided by the size, is its share of the
     global mean, so the gradients and losses summed over the ranks are
     the global minibatch's."""
-    params = list(model.parameters())
-    loss, aux = _loss_fn(model, batch, ent_coef, m, cfg)
-    stats = torch.stack([loss, *aux]).detach()
-    if world is not None:
-        loss = loss / world.size
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(params, grads)]
-    if world is not None:
-        *grads, stats = mesh.all_reduce_sum([*grads, stats / world.size],
-                                            world)
-    opt_state = adam_step(params, grads, opt_state, cfg)
-    return opt_state, stats
+    with span("minibatch_step"):
+        params = list(model.parameters())
+        loss, aux = _loss_fn(model, batch, ent_coef, m, cfg)
+        stats = torch.stack([loss, *aux]).detach()
+        if world is not None:
+            loss = loss / world.size
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        if world is not None:
+            *grads, stats = mesh.all_reduce_sum([*grads, stats / world.size],
+                                                world)
+        opt_state = adam_step(params, grads, opt_state, cfg)
+        return opt_state, stats
 
 
 def gae_targets(traj: Rollout, last_value, last_turn, cfg: PPOConfig):
@@ -364,62 +370,65 @@ def ppo_update(ts: TrainState, traj: Rollout, last_value, last_turn,
     """Minibatched clipped-PPO epochs over one rollout.  Returns
     (TrainState', metrics dict of 0-dim tensors).  With a ``world``,
     ``traj`` holds this rank's games; the update is the global one."""
-    sampler = sampler or Sampler(ts.gen, world)
-    m = env_cfg.max_moves
-    adv, returns = gae_targets(traj, last_value, last_turn, cfg)
-    traj, adv, returns = _gather_rollout(traj, adv, returns, world)
-    adv, returns = normalize_targets(adv, returns, traj.value, cfg)
-    t, b = traj.reward.shape
+    with span("ppo_update"):
+        sampler = sampler or Sampler(ts.gen, world)
+        m = env_cfg.max_moves
+        adv, returns = gae_targets(traj, last_value, last_turn, cfg)
+        traj, adv, returns = _gather_rollout(traj, adv, returns, world)
+        adv, returns = normalize_targets(adv, returns, traj.value, cfg)
+        t, b = traj.reward.shape
 
-    n = t * b
-    flat = (
-        traj.obs.reshape(n, -1),
-        traj.n_moves.reshape(n),
-        traj.action.reshape(n),
-        traj.logp.reshape(n),
-        returns.reshape(n),
-        adv.reshape(n),
-    )
-    if cfg.policy_mode == "afterstate":
-        flat = flat + (traj.after.reshape(n, m, 52), traj.turn.reshape(n))
-    nmb = cfg.num_minibatches
-    mb_size = n // nmb
-    # this rank's rows of every global minibatch
-    mine = slice(None) if world is None else world.rows(mb_size)
-    ent = entropy_coef(cfg, ts.episodes)
+        n = t * b
+        flat = (
+            traj.obs.reshape(n, -1),
+            traj.n_moves.reshape(n),
+            traj.action.reshape(n),
+            traj.logp.reshape(n),
+            returns.reshape(n),
+            adv.reshape(n),
+        )
+        if cfg.policy_mode == "afterstate":
+            flat = flat + (traj.after.reshape(n, m, 52),
+                           traj.turn.reshape(n))
+        nmb = cfg.num_minibatches
+        mb_size = n // nmb
+        # this rank's rows of every global minibatch
+        mine = slice(None) if world is None else world.rows(mb_size)
+        ent = entropy_coef(cfg, ts.episodes)
 
-    opt_state = ts.opt_state
-    metrics = []
-    for _ in range(cfg.num_epochs):
-        perm = sampler.permutation(n, traj.reward.device)
-        for i in range(nmb):
-            idx = perm[i * mb_size:(i + 1) * mb_size][mine]
-            batch = tuple(x[idx] for x in flat)
-            opt_state, mb_metrics = minibatch_step(ts.model, opt_state,
-                                                   batch, ent, m, cfg, world)
-            metrics.append(mb_metrics)
-    loss, policy_loss, value_loss, entropy = torch.stack(metrics).mean(0)
+        opt_state = ts.opt_state
+        metrics = []
+        for _ in range(cfg.num_epochs):
+            perm = sampler.permutation(n, traj.reward.device)
+            for i in range(nmb):
+                idx = perm[i * mb_size:(i + 1) * mb_size][mine]
+                batch = tuple(x[idx] for x in flat)
+                opt_state, mb_metrics = minibatch_step(
+                    ts.model, opt_state, batch, ent, m, cfg, world)
+                metrics.append(mb_metrics)
+        loss, policy_loss, value_loss, entropy = torch.stack(metrics).mean(0)
 
-    ts = TrainState(
-        model=ts.model,
-        opt_state=opt_state,
-        gen=ts.gen,
-        update_idx=ts.update_idx + 1,
-        episodes=ts.episodes + traj.done.sum(dtype=torch.int32),
-    )
-    metrics_out = {
-        "loss": loss,
-        "policy_loss": policy_loss,
-        "value_loss": value_loss,
-        "entropy": entropy,
-        "entropy_coef": ent,
-        "mean_reward": traj.reward.mean(),
-        "episodes_finished": traj.done.sum(dtype=torch.int32),
-        "mean_episode_value": traj.value.mean(),
-        # game-steps (of B*T) whose movegen hit a width cap in the rollout
-        "movegen_overflow": traj.overflow.sum(dtype=torch.int32),
-    }
-    return ts, metrics_out
+        ts = TrainState(
+            model=ts.model,
+            opt_state=opt_state,
+            gen=ts.gen,
+            update_idx=ts.update_idx + 1,
+            episodes=ts.episodes + traj.done.sum(dtype=torch.int32),
+        )
+        metrics_out = {
+            "loss": loss,
+            "policy_loss": policy_loss,
+            "value_loss": value_loss,
+            "entropy": entropy,
+            "entropy_coef": ent,
+            "mean_reward": traj.reward.mean(),
+            "episodes_finished": traj.done.sum(dtype=torch.int32),
+            "mean_episode_value": traj.value.mean(),
+            # game-steps (of B*T) whose movegen hit a width cap in the
+            # rollout
+            "movegen_overflow": traj.overflow.sum(dtype=torch.int32),
+        }
+        return ts, metrics_out
 
 
 def train_step(ts: TrainState, env_state, env_cfg, model_cfg: ModelConfig,
@@ -434,10 +443,11 @@ def train_step(ts: TrainState, env_state, env_cfg, model_cfg: ModelConfig,
     if world is not None:
         mesh.check_divisible(env_state.turn.shape[0] * world.size,
                              cfg.t_horizon, cfg.num_minibatches, world.size)
-    sampler = sampler or Sampler(ts.gen, world)
-    env_state, traj, last_value, last_turn = rollout(
-        ts.model, env_state, sampler, env_cfg, cfg, world
-    )
-    ts, metrics = ppo_update(ts, traj, last_value, last_turn, env_cfg, cfg,
-                             sampler, world)
-    return ts, env_state, metrics
+    with span("train_step"):
+        sampler = sampler or Sampler(ts.gen, world)
+        env_state, traj, last_value, last_turn = rollout(
+            ts.model, env_state, sampler, env_cfg, cfg, world
+        )
+        ts, metrics = ppo_update(ts, traj, last_value, last_turn, env_cfg,
+                                 cfg, sampler, world)
+        return ts, env_state, metrics

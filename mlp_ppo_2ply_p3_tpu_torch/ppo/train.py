@@ -48,6 +48,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import os
 import time
@@ -366,8 +367,9 @@ def main(argv=None):
     ap.add_argument("--updates", type=int, default=None)
     ap.add_argument("--no-resume", action="store_true")
     ap.add_argument("--profile", action="store_true",
-                    help="per-section host timers (+ set PROFILE_TRACE_DIR "
-                         "for a torch.profiler trace of the run)")
+                    help="per-section host timers and the program's spans "
+                         "(+ set PROFILE_TRACE_DIR for a torch.profiler "
+                         "trace of the run that shows them)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
     # the process group of a multi-process run (parallel/mesh.py); with
@@ -391,10 +393,12 @@ def main(argv=None):
                      else None)
         kw = dict(resume=not args.no_resume, updates=args.updates,
                   device=args.device, world=world)
-        if trace_dir:
-            with profiling.device_trace(trace_dir):
-                out = train(cfg, profile=True, **kw)
-        else:
+        with contextlib.ExitStack() as stack:
+            if trace_dir:
+                stack.enter_context(profiling.device_trace(trace_dir))
+            if args.profile:
+                # the program's spans, marked in the trace over its kernels
+                stack.enter_context(profiling.recording())
             out = train(cfg, profile=args.profile, **kw)
         ts, _, metrics, total = out
         if world is None or world.rank == 0:

@@ -3,10 +3,20 @@
 
 Port of ``mlp_ppo_2ply_p3_tpu/utils/profiling.py``:
 
-- ``section`` / ``timed`` / ``report``: host-side section timing; with
-  ``sync`` the clock stops only after the card has finished the work
-  queued so far (``torch.cuda.synchronize``), since PyTorch returns
-  before the device is done.
+- ``span`` / ``recording``: the program's spans at its layer
+  boundaries (``train_step``, ``rollout``, ``policy``, ``env_step``,
+  ``movegen``, ``ppo_update``, ``minibatch_step``, ``adam_step``;
+  ``decision``, ``one_ply``, ``reply_movegen``, ``reply_eval``).  Off,
+  a span is a shared no-op context.  Inside ``recording()`` each span
+  appends (name, parent index, root index, start_ns, end_ns) on
+  ``time.perf_counter_ns`` to the list ``recording`` yields, and, while
+  a profiler is on, opens ``torch.profiler.record_function(name)``, so
+  that the profiler's trace shows it on the clock of the card's
+  kernels.  A span never synchronises.
+- ``section`` / ``timed`` / ``report``: host-side section timing, each
+  section a span too; with ``sync`` the clock stops only after the card
+  has finished the work queued so far (``torch.cuda.synchronize``),
+  since PyTorch returns before the device is done.
 - ``timeit``: mean seconds per call, timed with CUDA events on a card.
 - ``wall_time``: JAX's ``timeit``: mean host seconds per call of
   back-to-back calls, one fence at the end (the shared timer for big
@@ -43,6 +53,68 @@ from .. import resolve_device
 profiling_data: dict = defaultdict(lambda: {"total_time": 0.0,
                                             "call_count": 0})
 
+_OFF = contextlib.nullcontext()
+# while recording: (the spans' records, the indices of the spans open now,
+# outermost first); None otherwise
+_recording: tuple | None = None
+
+
+class _Span:
+    __slots__ = ("name", "state", "index", "mark")
+
+    def __init__(self, name: str, state: tuple):
+        self.name, self.state = name, state
+
+    def __enter__(self):
+        records, open_ = self.state
+        self.index = len(records)
+        parent = open_[-1] if open_ else -1
+        root = open_[0] if open_ else self.index
+        records.append((self.name, parent, root, time.perf_counter_ns(),
+                        None))
+        open_.append(self.index)
+        # a range in the trace of a profiler that is on; none otherwise,
+        # where it would cost the host more than the rest of the span
+        self.mark = None
+        if torch._C._autograd._profiler_enabled():
+            self.mark = torch.profiler.record_function(self.name)
+            self.mark.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.mark is not None:
+            self.mark.__exit__(*exc)
+        records, open_ = self.state
+        open_.pop()
+        name, parent, root, start, _ = records[self.index]
+        records[self.index] = (name, parent, root, start,
+                               time.perf_counter_ns())
+        return False
+
+
+def span(name: str):
+    """A context that marks one pass through a layer of the program: a
+    record (and a ``record_function`` under a profiler) while
+    ``recording()`` is on, the shared no-op context otherwise.  The root
+    index is that of the outermost span open (a ``train_step`` or a
+    ``decision``)."""
+    return _OFF if _recording is None else _Span(name, _recording)
+
+
+@contextlib.contextmanager
+def recording():
+    """Turn the spans on for the block; yields the list of their records
+    (name, parent index or -1, root index, start_ns, end_ns), in the
+    order the spans opened."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("spans are recording already")
+    _recording = ([], [])
+    try:
+        yield _recording[0]
+    finally:
+        _recording = None
+
 
 def _sync():
     if torch.cuda.is_initialized():
@@ -51,18 +123,19 @@ def _sync():
 
 @contextlib.contextmanager
 def section(name: str, sync: bool = True):
-    """Time a host-side section; with ``sync`` the clock stops only after
-    all work queued on the card has completed."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if sync:
-            _sync()
-        dt = time.perf_counter() - t0
-        d = profiling_data[name]
-        d["total_time"] += dt
-        d["call_count"] += 1
+    """Time a host-side section, a span too; with ``sync`` the clock
+    stops only after all work queued on the card has completed."""
+    with span(name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if sync:
+                _sync()
+            dt = time.perf_counter() - t0
+            d = profiling_data[name]
+            d["total_time"] += dt
+            d["call_count"] += 1
 
 
 def timed(name: str | None = None, sync: bool = True):

@@ -307,6 +307,23 @@ def test_cli_and_league_play_the_drivers_checkpoint(tmp_path, monkeypatch,
         train_mod.main(["--preset", "debug", "--updates", "1"])
 
 
+def test_profile_cli_traces_the_spans(tmp_path, monkeypatch, capsys):
+    """``--profile`` with ``PROFILE_TRACE_DIR`` set: the section timers,
+    and the Chrome trace holds the program's spans of the update."""
+    profiling.report()  # sections of earlier runs in this process
+    monkeypatch.setattr(train_mod, "get_preset",
+                        lambda name: tiny_cfg(tmp_path))
+    monkeypatch.setenv("PROFILE_TRACE_DIR", str(tmp_path / "trace"))
+    train_mod.main(["--preset", "tiny", "--updates", "1", "--device", "cpu",
+                    "--profile", "--no-resume"])
+    assert "train_step: 1 calls" in capsys.readouterr().out
+    trace = json.load(open(tmp_path / "trace" / "trace.json"))
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"train_step", "rollout", "policy", "env_step", "movegen",
+            "ppo_update", "minibatch_step", "adam_step",
+            "checkpoint"} <= names
+
+
 def cap_plies(monkeypatch, module, name, plies):
     """Cut a league arena's 400 plies to ``plies`` (the key set does not
     depend on them)."""
