@@ -10,9 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
 2. Build: compiles ``csrc/compaction.cu`` (``compact_rows`` and
    ``dedup_compact_rows``), ``csrc/doubles.cu`` (``doubles_level``, the
    first three doubles levels in one launch, and ``doubles_final``),
-   ``csrc/nondoubles.cu`` (``nondoubles``) and ``csrc/afterstate.cu``
-   (``afterstate_eval`` and ``afterstate_eval_backward``) with nvcc for
-   sm_90a, one nvcc process per source, started together.
+   ``csrc/nondoubles.cu`` (``nondoubles``), ``csrc/afterstate.cu``
+   (``afterstate_eval`` and ``afterstate_eval_backward``) and
+   ``csrc/adam.cu`` (the optimizer step) with nvcc for sm_90a, one nvcc
+   process per source, started together.
 3. Kernels vs plain versions, bit-exact (every output slot, zero tail
    included, counts and flags): ``compact_rows`` on ragged edge cases, on
    the split-N layout (one row of tens of thousands of flags), on the
@@ -51,7 +52,13 @@ Phases (any failure exits non-zero and prints no result line):
    the distance that a one-ulp nudge of the parameters (bf16's ulp for
    bf16) moves the plain gradients; both the same bits on a second
    launch; each timed beside its bound (operations at the float32 rate,
-   in bf16 at the tensor cores' dense rate) and its library call.
+   in bf16 at the tensor cores' dense rate) and its library call.  The
+   optimizer's kernel pair (``csrc/adam.cu``) at ``afterstate4096``'s
+   leaves against its plain version: the same bits where the clip does
+   not engage and where it is off; where it engages, the plain step at a
+   global norm within 8 ulps of its own (the norm summed in another
+   order); timed beside its byte bound, the plain version and
+   ``torch.optim.Adam(fused=True)``.
 4. Movegen on the card at B=4096 on boards from a few env steps: the
    kernel path is bit-exact against the plain-PyTorch path on the card
    and against the CPU.  Every kernel call of one movegen call (the
@@ -82,7 +89,8 @@ Phases (any failure exits non-zero and prints no result line):
 5. Training path: ``get_preset("train4096")`` at B=4096, M=256, hidden
    128: one warm-up ``train_step`` and two timed ones (T=64 by default;
    the preset's 128 is cut to keep the run short).  Losses must be
-   finite, and each kernel's launches must grow by exactly its
+   finite, the optimizer's kernel pair must run once a minibatch step,
+   and each kernel's launches must grow by exactly its
    per-call count (``compactions_per_call``, ``dedups_per_call`` = 0,
    ``doubles_levels_per_call``, ``nondoubles_per_call``,
    ``doubles_finals_per_call``) x T per step.  One more rollout and
@@ -171,11 +179,14 @@ Phases (any failure exits non-zero and prints no result line):
    path calls ``dedup_compact_rows``, a 2-ply decision no
    ``compact_rows``, an update no movegen kernel; the afterstate pass on
    afterstate4096's rollout and update, the league, the arenas, 2-ply and
-   distillation, its backward on the update and distillation) and prints
-   the ``kernels`` JSON line of all seven (launches summed over every
-   path's run, and by path; the afterstate rows also with the widths and
-   dtypes held and their times at hidden 512 and in bf16), then the
-   device line
+   distillation, its backward on the update and distillation), and that
+   every path that updates ran the optimizer (each path's count is also
+   checked exactly in its phase: epochs x minibatches an update,
+   distillation one a minibatch) and no other did, and prints the
+   ``kernels`` JSON line of all seven and the optimizer (launches summed
+   over every path's run, and by path; the afterstate rows also with the
+   widths and dtypes held and their times at hidden 512 and in bf16; the
+   optimizer's also its calls), then the device line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--profile`` adds ``torch.profiler`` breakdowns of four env steps and of
@@ -234,6 +245,9 @@ WRAPPERS = {"compact_rows": ("compaction", "compact_rows"),
             "afterstate_eval_backward": ("afterstate",
                                          "afterstate_eval_backward")}
 KERNELS = tuple(WRAPPERS)
+# the optimizer wrapper's calls in ``launches()``, after the kernels
+# (mlp_ppo_2ply_p3_tpu_torch/ops/__init__.py::OPTIMIZER)
+OPTIMIZER = "adam_update"
 # movegen's kernels, bit-exact: what a Capture swaps by default
 MOVEGEN_KERNELS = KERNELS[:5]
 AFTERSTATE_KERNELS = KERNELS[5:]
@@ -558,6 +572,13 @@ def zero_launches():
     from mlp_ppo_2ply_p3_tpu_torch import ops
 
     ops.zero_launches()
+
+
+def with_optimizer(counts, calls=0):
+    """``counts`` (by kernel) with the optimizer wrapper's ``calls`` under
+    ``OPTIMIZER``: what ``launches()`` reads after a path that takes
+    ``calls`` optimizer steps."""
+    return {**counts, OPTIMIZER: calls}
 
 
 def per_call_launches(movegen, mg):
@@ -1407,6 +1428,128 @@ def afterstate_cases(torch, afterstate, features, dev):
     return fwd, bwd
 
 
+# --- phase 3: the optimizer step ---------------------------------------------
+
+# what adam.cu replaces: optax's chain in the JAX package, which XLA fuses
+ADAM_REPLACES = "mlp_ppo_2ply_p3_tpu/ppo/learner.py:102-106"
+ADAM_LR, ADAM_MAX_NORM = 1e-3, 0.5
+# the clipped step: the kernels' global norm (summed in another order)
+# within this many ulps of the plain version's
+ADAM_NORM_ULPS = 8
+
+
+def adam_inputs(torch, dev, model_cfg, norm, count, seed):
+    """The leaves of an MLP of ``model_cfg`` on ``dev``: its parameters,
+    gradients of global norm ``norm`` (the score head's zero, as the
+    unused head's are), moments, a step count."""
+    from mlp_ppo_2ply_p3_tpu_torch.models.mlp import MLP
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = [p.detach() for p in
+              MLP(model_cfg, device=dev, generator=gen).parameters()]
+    grads = [torch.randn(p.shape, generator=gen, device=dev) for p in params]
+    grads[-2:] = [torch.zeros_like(g) for g in grads[-2:]]
+    total = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    grads = [g * (norm / total) for g in grads]
+    mu = [0.01 * torch.randn(p.shape, generator=gen, device=dev)
+          for p in params]
+    nu = [1e-4 * torch.rand(p.shape, generator=gen, device=dev)
+          for p in params]
+    return params, grads, torch.tensor(count, dtype=torch.int32,
+                                       device=dev), mu, nu
+
+
+def adam_step_gap(torch, adam, inputs, max_norm, norm=None):
+    """(kernels' step, plain step) from ``inputs``, each (params, count,
+    mu, nu); with ``norm`` the plain step's clip uses that global norm."""
+    params, grads, count, mu, nu = inputs
+    got_p, want_p = ([p.clone() for p in params] for _ in range(2))
+    got = adam.adam_update(got_p, grads, count, mu, nu, ADAM_LR, max_norm)
+    if norm is not None:
+        keep = norm < max_norm
+        grads = [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
+        max_norm = 0.0
+    want = adam.adam_update_plain(want_p, grads, count, mu, nu, ADAM_LR,
+                                  max_norm)
+    return (got_p, *got), (want_p, *want)
+
+
+def flat_step(torch, step):
+    params, count, mu, nu = step
+    return torch.cat([t.reshape(-1) for t in (*params, *mu, *nu)]), count
+
+
+def adam_phase(torch, adam, profiling, model_cfg, dev):
+    """The kernel pair against its plain version at ``model_cfg``'s leaves
+    (afterstate4096's), the unused head's gradient zero, count 999: the
+    same bits where the clip does not engage and where it is off; where it
+    engages, the plain version's bits at a norm within ``ADAM_NORM_ULPS``
+    ulps of its own, the largest gap logged.  Then the clipped step's
+    device time (``timed_scan``) beside its byte bound, the plain version and
+    ``torch.optim.Adam(fused=True)`` (no clip; a yardstick the port never
+    calls), and the kernels' and the plain version's eager time
+    (``timed_eager``: CUDA events around back-to-back calls, so the host's
+    launches count where they are slower than the card)."""
+    out = {"hidden": model_cfg.hidden_size}
+    for case, max_norm, norm in (("unclipped", ADAM_MAX_NORM, 0.2),
+                                 ("off", 0.0, 3.0)):
+        got, want = adam_step_gap(
+            torch, adam, adam_inputs(torch, dev, model_cfg, norm, 999, 1),
+            max_norm)
+        (a, ca), (b, cb) = flat_step(torch, got), flat_step(torch, want)
+        check(torch.equal(a, b) and torch.equal(ca, cb),
+              f"adam {case}: kernels != plain version")
+    inputs = adam_inputs(torch, dev, model_cfg, 3.0, 999, 2)
+    got, want = adam_step_gap(torch, adam, inputs, ADAM_MAX_NORM)
+    (a, _), (b, _) = flat_step(torch, got), flat_step(torch, want)
+    out["max_abs_err"] = float((a - b).abs().max())
+    out["max_rel_err"] = float(((a - b).abs() / b.abs().clamp(
+        min=torch.finfo(torch.float32).tiny)).max())
+    grads = inputs[1]
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    inf = torch.tensor(float("inf"), device=dev)
+    up, down, found = norm.clone(), norm.clone(), None
+    for ulps in range(ADAM_NORM_ULPS + 1):
+        for n in (up, down):
+            got, want = adam_step_gap(torch, adam, inputs, ADAM_MAX_NORM, n)
+            if torch.equal(flat_step(torch, got)[0],
+                           flat_step(torch, want)[0]):
+                found = ulps
+        if found is not None:
+            break
+        up, down = torch.nextafter(up, inf), torch.nextafter(down, -inf)
+    check(found is not None,
+          f"adam clipped: no norm within {ADAM_NORM_ULPS} ulps of the plain "
+          f"version's gives the kernels' step")
+    out["norm_ulps"] = found
+
+    params, grads, count, mu, nu = inputs
+    n = sum(p.numel() for p in params)
+    out["params"] = n
+    # p, g, m, v read and p, m, v written, each byte once
+    out["bound_ms"] = 28 * n / H100_BYTES_PER_S * 1e3
+    # device time: CUDA graphs of back-to-back steps, so that the host's
+    # launches (168 a plain step) drop out
+    out["ms"] = 1e3 * profiling.timed_scan(
+        adam.adam_update, params, grads, count, mu, nu, ADAM_LR,
+        ADAM_MAX_NORM)
+    out["plain_ms"] = 1e3 * profiling.timed_scan(
+        adam.adam_update_plain, params, grads, count, mu, nu, ADAM_LR,
+        ADAM_MAX_NORM)
+    for key, fn in (("eager_ms", adam.adam_update),
+                    ("plain_eager_ms", adam.adam_update_plain)):
+        out[key] = 1e3 * profiling.timed_eager(
+            fn, params, grads, count, mu, nu, ADAM_LR, ADAM_MAX_NORM)
+    lib = [p.clone().requires_grad_() for p in params]
+    for p, g in zip(lib, grads):
+        p.grad = g.clone()
+    opt = torch.optim.Adam(lib, lr=ADAM_LR, fused=True, capturable=True)
+    out["library_ms"] = 1e3 * profiling.timed_scan(lambda t: opt.step(),
+                                                   count)
+    return out
+
+
 # --- phase 4 -----------------------------------------------------------------
 
 
@@ -1584,6 +1727,11 @@ def train_phase(torch, movegen, bg_env, learner, cfg, batch, t,
     dt = time.time() - t0
     counted = launches()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    steps = ppo.num_epochs * ppo.num_minibatches    # optimizer steps
+    check(counted[OPTIMIZER] == timed * steps,
+          f"the optimizer ran {counted[OPTIMIZER]} times in {timed} "
+          f"train_steps, expected {ppo.num_epochs} x {ppo.num_minibatches} "
+          f"a step")
 
     for name, per_step in train_step_launches(movegen, cfg.env, ppo).items():
         expect = timed * per_step
@@ -1615,6 +1763,10 @@ def train_phase(torch, movegen, bg_env, learner, cfg, batch, t,
     torch.cuda.synchronize()
     update_s = time.time() - t0
     update_launches = launches()
+    check(rollout_launches[OPTIMIZER] == 0 and update_launches[OPTIMIZER]
+          == steps, f"the optimizer ran {rollout_launches[OPTIMIZER]} times "
+          f"in a rollout and {update_launches[OPTIMIZER]} in an update, "
+          f"expected 0 and {steps}")
     out = {
         "batch": batch, "t_horizon": t, "timed_steps": timed,
         "policy_mode": ppo.policy_mode, "warmup_s": warm_s,
@@ -1808,7 +1960,7 @@ def exact_order_phase(torch, movegen, perf_twoply, bg_env, dev):
         got = movegen.legal_afterstates_batch(vecs, d, mg, mirror)
         torch.cuda.synchronize()
         counted = launches()
-        check(counted == per_call_launches(movegen, mg),
+        check(counted == with_optimizer(per_call_launches(movegen, mg)),
               f"exact_order movegen ({label}): launches {counted}")
         cpu = movegen.legal_afterstates_batch(vecs.cpu(), d.cpu(), mg,
                                               mirror.cpu())
@@ -1865,7 +2017,8 @@ def twoply_check(torch, twoply, bg_env, model, state, scfg):
         twoply.candidate_scores = inner
     torch.cuda.synchronize()
     counted = launches()
-    expect = dict(zip(KERNELS, twoply.launches_per_decision(batch, scfg)))
+    expect = with_optimizer(dict(zip(KERNELS, twoply.launches_per_decision(
+        batch, scfg))))
     check(counted == expect, f"2-ply decision at B={batch}, reply width "
           f"{scfg.reply_max_moves}: launches {counted}, expected {expect}")
     with Capture(plain=True):
@@ -2000,8 +2153,8 @@ def run_arena(movegen, arena, league, twoply, cfg, dev, pair, games,
         if agent == "twoply" else afterstate_launches(fwd=1)
         if agent in ("oneply", "frozen") else (0,) * len(KERNELS)
         for agent in pair.split(":")))]
-    expect = {name: (1 + ran) * per_step[name] + ran * extra
-              for name, extra in zip(KERNELS, per_ply)}
+    expect = with_optimizer({name: (1 + ran) * per_step[name] + ran * extra
+                             for name, extra in zip(KERNELS, per_ply)})
     check(counted == expect,
           f"arena {pair}: launches {counted}, expected {expect}")
     res["launches"] = counted
@@ -2063,8 +2216,8 @@ def bf16_eval_phase(torch, movegen, twoply, perf_twoply, arena, league,
         twoply.candidate_scores = inner
     torch.cuda.synchronize()
     counted = launches()
-    expect = dict(zip(KERNELS, twoply.launches_per_decision(
-        state.turn.shape[0], scfg)))
+    expect = with_optimizer(dict(zip(KERNELS, twoply.launches_per_decision(
+        state.turn.shape[0], scfg))))
     check(counted == expect, f"bf16 2-ply decision: launches {counted}, "
           f"expected {expect}")
     with Capture(plain=True, kernels=AFTERSTATE_KERNELS):
@@ -2096,7 +2249,8 @@ def bf16_eval_phase(torch, movegen, twoply, perf_twoply, arena, league,
     with torch.no_grad():
         got = basic.afterstate_policy_logits(bmodel, state)
         torch.cuda.synchronize()
-        check(launches() == dict(zip(KERNELS, afterstate_launches(fwd=1))),
+        check(launches() == with_optimizer(dict(zip(
+                  KERNELS, afterstate_launches(fwd=1)))),
               f"bf16 score-head policy: launches {launches()}")
         with Capture(plain=True, kernels=AFTERSTATE_KERNELS):
             plain = basic.afterstate_policy_logits(bmodel, state)
@@ -2226,9 +2380,12 @@ def trainer_phase(torch, movegen, arena, train_mod, ckpt, cfg,
                   f"{2 * LEAGUE_PLIES * evals}")
             # the first reset, T env steps per update, and per eval two
             # arenas of a reset and 400 plies: one movegen call each; the
-            # frozen_v1 arena's greedy 1-ply side one afterstate pass a ply
+            # frozen_v1 arena's greedy 1-ply side one afterstate pass a ply;
+            # every update's epochs x minibatches optimizer steps
             calls = 1 + updates * t + evals * 2 * (1 + LEAGUE_PLIES)
-            expect = {k: calls * v for k, v in per_step.items()}
+            expect = with_optimizer(
+                {k: calls * v for k, v in per_step.items()},
+                updates * cfg.ppo.num_epochs * cfg.ppo.num_minibatches)
             expect["afterstate_eval"] = evals * LEAGUE_PLIES
             check(counted == expect,
                   f"{label}: launches {counted}, expected {expect}")
@@ -2465,7 +2622,9 @@ def dp_phase(torch, movegen, learner, train_mod, get_preset,
     pod = get_preset("pod")
     mg = pod.env.movegen
     calls = 1 + DP_UPDATES * DP_T
-    expect = {k: calls * v for k, v in per_call_launches(movegen, mg).items()}
+    expect = with_optimizer(
+        {k: calls * v for k, v in per_call_launches(movegen, mg).items()},
+        DP_UPDATES * pod.ppo.num_epochs * pod.ppo.num_minibatches)
     out = {"ranks": DP_RANKS, "batch": pod.ppo.num_envs,
            "batch_per_rank": pod.ppo.num_envs // DP_RANKS,
            "t_horizon": DP_T, "updates": DP_UPDATES, "backend": "gloo"}
@@ -2604,8 +2763,10 @@ def nccl_phase(torch, compaction, movegen, bg_env, learner, mesh,
         check(bool(torch.equal(plain_m[k], sharded_m[k])),
               f"NCCL world of one: metric {k} differs")
     calls = 1 + ppo.t_horizon
-    expect = {k: calls * v
-              for k, v in per_call_launches(movegen, cfg.env.movegen).items()}
+    expect = with_optimizer(
+        {k: calls * v
+         for k, v in per_call_launches(movegen, cfg.env.movegen).items()},
+        ppo.num_epochs * ppo.num_minibatches)
     check(counted == expect, f"NCCL world of one: launches {counted}, "
           f"expected {expect}")
     return counted, per_rank
@@ -2774,8 +2935,10 @@ def distill_phase(torch, movegen, twoply, arena, learner, bg_env,
     updates = 2 * (DISTILL_PLIES * DISTILL_ENVS // 1024)
     train = afterstate_launches(fwd=updates + 2 * plies[0], bwd=updates)
     per = per_call_launches(movegen, mg)
-    expect = {name: calls * per[name] + DISTILL_PLIES * extra + more
-              for name, extra, more in zip(KERNELS, search, train)}
+    # and one optimizer step (clipping off: one kernel) an update step
+    expect = with_optimizer(
+        {name: calls * per[name] + DISTILL_PLIES * extra + more
+         for name, extra, more in zip(KERNELS, search, train)}, updates)
     check(counted == expect, f"distill launches {counted}, expected {expect}")
     agree = distill_agreement(torch, np, twoply, learner, bg_env, frozen,
                               run_distill, env_cfg, scfg, dev)
@@ -2834,8 +2997,10 @@ def bench_run(movegen, bench, preset=None):
     for line in proc.stderr.splitlines():
         if "] launches " in line:
             counted = json.loads(line.split("] launches ", 1)[1])
-    expect = {name: BENCH_UPDATES * per for name, per in
-              train_step_launches(movegen, env_cfg, ppo).items()}
+    expect = with_optimizer(
+        {name: BENCH_UPDATES * per for name, per in
+         train_step_launches(movegen, env_cfg, ppo).items()},
+        BENCH_UPDATES * ppo.num_epochs * ppo.num_minibatches)
     check(counted == expect, f"bench launches {counted}, expected {expect}")
     updates = [float(x.split("update ", 1)[1].split(": ", 1)[1].split("s ")[0])
                for x in proc.stderr.splitlines() if "] update " in x]
@@ -2851,10 +3016,14 @@ def breakdown_run(torch, movegen, profiling, perf_breakdown,
     and its twin under both widths, each time positive, each graph time
     at most 1.05 times its eager twin, both idle shares in [0, 1]; the
     launches of each ``timed_scan`` (counted at capture: the replays
-    count none) show that its movegen piece went through its kernels."""
+    count none) show that its movegen piece went through its kernels;
+    every update (``train_step``'s and the traced ones) took its epochs x
+    minibatches optimizer steps."""
     import contextlib
 
+    learner = perf_breakdown.learner
     inner, scans = perf_breakdown.timed_scan, []
+    inner_update, steps = learner.ppo_update, [0]
 
     def counted_scan(fn, *args, **kw):
         before = launches()
@@ -2863,8 +3032,15 @@ def breakdown_run(torch, movegen, profiling, perf_breakdown,
         scans.append(tuple(after[k] - before[k] for k in KERNELS))
         return out
 
+    def counted_update(ts, traj, last_value, last_turn, env_cfg, cfg,
+                       *a, **k):
+        steps[0] += cfg.num_epochs * cfg.num_minibatches
+        return inner_update(ts, traj, last_value, last_turn, env_cfg, cfg,
+                            *a, **k)
+
     zero_launches()
     perf_breakdown.timed_scan = counted_scan
+    learner.ppo_update = counted_update
     t0 = time.time()
     try:
         with contextlib.redirect_stdout(sys.stderr):
@@ -2872,9 +3048,13 @@ def breakdown_run(torch, movegen, profiling, perf_breakdown,
         torch.cuda.synchronize()
     finally:
         perf_breakdown.timed_scan = inner
+        learner.ppo_update = inner_update
     wall = time.time() - t0
     counted = launches()
     check(row["device"] == card, f"breakdown device {row['device']}")
+    check(0 < steps[0] == counted[OPTIMIZER],
+          f"breakdown: the optimizer ran {counted[OPTIMIZER]} times, its "
+          f"updates took {steps[0]} steps")
     calls = 1 + profiling.SCAN_ITERS     # the warm-up, then the capture
     check(len(scans) == len(BREAKDOWN_SCANS) * len(mgs),
           f"breakdown ran {len(scans)} timed_scans")
@@ -2977,7 +3157,7 @@ def main(argv=None) -> int:
                                                       twoply)
         from mlp_ppo_2ply_p3_tpu_torch.core import features, movegen
         from mlp_ppo_2ply_p3_tpu_torch.env import bg_env
-        from mlp_ppo_2ply_p3_tpu_torch.ops import (afterstate, build,
+        from mlp_ppo_2ply_p3_tpu_torch.ops import (adam, afterstate, build,
                                                    compaction, doubles,
                                                    nondoubles)
         from mlp_ppo_2ply_p3_tpu_torch.parallel import mesh
@@ -3043,6 +3223,19 @@ def main(argv=None) -> int:
         f"{widths}), afterstate_eval_backward within "
         f"{AFTERSTATE_NUDGE_FACTOR} x a one-ulp nudge on {len(bwd_rows)}: "
         f"{errs}; both deterministic; {time.time() - t0:.1f} s")
+
+    adam_row = adam_phase(torch, adam, profiling,
+                          get_preset("afterstate4096").model, dev)
+    report["phases"]["adam"] = adam_row
+    log(f"adam (afterstate4096's {adam_row['params']} parameters): kernels "
+        f"== plain bit for bit unclipped and with clipping off; clipped, "
+        f"the plain step at a norm {adam_row['norm_ulps']} ulps from its "
+        f"own (largest gap {adam_row['max_abs_err']:.2e}, relative "
+        f"{adam_row['max_rel_err']:.2e}); {adam_row['ms']:.4f} ms a step "
+        f"(bound {adam_row['bound_ms']:.5f} ms by bytes, plain "
+        f"{adam_row['plain_ms']:.4f}, torch.optim.Adam(fused=True) "
+        f"{adam_row['library_ms']:.4f}); eager {adam_row['eager_ms']:.4f} "
+        f"ms (plain {adam_row['plain_eager_ms']:.4f})")
 
     cfg = get_preset("train4096")
     main_rows, mg_ms, mg_graph_ms = movegen_phase(
@@ -3314,6 +3507,12 @@ def main(argv=None) -> int:
                 check(counted[name] > 0, f"{path} never launched {name}")
             else:
                 check(counted[name] == 0, f"{path} launched {name}")
+        # every path but the rollouts, 2-ply decisions and arenas updates
+        if path.startswith(("twoply_", "arena_")) or path.endswith(
+                "_rollout"):
+            check(counted[OPTIMIZER] == 0, f"{path} ran the optimizer")
+        else:
+            check(counted[OPTIMIZER] > 0, f"{path} never ran the optimizer")
 
     # last, so that the profiler's own cost cannot reach the timed steps
     table = None
@@ -3407,6 +3606,25 @@ def main(argv=None) -> int:
                               bwd_rows + [
                                   r for run in (after, *forms.values())
                                   for r in run["afterstate_backward_calls"]])]
+    # the optimizer: its calls by path, each checked above, one a step;
+    # a call launches two kernels, one where clipping is off
+    # (distillation's)
+    calls = {p: c[OPTIMIZER] for p, c in by_path.items()}
+    kernels.append({
+        "name": "adam", "route": "cuda",
+        "source": "mlp_ppo_2ply_p3_tpu_torch/csrc/adam.cu",
+        "replaces": ADAM_REPLACES,
+        "launches": sum((1 if p == "distill" else 2) * n
+                        for p, n in calls.items()),
+        "calls": sum(calls.values()), "calls_by_path": calls,
+        "max_abs_err": adam_row["max_abs_err"],
+        "norm_ulps": adam_row["norm_ulps"],
+        "ms": adam_row["ms"], "plain_ms": adam_row["plain_ms"],
+        "eager_ms": adam_row["eager_ms"],
+        "plain_eager_ms": adam_row["plain_eager_ms"],
+        "bound_ms": adam_row["bound_ms"], "bound_by": "bytes",
+        # torch.optim.Adam(fused=True), without the clip
+        "library_ms": adam_row["library_ms"]})
     report["kernels"] = kernels
     report["script_s"] = time.time() - t_script
     log(f"chip_smoke.py ran {report['script_s']:.1f} s")

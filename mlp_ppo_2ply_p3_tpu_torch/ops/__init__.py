@@ -1,26 +1,31 @@
 """The port's hand-written CUDA kernels and their wrappers
-(``compaction``, ``doubles``, ``nondoubles``, ``afterstate``; built by
-``build``)."""
+(``compaction``, ``doubles``, ``nondoubles``, ``afterstate``, ``adam``;
+built by ``build``)."""
 
 # every kernel wrapper, in the order of the launch tuples
 # (``agents.twoply.launches_per_decision``)
 KERNELS = ("compact_rows", "dedup_compact_rows", "doubles_level",
            "nondoubles", "doubles_final", "afterstate_eval",
            "afterstate_eval_backward")
+# the optimizer's wrapper (``adam.adam_update``): counted and zeroed with
+# the others under this key, its calls (one kernel pair each), but not one
+# of ``KERNELS``, whose tuples no 2-ply decision extends
+OPTIMIZER = "adam_update"
 
 
 def counters() -> dict:
     """{kernel: the wrapper function that owns its ``launches`` count}, in
-    ``KERNELS`` order."""
-    from . import afterstate, compaction, doubles, nondoubles
+    ``KERNELS`` order, then the optimizer's under ``OPTIMIZER``."""
+    from . import adam, afterstate, compaction, doubles, nondoubles
 
     owners = {**compaction._COUNTERS, **doubles._COUNTERS,
               **nondoubles._COUNTERS, **afterstate._COUNTERS}
-    return {name: owners[name] for name in KERNELS}
+    return {**{name: owners[name] for name in KERNELS},
+            OPTIMIZER: adam.adam_update}
 
 
 def launches() -> dict:
-    """{kernel: launches counted so far}."""
+    """{kernel: launches counted so far; ``OPTIMIZER``: its calls}."""
     return {name: fn.launches for name, fn in counters().items()}
 
 

@@ -4,15 +4,10 @@ Port of ``mlp_ppo_2ply_p3_tpu/ppo/learner.py``.  ``train_step`` collects
 a (T, B) rollout with a Python loop over T (the JAX ``lax.scan``),
 computes mover-perspective GAE (or the reference's MC returns), then
 runs ``num_epochs`` x ``num_minibatches`` clipped-surrogate steps with
-global-norm clipping and Adam, written out by hand so that they match
-optax's arithmetic:
-
-- ``optax.clip_by_global_norm``: scale by max/norm when norm >= max
-  (``clip_grad_norm_`` adds 1e-6 to the norm, so it is not used);
-- ``optax.scale_by_adam`` (b1 0.9, b2 0.999, eps 1e-8, bias-corrected)
-  then ``scale(-lr)``; a head the loss does not reach gets a zero
-  gradient, so every Adam step count matches;
-- ``jnp.std`` is the population std (``correction=0``).
+global-norm clipping and Adam (``ops/adam.py``: optax's arithmetic, one
+kernel pair a step on the card).  A head the loss does not reach gets a
+zero gradient, so every Adam step count matches; ``jnp.std`` is the
+population std (``correction=0``).
 
 Every random draw (actions, env dice, epoch permutations) goes through a
 ``Sampler`` built on an explicit ``torch.Generator``; tests substitute
@@ -45,12 +40,12 @@ from torch.nn import functional as Fn
 from .. import resolve_device
 from ..env import bg_env
 from ..models.mlp import MLP, ModelConfig
+from ..ops import adam as AD
 from ..ops import afterstate as AE
 from ..parallel import mesh
 from ..utils.profiling import span
 from . import gae as gae_mod
 
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 MASK_FLOOR = -1e9
 
 
@@ -177,26 +172,12 @@ def init_train_state(seed: int, model_cfg: ModelConfig, cfg: PPOConfig,
 @torch.no_grad()
 def adam_step(params, grads, state: AdamState, cfg: PPOConfig) -> AdamState:
     """clip_by_global_norm -> scale_by_adam -> scale(-lr), in place on
-    ``params``; returns the new optimizer state."""
+    ``params``; returns the new optimizer state (``ops.adam.adam_update``:
+    the kernel pair on the card, the old state left as it was)."""
     with span("adam_step"):
-        if cfg.max_grad_norm > 0:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            keep = g_norm < cfg.max_grad_norm
-            grads = [torch.where(keep, g, (g / g_norm) * cfg.max_grad_norm)
-                     for g in grads]
-        count = state.count + 1
-        c = count.to(torch.float32)
-        bc1 = 1 - ADAM_B1 ** c
-        bc2 = 1 - ADAM_B2 ** c
-        mu, nu = [], []
-        for p, g, m, v in zip(params, grads, state.mu, state.nu):
-            m = (1 - ADAM_B1) * g + ADAM_B1 * m
-            v = (1 - ADAM_B2) * (g * g) + ADAM_B2 * v
-            upd = (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
-            p.add_(upd * (-cfg.learning_rate))
-            mu.append(m)
-            nu.append(v)
-        return AdamState(count, mu, nu)
+        return AdamState(*AD.adam_update(
+            params, grads, state.count, state.mu, state.nu,
+            cfg.learning_rate, cfg.max_grad_norm))
 
 
 def entropy_coef(cfg: PPOConfig, episodes):

@@ -679,6 +679,19 @@ def test_chip_smoke_afterstate_inputs():
     assert TAS.afterstate_eval(*args).shape == (9, 13)
 
 
+def test_chip_smoke_counts_what_ops_counts():
+    """``chip_smoke.py`` names the kernels and the optimizer's count as
+    ``ops.launches()`` keys them, so that each path's expected counts
+    (``with_optimizer``) compare with what it reads."""
+    cs = _chip_smoke()
+    assert cs.KERNELS == ops.KERNELS and cs.OPTIMIZER == ops.OPTIMIZER
+    assert list(cs.launches()) == list(cs.with_optimizer(
+        dict.fromkeys(cs.KERNELS, 0), 3))
+    assert cs.with_optimizer({"nondoubles": 2}, 3) == {
+        "nondoubles": 2, ops.OPTIMIZER: 3}
+    assert cs.with_optimizer({})[ops.OPTIMIZER] == 0
+
+
 def test_chip_smoke_needs_a_card(monkeypatch, capsys):
     """Without a card ``chip_smoke.py`` exits non-zero before its first
     phase and prints nothing on stdout: the kernels have no CPU mode."""

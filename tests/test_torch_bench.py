@@ -87,8 +87,8 @@ def test_unknown_movegen_preset_raises():
 def test_lines_and_state(monkeypatch, capsys):
     """One line per timed update, the 4-key line last; the state equals
     three direct ``train_step`` calls (the warm-up and two timed ones)
-    from the bench's seeds; stderr logs the launches of every kernel, none
-    on the CPU."""
+    from the bench's seeds; stderr logs the launches of every kernel and
+    the optimizer's calls, none on the CPU."""
     for k, v in TINY.items():
         monkeypatch.setenv(k, v)
     res = bench.main(["--device", "cpu"])
@@ -99,7 +99,7 @@ def test_lines_and_state(monkeypatch, capsys):
     assert launched == {"compact_rows": 0, "dedup_compact_rows": 0,
                         "doubles_level": 0, "nondoubles": 0,
                         "doubles_final": 0, "afterstate_eval": 0,
-                        "afterstate_eval_backward": 0}
+                        "afterstate_eval_backward": 0, "adam_update": 0}
     assert len(lines) == 2 and len(res.update_s) == 2
     for line in lines:
         got = json.loads(line)

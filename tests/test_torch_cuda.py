@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card (``csrc/compaction.cu``,
-``csrc/doubles.cu``, ``csrc/nondoubles.cu``, ``csrc/afterstate.cu``).
+``csrc/doubles.cu``, ``csrc/nondoubles.cu``, ``csrc/afterstate.cu``,
+``csrc/adam.cu``).
 
 Every test here needs an NVIDIA card and skips without one: a CUDA
 kernel has no CPU mode.  The file imports neither JAX nor the JAX
@@ -12,7 +13,8 @@ package, so it also runs on a machine that has only PyTorch:
 parity of the plain versions with the JAX package is in
 ``tests/test_torch_compaction.py``, ``tests/test_torch_dedup.py``,
 ``tests/test_torch_doubles.py``, ``tests/test_torch_nondoubles.py`` and
-``tests/test_torch_afterstate.py``."""
+``tests/test_torch_afterstate.py``; the optimizer's wrapper on the CPU is
+``tests/test_torch_adam.py``."""
 
 import copy
 import dataclasses
@@ -1240,6 +1242,146 @@ def test_device_busy_against_graph_replay(card):
     assert 0.5 * scan_s <= busy_s <= 1.1 * scan_s, (busy_s, scan_s, traces)
     a, b = traces[-2][0], traces[-1][0]
     assert abs(a - b) <= profiling.AGREE * max(a, b), traces
+
+
+# --- the optimizer step (ops/adam.py, csrc/adam.cu) --------------------------
+
+# (case, max_grad_norm, the gradients' global norm): the clip not engaged,
+# engaged, and off (distillation's max_grad_norm = 0)
+ADAM_CASES = [("unclipped", 0.5, 0.2), ("clipped", 0.5, 3.0),
+              ("off", 0.0, 3.0)]
+ADAM_NORM_ULPS = 8
+
+
+def adam_inputs(card, hidden, norm, count, seed=0):
+    """An MLP's leaves on the card: its parameters, gradients of global norm
+    ``norm`` with the score head's zero (the unused head's), moments and a
+    step count."""
+    from mlp_ppo_2ply_p3_tpu_torch.models.mlp import MLP, ModelConfig
+
+    gen = torch.Generator(device=card).manual_seed(seed)
+    params = list(MLP(ModelConfig(hidden_size=hidden), device=card,
+                      generator=gen).parameters())
+    grads = [torch.randn(p.shape, generator=gen, device=card)
+             for p in params]
+    grads[-2:] = [torch.zeros_like(g) for g in grads[-2:]]
+    total = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    grads = [g * (norm / total) for g in grads]
+    mu = [0.01 * torch.randn(p.shape, generator=gen, device=card)
+          for p in params]
+    nu = [1e-4 * torch.rand(p.shape, generator=gen, device=card)
+          for p in params]
+    return (params, grads, torch.tensor(count, dtype=torch.int32,
+                                        device=card), mu, nu)
+
+
+def adam_at_norm(params, grads, count, mu, nu, max_grad_norm, norm):
+    """The plain version with the global norm given: the clip written as
+    the plain version writes it, then its step with clipping off."""
+    from mlp_ppo_2ply_p3_tpu_torch.ops import adam as TA
+
+    keep = norm < max_grad_norm
+    grads = [torch.where(keep, g, (g / norm) * max_grad_norm) for g in grads]
+    params = [p.clone() for p in params]
+    out = TA.adam_update_plain(params, grads, count, mu, nu, 1e-3, 0.0)
+    return params, out
+
+
+def same_step(a, b):
+    (pa, (ca, ma, va)), (pb, (cb, mb, vb)) = a, b
+    return torch.equal(ca, cb) and all(
+        torch.equal(x, y) for x, y in zip([*pa, *ma, *va], [*pb, *mb, *vb]))
+
+
+@pytest.mark.parametrize("count", [0, 999])
+@pytest.mark.parametrize("case,max_grad_norm,norm", ADAM_CASES,
+                         ids=[c[0] for c in ADAM_CASES])
+@pytest.mark.parametrize("hidden", [128, 512])
+def test_adam_matches_plain(card, hidden, case, max_grad_norm, norm, count):
+    """The kernel pair against the plain version at the MLP's leaves, the
+    unused head's gradient zero.  Where the clip does not engage (or is
+    off) the parameters, moments and count are the same bits.  Where it
+    engages, the kernels' outputs are the plain version's at a global norm
+    within ``ADAM_NORM_ULPS`` ulps of its own (the norm summed in another
+    order), the same bits on a second launch.  The old state and the
+    gradients are left as they were; one launch is counted a call."""
+    from mlp_ppo_2ply_p3_tpu_torch.ops import adam as TA
+
+    params, grads, cnt, mu, nu = adam_inputs(card, hidden, norm, count)
+    kept = [t.clone() for t in (cnt, *grads, *mu, *nu)]
+    want_p = [p.clone() for p in params]
+    want = TA.adam_update_plain(want_p, grads, cnt, mu, nu, 1e-3,
+                                max_grad_norm)
+    start = [p.clone() for p in params]
+    before = TA.adam_update.launches
+    got = TA.adam_update(params, grads, cnt, mu, nu, 1e-3, max_grad_norm)
+    again = [p.clone() for p in start]
+    got2 = TA.adam_update(again, grads, cnt, mu, nu, 1e-3, max_grad_norm)
+    torch.cuda.synchronize()
+    assert TA.adam_update.launches == before + 2
+    for a, b in zip((cnt, *grads, *mu, *nu), kept):
+        assert torch.equal(a, b)
+    assert int(got[0]) == count + 1
+    assert same_step((params, got), (again, got2))
+    if case != "clipped":
+        assert same_step((params, got), (want_p, want))
+        return
+    plain_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    assert bool(plain_norm >= max_grad_norm)
+    up, down = plain_norm.clone(), plain_norm.clone()
+    inf = torch.tensor(float("inf"), device=card)
+    for ulps in range(ADAM_NORM_ULPS + 1):
+        if any(same_step((params, got), adam_at_norm(
+                start, grads, cnt, mu, nu, max_grad_norm, n))
+               for n in (up, down)):
+            print(f"adam clipped at hidden {hidden}, count {count}: the "
+                  f"kernels' norm {ulps} ulps from the plain version's")
+            return
+        up, down = torch.nextafter(up, inf), torch.nextafter(down, -inf)
+    raise AssertionError(f"no norm within {ADAM_NORM_ULPS} ulps of the "
+                         f"plain version's gives the kernels' step")
+
+
+def test_adam_bias_corrections_match_torch_pow(card):
+    """At every count the kernels' powf bias corrections are torch.pow's:
+    clipping off, the step is the plain version's bits at counts 0-511 and
+    at large ones up to float32's last exact integer."""
+    from mlp_ppo_2ply_p3_tpu_torch.ops import adam as TA
+
+    params, grads, _, mu, nu = adam_inputs(card, 4, 1.0, 0, seed=3)
+    counts = list(range(512)) + [999, 4095, 12_799, 10**5, 10**6, 2**24 - 2]
+    for count in counts:
+        cnt = torch.tensor(count, dtype=torch.int32, device=card)
+        got_p, want_p = ([p.clone() for p in params] for _ in range(2))
+        got = TA.adam_update(got_p, grads, cnt, mu, nu, 1e-3, 0.0)
+        want = TA.adam_update_plain(want_p, grads, cnt, mu, nu, 1e-3, 0.0)
+        assert same_step((got_p, got), (want_p, want)), count
+
+
+def test_adam_rejects_what_the_kernels_do_not_take(card):
+    """float64, non-contiguous, CPU and mixed-device inputs raise before any
+    launch."""
+    from mlp_ppo_2ply_p3_tpu_torch.ops import adam as TA
+
+    def inputs():
+        return adam_inputs(card, 16, 0.2, 0)
+
+    bad = []
+    p, g, c, m, v = inputs()
+    bad.append((p, [g[0].double(), *g[1:]], c, m, v))
+    p, g, c, m, v = inputs()
+    bad.append((p, g, c, [m[0].t().contiguous().t(), *m[1:]], v))
+    p, g, c, m, v = inputs()
+    bad.append((p, g, c.cpu(), m, v))
+    p, g, c, m, v = inputs()
+    bad.append((p, [g[0].cpu(), *g[1:]], c, m, v))
+    p, g, c, m, v = inputs()
+    bad.append(([t.cpu() for t in p], g, c, m, v))
+    before = TA.adam_update.launches
+    for args in bad:
+        with pytest.raises((TypeError, ValueError)):
+            TA.adam_update(*args, 1e-3, 0.5)
+    assert TA.adam_update.launches == before
 
 
 def _train_state_tensors(ts, env, gen=True):
