@@ -248,6 +248,10 @@ KERNELS = tuple(WRAPPERS)
 # the optimizer wrapper's calls in ``launches()``, after the kernels
 # (mlp_ppo_2ply_p3_tpu_torch/ops/__init__.py::OPTIMIZER)
 OPTIMIZER = "adam_update"
+# a deep network's wrappers' calls in ``launches()``, after the optimizer's
+# (mlp_ppo_2ply_p3_tpu_torch/ops/__init__.py::DEEP)
+DEEP = ("afterstate_hidden", "afterstate_hidden_backward", "dense_layers",
+        "dense_layers_backward")
 # movegen's kernels, bit-exact: what a Capture swaps by default
 MOVEGEN_KERNELS = KERNELS[:5]
 AFTERSTATE_KERNELS = KERNELS[5:]
@@ -574,11 +578,13 @@ def zero_launches():
     ops.zero_launches()
 
 
-def with_optimizer(counts, calls=0):
+def with_optimizer(counts, calls=0, deep=None):
     """``counts`` (by kernel) with the optimizer wrapper's ``calls`` under
-    ``OPTIMIZER``: what ``launches()`` reads after a path that takes
-    ``calls`` optimizer steps."""
-    return {**counts, OPTIMIZER: calls}
+    ``OPTIMIZER`` and the deep pass's wrappers' calls (``deep``, by name;
+    0 for those it leaves out): what ``launches()`` reads after a path
+    that takes ``calls`` optimizer steps."""
+    return {**counts, OPTIMIZER: calls,
+            **{name: (deep or {}).get(name, 0) for name in DEEP}}
 
 
 def per_call_launches(movegen, mg):
@@ -1548,6 +1554,197 @@ def adam_phase(torch, adam, profiling, model_cfg, dev):
     out["library_ms"] = 1e3 * profiling.timed_scan(lambda t: opt.step(),
                                                    count)
     return out
+
+
+# --- the deep pass (wildbg4096) -------------------------------------------------
+
+# the deep pass's gate: a factor times what a one-ulp nudge of every weight
+# moves the plain version (values: 4 x the largest kept drift, at least
+# DEEP_FLOOR; gradients: 8 x the distance of the whole set, as
+# tests/test_torch_cuda.py::DEEP_GRAD_FACTOR says why)
+DEEP_NUDGE_FACTOR = 4.0
+DEEP_GRAD_FACTOR = 8.0
+DEEP_FLOOR = 1e-6
+H100_TENSOR_OPS_PER_S = 989e12   # the benchmark's yardstick (peaks.py)
+
+
+def deep_grads(torch, afterstate, args, weights, grad):
+    w = [x.detach().clone().requires_grad_() for x in weights]
+    y = afterstate.afterstate_deep_plain(*args[:3], w, *args[4:])
+    return torch.autograd.grad(y, w, grad)
+
+
+def deep_check(torch, afterstate, args, got, got_g=None, grad=None):
+    """(value gap, its gate, TF32's value gap[, gradient distance, its
+    gate]) of the deep pass's outputs against the plain version on
+    ``args``: the gates are DEEP_NUDGE_FACTOR times a one-ulp nudge's
+    drift; TF32 is the plain version with TF32 products allowed."""
+    weights = args[3]
+    want = afterstate.afterstate_deep_plain(*args)
+    kept = want != afterstate.FLOOR
+    check(bool(torch.equal(got == afterstate.FLOOR, ~kept)),
+          "deep pass: the floors differ from the plain version's")
+    nudged = nudged_params(torch, weights)
+    drift = (afterstate.afterstate_deep_plain(*args[:3], nudged, *args[4:])
+             - want)[kept].abs().max()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    tf32 = afterstate.afterstate_deep_plain(*args)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"value_gap": float((got - want)[kept].abs().max()),
+           "value_gate": max(DEEP_NUDGE_FACTOR * float(drift), DEEP_FLOOR),
+           "tf32_value_gap": float((tf32 - want)[kept].abs().max()),
+           "kept": int(kept.sum())}
+    check(out["value_gap"] <= out["value_gate"],
+          f"deep pass forward off the plain version: {out}")
+    if got_g is not None:
+        want_g = deep_grads(torch, afterstate, args, weights, grad)
+        nudge_g = deep_grads(torch, afterstate, args, nudged, grad)
+
+        def dist(xs, ys):
+            return sum(float(((x.double() - y.double()) ** 2).sum())
+                       for x, y in zip(xs, ys)) ** 0.5
+
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32_g = deep_grads(torch, afterstate, args, weights, grad)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        out["grad_dist"] = dist(got_g, want_g)
+        out["grad_gate"] = DEEP_GRAD_FACTOR * dist(nudge_g, want_g)
+        out["tf32_grad_dist"] = dist(tf32_g, want_g)
+        check(out["grad_dist"] <= out["grad_gate"],
+              f"deep pass gradients off the plain version: {out}")
+    return out
+
+
+def deep_bound_ms(n_kept, n_feat, widths, heads, backward):
+    """The least time of the first layer and of the dense layers on
+    ``n_kept`` boards, at the tensor cores' rate (the benchmark's
+    yardstick; their operations bound them)."""
+    h = widths[0]
+    dense = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    dense += widths[-1] * heads
+    first = 2 * n_feat * h + 2 * n_kept * h
+    ops = (first + 2 * n_kept * dense) * (2 if backward else 1)
+    return 1e3 * ops / H100_TENSOR_OPS_PER_S
+
+
+def deep_phase(torch, afterstate, dense, bg_env, learner, get_preset, dev):
+    """wildbg4096's deep pass on the card: at its first rollout step and
+    its first minibatch, the kernels against the plain version (values
+    and gradients within DEEP_NUDGE_FACTOR x a one-ulp nudge's drift,
+    beside TF32's gap), the same bits on a second launch, each wrapper's
+    time (CUDA events) beside its bound; then one timed train_step whose
+    launches show that it went through them: the first layer's deep form
+    and the dense layers once a rollout step and a minibatch step, their
+    backwards once a minibatch step, the shallow afterstate kernels
+    never."""
+    cfg = get_preset("wildbg4096")
+    widths = cfg.model.widths
+    ts = learner.init_train_state(1801, cfg.model, cfg.ppo, device=dev)
+    es = bg_env.reset(ts.gen, cfg.env, cfg.ppo.num_envs, device=dev)
+    weights, _ = ts.model.deep_weights("score")
+    weights = [w.detach() for w in weights]
+    turn, n = es.turn.to(torch.int32), es.n_moves.to(torch.int32)
+    out = {}
+
+    def kept_feats(boards, n):
+        valid = torch.arange(boards.shape[1], device=dev)[None] < n[:, None]
+        valid |= (n <= 0)[:, None]
+        b = boards.to(torch.int32)
+        pts = b[..., :48]
+        nnz = ((pts.clamp(0, 3) + (pts > 3)).sum(-1)
+               + (b[..., 48:] != 0).sum(-1) + 1)
+        return int(valid.sum()), int((nnz * valid).sum())
+
+    # the first rollout step: the forward
+    args = (es.after, turn, n, weights, None, False, "logits", 1.0)
+    with torch.no_grad():
+        got = afterstate.afterstate_deep(*args[:4])
+        again = afterstate.afterstate_deep(*args[:4])
+        row = deep_check(torch, afterstate, args, got)
+        check(bool(torch.equal(got, again)), "deep forward not deterministic")
+        (w1, b1), layers, head = afterstate._split(weights)
+        out_, h1, elem, count = afterstate.afterstate_hidden(
+            *args[:3], w1, b1, False, "logits")
+        row["hidden_ms"] = time_ms(lambda: afterstate.afterstate_hidden(
+            *args[:3], w1, b1, False, "logits"), 5)
+        row["dense_ms"] = time_ms(lambda: dense.dense_layers(
+            h1, elem, count, out_, layers, head), 5)
+    n_kept, n_feat = kept_feats(es.after, n)
+    row["bound_ms"] = deep_bound_ms(n_kept, n_feat, widths, 1, False)
+    out["rollout_step"] = row
+    # the first minibatch: a rollout's rows in the update's first order
+    sampler = learner.Sampler(ts.gen)
+    _, traj, _, _ = learner.rollout(ts.model, es, sampler, cfg.env, cfg.ppo)
+    rows = cfg.ppo.num_envs * cfg.ppo.t_horizon
+    idx = sampler.permutation(rows, dev)[:rows // cfg.ppo.num_minibatches]
+    after = traj.after.reshape(rows, *traj.after.shape[2:])[idx]
+    mturn = traj.turn.reshape(rows)[idx].to(torch.int32)
+    mn = traj.n_moves.reshape(rows)[idx].to(torch.int32)
+    del traj
+    args = (after, mturn, mn, weights, None, False, "logits", 1.0)
+    w = [x.clone().requires_grad_() for x in weights]
+    got = afterstate.afterstate_deep(after, mturn, mn, w)
+    grad = torch.randn(got.shape, device=dev,
+                       generator=torch.Generator(dev).manual_seed(3))
+    grad = grad * (got > afterstate.FLOOR)
+    got_g = torch.autograd.grad(got, w, grad)
+    again_g = torch.autograd.grad(afterstate.afterstate_deep(
+        after, mturn, mn, w), w, grad)
+    check(all(bool(torch.equal(a, b)) for a, b in zip(got_g, again_g)),
+          "deep backward not deterministic")
+    row = deep_check(torch, afterstate, args, got.detach(), got_g, grad)
+
+    def fwd_bwd():
+        y = afterstate.afterstate_deep(after, mturn, mn, w)
+        torch.autograd.grad(y, w, grad)
+
+    row["fwd_bwd_ms"] = time_ms(fwd_bwd, 3)
+    n_kept, n_feat = kept_feats(after, mn)
+    row["bound_ms"] = deep_bound_ms(n_kept, n_feat, widths, 1, False) + \
+        deep_bound_ms(n_kept, n_feat, widths, 1, True)
+    out["minibatch"] = row
+    del after, w, got, got_g, again_g
+    # one train_step through the wrappers
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ts, es, metrics = learner.train_step(ts, es, cfg.env, cfg.model, cfg.ppo)
+    torch.cuda.synchronize()
+    out["train_step_s"] = time.time() - t0
+    out["launches"] = launches()
+    steps = cfg.ppo.num_epochs * cfg.ppo.num_minibatches
+    calls = cfg.ppo.t_horizon + steps
+    expect = {"afterstate_hidden": calls, "dense_layers": calls,
+              "afterstate_hidden_backward": steps,
+              "dense_layers_backward": steps}
+    for name, want in expect.items():
+        check(out["launches"][name] == want,
+              f"wildbg4096 train_step: {name} {out['launches'][name]} "
+              f"launches, expected {want}")
+    check(out["launches"]["afterstate_eval"] == 0
+          and out["launches"]["afterstate_eval_backward"] == 0
+          and out["launches"][OPTIMIZER] == steps,
+          f"wildbg4096 train_step: launches {out['launches']}")
+    check(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
+          "wildbg4096 train_step: a metric is not finite")
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def log_deep(out):
+    r, mb = out["rollout_step"], out["minibatch"]
+    log(f"deep pass (wildbg4096): rollout step {r['kept']} kept boards, "
+        f"value gap {r['value_gap']:.2e} (gate {r['value_gate']:.2e}, TF32 "
+        f"{r['tf32_value_gap']:.2e}), afterstate_hidden {r['hidden_ms']:.4f}"
+        f" ms + dense_layers {r['dense_ms']:.4f} ms against a bound of "
+        f"{r['bound_ms']:.4f} ms; first minibatch {mb['kept']} kept boards,"
+        f" value gap {mb['value_gap']:.2e} (gate {mb['value_gate']:.2e}, "
+        f"TF32 {mb['tf32_value_gap']:.2e}), gradients {mb['grad_dist']:.2e}"
+        f" from plain (gate {mb['grad_gate']:.2e}, TF32 "
+        f"{mb['tf32_grad_dist']:.2e}), forward and backward "
+        f"{mb['fwd_bwd_ms']:.3f} ms against {mb['bound_ms']:.4f}; "
+        f"train_step {out['train_step_s']:.2f} s, launches "
+        f"{json.dumps(out['launches'])}, peak {out['peak_gb']:.1f} GB")
 
 
 # --- phase 4 -----------------------------------------------------------------
@@ -3141,6 +3338,8 @@ def main(argv=None) -> int:
     # one rank of phase 8, started by this script: RANK SIZE PORT DIR
     ap.add_argument("--dp-worker", nargs=4, default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--deep-only", action="store_true",
+                    help="build, then the deep pass's phase alone")
     args = ap.parse_args(argv)
     t_script = time.time()
 
@@ -3158,8 +3357,8 @@ def main(argv=None) -> int:
         from mlp_ppo_2ply_p3_tpu_torch.core import features, movegen
         from mlp_ppo_2ply_p3_tpu_torch.env import bg_env
         from mlp_ppo_2ply_p3_tpu_torch.ops import (adam, afterstate, build,
-                                                   compaction, doubles,
-                                                   nondoubles)
+                                                   compaction, dense,
+                                                   doubles, nondoubles)
         from mlp_ppo_2ply_p3_tpu_torch.parallel import mesh
         from mlp_ppo_2ply_p3_tpu_torch.ppo import learner
         from mlp_ppo_2ply_p3_tpu_torch.ppo import train as train_mod
@@ -3190,6 +3389,12 @@ def main(argv=None) -> int:
         log(f"{name}.cu: "
             f"{build.build_logs.get(name, '(already built)').strip()}")
 
+    if args.deep_only:
+        deep = deep_phase(torch, afterstate, dense, bg_env, learner,
+                          get_preset, dev)
+        log_deep(deep)
+        print(json.dumps({"ok": True, "deep": deep}))
+        return 0
     report["phases"]["edge_cases"] = edge_cases(torch, compaction, dev)
     log(f"compact_rows == plain on {len(report['phases']['edge_cases'])} "
         f"shapes")
@@ -3223,6 +3428,13 @@ def main(argv=None) -> int:
         f"{widths}), afterstate_eval_backward within "
         f"{AFTERSTATE_NUDGE_FACTOR} x a one-ulp nudge on {len(bwd_rows)}: "
         f"{errs}; both deterministic; {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    deep = deep_phase(torch, afterstate, dense, bg_env, learner, get_preset,
+                      dev)
+    deep["phase_s"] = time.time() - t0
+    report["phases"]["deep"] = deep
+    log_deep(deep)
 
     adam_row = adam_phase(torch, adam, profiling,
                           get_preset("afterstate4096").model, dev)
@@ -3479,6 +3691,7 @@ def main(argv=None) -> int:
     by_path["bench"] = bench["launches"]
     by_path["bench_afterstate4096"] = bench_as["launches"]
     by_path["breakdown"] = bd["launches"]
+    by_path["wildbg4096"] = deep["launches"]
     # the kernels each path must launch; it may launch no other.  The
     # non-doubles kernel dedups on chip, so no path calls
     # dedup_compact_rows; a 2-ply decision splits no sub-batch; an update

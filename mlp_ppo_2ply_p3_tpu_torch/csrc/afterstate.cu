@@ -140,7 +140,10 @@ constexpr int kLogits = 0, kMasked = 1, kMin = 2;
 constexpr unsigned kFull = 0xffffffffu;
 // the forward's grids: one block's unit group (H <= 128), a cluster of two
 // (H <= 256), tile ranges x unit groups with a second kernel (H > 256)
-constexpr int kSingle = 0, kPair = 1, kSplit = 2;
+// kEmit: a deep network's fc1, tile ranges x unit groups as kSplit, each
+// writing relu(pre) of its units for every kept board (csrc/dense.cu takes
+// the layers after it)
+constexpr int kSingle = 0, kPair = 1, kSplit = 2, kEmit = 3;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -183,6 +186,11 @@ struct Args {
   const float* grad;   // backward only
   float* out;          // forward: the output; backward: the partials
   float* part;         // the forward past 256 units: (groups, rows m)
+  float* h1;           // kEmit: (kept capacity, ldh) relu(pre) of each board
+  int* elem;           // kEmit: each kept board's element r m + s
+  int* count;          // kEmit: the number of kept boards
+  const float* dpre;   // the deep backward: fc1's dpre, (capacity, ldh)
+  int ldh;
   int rows, m, hidden, opponent, epilogue;
   float sign;
   int aligned;         // boards 4-byte aligned: cp.async, else byte loads
@@ -795,7 +803,8 @@ __device__ void write_floors(const Args& a, const Smem& s, int block,
 template <int kMode, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 afterstate_eval_kernel(Args a) {
-  constexpr bool kPair_ = kMode == kPair, kSplit_ = kMode == kSplit;
+  constexpr bool kPair_ = kMode == kPair, kEmit_ = kMode == kEmit;
+  constexpr bool kSplit_ = kMode == kSplit || kEmit_;
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem s = carve(smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -808,8 +817,12 @@ afterstate_eval_kernel(Args a) {
   if (!kSplit_ && a.epilogue != kMin) {
     write_floors(a, s, blockIdx.x, gridDim.x);
   }
+  if (kEmit_ && blockIdx.y == 0) write_floors(a, s, blockIdx.x, gridDim.x);
   int t0, t1;
   locate(a, s, group, groups, t0, t1);
+  if (kEmit_ && blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+    *a.count = s.sc[10];
+  }
   if (t0 >= t1) return;   // both blocks of a pair alike
   const int n_kept = s.sc[10];
   // the first tile's boards fly while W1 is staged
@@ -848,6 +861,31 @@ afterstate_eval_kernel(Args a) {
     }
     float acc[32];
     fc1_tile<false, kBf16>(s, acc);
+    if constexpr (kEmit_) {   // kept board 64 tile + b, units of this group
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int b = 8 * i + 2 * t + c;
+          if (s.te[buf * kTile + b] < 0) continue;
+          float* hrow = a.h1 + ((size_t)tile * kTile + b) * a.ldh;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int u = kUnits * rank + 16 * warp + g + 8 * r;
+            float pre = fmaf(s.offv[2 * b], w97r[r], acc[4 * i + 2 * r + c]);
+            pre = fmaf(s.offv[2 * b + 1], w195r[r], pre) + b1r[r];
+            if (u < a.hidden) hrow[u] = fmaxf(pre, 0.0f);
+          }
+        }
+      }
+      if (rank == 0 && threadIdx.x < kTile) {
+        const int e = s.te[buf * kTile + threadIdx.x];
+        if (e >= 0) a.elem[(size_t)tile * kTile + threadIdx.x] = e;
+      }
+      cp_async_wait<0>();   // as below
+      __syncthreads();
+      continue;
+    }
     // the head over this thread's two units for its 16 boards, then over
     // the warp's 16 units: a reduce-scatter over the 8 lanes of a t (each
     // step keeps half the boards), so lane (g, t) ends with boards
@@ -890,7 +928,7 @@ afterstate_eval_kernel(Args a) {
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) y += s.ysum[w * kTile + threadIdx.x];
       if constexpr (kPair_) s.yx[buf * kTile + threadIdx.x] = y;
-      if constexpr (kSplit_) {
+      if constexpr (kSplit_ && !kEmit_) {
         const int e = s.te[buf * kTile + threadIdx.x];
         if (e >= 0) a.part[(size_t)rank * a.rows * a.m + e] = y;
       }
@@ -974,8 +1012,11 @@ __global__ void afterstate_finish_kernel(Args a, int groups) {
 // The backward.  Grid (P, ceil(H / 128)): block (p, q) sums the gradient
 // of its range of tiles for units 128 q .. min(128 q + 127, H - 1) into
 // slab p of part, P slabs of 198 H + 2 H + 1 floats laid out as the flat
-// output: dW1 (H, 198), db1 (H), dw_head (H), db_head.
-template <bool kBf16>
+// output: dW1 (H, 198), db1 (H), dw_head (H), db_head.  kDeep (a deep
+// network's fc1, float32): dpre is csrc/dense.cu's, read from a.dpre by kept
+// board in the forward's order; no fc1 product, no head (dw_head and db_head
+// come out zero).
+template <bool kBf16, bool kDeep>
 __global__ void __launch_bounds__(kThreads, 1)
 afterstate_backward_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -999,9 +1040,9 @@ afterstate_backward_kernel(Args a) {
   if (t0 < t1) {
     const int n_kept = s.sc[10];
     load_window(a, s, s.sc[8], s.sc[9]);
-    map_tile(a, s, 0, t0 * kTile, min(kTile, n_kept - t0 * kTile), true);
+    map_tile(a, s, 0, t0 * kTile, min(kTile, n_kept - t0 * kTile), !kDeep);
     cp_async_commit();
-    stage_weights<kBf16>(a, s, u0);
+    if constexpr (!kDeep) stage_weights<kBf16>(a, s, u0);
     cp_async_wait<0>();
     __syncthreads();
     // ldmatrix.trans rows of the feature tile: boards 16 kk + 8 ((l >> 3) &
@@ -1011,21 +1052,38 @@ afterstate_backward_kernel(Args a) {
                         (lane & 7) * 16;
     for (int tile = t0; tile < t1; ++tile) {
       const int buf = (tile - t0) & 1;
-      decode_tile<kBf16>(a, s, buf, true);
+      decode_tile<kBf16>(a, s, buf, !kDeep);
       __syncthreads();   // as in the forward
       if (tile + 1 < t1) {
         const int g1 = (tile + 1) * kTile;
-        map_tile(a, s, buf ^ 1, g1, min(kTile, n_kept - g1), true);
+        map_tile(a, s, buf ^ 1, g1, min(kTile, n_kept - g1), !kDeep);
         cp_async_commit();
       }
-      if (warp == 0) {   // the tile's sum of d, then into the block's
+      if (!kDeep && warp == 0) {   // the tile's sum of d, then the block's
         float v = s.dval[lane] + s.dval[lane + 32];
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
         gbh += v;
       }
       float acc[32];
-      fc1_tile<true, kBf16>(s, acc);
+      if constexpr (kDeep) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int b = 8 * i + 2 * t + c;
+            const bool kept = s.te[buf * kTile + b] >= 0;
+            const float* drow = a.dpre + ((size_t)tile * kTile + b) * a.ldh;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int u = u0 + 16 * warp + g + 8 * r;
+              acc[4 * i + 2 * r + c] = kept && u < a.hidden ? drow[u] : 0.0f;
+            }
+          }
+        }
+      } else {
+        fc1_tile<true, kBf16>(s, acc);
+      }
       {
         // dpre in place of pre, and the tile's db1, dw_head, dW1[:, 97],
         // dW1[:, 195] of units 16 warp + g + 8 r: this thread's 16 boards,
@@ -1038,14 +1096,16 @@ afterstate_backward_kernel(Args a) {
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int b = 8 * i + 2 * t + c;
-            const float d = s.dval[b];
+            const float d = kDeep ? 0.0f : s.dval[b];
             const float o0 = kBf16 ? 0.0f : s.offv[2 * b];
             const float o1 = kBf16 ? 0.0f : s.offv[2 * b + 1];
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
               const int j = 16 * warp + g + 8 * r;
-              float pre, dp;
-              if constexpr (kBf16) {   // the forward's roundings; dh's
+              float pre = 0.0f, dp;
+              if constexpr (kDeep) {
+                dp = acc[4 * i + 2 * r + c];
+              } else if constexpr (kBf16) {   // the forward's roundings; dh's
                 pre = bf16r(bf16r(acc[4 * i + 2 * r + c]) + s.b1[j]);
                 dp = pre > 0.0f ? bf16r(d * s.wh[j]) : 0.0f;
               } else {
@@ -1053,7 +1113,9 @@ afterstate_backward_kernel(Args a) {
                 dp = pre > 0.0f ? d * s.wh[j] : 0.0f;
               }
               sums[0][r] += dp;
-              sums[1][r] = fmaf(d, fmaxf(pre, 0.0f), sums[1][r]);
+              if constexpr (!kDeep) {
+                sums[1][r] = fmaf(d, fmaxf(pre, 0.0f), sums[1][r]);
+              }
               if constexpr (!kBf16) {
                 sums[2][r] = fmaf(o0, dp, sums[2][r]);
                 sums[3][r] = fmaf(o1, dp, sums[3][r]);
@@ -1308,12 +1370,30 @@ int launch_split(const Args& a, int unit_groups, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// A deep network's fc1 (kEmit): the floors, then tile ranges x unit groups
+// (about one wave); a zero count where there is no board.
+int launch_emit(const Args& a, int unit_groups, cudaStream_t stream) {
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  const int resident = forward_groups<kEmit, false>(dev);
+  if (resident < 0) return -resident;
+  const long long boards = (long long)a.rows * a.m;
+  if (boards == 0) {
+    return (int)cudaMemsetAsync(a.count, 0, sizeof(int), stream);
+  }
+  const int ranges = (int)std::min<long long>(
+      (boards + kTile - 1) / kTile, std::max(resident / unit_groups, 1));
+  afterstate_eval_kernel<kEmit, false>
+      <<<dim3(ranges, unit_groups), kThreads, kSmem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 Args make_args(const void* boards, const void* mover, const void* n,
                const void* w1, const void* b1, const void* wh,
                const void* bh, const void* grad, void* out, void* part,
                int rows, int m, int hidden, int opponent, int epilogue,
                float sign) {
-  Args a;
+  Args a{};
   a.boards = (const int8_t*)boards;
   a.mover = (const int32_t*)mover;
   a.n = (const int32_t*)n;
@@ -1335,12 +1415,12 @@ Args make_args(const void* boards, const void* mover, const void* n,
 }
 
 // The >48 KB opt-in of the backward, before any capture.
-template <bool kBf16>
+template <bool kBf16, bool kDeep>
 int backward_opt_in(int dev) {
   static bool opted[kMaxDevices] = {};
   if (!opted[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        afterstate_backward_kernel<kBf16>,
+        afterstate_backward_kernel<kBf16, kDeep>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
     if (err != cudaSuccess) return (int)err;
     opted[dev] = true;
@@ -1348,15 +1428,15 @@ int backward_opt_in(int dev) {
   return 0;
 }
 
-template <bool kBf16>
+template <bool kBf16, bool kDeep = false>
 int launch_backward(const Args& a, const float* scratch, float* dparams,
                     int blocks, int unit_groups, cudaStream_t stream) {
   const int dev = current_device();
   if (dev < 0) return (int)cudaErrorInvalidDevice;
-  const int opt = backward_opt_in<kBf16>(dev);
+  const int opt = backward_opt_in<kBf16, kDeep>(dev);
   if (opt != 0) return opt;
   if (blocks > 0) {
-    afterstate_backward_kernel<kBf16>
+    afterstate_backward_kernel<kBf16, kDeep>
         <<<dim3(blocks, unit_groups), kThreads, kSmem, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -1439,4 +1519,60 @@ extern "C" int afterstate_backward_launch(
                : launch_backward<false>(a, (const float*)scratch,
                                         (float*)dparams, blocks, unit_groups,
                                         st);
+}
+
+// A deep network's fc1, float32: out (rows, m) gets the floor of every slot
+// the epilogue (0 logits, 1 masked) does not keep; h1 (at least the kept
+// boards' number of rows, ldh >= hidden floats apart, a multiple of 4) the
+// post-ReLU fc1 of each kept board in the kernels' global order, elem its
+// element r m + s, count (one int) their number.  csrc/dense.cu runs the rest.
+extern "C" int afterstate_emit_launch(const void* boards, const void* mover,
+                                      const void* n, const void* w1,
+                                      const void* b1, void* out, void* h1,
+                                      int ldh, void* elem, void* count,
+                                      int rows, int m, int hidden,
+                                      int opponent, int epilogue,
+                                      void* stream) {
+  const int unit_groups = (hidden + kUnits - 1) / kUnits;
+  if (rows < 0 || m < 0 || hidden < 1 || unit_groups > kMaxGroups ||
+      ldh < hidden || ldh % 4 != 0 ||
+      (epilogue != kLogits && epilogue != kMasked)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // the head's pointers are staged but not read: b1 stands in for them
+  Args a = make_args(boards, mover, n, w1, b1, b1, b1, nullptr, out, nullptr,
+                     rows, m, hidden, opponent, epilogue, 1.0f);
+  a.h1 = (float*)h1;
+  a.elem = (int*)elem;
+  a.count = (int*)count;
+  a.ldh = ldh;
+  return launch_emit(a, unit_groups, (cudaStream_t)stream);
+}
+
+// A deep network's fc1 backward, float32: dpre (kept boards, ldh floats
+// apart) is fc1's pre-activation gradient by kept board in the forward's
+// order (csrc/dense.cu's); dparams, blocks and scratch as in
+// afterstate_backward_launch, whose dw_head and db_head come out zero.
+extern "C" int afterstate_backward_deep_launch(
+    const void* boards, const void* mover, const void* n, const void* dpre,
+    int ldh, void* scratch, long long scratch_floats, void* dparams,
+    int blocks, int rows, int m, int hidden, int opponent, int epilogue,
+    void* stream) {
+  const int unit_groups = (hidden + kUnits - 1) / kUnits;
+  const long long slab = (long long)kFeatures * hidden + 2LL * hidden + 1;
+  if (rows < 0 || m < 0 || hidden < 1 || unit_groups > kMaxGroups ||
+      ldh < hidden || blocks < 0 ||
+      (blocks == 0 && (long long)rows * m > 0) ||
+      scratch_floats < blocks * slab ||
+      (epilogue != kLogits && epilogue != kMasked)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Args a = make_args(boards, mover, n, nullptr, nullptr, nullptr, nullptr,
+                     nullptr, scratch, nullptr, rows, m, hidden, opponent,
+                     epilogue, 1.0f);
+  a.dpre = (const float*)dpre;
+  a.ldh = ldh;
+  return launch_backward<false, true>(a, (const float*)scratch,
+                                      (float*)dparams, blocks, unit_groups,
+                                      (cudaStream_t)stream);
 }

@@ -9,6 +9,19 @@ biases (``nn.Linear``'s default distribution), drawn from an explicit
 generator.  Parameters are float32; ``compute_dtype`` casts inputs and
 weights for the matmuls (e.g. bfloat16) and outputs come back float32.
 Weights carried over from the JAX package go through ``utils.convert``.
+
+A ``trunk`` of hidden widths after ``fc1`` makes the network deep: ``fc1``
+(198 -> ``hidden_size``), then ``fc2`` (-> trunk[0]), ``fc3``, ... (ReLU
+after each), and the heads on the last.  With ``outcome`` the scalar ``value`` head gives
+way to ``outcome`` (last width -> 6), whose softmax is the probabilities of
+win, gammon win, backgammon win, loss, gammon loss and backgammon loss, and
+the value is their expected reward (``OUTCOME_REWARDS``, the env's rewards
+for each): wildbg's evaluation network (github.com/carsten-wenderdel/wildbg,
+its training code's ``Network``: 300, 250, 200 and 6 outcomes) on the
+port's 198 features.  Layers are drawn in the order fc1, fc2, ..., action,
+value or outcome, score; a deep network computes in float32 (bfloat16
+raises: ``ops.afterstate.DEEP_BF16_ITEM``).  The defaults keep the
+one-layer network, its parameters and its draws as they were.
 """
 
 from __future__ import annotations
@@ -21,9 +34,18 @@ from torch import nn
 from torch.nn import functional as Fn
 
 from .. import resolve_device
-from ..core.constants import FEATURE_DIM
+from ..core.constants import (FEATURE_DIM, REWARD_WIN_BACKGAMMON,
+                              REWARD_WIN_GAMMON, REWARD_WIN_NORMAL)
 
 HEADS = ("fc1", "action", "value", "score")
+# the outcome head's order and the reward of each outcome for the mover
+OUTCOMES = ("win", "win_gammon", "win_backgammon", "lose", "lose_gammon",
+            "lose_backgammon")
+OUTCOME_REWARDS = (REWARD_WIN_NORMAL, REWARD_WIN_GAMMON,
+                   REWARD_WIN_BACKGAMMON, -REWARD_WIN_NORMAL,
+                   -REWARD_WIN_GAMMON, -REWARD_WIN_BACKGAMMON)
+# what lifts the refusal of a deep bfloat16 network
+DEEP_BF16_ITEM = "ROADMAP.md, queue 6, item C10"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +54,26 @@ class ModelConfig:
     hidden_size: int = 128          # reference HIDDEN_SIZE
     action_size: int = 500          # reference max_legal_moves
     compute_dtype: str = "float32"  # "bfloat16" for tensor-core inference
+    trunk: tuple = ()               # a deep network's widths after fc1
+    outcome: bool = False           # the value from 6 outcome probabilities
+
+    @property
+    def widths(self) -> tuple:
+        """The hidden widths, fc1's first."""
+        return (self.hidden_size, *self.trunk)
+
+    def check(self) -> None:
+        """Raise on a configuration that no pass computes."""
+        if self.trunk:
+            if min(self.trunk) < 1:
+                raise ValueError(f"a trunk's widths are positive; got "
+                                 f"{self.trunk}")
+            if self.compute_dtype != "float32":
+                raise NotImplementedError(
+                    f"a deep network computes in float32, not "
+                    f"{self.compute_dtype}: see {DEEP_BF16_ITEM}")
+        elif self.outcome:
+            raise ValueError("the outcome head needs a trunk")
 
 
 class MLP(nn.Module):
@@ -42,13 +84,19 @@ class MLP(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         dev = resolve_device(device)
+        cfg.check()
         self.cfg = cfg
-        sizes = {
-            "fc1": (cfg.input_size, cfg.hidden_size),
-            "action": (cfg.hidden_size, cfg.action_size),
-            "value": (cfg.hidden_size, 1),
-            "score": (cfg.hidden_size, 1),
-        }
+        widths = cfg.widths
+        top = widths[-1]
+        sizes = {"fc1": (cfg.input_size, widths[0])}
+        for i in range(1, len(widths)):
+            sizes[f"fc{i + 1}"] = (widths[i - 1], widths[i])
+        sizes.update({
+            "action": (top, cfg.action_size),
+            "outcome" if cfg.outcome else "value":
+                (top, len(OUTCOMES) if cfg.outcome else 1),
+            "score": (top, 1),
+        })
         self.layers = nn.ModuleDict({
             name: nn.Linear(fan_in, fan_out, device=dev)
             for name, (fan_in, fan_out) in sizes.items()
@@ -69,22 +117,52 @@ class MLP(nn.Module):
                          lin.bias.to(dtype))
 
     def trunk(self, x):
-        return torch.relu(self._dense("fc1", x, self.dtype))
+        """(..., 198) -> the last hidden layer."""
+        h = torch.relu(self._dense("fc1", x, self.dtype))
+        for i in range(2, len(self.cfg.widths) + 1):
+            h = torch.relu(self._dense(f"fc{i}", h, h.dtype))
+        return h
+
+    def _value(self, h):
+        if self.cfg.outcome:
+            return outcome_value(self._dense("outcome", h, h.dtype).float())
+        return self._dense("value", h, h.dtype).float()[..., 0]
 
     def forward(self, x):
         """(..., 198) -> (logits (..., A), value (...,))."""
         h = self.trunk(x)
         logits = self._dense("action", h, h.dtype).float()
-        value = self._dense("value", h, h.dtype).float()[..., 0]
-        return logits, value
+        return logits, self._value(h)
 
     def value(self, x):
-        """(..., 198) -> (...,) state/afterstate value via the value head."""
-        h = self.trunk(x)
-        return self._dense("value", h, h.dtype).float()[..., 0]
+        """(..., 198) -> (...,) state/afterstate value via the value head
+        (the outcome head's expected reward where the model has one)."""
+        return self._value(self.trunk(x))
+
+    def outcome_probs(self, x):
+        """(..., 198) -> (..., 6) the outcome head's probabilities."""
+        return torch.softmax(
+            self._dense("outcome", self.trunk(x), torch.float32), dim=-1)
+
+    def deep_weights(self, head):
+        """A deep network's weights for ``ops.afterstate.afterstate_deep``:
+        ([W1, b1, W2, b2, ..., W_head, b_head], the outcome head's rewards
+        or None) for ``head`` "score" or "value"."""
+        name = "outcome" if head == "value" and self.cfg.outcome else head
+        names = [f"fc{i}" for i in range(1, len(self.cfg.widths) + 1)]
+        weights = [p for n in names + [name]
+                   for p in (self.layers[n].weight, self.layers[n].bias)]
+        return weights, OUTCOME_REWARDS if name == "outcome" else None
 
     def score(self, x):
         """(..., 198) -> (...,) afterstate policy score (logit per
         candidate)."""
         h = self.trunk(x)
         return self._dense("score", h, h.dtype).float()[..., 0]
+
+
+def outcome_value(z):
+    """(..., 6) outcome logits -> (...,) the expected reward of their
+    softmax."""
+    r = torch.tensor(OUTCOME_REWARDS, dtype=z.dtype, device=z.device)
+    return (torch.softmax(z, dim=-1) * r).sum(-1)

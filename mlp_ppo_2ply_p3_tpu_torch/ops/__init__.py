@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels and their wrappers
-(``compaction``, ``doubles``, ``nondoubles``, ``afterstate``, ``adam``;
-built by ``build``)."""
+(``compaction``, ``doubles``, ``nondoubles``, ``afterstate``, ``dense``,
+``adam``; built by ``build``)."""
 
 # every kernel wrapper, in the order of the launch tuples
 # (``agents.twoply.launches_per_decision``)
@@ -11,21 +11,30 @@ KERNELS = ("compact_rows", "dedup_compact_rows", "doubles_level",
 # the others under this key, its calls (one kernel pair each), but not one
 # of ``KERNELS``, whose tuples no 2-ply decision extends
 OPTIMIZER = "adam_update"
+# a deep network's pass (``afterstate.afterstate_deep``): fc1 in the
+# afterstate kernels' deep forms, then the dense layers; counted and zeroed
+# with the others, outside ``KERNELS`` too
+DEEP = ("afterstate_hidden", "afterstate_hidden_backward", "dense_layers",
+        "dense_layers_backward")
 
 
 def counters() -> dict:
     """{kernel: the wrapper function that owns its ``launches`` count}, in
-    ``KERNELS`` order, then the optimizer's under ``OPTIMIZER``."""
-    from . import adam, afterstate, compaction, doubles, nondoubles
+    ``KERNELS`` order, then the optimizer's under ``OPTIMIZER``, then the
+    deep pass's, ``DEEP``."""
+    from . import adam, afterstate, compaction, dense, doubles, nondoubles
 
     owners = {**compaction._COUNTERS, **doubles._COUNTERS,
-              **nondoubles._COUNTERS, **afterstate._COUNTERS}
+              **nondoubles._COUNTERS, **afterstate._COUNTERS,
+              **dense._COUNTERS}
     return {**{name: owners[name] for name in KERNELS},
-            OPTIMIZER: adam.adam_update}
+            OPTIMIZER: adam.adam_update,
+            **{name: owners[name] for name in DEEP}}
 
 
 def launches() -> dict:
-    """{kernel: launches counted so far; ``OPTIMIZER``: its calls}."""
+    """{kernel: launches counted so far; ``OPTIMIZER``: its calls; the
+    ``DEEP`` wrappers' calls}."""
     return {name: fn.launches for name, fn in counters().items()}
 
 

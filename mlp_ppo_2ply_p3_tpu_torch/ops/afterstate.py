@@ -58,6 +58,18 @@ the head rounded before and after its bias; the gradients come back as
 float32 tensors of bf16 numbers, each rounded once (the cotangent of
 ``astype(bfloat16)``).  torch's bf16 ``linear``, the plain version's,
 rounds once after the bias, so the two are held to a bf16 tolerance.
+
+A deep network (an ``MLP`` with a ``trunk``; ``afterstate_deep``) keeps
+``fc1`` in these kernels and hands the rest to ``ops/dense.py``:
+``afterstate_hidden`` decodes each kept board once and runs ``fc1`` as
+above, then writes its post-ReLU activations, in the kernels' global order
+of kept boards, with each board's element and their count (on the card),
+and the floors of the slots not kept; ``dense.dense_layers`` runs the
+layers after it, the head and the epilogue on those rows.  The backward
+runs ``dense.dense_layers_backward``, which hands fc1's dpre to
+``afterstate_hidden_backward``: the second kernel with dpre read in place of
+its fc1 product, giving dW1 and db1 from the same tile.  Float32 only; the
+``min`` epilogue and bf16 raise (``DEEP_MIN_ITEM``, ``DEEP_BF16_ITEM``).
 """
 
 from __future__ import annotations
@@ -69,6 +81,7 @@ from torch.nn import functional as Fn
 
 from ..core import board as Bd
 from ..core import features as F
+from . import dense as DN
 
 FLOOR = -1e9     # the masked entries (ppo.learner.MASK_FLOOR, basic.NEG_INF)
 POS_INF = 1e9    # a min over no reply (agents.twoply.POS_INF)
@@ -76,6 +89,9 @@ EPILOGUES = {"logits": 0, "masked": 1, "min": 2}
 # the weight dtypes the kernels take, as the launches' dtype argument
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROADMAP_ITEM = "ROADMAP.md, queue 1, item 20"
+# what lifts the deep pass's refusals
+DEEP_MIN_ITEM = "ROADMAP.md, queue 6, item C9"
+DEEP_BF16_ITEM = "ROADMAP.md, queue 6, item C10"
 UNITS = 128          # hidden units a block stages (a unit group)
 TILE = 64            # kept boards a tile
 # backward blocks of one unit group: a number of the shapes, never of the
@@ -253,6 +269,10 @@ _SIGNATURES = {
                                _I),
     "afterstate_backward_launch": ([_P] * 9 + [_L, _P] + [_I] * 6
                                    + [_F, _I, _P], _I),
+    "afterstate_emit_launch": ([_P] * 7 + [_I, _P, _P] + [_I] * 5 + [_P],
+                               _I),
+    "afterstate_backward_deep_launch": ([_P] * 4 + [_I, _P, _L, _P]
+                                        + [_I] * 6 + [_P], _I),
 }
 
 
@@ -381,12 +401,221 @@ def afterstate_eval_backward(boards, mover, n, w1, b1, w_head, b_head,
             flat[hw + h:hw + 2 * h].view(1, h), flat[hw + 2 * h:])
 
 
+def _kept_order(n, m, epilogue):
+    """The kept boards' elements r m + s in the kernels' order (rows in
+    order, slots in order), counted on the host."""
+    return _valid(n, m, epilogue).reshape(-1).nonzero()[:, 0].to(
+        torch.int32)
+
+
+def afterstate_hidden_plain(boards, mover, n, w1, b1, opponent, epilogue):
+    """Plain PyTorch version of ``afterstate_hidden``."""
+    r, m, _ = boards.shape
+    h = w1.shape[0]
+    view = Bd.opponent_view(boards) if opponent else boards
+    feats = F.encode_canonical(view, mover[:, None]).reshape(r * m, -1)
+    elem = _kept_order(n, m, epilogue)
+    k = elem.shape[0]
+    h1 = torch.zeros((r * m, DN.ld(h)), dtype=torch.float32,
+                     device=boards.device)
+    h1[:k, :h] = torch.relu(Fn.linear(feats[elem.long()], w1, b1))
+    out = torch.full((r, m), FLOOR, dtype=torch.float32,
+                     device=boards.device)
+    elem_all = torch.zeros((r * m,), dtype=torch.int32, device=boards.device)
+    elem_all[:k] = elem
+    count = torch.tensor([k], dtype=torch.int32, device=boards.device)
+    return out, h1, elem_all, count
+
+
+def afterstate_hidden_backward_plain(boards, mover, n, dpre, hidden,
+                                     opponent, epilogue):
+    """Plain PyTorch version of ``afterstate_hidden_backward``."""
+    r, m, _ = boards.shape
+    view = Bd.opponent_view(boards) if opponent else boards
+    feats = F.encode_canonical(view, mover[:, None]).reshape(r * m, -1)
+    elem = _kept_order(n, m, epilogue)
+    d = dpre[:elem.shape[0], :hidden]
+    return d.t() @ feats[elem.long()], d.sum(0)
+
+
+def _check_hidden(boards, mover, n, w1, b1, opponent, epilogue):
+    h = w1.shape[0]
+    wh = torch.zeros((1, h), dtype=w1.dtype, device=w1.device)
+    bh = torch.zeros((1,), dtype=w1.dtype, device=w1.device)
+    if epilogue == "min":
+        raise NotImplementedError(
+            f"the min epilogue (2-ply) does not take a deep network yet: "
+            f"see {DEEP_MIN_ITEM}")
+    if w1.dtype != torch.float32 or b1.dtype != torch.float32:
+        raise NotImplementedError(
+            f"a deep network runs in float32; bfloat16 is {DEEP_BF16_ITEM}")
+    _check(boards, mover, n, w1, b1, wh, bh, opponent, epilogue, 1.0)
+
+
+def afterstate_hidden(boards, mover, n, w1, b1, opponent, epilogue):
+    """A deep network's ``fc1`` over the kept boards of (R, M, 52) int8
+    ``boards`` (``logits`` or ``masked`` epilogue): (``out`` (R, M)
+    float32 holding the floor at every slot the epilogue does not keep
+    and nothing yet at the kept ones, ``h1`` (R M, ``dense.ld(H)``)
+    float32 whose first ``count`` rows are relu(W1 feats + b1) of the kept
+    boards in the kernels' global order (rows in order, slots in order),
+    ``elem`` (R M,) int32 each one's element r m + s, ``count`` (1,)
+    int32).  Rows of ``h1`` and ``elem`` past the count are unspecified
+    on the card."""
+    _check_hidden(boards, mover, n, w1, b1, opponent, epilogue)
+    if not _on_card(boards):
+        return afterstate_hidden_plain(boards, mover, n, w1, b1, opponent,
+                                       epilogue)
+    r, m, _ = boards.shape
+    h, dev = w1.shape[0], boards.device
+    out = torch.empty((r, m), dtype=torch.float32, device=dev)
+    h1 = torch.empty((r * m, DN.ld(h)), dtype=torch.float32, device=dev)
+    elem = torch.empty((r * m,), dtype=torch.int32, device=dev)
+    count = torch.empty((1,), dtype=torch.int32, device=dev)
+    err = _launch("afterstate_emit_launch", dev, boards.data_ptr(),
+                  mover.data_ptr(), n.data_ptr(), w1.data_ptr(),
+                  b1.data_ptr(), out.data_ptr(), h1.data_ptr(), DN.ld(h),
+                  elem.data_ptr(), count.data_ptr(), r, m, h, int(opponent),
+                  EPILOGUES[epilogue])
+    if err != 0:
+        raise RuntimeError(f"afterstate_hidden kernel launch failed: CUDA "
+                           f"error {err} at {r} x {m} boards, hidden {h}")
+    _COUNTERS["afterstate_hidden"].launches += 1
+    return out, h1, elem, count
+
+
+def afterstate_hidden_backward(boards, mover, n, dpre, hidden, opponent,
+                               epilogue):
+    """(dW1 (H, 198), db1 (H,)) of a deep network's ``fc1``, given its
+    pre-activation gradient ``dpre`` by kept board in
+    ``afterstate_hidden``'s order ((R M, ``dense.ld(H)``) float32, the
+    first count rows read)."""
+    w1 = torch.zeros((hidden, 198), dtype=torch.float32,
+                     device=boards.device)
+    _check_hidden(boards, mover, n, w1, w1[:, 0].contiguous(), opponent,
+                  epilogue)
+    if not _on_card(boards):
+        return afterstate_hidden_backward_plain(boards, mover, n, dpre,
+                                                hidden, opponent, epilogue)
+    r, m, _ = boards.shape
+    dev = boards.device
+    floats = backward_scratch_floats(r, m, hidden)
+    scratch = _scratch(floats, dev)
+    flat = torch.empty((hidden * 198 + 2 * hidden + 1,), dtype=torch.float32,
+                       device=dev)
+    err = _launch("afterstate_backward_deep_launch", dev, boards.data_ptr(),
+                  mover.data_ptr(), n.data_ptr(), dpre.data_ptr(),
+                  dpre.shape[1], _ptr(scratch), floats, flat.data_ptr(),
+                  backward_blocks(r, m, hidden), r, m, hidden, int(opponent),
+                  EPILOGUES[epilogue])
+    if err != 0:
+        raise RuntimeError(f"afterstate_hidden_backward kernel launch "
+                           f"failed: CUDA error {err} at {r} x {m} boards, "
+                           f"hidden {hidden}")
+    _COUNTERS["afterstate_hidden_backward"].launches += 1
+    hw = hidden * 198
+    return flat[:hw].view(hidden, 198), flat[hw:hw + hidden]
+
+
+def _split(weights):
+    """(w1, b1), the dense layers [(W, b)], the head (W, b) of the flat
+    ``weights`` of ``afterstate_deep``."""
+    pairs = list(zip(weights[0::2], weights[1::2]))
+    return pairs[0], pairs[1:-1], pairs[-1]
+
+
+def afterstate_deep_plain(boards, mover, n, weights, rewards, opponent,
+                          epilogue, sign):
+    """Plain PyTorch version of ``afterstate_deep`` (any device;
+    differentiable in the weights): every slot through the network, then
+    the epilogue's mask."""
+    (w1, b1), layers, head = _split(weights)
+    r, m, _ = boards.shape
+    view = Bd.opponent_view(boards) if opponent else boards
+    h = torch.relu(Fn.linear(F.encode_canonical(view, mover[:, None]), w1,
+                             b1))
+    for w, b in layers:
+        h = torch.relu(Fn.linear(h, w, b))
+    y = DN._y(Fn.linear(h, *head), rewards)
+    if sign < 0:
+        y = -y
+    return torch.where(_valid(n, m, epilogue), y, FLOOR)
+
+
+class _Deep(torch.autograd.Function):
+    """The deep pass on the card as a differentiable function of its
+    weights: the activations the backward needs are kept only when a
+    gradient is wanted."""
+
+    @staticmethod
+    def forward(ctx, boards, mover, n, cfg, *weights):
+        rewards, opponent, epilogue, sign, save = cfg
+        (w1, b1), layers, head = _split(weights)
+        out, h1, elem, count = afterstate_hidden(boards, mover, n, w1, b1,
+                                                 opponent, epilogue)
+        acts = DN.dense_layers(h1, elem, count, out, layers, head, rewards,
+                               sign, save)
+        if save:
+            ctx.save_for_backward(boards, mover, n, h1, elem, count, *acts,
+                                  *weights)
+            ctx.cfg, ctx.depth = cfg, len(acts)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        rewards, opponent, epilogue, sign, _ = ctx.cfg
+        boards, mover, n, h1, elem, count, *rest = ctx.saved_tensors
+        acts, weights = rest[:ctx.depth], rest[ctx.depth:]
+        (w1, _), layers, head = _split(weights)
+        dpre, grads = DN.dense_layers_backward(h1, acts, elem, count, grad,
+                                               layers, head, rewards, sign)
+        dw1, db1 = afterstate_hidden_backward(boards, mover, n, dpre,
+                                              w1.shape[0], opponent,
+                                              epilogue)
+        return (None, None, None, None, dw1, db1, *grads)
+
+
+def afterstate_deep(boards, mover, n, weights, rewards=None, opponent=False,
+                    epilogue="logits", sign=1.0):
+    """The pass of a deep network over (R, M, 52) int8 ``boards``:
+    ``weights`` are [W1, b1, W_2, b_2, ..., W_head, b_head] float32 in
+    ``nn.Linear``'s layout; ``rewards`` the outcome head's softmax weights
+    (None: a scalar head).  The ``logits`` and ``masked`` epilogues, with
+    ``opponent`` and ``sign``, as ``afterstate_eval``'s; returns (R, M)
+    float32, differentiable in the weights."""
+    weights = list(weights)
+    if len(weights) < 6 or len(weights) % 2:
+        raise ValueError(f"a deep network's weights are fc1, at least one "
+                         f"dense layer and a head, in pairs; got "
+                         f"{len(weights)} tensors")
+    (w1, b1), layers, head = _split(weights)
+    if any(w.dtype != torch.float32 for w in weights):
+        raise NotImplementedError(
+            f"a deep network runs in float32; bfloat16 is {DEEP_BF16_ITEM}")
+    _check_hidden(boards, mover, n, w1, b1, opponent, epilogue)
+    if sign not in (1.0, -1.0):
+        raise ValueError(f"sign must be 1 or -1, got {sign}")
+    if not _on_card(boards):
+        return afterstate_deep_plain(boards, mover, n, weights, rewards,
+                                     opponent, epilogue, sign)
+    save = torch.is_grad_enabled() and any(w.requires_grad for w in weights)
+    cfg = (None if rewards is None else tuple(rewards), opponent, epilogue,
+           sign, save)
+    return _Deep.apply(boards, mover, n, cfg, *weights)
+
+
 def evaluate(model, boards, mover, n, head, opponent=False,
              epilogue="logits", sign=1.0, chunk=0):
     """``afterstate_eval`` with the weights of ``model`` (an ``MLP``):
     ``fc1`` and the head ``head`` ("score" or "value"), cast to its
     compute dtype, which the kernels take as it is (float32 or
-    bfloat16)."""
+    bfloat16).  A model with a ``trunk`` runs ``afterstate_deep``: its
+    value head is the outcome head where the model has one."""
+    if model.cfg.trunk:
+        weights, rewards = model.deep_weights(head)
+        return afterstate_deep(boards, mover.to(torch.int32),
+                               n.to(torch.int32), weights, rewards, opponent,
+                               epilogue, sign)
     dt = model.dtype
     fc1, out = model.layers["fc1"], model.layers[head]
     weights = [p.to(dt) for p in (fc1.weight, fc1.bias, out.weight,
@@ -397,7 +626,11 @@ def evaluate(model, boards, mover, n, head, opponent=False,
 
 afterstate_eval.launches = 0
 afterstate_eval_backward.launches = 0
+afterstate_hidden.launches = 0
+afterstate_hidden_backward.launches = 0
 # the function objects that own the counts, so that a caller who wraps a
 # wrapper (to capture its inputs) still counts on the original
 _COUNTERS = {"afterstate_eval": afterstate_eval,
-             "afterstate_eval_backward": afterstate_eval_backward}
+             "afterstate_eval_backward": afterstate_eval_backward,
+             "afterstate_hidden": afterstate_hidden,
+             "afterstate_hidden_backward": afterstate_hidden_backward}

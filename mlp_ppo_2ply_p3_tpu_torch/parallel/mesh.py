@@ -51,6 +51,7 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device
+from ..utils.profiling import span
 
 BACKENDS = ("nccl", "gloo")
 
@@ -141,7 +142,8 @@ def gather_batch(tree, world: World | None, dim: int = 0):
         dist.all_gather(parts, src)
         return _from_comm(torch.cat(parts, dim=dim), x)
 
-    return _map(gather, tree)
+    with span("gather_batch"):
+        return _map(gather, tree)
 
 
 def all_reduce_sum(tensors, world: World | None) -> list:
@@ -152,6 +154,11 @@ def all_reduce_sum(tensors, world: World | None) -> list:
     tensors = list(tensors)
     if world is None:
         return tensors
+    with span("all_reduce_sum"):
+        return _all_reduce_sum(tensors, world)
+
+
+def _all_reduce_sum(tensors, world):
     out = [None] * len(tensors)
     by_dtype: dict = {}
     for i, x in enumerate(tensors):

@@ -8,12 +8,14 @@ Port of ``scripts/run_learning.py``.  Metrics stream to
 
 Usage:
     python -m mlp_ppo_2ply_p3_tpu_torch.scripts.run_learning [updates] \\
-        [--hidden H] [--tag TAG] [--device cuda] \\
+        [--preset afterstate4096|wildbg4096] [--hidden H] [--tag TAG] \\
+        [--device cuda] \\
         [--num-processes N --coordinator HOST:PORT --process-id R] \\
         [--backend nccl|gloo]
 
-``--hidden 256`` runs the capacity experiment; ``--tag`` tells repeat
-runs of one configuration apart.  The process-group flags are the
+``--hidden 256`` runs the capacity experiment (one-layer presets only);
+``--preset wildbg4096`` trains wildbg's deep network instead; ``--tag``
+tells repeat runs of one configuration apart.  The process-group flags are the
 driver's (``ppo/train.py``): with them, or under ``torchrun``, the games
 are sharded over the ranks.
 """
@@ -29,7 +31,9 @@ from ..utils.config import get_preset
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("updates", nargs="?", type=int, default=500)
-    ap.add_argument("--hidden", type=int, default=128)
+    ap.add_argument("--preset", default="afterstate4096")
+    ap.add_argument("--hidden", type=int, default=None,
+                    help="fc1's width (default: the preset's)")
     ap.add_argument("--tag", default="torch")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--num-processes", type=int, default=None)
@@ -50,9 +54,12 @@ def main(argv=None):
 
 def run(args, world):
 
-    cfg = get_preset("afterstate4096")
+    cfg = get_preset(args.preset)
     name = cfg.name
-    if args.hidden != cfg.model.hidden_size:
+    if args.hidden is not None and cfg.model.trunk:
+        raise ValueError(f"--hidden resizes a one-layer network; "
+                         f"{args.preset} has the trunk {cfg.model.trunk}")
+    if args.hidden is not None and args.hidden != cfg.model.hidden_size:
         cfg = dataclasses.replace(
             cfg, model=dataclasses.replace(cfg.model,
                                            hidden_size=args.hidden)

@@ -8,6 +8,9 @@ Port of ``mlp_ppo_2ply_p3_tpu/utils/config.py`` with the same presets:
 - ``vmap256``:    256 games.
 - ``train4096``:  4096-game PPO (GAE, 32 minibatches, ``fast()`` movegen).
 - ``afterstate4096``: the afterstate (score-head) policy at 4096 games.
+- ``wildbg4096``: ``afterstate4096`` with wildbg's evaluation network
+                  (198 -> 300 -> 250 -> 200, six outcome probabilities
+                  whose expected reward is the value); port-only.
 - ``twoply``:     2-ply expectimax evaluation settings.
 - ``pod``:        the multi-host scale-out sizes.
 
@@ -134,6 +137,22 @@ _register(RunConfig(
     name="afterstate4096",
     env=EnvConfig(movegen=MovegenConfig.fast(256)),
     model=ModelConfig(action_size=256),
+    ppo=PPOConfig(
+        num_envs=4096, t_horizon=64, num_minibatches=32,
+        normalize_adv=True, normalize_returns=False,
+        policy_mode="afterstate",
+    ),
+    num_updates=1000,
+))
+
+_register(RunConfig(
+    # afterstate4096 with wildbg's deep network: fc1 300, then 250 and 200,
+    # the value the expected reward of six outcome probabilities; no
+    # counterpart in the JAX package
+    name="wildbg4096",
+    env=EnvConfig(movegen=MovegenConfig.fast(256)),
+    model=ModelConfig(hidden_size=300, trunk=(250, 200), outcome=True,
+                      action_size=256),
     ppo=PPOConfig(
         num_envs=4096, t_horizon=64, num_minibatches=32,
         normalize_adv=True, normalize_returns=False,

@@ -195,7 +195,7 @@ def test_ops_counts_the_optimizer_beside_the_kernels(monkeypatch):
 
     monkeypatch.setattr(AD.adam_update, "launches", 7)
     got = ops.launches()
-    assert list(got) == [*ops.KERNELS, ops.OPTIMIZER]
+    assert list(got) == [*ops.KERNELS, ops.OPTIMIZER, *ops.DEEP]
     assert ops.OPTIMIZER not in ops.KERNELS and got[ops.OPTIMIZER] == 7
     assert ops.counters()[ops.OPTIMIZER] is AD.adam_update
     ops.zero_launches()

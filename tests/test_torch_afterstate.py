@@ -685,10 +685,13 @@ def test_chip_smoke_counts_what_ops_counts():
     (``with_optimizer``) compare with what it reads."""
     cs = _chip_smoke()
     assert cs.KERNELS == ops.KERNELS and cs.OPTIMIZER == ops.OPTIMIZER
+    assert cs.DEEP == ops.DEEP
     assert list(cs.launches()) == list(cs.with_optimizer(
         dict.fromkeys(cs.KERNELS, 0), 3))
     assert cs.with_optimizer({"nondoubles": 2}, 3) == {
-        "nondoubles": 2, ops.OPTIMIZER: 3}
+        "nondoubles": 2, ops.OPTIMIZER: 3, **dict.fromkeys(ops.DEEP, 0)}
+    assert cs.with_optimizer({}, deep={"dense_layers": 4})[
+        "dense_layers"] == 4
     assert cs.with_optimizer({})[ops.OPTIMIZER] == 0
 
 

@@ -73,10 +73,15 @@ def jax_configs(environ):
 ], ids=["defaults", "fast128", "default", "parity", "train4096",
         "train4096-resized"])
 def test_config_matches_jax_bench(environ):
+    """The bench's configurations equal the JAX bench's; the port's
+    deep-network fields of the model hold their one-layer defaults."""
     got = bench.resolve_config(environ)
     want = jax_configs(environ)
     for g, w in zip(got, want):
-        assert dataclasses.asdict(g) == dataclasses.asdict(w)
+        g = dataclasses.asdict(g)
+        if "trunk" in g:
+            assert (g.pop("trunk"), g.pop("outcome")) == ((), False)
+        assert g == dataclasses.asdict(w)
 
 
 def test_unknown_movegen_preset_raises():
@@ -99,7 +104,10 @@ def test_lines_and_state(monkeypatch, capsys):
     assert launched == {"compact_rows": 0, "dedup_compact_rows": 0,
                         "doubles_level": 0, "nondoubles": 0,
                         "doubles_final": 0, "afterstate_eval": 0,
-                        "afterstate_eval_backward": 0, "adam_update": 0}
+                        "afterstate_eval_backward": 0, "adam_update": 0,
+                        "afterstate_hidden": 0,
+                        "afterstate_hidden_backward": 0,
+                        "dense_layers": 0, "dense_layers_backward": 0}
     assert len(lines) == 2 and len(res.update_s) == 2
     for line in lines:
         got = json.loads(line)

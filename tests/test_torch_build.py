@@ -37,14 +37,14 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
 
 
 def test_the_port_sources_and_their_header():
-    """The five kernel sources; the two movegen ones share the rules in
-    ``csrc/board.cuh``, the Adam, compaction and afterstate ones include
-    none."""
-    assert build.sources() == ("adam", "afterstate", "compaction", "doubles",
-                               "nondoubles")
+    """The six kernel sources; the two movegen ones share the rules in
+    ``csrc/board.cuh``, the Adam, compaction, afterstate and dense ones
+    include none."""
+    assert build.sources() == ("adam", "afterstate", "compaction", "dense",
+                               "doubles", "nondoubles")
     header = (build.CSRC_DIR / "board.cuh").resolve()
     for name in ("doubles", "nondoubles"):
         assert header in build.source_files(name)
-    for name in ("adam", "afterstate", "compaction"):
+    for name in ("adam", "afterstate", "compaction", "dense"):
         assert build.source_files(name) == [
             (build.CSRC_DIR / f"{name}.cu").resolve()]

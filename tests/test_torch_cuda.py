@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card (``csrc/compaction.cu``,
 ``csrc/doubles.cu``, ``csrc/nondoubles.cu``, ``csrc/afterstate.cu``,
-``csrc/adam.cu``).
+``csrc/dense.cu``, ``csrc/adam.cu``).
 
 Every test here needs an NVIDIA card and skips without one: a CUDA
 kernel has no CPU mode.  The file imports neither JAX nor the JAX
@@ -30,6 +30,7 @@ from mlp_ppo_2ply_p3_tpu_torch.core import movegen as TM
 from mlp_ppo_2ply_p3_tpu_torch.env import bg_env as TE
 from mlp_ppo_2ply_p3_tpu_torch.ops import afterstate as TAS
 from mlp_ppo_2ply_p3_tpu_torch.ops import compaction as TC
+from mlp_ppo_2ply_p3_tpu_torch.ops import dense as TDN
 from mlp_ppo_2ply_p3_tpu_torch.ops import doubles as TD
 from mlp_ppo_2ply_p3_tpu_torch.ops import nondoubles as TN
 
@@ -341,6 +342,8 @@ WRAPPERS = ((TC, "compact_rows"), (TC, "dedup_compact_rows"),
             (TD, "doubles_levels"), (TN, "nondoubles_batch"),
             (TD, "doubles_final"))
 AFTERSTATE = ((TAS, "afterstate_eval"), (TAS, "afterstate_eval_backward"))
+DEEP = ((TAS, "afterstate_hidden"), (TAS, "afterstate_hidden_backward"),
+        (TDN, "dense_layers"), (TDN, "dense_layers_backward"))
 
 
 def _launches(wrappers=WRAPPERS):
@@ -1543,3 +1546,225 @@ def test_timed_scan_refuses_what_cannot_be_captured(card):
         profiling.timed_scan(lambda a: int(a.sum()), x, iters=2)
     torch.cuda.synchronize()
     assert int(x.sum()) == 499500          # the card still works
+
+
+# --- the deep pass (csrc/afterstate.cu's deep forms, csrc/dense.cu) ----------
+
+
+def deep_weights(card, seed, widths, heads):
+    """float32 weights of fc1, the dense layers and a head of ``heads``
+    outputs, drawn as ``nn.Linear`` draws them (U(-1/sqrt(fan in), ...))."""
+    rng = np.random.default_rng(seed)
+    dims = [198, *widths, heads]
+    out = []
+    for k, n in zip(dims[:-1], dims[1:]):
+        bound = 1 / np.sqrt(k)
+        out += [rng.uniform(-bound, bound, (n, k)),
+                rng.uniform(-bound, bound, (n,))]
+    return [torch.tensor(w, dtype=torch.float32, device=card) for w in out]
+
+
+# the deep pass's gradients against the plain version's: 8 times the
+# distance a one-ulp nudge of the weights moves them.  Three ReLU layers'
+# masks flip where a pre-activation is within rounding of 0, in the kernels
+# (their sums run in another order) as under the nudge, each flip a whole
+# term of a gradient; one case read 4.2 nudges (301 x 255 boards, random
+# cotangents).  The plain version with TF32 products reads past the gate
+# (``deep_within`` measures it beside every case).
+DEEP_GRAD_FACTOR = 8.0
+
+
+def _plain_tf32(fn):
+    """``fn()`` with TF32 products allowed (the nearest precision below
+    float32), then restored."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def deep_within(args, got, want, grads=None):
+    """The deep pass's gate against the plain version, as (within, what
+    was read): the forward within 4 times the largest drift that a one-ulp
+    nudge of every weight makes of the plain version's kept values (at
+    least 1e-6); the gradients' distance from the plain ones within
+    DEEP_GRAD_FACTOR times the distance that the nudge moves them.  Beside
+    each, what the plain version with TF32 products reads: past the gate,
+    or the gate would not tell TF32 from float32 (``tf32_outside``)."""
+    boards, mover, n, weights, *rest = args
+    kept = want != TAS.FLOOR
+    floors = (got == TAS.FLOOR) != ~kept
+    if floors.any():
+        return False, {"floors_differ": int(floors.sum())}
+    nudged = [nudged_up(w) for w in weights]
+    drift = (TAS.afterstate_deep_plain(boards, mover, n, nudged, *rest)
+             - want)[kept]
+    tol = max(NUDGE_FACTOR * float(drift.abs().max()) if drift.numel()
+              else 0.0, 1e-6)
+    gap = float((got - want)[kept].abs().max()) if kept.any() else 0.0
+    tf32 = _plain_tf32(lambda: TAS.afterstate_deep_plain(*args))
+    read = {"value_gap": gap, "value_gate": tol, "kept": int(kept.sum()),
+            "tf32_value_gap": float((tf32 - want)[kept].abs().max())
+            if kept.any() else 0.0}
+    read["tf32_outside"] = read["tf32_value_gap"] > tol
+    if gap > tol:
+        return False, read
+    if grads is None:
+        return True, read
+    grad, got_g = grads
+    want_g = _deep_grads(TAS.afterstate_deep_plain, args, weights, grad)
+    nudge_g = _deep_grads(TAS.afterstate_deep_plain, args, nudged, grad)
+
+    def dist(xs, ys):
+        return sum(float(((x.double() - y.double()) ** 2).sum())
+                   for x, y in zip(xs, ys)) ** 0.5
+
+    tf32_g = _plain_tf32(lambda: _deep_grads(
+        TAS.afterstate_deep_plain, args, weights, grad))
+    read["grad_dist"] = dist(got_g, want_g)
+    read["grad_gate"] = max(DEEP_GRAD_FACTOR * dist(nudge_g, want_g), 1e-9)
+    read["tf32_grad_dist"] = dist(tf32_g, want_g)
+    read["tf32_outside"] &= read["tf32_grad_dist"] > read["grad_gate"]
+    return read["grad_dist"] <= read["grad_gate"], read
+
+
+def _deep_grads(fn, args, weights, grad):
+    boards, mover, n, _, *rest = args
+    w = [x.detach().clone().requires_grad_() for x in weights]
+    y = fn(boards, mover, n, w, *rest)
+    got = torch.autograd.grad(y, w, grad, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g for x, g in zip(w, got)]
+
+
+# (R, M, trunk, heads, epilogue, opponent, sign, kept): wildbg's widths
+# with the outcome head and a score head, every epilogue and view, a
+# count of 0 and the capacity (every slot), odd shapes, the narrowest and
+# widest layers and a deeper trunk
+DEEP_CASES = [
+    (37, 29, (300, 250, 200), 6, "logits", False, 1.0, "random"),
+    (301, 255, (300, 250, 200), 1, "masked", True, -1.0, "random"),
+    (300, 256, (300, 250, 200), 6, "masked", True, -1.0, "capacity"),
+    (257, 256, (300, 250, 200), 1, "masked", False, 1.0, "none"),
+    (5, 3, (40, 24, 10), 6, "logits", False, 1.0, "random"),
+    (64, 8, (1, 1), 1, "masked", False, 1.0, "random"),
+    (130, 77, (128, 320, 17, 64), 6, "logits", True, -1.0, "random"),
+    (0, 5, (300, 250, 200), 6, "logits", False, 1.0, "random"),
+]
+
+
+def _deep_case(card, case, seed=0):
+    from mlp_ppo_2ply_p3_tpu_torch.models.mlp import OUTCOME_REWARDS
+
+    r, m, trunk, heads, epilogue, opponent, sign, kept = case
+    boards, mover, n, *_ = afterstate_inputs(card, seed, r, m, 1)
+    mover = mover.clamp(max=1)
+    if kept == "capacity":
+        n = torch.full_like(n, m)
+    elif kept == "none":
+        n = torch.zeros_like(n)
+    weights = deep_weights(card, seed + 1, trunk, heads)
+    rewards = OUTCOME_REWARDS if heads == 6 else None
+    return (boards, mover, n, weights, rewards, opponent, epilogue, sign)
+
+
+@pytest.mark.parametrize("case", DEEP_CASES,
+                         ids=lambda c: "-".join(map(str, c[:2])) + "-"
+                         + "x".join(map(str, c[2])) + "-" + "-".join(
+                             map(str, c[3:])))
+def test_deep_pass_matches_plain(card, case):
+    """``afterstate_deep`` on the card (``afterstate_hidden``, then
+    ``dense_layers``) against its plain version, and its backward
+    (``dense_layers_backward``, then ``afterstate_hidden_backward``)
+    against the plain version's autograd, one launch of each wrapper."""
+    args = _deep_case(card, case)
+    boards, mover, n, weights, *rest = args
+    want = TAS.afterstate_deep_plain(*args)
+    before = _launches(DEEP)
+    w = [x.clone().requires_grad_() for x in weights]
+    got = TAS.afterstate_deep(boards, mover, n, w, *rest)
+    grad = torch.randn(got.shape, generator=torch.Generator().manual_seed(
+        3)).to(card)
+    got_g = torch.autograd.grad(got, w, grad) if got.numel() else \
+        [torch.zeros_like(x) for x in w]
+    counted = {k: v - before[k] for k, v in _launches(DEEP).items()}
+    back = int(got.numel() > 0)
+    assert counted == {"afterstate_hidden": 1, "dense_layers": 1,
+                       "afterstate_hidden_backward": back,
+                       "dense_layers_backward": back}
+    within, read = deep_within(args, got.detach(), want, (grad, got_g))
+    assert within, read
+    # where values are kept past the width-1 layers, TF32 fails the gate
+    assert read["tf32_outside"] or read["kept"] == 0 or min(case[2]) < 8, \
+        read
+
+
+def test_deep_pass_at_wildbg4096_shapes(card):
+    """The deep pass of ``wildbg4096``'s model at its first rollout step
+    (4096 x 256 boards of a reset) and at a minibatch's 8192 x 256 with
+    every slot kept where the games allow: kernel == plain within the
+    gate, forward and gradients."""
+    from mlp_ppo_2ply_p3_tpu_torch.ppo import learner
+    from mlp_ppo_2ply_p3_tpu_torch.utils.config import get_preset
+
+    cfg = get_preset("wildbg4096")
+    ts = learner.init_train_state(4, cfg.model, cfg.ppo, device=card)
+    es = TE.reset(ts.gen, cfg.env, 4096, device=card)
+    weights, _ = ts.model.deep_weights("score")
+    weights = [w.detach() for w in weights]
+    turn, n = es.turn.to(torch.int32), es.n_moves.to(torch.int32)
+    args = (es.after, turn, n, weights, None, False, "logits", 1.0)
+    with torch.no_grad():
+        got = TAS.afterstate_deep(*args[:4])
+    within, read = deep_within(args, got, TAS.afterstate_deep_plain(*args))
+    assert within and read["tf32_outside"], read
+    after = torch.cat([es.after, es.after.flip(0)])
+    args = (after, torch.cat([turn, 1 - turn]), torch.cat([n, n.flip(0)]),
+            weights, None, False, "logits", 1.0)
+    w = [x.clone().requires_grad_() for x in weights]
+    got = TAS.afterstate_deep(*args[:3], w)
+    grad = torch.randn(got.shape, generator=torch.Generator().manual_seed(
+        5)).to(card) * (got > TAS.FLOOR)
+    got_g = torch.autograd.grad(got, w, grad)
+    within, read = deep_within(args, got.detach(),
+                               TAS.afterstate_deep_plain(*args),
+                               (grad, got_g))
+    assert within and read["tf32_outside"], read
+
+
+@pytest.mark.parametrize("kept", ["random", "none", "capacity"])
+def test_deep_pass_in_a_cuda_graph(card, kept):
+    """The deep pass's forward is captured into a CUDA graph (the kept
+    count stays on the card: no host sync, static shapes) and its replay
+    gives the eager call's bits, at counts of 0 and at capacity too."""
+    case = (257, 256, (300, 250, 200), 6, "masked", True, -1.0, kept)
+    args = _deep_case(card, case, seed=7)
+    with torch.no_grad():
+        eager = TAS.afterstate_deep(*args)
+        side = torch.cuda.Stream(card)
+        side.wait_stream(torch.cuda.current_stream(card))
+        with torch.cuda.stream(side):
+            TAS.afterstate_deep(*args)
+        torch.cuda.current_stream(card).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = TAS.afterstate_deep(*args)
+        graph.replay()
+        torch.cuda.synchronize(card)
+    assert torch.equal(captured, eager)
+
+
+def test_deep_pass_rejects_what_the_kernels_do_not_take(card):
+    """On the card a layer wider than the kernels' 320 units raises, as do
+    the min epilogue and bf16 weights (naming their ROADMAP items)."""
+    args = _deep_case(card, (4, 6, (300, 321, 8), 1, "logits", False, 1.0,
+                             "random"))
+    with pytest.raises(ValueError, match="widths 1 to 320"):
+        TAS.afterstate_deep(*args)
+    args = _deep_case(card, DEEP_CASES[0])
+    with pytest.raises(NotImplementedError, match="item C9"):
+        TAS.afterstate_deep(*args[:6], "min", 1.0)
+    with pytest.raises(NotImplementedError, match="item C10"):
+        TAS.afterstate_deep(*args[:3], [w.bfloat16() for w in args[3]],
+                            *args[4:])
+    assert TDN.MAX_WIDTH == 320
