@@ -204,6 +204,7 @@ import inspect
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1620,11 +1621,50 @@ def deep_bound_ms(n_kept, n_feat, widths, heads, backward):
     ``n_kept`` boards, at the tensor cores' rate (the benchmark's
     yardstick; their operations bound them)."""
     h = widths[0]
-    dense = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
-    dense += widths[-1] * heads
     first = 2 * n_feat * h + 2 * n_kept * h
-    ops = (first + 2 * n_kept * dense) * (2 if backward else 1)
+    ops = (first + dense_ops(n_kept, widths, heads)) * (2 if backward else 1)
     return 1e3 * ops / H100_TENSOR_OPS_PER_S
+
+
+def dense_ops(n_kept, widths, heads):
+    """The dense layers' and head's operations forward on ``n_kept`` rows
+    (2 a weight a row; the backward is twice it)."""
+    weights = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    return 2 * n_kept * (weights + widths[-1] * heads)
+
+
+def kernel_resources(log_text):
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} of the entry
+    functions in an nvcc ``-Xptxas -v`` report (the mangled name's
+    identifier, and its template argument: <true>/<false>, or <64>)."""
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            ident = re.search(r"\d+([a-z_]+kernel[a-z_]*)", m.group(1))
+            name = ident.group(1) if ident else m.group(1)
+            arg = re.search(r"I(?:Lb([01])|Li(\d+))E", m.group(1))
+            if arg:
+                name += ("<true>" if arg.group(1) == "1" else "<false>"
+                         if arg.group(1) else f"<{arg.group(2)}>")
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name is not None:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def dense_resources(build):
+    """csrc/dense.cu's kernels' registers and spills from this run's build
+    (a string where the library was built by an earlier command)."""
+    report = kernel_resources(build.build_logs.get("dense", ""))
+    return report or "built earlier: no compiler report in this run"
 
 
 def deep_phase(torch, afterstate, dense, bg_env, learner, get_preset, dev):
@@ -1671,6 +1711,7 @@ def deep_phase(torch, afterstate, dense, bg_env, learner, get_preset, dev):
             h1, elem, count, out_, layers, head), 5)
     n_kept, n_feat = kept_feats(es.after, n)
     row["bound_ms"] = deep_bound_ms(n_kept, n_feat, widths, 1, False)
+    row["dense_tflops"] = dense_ops(n_kept, widths, 1) / row["dense_ms"] / 1e9
     out["rollout_step"] = row
     # the first minibatch: a rollout's rows in the update's first order
     sampler = learner.Sampler(ts.gen)
@@ -1702,6 +1743,22 @@ def deep_phase(torch, afterstate, dense, bg_env, learner, get_preset, dev):
     n_kept, n_feat = kept_feats(after, mn)
     row["bound_ms"] = deep_bound_ms(n_kept, n_feat, widths, 1, False) + \
         deep_bound_ms(n_kept, n_feat, widths, 1, True)
+    # the dense layers alone, forward (saving h_l) and backward: their
+    # effective float32 rate, logged beside the bound (not a gate)
+    with torch.no_grad():
+        (w1, b1), layers, head = afterstate._split(weights)
+        out_, h1, elem, count = afterstate.afterstate_hidden(
+            after, mturn, mn, w1, b1, False, "logits")
+        acts = dense.dense_layers(h1, elem, count, out_, layers, head,
+                                  save=True)
+        row["dense_fwd_ms"] = time_ms(lambda: dense.dense_layers(
+            h1, elem, count, out_, layers, head, save=True), 3)
+        row["dense_bwd_ms"] = time_ms(lambda: dense.dense_layers_backward(
+            h1, acts, elem, count, grad, layers, head), 3)
+    ops = dense_ops(n_kept, widths, 1)
+    row["dense_fwd_tflops"] = ops / row["dense_fwd_ms"] / 1e9
+    row["dense_bwd_tflops"] = 2 * ops / row["dense_bwd_ms"] / 1e9
+    del out_, h1, elem, count, acts
     out["minibatch"] = row
     del after, w, got, got_g, again_g
     # one train_step through the wrappers
@@ -1745,6 +1802,12 @@ def log_deep(out):
         f"{mb['fwd_bwd_ms']:.3f} ms against {mb['bound_ms']:.4f}; "
         f"train_step {out['train_step_s']:.2f} s, launches "
         f"{json.dumps(out['launches'])}, peak {out['peak_gb']:.1f} GB")
+    log(f"dense layers (split bf16 products on the tensor cores): rollout "
+        f"step forward {r['dense_tflops']:.1f} TFLOP/s; first minibatch "
+        f"forward {mb['dense_fwd_ms']:.3f} ms ({mb['dense_fwd_tflops']:.1f} "
+        f"TFLOP/s), backward {mb['dense_bwd_ms']:.3f} ms "
+        f"({mb['dense_bwd_tflops']:.1f} TFLOP/s); kernels (registers, spill "
+        f"stores, spill loads): {json.dumps(out.get('dense_kernels'))}")
 
 
 # --- phase 4 -----------------------------------------------------------------
@@ -3392,6 +3455,7 @@ def main(argv=None) -> int:
     if args.deep_only:
         deep = deep_phase(torch, afterstate, dense, bg_env, learner,
                           get_preset, dev)
+        deep["dense_kernels"] = dense_resources(build)
         log_deep(deep)
         print(json.dumps({"ok": True, "deep": deep}))
         return 0
@@ -3433,6 +3497,7 @@ def main(argv=None) -> int:
     deep = deep_phase(torch, afterstate, dense, bg_env, learner, get_preset,
                       dev)
     deep["phase_s"] = time.time() - t0
+    deep["dense_kernels"] = dense_resources(build)
     report["phases"]["deep"] = deep
     log_deep(deep)
 

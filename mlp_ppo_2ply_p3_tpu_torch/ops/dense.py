@@ -12,8 +12,11 @@ the post-ReLU ``fc1`` of every kept board in its kernels' global order of
 kept boards, each board's element r m + s into ``elem`` and their number
 into ``count``, a one-int tensor that stays on the card.  The kernels
 (``csrc/dense.cu``) read the count there, so nothing syncs with the host,
-every shape is the capacity's and a CUDA graph captures a call; their
-products are float32 FMA, summed in a fixed order.
+every shape is the capacity's and a CUDA graph captures a call.  Their
+products run on the tensor cores in exact split form: each float32 operand
+as three bf16 limbs (``ops.afterstate.split_bf16``), each float32 product
+as the six limb products with i + j <= 2, summed in float32 in a fixed
+order; the weights are split once a call into scratch (``limb_entries``).
 
 ``dense_layers`` is the forward (with ``save`` it also keeps each h_l for
 the backward); ``dense_layers_backward`` gives fc1's dpre (what
@@ -35,7 +38,7 @@ from ..utils.profiling import span
 MAX_WIDTH = 320      # csrc/dense.cu kMaxWidth
 MAX_LAYERS = 8       # kMaxLayers: dense layers after fc1
 MAX_HEADS = 8        # kMaxHeads
-TILE = 64            # kRows: kept rows a tile
+TILE = 128           # kRows: kept rows a tile
 # the backward's row blocks and the weight gradient's row slices: numbers
 # of the shapes, never of the card, so that the sums run in one order
 ROW_BLOCKS = 132
@@ -59,6 +62,16 @@ def head_entries(width: int, heads: int) -> int:
 def layer_entries(widths) -> int:
     """Every dense layer's weight and bias entries, sum w_l (w_{l-1} + 1)."""
     return sum(n * (k + 1) for k, n in zip(widths[:-1], widths[1:]))
+
+
+def limb_entries(widths, backward=False) -> int:
+    """The bf16 entries of the weights' limbs that a call splits
+    (``csrc/dense.cu::split_weights``): three limbs of each W_l, its rows
+    padded to 8 and its columns to 16; W_l^T's for the backward."""
+    pad8, pad16 = (lambda x: -(-x // 8) * 8), (lambda x: -(-x // 16) * 16)
+    pairs = [(n, k) if not backward else (k, n)
+             for k, n in zip(widths[:-1], widths[1:])]
+    return sum(3 * pad8(r) * pad16(c) for r, c in pairs)
 
 
 def _y(z, rewards):
@@ -140,10 +153,10 @@ def dense_layers_backward_plain(h1, acts, elem, count, grad, layers, head,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "dense_forward_launch": ([_I] + [_P] * 6 + [_I, _I] + [_P] * 6
+    "dense_forward_launch": ([_I] + [_P] * 6 + [_I, _I] + [_P] * 7
                              + [_I, _F, _P], _I),
     "dense_backward_launch": ([_I] + [_P] * 6 + [_I, _I] + [_P] * 8
-                              + [_I, _P, _I, _P, _I, _F, _P], _I),
+                              + [_I, _P, _I, _P, _P, _I, _F, _P], _I),
 }
 
 
@@ -191,20 +204,23 @@ def dense_layers(h1, elem, count, out, layers, head, rewards=None, sign=1.0,
             return dense_layers_plain(h1, elem, count, out, layers, head,
                                       rewards, sign, save)
         cap, dev = h1.shape[0], h1.device
+        # every layer's h_l: the kernel reads each back as the next layer's
+        # input, and the backward takes them
         acts = [torch.empty((cap, ld(w)), dtype=torch.float32, device=dev)
-                for w in widths[1:]] if save else None
-        act_ptrs = None if acts is None else _array(
-            _P, [a.data_ptr() for a in acts])
+                for w in widths[1:]]
+        act_ptrs = _array(_P, [a.data_ptr() for a in acts])
+        limbs = torch.empty((limb_entries(widths),), dtype=torch.bfloat16,
+                            device=dev)
         err = _launch("dense_forward_launch", dev,
                       *_net(layers, head, rewards, widths), h1.data_ptr(),
                       act_ptrs, elem.data_ptr(), count.data_ptr(),
-                      out.data_ptr(), cap, float(sign))
+                      out.data_ptr(), limbs.data_ptr(), cap, float(sign))
         if err != 0:
             raise RuntimeError(f"dense_layers kernel launch failed: CUDA "
                                f"error {err} at capacity {cap}, widths "
                                f"{widths}")
         _COUNTERS["dense_layers"].launches += 1
-        return acts
+        return acts if save else None
 
 
 def dense_layers_backward(h1, acts, elem, count, grad, layers, head,
@@ -230,13 +246,16 @@ def dense_layers_backward(h1, acts, elem, count, grad, layers, head,
                              dtype=torch.float32, device=dev)
         sizes = [t.numel() for p in [*layers, head] for t in p]
         dflat = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+        limbs = torch.empty((limb_entries(widths, backward=True),),
+                            dtype=torch.bfloat16, device=dev)
         err = _launch("dense_backward_launch", dev,
                       *_net(layers, head, rewards, widths), h1.data_ptr(),
                       _array(_P, [a.data_ptr() for a in acts]),
                       _array(_P, [d.data_ptr() for d in dpre]),
                       elem.data_ptr(), count.data_ptr(), grad.data_ptr(),
                       part_rows.data_ptr(), blocks, part_w.data_ptr(),
-                      SLICES, dflat.data_ptr(), cap, float(sign))
+                      SLICES, dflat.data_ptr(), limbs.data_ptr(), cap,
+                      float(sign))
         if err != 0:
             raise RuntimeError(f"dense_layers_backward kernel launch "
                                f"failed: CUDA error {err} at capacity {cap}, "

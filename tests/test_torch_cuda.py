@@ -1640,7 +1640,10 @@ def _deep_grads(fn, args, weights, grad):
 # (R, M, trunk, heads, epilogue, opponent, sign, kept): wildbg's widths
 # with the outcome head and a score head, every epilogue and view, a
 # count of 0 and the capacity (every slot), odd shapes, the narrowest and
-# widest layers and a deeper trunk
+# widest layers and a deeper trunk; then the tensor-core tiles' edges:
+# widths either side of 8 and 16 (wgmma's N and K steps), 136, 256 and 257
+# (a warpgroup's chunks of 64 columns), 320, and kept counts either side of
+# a 64-row tile (an int: the first rows keep every slot until that many)
 DEEP_CASES = [
     (37, 29, (300, 250, 200), 6, "logits", False, 1.0, "random"),
     (301, 255, (300, 250, 200), 1, "masked", True, -1.0, "random"),
@@ -1650,6 +1653,11 @@ DEEP_CASES = [
     (64, 8, (1, 1), 1, "masked", False, 1.0, "random"),
     (130, 77, (128, 320, 17, 64), 6, "logits", True, -1.0, "random"),
     (0, 5, (300, 250, 200), 6, "logits", False, 1.0, "random"),
+    (40, 8, (136, 256, 257), 6, "masked", False, 1.0, 65),
+    (16, 8, (257, 320, 8), 1, "masked", True, -1.0, 64),
+    (16, 8, (9, 17, 16, 320), 6, "masked", False, 1.0, 63),
+    (8, 4, (320, 9, 136), 1, "masked", False, 1.0, 1),
+    (33, 16, (16, 8, 256, 17), 6, "masked", True, -1.0, "capacity"),
 ]
 
 
@@ -1663,6 +1671,9 @@ def _deep_case(card, case, seed=0):
         n = torch.full_like(n, m)
     elif kept == "none":
         n = torch.zeros_like(n)
+    elif isinstance(kept, int):
+        n = torch.clamp(kept - m * torch.arange(r, device=card), 0, m).to(
+            n.dtype)
     weights = deep_weights(card, seed + 1, trunk, heads)
     rewards = OUTCOME_REWARDS if heads == 6 else None
     return (boards, mover, n, weights, rewards, opponent, epilogue, sign)

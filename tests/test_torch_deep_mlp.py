@@ -192,6 +192,110 @@ def test_a_tf32_product_fails_the_tolerances():
     assert max(_gap(a, b) for a, b in zip(g_tf, g32)) > 10 * GRAD_TOL
 
 
+def _split_product(x, w):
+    """x w^T as ``csrc/dense.cu`` computes it: both operands as three bf16
+    limbs (``split_bf16``), the six limb products x_i w_j with i + j <= 2
+    (each exact in float32) summed in float32, smallest first; the three
+    with i + j > 2 left out."""
+    xs = [p.float() for p in AE.split_bf16(x)]
+    ws = [p.float() for p in AE.split_bf16(w)]
+    kept = sorted(((i, j) for i in range(3) for j in range(3) if i + j <= 2),
+                  key=lambda ij: -sum(ij))
+    out = torch.zeros((x.shape[0], w.shape[0]))
+    for i, j in kept:
+        out = out + torch.matmul(xs[i], ws[j].t())
+    return out
+
+
+def _tf32_product(x, w):
+    return torch.matmul(_tf32(x), _tf32(w).t())
+
+
+class _LinearWithInputGrad(torch.autograd.Function):
+    """``x w^T + b`` whose input gradient, dpre = g w (the backward's W^T
+    dpre), is ``product(g, w^T)``; the weight's gradient in float32."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, product):
+        ctx.save_for_backward(x, w)
+        ctx.product = product
+        return torch.matmul(x, w.t()) + b
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return (ctx.product(g, w.t().contiguous()), torch.matmul(g.t(), x),
+                g.sum(0), None)
+
+
+def _value_with(params, x, layer, product):
+    """wildbg's value with ``layer``'s W^T dpre taken by ``product``."""
+    h = x
+    for i in (1, 2, 3):
+        w, b = params[f"fc{i}.weight"], params[f"fc{i}.bias"]
+        pre = (_LinearWithInputGrad.apply(h, w, b, product)
+               if f"fc{i}" == layer else R._linear(w, b, h))
+        h = torch.relu(pre)
+    z = R._linear(params["outcome.weight"], params["outcome.bias"], h)
+    return (torch.softmax(z, -1) * torch.tensor(TMLP.OUTCOME_REWARDS)).sum(-1)
+
+
+@pytest.mark.parametrize("product", ["forward fc2", "backward fc3 W^T dpre"])
+def test_a_split_bf16_product_meets_the_tolerances(product):
+    """One product of the trunk in the dense kernels' split form (three bf16
+    limbs an operand, the six limb products with i + j <= 2) keeps the
+    values within TOL and the gradients within GRAD_TOL, where the same
+    product in TF32 moves them past the tolerance: the forward's fc2 (h2 =
+    relu(W2 h1 + b2)) and the backward's W3^T dpre3.  (The split reads
+    about 2e-7 of the gradients' scale, TF32 about 1e-4.)"""
+    model = _model(9)
+    params = R.weights_of(model)
+    x = torch.rand((256, 198), generator=torch.Generator().manual_seed(10))
+    if product.startswith("forward"):
+        want = R.value(params, x)
+        h1 = torch.relu(R._linear(params["fc1.weight"], params["fc1.bias"],
+                                  x))
+
+        def value(prod):
+            h2 = torch.relu(prod(h1, params["fc2.weight"])
+                            + params["fc2.bias"])
+            h3 = torch.relu(R._linear(params["fc3.weight"],
+                                      params["fc3.bias"], h2))
+            z = R._linear(params["outcome.weight"], params["outcome.bias"],
+                          h3)
+            r = torch.tensor(TMLP.OUTCOME_REWARDS)
+            return (torch.softmax(z, -1) * r).sum(-1)
+
+        assert _gap(value(_split_product), want) <= TOL
+        assert _gap(value(_tf32_product), want) > TOL
+        return
+    cot = torch.randn((256,), generator=torch.Generator().manual_seed(11))
+
+    def grads(prod):
+        w = {k: v.clone().requires_grad_() for k, v in params.items()}
+        used = [w[f"fc{i}.{p}"] for i in (1, 2, 3) for p in ("weight", "bias")]
+        y = (_value_with(w, x, "fc3", prod) * cot).sum()
+        return torch.autograd.grad(y, used)
+
+    want = grads(lambda g, wt: torch.matmul(g, wt.t()))
+    split = grads(_split_product)
+    tf32 = grads(_tf32_product)
+    assert max(_gap(a, b) for a, b in zip(split, want)) <= GRAD_TOL
+    assert max(_gap(a, b) for a, b in zip(tf32, want)) > GRAD_TOL
+
+
+def test_limb_scratch_pads_rows_to_8_and_columns_to_16():
+    """The weights' limbs that a dense call splits into scratch: three of
+    each W_l (rows padded to 8, columns to 16), W_l^T's for the backward;
+    wildbg's 300 -> 250 -> 200 costs 304 and 256 columns, not 512."""
+    widths = (300, 250, 200)
+    assert DN.limb_entries(widths) == 3 * (256 * 304 + 200 * 256)
+    assert DN.limb_entries(widths, backward=True) == \
+        3 * (304 * 256 + 256 * 208)
+    assert DN.limb_entries((1, 1)) == 3 * 8 * 16
+    assert DN.TILE == 128
+
+
 def test_min_and_bf16_raise_with_a_trunk():
     model = _model()
     boards, mover, n = _state()
