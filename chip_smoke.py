@@ -7,74 +7,39 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Device check: needs ``torch.cuda.is_available()``; prints the card's
    ``nvidia-smi`` name and power limit.
-2. Build: compiles ``csrc/compaction.cu`` (``compact_rows`` and
-   ``dedup_compact_rows``), ``csrc/doubles.cu`` (``doubles_level``, the
-   first three doubles levels in one launch, and ``doubles_final``),
-   ``csrc/nondoubles.cu`` (``nondoubles``), ``csrc/afterstate.cu``
-   (``afterstate_eval`` and ``afterstate_eval_backward``) and
-   ``csrc/adam.cu`` (the optimizer step) with nvcc for sm_90a, one nvcc
-   process per source, started together.
-3. Kernels vs plain versions, bit-exact (every output slot, zero tail
-   included, counts and flags): ``compact_rows`` on ragged edge cases, on
-   the split-N layout (one row of tens of thousands of flags), on the
-   compaction call shapes of the ``train4096`` table and on the 2-ply
-   reply shapes of earlier slices; ``dedup_compact_rows`` on planted
-   duplicates, high-nibble copies, the old main-path shape and the reply
-   shape; ``doubles_level`` (the three frontiers, L3's ranks and the
-   unclamped counts) on random roots that reach every slot kind (bar entry
-   on a blot, a block, bear-off exact, overshooting and exact from a nearer
-   point, game over, all-zero padding rows of die 0, mirrored games), at
-   the main-path, default, pod, reply and parity widths, with truncation
-   at each level, an empty L3 and roots at an odd address;
-   ``nondoubles`` on random boards of the same kinds with every
-   non-double roll, both mirrors and padding games of dice (0, 0), at the
-   main-path, default, parity and reply widths and at widths that
-   truncate the singles, the raw block and the list, and in place over
-   whole batches (random doubles rows to copy, both capacities binding,
-   at B=4096, pod's 16384 and truncating widths); ``doubles_final`` on
-   random L1-L3 frontiers with counts 0, within and above their widths
-   (L4 empty, L3 wider than M), also in place (each slot's list at a
-   random row of a wider output, a fifth of the slots empty, the whole
-   output compared, also at an odd row offset), and on the edge boards'
-   real levels.  The afterstate pass, to a tolerance (the features
-   exact, the sums of fc1 and the head in another order): the forward
-   within 1e-5 of its plain version on random boards with every epilogue,
-   both views, hidden 128 and 256 and odd R and M, at every path's shape
-   (the rollout's (4096, 256), a minibatch's (8192, 256), the league's
-   and the arenas' 256 and 512 x 256, the dances, the 2-ply replies'
-   (2048, 512), (2048, 128) and (8192, 512)); at the other widths (1, 32,
-   64, 100, 200, 384, 512, 1024: past 256 within 4 times the drift that a
-   one-ulp nudge of the weights makes) and in bfloat16 (32, 128, 256,
-   512: within 1e-2 of the values, at least 1), with every epilogue and
-   view, the rollout and a minibatch at hidden 512 and in bf16 at 128;
-   the backward at a minibatch of both widths, distillation's and an odd
-   shape, and at other widths and in bf16, its gradients within 4 times
-   the distance that a one-ulp nudge of the parameters (bf16's ulp for
-   bf16) moves the plain gradients; both the same bits on a second
-   launch; each timed beside its bound (operations at the float32 rate,
-   in bf16 at the tensor cores' dense rate) and its library call.  The
-   optimizer's kernel pair (``csrc/adam.cu``) at ``afterstate4096``'s
-   leaves against its plain version: the same bits where the clip does
-   not engage and where it is off; where it engages, the plain step at a
-   global norm within 8 ulps of its own (the norm summed in another
-   order); timed beside its byte bound, the plain version and
-   ``torch.optim.Adam(fused=True)``.
+2. Build: compiles ``csrc/compaction.cu`` (``compact_rows``),
+   ``csrc/doubles.cu`` (``doubles_level``, the first three doubles levels
+   in one launch, and ``doubles_final``), ``csrc/nondoubles.cu``
+   (``nondoubles``), ``csrc/afterstate.cu`` (``afterstate_eval``,
+   ``afterstate_eval_backward`` and the deep pass's first layer),
+   ``csrc/dense.cu`` (the deep pass's dense layers) and ``csrc/adam.cu``
+   (the optimizer step) with nvcc for sm_90a, one nvcc process per
+   source, started together.
+3. Each kernel against its plain version on inputs made up for the test
+   moved to the card tests, ``python -m pytest --noconftest -m cuda
+   tests/test_torch_cuda.py``.  What stays here is ``wildbg4096``'s deep
+   pass on its own rollout: at the first rollout step and the first
+   minibatch, the kernels against the plain version (values and gradients
+   within 4 and 8 times what a one-ulp nudge of every weight moves the
+   plain version, beside TF32's gap), the same bits on a second launch,
+   each wrapper's time beside its least time (the benchmark's yardstick,
+   ``benchmark/yardstick/deep_work.py``); then one ``train_step`` whose
+   launches show that it went through the deep wrappers and never the
+   shallow afterstate kernels.
 4. Movegen on the card at B=4096 on boards from a few env steps: the
    kernel path is bit-exact against the plain-PyTorch path on the card
    and against the CPU.  Every kernel call of one movegen call (the
    doubles split, the fused doubles levels, the final level writing each
    doubles game's list into the batch's output, and the non-doubles
    kernel in place over the rest of it) is captured, checked
-   against the plain version and timed (CUDA events) beside its bound,
-   and ``dedup_compact_rows``, off the path, at the block that the plain
-   non-doubles batch dedups.  The whole call is
+   against the plain version and timed (CUDA events) beside its least
+   time by bytes.  The whole call is
    timed eagerly and as a CUDA graph replay (the device's own time).  The
    same at the other batch sizes and widths the paths below run movegen
    at: the league eval's 256 games (``train4096``'s movegen) and the
    arenas' 512 and 64 games (``twoply``'s), where both sub-batches are the
    whole batch, with padding rows; B=4096 at the default widths and
-   B=16384 (``pod``), each also against the CPU; each call's shape is
-   checked once more with random flags or random inputs.  Movegen at
+   B=16384 (``pod``), each also against the CPU.  Movegen at
    ``MovegenConfig.parity()`` (the ``exact_order`` doubles path, its list
    put in place by one ``index_copy_``) at B=600 with a tenth of the
    games over, on the played dice and on doubles only: card == CPU.
@@ -89,9 +54,13 @@ Phases (any failure exits non-zero and prints no result line):
 5. Training path: ``get_preset("train4096")`` at B=4096, M=256, hidden
    128: one warm-up ``train_step`` and two timed ones (T=64 by default;
    the preset's 128 is cut to keep the run short).  Losses must be
-   finite, the optimizer's kernel pair must run once a minibatch step,
-   and each kernel's launches must grow by exactly its
-   per-call count (``compactions_per_call``, ``dedups_per_call`` = 0,
+   finite, the optimizer's kernel pair must run once a minibatch step
+   (its first step checked against the plain version on its own inputs:
+   the same bits where the clip does not engage, else at a global norm
+   within 8 ulps of the plain version's, and timed beside its byte bound,
+   the plain version and ``torch.optim.Adam(fused=True)``; so in every
+   run of this phase), and each kernel's launches must grow by exactly its
+   per-call count (``compactions_per_call``,
    ``doubles_levels_per_call``, ``nondoubles_per_call``,
    ``doubles_finals_per_call``) x T per step.  One more rollout and
    update are timed apart.  Then ``afterstate4096`` at its own widths
@@ -120,12 +89,14 @@ Phases (any failure exits non-zero and prints no result line):
    card: 1-ply vs the pubeval heuristic over 512 games and 400 plies
    (the win rate must lie within 0.072 of the JAX package's 0.818), and
    2-ply vs 1-ply over 64 games for at most 100 plies (cut from 400),
-   both with exact launch counts for the plies played.  Then frozen_v1
+   both with exact launch counts for the plies played and the afterstate
+   pass's distinct calls checked and timed on their own inputs.  Then
+   frozen_v1
    computing in bf16: one 2-ply decision at B=256, reply width 512, its
    afterstate kernels against the plain path (backup scores within 1e-2
    of their size, actions equal where the best leads by more than twice
    that) and the 1-ply league against pubeval over 512 games, its win
-   rate recorded beside the float32 one.
+   rate recorded beside the float32 one, its afterstate calls checked.
 7. Training driver: ``ppo.train.train`` at ``train4096``'s width (B=4096,
    M=256, hidden 128, 32 minibatches, the preset's T=128) in a
    temporary directory with a ``file://``
@@ -161,7 +132,11 @@ Phases (any failure exits non-zero and prints no result line):
    number.
 9. 2-ply distillation: ``scripts/run_distill.main`` on frozen_v1 at 256
    games, one iteration (plies cut 48 -> 8, eval games 512 -> 128):
-   the JAX script's record keys, finite losses, exact launches; then a
+   the JAX script's record keys, finite losses, exact launches; the
+   afterstate pass's distinct calls (the update's 1024-state minibatch
+   forward and backward, the 2-ply decisions', the evals' 1-ply) and the
+   first optimizer step (clipping off) checked and timed on their own
+   inputs; then a
    2-ply ``collect`` of 2 plies at 16 games and one update on the card
    against the CPU.
 10. The measuring entry points: ``scripts/bench.py`` in a process of its
@@ -175,19 +150,26 @@ Phases (any failure exits non-zero and prints no result line):
    time positive, each movegen piece's CUDA-graph time at most 1.05 times
    its eager time, both idle shares in [0, 1], and each graph's launches
    at capture exact (its replays count none).
-11. Checks that every path launched each of its kernels and no other (no
-   path calls ``dedup_compact_rows``, a 2-ply decision no
-   ``compact_rows``, an update no movegen kernel; the afterstate pass on
+11. Checks that every path launched each of its kernels and no other (a
+   2-ply decision no ``compact_rows``, an update no movegen kernel; the
+   afterstate pass on
    afterstate4096's rollout and update, the league, the arenas, 2-ply and
    distillation, its backward on the update and distillation), and that
    every path that updates ran the optimizer (each path's count is also
    checked exactly in its phase: epochs x minibatches an update,
    distillation one a minibatch) and no other did, and prints the
-   ``kernels`` JSON line of all seven and the optimizer (launches summed
+   ``kernels`` JSON line of all six and the optimizer (launches summed
    over every path's run, and by path; the afterstate rows also with the
    widths and dtypes held and their times at hidden 512 and in bf16; the
-   optimizer's also its calls), then the device line
+   optimizer's also its calls and ``afterstate4096``'s step's times),
+   then the device line
    ``{"ok": true, "device": {...}}`` last.
+
+The least times beside the kernels' times come from the benchmark's
+yardstick (``benchmark/yardstick``: ``work.py``'s counts and ``peaks.py``'s
+peaks) where it counts the kernel, and from this script's bytes of
+``compact_rows`` and the doubles kernels where it does not.  They are
+logged, not gated.
 
 ``--profile`` adds ``torch.profiler`` breakdowns of four env steps and of
 one 2-ply decision at B=256, after every timed phase.
@@ -210,19 +192,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
-# CUDA-core rate for 32-bit operations outside the tensor cores (the H100
-# SXM data sheet's float32 figure; the key compares are int32)
-H100_OPS_PER_S = 67e12
-# dense bf16 rate of the tensor cores (the same data sheet), for the
-# afterstate pass's tensor-core figure (logged, no gate)
-H100_BF16_OPS_PER_S = 989e12
 TPU_KERNELS = ("mlp_ppo_2ply_p3_tpu/ops/compaction.py:178, "
                "mlp_ppo_2ply_p3_tpu/ops/compaction.py:231")
-# jnp in the JAX package (no Pallas): the dedup flags and the compaction
-# after them, which XLA fused
-DEDUP_REPLACES = ("mlp_ppo_2ply_p3_tpu/core/movegen.py:256-273, "
-                  "mlp_ppo_2ply_p3_tpu/core/movegen.py:364")
 # the jnp doubles levels L1-L3, whose compactions are the Pallas
 # compact_rows
 DOUBLES_REPLACES = ("mlp_ppo_2ply_p3_tpu/core/movegen.py:395-419, "
@@ -235,27 +206,6 @@ NONDOUBLES_REPLACES = ("mlp_ppo_2ply_p3_tpu/core/movegen.py:286-369, "
 # the fourth doubles level and the selection of the list after it
 FINAL_REPLACES = ("mlp_ppo_2ply_p3_tpu/core/movegen.py:406-439, "
                   "mlp_ppo_2ply_p3_tpu/ops/compaction.py:231")
-# every kernel: (ops module, wrapper), in the order of the launch tuples
-# (mlp_ppo_2ply_p3_tpu_torch/ops/__init__.py::KERNELS)
-WRAPPERS = {"compact_rows": ("compaction", "compact_rows"),
-            "dedup_compact_rows": ("compaction", "dedup_compact_rows"),
-            "doubles_level": ("doubles", "doubles_levels"),
-            "nondoubles": ("nondoubles", "nondoubles_batch"),
-            "doubles_final": ("doubles", "doubles_final"),
-            "afterstate_eval": ("afterstate", "afterstate_eval"),
-            "afterstate_eval_backward": ("afterstate",
-                                         "afterstate_eval_backward")}
-KERNELS = tuple(WRAPPERS)
-# the optimizer wrapper's calls in ``launches()``, after the kernels
-# (mlp_ppo_2ply_p3_tpu_torch/ops/__init__.py::OPTIMIZER)
-OPTIMIZER = "adam_update"
-# a deep network's wrappers' calls in ``launches()``, after the optimizer's
-# (mlp_ppo_2ply_p3_tpu_torch/ops/__init__.py::DEEP)
-DEEP = ("afterstate_hidden", "afterstate_hidden_backward", "dense_layers",
-        "dense_layers_backward")
-# movegen's kernels, bit-exact: what a Capture swaps by default
-MOVEGEN_KERNELS = KERNELS[:5]
-AFTERSTATE_KERNELS = KERNELS[5:]
 
 
 def log(msg: str) -> None:
@@ -310,111 +260,45 @@ def compaction_bytes(valid, k_out: int, c: int) -> int:
     return b * n + landed * c + b * k_out * c + 4 * b
 
 
-def dedup_work(torch, compaction, boards, valid, k_out: int):
-    """(bytes, key-word compares) that dedup + compaction must spend:
-    the valid rows and the flags in, the output and the counts out; and
-    the compares of each unique valid row against all its valid
-    predecessors, and of each duplicate against one (7 words a key)."""
-    g, k, c = boards.shape
-    keep = compaction.first_occurrence_plain(boards, valid)
-    v = valid.to(torch.int64)
-    nv = int(v.sum())
-    before = torch.cumsum(v, dim=1) - v   # valid predecessors of each row
-    unique_pred = int((before * keep.to(torch.int64)).sum())
-    dups = nv - int(keep.sum())
-    nbytes = g * k + nv * c + g * k_out * c + 4 * g
-    return nbytes, 7 * (unique_pred + dups)
-
-
-def levels_work(doubles, args):
-    """(bytes, integer operations) that the first three doubles levels
-    must spend on these inputs: each game's root, die and mirror flag in;
-    the three frontiers (52 bytes a row, zero tails included), L3's ranks
-    and the three counts out; 8 operations for each slot predicate of a
-    valid frontier row (the root and the valid L1 and L2 rows, 27 a row)
-    and 2 for each byte of an afterstate that lands in a frontier."""
-    vecs, die, mirror, k1, k2, k3 = args
+def levels_bytes(args) -> int:
+    """Bytes that the first three doubles levels must move: each game's
+    root, die and mirror flag in; the three frontiers (52 bytes a row,
+    zero tails included), L3's ranks and the three counts out."""
+    vecs, _, _, k1, k2, k3 = args
     g = vecs.shape[0]
-    _, n1, _, n2, _, _, n3 = doubles.doubles_levels_plain(*args)
-    expanded = g + int(n1.clamp(max=k1).sum()) + int(n2.clamp(max=k2).sum())
-    landed = sum(int(n.clamp(max=k).sum())
-                 for n, k in ((n1, k1), (n2, k2), (n3, k3)))
-    nbytes = g * (52 + 4 + 1) + g * (k1 + k2 + k3) * 52 + g * k3 + 12 * g
-    return nbytes, expanded * 27 * 8 + landed * 52 * 2
+    return g * (52 + 4 + 1) + g * (k1 + k2 + k3) * 52 + g * k3 + 12 * g
 
 
-def nondoubles_work(torch, compaction, args):
-    """(bytes, integer operations) that the non-doubles batch must spend
-    on these inputs: each game's board, dice and mirror flag in, the
-    (G, M, 52) list, the counts and the flags out; 8 operations for each
-    slot predicate (27 a die: both orders' first die and the second die of
-    every kept single), 2 for each byte of a listed candidate, and the
-    dedup's key compares (``dedup_work``) on the block it sees.  In place
-    each game's placement (5 bytes) in; a doubles game's list is
-    ``doubles_final``'s, so a doubles game reads its off count, its slot's
-    row, count and flag (9 bytes) and writes its count and flag alone,
-    but for the games past the doubles capacity, which write their row,
-    copied from the output's row of the last fitting doubles game up to
-    its last nonzero row (a later row is zero, and the row has zeros
-    anyway); the rules' work is counted once for each game whose list the
-    batch carries."""
-    from mlp_ppo_2ply_p3_tpu_torch.ops import doubles, nondoubles
-
-    vecs, d_hi, d_lo, mirror, k1, kd, m, dedup = args[:8]
-    place = given("nondoubles", args, "place")
-    g = vecs.shape[0]
-    nbytes = g * (52 + 4 + 4 + 1) + g * m * 52 + 5 * g
-    if place is not None:
-        out = given("nondoubles", args, "out")
-        src, fits, dst, _, _ = place
-        dbl = src < 0
-        past = dbl & ~fits.bool()
-        from_row = dst.long()[(-1 - src[past]).long()]
-        rows = torch.arange(1, m + 1, device=out.device)
-        filled = torch.where((out[from_row] != 0).any(dim=2), rows, 0)
-        read = int((filled.amax(dim=1) if m else filled.sum(dim=1)).sum())
-        n_dbl, n_past = int(dbl.sum()), int(past.sum())
-        nbytes = (5 * g + (g - n_dbl) * (52 + 4 + 4 + 1) + n_dbl * (1 + 9)
-                  + (g - n_dbl + n_past) * m * 52 + read * 52 + 5 * g)
-        keep = torch.unique(src[~dbl]).long()
-        vecs, d_hi, d_lo, mirror = (x[keep] for x in (vecs, d_hi, d_lo,
-                                                      mirror))
-    n_games = vecs.shape[0]
-    singles = sum(int(doubles.first_die(vecs, d, mirror.bool())[1].sum(1)
-                      .clamp(max=k1).sum()) for d in (d_hi, d_lo))
-    limit = kd if dedup else m
-    cb, kv, n_raw = nondoubles.raw_block_plain(vecs, d_hi, d_lo,
-                                               mirror.bool(), k1, limit)
-    listed = int(n_raw.clamp(max=limit).sum())
-    compares = dedup_work(torch, compaction, cb, kv, m)[1] if dedup else 0
-    return nbytes, ((2 * n_games + singles) * 27 * 8 + listed * 52 * 2
-                    + compares)
-
-
-def final_work(torch, doubles, args):
-    """(bytes, integer operations) that the final doubles level must
-    spend on each slot that holds a game: the fourth level's (as
-    ``levels_work`` counts a level: the valid L3 rows and ranks, 8
-    operations a slot predicate, 2 a byte of a landing row), the slot's
-    L1, L2 and L3 counts, die and mirror flag, and the rows of the level
-    that stands in where L4 is empty, in; its (M, 52) list, its count and
-    its flag out.  In place (``dst`` given) every slot reads its row of
-    ``dst``, and an empty slot (-1) writes its count and flag alone."""
+def final_bytes(torch, doubles, args) -> int:
+    """Bytes that the final doubles level must move for each slot that
+    holds a game: its valid L3 rows and ranks, its L1, L2 and L3 counts,
+    die and mirror flag, and the rows of the level that stands in where L4
+    is empty, in; its (M, 52) list, its count and its flag out.  In place
+    (``dst`` given) every slot reads its row of ``dst``, and an empty slot
+    (-1) writes its count and flag alone."""
     f1b, n1, f2b, n2, f3b, f3r, n3, die, mirror, m = args[:10]
     dst = given("doubles_final", args, "dst")
     g, k3, _ = f3b.shape
     held = torch.ones_like(n3, dtype=torch.bool) if dst is None else dst >= 0
     rows3 = int((n3.clamp(0, k3) * held).sum())
     n4 = doubles.doubles_level_plain(f3b, f3r, n3, die, mirror, m)[2]
-    landed = int((n4.clamp(max=m) * held).sum())
     empty = (n4 == 0) & held
     width = (f3b.shape[1] * (n3 > 0) + f2b.shape[1] * ((n3 <= 0) & (n2 > 0))
              + f1b.shape[1] * ((n3 <= 0) & (n2 <= 0))).clamp(max=m)
     copied = int(width[empty].sum())
     lists = int(held.sum())
-    nbytes = (rows3 * 53 + lists * (4 * 4 + 1) + copied * 52
-              + lists * m * 52 + 5 * g + (0 if dst is None else 4 * g))
-    return nbytes, rows3 * 27 * 8 + landed * 52 * 2
+    return (rows3 * 53 + lists * (4 * 4 + 1) + copied * 52
+            + lists * m * 52 + 5 * g + (0 if dst is None else 4 * g))
+
+
+def nondoubles_bytes(args) -> int:
+    """The yardstick's bytes of one ``nondoubles`` call
+    (``benchmark/yardstick/work.py::nondoubles``), in place or not."""
+    from benchmark.yardstick import work
+
+    place = given("nondoubles", args, "place")
+    return work.nondoubles(args[0].shape[0], args[6],
+                           None if place is None else place[:2])
 
 
 def same(a, b) -> bool:
@@ -444,12 +328,14 @@ def out_index(name, args):
             else None)
 
 
-def measure(torch, fn, plain_fn, args, nbytes, ops=0, k_out=None, at=None):
+def measure(torch, fn, plain_fn, args, nbytes, k_out=None, at=None):
     """Check fn against plain_fn on args (every output bit for bit), then
-    time both in turns (plain, kernel, kernel, plain) beside the
-    bound.  ``k_out``: the output width (by default the last argument).
-    ``at``: where an in-place call holds its output (``out_index``); it
-    writes into a copy of its own."""
+    time both in turns (plain, kernel, kernel, plain) beside the least
+    time of ``nbytes`` at the card's bandwidth.  ``k_out``: the output
+    width (by default the last argument).  ``at``: where an in-place call
+    holds its output (``out_index``); it writes into a copy of its own."""
+    from benchmark.yardstick import peaks
+
     k_out = args[-1] if k_out is None else k_out
 
     def fresh():
@@ -471,48 +357,65 @@ def measure(torch, fn, plain_fn, args, nbytes, ops=0, k_out=None, at=None):
     kern = time_ms(lambda: fn(*kargs), iters)
     kern2 = time_ms(lambda: fn(*kargs), iters)
     plain2 = time_ms(lambda: plain_fn(*pargs), iters)
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = ops / H100_OPS_PER_S * 1e3
     return {
         "shape": list(args[0].shape), "k_out": k_out,
         "ms": (kern + kern2) / 2, "plain_ms": (plain + plain2) / 2,
-        "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
-        "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": nbytes, "bound_ms": nbytes / peaks.BYTES_PER_S * 1e3,
         "max_abs_err": err,
     }
+
+
+def _home(name):
+    """(module, attribute) of kernel ``name``'s wrapper: those of the
+    function that owns its count (``ops.counters()``), which a Capture
+    never swaps."""
+    import importlib
+
+    from mlp_ppo_2ply_p3_tpu_torch import ops
+
+    owner = ops.counters()[name]
+    return importlib.import_module(owner.__module__), owner.__name__
 
 
 def wrapper(name, plain=False):
     """Kernel ``name``'s wrapper (or its plain version), as its module
     holds it now."""
-    import importlib
+    module, attr = _home(name)
+    return getattr(module, attr + ("_plain" if plain else ""))
 
-    module, attr = WRAPPERS[name]
-    m = importlib.import_module(f"mlp_ppo_2ply_p3_tpu_torch.ops.{module}")
-    return getattr(m, attr + ("_plain" if plain else ""))
+
+def kernel_groups():
+    """(movegen's kernels, the afterstate pass's), each in ``ops.KERNELS``
+    order: the afterstate pass's wrappers are those that
+    ``ops/afterstate.py`` holds; movegen's are bit-exact."""
+    from mlp_ppo_2ply_p3_tpu_torch import ops
+    from mlp_ppo_2ply_p3_tpu_torch.ops import afterstate
+
+    owners = ops.counters()
+    after = tuple(k for k in ops.KERNELS
+                  if owners[k].__module__ == afterstate.__name__)
+    return tuple(k for k in ops.KERNELS if k not in after), after
 
 
 def measure_calls(torch, calls):
     """measure() every captured call ({kernel: [args, ...]}); returns
-    {kernel: [row, ...]} over every kernel."""
-    from mlp_ppo_2ply_p3_tpu_torch.ops import compaction, doubles
+    {kernel: [row, ...]} over movegen's kernels."""
+    from mlp_ppo_2ply_p3_tpu_torch.ops import doubles
 
-    work = {
-        "compact_rows": lambda a: (compaction_bytes(a[1], a[2],
-                                                    a[0].shape[2]), 0),
-        "dedup_compact_rows": lambda a: dedup_work(torch, compaction, *a),
-        "doubles_level": lambda a: levels_work(doubles, a),
-        "nondoubles": lambda a: nondoubles_work(torch, compaction, a),
-        "doubles_final": lambda a: final_work(torch, doubles, a),
+    nbytes = {
+        "compact_rows": lambda a: compaction_bytes(a[1], a[2],
+                                                   a[0].shape[2]),
+        "doubles_level": levels_bytes,
+        "nondoubles": nondoubles_bytes,
+        "doubles_final": lambda a: final_bytes(torch, doubles, a),
     }
     k_out = {"nondoubles": 6, "doubles_final": 9}
     return {name: [measure(torch, wrapper(name), wrapper(name, plain=True),
-                           a, *work[name](a),
+                           a, nbytes[name](a),
                            k_out=a[k_out[name]] if name in k_out else None,
                            at=out_index(name, a))
                    for a in calls.get(name, ())]
-            for name in MOVEGEN_KERNELS}
+            for name in kernel_groups()[0]}
 
 
 def log_rows(prefix, rows):
@@ -521,41 +424,58 @@ def log_rows(prefix, rows):
         for row in calls:
             log(f"{prefix}{name} {tuple(row['shape'])} -> {row['k_out']}: "
                 f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
-                f" bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+                f" bound {row['bound_ms']:.4f} ms (bytes)")
 
 
 def _call_key(args):
-    return tuple(tuple(a.shape) if hasattr(a, "shape") else a for a in args)
+    return tuple(tuple(a.shape) if hasattr(a, "shape")
+                 else tuple(tuple(t.shape) for t in a)
+                 if isinstance(a, (list, tuple)) else a for a in args)
+
+
+def _copied(args):
+    """``args`` with every tensor, and every tensor of a list, cloned."""
+    def one(a):
+        if hasattr(a, "clone"):
+            return a.clone()
+        if isinstance(a, (list, tuple)):
+            return type(a)(one(t) for t in a)
+        return a
+
+    return tuple(one(a) for a in args)
 
 
 class Capture:
     """Swaps the wrappers of ``kernels`` (by default movegen's, which are
     bit-exact) for ones that keep their inputs and call the kernel, or for
     their plain versions (``plain``), and restores them on exit.
-    ``distinct`` keeps one call per shape and widths.  ``calls``:
-    {kernel: [args, ...]} over every kernel."""
+    ``distinct`` keeps one call per shape and widths; ``copy`` keeps a
+    copy of each kept call's inputs as they were before it (the
+    optimizer's step writes its parameters in place; a later step or ply
+    may reuse a buffer).  ``calls``: {kernel: [args, ...]} over every
+    kernel of ``ops.KERNELS`` and of ``kernels``."""
 
-    def __init__(self, plain=False, distinct=False, kernels=MOVEGEN_KERNELS):
-        self.plain, self.distinct, self.kernels = plain, distinct, kernels
-        self.calls = {name: [] for name in KERNELS}
+    def __init__(self, plain=False, distinct=False, kernels=None,
+                 copy=False):
+        from mlp_ppo_2ply_p3_tpu_torch import ops
+
+        self.plain, self.distinct, self.copy = plain, distinct, copy
+        self.kernels = kernel_groups()[0] if kernels is None else kernels
+        self.calls = {name: [] for name in (*ops.KERNELS, *self.kernels)}
 
     def _wrap(self, kept, fn):
         @functools.wraps(fn)
         def wrapped(*args):
             if not self.distinct or _call_key(args) not in {
                     _call_key(a) for a in kept}:
-                kept.append(args)
+                kept.append(_copied(args) if self.copy else args)
             return fn(*args)
         return wrapped
 
     def __enter__(self):
-        import importlib
-
         self.saved = []
         for name in self.kernels:
-            module, attr = WRAPPERS[name]
-            m = importlib.import_module(
-                f"mlp_ppo_2ply_p3_tpu_torch.ops.{module}")
+            m, attr = _home(name)
             fn = getattr(m, attr)
             self.saved.append((m, attr, fn))
             setattr(m, attr, getattr(m, attr + "_plain") if self.plain
@@ -563,7 +483,18 @@ class Capture:
         return self
 
     def __exit__(self, *exc):
-        for m, attr, fn in self.saved:
+        from mlp_ppo_2ply_p3_tpu_torch import ops
+
+        # the optimizer's wrapper counts its calls through its module's
+        # name (``adam_update.launches``), so while swapped the count went
+        # to the stand-in, which carries the attribute as it was: it goes
+        # back to the wrapper.  The kernels count through ``_COUNTERS``.
+        owners = ops.counters()
+        for name, (m, attr, fn) in zip(self.kernels, self.saved):
+            now = getattr(m, attr)
+            if owners.get(name) is now and now is not fn and hasattr(
+                    now, "launches"):
+                fn.launches = now.launches
             setattr(m, attr, fn)
 
 
@@ -581,18 +512,19 @@ def zero_launches():
 
 def with_optimizer(counts, calls=0, deep=None):
     """``counts`` (by kernel) with the optimizer wrapper's ``calls`` under
-    ``OPTIMIZER`` and the deep pass's wrappers' calls (``deep``, by name;
-    0 for those it leaves out): what ``launches()`` reads after a path
-    that takes ``calls`` optimizer steps."""
-    return {**counts, OPTIMIZER: calls,
-            **{name: (deep or {}).get(name, 0) for name in DEEP}}
+    ``ops.OPTIMIZER`` and the deep pass's wrappers' calls (``deep``, by
+    name; 0 for those it leaves out): what ``launches()`` reads after a
+    path that takes ``calls`` optimizer steps."""
+    from mlp_ppo_2ply_p3_tpu_torch import ops
+
+    return {**counts, ops.OPTIMIZER: calls,
+            **{name: (deep or {}).get(name, 0) for name in ops.DEEP}}
 
 
 def per_call_launches(movegen, mg):
     """Each kernel's launches in one ``legal_afterstates_batch`` call at
     widths ``mg`` (none of the afterstate pass)."""
     return {"compact_rows": movegen.compactions_per_call(mg),
-            "dedup_compact_rows": movegen.dedups_per_call(mg),
             "doubles_level": movegen.doubles_levels_per_call(mg),
             "nondoubles": movegen.nondoubles_per_call(mg),
             "doubles_final": movegen.doubles_finals_per_call(mg),
@@ -600,8 +532,12 @@ def per_call_launches(movegen, mg):
 
 
 def afterstate_launches(fwd=0, bwd=0):
-    """The afterstate pass's launches as a tuple in ``KERNELS`` order."""
-    return (0,) * len(MOVEGEN_KERNELS) + (fwd, bwd)
+    """The afterstate pass's launches as a tuple in ``ops.KERNELS``
+    order."""
+    from mlp_ppo_2ply_p3_tpu_torch import ops
+
+    pass_ = {"afterstate_eval": fwd, "afterstate_eval_backward": bwd}
+    return tuple(pass_.get(name, 0) for name in ops.KERNELS)
 
 
 def train_step_launches(movegen, env_cfg, ppo):
@@ -617,422 +553,7 @@ def train_step_launches(movegen, env_cfg, ppo):
     return out
 
 
-# --- phase 3 -----------------------------------------------------------------
-
-
-def edge_cases(torch, compaction, dev, cases=None):
-    """``cases`` (by default: ragged shapes, the split-N layout, the nine
-    train4096 compaction call shapes and the 2-ply reply shapes) with
-    random flags; returns the cases checked."""
-    rng = torch.Generator(device=dev)
-    rng.manual_seed(3)
-    if cases is not None:
-        return compaction_cases(torch, compaction, dev, rng, cases)
-    # (B, N, C, k_out, fraction valid)
-    cases = [
-        (1, 1, 1, 1, 1.0), (1, 7, 3, 4, 0.6), (5, 33, 52, 8, 0.5),
-        (9, 129, 53, 200, 0.3), (3, 1000, 5, 17, 0.5), (7, 300, 1, 300, 1.0),
-        (11, 257, 52, 64, 0.0), (2, 2049, 55, 2049, 0.7), (4, 50, 2, 0, 0.5),
-        (13, 4097, 7, 100, 0.02),
-        # the split-N layout: one row of many flags, the count crossing
-        # k_out inside a tile
-        (1, 40000, 52, 7001, 0.35), (2, 30001, 55, 30001, 0.9),
-        # the train4096 compaction call shapes (rows, N, C) -> k_out
-        (1, 4096, 55, 3604, 0.88), (1, 4096, 54, 875, 0.17),
-        (7208, 27, 52, 16, 0.3),
-        (3604, 896, 52, 288, 0.12), (3604, 288, 52, 256, 0.12),
-        (875, 27, 53, 16, 0.3), (875, 432, 53, 80, 0.08),
-        (875, 2160, 53, 192, 0.04), (875, 5184, 53, 256, 0.03),
-    ]
-    # the 2-ply reply movegen's shapes at candidate chunks C: the stacked
-    # k1 and the raw non-doubles block (-> 512, and -> 288 ahead of the
-    # dedup below width 482) at the JAX package's game_chunk 2048 and the
-    # port's 8192; doubles L1-L4 at k2 = 128, k3 = 256, M' = 512 at
-    # dbl_game_chunk 512 (JAX) and 2048 (the port); their output runs
-    # reach 27 KB, above a block's 16 KB output image
-    for c in (512, 2048, 8192):
-        cases += [(2 * c, 27, 52, 16, 0.3), (c, 896, 52, 512, 0.12),
-                  (c, 896, 52, 288, 0.12)]
-    for c in (512, 2048):
-        cases += [(c, 27, 53, 16, 0.3), (c, 432, 53, 128, 0.3),
-                  (c, 3456, 53, 256, 0.08), (c, 6912, 53, 512, 0.08)]
-    return compaction_cases(torch, compaction, dev, rng, cases)
-
-
-def compaction_cases(torch, compaction, dev, rng, cases):
-    """compact_rows against its plain version on (B, N, C, k_out,
-    fraction valid) cases with random payloads and flags, row 1 all
-    invalid and row 2 all valid where B > 2."""
-    out = []
-    for b, n, c, k, frac in cases:
-        payload = torch.randint(-128, 128, (b, n, c), generator=rng,
-                                device=dev, dtype=torch.int8)
-        valid = torch.rand((b, n), generator=rng, device=dev) < frac
-        if b > 2:
-            valid[1] = False           # an all-invalid row
-            valid[2] = True            # an all-valid row
-        got = compaction.compact_rows(payload, valid, k)
-        want = compaction.compact_rows_plain(payload, valid, k)
-        torch.cuda.synchronize()
-        ok = same(got[0], want[0]) and same(got[1], want[1])
-        check(ok, f"kernel != plain at {(b, n, c)} -> {k}")
-        out.append({"shape": [b, n, c], "k_out": k, "exact": ok})
-    return out
-
-
-def dedup_cases(torch, compaction, dev, cases=None):
-    """dedup_compact_rows against its plain version on ``cases`` (by
-    default: ragged K, k_out = 0, the main-path shape, the 2-ply reply
-    shape and the parity width) with planted duplicates (copies of
-    earlier rows, some differing only in the high nibbles that pack_key
-    drops); returns the cases checked."""
-    rng = torch.Generator(device=dev)
-    rng.manual_seed(4)
-    # (G, K, k_out, fraction valid, share of planted copies, nibble noise)
-    default = [
-        (3, 40, 16, 0.8, 0.4, False), (5, 37, 64, 0.7, 0.5, True),
-        (8, 60, 0, 0.6, 0.3, False), (6, 33, 8, 1.0, 0.7, True),
-        (3604, 288, 256, 0.3, 0.3, False), (3604, 288, 256, 0.9, 0.5, True),
-        (64, 512, 500, 0.9, 0.5, True),
-        # the 2-ply reply dedup below width 482 (reply_max_moves 128)
-        (2048, 288, 128, 0.3, 0.3, False), (2048, 288, 128, 0.9, 0.5, True),
-    ]
-    out = []
-    for g, k, k_out, frac, planted, nibble in (
-            default if cases is None else cases):
-        boards = torch.randint(0, 16, (g, k, 52), generator=rng, device=dev,
-                               dtype=torch.int8)
-        pick = (torch.rand((g, k), generator=rng, device=dev)
-                * torch.arange(k, device=dev)).long()
-        copy = torch.rand((g, k), generator=rng, device=dev) < planted
-        noise = (torch.randint(0, 16, (g, k, 52), generator=rng, device=dev,
-                               dtype=torch.int8) << 4) if nibble else 0
-        rows = torch.arange(g, device=dev)
-        for i in range(1, k):  # in order, so copies of copies chain
-            src = boards[rows, pick[:, i]]
-            if nibble:
-                src = (src & 0xF) | noise[:, i]
-            boards[:, i] = torch.where(copy[:, i, None], src, boards[:, i])
-        valid = torch.rand((g, k), generator=rng, device=dev) < frac
-        got = compaction.dedup_compact_rows(boards, valid, k_out)
-        want = compaction.dedup_compact_rows_plain(boards, valid, k_out)
-        torch.cuda.synchronize()
-        ok = same(got[0], want[0]) and same(got[1], want[1])
-        check(ok, f"dedup kernel != plain at {(g, k)} -> {k_out}")
-        check(bool((want[1] < valid.sum(1)).any()),
-              f"no duplicate planted at {(g, k)}")
-        out.append({"shape": [g, k, 52], "k_out": k_out, "exact": ok})
-    return out
-
-
-def edge_boards(torch, dev):
-    """(6, 52) canonical boards that reach every slot kind of a doubles
-    level (the mover travels 0 -> 23, enters from the bar on die - 1,
-    bears off past 23): entry on a blot, a block and open points; every
-    entry blocked; bear-off exactly from the farthest point, overshooting
-    and exactly from a nearer point; game over; all-zero padding."""
-    rows = [({5: 6, 12: 5, 16: 2}, {0: 1, 1: 2, 3: 3, 10: 1}, 2, 0),
-            ({12: 14}, {p: 2 for p in range(6)}, 1, 0),
-            ({20: 3, 22: 2, 23: 1}, {3: 2}, 0, 9),
-            ({18: 1, 21: 2, 23: 4}, {}, 0, 8),
-            ({}, {4: 2}, 0, 15),
-            ({}, {}, 0, 0)]
-    out = torch.zeros((len(rows), 52), dtype=torch.int8, device=dev)
-    for i, (my, opp, bar, off) in enumerate(rows):
-        for p, c in my.items():
-            out[i, p] = c
-        for p, c in opp.items():
-            out[i, 24 + p] = c
-        out[i, 48], out[i, 50] = bar, off
-    return out
-
-
-def random_frontier(torch, dev, rng, g, k, root):
-    """Random doubles-level inputs: sparse counts (some negative, which
-    the rules never make), some rows on the bar, half of them all home, a
-    tenth game over, the edge boards spread in; parent ranks with many
-    bars; ragged valid counts (some above K); dice 1..6 and a tenth of
-    the games all-zero padding of die 0; mirrored games.  ``root``: a
-    one-row frontier with no ranks and no counts."""
-    def rand(*shape):
-        return torch.rand(shape, generator=rng, device=dev)
-
-    def ints(lo, hi, *shape, dtype=torch.int8):
-        return torch.randint(lo, hi, shape, generator=rng, device=dev,
-                             dtype=dtype)
-
-    b = ints(-2, 16, g, k, 52)
-    b[:, :, :48] *= (rand(g, k, 48) < 0.4).to(torch.int8)
-    b[:, :, 48] *= (rand(g, k) < 0.3).to(torch.int8)
-    b[:, :, :18] *= (rand(g, k) >= 0.5).to(torch.int8)[:, :, None]
-    b[:, :, 50] = torch.where(rand(g, k) < 0.1, 15, b[:, :, 50].abs() % 15)
-    edges = edge_boards(torch, dev)
-    pick = rand(g, k) < 0.2
-    b = torch.where(pick[:, :, None],
-                    edges[ints(0, len(edges), g, k, dtype=torch.int64)], b)
-    ranks = torch.where(rand(g, k) < 0.4, -1, ints(-128, 25, g, k))
-    n_in = ints(0, k + 3, g, dtype=torch.int32)
-    die = ints(1, 7, g, dtype=torch.int32)
-    pad = rand(g) < 0.1
-    b = torch.where(pad[:, None, None], 0, b).to(torch.int8)
-    die = torch.where(pad, 0, die).to(torch.int32)
-    mirror = rand(g) < 0.5
-    if root:
-        return b[:, :1].contiguous(), None, None, die, mirror
-    return b.contiguous(), ranks.to(torch.int8), n_in, die, mirror
-
-
-def doubles_cases(torch, doubles, dev, cases=None):
-    """doubles_levels (the fused first three levels) against its plain
-    version (the three frontiers, L3's ranks and the unclamped counts, bit
-    for bit) on random roots (``random_frontier``'s one-row frontiers) at
-    ``cases`` of (G, k1, k2, k3) (by default: train4096's doubles sub-batch
-    at ``fast()`` and the default widths, pod's, the 2-ply reply widths,
-    the parity widths, widths that truncate each level, an empty L3), each
-    also with uint8 mirror flags and the roots at an odd address; and the
-    edge boards, each with every die, unmirrored and mirrored.  Returns
-    the cases checked."""
-    rng = torch.Generator(device=dev)
-    rng.manual_seed(6)
-    default = [(875, 16, 80, 192), (1088, 16, 96, 224), (4160, 16, 96, 224),
-               (512, 16, 128, 256), (64, 16, 128, 512), (300, 3, 5, 7),
-               (300, 16, 6, 40), (40, 16, 30, 0)]
-    out = []
-    for g, k1, k2, k3 in (default if cases is None else cases):
-        vecs, _, _, die, mirror = random_frontier(torch, dev, rng, g, 1, True)
-        args = (vecs[:, 0].contiguous(), die, mirror)
-        want = doubles.doubles_levels_plain(*args, k1, k2, k3)
-        raw = torch.zeros(g * 52 + 3, dtype=torch.int8, device=dev)
-        raw[3:] = args[0].reshape(-1)
-        odd = (raw[3:].view(g, 52), die, mirror.to(torch.uint8))
-        for variant in (args, odd):
-            got = doubles.doubles_levels(*variant, k1, k2, k3)
-            torch.cuda.synchronize()
-            check(all(same(a, b) for a, b in zip(got, want)),
-                  f"doubles_levels != plain at G={g}, widths "
-                  f"{(k1, k2, k3)}")
-        check(int(want[1].sum()) > 0, f"no valid candidate at G={g}")
-        out.append({"games": g, "widths": [k1, k2, k3], "exact": True})
-    if cases is None:
-        edges = edge_boards(torch, dev)
-        vecs = edges.repeat_interleave(12, dim=0).contiguous()
-        die = torch.arange(1, 7, dtype=torch.int32, device=dev).repeat(12)
-        die[-12:] = 0                                  # the padding rows
-        mirror = (torch.arange(72, device=dev) % 12) >= 6
-        args = (vecs, die, mirror, 16, 80, 192)
-        got = doubles.doubles_levels(*args)
-        want = doubles.doubles_levels_plain(*args)
-        torch.cuda.synchronize()
-        check(all(same(a, b) for a, b in zip(got, want)),
-              "doubles_levels != plain on the edge boards")
-        out.append({"games": 72, "widths": [16, 80, 192],
-                    "exact": "edge boards, every die"})
-    return out
-
-
-# the 15 non-double rolls as (high, low)
-NONDOUBLE_ROLLS = [(h, lo) for h in range(2, 7) for lo in range(1, h)]
-
-
-def nondoubles_inputs(torch, dev, rng, g):
-    """Random ``nondoubles_batch`` inputs: ``random_frontier``'s boards
-    (negative counts, bars, bear-offs, game over, the edge boards), the
-    15 non-double rolls in turn, both mirrors, and a tenth of the games
-    all-zero padding rows of dice (0, 0)."""
-    b = random_frontier(torch, dev, rng, g, 1, True)[0][:, 0]
-    rolls = torch.tensor(NONDOUBLE_ROLLS, dtype=torch.int32, device=dev)[
-        torch.arange(g, device=dev) % len(NONDOUBLE_ROLLS)]
-    pad = torch.rand((g,), generator=rng, device=dev) < 0.1
-    b = torch.where(pad[:, None], 0, b).to(torch.int8).contiguous()
-    rolls = torch.where(pad[:, None], 0, rolls)
-    mirror = torch.rand((g,), generator=rng, device=dev) < 0.5
-    return b, rolls[:, 0].contiguous(), rolls[:, 1].contiguous(), mirror
-
-
-def place_inputs(torch, dev, rng, g, m):
-    """A random in-place batch of ``g`` games: ``nondoubles_inputs``'s
-    games, a fifth of them doubles games, whose rows of the output hold
-    random lists (as ``doubles_final`` leaves them) with random counts and
-    flags; both capacities below their kind's count, so that both slot
-    clamps bind.  Returns ((vecs, d_hi, d_lo, mirror), place, out)."""
-    from mlp_ppo_2ply_p3_tpu_torch.core import movegen
-
-    args = nondoubles_inputs(torch, dev, rng, g)
-    dbl = torch.rand((g,), generator=rng, device=dev) < 0.2
-    gd, bn = max(1, g // 7), max(1, g * 3 // 4)
-    src, fits, _, _, dst = movegen._placement(dbl, gd, bn)
-    out = torch.randint(-128, 128, (g, m, 52), generator=rng, device=dev,
-                        dtype=torch.int8)
-    db_n = torch.randint(0, m + 1, (gd,), generator=rng, device=dev,
-                         dtype=torch.int32)
-    db_of = torch.rand((gd,), generator=rng, device=dev) < 0.3
-    return args, (src, fits, dst, db_n, db_of), out
-
-
-def nondoubles_cases(torch, nondoubles, dev, cases=None):
-    """nondoubles_batch against its plain version (boards, counts and
-    flags, bit for bit) on random inputs (``nondoubles_inputs``) at
-    ``cases`` of (G, k1, kd, M, dedup, in place) (by default: train4096's
-    batch at ``fast()`` and the default widths, in place (``place_inputs``)
-    and as a sub-batch, pod's B=16384 in place, the parity widths, both
-    2-ply reply widths, widths that truncate the singles, the raw block
-    and the list, zero widths), each also with uint8 mirror flags and the
-    boards at an odd address; and the edge boards with every non-double
-    roll, unmirrored and mirrored.  Returns the cases checked."""
-    rng = torch.Generator(device=dev)
-    rng.manual_seed(8)
-    default = [(4096, 16, 288, 256, True, True),
-               (4096, 16, 384, 256, True, True),
-               (16384, 16, 384, 256, True, True),
-               (3604, 16, 288, 256, True, False),
-               (64, 16, 512, 500, True, False),
-               (2048, 16, 288, 512, False, False),
-               (2048, 16, 288, 128, True, False),
-               (300, 4, 16, 4, True, False), (600, 4, 16, 4, True, True),
-               (300, 3, 16, 5, False, False), (600, 3, 16, 5, False, True),
-               (7, 16, 0, 0, True, False)]
-    out = []
-    for g, k1, kd, m, dedup, in_place in (default if cases is None
-                                          else cases):
-        if in_place:
-            args, place, lists = place_inputs(torch, dev, rng, g, m)
-            u8 = (*place[:4], place[4].to(torch.uint8))
-        else:
-            args, place = nondoubles_inputs(torch, dev, rng, g), None
-            lists = u8 = None
-
-        def fresh():
-            return None if lists is None else lists.clone()
-
-        want = nondoubles.nondoubles_batch_plain(*args, k1, kd, m, dedup,
-                                                 place, fresh())
-        if in_place:   # the doubles games past the capacity copy a row
-            check(bool((~place[1] & (place[0] < 0)).any()),
-                  f"no doubles game past the capacity at G={g}")
-        raw = torch.zeros(g * 52 + 3, dtype=torch.int8, device=dev)
-        raw[3:] = args[0].reshape(-1)
-        odd = (raw[3:].view(g, 52), *args[1:3], args[3].to(torch.uint8))
-        for variant, pl in ((args, place), (odd, u8)):
-            got = nondoubles.nondoubles_batch(*variant, k1, kd, m, dedup, pl,
-                                              fresh())
-            torch.cuda.synchronize()
-            check(all(same(a, b) for a, b in zip(got, want)),
-                  f"nondoubles != plain at G={g}, widths {(k1, kd, m)}, "
-                  f"dedup {dedup}, in place {in_place}")
-        check(m == 0 or int(want[1].sum()) > 0, f"no move at all at G={g}")
-        out.append({"games": g, "widths": [k1, kd, m], "dedup": dedup,
-                    "in_place": in_place, "exact": True})
-    if cases is None:
-        edges = edge_boards(torch, dev)
-        rolls = torch.tensor(NONDOUBLE_ROLLS, dtype=torch.int32, device=dev)
-        vecs = edges.repeat_interleave(2 * len(rolls), dim=0).contiguous()
-        hi, lo = (rolls[:, i].repeat(2 * len(edges)).contiguous()
-                  for i in (0, 1))
-        mirror = (torch.arange(len(vecs), device=dev) // len(rolls)) % 2 == 1
-        args = (vecs, hi, lo, mirror, 16, 288, 256, True)
-        got = nondoubles.nondoubles_batch(*args)
-        want = nondoubles.nondoubles_batch_plain(*args)
-        torch.cuda.synchronize()
-        check(all(same(a, b) for a, b in zip(got, want)),
-              "nondoubles != plain on the edge boards")
-        out.append({"games": len(vecs), "widths": [16, 288, 256],
-                    "dedup": True, "exact": "edge boards, every roll"})
-    return out
-
-
-def final_cases(torch, doubles, dev, cases=None):
-    """doubles_final against its plain version (list, counts and flags,
-    bit for bit) at ``cases`` of (G, k1, k2, k3, M, in place) (by default:
-    train4096's doubles sub-batch at ``fast()`` and the default widths,
-    pod's, the 2-ply reply widths, the parity widths, L3 wider than M,
-    widths that the counts exceed, M = 0; the main-path ones also in
-    place): L3 from ``random_frontier`` with a third of its counts 0,
-    random L1 and L2 rows that the kernel copies as they are, with counts
-    0, within and above their widths; each also with L3 at an odd address
-    and uint8 mirror flags.  In place, slot g's list goes to row dst[g] of
-    a random (B, M, 52) output of a third more rows, dst a random
-    permutation with a fifth of the slots empty (-1): the whole output is
-    compared (no other row may change), also at an odd row offset.  Then
-    the edge boards through three plain levels, every die, both mirrors.
-    Returns the cases checked."""
-    rng = torch.Generator(device=dev)
-    rng.manual_seed(9)
-    default = [(875, 16, 80, 192, 256, False), (875, 16, 80, 192, 256, True),
-               (1088, 16, 96, 224, 256, False),
-               (1088, 16, 96, 224, 256, True),
-               (4160, 16, 96, 224, 256, True),
-               (512, 16, 128, 256, 512, False), (64, 16, 128, 512, 500, False),
-               (64, 16, 128, 512, 500, True),
-               (300, 16, 96, 300, 100, False), (300, 16, 96, 300, 100, True),
-               (200, 5, 7, 9, 30, False), (200, 5, 7, 9, 30, True),
-               (40, 16, 30, 40, 0, False), (40, 16, 30, 40, 0, True)]
-
-    def ints(lo, hi, *shape, dtype=torch.int32):
-        return torch.randint(lo, hi, shape, generator=rng, device=dev,
-                             dtype=dtype)
-
-    out = []
-    for g, k1, k2, k3, m, in_place in (default if cases is None else cases):
-        f3b, f3r, n3, die, mirror = random_frontier(torch, dev, rng, g, k3,
-                                                    False)
-        n3 = torch.where(ints(0, 3, g) == 0, 0, n3).to(torch.int32)
-        n2 = torch.where(ints(0, 3, g) == 0, 0, ints(0, k2 + 3, g))
-        args = (ints(-2, 16, g, k1, 52, dtype=torch.int8), ints(0, k1 + 3, g),
-                ints(-2, 16, g, k2, 52, dtype=torch.int8), n2.contiguous(),
-                f3b, f3r, n3.contiguous(), die, mirror)
-        base = dst = None
-        if in_place:
-            b = g + g // 3
-            rows = torch.randperm(b, generator=rng, device=dev)[:g]
-            empty = torch.rand((g,), generator=rng, device=dev) < 0.2
-            dst = torch.where(empty, -1, rows).to(torch.int32)
-            base = ints(-128, 128, b, m, 52, dtype=torch.int8)
-
-        def place(shift=0):
-            """A copy of the output, ``shift`` rows into a buffer."""
-            if base is None:
-                return ()
-            buf = torch.empty((b + shift, m, 52), dtype=torch.int8,
-                              device=dev)
-            buf[shift:] = base
-            return buf[shift:], dst
-
-        want = doubles.doubles_final_plain(*args, m, *place())
-        raw = torch.zeros(f3b.numel() + 3, dtype=torch.int8, device=dev)
-        raw[3:] = f3b.reshape(-1)
-        odd = (*args[:4], raw[3:].view(f3b.shape), *args[5:8],
-               mirror.to(torch.uint8))
-        for variant, shift in ((args, 0), (odd, 1)):
-            got = doubles.doubles_final(*variant, m, *place(shift))
-            torch.cuda.synchronize()
-            check(all(same(a, b_) for a, b_ in zip(got, want)),
-                  f"doubles_final != plain at {(g, k1, k2, k3)} -> {m}, "
-                  f"in place {in_place}")
-        out.append({"games": g, "widths": [k1, k2, k3], "k_out": m,
-                    "in_place": in_place, "exact": True})
-    if cases is None:
-        edges = edge_boards(torch, dev)
-        vecs = edges.repeat_interleave(12, dim=0)
-        die = torch.arange(1, 7, dtype=torch.int32, device=dev).repeat(12)
-        die[-12:] = 0                                  # the padding rows
-        mirror = (torch.arange(72, device=dev) % 12) >= 6
-        level, levels = (vecs[:, None, :].contiguous(), None, None), []
-        for k in (16, 80, 192):
-            level = doubles.doubles_level_plain(*level, die, mirror, k)
-            levels.append(level)
-        (f1b, _, n1), (f2b, _, n2), l3 = levels
-        args = (f1b, n1, f2b, n2, *l3, die, mirror, 256)
-        got = doubles.doubles_final(*args)
-        want = doubles.doubles_final_plain(*args)
-        torch.cuda.synchronize()
-        check(all(same(a, b) for a, b in zip(got, want)),
-              "doubles_final != plain on the edge boards")
-        out.append({"games": 72, "widths": [16, 80, 192], "k_out": 256,
-                    "exact": "edge boards, every die"})
-    return out
-
-
-# --- phase 3: the afterstate pass --------------------------------------------
+# --- the afterstate pass ----------------------------------------------------
 
 # the jnp that XLA fuses in the JAX package and afterstate.cu replaces
 AFTERSTATE_REPLACES = ("mlp_ppo_2ply_p3_tpu/ppo/learner.py:143-152, "
@@ -1044,10 +565,13 @@ AFTERSTATE_REPLACES = ("mlp_ppo_2ply_p3_tpu/ppo/learner.py:143-152, "
 AFTERSTATE_BACKWARD_REPLACES = ("mlp_ppo_2ply_p3_tpu/ppo/learner.py:143-152,"
                                 " mlp_ppo_2ply_p3_tpu/ppo/learner.py:204-208")
 # the forward pass against its plain version (features exact, the sums
-# in another order) in float32 up to 256 units; past 256 units within this
-# many times the largest drift that a one-ulp nudge of the weights makes of
-# the plain version's values, as the gradients are held at every width
-# (phase 8's calibration)
+# in another order) in float32 up to 256 units: within this share of each
+# value's size, at least 1 (so 1e-5 where values stay within +-1, as the
+# card tests' made-up ones and every value head's do; a trained score
+# head's logits reach 100-260, where one float32 ulp is 0.8-3.1e-5); past
+# 256 units within this many times the largest drift that a one-ulp nudge
+# of the weights makes of the plain version's values, as the gradients are
+# held at every width (phase 8's calibration)
 AFTERSTATE_TOL = 1e-5
 AFTERSTATE_NUDGE_FACTOR = 4.0
 # bf16 weights (compute_dtype "bfloat16"): the kernels round where the JAX
@@ -1056,157 +580,19 @@ AFTERSTATE_NUDGE_FACTOR = 4.0
 # tests/test_torch_models.py's bf16 2e-2 (the plain version against JAX on
 # the CPU: at most 4.9e-3, tests/test_torch_afterstate.py)
 AFTERSTATE_BF16_TOL = 1e-2
-# phase 3's shapes: (label, R, M, hidden, epilogue, opponent view, sign):
-# the rollout, a minibatch, the league's and the arenas' 1-ply (256 and 512
-# games), the score-head policy, the dances (top-k 8), the 2-ply replies at
-# the chunks of a B=256 decision (2048 candidates) at both reply widths and
-# of a B=4096 one (8192), and odd shapes
-AFTERSTATE_CASES = [
-    ("rollout", 4096, 256, 128, "logits", False, 1.0),
-    ("rollout h256", 4096, 256, 256, "logits", False, 1.0),
-    ("minibatch", 8192, 256, 128, "logits", False, 1.0),
-    ("league 1-ply", 256, 256, 128, "masked", True, -1.0),
-    ("arena 1-ply", 512, 256, 128, "masked", True, -1.0),
-    ("score policy", 256, 256, 256, "masked", False, 1.0),
-    ("dances", 256, 8, 128, "masked", False, 1.0),
-    ("reply 512", 2048, 512, 128, "min", True, 1.0),
-    ("reply 128", 2048, 128, 128, "min", True, 1.0),
-    ("reply B=4096", 8192, 512, 128, "min", True, 1.0),
-    ("odd", 37, 29, 256, "masked", True, -1.0),
-    ("odd", 301, 255, 256, "logits", False, 1.0),
-    ("odd", 513, 511, 256, "min", False, 1.0),
-    ("odd", 1, 1, 128, "min", True, 1.0),
-    ("empty", 0, 3, 128, "logits", False, 1.0),
-]
-# every other width (a part of one unit group, a pair padded, 3 to 8 groups)
-# and bf16, with every epilogue and view and odd shapes: the rollout and a
-# minibatch at hidden 512 (run_learning --hidden 512) and in bf16 at 128,
-# the league's 1-ply and the replies at 512 and in bf16; (label, R, M,
-# hidden, epilogue, opponent view, sign, dtype)
-AFTERSTATE_WIDTH_CASES = [
-    ("h1 odd", 37, 29, 1, "logits", False, 1.0, "float32"),
-    ("h32 odd", 301, 255, 32, "masked", True, -1.0, "float32"),
-    ("h64 dances", 256, 8, 64, "masked", False, 1.0, "float32"),
-    ("h100 reply 128", 2048, 128, 100, "min", True, 1.0, "float32"),
-    ("h200 odd", 513, 511, 200, "min", False, 1.0, "float32"),
-    ("h384 odd", 301, 255, 384, "masked", True, -1.0, "float32"),
-    ("rollout h512", 4096, 256, 512, "logits", False, 1.0, "float32"),
-    ("minibatch h512", 8192, 256, 512, "logits", False, 1.0, "float32"),
-    ("league 1-ply h512", 256, 256, 512, "masked", True, -1.0, "float32"),
-    ("reply 512 h512", 2048, 512, 512, "min", True, 1.0, "float32"),
-    ("h1024 odd", 513, 255, 1024, "min", True, 1.0, "float32"),
-    ("h1024 odd", 37, 29, 1024, "logits", False, 1.0, "float32"),
-    ("bf16 odd", 37, 29, 32, "logits", False, 1.0, "bfloat16"),
-    ("rollout bf16", 4096, 256, 128, "logits", False, 1.0, "bfloat16"),
-    ("minibatch bf16", 8192, 256, 128, "logits", False, 1.0, "bfloat16"),
-    ("reply 512 bf16", 2048, 512, 128, "min", True, 1.0, "bfloat16"),
-    ("league 1-ply bf16 h256", 256, 256, 256, "masked", True, -1.0,
-     "bfloat16"),
-    ("bf16 h512 odd", 513, 511, 512, "min", False, 1.0, "bfloat16"),
-    ("rollout bf16 h512", 4096, 256, 512, "logits", False, 1.0,
-     "bfloat16"),
-]
-# the backward at a minibatch (both widths), distillation's minibatch and
-# an odd shape
-AFTERSTATE_BACKWARD_CASES = [
-    ("minibatch", 8192, 256, 128, "logits", False, 1.0),
-    ("minibatch h256", 8192, 256, 256, "logits", False, 1.0),
-    ("distill minibatch", 1024, 256, 128, "logits", False, 1.0),
-    ("odd", 301, 255, 256, "masked", True, -1.0),
-]
-AFTERSTATE_BACKWARD_WIDTH_CASES = [
-    ("h1 odd", 37, 29, 1, "logits", False, 1.0, "float32"),
-    ("h100 odd", 301, 255, 100, "masked", True, -1.0, "float32"),
-    ("minibatch h512", 8192, 256, 512, "logits", False, 1.0, "float32"),
-    ("h1024 odd", 300, 256, 1024, "logits", False, 1.0, "float32"),
-    ("bf16 odd", 37, 29, 32, "logits", False, 1.0, "bfloat16"),
-    ("minibatch bf16", 8192, 256, 128, "logits", False, 1.0, "bfloat16"),
-    ("bf16 h512 odd", 301, 255, 512, "masked", True, -1.0, "bfloat16"),
-]
 
 
-def afterstate_inputs(torch, dev, seed, r, m, hidden, dtype="float32"):
-    """Random (R, M, 52) int8 boards (about a quarter of the points
-    occupied, 1-15 checkers, bars and borne-off counts, a few negative
-    bytes, a tenth all-zero rows), movers 0 and 1, n with 0, M and values
-    between; random float32 weights of ``hidden`` units (fc1 and a head);
-    ``dtype="bfloat16"``: bf16 weights at ``nn.Linear``'s scale,
-    U(-1/sqrt(fan in), 1/sqrt(fan in)), as a model computing in bf16 has
-    them."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
+def afterstate_bound(args, backward=False):
+    """(bytes, operations, kept boards, bytes' least time, operations'
+    least time, in ms) of the pass on these inputs, as the benchmark's
+    yardstick counts them (``benchmark/yardstick/work.py::afterstate``)."""
+    from benchmark.yardstick import peaks, work
 
-    def ints(lo, hi, *shape):
-        return torch.randint(lo, hi, shape, generator=g, device=dev)
-
-    def rand(*shape):
-        return torch.rand(shape, generator=g, device=dev)
-
-    pts = ints(1, 16, r, m, 48) * (rand(r, m, 48) < 0.25)
-    boards = torch.cat([pts, ints(0, 4, r, m, 2), ints(0, 16, r, m, 2)],
-                       dim=2).to(torch.int8)
-    boards[rand(r, m, 52) < 0.002] = -3
-    boards[rand(r, m) < 0.1] = 0
-    mover = ints(0, 2, r).to(torch.int32)
-    n = ints(0, m + 1, r).to(torch.int32)
-    n[::7] = 0
-    n[1::5] = m
-    if dtype == "float32":
-        w = [torch.randn(shape, generator=g, device=dev) * scale
-             for shape, scale in (((hidden, 198), 0.2), ((hidden,), 0.1),
-                                  ((1, hidden), 0.2), ((1,), 0.1))]
-    else:
-        w = [((rand(*shape) * 2 - 1) / math.sqrt(fan_in)).to(
-                getattr(torch, dtype))
-             for shape, fan_in in (((hidden, 198), 198), ((hidden,), 198),
-                                   ((1, hidden), hidden), ((1,), hidden))]
-    return boards, mover, n, *w
-
-
-def afterstate_tensor_ms(n_kept, hidden, backward=False):
-    """The kernels' tensor-core products as one dense bf16 product each over
-    the kept boards (2 x 208 x H flops a board: fc1, and dW1 in the
-    backward) at the tensor cores' dense rate, in ms: a figure logged beside
-    the bound, not a bound (in float32 the kernels run each product three
-    times, once for each bf16 part of W1 or dpre; in bf16 once)."""
-    flops = n_kept * 2 * 208 * hidden * (2 if backward else 1)
-    return flops / H100_BF16_OPS_PER_S * 1e3
-
-
-def afterstate_work(torch, afterstate, args, backward=False):
-    """(bytes, operations, dense operations) of the pass on these inputs.
-    Bytes: the kept boards (52 each: the rest need none), mover and n, the
-    weights in, the output out (and for the backward the kept boards'
-    gradients in, the weights' gradients out).  Operations, counted on the
-    data: 2 H for each non-zero feature of a kept board (a point of c
-    checkers sets min(c, 3) + [c > 3], a bar or off count one, the
-    one-hot one) and 3 H + 1 a board for the bias, ReLU and head; the
-    backward twice the feature products (the recomputed pre-activations,
-    dW1) and 5 H a board.  Dense: 2 x 198 x H + 3 H for every board, the
-    dense product that the plain version does.  bf16 weights are read as 2
-    bytes each (the gradients still written as float32)."""
-    boards, mover, n, w1 = args[:4]
-    epilogue = args[8]
-    r, m, _ = boards.shape
-    h = w1.shape[0]
-    wbytes = w1.element_size()
-    kept = afterstate._valid(n, m, "masked" if epilogue == "min"
-                             else epilogue)
-    b = boards.to(torch.int32)
-    pts = b[..., :48]
-    nnz = ((pts.clamp(0, 3) + (pts > 3)).sum(-1) + (b[..., 48:] != 0).sum(-1)
-           + ((mover == 0) | (mover == 1))[:, None])
-    n_kept = int(kept.sum())
-    n_feat = int((nnz * kept).sum())
-    params = h * 198 + 2 * h + 1
-    out = r if epilogue == "min" else r * m
-    nbytes = n_kept * 52 + 8 * r + wbytes * params + 4 * out
-    ops = 2 * n_feat * h + n_kept * (3 * h + 1)
-    if backward:
-        nbytes = n_kept * (52 + 4) + 8 * r + wbytes * params + 4 * params
-        ops = 4 * n_feat * h + n_kept * 5 * h
-    dense = r * m * (2 * 198 * h + 3 * h) * (2 if backward else 1)
-    return nbytes, ops, dense, n_kept
+    boards, _, n, w1 = args[:4]
+    nbytes, ops, n_kept, _ = work.afterstate(
+        boards, n, w1.shape[0], w1.element_size(), args[8], backward)
+    return (nbytes, ops, n_kept, nbytes / peaks.BYTES_PER_S * 1e3,
+            ops / peaks.PEAK_OPS_PER_S * 1e3)
 
 
 def nudged_params(torch, params):
@@ -1225,8 +611,9 @@ def nudged_params(torch, params):
 
 
 def afterstate_tol(torch, afterstate, args, want):
-    """The forward's gate against its plain version ``want`` on ``args``:
-    float32 up to 256 units AFTERSTATE_TOL; past 256,
+    """The forward's gate against its plain version ``want`` on ``args``
+    (a number, or one for each value): float32 up to 256 units
+    AFTERSTATE_TOL of each value's size, at least 1; past 256,
     AFTERSTATE_NUDGE_FACTOR times the largest drift that a one-ulp nudge of
     the four weights makes of the plain version's kept values; bf16
     AFTERSTATE_BF16_TOL of the largest kept value (at least 1)."""
@@ -1237,7 +624,7 @@ def afterstate_tol(torch, afterstate, args, want):
         return AFTERSTATE_BF16_TOL * max(
             1.0, float(kept.abs().max()) if kept.numel() else 1.0)
     if w1.shape[0] <= 256:
-        return AFTERSTATE_TOL
+        return AFTERSTATE_TOL * want.abs().clamp(min=1.0)
     nudged = afterstate.afterstate_eval_plain(
         *args[:3], *nudged_params(torch, args[3:7]), *args[7:10], 128)
     drift = (nudged - want)[~special]
@@ -1245,20 +632,13 @@ def afterstate_tol(torch, afterstate, args, want):
                                       if drift.numel() else 0.0)
 
 
-def ops_rate(torch, w1):
-    """The card's peak rate for the pass's operations: float32 outside the
-    tensor cores, or the tensor cores' dense bf16 rate for bf16 weights."""
-    return H100_BF16_OPS_PER_S if w1.dtype == torch.bfloat16 \
-        else H100_OPS_PER_S
-
-
 def afterstate_measure(torch, afterstate, features, args, label, iters=5):
     """The forward kernel against its plain version on ``args``: within
     ``afterstate_tol``, the floor and an empty min's +1e9 exact, the same
     bits on a second launch; kernel, plain and library times (CUDA events;
     the library: ``Fn.linear`` for fc1 alone on prebuilt (R M, 198)
-    features, in the weights' dtype) beside the bound from
-    ``afterstate_work`` (operations at ``ops_rate``)."""
+    features, in the weights' dtype) beside the least time
+    (``afterstate_bound``)."""
     from torch.nn import functional as Fn
 
     with torch.no_grad():
@@ -1276,21 +656,28 @@ def _afterstate_measure(torch, Fn, afterstate, features, args, label,
     shape = tuple(args[0].shape)
     check(got.shape == want.shape and same(got, again),
           f"afterstate_eval {label} {shape}: two launches differ")
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    tol = afterstate_tol(torch, afterstate, args, want)
-    dtype = str(args[3].dtype).replace("torch.", "")
-    check(err <= tol, f"afterstate_eval {label} {shape} hidden "
-          f"{args[3].shape[0]} {dtype}: {err} from the plain version (gate "
-          f"{tol})")
     special = (want == afterstate.FLOOR) | (want == afterstate.POS_INF)
     check(same(got[special], want[special]),
           f"afterstate_eval {label} {shape}: masked entries differ")
-    del got, again, want
-    nbytes, ops, dense, n_kept = afterstate_work(torch, afterstate, args)
+    diff = torch.where(special, 0.0, (got - want).abs())
+    gate = afterstate_tol(torch, afterstate, args, want)
+    over = int((diff > gate).sum())
+    # the largest gap, the value it is at, and its gate there
+    err, value, tol = 0.0, 0.0, AFTERSTATE_TOL
+    if got.numel():
+        at = int(diff.argmax())
+        err, value = float(diff.flatten()[at]), float(want.flatten()[at])
+        tol = float(gate.flatten()[at]) if torch.is_tensor(gate) else gate
+    dtype = str(args[3].dtype).replace("torch.", "")
+    check(over == 0, f"afterstate_eval {label} {shape} hidden "
+          f"{args[3].shape[0]} {dtype}: {over} values past their gate; the "
+          f"largest gap {err} at a value of {value} (gate {tol})")
+    del got, again, want, diff
+    nbytes, ops, n_kept, bytes_ms, ops_ms = afterstate_bound(args)
     row = {"label": label, "shape": list(shape),
            "hidden": args[3].shape[0], "dtype": dtype, "epilogue": args[8],
            "opponent": args[7], "kept_boards": n_kept,
-           "max_abs_err": err, "tol": tol}
+           "max_abs_err": err, "value_at_max_err": value, "tol": tol}
     if not args[0].numel():
         return row
     boards, mover, n, w1, b1 = args[:5]
@@ -1306,14 +693,10 @@ def _afterstate_measure(torch, Fn, afterstate, features, args, label,
                      iters)
     lib = time_ms(lambda: Fn.linear(feats, w1, b1), iters)
     del feats
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = ops / ops_rate(torch, w1) * 1e3
     row.update({
         "ms": (kern + kern2) / 2, "plain_ms": (plain + plain2) / 2,
         "library_ms": lib, "bytes": nbytes, "ops": ops,
-        "dense_ops": dense, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-        "dense_ops_ms": dense / ops_rate(torch, w1) * 1e3,
-        "tensor_ms": afterstate_tensor_ms(n_kept, w1.shape[0]),
+        "bytes_ms": bytes_ms, "ops_ms": ops_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
     return row
@@ -1328,7 +711,8 @@ def afterstate_backward_measure(torch, afterstate, args, label, iters=5):
     on a second launch (float32 tensors, of bf16 numbers for bf16
     weights, the nudge then one bf16 ulp); kernel, plain and library times
     (the library: ``torch.mm`` of an (H, R M) by an (R M, 198) matrix in
-    the weights' dtype, dW1's product) beside the bound."""
+    the weights' dtype, dW1's product) beside the least time
+    (``afterstate_bound``)."""
     args = tuple(args[:11])
     fwd, grad = args[:10], args[10]
     got = afterstate.afterstate_eval_backward(*args)
@@ -1357,8 +741,7 @@ def afterstate_backward_measure(torch, afterstate, args, label, iters=5):
           f"from the plain ones by {err:.3e} (norm {norm:.3e}), a one-ulp "
           f"nudge moves them by {floor:.3e}")
     del got, again, want, nudged
-    nbytes, ops, dense, n_kept = afterstate_work(torch, afterstate, fwd,
-                                                 backward=True)
+    nbytes, ops, n_kept, bytes_ms, ops_ms = afterstate_bound(fwd, True)
     row = {"label": label, "shape": list(shape), "hidden": fwd[3].shape[0],
            "dtype": str(wdt).replace("torch.", ""), "epilogue": fwd[8],
            "kept_boards": n_kept, "max_abs_err": max_err,
@@ -1378,14 +761,10 @@ def afterstate_backward_measure(torch, afterstate, args, label, iters=5):
         *args), iters)
     lib = time_ms(lambda: torch.mm(dh, feats), iters)
     del dh, feats
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = ops / ops_rate(torch, fwd[3]) * 1e3
     row.update({
         "ms": (kern + kern2) / 2, "plain_ms": (plain + plain2) / 2,
-        "library_ms": lib, "bytes": nbytes, "ops": ops, "dense_ops": dense,
-        "tensor_ms": afterstate_tensor_ms(n_kept, h, backward=True),
+        "library_ms": lib, "bytes": nbytes, "ops": ops,
         "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-        "dense_ops_ms": dense / ops_rate(torch, fwd[3]) * 1e3,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
     return row
@@ -1399,165 +778,112 @@ def log_afterstate_rows(prefix, rows):
             f"{row['hidden']} {row['dtype']} {row['epilogue']}: kernel "
             f"{row['ms']:.4f} ms, "
             f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f}"
-            f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; dense "
-            f"{row['dense_ops_ms']:.4f} ms; tensor cores, dense over the kept"
-            f" boards, {row['tensor_ms']:.4f} ms), {row['kept_boards']} "
-            f"boards kept, max err {row['max_abs_err']:.2e}")
+            f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"{row['kept_boards']} boards kept, max err "
+            f"{row['max_abs_err']:.2e}")
 
-
-def afterstate_cases(torch, afterstate, features, dev):
-    """Phase 3's afterstate pass: the forward at AFTERSTATE_CASES and
-    AFTERSTATE_WIDTH_CASES and the backward at AFTERSTATE_BACKWARD_CASES
-    and AFTERSTATE_BACKWARD_WIDTH_CASES on random inputs
-    (``afterstate_inputs``; the seeds of the first lists as before), each
-    checked and timed.  Returns (forward rows, backward rows)."""
-    fwd, bwd = [], []
-    cases = [(100 + i, (*c, "float32"))
-             for i, c in enumerate(AFTERSTATE_CASES)]
-    cases += [(400 + i, c) for i, c in enumerate(AFTERSTATE_WIDTH_CASES)]
-    for seed, (label, r, m, h, epilogue, opponent, sign, dt) in cases:
-        args = (*afterstate_inputs(torch, dev, seed, r, m, h, dt), opponent,
-                epilogue, sign)
-        fwd.append(afterstate_measure(torch, afterstate, features, args,
-                                      label))
-    cases = [(i, (*c, "float32"))
-             for i, c in enumerate(AFTERSTATE_BACKWARD_CASES)]
-    cases += [(500 + i, c)
-              for i, c in enumerate(AFTERSTATE_BACKWARD_WIDTH_CASES)]
-    for i, (label, r, m, h, epilogue, opponent, sign, dt) in cases:
-        args = (*afterstate_inputs(torch, dev, 200 + i, r, m, h, dt),
-                opponent, epilogue, sign)
-        g = torch.Generator(device=dev)
-        g.manual_seed(300 + i)
-        grad = torch.randn((r, m), generator=g, device=dev)
-        bwd.append(afterstate_backward_measure(torch, afterstate,
-                                               (*args, grad), label))
-    return fwd, bwd
-
-
-# --- phase 3: the optimizer step ---------------------------------------------
 
 # what adam.cu replaces: optax's chain in the JAX package, which XLA fuses
 ADAM_REPLACES = "mlp_ppo_2ply_p3_tpu/ppo/learner.py:102-106"
-ADAM_LR, ADAM_MAX_NORM = 1e-3, 0.5
-# the clipped step: the kernels' global norm (summed in another order)
-# within this many ulps of the plain version's
+# a clipped step: the kernels' global norm (summed in another order)
+# within this many ulps of the plain version's, as the card tests hold it
 ADAM_NORM_ULPS = 8
 
 
-def adam_inputs(torch, dev, model_cfg, norm, count, seed):
-    """The leaves of an MLP of ``model_cfg`` on ``dev``: its parameters,
-    gradients of global norm ``norm`` (the score head's zero, as the
-    unused head's are), moments, a step count."""
-    from mlp_ppo_2ply_p3_tpu_torch.models.mlp import MLP
-
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    params = [p.detach() for p in
-              MLP(model_cfg, device=dev, generator=gen).parameters()]
-    grads = [torch.randn(p.shape, generator=gen, device=dev) for p in params]
-    grads[-2:] = [torch.zeros_like(g) for g in grads[-2:]]
-    total = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    grads = [g * (norm / total) for g in grads]
-    mu = [0.01 * torch.randn(p.shape, generator=gen, device=dev)
-          for p in params]
-    nu = [1e-4 * torch.rand(p.shape, generator=gen, device=dev)
-          for p in params]
-    return params, grads, torch.tensor(count, dtype=torch.int32,
-                                       device=dev), mu, nu
-
-
-def adam_step_gap(torch, adam, inputs, max_norm, norm=None):
-    """(kernels' step, plain step) from ``inputs``, each (params, count,
-    mu, nu); with ``norm`` the plain step's clip uses that global norm."""
-    params, grads, count, mu, nu = inputs
-    got_p, want_p = ([p.clone() for p in params] for _ in range(2))
-    got = adam.adam_update(got_p, grads, count, mu, nu, ADAM_LR, max_norm)
+def adam_step(torch, fn, args, norm=None):
+    """``fn``'s step (the kernels' or the plain version's) on the captured
+    ``args``, the parameters copied first: (the parameters and moments as
+    one flat tensor, the count).  With ``norm`` the gradients are clipped
+    at that global norm, and ``fn`` clips no more."""
+    params, grads, count, mu, nu, lr, max_norm = args
+    params = [p.clone() for p in params]
     if norm is not None:
         keep = norm < max_norm
         grads = [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
         max_norm = 0.0
-    want = adam.adam_update_plain(want_p, grads, count, mu, nu, ADAM_LR,
-                                  max_norm)
-    return (got_p, *got), (want_p, *want)
-
-
-def flat_step(torch, step):
-    params, count, mu, nu = step
+    count, mu, nu = fn(params, grads, count, mu, nu, lr, max_norm)
     return torch.cat([t.reshape(-1) for t in (*params, *mu, *nu)]), count
 
 
-def adam_phase(torch, adam, profiling, model_cfg, dev):
-    """The kernel pair against its plain version at ``model_cfg``'s leaves
-    (afterstate4096's), the unused head's gradient zero, count 999: the
-    same bits where the clip does not engage and where it is off; where it
-    engages, the plain version's bits at a norm within ``ADAM_NORM_ULPS``
-    ulps of its own, the largest gap logged.  Then the clipped step's
-    device time (``timed_scan``) beside its byte bound, the plain version and
-    ``torch.optim.Adam(fused=True)`` (no clip; a yardstick the port never
-    calls), and the kernels' and the plain version's eager time
-    (``timed_eager``: CUDA events around back-to-back calls, so the host's
-    launches count where they are slower than the card)."""
-    out = {"hidden": model_cfg.hidden_size}
-    for case, max_norm, norm in (("unclipped", ADAM_MAX_NORM, 0.2),
-                                 ("off", 0.0, 3.0)):
-        got, want = adam_step_gap(
-            torch, adam, adam_inputs(torch, dev, model_cfg, norm, 999, 1),
-            max_norm)
-        (a, ca), (b, cb) = flat_step(torch, got), flat_step(torch, want)
-        check(torch.equal(a, b) and torch.equal(ca, cb),
-              f"adam {case}: kernels != plain version")
-    inputs = adam_inputs(torch, dev, model_cfg, 3.0, 999, 2)
-    got, want = adam_step_gap(torch, adam, inputs, ADAM_MAX_NORM)
-    (a, _), (b, _) = flat_step(torch, got), flat_step(torch, want)
-    out["max_abs_err"] = float((a - b).abs().max())
-    out["max_rel_err"] = float(((a - b).abs() / b.abs().clamp(
-        min=torch.finfo(torch.float32).tiny)).max())
-    grads = inputs[1]
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    inf = torch.tensor(float("inf"), device=dev)
-    up, down, found = norm.clone(), norm.clone(), None
-    for ulps in range(ADAM_NORM_ULPS + 1):
-        for n in (up, down):
-            got, want = adam_step_gap(torch, adam, inputs, ADAM_MAX_NORM, n)
-            if torch.equal(flat_step(torch, got)[0],
-                           flat_step(torch, want)[0]):
-                found = ulps
-        if found is not None:
-            break
-        up, down = torch.nextafter(up, inf), torch.nextafter(down, -inf)
-    check(found is not None,
-          f"adam clipped: no norm within {ADAM_NORM_ULPS} ulps of the plain "
-          f"version's gives the kernels' step")
-    out["norm_ulps"] = found
+def adam_measure(torch, adam, profiling, args, label):
+    """The kernel pair against its plain version on one captured step
+    (``args``, the parameters as they were before it): the same bits on
+    a second launch; where the clip does not engage, or is off, the plain
+    version's bits; where it engages, the plain version's bits at a global
+    norm within ``ADAM_NORM_ULPS`` ulps of its own.  Then the step's
+    device time (``timed_scan``: CUDA graphs of back-to-back steps, so
+    that the host's launches, 168 a plain step, drop out) beside its byte
+    bound, the plain version's and ``torch.optim.Adam(fused=True)``'s (no
+    clip; a yardstick the port never calls), and the kernels' and the
+    plain version's eager times (``timed_eager``)."""
+    from benchmark.yardstick import peaks
 
-    params, grads, count, mu, nu = inputs
+    params, grads, count, mu, nu, lr, max_norm = args
+    got, got_count = adam_step(torch, adam.adam_update, args)
+    again, _ = adam_step(torch, adam.adam_update, args)
+    want, want_count = adam_step(torch, adam.adam_update_plain, args)
+    check(torch.equal(got, again), f"adam {label}: two launches differ")
+    check(torch.equal(got_count, want_count),
+          f"adam {label}: counts {int(got_count)} and {int(want_count)}")
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    clipped = max_norm > 0 and bool(norm >= max_norm)
+    ulps = 0 if torch.equal(got, want) else None
+    if clipped:
+        up, down = norm.clone(), norm.clone()
+        inf = torch.tensor(math.inf, device=norm.device)
+        for n_ulps in range(ADAM_NORM_ULPS + 1):
+            if ulps is not None:
+                break
+            if any(torch.equal(got, adam_step(torch, adam.adam_update_plain,
+                                              args, n)[0])
+                   for n in (up, down)):
+                ulps = n_ulps
+            up, down = torch.nextafter(up, inf), torch.nextafter(down, -inf)
+    check(ulps is not None,
+          f"adam {label}: the kernels' step is not the plain version's"
+          + (f" at any norm within {ADAM_NORM_ULPS} ulps of its own"
+             if clipped else ""))
     n = sum(p.numel() for p in params)
-    out["params"] = n
-    # p, g, m, v read and p, m, v written, each byte once
-    out["bound_ms"] = 28 * n / H100_BYTES_PER_S * 1e3
-    # device time: CUDA graphs of back-to-back steps, so that the host's
-    # launches (168 a plain step) drop out
-    out["ms"] = 1e3 * profiling.timed_scan(
-        adam.adam_update, params, grads, count, mu, nu, ADAM_LR,
-        ADAM_MAX_NORM)
-    out["plain_ms"] = 1e3 * profiling.timed_scan(
-        adam.adam_update_plain, params, grads, count, mu, nu, ADAM_LR,
-        ADAM_MAX_NORM)
-    for key, fn in (("eager_ms", adam.adam_update),
-                    ("plain_eager_ms", adam.adam_update_plain)):
-        out[key] = 1e3 * profiling.timed_eager(
-            fn, params, grads, count, mu, nu, ADAM_LR, ADAM_MAX_NORM)
+    out = {"label": label, "params": n, "count": int(count),
+           "grad_norm": float(norm), "max_grad_norm": max_norm,
+           "clipped": clipped, "norm_ulps": ulps,
+           "max_abs_err": float((got - want).abs().max()),
+           # p, g, m, v read and p, m, v written, each byte once
+           "bound_ms": 28 * n / peaks.BYTES_PER_S * 1e3}
+    del got, again, want
+
+    def fresh():
+        return ([p.clone() for p in params], grads, count, mu, nu, lr,
+                max_norm)
+
+    out["ms"] = 1e3 * profiling.timed_scan(adam.adam_update, *fresh())
+    out["plain_ms"] = 1e3 * profiling.timed_scan(adam.adam_update_plain,
+                                                 *fresh())
+    out["eager_ms"] = 1e3 * profiling.timed_eager(adam.adam_update,
+                                                  *fresh())
+    out["plain_eager_ms"] = 1e3 * profiling.timed_eager(
+        adam.adam_update_plain, *fresh())
     lib = [p.clone().requires_grad_() for p in params]
     for p, g in zip(lib, grads):
         p.grad = g.clone()
-    opt = torch.optim.Adam(lib, lr=ADAM_LR, fused=True, capturable=True)
+    opt = torch.optim.Adam(lib, lr=lr, fused=True, capturable=True)
     out["library_ms"] = 1e3 * profiling.timed_scan(lambda t: opt.step(),
                                                    count)
     return out
 
 
-# --- the deep pass (wildbg4096) -------------------------------------------------
+def log_adam(prefix, row):
+    log(f"{prefix}adam ({row['label']}, {row['params']} parameters, count "
+        f"{row['count']}, gradient norm {row['grad_norm']:.4g}"
+        f"{' clipped' if row['clipped'] else ''}): kernels == the plain "
+        f"step at a norm {row['norm_ulps']} ulps from its own (largest gap "
+        f"{row['max_abs_err']:.2e}); {row['ms']:.4f} ms a step (bound "
+        f"{row['bound_ms']:.5f} ms by bytes, plain {row['plain_ms']:.4f}, "
+        f"torch.optim.Adam(fused=True) {row['library_ms']:.4f}); eager "
+        f"{row['eager_ms']:.4f} ms (plain {row['plain_eager_ms']:.4f})")
+
+
+# --- phase 3: the deep pass (wildbg4096) -------------------------------------
 
 # the deep pass's gate: a factor times what a one-ulp nudge of every weight
 # moves the plain version (values: 4 x the largest kept drift, at least
@@ -1566,7 +892,6 @@ def adam_phase(torch, adam, profiling, model_cfg, dev):
 DEEP_NUDGE_FACTOR = 4.0
 DEEP_GRAD_FACTOR = 8.0
 DEEP_FLOOR = 1e-6
-H100_TENSOR_OPS_PER_S = 989e12   # the benchmark's yardstick (peaks.py)
 
 
 def deep_grads(torch, afterstate, args, weights, grad):
@@ -1616,23 +941,6 @@ def deep_check(torch, afterstate, args, got, got_g=None, grad=None):
     return out
 
 
-def deep_bound_ms(n_kept, n_feat, widths, heads, backward):
-    """The least time of the first layer and of the dense layers on
-    ``n_kept`` boards, at the tensor cores' rate (the benchmark's
-    yardstick; their operations bound them)."""
-    h = widths[0]
-    first = 2 * n_feat * h + 2 * n_kept * h
-    ops = (first + dense_ops(n_kept, widths, heads)) * (2 if backward else 1)
-    return 1e3 * ops / H100_TENSOR_OPS_PER_S
-
-
-def dense_ops(n_kept, widths, heads):
-    """The dense layers' and head's operations forward on ``n_kept`` rows
-    (2 a weight a row; the backward is twice it)."""
-    weights = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
-    return 2 * n_kept * (weights + widths[-1] * heads)
-
-
 def kernel_resources(log_text):
     """{kernel: {"registers", "spill_stores", "spill_loads"}} of the entry
     functions in an nvcc ``-Xptxas -v`` report (the mangled name's
@@ -1667,16 +975,37 @@ def dense_resources(build):
     return report or "built earlier: no compiler report in this run"
 
 
+def deep_least_ms(boards, n, widths, passes):
+    """(least time in ms, kept boards) of the first layer and the dense
+    layers of a deep pass over ``boards`` with valid prefixes ``n``, once
+    for each of ``passes`` (False: forward, True: backward), each layer
+    at the benchmark's yardstick (``benchmark/yardstick/deep_work.py``)."""
+    from benchmark.yardstick import deep_work, work
+
+    total = 0.0
+    for backward in passes:
+        nbytes, ops, n_kept, _ = deep_work.hidden(boards, n, widths[0],
+                                                  "logits", backward)
+        total += work.least_seconds(nbytes, ops) + work.least_seconds(
+            *deep_work.dense(n_kept, widths, 1, backward))
+    return 1e3 * total, n_kept
+
+
 def deep_phase(torch, afterstate, dense, bg_env, learner, get_preset, dev):
     """wildbg4096's deep pass on the card: at its first rollout step and
     its first minibatch, the kernels against the plain version (values
     and gradients within DEEP_NUDGE_FACTOR x a one-ulp nudge's drift,
     beside TF32's gap), the same bits on a second launch, each wrapper's
-    time (CUDA events) beside its bound; then one timed train_step whose
+    time (CUDA events) beside its least time (``deep_least_ms``); then
+    one timed train_step whose
     launches show that it went through them: the first layer's deep form
     and the dense layers once a rollout step and a minibatch step, their
     backwards once a minibatch step, the shallow afterstate kernels
     never."""
+    from benchmark.yardstick import deep_work
+
+    from mlp_ppo_2ply_p3_tpu_torch import ops
+
     cfg = get_preset("wildbg4096")
     widths = cfg.model.widths
     ts = learner.init_train_state(1801, cfg.model, cfg.ppo, device=dev)
@@ -1685,15 +1014,6 @@ def deep_phase(torch, afterstate, dense, bg_env, learner, get_preset, dev):
     weights = [w.detach() for w in weights]
     turn, n = es.turn.to(torch.int32), es.n_moves.to(torch.int32)
     out = {}
-
-    def kept_feats(boards, n):
-        valid = torch.arange(boards.shape[1], device=dev)[None] < n[:, None]
-        valid |= (n <= 0)[:, None]
-        b = boards.to(torch.int32)
-        pts = b[..., :48]
-        nnz = ((pts.clamp(0, 3) + (pts > 3)).sum(-1)
-               + (b[..., 48:] != 0).sum(-1) + 1)
-        return int(valid.sum()), int((nnz * valid).sum())
 
     # the first rollout step: the forward
     args = (es.after, turn, n, weights, None, False, "logits", 1.0)
@@ -1709,9 +1029,9 @@ def deep_phase(torch, afterstate, dense, bg_env, learner, get_preset, dev):
             *args[:3], w1, b1, False, "logits"), 5)
         row["dense_ms"] = time_ms(lambda: dense.dense_layers(
             h1, elem, count, out_, layers, head), 5)
-    n_kept, n_feat = kept_feats(es.after, n)
-    row["bound_ms"] = deep_bound_ms(n_kept, n_feat, widths, 1, False)
-    row["dense_tflops"] = dense_ops(n_kept, widths, 1) / row["dense_ms"] / 1e9
+    row["bound_ms"], n_kept = deep_least_ms(es.after, n, widths, (False,))
+    row["dense_tflops"] = (deep_work.dense(n_kept, widths, 1)[1]
+                           / row["dense_ms"] / 1e9)
     out["rollout_step"] = row
     # the first minibatch: a rollout's rows in the update's first order
     sampler = learner.Sampler(ts.gen)
@@ -1740,9 +1060,7 @@ def deep_phase(torch, afterstate, dense, bg_env, learner, get_preset, dev):
         torch.autograd.grad(y, w, grad)
 
     row["fwd_bwd_ms"] = time_ms(fwd_bwd, 3)
-    n_kept, n_feat = kept_feats(after, mn)
-    row["bound_ms"] = deep_bound_ms(n_kept, n_feat, widths, 1, False) + \
-        deep_bound_ms(n_kept, n_feat, widths, 1, True)
+    row["bound_ms"], n_kept = deep_least_ms(after, mn, widths, (False, True))
     # the dense layers alone, forward (saving h_l) and backward: their
     # effective float32 rate, logged beside the bound (not a gate)
     with torch.no_grad():
@@ -1755,9 +1073,9 @@ def deep_phase(torch, afterstate, dense, bg_env, learner, get_preset, dev):
             h1, elem, count, out_, layers, head, save=True), 3)
         row["dense_bwd_ms"] = time_ms(lambda: dense.dense_layers_backward(
             h1, acts, elem, count, grad, layers, head), 3)
-    ops = dense_ops(n_kept, widths, 1)
-    row["dense_fwd_tflops"] = ops / row["dense_fwd_ms"] / 1e9
-    row["dense_bwd_tflops"] = 2 * ops / row["dense_bwd_ms"] / 1e9
+    flops = deep_work.dense(n_kept, widths, 1)[1]
+    row["dense_fwd_tflops"] = flops / row["dense_fwd_ms"] / 1e9
+    row["dense_bwd_tflops"] = 2 * flops / row["dense_bwd_ms"] / 1e9
     del out_, h1, elem, count, acts
     out["minibatch"] = row
     del after, w, got, got_g, again_g
@@ -1780,7 +1098,7 @@ def deep_phase(torch, afterstate, dense, bg_env, learner, get_preset, dev):
               f"launches, expected {want}")
     check(out["launches"]["afterstate_eval"] == 0
           and out["launches"]["afterstate_eval_backward"] == 0
-          and out["launches"][OPTIMIZER] == steps,
+          and out["launches"][ops.OPTIMIZER] == steps,
           f"wildbg4096 train_step: launches {out['launches']}")
     check(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
           "wildbg4096 train_step: a metric is not finite")
@@ -1845,25 +1163,8 @@ def captured_movegen(torch, movegen, vecs, dice, mg, mirror,
     return got, cap
 
 
-def dedup_input(torch, nondoubles, args):
-    """``dedup_compact_rows``'s arguments at a captured non-doubles call:
-    the block that the plain version dedups (the kernel dedups on chip,
-    so the main path never builds it)."""
-    vecs, d_hi, d_lo, mirror, k1, kd, m = args[:7]
-    if len(args) > 8:     # in place: the games whose lists the batch holds
-        src = args[8][0]
-        keep = torch.unique(src[src >= 0]).long()
-        vecs, d_hi, d_lo, mirror = (x[keep] for x in (vecs, d_hi, d_lo,
-                                                      mirror))
-    cb, kv, _ = nondoubles.raw_block_plain(vecs, d_hi, d_lo, mirror.bool(),
-                                           k1, kd)
-    return cb, kv, m
-
-
 def movegen_phase(torch, movegen, perf_twoply, profiling,
                   env_cfg, dev):
-    from mlp_ppo_2ply_p3_tpu_torch.ops import nondoubles
-
     mg = env_cfg.movegen
     vecs, dice, mirror = play_boards(perf_twoply, env_cfg, 4096, 6, dev)
     got, cap = captured_movegen(torch, movegen, vecs, dice, mg,
@@ -1876,11 +1177,8 @@ def movegen_phase(torch, movegen, perf_twoply, profiling,
         check(same(g.cpu(), c), f"movegen {name}: card != CPU at B=4096")
     check(int(got[1].sum()) > 0, "no legal moves at all")
 
-    # time every kernel call of this movegen call: kernel vs plain; the
-    # dedup kernel, off the path, at the block the plain path dedups
-    calls = dict(cap.calls, dedup_compact_rows=[
-        dedup_input(torch, nondoubles, a) for a in cap.calls["nondoubles"]])
-    rows = measure_calls(torch, calls)
+    # time every kernel call of this movegen call: kernel vs plain
+    rows = measure_calls(torch, cap.calls)
 
     def one_call():
         movegen.legal_afterstates_batch(vecs, dice, mg, mirror)
@@ -1896,21 +1194,18 @@ def movegen_phase(torch, movegen, perf_twoply, profiling,
     return rows, mg_ms, mg_graph_ms
 
 
-def movegen_batches_phase(torch, compaction, movegen, perf_twoply, runs,
-                          dev, world=None):
+def movegen_batches_phase(torch, movegen, perf_twoply, runs, dev,
+                          world=None):
     """Movegen at the other batch sizes and widths the paths run,
     ``runs`` of (label, EnvConfig, games): below 512 games both
     sub-batches are the whole batch (the doubles levels then hold every
     game, the non-doubles batch all-zero padding rows of dice (0, 0)).
     Each: one movegen call on boards from a few env steps, kernel path ==
     plain path == the CPU (a world of one rank: its shard is the batch);
-    every kernel call of it checked against its plain version
-    and timed beside its bound (``measure``); and each call's shape once
-    more with random flags or random inputs.  With a ``world`` each call
-    is a rank's (its shapes those of a shard of any number of ranks).
-    Returns a report row per run."""
-    from mlp_ppo_2ply_p3_tpu_torch.ops import doubles, nondoubles
-
+    every kernel call of it checked against its plain version and timed
+    beside its least time (``measure``).  With a ``world`` each call is a
+    rank's (its shapes those of a shard of any number of ranks).  Returns
+    a report row per run."""
     out = []
     for label, env_cfg, batch in runs:
         vecs, dice, mirror = play_boards(perf_twoply, env_cfg, batch, 6, dev)
@@ -1922,28 +1217,9 @@ def movegen_batches_phase(torch, compaction, movegen, perf_twoply, runs,
             check(all(same(g.cpu(), c) for g, c in zip(got, cpu)),
                   f"{label} movegen B={batch}: card != CPU")
         rows = measure_calls(torch, cap.calls)
-        # the same shapes with random flags or inputs: the compactions at
-        # this call's share of valid flags, with an all-invalid and an
-        # all-valid row
-        calls = cap.calls
-        flags = edge_cases(torch, compaction, dev, [
-            (*a[0].shape, a[2], float(a[1].float().mean()))
-            for a in calls["compact_rows"]])
-        levels = doubles_cases(torch, doubles, dev, [
-            (a[0].shape[0], *a[3:]) for a in calls["doubles_level"]])
-        nds = nondoubles_cases(torch, nondoubles, dev, [
-            (a[0].shape[0], *a[4:8], len(a) > 8)
-            for a in calls["nondoubles"]])
-        finals = final_cases(torch, doubles, dev, [
-            (a[4].shape[0], a[0].shape[1], a[2].shape[1], a[4].shape[1],
-             a[9], out_index("doubles_final", a) is not None)
-            for a in calls["doubles_final"]])
-        out.append({"label": label, "batch": batch, "calls": rows,
-                    "random_flag_cases": len(flags),
-                    "random_input_cases": len(levels) + len(nds)
-                    + len(finals)})
+        out.append({"label": label, "batch": batch, "calls": rows})
         log(f"{label} movegen B={batch}: kernel path == plain path == CPU; "
-            f"every call == plain, also on random inputs of its shape")
+            f"every call == plain")
         log_rows(f"{label} B={batch}: ", rows)
     return out
 
@@ -1962,8 +1238,12 @@ def train_phase(torch, movegen, bg_env, learner, cfg, batch, t,
     device memory, the rollout's and the update's device time
     (``device_busy``), and the afterstate pass's first rollout call,
     first minibatch call and first backward, each checked and timed on
-    this run's data.  Returns a report dict."""
-    import contextlib
+    this run's data.  The timed steps' first optimizer step is checked and
+    timed on its own inputs (``adam_measure``).  Returns a report
+    dict."""
+    from mlp_ppo_2ply_p3_tpu_torch import ops
+    from mlp_ppo_2ply_p3_tpu_torch.ops import adam
+    from mlp_ppo_2ply_p3_tpu_torch.utils import profiling
 
     ppo = dataclasses.replace(cfg.ppo, num_envs=batch, t_horizon=t)
     ts = learner.init_train_state(0, cfg.model, ppo, device=dev)
@@ -1977,9 +1257,10 @@ def train_phase(torch, movegen, bg_env, learner, cfg, batch, t,
 
     zero_launches()
     torch.cuda.reset_peak_memory_stats(dev)
-    cap = Capture(distinct=True, kernels=AFTERSTATE_KERNELS)
+    cap = Capture(distinct=True, copy=True, kernels=(
+        ops.OPTIMIZER, *(kernel_groups()[1] if detail else ())))
     t0 = time.time()
-    with cap if detail else contextlib.nullcontext():
+    with cap:
         for _ in range(timed):
             ts, es, metrics = learner.train_step(ts, es, cfg.env, cfg.model,
                                                  ppo)
@@ -1988,8 +1269,8 @@ def train_phase(torch, movegen, bg_env, learner, cfg, batch, t,
     counted = launches()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     steps = ppo.num_epochs * ppo.num_minibatches    # optimizer steps
-    check(counted[OPTIMIZER] == timed * steps,
-          f"the optimizer ran {counted[OPTIMIZER]} times in {timed} "
+    check(counted[ops.OPTIMIZER] == timed * steps,
+          f"the optimizer ran {counted[ops.OPTIMIZER]} times in {timed} "
           f"train_steps, expected {ppo.num_epochs} x {ppo.num_minibatches} "
           f"a step")
 
@@ -2023,9 +1304,10 @@ def train_phase(torch, movegen, bg_env, learner, cfg, batch, t,
     torch.cuda.synchronize()
     update_s = time.time() - t0
     update_launches = launches()
-    check(rollout_launches[OPTIMIZER] == 0 and update_launches[OPTIMIZER]
-          == steps, f"the optimizer ran {rollout_launches[OPTIMIZER]} times "
-          f"in a rollout and {update_launches[OPTIMIZER]} in an update, "
+    check(rollout_launches[ops.OPTIMIZER] == 0
+          and update_launches[ops.OPTIMIZER] == steps,
+          f"the optimizer ran {rollout_launches[ops.OPTIMIZER]} times in a "
+          f"rollout and {update_launches[ops.OPTIMIZER]} in an update, "
           f"expected 0 and {steps}")
     out = {
         "batch": batch, "t_horizon": t, "timed_steps": timed,
@@ -2036,6 +1318,14 @@ def train_phase(torch, movegen, bg_env, learner, cfg, batch, t,
         "launches": counted, "rollout_launches": rollout_launches,
         "update_launches": update_launches, "metrics": vals,
     }
+    steps = cap.calls[ops.OPTIMIZER]
+    check(len(steps) == 1, f"captured optimizer steps: {len(steps)} "
+          f"distinct, expected 1")
+    out["adam"] = adam_measure(torch, adam, profiling, steps[0],
+                               f"{batch} games, hidden "
+                               f"{cfg.model.hidden_size}, "
+                               f"{ppo.policy_mode}")
+    del steps
     if detail:
         profiling, afterstate, features = detail
         out["peak_gb"] = peak_gb
@@ -2259,6 +1549,8 @@ def twoply_check(torch, twoply, bg_env, model, state, scfg):
     kernel calls)."""
     import copy
 
+    from mlp_ppo_2ply_p3_tpu_torch import ops
+
     batch = state.turn.shape[0]
     inner, margins = twoply.candidate_scores, []
 
@@ -2271,21 +1563,21 @@ def twoply_check(torch, twoply, bg_env, model, state, scfg):
     zero_launches()
     twoply.candidate_scores = recorded
     try:
-        with Capture(distinct=True, kernels=KERNELS) as cap:
+        with Capture(distinct=True, kernels=ops.KERNELS) as cap:
             got = twoply.twoply_actions_values(model, state, scfg)
     finally:
         twoply.candidate_scores = inner
     torch.cuda.synchronize()
     counted = launches()
-    expect = with_optimizer(dict(zip(KERNELS, twoply.launches_per_decision(
-        batch, scfg))))
+    expect = with_optimizer(dict(zip(
+        ops.KERNELS, twoply.launches_per_decision(batch, scfg))))
     check(counted == expect, f"2-ply decision at B={batch}, reply width "
           f"{scfg.reply_max_moves}: launches {counted}, expected {expect}")
     with Capture(plain=True):
         plain = twoply.twoply_actions_values(model, state, scfg)
     for g, p, name in zip(got, plain, ("actions", "backup", "overflow")):
         check(same(g, p), f"2-ply {name}: kernel path != plain path")
-    with Capture(plain=True, kernels=AFTERSTATE_KERNELS):
+    with Capture(plain=True, kernels=kernel_groups()[1]):
         plain = twoply.twoply_actions_values(model, state, scfg)
     decided = margins[0] > 1e-4
     check(same(got[0][decided], plain[0][decided])
@@ -2380,8 +1672,16 @@ def run_arena(movegen, arena, league, twoply, cfg, dev, pair, games,
               plies, model=None):
     """The league CLI's ``run_pair`` on the card (frozen_v1, or ``model``
     as the network), with exact launch counts of every kernel for the
-    plies played.  Returns its result dict."""
+    plies played, and the afterstate pass's distinct calls of the run
+    checked and timed on their own inputs (``afterstate_measure``).
+    Returns its result dict."""
     import contextlib
+
+    import torch
+
+    from mlp_ppo_2ply_p3_tpu_torch import ops
+    from mlp_ppo_2ply_p3_tpu_torch.core import features
+    from mlp_ppo_2ply_p3_tpu_torch.ops import afterstate
 
     per_step = per_call_launches(movegen, cfg.env.movegen)
     # count the plies played: the 2-ply pair's host loop stops once every
@@ -2394,8 +1694,9 @@ def run_arena(movegen, arena, league, twoply, cfg, dev, pair, games,
 
     zero_launches()
     arena._ply = counted_ply
+    cap = Capture(distinct=True, copy=True, kernels=kernel_groups()[1])
     try:
-        with contextlib.redirect_stdout(sys.stderr):
+        with contextlib.redirect_stdout(sys.stderr), cap:
             res = league.run_pair(cfg, pair, games, plies, 11, params=model,
                                   params_from="frozen", device=dev)
     finally:
@@ -2411,16 +1712,28 @@ def run_arena(movegen, arena, league, twoply, cfg, dev, pair, games,
     per_ply = [sum(x) for x in zip(*(
         twoply.launches_per_decision(games, cfg.search)
         if agent == "twoply" else afterstate_launches(fwd=1)
-        if agent in ("oneply", "frozen") else (0,) * len(KERNELS)
+        if agent in ("oneply", "frozen") else (0,) * len(ops.KERNELS)
         for agent in pair.split(":")))]
     expect = with_optimizer({name: (1 + ran) * per_step[name] + ran * extra
-                             for name, extra in zip(KERNELS, per_ply)})
+                             for name, extra in zip(ops.KERNELS, per_ply)})
     check(counted == expect,
           f"arena {pair}: launches {counted}, expected {expect}")
     res["launches"] = counted
     res["max_plies"] = plies
     res["plies_played"] = ran
+    check(cap.calls["afterstate_eval"], f"arena {pair}: no afterstate call")
+    res["afterstate_calls"] = [
+        afterstate_measure(torch, afterstate, features, a,
+                           f"{pair} {a[8]}")
+        for a in cap.calls["afterstate_eval"]]
     return res
+
+
+def arena_log(pair, res, prefix="arena "):
+    """Logs a ``run_arena`` result: its dict, then its afterstate rows."""
+    log(f"{prefix}{pair}: " + json.dumps(
+        {k: v for k, v in res.items() if k != "afterstate_calls"}))
+    log_afterstate_rows(prefix, res["afterstate_calls"])
 
 
 def arena_phase(torch, movegen, arena, league, twoply, cfg, dev):
@@ -2433,7 +1746,7 @@ def arena_phase(torch, movegen, arena, league, twoply, cfg, dev):
         res = run_arena(movegen, arena, league, twoply, cfg, dev, pair,
                         games, plies)
         out[pair] = res
-        log(f"arena {pair}: {json.dumps(res)}")
+        arena_log(pair, res)
     wr = out["oneply:pubeval"]["win_rate_a"]
     check(out["oneply:pubeval"]["finished"] == 512,
           "1-ply vs pubeval: not every game finished in 400 plies")
@@ -2456,6 +1769,8 @@ def bf16_eval_phase(torch, movegen, twoply, perf_twoply, arena, league,
     heuristic over 512 games, its win rate recorded (no gate)."""
     import copy
 
+    from mlp_ppo_2ply_p3_tpu_torch import ops
+
     bmodel = copy.deepcopy(model)
     bmodel.cfg = dataclasses.replace(model.cfg, compute_dtype="bfloat16")
     state = perf_twoply.realistic_state(cfg.env, 256, 12, device=dev)
@@ -2476,11 +1791,12 @@ def bf16_eval_phase(torch, movegen, twoply, perf_twoply, arena, league,
         twoply.candidate_scores = inner
     torch.cuda.synchronize()
     counted = launches()
-    expect = with_optimizer(dict(zip(KERNELS, twoply.launches_per_decision(
-        state.turn.shape[0], scfg))))
+    expect = with_optimizer(dict(zip(
+        ops.KERNELS, twoply.launches_per_decision(state.turn.shape[0],
+                                                  scfg))))
     check(counted == expect, f"bf16 2-ply decision: launches {counted}, "
           f"expected {expect}")
-    with Capture(plain=True, kernels=AFTERSTATE_KERNELS):
+    with Capture(plain=True, kernels=kernel_groups()[1]):
         plain = twoply.twoply_actions_values(bmodel, state, scfg)
     # the +-1e9 of a game without moves or replies must match exactly
     special = plain[1].abs() >= twoply.POS_INF / 2
@@ -2510,9 +1826,9 @@ def bf16_eval_phase(torch, movegen, twoply, perf_twoply, arena, league,
         got = basic.afterstate_policy_logits(bmodel, state)
         torch.cuda.synchronize()
         check(launches() == with_optimizer(dict(zip(
-                  KERNELS, afterstate_launches(fwd=1)))),
+                  ops.KERNELS, afterstate_launches(fwd=1)))),
               f"bf16 score-head policy: launches {launches()}")
-        with Capture(plain=True, kernels=AFTERSTATE_KERNELS):
+        with Capture(plain=True, kernels=kernel_groups()[1]):
             plain = basic.afterstate_policy_logits(bmodel, state)
     special = plain == basic.NEG_INF
     kept = plain[~special]
@@ -2527,6 +1843,7 @@ def bf16_eval_phase(torch, movegen, twoply, perf_twoply, arena, league,
     res = run_arena(movegen, arena, league, twoply, cfg, dev,
                     "oneply:pubeval", 512, 400, model=bmodel)
     out["oneply:pubeval"] = res
+    arena_log("oneply:pubeval", res, "bf16 arena ")
     return out
 
 
@@ -2958,8 +2275,8 @@ def dp_phase(torch, movegen, learner, train_mod, get_preset,
     return out
 
 
-def nccl_phase(torch, compaction, movegen, bg_env, learner, mesh,
-               perf_twoply, cfg, pod, dev):
+def nccl_phase(torch, movegen, bg_env, learner, mesh, perf_twoply, cfg,
+               pod, dev):
     """A 1-rank NCCL group on the card: ``all_reduce_sum`` and
     ``gather_batch`` of CUDA tensors are the identity, and one
     ``train_step`` (B=64, T=8, full width) through the sharded code ==
@@ -3010,7 +2327,7 @@ def nccl_phase(torch, compaction, movegen, bg_env, learner, mesh,
         torch.cuda.synchronize()
         counted = launches()
         per_rank = movegen_batches_phase(
-            torch, compaction, movegen, perf_twoply,
+            torch, movegen, perf_twoply,
             [("pod, one rank's shard", pod.env,
               pod.ppo.num_envs // DP_RANKS)], dev, world)
     finally:
@@ -3137,12 +2454,18 @@ def distill_phase(torch, movegen, twoply, arena, learner, bg_env,
     """Phase 9: ``scripts/run_distill.main`` on the card, frozen_v1 at the
     script's 256 games, one iteration of ``DISTILL_PLIES`` plies and two
     league evals of ``DISTILL_EVAL_GAMES`` games: the JAX record's keys,
-    finite losses, exact launches; then ``distill_agreement``."""
+    finite losses, exact launches; the afterstate pass's distinct calls
+    and the first optimizer step (clipping off) checked and timed on their
+    own inputs; then ``distill_agreement``."""
     import contextlib
     import tempfile
 
     import numpy as np
 
+    from mlp_ppo_2ply_p3_tpu_torch import ops
+    from mlp_ppo_2ply_p3_tpu_torch.core import features
+    from mlp_ppo_2ply_p3_tpu_torch.ops import adam, afterstate
+    from mlp_ppo_2ply_p3_tpu_torch.utils import profiling
     from mlp_ppo_2ply_p3_tpu_torch.core.movegen import MovegenConfig
     from mlp_ppo_2ply_p3_tpu_torch.utils.config import SearchConfig
 
@@ -3158,9 +2481,11 @@ def distill_phase(torch, movegen, twoply, arena, learner, bg_env,
         path = os.path.join(tmp, "distill.jsonl")
         zero_launches()
         arena._ply = counted_ply
+        cap = Capture(distinct=True, copy=True,
+                      kernels=(*kernel_groups()[1], ops.OPTIMIZER))
         t0 = time.time()
         try:
-            with contextlib.redirect_stdout(sys.stderr):
+            with contextlib.redirect_stdout(sys.stderr), cap:
                 records = run_distill.main([
                     "--iters", "1", "--plies", str(DISTILL_PLIES),
                     "--envs", str(DISTILL_ENVS), "--eval-games",
@@ -3198,12 +2523,31 @@ def distill_phase(torch, movegen, twoply, arena, learner, bg_env,
     # and one optimizer step (clipping off: one kernel) an update step
     expect = with_optimizer(
         {name: calls * per[name] + DISTILL_PLIES * extra + more
-         for name, extra, more in zip(KERNELS, search, train)}, updates)
+         for name, extra, more in zip(ops.KERNELS, search, train)},
+        updates)
     check(counted == expect, f"distill launches {counted}, expected {expect}")
+    calls = cap.calls
+    check(calls["afterstate_eval_backward"] and len(calls[ops.OPTIMIZER]) == 1,
+          f"distill: {len(calls['afterstate_eval_backward'])} backward "
+          f"shapes, {len(calls[ops.OPTIMIZER])} optimizer steps captured")
+    fwd = [afterstate_measure(torch, afterstate, features, a,
+                              f"distill {a[8]}")
+           for a in calls["afterstate_eval"]]
+    bwd = [afterstate_backward_measure(torch, afterstate, a,
+                                       "distill minibatch")
+           for a in calls["afterstate_eval_backward"]]
+    step = adam_measure(torch, adam, profiling, calls[ops.OPTIMIZER][0],
+                        "distill, clipping off")
+    del cap, calls
+    log_afterstate_rows("distill ", fwd)
+    log_afterstate_rows("distill backward ", bwd)
+    log_adam("distill ", step)
     agree = distill_agreement(torch, np, twoply, learner, bg_env, frozen,
                               run_distill, env_cfg, scfg, dev)
     return {"wall_s": wall, "records": lines, "launches": counted,
-            "eval_plies": plies[0], "agreement": agree}
+            "eval_plies": plies[0], "afterstate_calls": fwd,
+            "afterstate_backward_calls": bwd, "adam": step,
+            "agreement": agree}
 
 
 # --- phase 10: the measuring entry points -----------------------------------
@@ -3218,12 +2562,13 @@ BREAKDOWN_JAX_KEYS = (
     "update_ms", "rollout_sps", "train_sps", "movegen_share_of_step")
 BREAKDOWN_SCANS = ("movegen", "movegen_nondoubles",
                    "movegen_doubles_subbatch", "movegen_dedup")
-# launches of one call of each timed movegen piece, in KERNELS order: the
-# non-doubles kernel; the fused doubles levels and the final one; the
-# non-doubles kernel alone, which holds the dedup
-PIECE_LAUNCHES = {"movegen_nondoubles": (0, 0, 0, 1, 0, 0, 0),
-                  "movegen_doubles_subbatch": (0, 0, 1, 0, 1, 0, 0),
-                  "movegen_dedup": (0, 0, 0, 1, 0, 0, 0)}
+# launches of one call of each timed movegen piece, by kernel (every other
+# kernel none): the non-doubles kernel; the fused doubles levels and the
+# final one; the non-doubles kernel alone, which holds the dedup
+PIECE_LAUNCHES = {"movegen_nondoubles": {"nondoubles": 1},
+                  "movegen_doubles_subbatch": {"doubles_level": 1,
+                                               "doubles_final": 1},
+                  "movegen_dedup": {"nondoubles": 1}}
 
 
 def bench_run(movegen, bench, preset=None):
@@ -3281,6 +2626,8 @@ def breakdown_run(torch, movegen, profiling, perf_breakdown,
     minibatches optimizer steps."""
     import contextlib
 
+    from mlp_ppo_2ply_p3_tpu_torch import ops
+
     learner = perf_breakdown.learner
     inner, scans = perf_breakdown.timed_scan, []
     inner_update, steps = learner.ppo_update, [0]
@@ -3289,7 +2636,7 @@ def breakdown_run(torch, movegen, profiling, perf_breakdown,
         before = launches()
         out = inner(fn, *args, **kw)
         after = launches()
-        scans.append(tuple(after[k] - before[k] for k in KERNELS))
+        scans.append({k: after[k] - before[k] for k in ops.KERNELS})
         return out
 
     def counted_update(ts, traj, last_value, last_turn, env_cfg, cfg,
@@ -3312,8 +2659,8 @@ def breakdown_run(torch, movegen, profiling, perf_breakdown,
     wall = time.time() - t0
     counted = launches()
     check(row["device"] == card, f"breakdown device {row['device']}")
-    check(0 < steps[0] == counted[OPTIMIZER],
-          f"breakdown: the optimizer ran {counted[OPTIMIZER]} times, its "
+    check(0 < steps[0] == counted[ops.OPTIMIZER],
+          f"breakdown: the optimizer ran {counted[ops.OPTIMIZER]} times, its "
           f"updates took {steps[0]} steps")
     calls = 1 + profiling.SCAN_ITERS     # the warm-up, then the capture
     check(len(scans) == len(BREAKDOWN_SCANS) * len(mgs),
@@ -3322,10 +2669,10 @@ def breakdown_run(torch, movegen, profiling, perf_breakdown,
                                      for i in range(0, len(scans),
                                                     len(BREAKDOWN_SCANS))]):
         cell = row[name]
-        per_call = dict(PIECE_LAUNCHES, movegen=tuple(
-            per_call_launches(movegen, mg).values()))
+        per_call = dict(PIECE_LAUNCHES,
+                        movegen=per_call_launches(movegen, mg))
         for key, counts in zip(BREAKDOWN_SCANS, got):
-            want = tuple(calls * n for n in per_call[key])
+            want = {k: calls * per_call[key].get(k, 0) for k in ops.KERNELS}
             check(counts == want, f"breakdown {name} {key}: launches "
                   f"{counts} at capture, expected {want}")
             check(0 < cell[f"{key}_ms"] <= 1.05 * cell[f"{key}_eager_ms"],
@@ -3401,8 +2748,6 @@ def main(argv=None) -> int:
     # one rank of phase 8, started by this script: RANK SIZE PORT DIR
     ap.add_argument("--dp-worker", nargs=4, default=None,
                     help=argparse.SUPPRESS)
-    ap.add_argument("--deep-only", action="store_true",
-                    help="build, then the deep pass's phase alone")
     args = ap.parse_args(argv)
     t_script = time.time()
 
@@ -3415,13 +2760,12 @@ def main(argv=None) -> int:
         return dp_worker(int(rank), int(size), port, tmp)
     sys.path.insert(0, HERE)
     try:
+        from mlp_ppo_2ply_p3_tpu_torch import ops
         from mlp_ppo_2ply_p3_tpu_torch.agents import (arena, frozen, league,
                                                       twoply)
         from mlp_ppo_2ply_p3_tpu_torch.core import features, movegen
         from mlp_ppo_2ply_p3_tpu_torch.env import bg_env
-        from mlp_ppo_2ply_p3_tpu_torch.ops import (adam, afterstate, build,
-                                                   compaction, dense,
-                                                   doubles, nondoubles)
+        from mlp_ppo_2ply_p3_tpu_torch.ops import afterstate, build, dense
         from mlp_ppo_2ply_p3_tpu_torch.parallel import mesh
         from mlp_ppo_2ply_p3_tpu_torch.ppo import learner
         from mlp_ppo_2ply_p3_tpu_torch.ppo import train as train_mod
@@ -3452,47 +2796,6 @@ def main(argv=None) -> int:
         log(f"{name}.cu: "
             f"{build.build_logs.get(name, '(already built)').strip()}")
 
-    if args.deep_only:
-        deep = deep_phase(torch, afterstate, dense, bg_env, learner,
-                          get_preset, dev)
-        deep["dense_kernels"] = dense_resources(build)
-        log_deep(deep)
-        print(json.dumps({"ok": True, "deep": deep}))
-        return 0
-    report["phases"]["edge_cases"] = edge_cases(torch, compaction, dev)
-    log(f"compact_rows == plain on {len(report['phases']['edge_cases'])} "
-        f"shapes")
-    report["phases"]["dedup_cases"] = dedup_cases(torch, compaction, dev)
-    log(f"dedup_compact_rows == plain on "
-        f"{len(report['phases']['dedup_cases'])} shapes")
-    report["phases"]["doubles_cases"] = doubles_cases(torch, doubles, dev)
-    log(f"doubles_level == plain on "
-        f"{len(report['phases']['doubles_cases'])} shapes")
-
-    report["phases"]["nondoubles_cases"] = nondoubles_cases(
-        torch, nondoubles, dev)
-    log(f"nondoubles_batch == plain on "
-        f"{len(report['phases']['nondoubles_cases'])} shapes")
-    report["phases"]["final_cases"] = final_cases(torch, doubles, dev)
-    log(f"doubles_final == plain on "
-        f"{len(report['phases']['final_cases'])} shapes")
-    t0 = time.time()
-    fwd_rows, bwd_rows = afterstate_cases(torch, afterstate, features, dev)
-    report["phases"]["afterstate_cases"] = fwd_rows
-    report["phases"]["afterstate_backward_cases"] = bwd_rows
-    log_afterstate_rows("afterstate_eval ", fwd_rows)
-    log_afterstate_rows("afterstate_eval_backward ", bwd_rows)
-    errs = ", ".join(f"{r['err_norm']:.2e} (nudge {r['nudge_norm']:.2e})"
-                     for r in bwd_rows)
-    widths = sorted({(r["hidden"], r["dtype"]) for r in fwd_rows})
-    log(f"afterstate_eval within its gate of plain on {len(fwd_rows)} shapes"
-        f" ({AFTERSTATE_TOL} in float32 up to 256 units, "
-        f"{AFTERSTATE_NUDGE_FACTOR} x a one-ulp nudge's drift past 256, "
-        f"{AFTERSTATE_BF16_TOL} of the values in bf16; widths and dtypes "
-        f"{widths}), afterstate_eval_backward within "
-        f"{AFTERSTATE_NUDGE_FACTOR} x a one-ulp nudge on {len(bwd_rows)}: "
-        f"{errs}; both deterministic; {time.time() - t0:.1f} s")
-
     t0 = time.time()
     deep = deep_phase(torch, afterstate, dense, bg_env, learner, get_preset,
                       dev)
@@ -3500,19 +2803,6 @@ def main(argv=None) -> int:
     deep["dense_kernels"] = dense_resources(build)
     report["phases"]["deep"] = deep
     log_deep(deep)
-
-    adam_row = adam_phase(torch, adam, profiling,
-                          get_preset("afterstate4096").model, dev)
-    report["phases"]["adam"] = adam_row
-    log(f"adam (afterstate4096's {adam_row['params']} parameters): kernels "
-        f"== plain bit for bit unclipped and with clipping off; clipped, "
-        f"the plain step at a norm {adam_row['norm_ulps']} ulps from its "
-        f"own (largest gap {adam_row['max_abs_err']:.2e}, relative "
-        f"{adam_row['max_rel_err']:.2e}); {adam_row['ms']:.4f} ms a step "
-        f"(bound {adam_row['bound_ms']:.5f} ms by bytes, plain "
-        f"{adam_row['plain_ms']:.4f}, torch.optim.Adam(fused=True) "
-        f"{adam_row['library_ms']:.4f}); eager {adam_row['eager_ms']:.4f} "
-        f"ms (plain {adam_row['plain_eager_ms']:.4f})")
 
     cfg = get_preset("train4096")
     main_rows, mg_ms, mg_graph_ms = movegen_phase(
@@ -3528,7 +2818,7 @@ def main(argv=None) -> int:
     eval_cfg = get_preset("twoply")
     pod = get_preset("pod")
     report["phases"]["movegen_batches"] = movegen_batches_phase(
-        torch, compaction, movegen, perf_twoply,
+        torch, movegen, perf_twoply,
         [("league eval", cfg.env, cfg.eval_games)]
         + [(f"arena {pair}", eval_cfg.env, games)
            for pair, games, _ in ARENA_PAIRS]
@@ -3570,6 +2860,7 @@ def main(argv=None) -> int:
         f"launches {main_path['launches']}; one more step: "
         f"rollout {main_path['rollout_s']:.3f} s, update "
         f"{main_path['update_s']:.3f} s")
+    log_adam("train4096 ", main_path["adam"])
     # afterstate4096 at its own widths: B=4096, T=64, M=256, hidden 128
     after_cfg = get_preset("afterstate4096")
     t0 = time.time()
@@ -3591,6 +2882,7 @@ def main(argv=None) -> int:
     log_afterstate_rows("afterstate4096 ", after["afterstate_calls"])
     log_afterstate_rows("afterstate4096 backward ",
                         after["afterstate_backward_calls"])
+    log_adam("afterstate4096 ", after["adam"])
     # the same preset at run_learning --hidden 512, and computing in bf16
     forms = {}
     for tag, model_cfg in (
@@ -3619,6 +2911,7 @@ def main(argv=None) -> int:
         log_afterstate_rows(f"afterstate4096 {tag} ", run["afterstate_calls"])
         log_afterstate_rows(f"afterstate4096 {tag} backward ",
                             run["afterstate_backward_calls"])
+        log_adam(f"afterstate4096 {tag} ", run["adam"])
 
     # the evaluation path: the twoply preset on the committed frozen_v1 net
     model, model_cfg = frozen.load_frozen(device=dev)
@@ -3674,8 +2967,7 @@ def main(argv=None) -> int:
     log(f"reduced: pod t_horizon {pod.ppo.t_horizon} -> {DP_T}, "
         f"{DP_UPDATES} updates, no league eval")
     dp["nccl_world1_launches"], dp["movegen_per_rank"] = nccl_phase(
-        torch, compaction, movegen, bg_env, learner, mesh, perf_twoply, cfg,
-        pod, dev)
+        torch, movegen, bg_env, learner, mesh, perf_twoply, cfg, pod, dev)
     dp["phase_s"] = time.time() - t0
     report["phases"]["data_parallel"] = dp
     log(f"data-parallel phase: {dp['phase_s']:.1f} s; pod B={dp['batch']} "
@@ -3757,10 +3049,9 @@ def main(argv=None) -> int:
     by_path["bench_afterstate4096"] = bench_as["launches"]
     by_path["breakdown"] = bd["launches"]
     by_path["wildbg4096"] = deep["launches"]
-    # the kernels each path must launch; it may launch no other.  The
-    # non-doubles kernel dedups on chip, so no path calls
-    # dedup_compact_rows; a 2-ply decision splits no sub-batch; an update
-    # lists no moves; the afterstate pass runs in afterstate mode, in
+    # the kernels each path must launch; it may launch no other.  A 2-ply
+    # decision splits no sub-batch; an update lists no moves; the
+    # afterstate pass runs in afterstate mode, in
     # every 1-ply and 2-ply agent and in distillation, its backward in
     # every update of the afterstate scores
     movegen_set = {"compact_rows", "doubles_level", "nondoubles",
@@ -3780,7 +3071,7 @@ def main(argv=None) -> int:
             want |= fwd | bwd
         elif path.startswith(("arena_", "trainer")):
             want |= fwd
-        for name in KERNELS:
+        for name in ops.KERNELS:
             if name in want:
                 check(counted[name] > 0, f"{path} never launched {name}")
             else:
@@ -3788,9 +3079,10 @@ def main(argv=None) -> int:
         # every path but the rollouts, 2-ply decisions and arenas updates
         if path.startswith(("twoply_", "arena_")) or path.endswith(
                 "_rollout"):
-            check(counted[OPTIMIZER] == 0, f"{path} ran the optimizer")
+            check(counted[ops.OPTIMIZER] == 0, f"{path} ran the optimizer")
         else:
-            check(counted[OPTIMIZER] > 0, f"{path} never ran the optimizer")
+            check(counted[ops.OPTIMIZER] > 0,
+                  f"{path} never ran the optimizer")
 
     # last, so that the profiler's own cost cannot reach the timed steps
     table = None
@@ -3804,13 +3096,9 @@ def main(argv=None) -> int:
         log(table)
 
     def kernel_row(name, replaces, source):
-        # times: one movegen call's launches (B=4096, train4096), summed
-        # (dedup_compact_rows, off the path: at the block that the plain
-        # non-doubles batch dedups); launches: every path's run, summed,
-        # and by path
+        # times: one movegen call's launches (B=4096, train4096), summed;
+        # launches: every path's run, summed, and by path
         rows = main_rows[name]
-        bytes_ms = sum(r["bytes_ms"] for r in rows)
-        ops_ms = sum(r["ops_ms"] for r in rows)
         return {
             "name": name,
             "route": "cuda",
@@ -3822,7 +3110,7 @@ def main(argv=None) -> int:
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_by": "bytes",
             # no single PyTorch call computes batched stable compaction,
             # nor ordered first-occurrence dedup at a fixed width
             # (torch.unique keeps neither the order nor a static shape),
@@ -3834,7 +3122,7 @@ def main(argv=None) -> int:
         # times: afterstate4096's first rollout call (forward) or its first
         # minibatch backward, on this run's boards (hidden 128, float32),
         # and the same at hidden 512 and in bf16 ("forms"); the error: the
-        # largest over every call checked (phases 3, 5 and 6), float32 and
+        # largest over every call checked (phases 5, 6 and 9), float32 and
         # bf16 apart; the widths and dtypes held
         row = after[key][0]
 
@@ -3866,28 +3154,31 @@ def main(argv=None) -> int:
                       "hidden 128 bfloat16": form(forms["bf16"])},
         }
 
+    played = [*arenas.values(), bf16_eval["oneply:pubeval"], distill]
     kernels = [kernel_row("compact_rows", TPU_KERNELS, "compaction.cu"),
-               kernel_row("dedup_compact_rows", DEDUP_REPLACES,
-                          "compaction.cu"),
                kernel_row("doubles_level", DOUBLES_REPLACES, "doubles.cu"),
                kernel_row("nondoubles", NONDOUBLES_REPLACES,
                           "nondoubles.cu"),
                kernel_row("doubles_final", FINAL_REPLACES, "doubles.cu"),
                afterstate_row("afterstate_eval", AFTERSTATE_REPLACES,
                               "afterstate_calls",
-                              fwd_rows + two["afterstate"] + [
-                                  r for run in (after, *forms.values())
+                              two["afterstate"] + [
+                                  r for run in (after, *forms.values(),
+                                                *played)
                                   for r in run["afterstate_calls"]]),
                afterstate_row("afterstate_eval_backward",
                               AFTERSTATE_BACKWARD_REPLACES,
                               "afterstate_backward_calls",
-                              bwd_rows + [
-                                  r for run in (after, *forms.values())
-                                  for r in run["afterstate_backward_calls"]])]
+                              [r for run in (after, *forms.values(),
+                                             distill)
+                               for r in run["afterstate_backward_calls"]])]
     # the optimizer: its calls by path, each checked above, one a step;
     # a call launches two kernels, one where clipping is off
-    # (distillation's)
-    calls = {p: c[OPTIMIZER] for p, c in by_path.items()}
+    # (distillation's); times: afterstate4096's first step (adam_measure),
+    # on its own inputs; the error: the largest over every step checked
+    calls = {p: c[ops.OPTIMIZER] for p, c in by_path.items()}
+    steps = [run["adam"] for run in (main_path, after, *forms.values(),
+                                     distill)]
     kernels.append({
         "name": "adam", "route": "cuda",
         "source": "mlp_ppo_2ply_p3_tpu_torch/csrc/adam.cu",
@@ -3895,14 +3186,17 @@ def main(argv=None) -> int:
         "launches": sum((1 if p == "distill" else 2) * n
                         for p, n in calls.items()),
         "calls": sum(calls.values()), "calls_by_path": calls,
-        "max_abs_err": adam_row["max_abs_err"],
-        "norm_ulps": adam_row["norm_ulps"],
-        "ms": adam_row["ms"], "plain_ms": adam_row["plain_ms"],
-        "eager_ms": adam_row["eager_ms"],
-        "plain_eager_ms": adam_row["plain_eager_ms"],
-        "bound_ms": adam_row["bound_ms"], "bound_by": "bytes",
+        "max_abs_err": max(r["max_abs_err"] for r in steps),
+        "norm_ulps": max(r["norm_ulps"] for r in steps),
+        "checked": [{k: r[k] for k in ("label", "params", "clipped",
+                                       "norm_ulps", "max_abs_err")}
+                    for r in steps],
+        **{k: after["adam"][k] for k in ("params", "ms", "plain_ms",
+                                         "eager_ms", "plain_eager_ms",
+                                         "bound_ms")},
+        "bound_by": "bytes",
         # torch.optim.Adam(fused=True), without the clip
-        "library_ms": adam_row["library_ms"]})
+        "library_ms": after["adam"]["library_ms"]})
     report["kernels"] = kernels
     report["script_s"] = time.time() - t_script
     log(f"chip_smoke.py ran {report['script_s']:.1f} s")

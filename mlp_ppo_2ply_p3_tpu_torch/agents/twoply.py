@@ -116,8 +116,8 @@ def _reply_leg(model: MLP, vecs, us, dance, chunk: int, slot_chunk: int,
 
 def launches_per_decision(batch: int, scfg: SearchConfig = SearchConfig()):
     """Launches of one decision over ``batch`` games, in ``ops.KERNELS``
-    order (compact_rows, dedup_compact_rows, doubles_level, nondoubles,
-    doubles_final, afterstate_eval, afterstate_eval_backward): per chunk,
+    order (compact_rows, doubles_level, nondoubles, doubles_final,
+    afterstate_eval, afterstate_eval_backward): per chunk,
     each non-doubles roll makes one ``nondoubles`` launch (its dedup,
     below width 482, runs inside it), each doubles die one launch of its
     first three levels and one of the final level, and each reply list
@@ -128,8 +128,7 @@ def launches_per_decision(batch: int, scfg: SearchConfig = SearchConfig()):
     bk = batch * scfg.top_k
     nd = -(-bk // min(scfg.game_chunk, bk)) * len(_ND_IDX)
     db = -(-bk // min(scfg.dbl_game_chunk, bk)) * len(_DBL_IDX)
-    return (0, nd * MG.dedups_per_call(rcfg),
-            db * MG.doubles_levels_per_call(rcfg),
+    return (0, db * MG.doubles_levels_per_call(rcfg),
             nd * MG.nondoubles_per_call(rcfg),
             db * MG.doubles_finals_per_call(rcfg), 2 + nd + db, 0)
 

@@ -309,13 +309,6 @@ def doubles_finals_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:
     return 0 if cfg.exact_order else 1
 
 
-def dedups_per_call(cfg: MovegenConfig = MovegenConfig()) -> int:
-    """Number of ``dedup_compact_rows`` calls one
-    ``legal_afterstates_batch`` makes: none, since the non-doubles dedup
-    runs inside the ``nondoubles_batch`` kernel."""
-    return 0
-
-
 def _placement(is_double, bd: int, bn: int):
     """Which list each game of the batch carries (``legal_afterstates_batch``
     in place), on the device and without a host sync: the first ``bd``

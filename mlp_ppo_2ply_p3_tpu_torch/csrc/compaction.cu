@@ -1,5 +1,4 @@
-// Batched stable compaction, and first-occurrence dedup + compaction, for
-// Hopper (sm_90a): the movegen hot ops.
+// Batched stable compaction for Hopper (sm_90a): the movegen hot op.
 //
 // compact_rows_launch replaces both Pallas TPU kernels of
 // mlp_ppo_2ply_p3_tpu/ops/compaction.py: compact_rows (the one-hot int8
@@ -11,19 +10,8 @@
 //      original order, then zeros;
 //      count (B,) int32: the number of valid rows (may exceed k_out).
 //
-// dedup_compact_launch replaces the jnp first-occurrence dedup of
-// mlp_ppo_2ply_p3_tpu/core/movegen.py:256-273 and the compaction after it
-// (:364), which XLA fused on the TPU:
-//
-//   boards (G, K, 52) int8, valid (G, K) -> compact_rows(boards, keep, k_out)
-//   where keep[g, i] = valid[g, i] and no valid j < i has the same packed
-//   key (core/board.py::pack_key: the low 4 bits of every count).
-//
-// Both are bound by bytes on the card: compaction reads the flags and the
-// payload rows that land in the output and writes the output; the dedup
-// reads the valid boards and writes the output, and its key comparisons
-// (at most 7 n(n-1)/2 word compares for n valid rows) run from shared
-// memory at a small fraction of the card's integer rate.  What the design
+// It is bound by bytes on the card: it reads the flags and the payload
+// rows that land in the output and writes the output.  What the design
 // does about the bytes:
 //
 // - Flags are read 16 bytes per thread (one aligned uint4 per load, bytes
@@ -50,11 +38,6 @@
 //   image to pay: it stores its rows straight to the output.
 // - Once a row's running count reaches k_out, later chunks are only
 //   counted: their payload is never read.
-// - The dedup stages a game's valid rows (K x 52 bytes: 15 KB at K = 288)
-//   and their packed keys in shared memory, so no (K, K) block ever
-//   reaches device memory.  One warp checks one row's predecessors, 32 at
-//   a time, and stops at the first equal key; rows go to warps round robin
-//   so that the triangular work evens out.
 //
 // The TPU's one-hot matmuls, 128-wide segments and 8-aligned merges were
 // shapes for the MXU and Mosaic and are not carried over.  Nothing here
@@ -65,7 +48,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;          // split-layout and dedup blocks
+constexpr int kThreads = 256;          // split-layout blocks
 constexpr int kWarps = kThreads / 32;
 constexpr int kWarpRowsPerBlock = 4;   // warp layout: rows of a block
 constexpr int kWarpRowMaxN = 256;      // up to this N: one warp per row
@@ -74,8 +57,6 @@ constexpr int kSplitMaxRows = 2 * 132; // fewer rows than this: split N
 constexpr int kSplitMinN = 1024;
 constexpr int kBlockBufBytes = 16384;  // most output image of a block group
 constexpr int kMaxSmem = 232448;       // 227 KB, the most a block can use
-constexpr int kBoard = 52;
-constexpr int kKeyWords = 7;
 
 __host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
 
@@ -426,142 +407,6 @@ compact_tiles_kernel(const int8_t* __restrict__ payload,
   if (tile == 0 && threadIdx.x == 0) count[b] = total;
 }
 
-// --- first-occurrence dedup + compaction -----------------------------------
-
-struct DedupSmem {
-  uint32_t* keys;  // [7][k]
-  int8_t* rows;    // [k][52], the valid rows in order
-  int8_t* obuf;    // output image, min(k, k_out) rows + 16
-  uint16_t* idx;   // [k], source row of each valid row
-  uint8_t* keep;   // [k]
-};
-
-__host__ __device__ inline int dedup_smem_layout(int k, int k_out,
-                                                 unsigned char* base,
-                                                 DedupSmem* s) {
-  const int keys = 0;
-  const int rows = keys + 4 * kKeyWords * k;
-  const int obuf = align16(rows + kBoard * k);
-  const int idx = obuf + align16(kBoard * (k < k_out ? k : k_out) + 16);
-  const int keep = idx + 2 * k;
-  if (s != nullptr) {
-    s->keys = reinterpret_cast<uint32_t*>(base + keys);
-    s->rows = reinterpret_cast<int8_t*>(base + rows);
-    s->obuf = reinterpret_cast<int8_t*>(base + obuf);
-    s->idx = reinterpret_cast<uint16_t*>(base + idx);
-    s->keep = reinterpret_cast<uint8_t*>(base + keep);
-  }
-  return align16(keep + k);
-}
-
-// One block per game.
-__global__ void __launch_bounds__(kThreads)
-dedup_compact_kernel(const int8_t* __restrict__ boards,
-                     const uint8_t* __restrict__ valid,
-                     int8_t* __restrict__ out, int32_t* __restrict__ count,
-                     int k, int k_out, int words) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int warp_tot[kWarps];
-  DedupSmem sm;
-  dedup_smem_layout(k, k_out, smem, &sm);
-  const int g = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int8_t* brd = boards + (size_t)g * k * kBoard;
-
-  // 1. rank the valid rows, 16 flags a thread
-  const FlagRow fr = flag_row(valid, g, k);
-  int nv = 0;
-  for (int c0 = 0; c0 < fr.nchunks; c0 += kThreads) {
-    const int ch = c0 + tid;
-    unsigned bits = ch < fr.nchunks ? chunk_bits(fr, ch) : 0u;
-    int total;
-    int s = nv + group_scan<kWarps>(__popc(bits), warp_tot, total);
-    for (; bits != 0u; bits &= bits - 1u) {
-      sm.idx[s++] = (uint16_t)(16 * ch + __ffs(bits) - 1 - fr.lead);
-    }
-    nv += total;
-    __syncthreads();
-  }
-
-  // 2. stage them, one half-warp per row
-  if (words) {
-    copy_rows<kThreads / 16, true>(sm.rows, brd, sm.idx, 0, nv, kBoard,
-                                   tid >> 4, tid & 15);
-  } else {
-    copy_rows<kThreads / 16, false>(sm.rows, brd, sm.idx, 0, nv, kBoard,
-                                    tid >> 4, tid & 15);
-  }
-  __syncthreads();
-
-  // 3. packed keys, as core/board.py::pack_key builds them
-  for (int j = tid; j < nv; j += kThreads) {
-    const uint8_t* r =
-        reinterpret_cast<const uint8_t*>(sm.rows + j * kBoard);
-#pragma unroll
-    for (int w = 0; w < 6; ++w) {  // points: 4 (mine | opp << 4) bytes each
-      uint32_t word = 0;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int p = 4 * w + q;
-        word |= (uint32_t)((r[p] & 0xF) | ((r[24 + p] & 0xF) << 4))
-                << (8 * q);
-      }
-      sm.keys[w * k + j] = word;
-    }
-    // bars and offs
-    sm.keys[6 * k + j] = (uint32_t)(r[48] & 0xF)
-                         | ((uint32_t)(r[49] & 0xF) << 8)
-                         | ((uint32_t)(r[50] & 0xF) << 16)
-                         | ((uint32_t)(r[51] & 0xF) << 24);
-  }
-  __syncthreads();
-
-  // 4. a row is kept iff no earlier valid row has its key: one warp per
-  //    row, 32 predecessors at a time, stopping at the first hit
-  for (int j = warp; j < nv; j += kWarps) {
-    uint32_t kj[kKeyWords];
-#pragma unroll
-    for (int w = 0; w < kKeyWords; ++w) kj[w] = sm.keys[w * k + j];
-    bool dup = false;
-    for (int c0 = 0; c0 < j && !dup; c0 += 32) {
-      const int jp = c0 + lane;
-      bool eq = jp < j;
-#pragma unroll
-      for (int w = 0; w < kKeyWords; ++w) {
-        eq = eq && sm.keys[w * k + jp] == kj[w];
-      }
-      dup = __any_sync(0xffffffffu, eq);
-    }
-    if (lane == 0) sm.keep[j] = dup ? 0 : 1;
-  }
-  __syncthreads();
-
-  // 5. the survivors in order into the output image
-  int8_t* o = out + (size_t)g * k_out * kBoard;
-  int8_t* img = sm.obuf + ((uintptr_t)o & 15);
-  int cnt = 0;
-  for (int j0 = 0; j0 < nv; j0 += kThreads) {
-    const int j = j0 + tid;
-    const int f = j < nv ? sm.keep[j] : 0;
-    int total;
-    const int slot = cnt + group_scan<kWarps>(f, warp_tot, total);
-    if (f && slot < k_out) {
-      const uint32_t* s =
-          reinterpret_cast<const uint32_t*>(sm.rows + j * kBoard);
-      uint32_t* d = reinterpret_cast<uint32_t*>(img + slot * kBoard);
-#pragma unroll
-      for (int w = 0; w < kBoard / 4; ++w) d[w] = s[w];
-    }
-    cnt += total;
-    __syncthreads();
-  }
-  const int filled = min(cnt, k_out);
-  store_run(o, img, filled * kBoard, tid, kThreads);
-  store_run(o + (size_t)filled * kBoard, nullptr, (k_out - filled) * kBoard,
-            tid, kThreads);
-  if (tid == 0) count[g] = cnt;
-}
-
 // Dynamic shared memory above 48 KB needs the kernel's consent.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
@@ -673,19 +518,4 @@ extern "C" int compact_rows_launch(const void* payload, const void* valid,
                                            n, c, k_out, block_buf, s);
   }
   return (int)err;
-}
-
-extern "C" int dedup_compact_launch(const void* boards, const void* valid,
-                                    void* out, void* count, int games, int k,
-                                    int k_out, void* stream) {
-  if (games <= 0) return (int)cudaGetLastError();
-  if (k > 65535) return (int)cudaErrorInvalidValue;
-  const int smem = dedup_smem_layout(k, k_out, nullptr, nullptr);
-  cudaError_t err = allow_smem(dedup_compact_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int words = (uintptr_t)boards % 4 == 0 ? 1 : 0;
-  dedup_compact_kernel<<<games, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)boards, (const uint8_t*)valid, (int8_t*)out,
-      (int32_t*)count, k, k_out, words);
-  return (int)cudaGetLastError();
 }

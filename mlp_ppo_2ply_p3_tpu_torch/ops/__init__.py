@@ -4,9 +4,8 @@
 
 # every kernel wrapper, in the order of the launch tuples
 # (``agents.twoply.launches_per_decision``)
-KERNELS = ("compact_rows", "dedup_compact_rows", "doubles_level",
-           "nondoubles", "doubles_final", "afterstate_eval",
-           "afterstate_eval_backward")
+KERNELS = ("compact_rows", "doubles_level", "nondoubles", "doubles_final",
+           "afterstate_eval", "afterstate_eval_backward")
 # the optimizer's wrapper (``adam.adam_update``): counted and zeroed with
 # the others under this key, its calls (one kernel pair each), but not one
 # of ``KERNELS``, whose tuples no 2-ply decision extends

@@ -1,27 +1,23 @@
-"""Batched stable compaction, and first-occurrence dedup + compaction:
-the movegen hot ops.
+"""Batched stable compaction, the movegen hot op, and the plain
+first-occurrence dedup + compaction.
 
 ``compact_rows`` ports both Pallas TPU kernels in
 ``mlp_ppo_2ply_p3_tpu/ops/compaction.py``: ``compact_rows`` (one-hot int8
 matmul, ``pallas_call`` at :231) and ``compact_rows_segmented`` (128-wide
 segmented one-hots, ``pallas_call`` at :178).  Both compute the same
 function, so one CUDA C++ kernel (``csrc/compaction.cu``) replaces them.
-
-``dedup_compact_rows`` is the non-doubles dedup of movegen and the
-compaction after it, which the JAX package writes in jnp
-(``mlp_ppo_2ply_p3_tpu/core/movegen.py:256-273`` and ``:364``) and XLA
-fuses.  Its kernel, in the same source, finds first occurrences among a
-game's rows in shared memory, so no (K, K) block reaches device memory.
-Movegen no longer calls it: the non-doubles kernel
-(``ops/nondoubles.py``) dedups on chip; it stays a kernel of its own,
-timed by ``scripts/perf_movegen.py``'s dedup keys.
-
-Both are bound by bytes on an H100; the note at the top of
+It is bound by bytes on an H100; the note at the top of
 ``csrc/compaction.cu`` says what each part of the design does about it.
 
-Each wrapper dispatches on the tensors' device: CPU tensors take the
-plain PyTorch version, CUDA tensors launch the kernel or raise.  The
-wrappers' ``launches`` attributes count kernel launches.
+``dedup_compact_rows_plain`` is the non-doubles dedup of movegen and the
+compaction after it, which the JAX package writes in jnp
+(``mlp_ppo_2ply_p3_tpu/core/movegen.py:256-273`` and ``:364``) and XLA
+fuses: the plain version of ``ops/nondoubles.py``, whose kernel dedups on
+chip.
+
+The wrapper dispatches on the tensors' device: CPU tensors take the
+plain PyTorch version, CUDA tensors launch the kernel or raise.  Its
+``launches`` attribute counts kernel launches.
 """
 
 from __future__ import annotations
@@ -105,7 +101,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "compact_rows_scratch_ints": ([_I, _I], _I),
     "compact_rows_launch": ([_P] * 5 + [_I] * 4 + [_P], _I),
-    "dedup_compact_launch": ([_P] * 4 + [_I] * 3 + [_P], _I),
 }
 
 
@@ -116,22 +111,6 @@ def _fn(name):
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _SIGNATURES[name]
     return fn
-
-
-def _launch(name, payload, k_out, call):
-    """Allocate the outputs, launch on the current stream, raise on a
-    CUDA error.  ``call(out, count, stream)`` runs the C launcher."""
-    b, _, c = payload.shape
-    with torch.cuda.device(payload.device):
-        out = torch.empty((b, k_out, c), dtype=torch.int8,
-                          device=payload.device)
-        count = torch.empty((b,), dtype=torch.int32, device=payload.device)
-        err = call(out, count,
-                   torch.cuda.current_stream(payload.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
-                           f"at shape {tuple(payload.shape)} -> {k_out}")
-    return out, count
 
 
 def compact_rows(payload, valid, k_out: int):
@@ -150,52 +129,25 @@ def compact_rows(payload, valid, k_out: int):
         return compact_rows_plain(payload, valid, k_out)
     b, n, c = payload.shape
     ints = _fn("compact_rows_scratch_ints")(b, n)
-    scratch = torch.empty((ints,), dtype=torch.int32, device=payload.device)
-
-    def call(out, count, stream):
-        return _fn("compact_rows_launch")(
+    with torch.cuda.device(payload.device):
+        scratch = torch.empty((ints,), dtype=torch.int32,
+                              device=payload.device)
+        out = torch.empty((b, k_out, c), dtype=torch.int8,
+                          device=payload.device)
+        count = torch.empty((b,), dtype=torch.int32, device=payload.device)
+        err = _fn("compact_rows_launch")(
             payload.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            count.data_ptr(), scratch.data_ptr(), b, n, c, k_out, stream)
-
-    result = _launch("compact_rows", payload, k_out, call)
+            count.data_ptr(), scratch.data_ptr(), b, n, c, k_out,
+            torch.cuda.current_stream(payload.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"compact_rows kernel launch failed: CUDA error "
+                           f"{err} at shape {tuple(payload.shape)} -> "
+                           f"{k_out}")
     _COUNTERS["compact_rows"].launches += 1
-    return result
-
-
-def dedup_compact_rows(boards, valid, k_out: int):
-    """First-occurrence dedup, then stable compaction, per game.
-
-    Args:
-      boards: (G, K, 52) int8 canonical boards, contiguous.
-      valid:  (G, K) bool (or uint8 0/1), contiguous.
-      k_out:  output width.
-
-    Returns (out (G, k_out, 52) int8, count (G,) int32), equal to
-    ``compact_rows_plain(boards, first_occurrence_plain(boards, valid),
-    k_out)``: the count is that of the unique valid rows and may exceed
-    k_out.
-    """
-    _check(boards, valid, k_out)
-    if boards.shape[2] != 52:
-        raise ValueError(f"boards must be (G, K, 52), got "
-                         f"{tuple(boards.shape)}")
-    if boards.device.type == "cpu":
-        return dedup_compact_rows_plain(boards, valid, k_out)
-    g, k, _ = boards.shape
-
-    def call(out, count, stream):
-        return _fn("dedup_compact_launch")(
-            boards.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            count.data_ptr(), g, k, k_out, stream)
-
-    result = _launch("dedup_compact_rows", boards, k_out, call)
-    _COUNTERS["dedup_compact_rows"].launches += 1
-    return result
+    return out, count
 
 
 compact_rows.launches = 0
-dedup_compact_rows.launches = 0
-# the function objects that own the counts, so that a caller who wraps a
+# the function object that owns the count, so that a caller who wraps the
 # wrapper (to capture its inputs) still counts on the original
-_COUNTERS = {"compact_rows": compact_rows,
-             "dedup_compact_rows": dedup_compact_rows}
+_COUNTERS = {"compact_rows": compact_rows}

@@ -11,9 +11,10 @@ counterpart of the JAX script's one jitted scan; beside it,
 than the device.  On the CPU both are the CPU's time, and the line says
 ``"device": "cpu"``.  ``nondoubles_ms`` times the non-doubles batch, one
 ``ops/nondoubles.py::nondoubles_batch`` launch that dedups on chip;
-``dedup384_ms`` times ``dedup_compact_rows``, the port's dedup kernel at
-the JAX key's shape, which movegen no longer calls; ``nd_one_order_ms``
-times the plain PyTorch enumeration of one die order.
+``dedup384_ms`` times ``dedup_compact_rows_plain``, the dedup and
+compaction in plain PyTorch at the JAX key's shape (movegen's dedup runs
+inside the non-doubles kernel); ``nd_one_order_ms`` times the plain
+PyTorch enumeration of one die order.
 
 The JAX script's ``kernels`` section timed each compaction shape three
 ways: jnp and the two Pallas formulations (a global one-hot matmul and
@@ -21,9 +22,7 @@ ways: jnp and the two Pallas formulations (a global one-hot matmul and
 port computes with one CUDA kernel (``ops/compaction.py::compact_rows``),
 so here each shape is timed as the plain PyTorch version
 (``<shape>_plain_ms``) and the kernel (``<shape>_kernel_ms``, null off
-the card, where the wrapper runs the plain version); ``dedup_plain_ms``
-(``first_occurrence_plain`` + compaction) and ``dedup_kernel_ms`` do the
-same for the dedup at the non-doubles block's final shape.
+the card, where the wrapper runs the plain version).
 
 Usage:
     python -m mlp_ppo_2ply_p3_tpu_torch.scripts.perf_movegen [B] \\
@@ -126,7 +125,7 @@ def main(argv=None):
     cand2 = boards(bsz, cfg.dedup_width)
     val2 = flags(0.2, bsz, cfg.dedup_width)
     if want("dedup"):
-        timed("dedup384_ms", OC.dedup_compact_rows, cand2, val2,
+        timed("dedup384_ms", OC.dedup_compact_rows_plain, cand2, val2,
               cfg.max_moves)
 
     if want("c384"):
@@ -163,14 +162,6 @@ def main(argv=None):
             timed(f"{name}_plain_ms", OC.compact_rows_plain, pay, va, k_)
             timed(f"{name}_kernel_ms", OC.compact_rows, pay, va, k_,
                   card_only=True)
-        # the non-doubles dedup at its final shape: plain flags +
-        # compaction against the kernel
-        dboards = boards(bsz, fast.dedup_width)
-        dvalid = flags(0.2, bsz, fast.dedup_width)
-        timed("dedup_plain_ms", OC.dedup_compact_rows_plain, dboards, dvalid,
-              cfg.max_moves)
-        timed("dedup_kernel_ms", OC.dedup_compact_rows, dboards, dvalid,
-              cfg.max_moves, card_only=True)
 
     for k, v in res.items():
         if k not in ("B", "device") and v is not None:

@@ -483,7 +483,7 @@ def test_paths_score_through_the_wrapper(monkeypatch):
     scfg = SearchConfig(top_k=2, reply_max_moves=M, game_chunk=5,
                         dbl_game_chunk=3)
     TT.twoply_actions_values(ts.model, es, scfg)
-    expect(TT.launches_per_decision(8, scfg)[5], 0)
+    expect(TT.launches_per_decision(8, scfg)[4], 0)
     opt = TL.init_optimizer(ts.model)
     update = TD.make_update(ts.model, M, 1e-3, 1.0, 1.0)
     mb = (TE.observe(es), es.after, es.n_moves, es.turn,
@@ -661,12 +661,14 @@ def _chip_smoke():
 
 
 def test_chip_smoke_afterstate_inputs():
-    """The inputs ``chip_smoke.py``'s phase 3 holds both kernels to: the
-    pass's argument types and shapes, n with 0 and M among its values,
-    the same tensors from the same seed, here on the CPU."""
-    cs = _chip_smoke()
+    """The inputs the card tests hold both afterstate kernels to
+    (``tests/test_torch_cuda.py::afterstate_inputs``): the pass's argument
+    types and shapes, n with 0 and M among its values, the same tensors
+    from the same seed, here on the CPU."""
+    from .test_torch_cuda import afterstate_inputs
+
     cpu = torch.device("cpu")
-    got = cs.afterstate_inputs(torch, cpu, 7, 9, 13, 128)
+    got = afterstate_inputs(cpu, 7, 9, 13, 128)
     boards, mover, n, *w = got
     assert boards.shape == (9, 13, 52) and boards.dtype == torch.int8
     assert mover.dtype == n.dtype == torch.int32
@@ -674,20 +676,18 @@ def test_chip_smoke_afterstate_inputs():
     assert [tuple(x.shape) for x in w] == [(128, 198), (128,), (1, 128),
                                           (1,)]
     assert all(torch.equal(a, b) for a, b in zip(
-        got, cs.afterstate_inputs(torch, cpu, 7, 9, 13, 128)))
+        got, afterstate_inputs(cpu, 7, 9, 13, 128)))
     args = (*got, False, "logits", 1.0)
     assert TAS.afterstate_eval(*args).shape == (9, 13)
 
 
 def test_chip_smoke_counts_what_ops_counts():
-    """``chip_smoke.py`` names the kernels and the optimizer's count as
-    ``ops.launches()`` keys them, so that each path's expected counts
-    (``with_optimizer``) compare with what it reads."""
+    """``chip_smoke.py``'s expected counts of a path (``with_optimizer``)
+    carry the keys of ``ops.launches()``, so that they compare with what
+    it reads."""
     cs = _chip_smoke()
-    assert cs.KERNELS == ops.KERNELS and cs.OPTIMIZER == ops.OPTIMIZER
-    assert cs.DEEP == ops.DEEP
-    assert list(cs.launches()) == list(cs.with_optimizer(
-        dict.fromkeys(cs.KERNELS, 0), 3))
+    assert list(ops.launches()) == list(cs.with_optimizer(
+        dict.fromkeys(ops.KERNELS, 0), 3))
     assert cs.with_optimizer({"nondoubles": 2}, 3) == {
         "nondoubles": 2, ops.OPTIMIZER: 3, **dict.fromkeys(ops.DEEP, 0)}
     assert cs.with_optimizer({}, deep={"dense_layers": 4})[

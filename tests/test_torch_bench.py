@@ -101,9 +101,9 @@ def test_lines_and_state(monkeypatch, capsys):
     lines = captured.out.strip().splitlines()
     (launched,) = [json.loads(x.split("] launches ", 1)[1])
                    for x in captured.err.splitlines() if "] launches " in x]
-    assert launched == {"compact_rows": 0, "dedup_compact_rows": 0,
-                        "doubles_level": 0, "nondoubles": 0,
-                        "doubles_final": 0, "afterstate_eval": 0,
+    assert launched == {"compact_rows": 0, "doubles_level": 0,
+                        "nondoubles": 0, "doubles_final": 0,
+                        "afterstate_eval": 0,
                         "afterstate_eval_backward": 0, "adam_update": 0,
                         "afterstate_hidden": 0,
                         "afterstate_hidden_backward": 0,

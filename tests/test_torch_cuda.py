@@ -9,12 +9,15 @@ package, so it also runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 
-(``--noconftest`` because ``tests/conftest.py`` configures JAX).  The CPU
-parity of the plain versions with the JAX package is in
-``tests/test_torch_compaction.py``, ``tests/test_torch_dedup.py``,
-``tests/test_torch_doubles.py``, ``tests/test_torch_nondoubles.py`` and
-``tests/test_torch_afterstate.py``; the optimizer's wrapper on the CPU is
-``tests/test_torch_adam.py``."""
+(``--noconftest`` because ``tests/conftest.py`` configures JAX).  This is
+where each kernel is held against its plain version on inputs made up for
+the test, at the shapes the program's paths call it with and at edge
+shapes; ``chip_smoke.py`` runs the program's own paths on the card.  The
+CPU parity of the plain versions with the JAX package is in
+``tests/test_torch_compaction.py``, ``tests/test_torch_dedup.py`` (the
+plain non-doubles dedup), ``tests/test_torch_doubles.py``,
+``tests/test_torch_nondoubles.py`` and ``tests/test_torch_afterstate.py``;
+the optimizer's wrapper on the CPU is ``tests/test_torch_adam.py``."""
 
 import copy
 import dataclasses
@@ -41,6 +44,7 @@ pytestmark = pytest.mark.cuda
 # call shape of train4096, and the split-N layout (B small, N large: B = 1
 # with N in the tens of thousands, counts crossing k_out inside a tile)
 CASES = [
+    (1, 1, 1, 1, 1.0),
     (1, 5, 3, 4, 0.7),
     (1, 4096, 55, 3604, 0.8),
     (3, 37, 52, 16, 0.5),
@@ -52,6 +56,7 @@ CASES = [
     (1, 4096, 54, 875, 0.17),
     (7208, 27, 52, 16, 0.3),
     (3604, 896, 52, 288, 0.12),
+    (3604, 288, 52, 256, 0.12),
     (875, 2160, 53, 192, 0.04),
     (875, 27, 53, 16, 0.3),
     (875, 432, 53, 80, 0.08),
@@ -78,6 +83,16 @@ CASES = [
     (2048, 896, 52, 512, 0.12),
     (16384, 27, 52, 16, 0.3),
     (8192, 896, 52, 512, 0.12),
+    # the doubles sub-batch split (games, 54) -> its capacity, a sixth of
+    # the games doubles, at every batch the paths list moves for: the
+    # arenas' 64 and 512 games, the league's 256, B=4096 at the default
+    # widths, a data-parallel rank's 8192 and pod's 16384
+    (1, 64, 54, 64, 0.17),
+    (1, 256, 54, 256, 0.17),
+    (1, 512, 54, 192, 0.17),
+    (1, 4096, 54, 1088, 0.17),
+    (1, 8192, 54, 2112, 0.17),
+    (1, 16384, 54, 4160, 0.17),
 ]
 
 
@@ -128,56 +143,6 @@ def test_kernel_on_views_at_odd_offsets(card):
         assert torch.equal(out, want_out) and torch.equal(count, want_count)
 
 
-# (G, K, k_out, fraction valid, planted share, high-nibble copies): the CPU
-# cases of tests/test_torch_dedup.py, the main-path call, and the parity
-# width (dynamic shared memory above 48 KB)
-DEDUP_CASES = [
-    (3, 40, 16, 0.8, 0.4, False),
-    (5, 37, 64, 0.7, 0.5, False),
-    (4, 70, 30, 0.9, 0.5, True),
-    (2, 288, 256, 0.9, 0.6, False),
-    (3, 288, 256, 0.5, 0.2, True),
-    (6, 33, 8, 1.0, 0.7, False),
-    (8, 60, 0, 0.6, 0.3, False),
-    (3604, 288, 256, 0.3, 0.3, False),
-    (64, 512, 500, 0.9, 0.5, True),
-    (2048, 288, 128, 0.3, 0.3, False),   # 2-ply reply dedup, width 128
-]
-
-
-def _dedup_case(g, k, seed, frac, planted, nibble):
-    rng = np.random.default_rng(seed)
-    boards = rng.integers(0, 16, (g, k, 52)).astype(np.int8)
-    src = (rng.random((g, k)) * np.arange(k)[None, :]).astype(np.int64)
-    copy = rng.random((g, k)) < planted
-    copy[:, 0] = False
-    for i in range(1, k):   # in order, so copies of copies chain
-        rows = boards[np.arange(g), src[:, i]].view(np.uint8)
-        if nibble:
-            rows = (rows & 0x0F) | (rng.integers(0, 16, rows.shape)
-                                    .astype(np.uint8) << 4)
-        boards[copy[:, i], i] = rows[copy[:, i]].view(np.int8)
-    valid = rng.random((g, k)) < frac
-    return boards, valid
-
-
-@pytest.mark.parametrize("g,k,k_out,frac,planted,nibble", DEDUP_CASES)
-def test_dedup_kernel_matches_plain(card, g, k, k_out, frac, planted,
-                                    nibble):
-    boards, flags = _dedup_case(g, k, g * 7 + k, frac, planted, nibble)
-    boards = torch.from_numpy(boards).to(card)
-    valid = torch.from_numpy(flags).to(card)
-    before = TC.dedup_compact_rows.launches
-    out, count = TC.dedup_compact_rows(boards, valid, k_out)
-    assert TC.dedup_compact_rows.launches == before + 1
-    want_out, want_count = TC.dedup_compact_rows_plain(boards, valid, k_out)
-    torch.cuda.synchronize()
-    assert torch.equal(out, want_out) and torch.equal(count, want_count)
-    assert bool((want_count < valid.sum(1)).any()) or planted == 0
-    out8, count8 = TC.dedup_compact_rows(boards, valid.to(torch.uint8), k_out)
-    assert torch.equal(out8, want_out) and torch.equal(count8, want_count)
-
-
 def test_kernel_rejects_bad_inputs(card):
     payload = torch.zeros((2, 8, 3), dtype=torch.int8, device=card)
     valid = torch.zeros((2, 8), dtype=torch.bool, device=card)
@@ -215,6 +180,18 @@ DOUBLES_BOARDS = [
 ]
 
 
+def _edge_roots(card):
+    """(vecs, die, mirror) of 72 doubles games: each of DOUBLES_BOARDS 12
+    times, with every die unmirrored and mirrored (the padding board with
+    die 0)."""
+    vecs = torch.from_numpy(np.stack(DOUBLES_BOARDS)).to(card)
+    vecs = vecs.repeat_interleave(12, dim=0).contiguous()
+    die = torch.arange(1, 7, dtype=torch.int32, device=card).repeat(12)
+    die[-12:] = 0
+    mirror = (torch.arange(72, device=card) % 12) >= 6
+    return vecs, die, mirror
+
+
 def _doubles_frontier(seed, g, k, root):
     """Random (G, K, 52) frontier rows: sparse counts (some negative,
     which the rules never make), some rows on the bar, half of them all
@@ -244,13 +221,17 @@ def _doubles_frontier(seed, g, k, root):
 
 # (G, kind, (k1, k2, k3)): train4096's doubles sub-batch at fast() and
 # the default widths (875 and 1088 games), pod's (B=16384: 4160 games), the
+# league's 256 games and the 512-game arena's 192-game sub-batch, the
 # 2-ply reply widths (512 games, k2 128, k3 256), the parity widths, widths
-# that truncate each level, and an empty L3
+# that truncate each level, an empty L3, and the edge boards with every die
 LEVELS_CASES = [
     (875, "played", (16, 80, 192)),
     (875, "random", (16, 80, 192)),
     (1088, "played", (16, 96, 224)),
     (4160, "played", (16, 96, 224)),
+    (256, "random", (16, 80, 192)),
+    (192, "random", (16, 96, 224)),
+    (72, "edge", (16, 80, 192)),
     (512, "played", (16, 128, 256)),
     (64, "random", (16, 128, 512)),
     (300, "random", (3, 5, 7)),
@@ -261,9 +242,12 @@ LEVELS_CASES = [
 
 def _levels_inputs(card, seed, g, kind):
     """(vecs, die, mirror) on the card: ``played`` boards after random env
-    steps with random dice, or ``random`` roots (``_doubles_frontier``'s:
+    steps with random dice, ``random`` roots (``_doubles_frontier``'s:
     negative counts, bars, bear-offs, game over, the edge boards, padding
-    rows of die 0, mirrored games)."""
+    rows of die 0, mirrored games), or the ``edge`` boards with every
+    die (``_edge_roots``)."""
+    if kind == "edge":
+        return _edge_roots(card)
     if kind == "played":
         vecs, dice, mirror = _played(card, g, 12, seed)
         return (vecs.contiguous(), dice[:, 0].to(torch.int32).contiguous(),
@@ -338,9 +322,8 @@ def test_doubles_level_rejects_bad_inputs(card):
 
 # every movegen kernel wrapper and its plain version, then the afterstate
 # pass's two, in the order of agents/twoply.py::launches_per_decision
-WRAPPERS = ((TC, "compact_rows"), (TC, "dedup_compact_rows"),
-            (TD, "doubles_levels"), (TN, "nondoubles_batch"),
-            (TD, "doubles_final"))
+WRAPPERS = ((TC, "compact_rows"), (TD, "doubles_levels"),
+            (TN, "nondoubles_batch"), (TD, "doubles_final"))
 AFTERSTATE = ((TAS, "afterstate_eval"), (TAS, "afterstate_eval_backward"))
 DEEP = ((TAS, "afterstate_hidden"), (TAS, "afterstate_hidden_backward"),
         (TDN, "dense_layers"), (TDN, "dense_layers_backward"))
@@ -383,7 +366,17 @@ def _nondoubles_inputs(card, seed, g, kind):
     random env steps, or ``random`` sparse boards (``_doubles_frontier``'s
     rows: negative counts, bars, bear-offs, game over, the edge boards);
     the 15 non-double rolls in turn, both mirrors, and a tenth of the
-    games all-zero padding rows of dice (0, 0)."""
+    games all-zero padding rows of dice (0, 0).  ``edge``: each of
+    DOUBLES_BOARDS with every non-double roll, unmirrored and mirrored
+    (``g`` = 180)."""
+    if kind == "edge":
+        rolls = torch.tensor(ROLLS, dtype=torch.int32, device=card)
+        vecs = torch.from_numpy(np.stack(DOUBLES_BOARDS)).to(card)
+        vecs = vecs.repeat_interleave(2 * len(ROLLS), dim=0).contiguous()
+        hi, lo = (rolls[:, i].repeat(2 * len(DOUBLES_BOARDS)).contiguous()
+                  for i in (0, 1))
+        mirror = (torch.arange(g, device=card) // len(ROLLS)) % 2 == 1
+        return vecs, hi, lo, mirror
     r = np.random.default_rng(seed)
     if kind == "played":
         vecs, _, _ = _played(card, g, 10, seed)
@@ -401,9 +394,11 @@ def _nondoubles_inputs(card, seed, g, kind):
 
 # (G, board kind, k1, kd, M, dedup): train4096's non-doubles sub-batch at
 # fast() and the default widths, the parity widths (dynamic shared memory
-# near 48 KB), the 2-ply reply widths (512 without dedup, 128 with), and
-# widths small enough to truncate the singles, the raw block and the list
+# near 48 KB), the 2-ply reply widths (512 without dedup, 128 with),
+# widths small enough to truncate the singles, the raw block and the list,
+# and the edge boards with every roll
 NONDOUBLES_CASES = [
+    (180, "edge", 16, 288, 256, True),
     (3604, "played", 16, 288, 256, True),
     (3604, "played", 16, 384, 256, True),
     (900, "random", 16, 384, 256, True),
@@ -445,7 +440,8 @@ def test_nondoubles_matches_plain(card, g, kind, k1, kd, m, dedup):
 # (fast() and the default widths), a reset (all rolls non-doubles: the
 # slot clamp of the non-doubles capacity), pod's B=16384, the batches the
 # league and the arenas run movegen at (256, 512 and 64 games), and widths
-# that truncate the singles, the raw block and the list
+# that truncate the singles, the raw block and the list, with the dedup
+# and without it
 IN_PLACE_CASES = [
     (4096, "played", dict()),
     (4096, "reset", dict()),
@@ -457,6 +453,7 @@ IN_PLACE_CASES = [
     (512, "reset", dict()),
     (64, "random", dict()),
     (600, "random", dict(max_moves=4, k1=4, dedup_width=12)),
+    (600, "random", dict(max_moves=5, k1=3, dedup_width=16, dedup=False)),
     (600, "reset", dict(dedup=False)),
 ]
 
@@ -537,9 +534,8 @@ def test_movegen_past_the_doubles_capacity(card, monkeypatch):
     before = _launches()
     got = TM.legal_afterstates_batch(*args)
     counted = {k: v - before[k] for k, v in _launches().items()}
-    assert counted == {"compact_rows": 1, "dedup_compact_rows": 0,
-                       "doubles_levels": 1, "nondoubles_batch": 1,
-                       "doubles_final": 1}
+    assert counted == {"compact_rows": 1, "doubles_levels": 1,
+                       "nondoubles_batch": 1, "doubles_final": 1}
     cpu = TM.legal_afterstates_batch(*(a.cpu() if torch.is_tensor(a) else a
                                        for a in args))
     _plain_wrappers(monkeypatch)
@@ -612,15 +608,19 @@ def test_nondoubles_rejects_bad_inputs(card):
 
 
 def _final_inputs(card, seed, g, kind, widths):
-    """The inputs of ``doubles_final``: ``played`` boards' first three
-    doubles levels (plain) at ``widths`` (k1, k2, k3), or ``random``
-    frontiers of those widths with random counts (0, within and above
-    each width) and L1/L2 rows that the kernel must copy as they are."""
+    """The inputs of ``doubles_final``: ``played`` boards' (or the
+    ``edge`` boards', ``_edge_roots``) first three doubles levels (plain)
+    at ``widths`` (k1, k2, k3), or ``random`` frontiers of those widths
+    with random counts (0, within and above each width) and L1/L2 rows
+    that the kernel must copy as they are."""
     k1, k2, k3 = widths
-    if kind == "played":
-        vecs, dice, mirror = _played(card, g, 12, seed)
-        die = dice[:, 0].to(torch.int32).contiguous()
-        mirror = mirror.contiguous()
+    if kind in ("played", "edge"):
+        if kind == "edge":
+            vecs, die, mirror = _edge_roots(card)
+        else:
+            vecs, dice, mirror = _played(card, g, 12, seed)
+            die = dice[:, 0].to(torch.int32).contiguous()
+            mirror = mirror.contiguous()
         level = (vecs[:, None, :].contiguous(), None, None)
         frontiers = []
         for k in widths:
@@ -641,11 +641,14 @@ def _final_inputs(card, seed, g, kind, widths):
 
 
 # (G, kind, (k1, k2, k3), M): train4096's doubles sub-batch at fast() and
-# the default widths, the 2-ply reply widths (512), the parity widths,
-# L3 wider than M, and k3 small enough that n3 exceeds it
+# the default widths, pod's, the 2-ply reply widths (512), the parity
+# widths, L3 wider than M, k3 small enough that n3 exceeds it, and the
+# edge boards with every die
 FINAL_CASES = [
     (875, "played", (16, 80, 192), 256),
     (1088, "played", (16, 96, 224), 256),
+    (4160, "played", (16, 96, 224), 256),
+    (72, "edge", (16, 80, 192), 256),
     (512, "played", (16, 128, 256), 512),
     (64, "played", (16, 128, 512), 500),
     (300, "random", (16, 80, 192), 256),
@@ -772,12 +775,10 @@ def test_movegen_kernel_path_matches_plain_and_cpu(card, monkeypatch):
     before = _launches()
     got = TM.legal_afterstates_batch(*args)
     counted = {k: v - before[k] for k, v in _launches().items()}
-    assert counted == {"compact_rows": 1, "dedup_compact_rows": 0,
-                       "doubles_levels": 1, "nondoubles_batch": 1,
-                       "doubles_final": 1}
+    assert counted == {"compact_rows": 1, "doubles_levels": 1,
+                       "nondoubles_batch": 1, "doubles_final": 1}
     assert counted == {
         "compact_rows": TM.compactions_per_call(cfg.movegen),
-        "dedup_compact_rows": TM.dedups_per_call(cfg.movegen),
         "doubles_levels": TM.doubles_levels_per_call(cfg.movegen),
         "nondoubles_batch": TM.nondoubles_per_call(cfg.movegen),
         "doubles_final": TM.doubles_finals_per_call(cfg.movegen)}
@@ -813,7 +814,7 @@ def test_twoply_kernel_path_matches_plain(card, monkeypatch, width):
     counted = tuple(v - before[k] for k, v in
                     _launches(WRAPPERS + AFTERSTATE).items())
     assert counted == twoply.launches_per_decision(32, scfg)
-    assert counted[3] > 0 and counted[4] > 0 and counted[5] > 0
+    assert counted[2] > 0 and counted[3] > 0 and counted[4] > 0
     _plain_wrappers(monkeypatch)
     plain = twoply.twoply_actions_values(model, es, scfg)
     torch.cuda.synchronize()
@@ -910,7 +911,12 @@ def backward_within(args, grad, got, want):
 
 
 # (R, M, hidden, epilogue, opponent view, sign): odd shapes, both widths,
-# every epilogue and view, empty batches
+# every epilogue and view, empty batches; then every path's shape: the
+# rollout's (4096, 256) at both widths, a minibatch's (8192, 256), the
+# league's and the arenas' 1-ply (256 and 512 games), the score-head
+# policy, the dances (top-k 8), and the 2-ply replies at a B=256
+# decision's candidate chunk (2048) at both reply widths and at a B=4096
+# decision's (8192)
 AFTERSTATE_CASES = [
     (37, 29, 128, "logits", False, 1.0),
     (37, 29, 256, "masked", True, -1.0),
@@ -922,10 +928,25 @@ AFTERSTATE_CASES = [
     (64, 8, 256, "min", False, 1.0),
     (0, 5, 128, "logits", False, 1.0),
     (5, 0, 128, "min", True, 1.0),
+    (301, 255, 256, "logits", False, 1.0),
+    (513, 511, 256, "min", False, 1.0),
+    (4096, 256, 128, "logits", False, 1.0),
+    (4096, 256, 256, "logits", False, 1.0),
+    (8192, 256, 128, "logits", False, 1.0),
+    (256, 256, 128, "masked", True, -1.0),
+    (512, 256, 128, "masked", True, -1.0),
+    (256, 256, 256, "masked", False, 1.0),
+    (256, 8, 128, "masked", False, 1.0),
+    (2048, 512, 128, "min", True, 1.0),
+    (2048, 128, 128, "min", True, 1.0),
+    (8192, 512, 128, "min", True, 1.0),
 ]
 # every other width (a part of a group, a pair with padding, 3 to 8
-# groups) and bf16, with every epilogue and view and odd shapes:
-# (R, M, hidden, epilogue, opponent view, sign, dtype)
+# groups) and bf16, with every epilogue and view and odd shapes; the
+# rollout and a minibatch at hidden 512 (run_learning --hidden 512) and in
+# bf16, the league's 1-ply and the replies at 512 and in bf16, the dances
+# at 64 and a reply chunk at 100: (R, M, hidden, epilogue, opponent view,
+# sign, dtype)
 F32, BF16 = torch.float32, torch.bfloat16
 AFTERSTATE_WIDTH_CASES = [
     (37, 29, 1, "logits", False, 1.0, F32),
@@ -940,12 +961,25 @@ AFTERSTATE_WIDTH_CASES = [
     (0, 5, 512, "logits", False, 1.0, F32),
     (5, 0, 1024, "min", True, 1.0, F32),
     (130, 77, 1024, "masked", False, 1.0, F32),
+    (513, 255, 1024, "min", True, 1.0, F32),
+    (37, 29, 1024, "logits", False, 1.0, F32),
+    (256, 8, 64, "masked", False, 1.0, F32),
+    (2048, 128, 100, "min", True, 1.0, F32),
+    (513, 511, 200, "min", False, 1.0, F32),
+    (4096, 256, 512, "logits", False, 1.0, F32),
+    (8192, 256, 512, "logits", False, 1.0, F32),
+    (256, 256, 512, "masked", True, -1.0, F32),
+    (2048, 512, 512, "min", True, 1.0, F32),
     (37, 29, 32, "logits", False, 1.0, BF16),
     (300, 256, 128, "logits", False, 1.0, BF16),
     (257, 256, 128, "min", True, 1.0, BF16),
     (301, 255, 256, "masked", True, -1.0, BF16),
     (513, 511, 512, "min", False, 1.0, BF16),
     (130, 77, 512, "logits", False, 1.0, BF16),
+    (4096, 256, 128, "logits", False, 1.0, BF16),
+    (8192, 256, 128, "logits", False, 1.0, BF16),
+    (2048, 512, 128, "min", True, 1.0, BF16),
+    (4096, 256, 512, "logits", False, 1.0, BF16),
 ]
 AFTERSTATE_ALL = [(*c, F32) for c in AFTERSTATE_CASES] + \
     AFTERSTATE_WIDTH_CASES
@@ -982,8 +1016,13 @@ def test_afterstate_eval_matches_plain(card, r, m, hidden, epilogue,
     assert torch.equal(got[special], want[special])
 
 
+# the backward at odd shapes, every width and bf16, and a minibatch's
+# (8192, 256) at hidden 512 and in bf16 (in float32 up to 256 units:
+# test_afterstate_backward_at_a_minibatch)
 AFTERSTATE_BACKWARD_ALL = [
     (37, 29, 128, "logits", False, 1.0, F32),
+    (8192, 256, 512, "logits", False, 1.0, F32),
+    (8192, 256, 128, "logits", False, 1.0, BF16),
     (300, 256, 256, "masked", True, -1.0, F32),
     (2049, 256, 128, "logits", False, 1.0, F32),
     (0, 7, 128, "logits", False, 1.0, F32),
@@ -1028,18 +1067,20 @@ def test_afterstate_backward_matches_plain(card, r, m, hidden, epilogue,
     assert backward_within(args, grad, got, want)
 
 
-def test_afterstate_backward_at_a_minibatch_h256(card):
-    """The backward at a minibatch's shape, (8192, 256), hidden 256, against
-    the plain version: over 2M boards a float32 sum flips the ReLU's kink
-    of some boards whose pre-activation is near 0 (the plain version in
-    float32 and this kernel alike, against the plain one in float64), so
-    the four gradients are held as ``chip_smoke.py`` holds them, their
-    distance from the plain ones at most 4 times the distance that a
-    one-ulp nudge of the parameters moves the plain ones; the same bits on
-    a second launch, one launch counted each."""
-    args = (*afterstate_inputs(card, 8448, 8192, 256, 256), False, "logits",
-            1.0)
-    grad = torch.randn((8192, 256), device=card,
+@pytest.mark.parametrize("r,hidden", [(8192, 128), (8192, 256), (1024, 128)])
+def test_afterstate_backward_at_a_minibatch(card, r, hidden):
+    """The backward at a minibatch's shape, (8192, 256), and at
+    distillation's, (1024, 256), against the plain version: over many
+    boards a float32 sum flips the ReLU's kink of some boards whose
+    pre-activation is near 0 (the plain version in float32 and this
+    kernel alike, against the plain one in float64), so the four gradients
+    are held as past 256 units, their distance from the plain ones at most
+    4 times the distance that a one-ulp nudge of the parameters moves the
+    plain ones; the same bits on a second launch, one launch counted
+    each."""
+    args = (*afterstate_inputs(card, r + hidden, r, 256, hidden),
+            False, "logits", 1.0)
+    grad = torch.randn((r, 256), device=card,
                        generator=torch.Generator(device=card).manual_seed(8))
     before = TAS.afterstate_eval_backward.launches
     got = TAS.afterstate_eval_backward(*args, grad)
@@ -1493,12 +1534,11 @@ def test_timed_scan_counts_launches_at_capture(card):
     payload = torch.randint(-128, 128, (300, 896, 52), generator=gen,
                             device=card, dtype=torch.int8)
     valid = torch.rand((300, 896), generator=gen, device=card) < 0.2
-    before = (TC.compact_rows.launches, TC.dedup_compact_rows.launches)
+    before = TC.compact_rows.launches
     profiling.timed_scan(TC.compact_rows, payload, valid, 288, iters=7)
-    profiling.timed_scan(TC.dedup_compact_rows, payload, valid, 256,
-                         iters=3)
-    assert TC.compact_rows.launches - before[0] == 1 + 7
-    assert TC.dedup_compact_rows.launches - before[1] == 1 + 3
+    assert TC.compact_rows.launches - before == 1 + 7
+    profiling.timed_scan(TC.compact_rows, payload, valid, 256, iters=3)
+    assert TC.compact_rows.launches - before == 1 + 7 + 1 + 3
 
 
 def test_device_busy_reads_the_kernels(card):
@@ -1532,20 +1572,6 @@ def test_breakdown_device_keys_on_card(card, capsys):
         for k in ("movegen", "movegen_nondoubles",
                   "movegen_doubles_subbatch", "movegen_dedup"):
             assert cell[f"{k}_ms"] <= 1.05 * cell[f"{k}_eager_ms"], k
-
-
-# last: a failed capture must leave the card usable, but if it did not,
-# no other test would be hit
-def test_timed_scan_refuses_what_cannot_be_captured(card):
-    """A host synchronisation inside the timed function raises: there is
-    no eager fallback under the device's name."""
-    from mlp_ppo_2ply_p3_tpu_torch.utils import profiling
-
-    x = torch.arange(1000, device=card)
-    with pytest.raises(RuntimeError):
-        profiling.timed_scan(lambda a: int(a.sum()), x, iters=2)
-    torch.cuda.synchronize()
-    assert int(x.sum()) == 499500          # the card still works
 
 
 # --- the deep pass (csrc/afterstate.cu's deep forms, csrc/dense.cu) ----------
@@ -1779,3 +1805,17 @@ def test_deep_pass_rejects_what_the_kernels_do_not_take(card):
         TAS.afterstate_deep(*args[:3], [w.bfloat16() for w in args[3]],
                             *args[4:])
     assert TDN.MAX_WIDTH == 320
+
+
+# last: a failed capture must leave the card usable, but if it did not,
+# no other test would be hit
+def test_timed_scan_refuses_what_cannot_be_captured(card):
+    """A host synchronisation inside the timed function raises: there is
+    no eager fallback under the device's name."""
+    from mlp_ppo_2ply_p3_tpu_torch.utils import profiling
+
+    x = torch.arange(1000, device=card)
+    with pytest.raises(RuntimeError):
+        profiling.timed_scan(lambda a: int(a.sum()), x, iters=2)
+    torch.cuda.synchronize()
+    assert int(x.sum()) == 499500          # the card still works

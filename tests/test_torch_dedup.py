@@ -1,12 +1,12 @@
 """Port parity: first-occurrence dedup + compaction
-(``ops/compaction.py::dedup_compact_rows``).
+(``ops/compaction.py::dedup_compact_rows_plain``).
 
-On the CPU the port's ``dedup_compact_rows`` runs its plain PyTorch
-version.  It is held bit for bit against the JAX package's non-doubles
-dedup: ``jax.vmap(core.movegen._dedup_pairwise)`` for the flags, then the
+The port's plain dedup and compaction, the plain version of the
+non-doubles kernel's dedup (``ops/nondoubles.py``), is held bit for bit
+against the JAX package's non-doubles dedup:
+``jax.vmap(core.movegen._dedup_pairwise)`` for the flags, then the
 Pallas ``compact_rows`` (interpreter mode on the CPU) and the vmapped jnp
-``_compact``.  The CUDA kernel itself is held against the plain version
-on the card by ``tests/test_torch_cuda.py`` and by ``chip_smoke.py``."""
+``_compact``."""
 
 import jax
 import jax.numpy as jnp
@@ -60,7 +60,7 @@ def _check_against_jax(boards, valid, k_out):
     keep, want_out, want_count = _jax_dedup_compact(boards, valid, k_out)
     flags = TM._dedup_pairwise(tt(boards), tt(valid))
     np.testing.assert_array_equal(nn_(flags), keep)
-    out, count = TC.dedup_compact_rows(tt(boards), tt(valid), k_out)
+    out, count = TC.dedup_compact_rows_plain(tt(boards), tt(valid), k_out)
     assert out.dtype == torch.int8 and count.dtype == torch.int32
     assert out.shape == (len(boards), k_out, 52)
     np.testing.assert_array_equal(nn_(out), want_out)
@@ -112,18 +112,16 @@ def test_duplicates_of_invalid_rows_do_not_suppress():
 def test_k_out_zero():
     boards, valid = _case(3, 45, seed=2)
     keep = np.asarray(J_DEDUP(jnp.asarray(boards), jnp.asarray(valid)))
-    out, count = TC.dedup_compact_rows(tt(boards), tt(valid), 0)
+    out, count = TC.dedup_compact_rows_plain(tt(boards), tt(valid), 0)
     assert out.shape == (3, 0, 52)
     np.testing.assert_array_equal(nn_(count), keep.sum(1))
 
 
 def test_numpy_loop_and_uint8_flags():
-    """Against a direct loop over the rows, with uint8 flags too; CPU
-    tensors launch nothing."""
+    """Against a direct loop over the rows, with uint8 flags too."""
     boards, valid = _case(5, 41, seed=13, planted=0.5, nibble=True)
-    before = TC.dedup_compact_rows.launches
     for flags in (valid, valid.astype(np.uint8)):
-        out, count = TC.dedup_compact_rows(tt(boards), tt(flags), 20)
+        out, count = TC.dedup_compact_rows_plain(tt(boards), tt(flags), 20)
         for g in range(5):
             seen, rows = set(), []
             for i in range(41):
@@ -135,24 +133,9 @@ def test_numpy_loop_and_uint8_flags():
             want[:min(len(rows), 20)] = np.array(rows[:20]).reshape(-1, 52)
             np.testing.assert_array_equal(nn_(out[g]), want)
             assert int(count[g]) == len(rows)
-    assert TC.dedup_compact_rows.launches == before
 
 
-@pytest.mark.parametrize("bad", ["width", "dtype", "shape"])
-def test_wrapper_rejects(bad):
-    boards = torch.zeros((2, 8, 52), dtype=torch.int8)
-    valid = torch.zeros((2, 8), dtype=torch.bool)
-    if bad == "width":
-        boards = boards[:, :, :51].contiguous()
-    elif bad == "dtype":
-        boards = boards.to(torch.int32)
-    else:
-        valid = valid[:, :7]
-    with pytest.raises((TypeError, ValueError)):
-        TC.dedup_compact_rows(boards, valid, 4)
-
-
-def test_nondoubles_movegen_still_matches_jax(monkeypatch):
+def test_nondoubles_movegen_still_matches_jax():
     """Non-doubles rolls only, so every game goes through the dedup:
     ``legal_afterstates_batch`` under ``fast()`` against JAX."""
     b = 48
@@ -166,17 +149,8 @@ def test_nondoubles_movegen_still_matches_jax(monkeypatch):
     want = JM.legal_afterstates_batch(jnp.asarray(vecs), jnp.asarray(dice),
                                       JM.MovegenConfig(**kw),
                                       mirror=jnp.asarray(mirror))
-    calls = []
-    real = TC.dedup_compact_rows
-
-    def counting(*args):
-        calls.append(args[2])
-        return real(*args)
-
-    monkeypatch.setattr(TC, "dedup_compact_rows", counting)
     got = TM.legal_afterstates_batch(tt(vecs), tt(dice),
                                      TM.MovegenConfig(**kw),
                                      mirror=tt(mirror))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(nn_(g), np.asarray(w))
-    assert calls == [256] * TM.dedups_per_call(TM.MovegenConfig(**kw))

@@ -9,7 +9,7 @@
   intervals.
 - ``perf_movegen`` at ``--device cpu`` and B=32 prints one JSON line
   with the JAX script's section keys, each with its eager twin, and
-  ``dedup384_ms`` times ``dedup_compact_rows``.
+  ``dedup384_ms`` times ``dedup_compact_rows_plain``.
 - ``save_frozen`` turns a driver checkpoint into an asset that both
   packages load."""
 
@@ -177,25 +177,27 @@ def test_perf_movegen_on_cpu(capsys, monkeypatch):
     for k in SECTION_KEYS - {"B"}:
         assert res[k] > 0, k
         assert res[k[:-len("_ms")] + "_eager_ms"] > 0, k
-    for shape in ("ndblock", "ndfinal", "dblL3", "dblL4", "dedup"):
+    for shape in ("ndblock", "ndfinal", "dblL3", "dblL4"):
         assert res[f"{shape}_plain_ms"] > 0
         assert res[f"{shape}_plain_eager_ms"] > 0
         assert res[f"{shape}_kernel_ms"] is None   # the kernel needs a card
         assert res[f"{shape}_kernel_eager_ms"] is None
     calls = []
-    inner = OC.dedup_compact_rows
+    inner = OC.dedup_compact_rows_plain
 
     def counted(boards, valid, k_out):
         calls.append((tuple(boards.shape), k_out))
         return inner(boards, valid, k_out)
 
-    monkeypatch.setattr(OC, "dedup_compact_rows", counted)
+    monkeypatch.setattr(OC, "dedup_compact_rows_plain", counted)
     res = perf_movegen.main(["32", "dedup,c384", "--device", "cpu"])
     assert set(res) == {"B", "device", "dedup384_ms", "dedup384_eager_ms",
                         "compact384to256_ms", "compact384to256_eager_ms"}
-    # dedup384 times the dedup kernel (movegen's reset no longer runs it:
-    # the non-doubles kernel dedups on chip): warm-up + 20 calls, twice
-    assert calls == [((32, 384, 52), 256)] * (2 * (1 + profiling.SCAN_ITERS))
+    # the reset's movegen dedups once through it (the non-doubles batch's
+    # plain version, on the CPU); then dedup384 times it: warm-up + 20
+    # calls, twice
+    want = 1 + 2 * (1 + profiling.SCAN_ITERS)
+    assert calls == [((32, 384, 52), 256)] * want
 
 
 def test_save_frozen_round_trip(tmp_path, monkeypatch, capsys):

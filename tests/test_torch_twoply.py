@@ -153,8 +153,8 @@ def test_launches_per_decision(monkeypatch, width, chunk):
     formula that ``chip_smoke.py`` holds the card's launches to."""
     _, model = models(4)
     _, ts = both_states(17, 2)
-    calls = {"compact": 0, "dedup": 0, "level": 0, "nondoubles": 0,
-             "final": 0, "afterstate": 0, "afterstate_backward": 0}
+    calls = {"compact": 0, "level": 0, "nondoubles": 0, "final": 0,
+             "afterstate": 0, "afterstate_backward": 0}
 
     def counted(name, fn):
         def wrapper(*args):
@@ -164,8 +164,6 @@ def test_launches_per_decision(monkeypatch, width, chunk):
 
     monkeypatch.setattr(TC, "compact_rows",
                         counted("compact", TC.compact_rows_plain))
-    monkeypatch.setattr(TC, "dedup_compact_rows",
-                        counted("dedup", TC.dedup_compact_rows_plain))
     monkeypatch.setattr(TD, "doubles_levels",
                         counted("level", TD.doubles_levels_plain))
     monkeypatch.setattr(TN, "nondoubles_batch",
@@ -184,13 +182,13 @@ def test_launches_per_decision(monkeypatch, width, chunk):
     # B=256 at the JAX package's chunks: 1 x 15 non-doubles launches, 4 x
     # 6 fused doubles levels (L1-L3 in one launch) and 4 x 6 final ones; at
     # the port's, the doubles leg is one chunk: 6 fused levels and 6 final
-    # ones; no compaction and no separate dedup; one afterstate pass per
-    # reply list and two more (the 1-ply values, the dances), no gradient
+    # ones; no compaction; one afterstate pass per reply list and two more
+    # (the 1-ply values, the dances), no gradient
     jax_chunks = SearchConfig(game_chunk=2048, dbl_game_chunk=512)
-    assert TT.launches_per_decision(256, jax_chunks) == (0, 0, 24, 15, 24,
-                                                         41, 0)
-    assert TT.launches_per_decision(256, SearchConfig()) == (0, 0, 6, 15, 6,
-                                                             23, 0)
+    assert TT.launches_per_decision(256, jax_chunks) == (0, 24, 15, 24, 41,
+                                                         0)
+    assert TT.launches_per_decision(256, SearchConfig()) == (0, 6, 15, 6, 23,
+                                                             0)
 
 
 def test_twoply_matches_bruteforce():
