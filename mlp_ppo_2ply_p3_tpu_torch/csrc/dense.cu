@@ -33,11 +33,12 @@
 //
 // - Tiles follow the widths: K is padded to a multiple of 16 (wgmma's depth)
 //   and N to 8, with zeros, which is exact and covers widths of 1.  M is 64
-//   rows a warpgroup.  A (the rows) comes from registers, split as it is
-//   read; B (the weights, or dpre in the weight gradient) as limbs in shared
-//   memory.  Each product kernel takes one fragment width W (a template
-//   parameter: ptxas serializes the wgmma of a kernel that mixes widths), so
-//   a layer runs as one launch of equal chunks where a width of 32 to 64
+//   rows a warpgroup.  In the row kernels A (the rows) comes from registers,
+//   split as it is read, and B (the weights) as limbs in shared memory; in
+//   the weight gradient both come as limbs in shared memory.  Each product
+//   kernel takes one fragment width W (a template parameter: ptxas
+//   serializes the wgmma of a kernel that mixes widths), so a layer's row
+//   kernels run as one launch of equal chunks where a width of 32 to 64
 //   divides its padded N (200 = 5 x 40), else as chunks of 64 and a launch of
 //   the rest (300 columns cost 256 + 48).
 // - dense_forward_kernel_split_weights: once a call, every layer's weights
@@ -62,14 +63,19 @@
 //   dpre[l-1] (dpre[0], fc1's, is what csrc/afterstate.cu's deep backward
 //   takes).
 // - dense_wgrad_kernel<W>: dW_l and db_l as one product over the kept rows,
-//   dpre_l^T [h_{l-1}, 1]: tiles of 128 inputs (a warpgroup 64, wgmma's M) x
-//   W outputs, split into a fixed number of row slices, each slice's partial
-//   into scratch.  Stages of 32 rows come by cp.async three deep as float32
-//   ([h, 1] and dpre); [h, 1] is split as A fragments in registers and dpre
-//   into limbs in shared memory (B, the rows its K).
+//   dpre_l^T [h_{l-1}, 1], split into a fixed number of row slices, each
+//   slice's partial into scratch.  Warp-specialized: a TMA warp brings
+//   stages of 16 rows in as float32 onto mbarriers, a warpgroup splits both
+//   operands into limbs in shared memory once a stage, and two consumer
+//   warpgroups, each on a unit of 64 inputs (wgmma's M) x W outputs (up to
+//   128: a layer's outputs in ceil(N / 128) equal tiles), only run the
+//   products (both operands from shared memory) and add the fragments.  The
+//   split of a stage serves 128 to 256 outputs and 64 to 128 inputs, and
+//   the grid is a whole number of waves on 132 SMs for any layer (SLICES).
 // - dense_reduce_kernel: every gradient entry, the partials summed in slice
 //   (block) order.  No float sum uses an atomic and the tensor cores sum in a
 //   fixed order, so the gradients are the same bits on every run and card.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -90,12 +96,18 @@ constexpr int kChunk = 64;          // output columns at most a chunk
 constexpr int kKS = 64;             // k a stage (four k-steps of 16)
 constexpr int kLimbStage = kChunk * kKS * 2;   // bytes of one limb's stage
 constexpr int kGroupBytes = kKS / 8 * 128;     // between two groups of 8 n
-constexpr int kXT = 128;            // wgrad: inputs a tile
-constexpr int kHLd = kXT + 4;       // wgrad: floats between two [h, 1] rows
-constexpr int kDLd = kChunk + 4;    // wgrad: floats between two dpre rows
-constexpr int kWS = 32;             // wgrad: rows a stage (two k-steps)
-constexpr int kWLimb = kChunk * kWS * 2;       // wgrad: bytes of a limb
-constexpr int kDepth = 3;           // wgrad: stages in flight
+constexpr int kWSplit = 4;          // wgrad: the split's warps (a
+                                    // warpgroup), then two consumer
+                                    // warpgroups and a TMA warp
+constexpr int kWThreads = 32 * kWSplit + 288;
+constexpr int kWRows = 16;          // wgrad: kept rows a stage (a k-step)
+constexpr int kWFloat = 4;          // wgrad: float32 stages in flight
+constexpr int kWLimbs = 4;          // wgrad: limb stages in flight
+constexpr int kWLimbBytes = 3 * kWRows * 2;    // wgrad: a column's limbs a
+                                               // stage
+constexpr int kWTile = 128;         // wgrad: outputs at most a unit
+constexpr int kWBoxH = 68;          // wgrad: floats a staged [h] row (64 +
+                                    // 4)
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Net {
@@ -137,9 +149,25 @@ constexpr size_t kSmemRows = 4 * kTileFloats + kRingBytes;      // 217,088
 constexpr size_t kSmemHead = 4 * kTileFloats;                   // 167,936
 constexpr size_t kSmemHeadBackward =
     kSmemHead + 4 * (kHeadFloats + kMaxHeads * kRows);          // 182,304
-constexpr size_t kHsBytes = 4ull * kDepth * kWS * kHLd;         // 50,688
-constexpr size_t kDsBytes = 4ull * kDepth * kWS * kDLd;         // 26,112
-constexpr size_t kSmemWgrad = kHsBytes + kDsBytes + 2ull * 3 * kWLimb;
+// The weight gradient's columns a stage for units of W outputs: at most 128
+// inputs and W outputs, or 64 and 2 W (WgradUnits); the floats of a staged
+// stage (16 rows of [h]'s boxes of 64 + 4 columns and dpre's of W + 4, 4 mod
+// 8 floats a row, so a warp's reads of rows 2 p, p = 0..3, meet no bank
+// conflict); its shared memory: the float32 and limb stages and the
+// mbarriers.  At W = 128: 207,968 bytes.
+__host__ __device__ constexpr int wgrad_cols(int W) {
+  return 128 + W > 64 + 2 * W ? 128 + W : 64 + 2 * W;
+}
+__host__ __device__ constexpr int wgrad_stage_floats(int W) {
+  return kWRows * (2 * kWBoxH + W + 4 > kWBoxH + 2 * (W + 4)
+                       ? 2 * kWBoxH + W + 4
+                       : kWBoxH + 2 * (W + 4));
+}
+constexpr size_t wgrad_smem(int W) {
+  return 4ull * kWFloat * wgrad_stage_floats(W) +
+         (size_t)kWLimbs * kWLimbBytes * wgrad_cols(W) +
+         16ull * (kWFloat + kWLimbs);
+}
 
 __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
 __host__ __device__ __forceinline__ int round8(int x) { return (x + 7) & ~7; }
@@ -388,6 +416,343 @@ __device__ __forceinline__ void six_products(float (&t)[32],
   wgmma_rs<W>(t, a[0], b0, 1);
 }
 
+// mbarriers (a phase completes when its arrivals, and the bytes it expects,
+// are in) and the bulk copies that complete on them.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(arrivals)
+               : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// An arrival that also expects `bytes` more of bulk copies this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Until the phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// A box of a 2-D tensor map at (column x, row y) into shared dst (128-byte
+// aligned), counted on bar; zeros where it lies past the tensor.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_frag(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B^T for a warpgroup, both from shared memory: A 64 x 16 and B N x
+// 16 bf16, K-major (descriptors da, db); d 64 x N float32, scale 0
+// overwrites it.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t da,
+                                             uint64_t db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<48>(float (&d)[24], uint64_t da,
+                                             uint64_t db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<72>(float (&d)[36], uint64_t da,
+                                             uint64_t db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35"
+      "}, %36, %37, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<80>(float (&d)[40], uint64_t da,
+                                             uint64_t db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<88>(float (&d)[44], uint64_t da,
+                                             uint64_t db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %46, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n88k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43"
+      "}, %44, %45, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<96>(float (&d)[48], uint64_t da,
+                                             uint64_t db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<104>(float (&d)[52], uint64_t da,
+                                             uint64_t db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %54, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51"
+      "}, %52, %53, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<112>(float (&d)[56], uint64_t da,
+                                             uint64_t db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55"
+      "}, %56, %57, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<120>(float (&d)[60], uint64_t da,
+                                             uint64_t db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %62, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n120k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59"
+      "}, %60, %61, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+// t = the six limb products of a k-step from shared memory, smallest first,
+// t overwritten: A's limb i at as + i la, B's limb j at bs + j lb, each
+// 256 bytes between its groups of 8 rows (the stage's 16 k).
+template <int W>
+__device__ __forceinline__ void six_products_ss(float (&t)[W / 2],
+                                                unsigned as, unsigned la,
+                                                unsigned bs, unsigned lb) {
+  const uint64_t a0 = limb_desc(as, 256), b0 = limb_desc(bs, 256);
+  const uint64_t a1 = limb_desc(as + la, 256), b1 = limb_desc(bs + lb, 256);
+  const uint64_t a2 = limb_desc(as + 2 * la, 256);
+  const uint64_t b2 = limb_desc(bs + 2 * lb, 256);
+  wgmma_ss<W>(t, a2, b0, 0);
+  wgmma_ss<W>(t, a1, b1, 1);
+  wgmma_ss<W>(t, a0, b2, 1);
+  wgmma_ss<W>(t, a1, b0, 1);
+  wgmma_ss<W>(t, a0, b1, 1);
+  wgmma_ss<W>(t, a0, b0, 1);
+}
+
 template <int W>
 __device__ __forceinline__ void add_fragment(float (&acc)[32],
                                              float (&t)[32]) {
@@ -414,23 +779,6 @@ struct RowA {
     split_pair(x10.x, x10.y, a[0][1], a[1][1], a[2][1]);
     split_pair(x01.x, x01.y, a[0][2], a[1][2], a[2][2]);
     split_pair(x11.x, x11.y, a[0][3], a[1][3], a[2][3]);
-  }
-};
-
-// The same fragment of the transposed tile: A[m][k] = hs[k][x + m], hs the
-// staged rows (k) of [h, 1] with kHLd floats between rows.
-struct ColA {
-  const float* hs;
-  int x;
-  __device__ __forceinline__ void operator()(int k,
-                                             uint32_t (&a)[3][4]) const {
-    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-    const float* p = hs + (k + 2 * (lane & 3)) * kHLd + x + 16 * warp +
-                     (lane >> 2);
-    split_pair(p[0], p[kHLd], a[0][0], a[1][0], a[2][0]);
-    split_pair(p[8], p[kHLd + 8], a[0][1], a[1][1], a[2][1]);
-    split_pair(p[8 * kHLd], p[9 * kHLd], a[0][2], a[1][2], a[2][2]);
-    split_pair(p[8 * kHLd + 8], p[9 * kHLd + 8], a[0][3], a[1][3], a[2][3]);
   }
 };
 
@@ -895,140 +1243,275 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The wgrad tile's partial sums into slice s's slab: acc[4 j + 2 h + e] is
-// input x + frag_row(h), output c0 + 8 j + frag_col() + e.
-struct WgradEpi {
-  float* part;
-  int x, K, N;
-  template <int W>
-  __device__ __forceinline__ void run(const float (&acc)[32], int c0) const {
+// split_pair's words in fewer instructions (the same bits): each part's two
+// halves taken back to float32 by a shift and a mask.
+__device__ __forceinline__ void split_word(float x, float y, uint32_t& p0,
+                                           uint32_t& p1, uint32_t& p2) {
+  auto pack = [](float lo, float hi_) {
+    uint32_t w;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(w) : "f"(hi_), "f"(lo));
+    return w;
+  };
+  p0 = pack(x, y);
+  x -= __uint_as_float(p0 << 16);
+  y -= __uint_as_float(p0 & 0xffff0000u);
+  p1 = pack(x, y);
+  x -= __uint_as_float(p1 << 16);
+  y -= __uint_as_float(p1 & 0xffff0000u);
+  p2 = pack(x, y);
+}
+
+// One staged box's limbs, a warp's tasks i < NT (8 columns x 4 pairs of
+// rows each, a task of the split's warps in turn; those from n on are not
+// stored): its lane's column col + 4 kWSplit i of the layer and rows 2 p,
+// 2 p + 1 (sb at that column, and rs floats on) as one word of each limb
+// (wb[32 kWSplit i], a limb lw words apart): a warp's 32 words are distinct
+// banks, and so are its reads (rows 4 mod 8 floats apart).  kMask: columns
+// from lim on read 0 (1 at lim where bias, [h, 1]'s bias column), and rows
+// past the slice 0.  Every load first and no branch, so a warp's tasks split
+// side by side.
+template <int NT, bool kMask>
+__device__ __forceinline__ void split_box(const float* sb, int rs,
+                                          uint32_t* wb, int lw, int n,
+                                          int col, int lim, bool bias,
+                                          bool live0, bool live1) {
+  float v[NT][2];
 #pragma unroll
-    for (int j = 0; j < W / 8; ++j) {
+  for (int i = 0; i < NT; ++i) {
+    v[i][0] = sb[4 * kWSplit * i];
+    v[i][1] = sb[4 * kWSplit * i + rs];
+  }
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int xi = x + frag_row(h), y = c0 + 8 * j + frag_col() + e;
-          if (xi <= K && y < N) {
-            part[(size_t)y * (K + 1) + xi] = acc[4 * j + 2 * h + e];
-          }
-        }
-      }
+  for (int i = 0; i < NT; ++i) {
+    float v0 = v[i][0], v1 = v[i][1];
+    if (kMask) {
+      const int c = col + 4 * kWSplit * i;
+      const bool ok = c < lim, one = bias && c == lim;
+      v0 = ok && live0 ? v0 : one && live0 ? 1.0f : 0.0f;
+      v1 = ok && live1 ? v1 : one && live1 ? 1.0f : 0.0f;
+    }
+    uint32_t q0, q1, q2;
+    split_word(v0, v1, q0, q1, q2);
+    if (i < n) {
+      wb[32 * kWSplit * i] = q0;
+      wb[32 * kWSplit * i + lw] = q1;
+      wb[32 * kWSplit * i + 2 * lw] = q2;
+    }
+  }
+}
+
+// The weight gradient's units: a block's two consumer warpgroups each take
+// 64 inputs (wgmma's M) x W outputs of one layer.  Input tiles go in pairs
+// (128 inputs x W outputs a block); where their number is odd, the last
+// tile's blocks take it with two output tiles (64 x 2 W), and where that
+// number is odd too, one unit has a block to itself.  The block's inputs
+// [x0, x0 + 64 ma), outputs [y0, y0 + W nb).
+struct WgradUnits {
+  int x0, y0, ma, nb;
+  __host__ __device__ static int count(int K, int N, int W) {
+    const int nx = K / 64 + 1, ny = (N + W - 1) / W;
+    return nx / 2 * ny + nx % 2 * ((ny + 1) / 2);
+  }
+  __device__ WgradUnits(int K, int N, int W, int u) {
+    const int nx = K / 64 + 1, ny = (N + W - 1) / W, pairs = nx / 2;
+    if (u < pairs * ny) {
+      x0 = 128 * (u % pairs);
+      y0 = W * (u / pairs);
+      ma = 2;
+      nb = 1;
+    } else {
+      const int v = u - pairs * ny;
+      x0 = 64 * (nx - 1);
+      y0 = 2 * W * v;
+      ma = 1;
+      nb = min(2, ny - 2 * v);
     }
   }
 };
 
 // dW_l and db_l, (width[l], width[l-1] + 1) with the bias last, at off in
-// each slice's slab: block (x, s) sums inputs [128 (x % xt), + 128) x
-// outputs [cb + W (x / xt), + W) over row slice s, rows [count s / S, count
-// (s + 1) / S), in stages of 32 rows: [h, 1]'s 128 inputs (A, split as it is
-// read) and dpre's W outputs (B, split into limbs once staged), both as
-// float32 rows by cp.async, kDepth stages in flight.  (Two blocks an SM
-// cap it at 128 registers, and ptxas then spills.)
+// each slice's slab: dpre_l^T [h_{l-1}, 1] over row slice blockIdx.y, rows
+// [count s / S, count (s + 1) / S), for unit pair blockIdx.x (WgradUnits),
+// in stages of 16 rows (a k-step).  Warp-specialized, with no block barrier
+// in the loop:
+// - the TMA warp brings each stage in as float32 boxes ([h]'s 64 + 4
+//   columns a box by th, dpre's W + 4 by td), kWFloat stages in flight on
+//   full_f, each once the split has freed its slot (empty_f);
+// - warpgroup 0 (kWSplit warps) splits both operands into their limbs once
+//   a stage, in the K-major core-matrix layout that wgmma reads (the rows
+//   are K), kWLimbs stages in flight on full_l, and gives registers up to
+// - warpgroups 1 and 2, each on its unit: the stage's six products from
+//   shared memory into a fresh fragment, the stage freed (empty_l), the
+//   fragment added to the unit's sums.
+// What bounds it (H100, wildbg's first minibatch): shared memory's
+// bandwidth, which the TMA's writes, the split's reads and writes and the
+// products' operand reads share (about 130 KB a stage of a 128 x 128 block,
+// 1,000 cycles at 128 bytes a cycle); twice the split's warps, the
+// consumers' A from registers or the consumers in turns did not move it.
 template <int W>
-__global__ void __launch_bounds__(kThreads, 1)
-    dense_wgrad_kernel(Net a, int l, int cb, size_t off) {
+__global__ void __launch_bounds__(kWThreads, 1)
+    dense_wgrad_kernel(Net a, int l, size_t off,
+                       const __grid_constant__ CUtensorMap th,
+                       const __grid_constant__ CUtensorMap td) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  float* hs = reinterpret_cast<float*>(smem);                // [3][32][kHLd]
-  float* ds = reinterpret_cast<float*>(smem + kHsBytes);     // [3][32][kDLd]
-  uint32_t* lb = reinterpret_cast<uint32_t*>(smem + kHsBytes + kDsBytes);
+  constexpr int SF = wgrad_stage_floats(W), COLS = wgrad_cols(W);
+  constexpr int DB = W + 4;           // floats a staged dpre row
+  float* staged = reinterpret_cast<float*>(smem);
+  unsigned char* limbs = smem + 4 * kWFloat * SF;
+  uint64_t* full_f =
+      reinterpret_cast<uint64_t*>(limbs + kWLimbs * kWLimbBytes * COLS);
+  uint64_t* empty_f = full_f + kWFloat;
+  uint64_t* full_l = empty_f + kWFloat;
+  uint64_t* empty_l = full_l + kWLimbs;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wg = tid >> 7;
   const int K = a.width[l - 1], N = a.width[l];
-  const int xt = (K + 1 + kXT - 1) / kXT;
-  const int x0 = kXT * (blockIdx.x % xt), y0 = cb + W * (blockIdx.x / xt);
-  const float* h = l >= 2 ? a.act[l - 2] : a.h1;
-  const int ldh = a.ld[l - 1];
-  const float* d = a.dpre[l];
-  const int ldd = a.ld[l];
+  const WgradUnits u(K, N, W, blockIdx.x);
+  const int MA = 64 * u.ma, NB = W * u.nb;
   const long long count = *a.count;
   const int r0 = (int)(count * blockIdx.y / a.slices);
   const int r1 = (int)(count * (blockIdx.y + 1) / a.slices);
-  // an empty slice runs one stage of zero rows: its partial is exact zeros
-  const int stages = max(1, (r1 - r0 + kWS - 1) / kWS);
-  // stage s's rows into ring slot s % kDepth: 32 rows x 128 inputs and 32 x
-  // W outputs in 16-byte pieces, zeros past the slice or past the widths
-  // (the piece holding column K, or N, is fixed once it has landed)
-  auto issue = [&](int s) {
-    if (s < stages) {
-      const int rr = r0 + s * kWS;
-      float* hb = hs + (s % kDepth) * kWS * kHLd;
-      for (int idx = tid; idx < kWS * (kXT / 4); idx += kThreads) {
-        const int r = idx >> 5, x = x0 + 4 * (idx & 31), row = rr + r;
-        const bool live = row < r1 && x < K;
-        cp_async16(hb + r * kHLd + 4 * (idx & 31),
-                   live ? h + (size_t)row * ldh + x : h, live ? 16 : 0);
+  const int stages = (r1 - r0 + kWRows - 1) / kWRows;
+  if (tid == 0) {
+    for (int i = 0; i < kWFloat; ++i) {
+      mbar_init(full_f + i, 1);
+      mbar_init(empty_f + i, kWSplit);
+    }
+    for (int i = 0; i < kWLimbs; ++i) {
+      mbar_init(full_l + i, kWSplit);
+      mbar_init(empty_l + i, 8);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (warp == kWSplit + 8) {
+    // the TMA warp: stage s into float32 slot s % kWFloat once the split
+    // has read what it held, [h]'s boxes, then dpre's (the rows past the
+    // slice, and the columns past K or N, are set in the split)
+    for (int s = 0; s < stages; ++s) {
+      float* st = staged + (s % kWFloat) * SF;
+      uint64_t* bar = full_f + s % kWFloat;
+      const int rr = r0 + kWRows * s;
+      mbar_wait(empty_f + s % kWFloat, ((s / kWFloat) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(bar, 4 * kWRows * (u.ma * kWBoxH + u.nb * DB));
+        for (int i = 0; i < u.ma; ++i) {
+          tma_load(st + i * kWRows * kWBoxH, &th, u.x0 + 64 * i, rr, bar);
+        }
+        for (int j = 0; j < u.nb; ++j) {
+          tma_load(st + (u.ma * kWBoxH + j * DB) * kWRows, &td,
+                   u.y0 + W * j, rr, bar);
+        }
       }
-      float* db = ds + (s % kDepth) * kWS * kDLd;
-      for (int idx = tid; idx < kWS * (W / 4); idx += kThreads) {
-        const int r = idx / (W / 4), y = y0 + 4 * (idx % (W / 4));
-        const int row = rr + r;
-        const bool live = row < r1 && y < N;
-        cp_async16(db + r * kDLd + 4 * (idx % (W / 4)),
-                   live ? d + (size_t)row * ldd + y : d, live ? 16 : 0);
+      __syncwarp();
+    }
+  } else if (warp < kWSplit) {
+    // the split needs few registers: 48 a thread to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 80;\n" ::: "memory");
+    // a warp's tasks in a dpre box (at most kBoxTasks); this thread's
+    // column in a task (k0, and its word wk0 in a limb's group) and pair of
+    // rows (p)
+    constexpr int kBoxTasks = (W / 4 + kWSplit - 1) / kWSplit;
+    const int pw = warp, ntask = (W / 4 - pw + kWSplit - 1) / kWSplit;
+    const int k0 = 8 * (pw >> 1) + (lane & 7), p = 4 * (pw & 1) + (lane >> 3);
+    const int wk0 = 64 * (pw >> 1) + 32 * (pw & 1) + 4 * (lane & 7) +
+                    (lane >> 3);
+    for (int s = 0; s < stages; ++s) {
+      const bool full = r1 - r0 - kWRows * s >= kWRows;
+      const int nr = min(kWRows, r1 - r0 - kWRows * s);
+      const float* src = staged + (s % kWFloat) * SF;
+      unsigned char* dst = limbs + (size_t)(s % kWLimbs) * kWLimbBytes * COLS;
+      mbar_wait(full_f + s % kWFloat, (s / kWFloat) & 1);
+      mbar_wait(empty_l + s % kWLimbs, ((s / kWLimbs) & 1) ^ 1);
+      // box by box ([h]'s, then dpre's), masked only where a box reaches
+      // past the layer's width or the slice's rows (split_box)
+      const bool live0 = 2 * p < nr, live1 = 2 * p + 1 < nr;
+      uint32_t* dw = reinterpret_cast<uint32_t*>(dst) + wk0;
+      for (int b = 0; b < u.ma; ++b) {
+        const float* sb = src + b * kWRows * kWBoxH + 2 * p * kWBoxH + k0;
+        const int col = u.x0 + 64 * b + k0;
+        if (full && u.x0 + 64 * (b + 1) <= K) {
+          split_box<16 / kWSplit, false>(sb, kWBoxH, dw + 512 * b, MA * 8,
+                                         16 / kWSplit, col, K, true, live0,
+                                         live1);
+        } else {
+          split_box<16 / kWSplit, true>(sb, kWBoxH, dw + 512 * b, MA * 8,
+                                        16 / kWSplit, col, K, true, live0,
+                                        live1);
+        }
+      }
+      for (int b = 0; b < u.nb; ++b) {
+        const float* sb = src + (u.ma * kWBoxH + b * DB) * kWRows +
+                          2 * p * DB + k0;
+        const int col = u.y0 + W * b + k0;
+        uint32_t* wb = dw + 24 * MA + 8 * W * b;
+        if (full && u.y0 + W * (b + 1) <= N) {
+          split_box<kBoxTasks, false>(sb, DB, wb, NB * 8, ntask, col, N,
+                                      false, live0, live1);
+        } else {
+          split_box<kBoxTasks, true>(sb, DB, wb, NB * 8, ntask, col, N,
+                                     false, live0, live1);
+        }
+      }
+      fence_async_shared();
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(full_l + s % kWLimbs);
+        mbar_arrive(empty_f + s % kWFloat);   // the float32 slot is read
       }
     }
-    cp_async_commit();
-  };
-  // stage s landed: [h, 1] past K fixed (1 at K on the slice's rows, else
-  // 0) and dpre's pairs of rows split into limbs, words (outputs u, rows 2 p
-  // and 2 p + 1) of the core-matrix layout, a warp 8 outputs x 8 rows at a
-  // time, into limb buffer s & 1
-  auto prepare = [&](int s) {
-    const int rr = r0 + s * kWS;
-    float* hb = hs + (s % kDepth) * kWS * kHLd;
-    if (x0 <= K && K < x0 + kXT) {
-      const int xe = min(x0 + kXT, (K + 4) & ~3);
-      for (int idx = tid; idx < kWS * (xe - K); idx += kThreads) {
-        const int r = idx / (xe - K), x = K + idx % (xe - K);
-        hb[r * kHLd + x - x0] = x == K && rr + r < r1 ? 1.0f : 0.0f;
-      }
-    }
-    const float* db = ds + (s % kDepth) * kWS * kDLd;
-    uint32_t* lbuf = lb + (s & 1) * 3 * (kWLimb / 4);
+  } else {
+    // the consumers' fragments take the registers the producer gave up
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\n" ::: "memory");
+    const int c = (warp - kWSplit) >> 2;
+    const bool active = c == 0 || u.ma == 2 || u.nb == 2;
+    const int moff = u.ma == 2 ? 64 * c : 0, noff = u.nb == 2 ? W * c : 0;
+    const unsigned la = MA * 32, lb = NB * 32;   // bytes of a limb
+    const unsigned base = smem_addr(limbs);
+    float acc[W / 2], t[W / 2];
 #pragma unroll
-    for (int q = 0; q < kWS / 8; ++q) {
-      const int wi = warp + 8 * q, u = 8 * (wi & 7) + (lane & 7);
-      if (u >= W) continue;
-      const int rp = 4 * (wi >> 3) + (lane >> 3);
-      const bool live = y0 + u < N;
-      const float v0 = live ? db[2 * rp * kDLd + u] : 0.0f;
-      const float v1 = live ? db[(2 * rp + 1) * kDLd + u] : 0.0f;
-      uint32_t p0, p1, p2;
-      split_pair(v0, v1, p0, p1, p2);
-      const int word = (wi & 7) * (kWS / 8 * 32) + (wi >> 3) * 32 +
-                       (lane & 7) * 4 + (lane >> 3);
-      lbuf[word] = p0;
-      lbuf[kWLimb / 4 + word] = p1;
-      lbuf[kWLimb / 2 + word] = p2;
+    for (int i = 0; i < W / 2; ++i) acc[i] = 0.0f;
+    for (int s = 0; s < stages; ++s) {
+      const unsigned st = base + (unsigned)((s % kWLimbs) * kWLimbBytes * COLS);
+      mbar_wait(full_l + s % kWLimbs, (s / kWLimbs) & 1);
+      if (active) {
+        fence_frag(t);
+        wgmma_fence();
+        six_products_ss<W>(t, st + (moff / 8) * 256, la,
+                           st + 3 * la + (noff / 8) * 256, lb);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_l + s % kWLimbs);
+      if (active) {
+        fence_frag(t);
+#pragma unroll
+        for (int i = 0; i < W / 2; ++i) acc[i] += t[i];
+      }
     }
-    fence_async_shared();
-  };
-  size_t total = 0;   // a slice's slab: sum width[l] (width[l-1] + 1)
-  for (int q = 1; q <= a.layers; ++q) {
-    total += (size_t)a.width[q] * (a.width[q - 1] + 1);
-  }
-  const WgradEpi epi{a.part_w + (size_t)blockIdx.y * total + off,
-                     x0 + 64 * wg, K, N};
-  const bool active = x0 + 64 * wg <= K;   // this warpgroup has inputs
-  const unsigned lb_s = smem_addr(lb);
-  float acc[32];
-  for (int s = 0; s < kDepth; ++s) issue(s);
-  for (int s = 0; s < stages; ++s) {
-    cp_async_wait<kDepth - 1>();
-    __syncthreads();
-    prepare(s);
-    __syncthreads();
     if (active) {
-      stage_products<W>(ColA{hs + (s % kDepth) * kWS * kHLd, 64 * wg}, 0,
-                        kWS / 16, lb_s + (unsigned)((s & 1) * 3 * kWLimb),
-                        kWLimb, kWS / 8 * 128, s == 0, s == stages - 1, acc,
-                        y0, epi);
+      size_t total = 0;   // a slice's slab: sum width[l] (width[l-1] + 1)
+      for (int q = 1; q <= a.layers; ++q) {
+        total += (size_t)a.width[q] * (a.width[q - 1] + 1);
+      }
+      float* part = a.part_w + (size_t)blockIdx.y * total + off;
+      // acc[4 j + 2 h + e]: input frag_row(h), output 8 j + frag_col() + e
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = u.x0 + moff + frag_row(hh);
+            const int y = u.y0 + noff + 8 * j + frag_col() + e;
+            if (x <= K && y < N) {
+              part[(size_t)y * (K + 1) + x] = acc[4 * j + 2 * hh + e];
+            }
+          }
+        }
+      }
     }
-    __syncthreads();
-    issue(s + kDepth);
   }
-  cp_async_wait<0>();
 }
 
 // dflat[e], parameter order (W_1, b_1, ..., W_L, b_L, W_head, b_head): the
@@ -1076,6 +1559,8 @@ int current_device() {
 }
 
 #define DENSE_WIDTHS(X) X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64)
+#define DENSE_WGRAD_WIDTHS(X) \
+  X(16) X(32) X(48) X(64) X(72) X(80) X(88) X(96) X(104) X(112) X(120) X(128)
 
 // The >48 KB opt-ins of every kernel and the row kernels' resident blocks,
 // once a card (before any capture).
@@ -1091,9 +1576,12 @@ int prepare(int dev, int* resident) {
     };
 #define DENSE_OPT_IN(W)                                                  \
   opt_in((const void*)dense_forward_kernel<W>, kSmemRows);               \
-  opt_in((const void*)dense_backward_kernel<W>, kSmemRows);              \
-  opt_in((const void*)dense_wgrad_kernel<W>, kSmemWgrad);
+  opt_in((const void*)dense_backward_kernel<W>, kSmemRows);
     DENSE_WIDTHS(DENSE_OPT_IN)
+#undef DENSE_OPT_IN
+#define DENSE_OPT_IN(W) \
+  opt_in((const void*)dense_wgrad_kernel<W>, wgrad_smem(W));
+    DENSE_WGRAD_WIDTHS(DENSE_OPT_IN)
 #undef DENSE_OPT_IN
     opt_in((const void*)dense_forward_kernel_head, kSmemHead);
     opt_in((const void*)dense_backward_kernel_head, kSmemHeadBackward);
@@ -1158,19 +1646,71 @@ void launch_rows(int kind, int w, const Net& a, int l, int cb, int nch,
   }
 }
 
-void launch_wgrad(int w, const Net& a, int l, int cb, size_t off, dim3 grid,
+// A layer's units' output width for the weight gradient: its N outputs as
+// ceil(N / 128) tiles of one width, the narrowest instantiated one that
+// covers them (a multiple of 16 to 64, of 8 past it: 250 = 2 x 128 - 6,
+// 200 = 2 x 104 - 8).
+int wgrad_width(int N) {
+  const int tiles = (N + kWTile - 1) / kWTile;
+  const int w = (N + tiles - 1) / tiles;
+  return w <= 64 ? (w + 15) & ~15 : round8(w);
+}
+
+void launch_wgrad(int w, const Net& a, int l, size_t off, dim3 grid,
+                  const CUtensorMap& th, const CUtensorMap& td,
                   cudaStream_t st) {
   switch (w) {
 #define DENSE_WGRAD(W)                                                     \
   case W:                                                                  \
-    dense_wgrad_kernel<W><<<grid, kThreads, kSmemWgrad, st>>>(a, l, cb,    \
-                                                              off);        \
+    dense_wgrad_kernel<W><<<grid, kWThreads, wgrad_smem(W), st>>>(a, l, off, \
+                                                                th, td);   \
     break;
-    DENSE_WIDTHS(DENSE_WGRAD)
+    DENSE_WGRAD_WIDTHS(DENSE_WGRAD)
 #undef DENSE_WGRAD
     default:
       break;
   }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// CUDA's tensor-map encoder, cuTensorMapEncodeTiled, looked up once at run
+// time (the library links against the runtime only, not libcuda).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                   cudaEnableDefault, &q) == cudaSuccess &&
+                   q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (rows, ld) float32 buffer as boxes of cols x kWRows for TMA, zeros past
+// its edges; 0 or a CUDA error code.  No rows: no map (none is loaded).
+int row_boxes(CUtensorMap* m, const float* base, int ld, int rows, int cols) {
+  *m = CUtensorMap{};
+  if (rows == 0) return 0;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)ld, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)cols, (cuuint32_t)kWRows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)base, dims,
+            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0
+             : (int)cudaErrorInvalidValue;
 }
 
 // The network of the C arguments, checked; 0 or a CUDA error code.
@@ -1333,13 +1873,14 @@ extern "C" int dense_backward_launch(
   int entries = 0;
   size_t off = 0;
   for (int l = 1; l <= layers; ++l) {
-    const int K = widths[l - 1] + 1, N = widths[l];
-    int cb[2], nch[2], w[2];
-    const int n = column_ranges(round8(N), cb, nch, w);
-    for (int r = 0; r < n; ++r) {
-      const dim3 grid(((K + kXT - 1) / kXT) * nch[r], slices);
-      launch_wgrad(w[r], a, l, cb[r], off, grid, st);
-    }
+    const int K = widths[l - 1] + 1, N = widths[l], w = wgrad_width(N);
+    CUtensorMap th, td;
+    err = row_boxes(&th, l >= 2 ? a.act[l - 2] : a.h1, a.ld[l - 1], capacity,
+                    kWBoxH);
+    if (err == 0) err = row_boxes(&td, a.dpre[l], a.ld[l], capacity, w + 4);
+    if (err != 0) return err;
+    launch_wgrad(w, a, l, off, dim3(WgradUnits::count(K - 1, N, w), slices),
+                 th, td, st);
     entries += K * N;
     off += (size_t)K * N;
   }

@@ -40,9 +40,11 @@ MAX_LAYERS = 8       # kMaxLayers: dense layers after fc1
 MAX_HEADS = 8        # kMaxHeads
 TILE = 128           # kRows: kept rows a tile
 # the backward's row blocks and the weight gradient's row slices: numbers
-# of the shapes, never of the card, so that the sums run in one order
+# of the shapes, never of the card, so that the sums run in one order; with
+# 132 slices every layer's weight-gradient grid (its units, csrc/dense.cu
+# WgradUnits, x the slices) is a whole number of waves on an H100's 132 SMs
 ROW_BLOCKS = 132
-SLICES = 32
+SLICES = 132
 
 
 def ld(width: int) -> int:
@@ -62,6 +64,13 @@ def head_entries(width: int, heads: int) -> int:
 def layer_entries(widths) -> int:
     """Every dense layer's weight and bias entries, sum w_l (w_{l-1} + 1)."""
     return sum(n * (k + 1) for k, n in zip(widths[:-1], widths[1:]))
+
+
+def wgrad_partials(widths) -> int:
+    """The weight gradient's partial sums that a backward call keeps in
+    scratch: every dense layer's weight and bias entries, once a row
+    slice (``csrc/dense.cu::dense_reduce_kernel`` sums them in order)."""
+    return SLICES * layer_entries(widths)
 
 
 def limb_entries(widths, backward=False) -> int:
@@ -242,8 +251,8 @@ def dense_layers_backward(h1, acts, elem, count, grad, layers, head,
         heads = head[0].shape[0]
         part_rows = torch.empty((max(blocks, 1) * head_entries(
             widths[-1], heads),), dtype=torch.float32, device=dev)
-        part_w = torch.empty((SLICES * layer_entries(widths),),
-                             dtype=torch.float32, device=dev)
+        part_w = torch.empty((wgrad_partials(widths),), dtype=torch.float32,
+                             device=dev)
         sizes = [t.numel() for p in [*layers, head] for t in p]
         dflat = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
         limbs = torch.empty((limb_entries(widths, backward=True),),

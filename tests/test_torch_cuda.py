@@ -1669,7 +1669,11 @@ def _deep_grads(fn, args, weights, grad):
 # widest layers and a deeper trunk; then the tensor-core tiles' edges:
 # widths either side of 8 and 16 (wgmma's N and K steps), 136, 256 and 257
 # (a warpgroup's chunks of 64 columns), 320, and kept counts either side of
-# a 64-row tile (an int: the first rows keep every slot until that many)
+# a 64-row tile (an int: the first rows keep every slot until that many);
+# last the weight gradient's units: outputs 127, 128 and 129 (its tiles of
+# up to 128), inputs with a bias column K + 1 of 63, 64, 65 and 127, 128,
+# 129 (its 64-input units in pairs, an odd count's last alone or with two
+# output tiles), and 5 kept rows over its 132 row slices
 DEEP_CASES = [
     (37, 29, (300, 250, 200), 6, "logits", False, 1.0, "random"),
     (301, 255, (300, 250, 200), 1, "masked", True, -1.0, "random"),
@@ -1684,6 +1688,9 @@ DEEP_CASES = [
     (16, 8, (9, 17, 16, 320), 6, "masked", False, 1.0, 63),
     (8, 4, (320, 9, 136), 1, "masked", False, 1.0, 1),
     (33, 16, (16, 8, 256, 17), 6, "masked", True, -1.0, "capacity"),
+    (40, 8, (62, 127, 64, 129), 6, "masked", False, 1.0, "random"),
+    (40, 8, (126, 128, 63, 8), 1, "masked", True, -1.0, 65),
+    (16, 8, (300, 250, 200), 6, "masked", False, 1.0, 5),
 ]
 
 
@@ -1767,6 +1774,37 @@ def test_deep_pass_at_wildbg4096_shapes(card):
                                TAS.afterstate_deep_plain(*args),
                                (grad, got_g))
     assert within and read["tf32_outside"], read
+
+
+@pytest.mark.parametrize("trunk", [(300, 250, 200), (62, 127, 64, 129)])
+def test_deep_backward_gives_the_same_bits_twice(card, trunk):
+    """Two calls of ``dense_layers_backward`` on the same inputs give the
+    same bits in fc1's dpre and in every gradient leaf: the weight
+    gradient's row slices are summed in their order and no float sum uses
+    an atomic, whichever block runs first."""
+    args = _deep_case(card, (301, 255, trunk, 6, "masked", True, -1.0,
+                             "random"), seed=11)
+    boards, mover, n, weights, rewards, opponent, epilogue, sign = args
+    (w1, b1), layers, head = TAS._split(weights)
+    with torch.no_grad():
+        out, h1, elem, count = TAS.afterstate_hidden(
+            boards, mover, n, w1, b1, opponent, epilogue)
+        acts = TDN.dense_layers(h1, elem, count, out, layers, head, rewards,
+                                sign, save=True)
+        grad = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            13)).to(card)
+        first = TDN.dense_layers_backward(h1, acts, elem, count, grad,
+                                          layers, head, rewards, sign)
+        second = TDN.dense_layers_backward(h1, acts, elem, count, grad,
+                                           layers, head, rewards, sign)
+    kept = int(count)
+    assert kept > 0
+    # fc1's dpre on the kept rows (its row stride's padding is unspecified)
+    width = trunk[0]
+    assert torch.equal(first[0][:kept, :width], second[0][:kept, :width])
+    assert len(first[1]) == 2 * len(trunk)
+    for a, b in zip(first[1], second[1]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("kept", ["random", "none", "capacity"])

@@ -296,6 +296,18 @@ def test_limb_scratch_pads_rows_to_8_and_columns_to_16():
     assert DN.TILE == 128
 
 
+def test_wgrad_partials_are_a_slab_of_every_layer_a_slice():
+    """The weight gradient's partial sums in scratch: a slab of every
+    dense layer's weights and biases for each of the 132 row slices (a
+    whole number of waves on 132 SMs for any layer); wildbg's 300 -> 250
+    -> 200 keeps 132 x (250 x 301 + 200 x 251) floats, 66 MB."""
+    widths = (300, 250, 200)
+    assert DN.SLICES == 132
+    assert DN.layer_entries(widths) == 250 * 301 + 200 * 251
+    assert DN.wgrad_partials(widths) == 132 * 125450 == 16559400
+    assert DN.wgrad_partials((1, 1)) == 132 * 2
+
+
 def test_min_and_bf16_raise_with_a_trunk():
     model = _model()
     boards, mover, n = _state()
