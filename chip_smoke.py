@@ -25,7 +25,15 @@ Phases (any failure exits non-zero and prints no result line):
    each wrapper's time beside its least time (the benchmark's yardstick,
    ``benchmark/yardstick/deep_work.py``); then one ``train_step`` whose
    launches show that it went through the deep wrappers and never the
-   shallow afterstate kernels.
+   shallow afterstate kernels.  The same for ``wildbg2net4096``'s routed
+   pass (wildbg's contact and race networks) on its own rollout: the
+   route's counts and slots of each class exactly against its plain
+   version, each group's first layer against the plain first layer in the
+   route's order, the whole pass against the plain routed pass under the
+   same gates, the route's time beside its least time by bytes; then one
+   ``train_step`` whose launches show the route once a pass and every
+   other deep wrapper once a group, and whose tally of kept boards by
+   network reaches both networks.
 4. Movegen on the card at B=4096 on boards from a few env steps: the
    kernel path is bit-exact against the plain-PyTorch path on the card
    and against the CPU.  Every kernel call of one movegen call (the
@@ -894,27 +902,29 @@ DEEP_GRAD_FACTOR = 8.0
 DEEP_FLOOR = 1e-6
 
 
-def deep_grads(torch, afterstate, args, weights, grad):
+def deep_grads(torch, plain, args, weights, grad):
     w = [x.detach().clone().requires_grad_() for x in weights]
-    y = afterstate.afterstate_deep_plain(*args[:3], w, *args[4:])
+    y = plain(*args[:3], w, *args[4:])
     return torch.autograd.grad(y, w, grad)
 
 
-def deep_check(torch, afterstate, args, got, got_g=None, grad=None):
+def deep_check(torch, afterstate, args, got, got_g=None, grad=None,
+               plain=None):
     """(value gap, its gate, TF32's value gap[, gradient distance, its
     gate]) of the deep pass's outputs against the plain version on
-    ``args``: the gates are DEEP_NUDGE_FACTOR times a one-ulp nudge's
-    drift; TF32 is the plain version with TF32 products allowed."""
+    ``args`` (``plain``: ``afterstate_deep_plain`` unless given): the
+    gates are DEEP_NUDGE_FACTOR times a one-ulp nudge's drift; TF32 is
+    the plain version with TF32 products allowed."""
+    plain = plain or afterstate.afterstate_deep_plain
     weights = args[3]
-    want = afterstate.afterstate_deep_plain(*args)
+    want = plain(*args)
     kept = want != afterstate.FLOOR
     check(bool(torch.equal(got == afterstate.FLOOR, ~kept)),
           "deep pass: the floors differ from the plain version's")
     nudged = nudged_params(torch, weights)
-    drift = (afterstate.afterstate_deep_plain(*args[:3], nudged, *args[4:])
-             - want)[kept].abs().max()
+    drift = (plain(*args[:3], nudged, *args[4:]) - want)[kept].abs().max()
     torch.backends.cuda.matmul.allow_tf32 = True
-    tf32 = afterstate.afterstate_deep_plain(*args)
+    tf32 = plain(*args)
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"value_gap": float((got - want)[kept].abs().max()),
            "value_gate": max(DEEP_NUDGE_FACTOR * float(drift), DEEP_FLOOR),
@@ -923,15 +933,15 @@ def deep_check(torch, afterstate, args, got, got_g=None, grad=None):
     check(out["value_gap"] <= out["value_gate"],
           f"deep pass forward off the plain version: {out}")
     if got_g is not None:
-        want_g = deep_grads(torch, afterstate, args, weights, grad)
-        nudge_g = deep_grads(torch, afterstate, args, nudged, grad)
+        want_g = deep_grads(torch, plain, args, weights, grad)
+        nudge_g = deep_grads(torch, plain, args, nudged, grad)
 
         def dist(xs, ys):
             return sum(float(((x.double() - y.double()) ** 2).sum())
                        for x, y in zip(xs, ys)) ** 0.5
 
         torch.backends.cuda.matmul.allow_tf32 = True
-        tf32_g = deep_grads(torch, afterstate, args, weights, grad)
+        tf32_g = deep_grads(torch, plain, args, weights, grad)
         torch.backends.cuda.matmul.allow_tf32 = False
         out["grad_dist"] = dist(got_g, want_g)
         out["grad_gate"] = DEEP_GRAD_FACTOR * dist(nudge_g, want_g)
@@ -1126,6 +1136,218 @@ def log_deep(out):
         f"TFLOP/s), backward {mb['dense_bwd_ms']:.3f} ms "
         f"({mb['dense_bwd_tflops']:.1f} TFLOP/s); kernels (registers, spill "
         f"stores, spill loads): {json.dumps(out.get('dense_kernels'))}")
+
+
+def route_check(torch, afterstate, boards, n, route):
+    """The route's floors, each row's count of each class and its slots of
+    each class in slot order against ``afterstate_route_plain``, exactly;
+    returns the kept boards of each class."""
+    out, lim, slots = route
+    _, want_lim, want_slots = afterstate.afterstate_route_plain(
+        boards, n, "logits")
+    r, m, _ = boards.shape
+    kept = afterstate._valid(n, m, "logits")
+    check(bool((out[~kept] == afterstate.FLOOR).all()),
+          "route: a slot not kept lacks the floor")
+    check(bool(torch.equal(lim, want_lim)),
+          "route: a row's count of a class differs from the plain version's")
+    used = torch.arange(m, device=boards.device) < lim[..., None]
+    check(bool(torch.equal(slots.view(-1, r, m)[used],
+                           want_slots.view(-1, r, m)[used])),
+          "route: a class's slots differ from the plain version's")
+    return [int(x) for x in lim.sum(1).tolist()]
+
+
+def routed_emit_check(torch, afterstate, boards, mover, route, weights):
+    """Each group's first layer (``afterstate_hidden_routed``) against the
+    plain first layer over the route's order of that group: the count and
+    the elements exactly, the activations within DEEP_NUDGE_FACTOR x what
+    a one-ulp nudge of W1 and b1 moves the plain version (at least
+    DEEP_FLOOR).  [{"kept", "gap", "gate"}] by group."""
+    _, lim, slots = route
+    m, k = boards.shape[1], len(weights) // 2
+    rows = []
+    for group in range(len(afterstate.GROUPS)):
+        w1, b1 = weights[group * k:group * k + 2]
+        h = w1.shape[0]
+        h1, elem, count = afterstate.afterstate_hidden_routed(
+            boards, mover, route, group, w1, b1, False)
+        order = afterstate._group_order(lim[group], slots[group], m)
+        c = order.shape[0]
+        want = afterstate._first_layer_plain(boards, mover, order, w1, b1,
+                                             False)[0][:c, :h]
+        nudge = afterstate._first_layer_plain(
+            boards, mover, order, *nudged_params(torch, [w1, b1]),
+            False)[0][:c, :h]
+        check(int(count) == c and bool(torch.equal(elem[:c], order)),
+              f"routed emit, group {group}: {int(count)} kept boards or "
+              f"their order off the route's {c}")
+        row = {"kept": c, "gap": 0.0, "gate": DEEP_FLOOR}
+        if c:
+            row["gap"] = float((h1[:c, :h] - want).abs().max())
+            row["gate"] = max(DEEP_NUDGE_FACTOR * float(
+                (nudge - want).abs().max()), DEEP_FLOOR)
+        check(row["gap"] <= row["gate"],
+              f"routed emit, group {group}, off the plain first layer: "
+              f"{row}")
+        rows.append(row)
+        del h1, elem, want, nudge
+    return rows
+
+
+def routed_least_ms(boards, n, widths, backward):
+    """(least time in ms of a routed pass over ``boards`` with valid
+    prefixes ``n`` (and its backward), the route's alone) at the
+    benchmark's yardstick (``benchmark/yardstick/routed_work.py``)."""
+    from benchmark.yardstick import routed_work, work
+
+    got, _ = routed_work.pass_work(boards, n, "logits", widths, 1, backward)
+    total = sum(work.least_seconds(*v) for v in got.values())
+    return 1e3 * total, 1e3 * work.least_seconds(*got["afterstate_route"])
+
+
+def routed_phase(torch, afterstate, bg_env, learner, get_preset, dev):
+    """wildbg2net4096's routed pass on the card: at its first rollout step
+    and its first minibatch, the route against its plain version exactly,
+    each group's first layer against the plain first layer, the pass
+    (values, and gradients of both networks at the minibatch) against the
+    plain routed pass under ``deep_check``'s gates, the same bits on a
+    second launch, times (CUDA events) beside least times; then one timed
+    train_step whose launches show the route once a pass, every other
+    deep wrapper once a group, the shallow afterstate kernels never, and
+    whose tally reaches both networks."""
+    from mlp_ppo_2ply_p3_tpu_torch import ops
+
+    cfg = get_preset("wildbg2net4096")
+    widths = cfg.model.widths
+    torch.cuda.reset_peak_memory_stats(dev)
+    ts = learner.init_train_state(2201, cfg.model, cfg.ppo, device=dev)
+    es = bg_env.reset(ts.gen, cfg.env, cfg.ppo.num_envs, device=dev)
+    contact, race = [[w.detach() for w in ts.model.deep_weights(
+        "score", net)[0]] for net in afterstate.GROUPS]
+    weights = contact + race
+    k = len(contact)
+    plain = afterstate.afterstate_routed_plain
+    out = {}
+
+    def routed(boards, mover, n, ws):
+        return afterstate.afterstate_routed(boards, mover, n, ws[:k],
+                                            ws[k:])
+
+    def one_step(boards, mover, n):
+        route = afterstate.afterstate_route(boards, n, "logits")
+        row = {"route_kept": route_check(torch, afterstate, boards, n,
+                                         route),
+               "emit": routed_emit_check(torch, afterstate, boards, mover,
+                                         route, weights)}
+        row["route_ms"] = time_ms(lambda: afterstate.afterstate_route(
+            boards, n, "logits"), 5)
+        return row
+
+    # the first rollout step: the forward
+    turn, n = es.turn.to(torch.int32), es.n_moves.to(torch.int32)
+    args = (es.after, turn, n, weights, None, False, "logits", 1.0)
+    with torch.no_grad():
+        row = one_step(es.after, turn, n)
+        got = routed(es.after, turn, n, weights)
+        again = routed(es.after, turn, n, weights)
+        check(bool(torch.equal(got, again)),
+              "routed forward not deterministic")
+        row.update(deep_check(torch, afterstate, args, got, plain=plain))
+        row["pass_ms"] = time_ms(lambda: routed(es.after, turn, n,
+                                                weights), 5)
+    row["bound_ms"], row["route_bound_ms"] = routed_least_ms(
+        es.after, n, widths, False)
+    out["rollout_step"] = row
+    del got, again
+    # the first minibatch: a rollout's rows in the update's first order
+    sampler = learner.Sampler(ts.gen)
+    _, traj, _, _ = learner.rollout(ts.model, es, sampler, cfg.env, cfg.ppo)
+    rows = cfg.ppo.num_envs * cfg.ppo.t_horizon
+    idx = sampler.permutation(rows, dev)[:rows // cfg.ppo.num_minibatches]
+    after = traj.after.reshape(rows, *traj.after.shape[2:])[idx]
+    mturn = traj.turn.reshape(rows)[idx].to(torch.int32)
+    mn = traj.n_moves.reshape(rows)[idx].to(torch.int32)
+    del traj
+    with torch.no_grad():
+        row = one_step(after, mturn, mn)
+    args = (after, mturn, mn, weights, None, False, "logits", 1.0)
+    w = [x.clone().requires_grad_() for x in weights]
+    got = routed(after, mturn, mn, w)
+    grad = torch.randn(got.shape, device=dev,
+                       generator=torch.Generator(dev).manual_seed(3))
+    grad = grad * (got > afterstate.FLOOR)
+    got_g = torch.autograd.grad(got, w, grad)
+    again_g = torch.autograd.grad(routed(after, mturn, mn, w), w, grad)
+    check(all(bool(torch.equal(a, b)) for a, b in zip(got_g, again_g)),
+          "routed backward not deterministic")
+    row.update(deep_check(torch, afterstate, args, got.detach(), got_g,
+                          grad, plain=plain))
+
+    def fwd_bwd():
+        torch.autograd.grad(routed(after, mturn, mn, w), w, grad)
+
+    row["fwd_bwd_ms"] = time_ms(fwd_bwd, 3)
+    row["bound_ms"], row["route_bound_ms"] = routed_least_ms(
+        after, mn, widths, True)
+    out["minibatch"] = row
+    del after, w, got, got_g, again_g
+    # one train_step through the wrappers
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ts, es, metrics = learner.train_step(ts, es, cfg.env, cfg.model, cfg.ppo)
+    torch.cuda.synchronize()
+    out["train_step_s"] = time.time() - t0
+    out["launches"] = launches()
+    out["routed_rows"] = afterstate.routed_rows()
+    steps = cfg.ppo.num_epochs * cfg.ppo.num_minibatches
+    calls = cfg.ppo.t_horizon + steps
+    groups = len(afterstate.GROUPS)
+    expect = {"afterstate_route": calls,
+              "afterstate_hidden": groups * calls,
+              "dense_layers": groups * calls,
+              "afterstate_hidden_backward": groups * steps,
+              "dense_layers_backward": groups * steps,
+              "afterstate_eval": 0, "afterstate_eval_backward": 0,
+              ops.OPTIMIZER: steps}
+    for name, want in expect.items():
+        check(out["launches"][name] == want,
+              f"wildbg2net4096 train_step: {name} {out['launches'][name]} "
+              f"launches, expected {want}")
+    check(all(v > 0 for v in out["routed_rows"].values()),
+          f"wildbg2net4096 train_step: a network got no kept board: "
+          f"{out['routed_rows']}")
+    check(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
+          "wildbg2net4096 train_step: a metric is not finite")
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def log_routed(out):
+    r, mb = out["rollout_step"], out["minibatch"]
+
+    def emit(row):
+        return ", ".join(f"{e['kept']} kept gap {e['gap']:.2e} (gate "
+                         f"{e['gate']:.2e})" for e in row["emit"])
+
+    rows = out["routed_rows"]
+    log(f"routed pass (wildbg2net4096): rollout step kept boards by class "
+        f"{r['route_kept']}, route {r['route_ms']:.4f} ms (bound "
+        f"{r['route_bound_ms']:.5f} ms by bytes), emit {emit(r)}, value "
+        f"gap {r['value_gap']:.2e} (gate {r['value_gate']:.2e}, TF32 "
+        f"{r['tf32_value_gap']:.2e}), pass {r['pass_ms']:.3f} ms against "
+        f"{r['bound_ms']:.4f}; first minibatch {mb['route_kept']}, route "
+        f"{mb['route_ms']:.4f} ms (bound {mb['route_bound_ms']:.5f}), emit "
+        f"{emit(mb)}, value gap {mb['value_gap']:.2e} (gate "
+        f"{mb['value_gate']:.2e}, TF32 {mb['tf32_value_gap']:.2e}), "
+        f"gradients {mb['grad_dist']:.2e} from plain (gate "
+        f"{mb['grad_gate']:.2e}, TF32 {mb['tf32_grad_dist']:.2e}), forward "
+        f"and backward {mb['fwd_bwd_ms']:.3f} ms against "
+        f"{mb['bound_ms']:.4f}; train_step {out['train_step_s']:.2f} s, "
+        f"launches {json.dumps(out['launches'])}, kept boards by network "
+        f"{json.dumps(rows)} (race {rows['race'] / max(sum(rows.values()), 1):.3f})"
+        f", peak {out['peak_gb']:.1f} GB")
 
 
 # --- phase 4 -----------------------------------------------------------------
@@ -2803,6 +3025,12 @@ def main(argv=None) -> int:
     deep["dense_kernels"] = dense_resources(build)
     report["phases"]["deep"] = deep
     log_deep(deep)
+    t0 = time.time()
+    routed = routed_phase(torch, afterstate, bg_env, learner, get_preset,
+                          dev)
+    routed["phase_s"] = time.time() - t0
+    report["phases"]["routed"] = routed
+    log_routed(routed)
 
     cfg = get_preset("train4096")
     main_rows, mg_ms, mg_graph_ms = movegen_phase(

@@ -211,3 +211,21 @@ def pack_key(vec):
         | (v[..., OPP_OFF] << 24)
     )
     return torch.cat([words, tail[..., None]], dim=-1).to(I32)
+
+
+def is_race(vec):
+    """(..., 52) canonical boards -> (...,) bool: no contact, the mover's
+    rearmost checker past every opponent checker, a checker on the bar
+    counting as rearmost for its side (the mover's at point -1, the
+    opponent's at 24) and a side with no checker left meeting none.  The
+    same for the board and its ``opponent_view``, for either mover and for
+    the position's features (``core.features.is_race``): the class of the
+    position.  It is ``agents/pubeval.py::is_race`` but where the mover has
+    borne off every checker with an opponent checker on the bar (pubeval's
+    reads contact there)."""
+    idx = torch.arange(NUM_POINTS, device=vec.device)
+    my_min = torch.where(vec[..., MY] > 0, idx, 99).amin(-1)
+    my_min = torch.where(vec[..., MY_BAR] > 0, -1, my_min)
+    opp_max = torch.where(vec[..., OPP] > 0, idx, -99).amax(-1)
+    opp_max = torch.where(vec[..., OPP_BAR] > 0, NUM_POINTS, opp_max)
+    return my_min > opp_max

@@ -74,3 +74,20 @@ def encode_canonical(vecs, player, dtype=torch.float32):
     )
     turn = p.expand(vecs.shape[:-1])
     return encode(points, bar, off, turn, dtype=dtype)
+
+
+def is_race(x):
+    """(..., 198) features -> (...,) bool: the position is a race, no
+    checker of either side able to meet one of the other's.  Player 0 moves
+    up the points, player 1 down: a race is player 0's rearmost checker
+    past player 1's rearmost, a checker on the bar counting as rearmost for
+    its side (player 0's at point -1, player 1's at 24) and a side with no
+    checker left meeting none (``core.board.is_race`` on canonical boards).
+    Columns 4 i and 98 + 4 i are each player's n >= 1 on point i, 96 and
+    194 their bars."""
+    idx = torch.arange(24, device=x.device)
+    p0_min = torch.where(x[..., 0:96:4] > 0, idx, 99).amin(-1)
+    p0_min = torch.where(x[..., 96] > 0, -1, p0_min)
+    p1_max = torch.where(x[..., 98:194:4] > 0, idx, -99).amax(-1)
+    p1_max = torch.where(x[..., 194] > 0, 24, p1_max)
+    return p0_min > p1_max

@@ -55,9 +55,9 @@ constexpr int kThreads = 256;
 constexpr int kPerThread = 4;
 constexpr int kBlockElems = kThreads * kPerThread;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxLeaves = 16;
+constexpr int kMaxLeaves = 24;
 
-// The leaves, passed by value (under 1 KB of kernel parameters).  Leaf i
+// The leaves, passed by value (under 1.5 KB of kernel parameters).  Leaf i
 // takes blocks first[i] .. first[i + 1] - 1.
 struct Leaves {
   float* p[kMaxLeaves];

@@ -107,6 +107,11 @@
 //   summed (the cotangent of JAX's astype(bfloat16)).  The shared layouts
 //   are the float32 form's (part 0 of W1's), so the wgmma descriptors are
 //   the same.
+// - A routed pass (two networks, each kept board through its class's): a
+//   route kernel reads each kept board's bytes, writes the floors and lays
+//   each class's kept slots out row by row; the emit (kRoute) and the deep
+//   backward (kRouted) then walk one class's kept boards as their global
+//   order, a launch a network, the single network's code unchanged.
 // - Deterministic: every board's value is computed the same way wherever
 //   it runs, the min is an atomic min on the float's bits (exact in any
 //   order; a first kernel writes the +1e9) or, past 256 units, a warp's
@@ -142,8 +147,9 @@ constexpr unsigned kFull = 0xffffffffu;
 // (H <= 256), tile ranges x unit groups with a second kernel (H > 256)
 // kEmit: a deep network's fc1, tile ranges x unit groups as kSplit, each
 // writing relu(pre) of its units for every kept board (csrc/dense.cu takes
-// the layers after it)
-constexpr int kSingle = 0, kPair = 1, kSplit = 2, kEmit = 3;
+// the layers after it); kRoute: kEmit over one group of a routed pass (the
+// kept boards of one class, in the order afterstate_route_kernel lays out)
+constexpr int kSingle = 0, kPair = 1, kSplit = 2, kEmit = 3, kRoute = 4;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -190,6 +196,9 @@ struct Args {
   int* elem;           // kEmit: each kept board's element r m + s
   int* count;          // kEmit: the number of kept boards
   const float* dpre;   // the deep backward: fc1's dpre, (capacity, ldh)
+  const int* rlim;     // a routed group: each row's kept boards of the class
+  const int* rslot;    // and its kept slots of the class, row r at r m ..
+  unsigned long long* tally;  // kRoute: the group's kept boards, summed
   int ldh;
   int rows, m, hidden, opponent, epilogue;
   float sign;
@@ -258,7 +267,10 @@ __device__ __forceinline__ int row_limit(int n, int m, int epilogue) {
   return n < 0 ? 0 : (n > m ? m : n);
 }
 
+// kRouted: the row's kept boards of the routed group's class.
+template <bool kRouted = false>
 __device__ __forceinline__ int limit_of(const Args& a, int r) {
+  if constexpr (kRouted) return a.rlim[r];
   return row_limit(a.n[r], a.m, a.epilogue);
 }
 
@@ -367,7 +379,8 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* part,
 // Every block's view of the kept boards: their number N (sc[10]) and, for
 // the block's tiles [t0, t1) of ceil(N / 64) cut into `groups` contiguous
 // ranges, the row holding board 64 t0 and the number of kept boards before
-// that row (sc[8], sc[9]).
+// that row (sc[8], sc[9]).  kRouted: of a routed group's kept boards.
+template <bool kRouted = false>
 __device__ void locate(const Args& a, const Smem& s, int group, int groups,
                        int& t0, int& t1) {
   const int per = (a.rows + kThreads - 1) / kThreads;
@@ -375,7 +388,7 @@ __device__ void locate(const Args& a, const Smem& s, int group, int groups,
   const int r_hi = min(a.rows, r_lo + per);
   int sum = 0;
 #pragma unroll 16
-  for (int r = r_lo; r < r_hi; ++r) sum += limit_of(a, r);
+  for (int r = r_lo; r < r_hi; ++r) sum += limit_of<kRouted>(a, r);
   int total;
   const int base = block_exclusive_scan(sum, s.sc, total);
   const long long tiles = (total + kTile - 1) / kTile;
@@ -386,7 +399,7 @@ __device__ void locate(const Args& a, const Smem& s, int group, int groups,
     int off = base, row = r_lo, row_off = base;
 #pragma unroll 16
     for (int r = r_lo; r < r_hi; ++r) {   // no break: the loads overlap
-      const int l = limit_of(a, r);
+      const int l = limit_of<kRouted>(a, r);
       if (off <= g0 && g0 < off + l) {
         row = r;
         row_off = off;
@@ -402,12 +415,13 @@ __device__ void locate(const Args& a, const Smem& s, int group, int groups,
 
 // Rows row0 .. row0 + 255 (past the end: empty) into the window, their first
 // kept boards' numbers from off0 on.
+template <bool kRouted = false>
 __device__ void load_window(const Args& a, const Smem& s, int row0,
                             int off0) {
   const int r = row0 + (int)threadIdx.x;
   int l = 0, mv = 0;
   if (r < a.rows) {
-    l = limit_of(a, r);
+    l = limit_of<kRouted>(a, r);
     mv = a.mover[r];
   }
   int total;
@@ -423,7 +437,9 @@ __device__ void load_window(const Args& a, const Smem& s, int row0,
 
 // The tile of kept boards g .. g + cnt - 1 into slot buf: each board's
 // element, row and mover, and its bytes (and the backward's gradient)
-// copied in by cp.async (not waited for).
+// copied in by cp.async (not waited for).  kRouted: the j-th kept board of
+// a row is its j-th kept slot of the group's class.
+template <bool kRouted = false>
 __device__ void map_tile(const Args& a, const Smem& s, int buf, int g,
                          int cnt, bool backward) {
   const int b = threadIdx.x;
@@ -433,7 +449,7 @@ __device__ void map_tile(const Args& a, const Smem& s, int buf, int g,
     if (g + done >= wend) {   // the window is spent: the next 256 rows
       const int row0 = s.sc[11] + kWindow;
       __syncthreads();
-      load_window(a, s, row0, wend);
+      load_window<kRouted>(a, s, row0, wend);
       continue;
     }
     const int upto = min(cnt, wend - g);
@@ -449,7 +465,8 @@ __device__ void map_tile(const Args& a, const Smem& s, int buf, int g,
         }
       }
       const int row = s.sc[11] + lo;
-      const int e = row * a.m + (gb - s.woff[lo]);
+      const int j = gb - s.woff[lo];
+      const int e = row * a.m + (kRouted ? a.rslot[row * a.m + j] : j);
       const int k = buf * kTile + b;
       s.te[k] = e;
       s.trow[k] = row;
@@ -803,7 +820,9 @@ __device__ void write_floors(const Args& a, const Smem& s, int block,
 template <int kMode, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 afterstate_eval_kernel(Args a) {
-  constexpr bool kPair_ = kMode == kPair, kEmit_ = kMode == kEmit;
+  constexpr bool kRouted_ = kMode == kRoute;
+  constexpr bool kPair_ = kMode == kPair;
+  constexpr bool kEmit_ = kMode == kEmit || kRouted_;
   constexpr bool kSplit_ = kMode == kSplit || kEmit_;
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem s = carve(smem);
@@ -817,17 +836,24 @@ afterstate_eval_kernel(Args a) {
   if (!kSplit_ && a.epilogue != kMin) {
     write_floors(a, s, blockIdx.x, gridDim.x);
   }
-  if (kEmit_ && blockIdx.y == 0) write_floors(a, s, blockIdx.x, gridDim.x);
+  // a routed group's floors are the route kernel's
+  if (kEmit_ && !kRouted_ && blockIdx.y == 0) {
+    write_floors(a, s, blockIdx.x, gridDim.x);
+  }
   int t0, t1;
-  locate(a, s, group, groups, t0, t1);
+  locate<kRouted_>(a, s, group, groups, t0, t1);
   if (kEmit_ && blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
     *a.count = s.sc[10];
+    if constexpr (kRouted_) {
+      atomicAdd(a.tally, (unsigned long long)s.sc[10]);
+    }
   }
   if (t0 >= t1) return;   // both blocks of a pair alike
   const int n_kept = s.sc[10];
   // the first tile's boards fly while W1 is staged
-  load_window(a, s, s.sc[8], s.sc[9]);
-  map_tile(a, s, 0, t0 * kTile, min(kTile, n_kept - t0 * kTile), false);
+  load_window<kRouted_>(a, s, s.sc[8], s.sc[9]);
+  map_tile<kRouted_>(a, s, 0, t0 * kTile, min(kTile, n_kept - t0 * kTile),
+                     false);
   cp_async_commit();
   stage_weights<kBf16>(a, s, kUnits * rank);
   cp_async_wait<0>();
@@ -856,7 +882,7 @@ afterstate_eval_kernel(Args a) {
     __syncthreads();
     if (tile + 1 < t1) {
       const int g1 = (tile + 1) * kTile;
-      map_tile(a, s, buf ^ 1, g1, min(kTile, n_kept - g1), false);
+      map_tile<kRouted_>(a, s, buf ^ 1, g1, min(kTile, n_kept - g1), false);
       cp_async_commit();
     }
     float acc[32];
@@ -1015,8 +1041,9 @@ __global__ void afterstate_finish_kernel(Args a, int groups) {
 // output: dW1 (H, 198), db1 (H), dw_head (H), db_head.  kDeep (a deep
 // network's fc1, float32): dpre is csrc/dense.cu's, read from a.dpre by kept
 // board in the forward's order; no fc1 product, no head (dw_head and db_head
-// come out zero).
-template <bool kBf16, bool kDeep>
+// come out zero).  kRouted (with kDeep): one group of a routed pass, its
+// kept boards in the order of afterstate_route_kernel's layout.
+template <bool kBf16, bool kDeep, bool kRouted = false>
 __global__ void __launch_bounds__(kThreads, 1)
 afterstate_backward_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1036,11 +1063,12 @@ afterstate_backward_kernel(Args a) {
   for (int i = threadIdx.x; i < 4 * kUnits; i += kThreads) s.gsum[i] = 0.0f;
 
   int t0, t1;
-  locate(a, s, blockIdx.x, gridDim.x, t0, t1);
+  locate<kRouted>(a, s, blockIdx.x, gridDim.x, t0, t1);
   if (t0 < t1) {
     const int n_kept = s.sc[10];
-    load_window(a, s, s.sc[8], s.sc[9]);
-    map_tile(a, s, 0, t0 * kTile, min(kTile, n_kept - t0 * kTile), !kDeep);
+    load_window<kRouted>(a, s, s.sc[8], s.sc[9]);
+    map_tile<kRouted>(a, s, 0, t0 * kTile, min(kTile, n_kept - t0 * kTile),
+                      !kDeep);
     cp_async_commit();
     if constexpr (!kDeep) stage_weights<kBf16>(a, s, u0);
     cp_async_wait<0>();
@@ -1056,7 +1084,8 @@ afterstate_backward_kernel(Args a) {
       __syncthreads();   // as in the forward
       if (tile + 1 < t1) {
         const int g1 = (tile + 1) * kTile;
-        map_tile(a, s, buf ^ 1, g1, min(kTile, n_kept - g1), !kDeep);
+        map_tile<kRouted>(a, s, buf ^ 1, g1, min(kTile, n_kept - g1),
+                          !kDeep);
         cp_async_commit();
       }
       if (!kDeep && warp == 0) {   // the tile's sum of d, then the block's
@@ -1251,6 +1280,86 @@ __global__ void afterstate_fill_kernel(float* __restrict__ out, int n,
   if (i < n) out[i] = v;
 }
 
+// Whether the canonical board at b is a race: the mover's rearmost checker
+// past every opponent checker, a checker on the bar rearmost for its side
+// (the mover's at point -1, the opponent's at 24), a side with no checker
+// left meeting none (core/board.py::is_race).  aligned: b is 4-byte
+// aligned, read as words.
+__device__ __forceinline__ bool board_is_race(const int8_t* b, int aligned) {
+  unsigned mine = 0u, theirs = 0u;   // bit i: point i holds a checker
+  int my_bar, opp_bar;
+  if (aligned) {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(b);
+    uint32_t v[13];
+#pragma unroll
+    for (int k = 0; k < 13; ++k) v[k] = w[k];
+#pragma unroll
+    for (int i = 0; i < 48; ++i) {
+      const unsigned occ = (int8_t)(v[i >> 2] >> (8 * (i & 3))) > 0;
+      if (i < 24) {
+        mine |= occ << i;
+      } else {
+        theirs |= occ << (i - 24);
+      }
+    }
+    my_bar = (int8_t)v[12];
+    opp_bar = (int8_t)(v[12] >> 8);
+  } else {
+    for (int i = 0; i < 24; ++i) {
+      mine |= (unsigned)(b[i] > 0) << i;
+      theirs |= (unsigned)(b[24 + i] > 0) << i;
+    }
+    my_bar = b[48];
+    opp_bar = b[49];
+  }
+  const int my_min = my_bar > 0 ? -1 : mine ? __ffs(mine) - 1 : 99;
+  const int opp_max = opp_bar > 0 ? 24 : theirs ? 31 - __clz(theirs) : -99;
+  return my_min > opp_max;
+}
+
+// A routed pass's two groups: a warp a row writes the floor of each slot
+// the epilogue does not keep, decides each kept board's class from its
+// bytes (32 slots at a time, in slot order) and lays the kept slots of
+// each class out in slot order: class c (0 contact, 1 race) of row r at
+// slots[c rows m + r m ..], their number at lim[c rows + r].
+constexpr int kRouteRows = 8;   // rows (warps) a block
+__global__ void __launch_bounds__(32 * kRouteRows)
+afterstate_route_kernel(const int8_t* __restrict__ boards,
+                        const int32_t* __restrict__ n, float* __restrict__ out,
+                        int* __restrict__ lim, int* __restrict__ slots,
+                        int rows, int m, int epilogue, int aligned) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kRouteRows + (threadIdx.x >> 5);
+  if (r >= rows) return;   // the whole warp
+  const int limit = row_limit(n[r], m, epilogue);
+  float* orow = out + (size_t)r * m;
+  for (int sl = limit + lane; sl < m; sl += 32) orow[sl] = kFloor;
+  int* contact = slots + (size_t)r * m;
+  int* race = slots + ((size_t)rows + r) * m;
+  const unsigned below = (1u << lane) - 1u;
+  int n_contact = 0, n_race = 0;
+  for (int s0 = 0; s0 < limit; s0 += 32) {   // the same trips for the warp
+    const int sl = s0 + lane;
+    const bool live = sl < limit;
+    const bool is_race =
+        live && board_is_race(boards + ((size_t)r * m + sl) * kBoard,
+                              aligned);
+    const unsigned rmask = __ballot_sync(kFull, is_race);
+    const unsigned cmask = __ballot_sync(kFull, live && !is_race);
+    if (is_race) {
+      race[n_race + __popc(rmask & below)] = sl;
+    } else if (live) {
+      contact[n_contact + __popc(cmask & below)] = sl;
+    }
+    n_race += __popc(rmask);
+    n_contact += __popc(cmask);
+  }
+  if (lane == 0) {
+    lim[r] = n_contact;
+    lim[rows + r] = n_race;
+  }
+}
+
 // What the launches cache (the >48 KB opt-in, the resident blocks) is the
 // current card's, so it is kept for each card apart.
 constexpr int kMaxDevices = 64;
@@ -1371,11 +1480,13 @@ int launch_split(const Args& a, int unit_groups, cudaStream_t stream) {
 }
 
 // A deep network's fc1 (kEmit): the floors, then tile ranges x unit groups
-// (about one wave); a zero count where there is no board.
+// (about one wave); a zero count where there is no board.  kRoute: one group
+// of a routed pass, whose floors are the route kernel's.
+template <int kMode>
 int launch_emit(const Args& a, int unit_groups, cudaStream_t stream) {
   const int dev = current_device();
   if (dev < 0) return (int)cudaErrorInvalidDevice;
-  const int resident = forward_groups<kEmit, false>(dev);
+  const int resident = forward_groups<kMode, false>(dev);
   if (resident < 0) return -resident;
   const long long boards = (long long)a.rows * a.m;
   if (boards == 0) {
@@ -1383,7 +1494,7 @@ int launch_emit(const Args& a, int unit_groups, cudaStream_t stream) {
   }
   const int ranges = (int)std::min<long long>(
       (boards + kTile - 1) / kTile, std::max(resident / unit_groups, 1));
-  afterstate_eval_kernel<kEmit, false>
+  afterstate_eval_kernel<kMode, false>
       <<<dim3(ranges, unit_groups), kThreads, kSmem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -1415,12 +1526,12 @@ Args make_args(const void* boards, const void* mover, const void* n,
 }
 
 // The >48 KB opt-in of the backward, before any capture.
-template <bool kBf16, bool kDeep>
+template <bool kBf16, bool kDeep, bool kRouted>
 int backward_opt_in(int dev) {
   static bool opted[kMaxDevices] = {};
   if (!opted[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        afterstate_backward_kernel<kBf16, kDeep>,
+        afterstate_backward_kernel<kBf16, kDeep, kRouted>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
     if (err != cudaSuccess) return (int)err;
     opted[dev] = true;
@@ -1428,15 +1539,15 @@ int backward_opt_in(int dev) {
   return 0;
 }
 
-template <bool kBf16, bool kDeep = false>
+template <bool kBf16, bool kDeep = false, bool kRouted = false>
 int launch_backward(const Args& a, const float* scratch, float* dparams,
                     int blocks, int unit_groups, cudaStream_t stream) {
   const int dev = current_device();
   if (dev < 0) return (int)cudaErrorInvalidDevice;
-  const int opt = backward_opt_in<kBf16, kDeep>(dev);
+  const int opt = backward_opt_in<kBf16, kDeep, kRouted>(dev);
   if (opt != 0) return opt;
   if (blocks > 0) {
-    afterstate_backward_kernel<kBf16, kDeep>
+    afterstate_backward_kernel<kBf16, kDeep, kRouted>
         <<<dim3(blocks, unit_groups), kThreads, kSmem, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -1546,7 +1657,7 @@ extern "C" int afterstate_emit_launch(const void* boards, const void* mover,
   a.elem = (int*)elem;
   a.count = (int*)count;
   a.ldh = ldh;
-  return launch_emit(a, unit_groups, (cudaStream_t)stream);
+  return launch_emit<kEmit>(a, unit_groups, (cudaStream_t)stream);
 }
 
 // A deep network's fc1 backward, float32: dpre (kept boards, ldh floats
@@ -1575,4 +1686,79 @@ extern "C" int afterstate_backward_deep_launch(
   return launch_backward<false, true>(a, (const float*)scratch,
                                       (float*)dparams, blocks, unit_groups,
                                       (cudaStream_t)stream);
+}
+
+// A routed pass's layout: boards (rows, m, 52) int8, n (rows) int32 and the
+// epilogue (0 logits, 1 masked) as the emit's; out (rows, m) float32 gets
+// the floor of every slot not kept; lim (2, rows) int32 each row's kept
+// boards of each class (0 contact, 1 race), slots (2, rows m) int32 their
+// slots in slot order (afterstate_route_kernel).
+extern "C" int afterstate_route_launch(const void* boards, const void* n,
+                                       void* out, void* lim, void* slots,
+                                       int rows, int m, int epilogue,
+                                       void* stream) {
+  if (rows < 0 || m < 0 || (epilogue != kLogits && epilogue != kMasked)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (rows == 0) return (int)cudaGetLastError();
+  afterstate_route_kernel<<<(rows + kRouteRows - 1) / kRouteRows,
+                            32 * kRouteRows, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)boards, (const int32_t*)n, (float*)out, (int*)lim,
+      (int*)slots, rows, m, epilogue, ((uintptr_t)boards & 3) == 0);
+  return (int)cudaGetLastError();
+}
+
+// fc1 of one group of a routed pass, float32: lim (rows) and slots (rows m)
+// are afterstate_route_launch's of the group's class; h1, ldh, elem and
+// count as afterstate_emit_launch's, over the group's kept boards in its
+// order; tally (one unsigned 64-bit int) gets the count added.
+extern "C" int afterstate_emit_routed_launch(
+    const void* boards, const void* mover, const void* lim, const void* slots,
+    const void* w1, const void* b1, void* h1, int ldh, void* elem,
+    void* count, void* tally, int rows, int m, int hidden, int opponent,
+    void* stream) {
+  const int unit_groups = (hidden + kUnits - 1) / kUnits;
+  if (rows < 0 || m < 0 || hidden < 1 || unit_groups > kMaxGroups ||
+      ldh < hidden || ldh % 4 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Args a = make_args(boards, mover, nullptr, w1, b1, b1, b1, nullptr, nullptr,
+                     nullptr, rows, m, hidden, opponent, kMasked, 1.0f);
+  a.rlim = (const int*)lim;
+  a.rslot = (const int*)slots;
+  a.tally = (unsigned long long*)tally;
+  a.h1 = (float*)h1;
+  a.elem = (int*)elem;
+  a.count = (int*)count;
+  a.ldh = ldh;
+  return launch_emit<kRoute>(a, unit_groups, (cudaStream_t)stream);
+}
+
+// fc1's backward of one group of a routed pass, float32: lim and slots as
+// afterstate_emit_routed_launch's, dpre by kept board in its order; the
+// rest as afterstate_backward_deep_launch's.
+extern "C" int afterstate_backward_deep_routed_launch(
+    const void* boards, const void* mover, const void* lim, const void* slots,
+    const void* dpre, int ldh, void* scratch, long long scratch_floats,
+    void* dparams, int blocks, int rows, int m, int hidden, int opponent,
+    void* stream) {
+  const int unit_groups = (hidden + kUnits - 1) / kUnits;
+  const long long slab = (long long)kFeatures * hidden + 2LL * hidden + 1;
+  if (rows < 0 || m < 0 || hidden < 1 || unit_groups > kMaxGroups ||
+      ldh < hidden || blocks < 0 ||
+      (blocks == 0 && (long long)rows * m > 0) ||
+      scratch_floats < blocks * slab) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Args a = make_args(boards, mover, nullptr, nullptr, nullptr, nullptr,
+                     nullptr, nullptr, scratch, nullptr, rows, m, hidden,
+                     opponent, kMasked, 1.0f);
+  a.rlim = (const int*)lim;
+  a.rslot = (const int*)slots;
+  a.dpre = (const float*)dpre;
+  a.ldh = ldh;
+  return launch_backward<false, true, true>(a, (const float*)scratch,
+                                            (float*)dparams, blocks,
+                                            unit_groups,
+                                            (cudaStream_t)stream);
 }

@@ -20,8 +20,17 @@ for each): wildbg's evaluation network (github.com/carsten-wenderdel/wildbg,
 its training code's ``Network``: 300, 250, 200 and 6 outcomes) on the
 port's 198 features.  Layers are drawn in the order fc1, fc2, ..., action,
 value or outcome, score; a deep network computes in float32 (bfloat16
-raises: ``ops.afterstate.DEEP_BF16_ITEM``).  The defaults keep the
-one-layer network, its parameters and its draws as they were.
+raises: ``DEEP_BF16_ITEM``).  The defaults keep the one-layer network, its
+parameters and its draws as they were.
+
+``race`` gives a deep network wildbg's whole evaluator: a second network of
+the same widths (``race_fc1``, ..., ``race_score``, drawn after every layer
+of the first) for race positions, where no checker of either side can meet
+one of the other's (``core.features.is_race``), and the first for contact
+positions.  Every row of the plain path goes through the network its
+position's class selects (``NETS``); ``deep_weights`` gives either
+network's weights to the afterstate pass, which routes each kept board on
+the card (``ops.afterstate.afterstate_routed``).
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from torch import nn
 from torch.nn import functional as Fn
 
 from .. import resolve_device
+from ..core import features as F
 from ..core.constants import (FEATURE_DIM, REWARD_WIN_BACKGAMMON,
                               REWARD_WIN_GAMMON, REWARD_WIN_NORMAL)
 
@@ -46,6 +56,9 @@ OUTCOME_REWARDS = (REWARD_WIN_NORMAL, REWARD_WIN_GAMMON,
                    -REWARD_WIN_GAMMON, -REWARD_WIN_BACKGAMMON)
 # what lifts the refusal of a deep bfloat16 network
 DEEP_BF16_ITEM = "ROADMAP.md, queue 6, item C10"
+# a routed model's networks, by position class, and their layers' prefixes
+NETS = ("contact", "race")
+PREFIX = {"contact": "", "race": "race_"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +69,7 @@ class ModelConfig:
     compute_dtype: str = "float32"  # "bfloat16" for tensor-core inference
     trunk: tuple = ()               # a deep network's widths after fc1
     outcome: bool = False           # the value from 6 outcome probabilities
+    race: bool = False              # a second network for race positions
 
     @property
     def widths(self) -> tuple:
@@ -74,6 +88,8 @@ class ModelConfig:
                     f"{self.compute_dtype}: see {DEEP_BF16_ITEM}")
         elif self.outcome:
             raise ValueError("the outcome head needs a trunk")
+        elif self.race:
+            raise ValueError("the race network needs a trunk")
 
 
 class MLP(nn.Module):
@@ -97,6 +113,9 @@ class MLP(nn.Module):
                 (top, len(OUTCOMES) if cfg.outcome else 1),
             "score": (top, 1),
         })
+        if cfg.race:
+            sizes.update({PREFIX["race"] + name: shape
+                          for name, shape in list(sizes.items())})
         self.layers = nn.ModuleDict({
             name: nn.Linear(fan_in, fan_out, device=dev)
             for name, (fan_in, fan_out) in sizes.items()
@@ -111,54 +130,80 @@ class MLP(nn.Module):
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.compute_dtype)
 
-    def _dense(self, name, x, dtype):
-        lin = self.layers[name]
+    def _dense(self, name, x, dtype, net="contact"):
+        lin = self.layers[PREFIX[net] + name]
         return Fn.linear(x.to(dtype), lin.weight.to(dtype),
                          lin.bias.to(dtype))
 
-    def trunk(self, x):
-        """(..., 198) -> the last hidden layer."""
-        h = torch.relu(self._dense("fc1", x, self.dtype))
+    def trunk(self, x, net="contact"):
+        """(..., 198) -> the last hidden layer of network ``net``."""
+        h = torch.relu(self._dense("fc1", x, self.dtype, net))
         for i in range(2, len(self.cfg.widths) + 1):
-            h = torch.relu(self._dense(f"fc{i}", h, h.dtype))
+            h = torch.relu(self._dense(f"fc{i}", h, h.dtype, net))
         return h
 
-    def _value(self, h):
+    def _value(self, h, net):
         if self.cfg.outcome:
-            return outcome_value(self._dense("outcome", h, h.dtype).float())
-        return self._dense("value", h, h.dtype).float()[..., 0]
+            return outcome_value(
+                self._dense("outcome", h, h.dtype, net).float())
+        return self._dense("value", h, h.dtype, net).float()[..., 0]
+
+    def _routed(self, x, fn):
+        """``fn(net)`` (a tensor or a tuple of them) of each row of ``x``
+        from the network its position's class selects (the one network of
+        a model without ``race``)."""
+        if not self.cfg.race:
+            return fn("contact")
+        race = F.is_race(x)
+        contact, raced = fn("contact"), fn("race")
+        if isinstance(contact, tuple):
+            return tuple(_pick(race, c, r) for c, r in zip(contact, raced))
+        return _pick(race, contact, raced)
 
     def forward(self, x):
         """(..., 198) -> (logits (..., A), value (...,))."""
-        h = self.trunk(x)
-        logits = self._dense("action", h, h.dtype).float()
-        return logits, self._value(h)
+        def net_out(net):
+            h = self.trunk(x, net)
+            logits = self._dense("action", h, h.dtype, net).float()
+            return logits, self._value(h, net)
+        return self._routed(x, net_out)
 
     def value(self, x):
         """(..., 198) -> (...,) state/afterstate value via the value head
         (the outcome head's expected reward where the model has one)."""
-        return self._value(self.trunk(x))
+        return self._routed(x, lambda net: self._value(self.trunk(x, net),
+                                                       net))
 
     def outcome_probs(self, x):
         """(..., 198) -> (..., 6) the outcome head's probabilities."""
-        return torch.softmax(
-            self._dense("outcome", self.trunk(x), torch.float32), dim=-1)
+        return self._routed(x, lambda net: torch.softmax(self._dense(
+            "outcome", self.trunk(x, net), torch.float32, net), dim=-1))
 
-    def deep_weights(self, head):
+    def deep_weights(self, head, net="contact"):
         """A deep network's weights for ``ops.afterstate.afterstate_deep``:
-        ([W1, b1, W2, b2, ..., W_head, b_head], the outcome head's rewards
-        or None) for ``head`` "score" or "value"."""
+        ([W1, b1, W2, b2, ..., W_head, b_head] of network ``net``, the
+        outcome head's rewards or None) for ``head`` "score" or "value"."""
         name = "outcome" if head == "value" and self.cfg.outcome else head
         names = [f"fc{i}" for i in range(1, len(self.cfg.widths) + 1)]
-        weights = [p for n in names + [name]
-                   for p in (self.layers[n].weight, self.layers[n].bias)]
+        layers = [self.layers[PREFIX[net] + n] for n in names + [name]]
+        weights = [p for lin in layers for p in (lin.weight, lin.bias)]
         return weights, OUTCOME_REWARDS if name == "outcome" else None
 
     def score(self, x):
         """(..., 198) -> (...,) afterstate policy score (logit per
         candidate)."""
-        h = self.trunk(x)
-        return self._dense("score", h, h.dtype).float()[..., 0]
+        def net_score(net):
+            h = self.trunk(x, net)
+            return self._dense("score", h, h.dtype, net).float()[..., 0]
+        return self._routed(x, net_score)
+
+
+def _pick(race, contact, raced):
+    """Each row's entry of ``raced`` where ``race`` (the leading dims), of
+    ``contact`` elsewhere."""
+    return torch.where(race.reshape(race.shape + (1,) * (contact.dim()
+                                                         - race.dim())),
+                       raced, contact)
 
 
 def outcome_value(z):

@@ -11,10 +11,11 @@ KERNELS = ("compact_rows", "doubles_level", "nondoubles", "doubles_final",
 # of ``KERNELS``, whose tuples no 2-ply decision extends
 OPTIMIZER = "adam_update"
 # a deep network's pass (``afterstate.afterstate_deep``): fc1 in the
-# afterstate kernels' deep forms, then the dense layers; counted and zeroed
-# with the others, outside ``KERNELS`` too
+# afterstate kernels' deep forms, then the dense layers; a routed model's
+# (``afterstate.afterstate_routed``) adds the route, and runs the others
+# once a group; counted and zeroed with the others, outside ``KERNELS`` too
 DEEP = ("afterstate_hidden", "afterstate_hidden_backward", "dense_layers",
-        "dense_layers_backward")
+        "dense_layers_backward", "afterstate_route")
 
 
 def counters() -> dict:
@@ -38,5 +39,10 @@ def launches() -> dict:
 
 
 def zero_launches() -> None:
+    """Zero every count, and the routed pass's tally of kept boards
+    (``afterstate.routed_rows``)."""
+    from . import afterstate
+
     for fn in counters().values():
         fn.launches = 0
+    afterstate.zero_routed_rows()

@@ -41,7 +41,7 @@ import torch
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 BLOCK_ELEMS = 1024   # csrc/adam.cu kBlockElems: 256 threads x 4 elements
-MAX_LEAVES = 16      # csrc/adam.cu kMaxLeaves
+MAX_LEAVES = 24      # csrc/adam.cu kMaxLeaves
 
 
 @torch.no_grad()

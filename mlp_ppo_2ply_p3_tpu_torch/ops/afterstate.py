@@ -70,6 +70,22 @@ runs ``dense.dense_layers_backward``, which hands fc1's dpre to
 ``afterstate_hidden_backward``: the second kernel with dpre read in place of
 its fc1 product, giving dW1 and db1 from the same tile.  Float32 only; the
 ``min`` epilogue and bf16 raise (``DEEP_MIN_ITEM``, ``DEEP_BF16_ITEM``).
+
+A routed model (an ``MLP`` with ``race``: wildbg's contact and race
+networks; ``afterstate_routed``) sends each kept board through the network
+its position's class selects (``core.board.is_race``, the same for a board
+and its opponent view).  ``afterstate_route`` reads each kept board's
+bytes once, writes the floors of the slots not kept and lays the kept
+boards out as two groups (``GROUPS``): each row's count of each class and
+its kept slots of that class in slot order, so that each group's kept
+boards have a global order of their own (rows in order, slots in order),
+which the emit and the deep backward then walk in their ``route`` form,
+one launch a group, each with its own network's W1 and its own count on
+the card.  ``dense_layers`` runs each group with its own network's layers
+and head, inside a span of the group's name (``dense_layers.contact``,
+``dense_layers.race``).  The emit also adds each group's count to a tally
+on the card (``routed_rows``, zeroed by ``ops.zero_launches``), which the
+hot path never reads.
 """
 
 from __future__ import annotations
@@ -81,6 +97,8 @@ from torch.nn import functional as Fn
 
 from ..core import board as Bd
 from ..core import features as F
+from ..models.mlp import DEEP_BF16_ITEM, NETS
+from ..utils.profiling import span
 from . import dense as DN
 
 FLOOR = -1e9     # the masked entries (ppo.learner.MASK_FLOOR, basic.NEG_INF)
@@ -91,7 +109,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROADMAP_ITEM = "ROADMAP.md, queue 1, item 20"
 # what lifts the deep pass's refusals
 DEEP_MIN_ITEM = "ROADMAP.md, queue 6, item C9"
-DEEP_BF16_ITEM = "ROADMAP.md, queue 6, item C10"
+# a routed pass's groups of kept boards, by position class (contact, race)
+GROUPS = NETS
 UNITS = 128          # hidden units a block stages (a unit group)
 TILE = 64            # kept boards a tile
 # backward blocks of one unit group: a number of the shapes, never of the
@@ -273,6 +292,11 @@ _SIGNATURES = {
                                _I),
     "afterstate_backward_deep_launch": ([_P] * 4 + [_I, _P, _L, _P]
                                         + [_I] * 6 + [_P], _I),
+    "afterstate_route_launch": ([_P] * 5 + [_I] * 3 + [_P], _I),
+    "afterstate_emit_routed_launch": ([_P] * 7 + [_I] + [_P] * 3
+                                      + [_I] * 4 + [_P], _I),
+    "afterstate_backward_deep_routed_launch": ([_P] * 5 + [_I, _P, _L, _P]
+                                               + [_I] * 5 + [_P], _I),
 }
 
 
@@ -408,34 +432,49 @@ def _kept_order(n, m, epilogue):
         torch.int32)
 
 
+def _features_of(boards, mover, elem, opponent):
+    """The features of the boards at elements ``elem`` (r m + s)."""
+    r, m, _ = boards.shape
+    view = Bd.opponent_view(boards) if opponent else boards
+    feats = F.encode_canonical(view, mover[:, None]).reshape(r * m, -1)
+    return feats[elem.long()]
+
+
+def _first_layer_plain(boards, mover, elem, w1, b1, opponent):
+    """(h1, elem, count) of ``afterstate_hidden`` over the kept boards at
+    elements ``elem``, in that order."""
+    r, m, _ = boards.shape
+    h, k, dev = w1.shape[0], elem.shape[0], boards.device
+    h1 = torch.zeros((r * m, DN.ld(h)), dtype=torch.float32, device=dev)
+    h1[:k, :h] = torch.relu(Fn.linear(_features_of(boards, mover, elem,
+                                                   opponent), w1, b1))
+    elem_all = torch.zeros((r * m,), dtype=torch.int32, device=dev)
+    elem_all[:k] = elem
+    return h1, elem_all, torch.tensor([k], dtype=torch.int32, device=dev)
+
+
+def _first_layer_backward_plain(boards, mover, elem, dpre, hidden, opponent):
+    """(dW1, db1) from dpre by kept board at elements ``elem``."""
+    d = dpre[:elem.shape[0], :hidden]
+    return d.t() @ _features_of(boards, mover, elem, opponent), d.sum(0)
+
+
 def afterstate_hidden_plain(boards, mover, n, w1, b1, opponent, epilogue):
     """Plain PyTorch version of ``afterstate_hidden``."""
     r, m, _ = boards.shape
-    h = w1.shape[0]
-    view = Bd.opponent_view(boards) if opponent else boards
-    feats = F.encode_canonical(view, mover[:, None]).reshape(r * m, -1)
-    elem = _kept_order(n, m, epilogue)
-    k = elem.shape[0]
-    h1 = torch.zeros((r * m, DN.ld(h)), dtype=torch.float32,
-                     device=boards.device)
-    h1[:k, :h] = torch.relu(Fn.linear(feats[elem.long()], w1, b1))
     out = torch.full((r, m), FLOOR, dtype=torch.float32,
                      device=boards.device)
-    elem_all = torch.zeros((r * m,), dtype=torch.int32, device=boards.device)
-    elem_all[:k] = elem
-    count = torch.tensor([k], dtype=torch.int32, device=boards.device)
-    return out, h1, elem_all, count
+    return (out, *_first_layer_plain(boards, mover,
+                                     _kept_order(n, m, epilogue), w1, b1,
+                                     opponent))
 
 
 def afterstate_hidden_backward_plain(boards, mover, n, dpre, hidden,
                                      opponent, epilogue):
     """Plain PyTorch version of ``afterstate_hidden_backward``."""
-    r, m, _ = boards.shape
-    view = Bd.opponent_view(boards) if opponent else boards
-    feats = F.encode_canonical(view, mover[:, None]).reshape(r * m, -1)
-    elem = _kept_order(n, m, epilogue)
-    d = dpre[:elem.shape[0], :hidden]
-    return d.t() @ feats[elem.long()], d.sum(0)
+    return _first_layer_backward_plain(
+        boards, mover, _kept_order(n, boards.shape[1], epilogue), dpre,
+        hidden, opponent)
 
 
 def _check_hidden(boards, mover, n, w1, b1, opponent, epilogue):
@@ -575,6 +614,20 @@ class _Deep(torch.autograd.Function):
         return (None, None, None, None, dw1, db1, *grads)
 
 
+def _check_deep(boards, mover, n, weights, opponent, epilogue, sign):
+    if len(weights) < 6 or len(weights) % 2:
+        raise ValueError(f"a deep network's weights are fc1, at least one "
+                         f"dense layer and a head, in pairs; got "
+                         f"{len(weights)} tensors")
+    (w1, b1), _, _ = _split(weights)
+    if any(w.dtype != torch.float32 for w in weights):
+        raise NotImplementedError(
+            f"a deep network runs in float32; bfloat16 is {DEEP_BF16_ITEM}")
+    _check_hidden(boards, mover, n, w1, b1, opponent, epilogue)
+    if sign not in (1.0, -1.0):
+        raise ValueError(f"sign must be 1 or -1, got {sign}")
+
+
 def afterstate_deep(boards, mover, n, weights, rewards=None, opponent=False,
                     epilogue="logits", sign=1.0):
     """The pass of a deep network over (R, M, 52) int8 ``boards``:
@@ -584,17 +637,7 @@ def afterstate_deep(boards, mover, n, weights, rewards=None, opponent=False,
     ``opponent`` and ``sign``, as ``afterstate_eval``'s; returns (R, M)
     float32, differentiable in the weights."""
     weights = list(weights)
-    if len(weights) < 6 or len(weights) % 2:
-        raise ValueError(f"a deep network's weights are fc1, at least one "
-                         f"dense layer and a head, in pairs; got "
-                         f"{len(weights)} tensors")
-    (w1, b1), layers, head = _split(weights)
-    if any(w.dtype != torch.float32 for w in weights):
-        raise NotImplementedError(
-            f"a deep network runs in float32; bfloat16 is {DEEP_BF16_ITEM}")
-    _check_hidden(boards, mover, n, w1, b1, opponent, epilogue)
-    if sign not in (1.0, -1.0):
-        raise ValueError(f"sign must be 1 or -1, got {sign}")
+    _check_deep(boards, mover, n, weights, opponent, epilogue, sign)
     if not _on_card(boards):
         return afterstate_deep_plain(boards, mover, n, weights, rewards,
                                      opponent, epilogue, sign)
@@ -604,13 +647,267 @@ def afterstate_deep(boards, mover, n, weights, rewards=None, opponent=False,
     return _Deep.apply(boards, mover, n, cfg, *weights)
 
 
+def afterstate_route_plain(boards, n, epilogue):
+    """Plain PyTorch version of ``afterstate_route``."""
+    r, m, _ = boards.shape
+    valid = _valid(n, m, epilogue)
+    race = Bd.is_race(boards)
+    lim = torch.zeros((len(GROUPS), r), dtype=torch.int32,
+                      device=boards.device)
+    slots = torch.zeros((len(GROUPS), r * m), dtype=torch.int32,
+                        device=boards.device)
+    for c, mask in enumerate((valid & ~race, valid & race)):
+        lim[c] = mask.sum(1, dtype=torch.int32)
+        row, slot = mask.nonzero(as_tuple=True)
+        rank = mask.cumsum(1)[row, slot] - 1
+        slots[c, row * m + rank] = slot.to(torch.int32)
+    out = torch.full((r, m), FLOOR, dtype=torch.float32,
+                     device=boards.device)
+    return out, lim, slots
+
+
+def afterstate_route(boards, n, epilogue):
+    """The two groups of a routed pass over (R, M, 52) int8 ``boards``
+    (``logits`` or ``masked`` epilogue): (``out`` (R, M) float32 holding
+    the floor at every slot the epilogue does not keep and nothing yet at
+    the kept ones, ``lim`` (2, R) int32 each row's kept boards of each
+    class, ``slots`` (2, R M) int32 row r's kept slots of class c in slot
+    order at c, r M .. r M + lim[c, r] - 1).  Class 0 is contact, 1 race
+    (``core.board.is_race``); entries of ``slots`` past a row's count are
+    unspecified on the card."""
+    if epilogue not in ("logits", "masked"):
+        raise ValueError(f"a routed pass takes the logits or masked "
+                         f"epilogue, got {epilogue!r}")
+    if boards.dtype != torch.int8 or boards.dim() != 3 or \
+            boards.shape[2] != 52:
+        raise TypeError(f"boards must be (R, M, 52) int8, got "
+                        f"{tuple(boards.shape)} {boards.dtype}")
+    if n.dtype != torch.int32 or tuple(n.shape) != boards.shape[:1] or \
+            n.device != boards.device:
+        raise TypeError(f"n must be ({boards.shape[0]},) int32 on "
+                        f"{boards.device}")
+    if _on_card(boards) and (not boards.is_contiguous() or
+                             not n.is_contiguous() or
+                             boards.shape[0] * boards.shape[1] >= 2**31):
+        raise ValueError("the route kernel needs contiguous inputs of "
+                         "fewer than 2^31 boards")
+    if not _on_card(boards):
+        return afterstate_route_plain(boards, n, epilogue)
+    r, m, _ = boards.shape
+    dev = boards.device
+    out = torch.empty((r, m), dtype=torch.float32, device=dev)
+    lim = torch.empty((len(GROUPS), r), dtype=torch.int32, device=dev)
+    slots = torch.empty((len(GROUPS), r * m), dtype=torch.int32, device=dev)
+    err = _launch("afterstate_route_launch", dev, boards.data_ptr(),
+                  n.data_ptr(), out.data_ptr(), lim.data_ptr(),
+                  slots.data_ptr(), r, m, EPILOGUES[epilogue])
+    if err != 0:
+        raise RuntimeError(f"afterstate_route kernel launch failed: CUDA "
+                           f"error {err} at {r} x {m} boards")
+    _COUNTERS["afterstate_route"].launches += 1
+    return out, lim, slots
+
+
+def _group_order(lim, slots, m):
+    """A group's kept boards' elements r m + s in its order (rows in
+    order, each row's slots of the group in order), on the host."""
+    r = lim.shape[0]
+    rows = torch.repeat_interleave(torch.arange(r, device=lim.device),
+                                   lim.long())
+    first = torch.cumsum(lim.long(), 0) - lim.long()
+    j = torch.arange(rows.shape[0], device=lim.device) - first[rows]
+    return (rows * m + slots.long()[rows * m + j]).to(torch.int32)
+
+
+def _tally(dev):
+    """The card's (or the CPU's) count of kept boards a group has sent
+    through its network since the last ``zero_routed_rows``."""
+    key = str(dev)
+    if key not in _TALLY:
+        _TALLY[key] = torch.zeros((len(GROUPS),), dtype=torch.int64,
+                                  device=dev)
+    return _TALLY[key]
+
+
+def routed_rows() -> dict:
+    """{group: kept boards sent through its network} since the last
+    ``zero_routed_rows``, summed over devices: a host sync, for readings
+    after a traced update, never for the hot path."""
+    total = [0] * len(GROUPS)
+    for t in _TALLY.values():
+        total = [a + int(b) for a, b in zip(total, t.tolist())]
+    return dict(zip(GROUPS, total))
+
+
+def zero_routed_rows() -> None:
+    for t in _TALLY.values():
+        t.zero_()
+
+
+def afterstate_hidden_routed(boards, mover, route, group, w1, b1,
+                             opponent):
+    """``afterstate_hidden`` of one group of a routed pass: ``route`` is
+    ``afterstate_route``'s (out, lim, slots) and ``group`` 0 or 1; fc1 of
+    that group's kept boards in its order (``h1``, ``elem``, ``count``
+    as ``afterstate_hidden``'s; the floors are the route's).  Adds the
+    count to the group's tally."""
+    _, lim, slots = route
+    r, m, _ = boards.shape
+    h, dev = w1.shape[0], boards.device
+    if not _on_card(boards):
+        elem = _group_order(lim[group], slots[group], m)
+        _tally(dev)[group] += elem.shape[0]
+        return _first_layer_plain(boards, mover, elem, w1, b1, opponent)
+    h1 = torch.empty((r * m, DN.ld(h)), dtype=torch.float32, device=dev)
+    elem = torch.empty((r * m,), dtype=torch.int32, device=dev)
+    count = torch.empty((1,), dtype=torch.int32, device=dev)
+    tally = _tally(dev)
+    err = _launch("afterstate_emit_routed_launch", dev, boards.data_ptr(),
+                  mover.data_ptr(), lim[group].data_ptr(),
+                  slots[group].data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                  h1.data_ptr(), DN.ld(h), elem.data_ptr(), count.data_ptr(),
+                  tally[group:].data_ptr(), r, m, h, int(opponent))
+    if err != 0:
+        raise RuntimeError(f"afterstate_hidden kernel launch failed: CUDA "
+                           f"error {err} at {r} x {m} boards, hidden {h}, "
+                           f"group {group}")
+    _COUNTERS["afterstate_hidden"].launches += 1
+    return h1, elem, count
+
+
+def afterstate_hidden_backward_routed(boards, mover, route, group, dpre,
+                                      hidden, opponent):
+    """``afterstate_hidden_backward`` of one group of a routed pass:
+    (dW1, db1) of that group's network from its dpre in its order."""
+    _, lim, slots = route
+    r, m, _ = boards.shape
+    dev = boards.device
+    if not _on_card(boards):
+        return _first_layer_backward_plain(
+            boards, mover, _group_order(lim[group], slots[group], m), dpre,
+            hidden, opponent)
+    floats = backward_scratch_floats(r, m, hidden)
+    scratch = _scratch(floats, dev)
+    flat = torch.empty((hidden * 198 + 2 * hidden + 1,), dtype=torch.float32,
+                       device=dev)
+    err = _launch("afterstate_backward_deep_routed_launch", dev,
+                  boards.data_ptr(), mover.data_ptr(), lim[group].data_ptr(),
+                  slots[group].data_ptr(), dpre.data_ptr(), dpre.shape[1],
+                  _ptr(scratch), floats, flat.data_ptr(),
+                  backward_blocks(r, m, hidden), r, m, hidden,
+                  int(opponent))
+    if err != 0:
+        raise RuntimeError(f"afterstate_hidden_backward kernel launch "
+                           f"failed: CUDA error {err} at {r} x {m} boards, "
+                           f"hidden {hidden}, group {group}")
+    _COUNTERS["afterstate_hidden_backward"].launches += 1
+    hw = hidden * 198
+    return flat[:hw].view(hidden, 198), flat[hw:hw + hidden]
+
+
+def afterstate_routed_plain(boards, mover, n, weights, rewards, opponent,
+                            epilogue, sign):
+    """Plain PyTorch version of ``afterstate_routed`` (any device;
+    differentiable in the weights): every slot through both networks, each
+    slot's value from the network its class selects."""
+    k = len(weights) // 2
+    ys = [afterstate_deep_plain(boards, mover, n, weights[i * k:(i + 1) * k],
+                                rewards, opponent, epilogue, sign)
+          for i in range(len(GROUPS))]
+    return torch.where(Bd.is_race(boards), ys[1], ys[0])
+
+
+class _Routed(torch.autograd.Function):
+    """The routed pass on the card as a differentiable function of both
+    networks' weights (contact first): ``_Deep``'s, a group at a time."""
+
+    @staticmethod
+    def forward(ctx, boards, mover, n, cfg, *weights):
+        rewards, opponent, epilogue, sign, save = cfg
+        k = len(weights) // 2
+        route = afterstate_route(boards, n, epilogue)
+        out = route[0]
+        saved, depths = [], []
+        for group, name in enumerate(GROUPS):
+            (w1, b1), layers, head = _split(weights[group * k:(group + 1)
+                                                    * k])
+            h1, elem, count = afterstate_hidden_routed(
+                boards, mover, route, group, w1, b1, opponent)
+            with span(f"dense_layers.{name}"):
+                acts = DN.dense_layers(h1, elem, count, out, layers, head,
+                                       rewards, sign, save)
+            if save:
+                saved += [h1, elem, count, *acts]
+                depths.append(len(acts))
+        if save:
+            ctx.save_for_backward(boards, mover, *route[1:], *saved,
+                                  *weights)
+            ctx.cfg, ctx.depths = cfg, depths
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        rewards, opponent, _, sign, _ = ctx.cfg
+        boards, mover, lim, slots, *rest = ctx.saved_tensors
+        route = (None, lim, slots)
+        k = sum(3 + d for d in ctx.depths)
+        saved, weights = rest[:k], rest[k:]
+        per = len(weights) // 2
+        grads, at = [], 0
+        for group, name in enumerate(GROUPS):
+            h1, elem, count = saved[at:at + 3]
+            acts = saved[at + 3:at + 3 + ctx.depths[group]]
+            at += 3 + ctx.depths[group]
+            (w1, _), layers, head = _split(weights[group * per:(group + 1)
+                                                   * per])
+            with span(f"dense_layers.{name}"):
+                dpre, dense = DN.dense_layers_backward(
+                    h1, acts, elem, count, grad, layers, head, rewards, sign)
+            dw1, db1 = afterstate_hidden_backward_routed(
+                boards, mover, route, group, dpre, w1.shape[0], opponent)
+            grads += [dw1, db1, *dense]
+        return (None, None, None, None, *grads)
+
+
+def afterstate_routed(boards, mover, n, contact, race, rewards=None,
+                      opponent=False, epilogue="logits", sign=1.0):
+    """The pass of a routed model over (R, M, 52) int8 ``boards``: each
+    kept board through the network its position's class selects, the
+    ``contact`` weights or the ``race`` weights (each as
+    ``afterstate_deep``'s ``weights``, the same shapes); the rest as
+    ``afterstate_deep``.  Returns (R, M) float32, differentiable in both
+    networks' weights (a network that no kept board reaches gets zero
+    gradients)."""
+    contact, race = list(contact), list(race)
+    if [tuple(w.shape) for w in contact] != [tuple(w.shape) for w in race]:
+        raise ValueError("the contact and race networks' weights differ in "
+                         "shape")
+    weights = contact + race
+    for ws in (contact, race):
+        _check_deep(boards, mover, n, ws, opponent, epilogue, sign)
+    if not _on_card(boards):
+        return afterstate_routed_plain(boards, mover, n, weights, rewards,
+                                       opponent, epilogue, sign)
+    save = torch.is_grad_enabled() and any(w.requires_grad for w in weights)
+    cfg = (None if rewards is None else tuple(rewards), opponent, epilogue,
+           sign, save)
+    return _Routed.apply(boards, mover, n, cfg, *weights)
+
+
 def evaluate(model, boards, mover, n, head, opponent=False,
              epilogue="logits", sign=1.0, chunk=0):
     """``afterstate_eval`` with the weights of ``model`` (an ``MLP``):
     ``fc1`` and the head ``head`` ("score" or "value"), cast to its
     compute dtype, which the kernels take as it is (float32 or
-    bfloat16).  A model with a ``trunk`` runs ``afterstate_deep``: its
-    value head is the outcome head where the model has one."""
+    bfloat16).  A model with a ``trunk`` runs ``afterstate_deep`` (with
+    ``race``, ``afterstate_routed``): its value head is the outcome head
+    where the model has one."""
+    if model.cfg.race:
+        (contact, rewards), (race, _) = [model.deep_weights(head, net)
+                                         for net in GROUPS]
+        return afterstate_routed(boards, mover.to(torch.int32),
+                                 n.to(torch.int32), contact, race, rewards,
+                                 opponent, epilogue, sign)
     if model.cfg.trunk:
         weights, rewards = model.deep_weights(head)
         return afterstate_deep(boards, mover.to(torch.int32),
@@ -628,9 +925,13 @@ afterstate_eval.launches = 0
 afterstate_eval_backward.launches = 0
 afterstate_hidden.launches = 0
 afterstate_hidden_backward.launches = 0
+afterstate_route.launches = 0
+# the routed pass's tally of kept boards by group, a tensor a device
+_TALLY: dict = {}
 # the function objects that own the counts, so that a caller who wraps a
 # wrapper (to capture its inputs) still counts on the original
 _COUNTERS = {"afterstate_eval": afterstate_eval,
              "afterstate_eval_backward": afterstate_eval_backward,
              "afterstate_hidden": afterstate_hidden,
-             "afterstate_hidden_backward": afterstate_hidden_backward}
+             "afterstate_hidden_backward": afterstate_hidden_backward,
+             "afterstate_route": afterstate_route}

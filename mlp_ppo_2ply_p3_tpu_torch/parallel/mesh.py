@@ -28,7 +28,10 @@ computation:
 
 Memory: after the gather every rank holds the unsharded run's rollout,
 (T, B, 198) float32 observations and, in afterstate mode, (T, B, M, 52)
-int8 afterstates (28 GB at T=128, B=16384, M=256).
+int8 afterstates (28 GB at T=128, B=16384, M=256).  The afterstates, most
+of those bytes, are gathered into one buffer that is allocated once and
+kept for the next gather of that shape (``gather_stacked``), every rank's
+shard whole in rank order, (size, T, B / size, M, 52), read in place.
 
 Backends are explicit and never chosen after a failure:
 
@@ -144,6 +147,34 @@ def gather_batch(tree, world: World | None, dim: int = 0):
 
     with span("gather_batch"):
         return _map(gather, tree)
+
+
+def gather_stacked(x: torch.Tensor, world: World) -> torch.Tensor:
+    """Every rank's ``x`` stacked along a new first axis in rank order,
+    (size, *x.shape), in a buffer that this process allocates at the first
+    gather of that shape, dtype and device and reuses at every later one:
+    what it returns holds until the next such gather.  Nothing else is
+    allocated (gloo: one host buffer too, kept the same way)."""
+    with span("gather_batch"):
+        src = _to_comm(x, world)
+        comm = _kept_buffer("comm", (world.size, *src.shape), src.dtype,
+                            src.device)
+        dist.all_gather(list(comm.unbind(0)), src)
+        if comm.device == x.device and comm.dtype == x.dtype:
+            return comm
+        out = _kept_buffer("out", comm.shape, x.dtype, x.device)
+        return out.copy_(comm)
+
+
+# gather_stacked's buffers, by (role, shape, dtype, device)
+_KEPT: dict = {}
+
+
+def _kept_buffer(role, shape, dtype, device) -> torch.Tensor:
+    key = (role, tuple(shape), dtype, str(device))
+    if key not in _KEPT:
+        _KEPT[key] = torch.empty(shape, dtype=dtype, device=device)
+    return _KEPT[key]
 
 
 def all_reduce_sum(tensors, world: World | None) -> list:

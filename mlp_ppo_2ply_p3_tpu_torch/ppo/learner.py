@@ -336,13 +336,29 @@ def normalize_targets(adv, returns, value, cfg: PPOConfig):
 
 def _gather_rollout(traj: Rollout, adv, returns, world):
     """Every rank's games of the rollout and its targets, along the game
-    axis in rank order: the unsharded run's (T, B) tensors.  The per-step
-    overflow counts are summed over the ranks.  The identity without a
-    world."""
+    axis in rank order: the unsharded run's (T, B) tensors, but for the
+    afterstates, every rank's (T, B / size, M, 52) stacked in rank order in
+    a buffer kept across updates (``mesh.gather_stacked``; rows by
+    ``_stacked_rows``).  The per-step overflow counts are summed over the
+    ranks.  The identity without a world."""
     (overflow,) = mesh.all_reduce_sum([traj.overflow], world)
+    after = traj.after
     traj, adv, returns = mesh.gather_batch(
-        (traj._replace(overflow=None), adv, returns), world, dim=1)
-    return traj._replace(overflow=overflow), adv, returns
+        (traj._replace(overflow=None, after=None), adv, returns), world,
+        dim=1)
+    if after is not None and world is not None:
+        after = mesh.gather_stacked(after, world)
+    return traj._replace(overflow=overflow, after=after), adv, returns
+
+
+def _stacked_rows(t, b, size, device):
+    """(T B,) where row t B + j of the (T, B) rollout lies in the afterstates
+    gathered as (size, T, B / size): the rank holding game j, then t, then
+    its place in that rank's shard."""
+    g = torch.arange(t * b, device=device)
+    step, game = g // b, g % b
+    shard = b // size
+    return (game // shard) * (t * shard) + step * shard + game % shard
 
 
 def ppo_update(ts: TrainState, traj: Rollout, last_value, last_turn,
@@ -368,9 +384,13 @@ def ppo_update(ts: TrainState, traj: Rollout, last_value, last_turn,
             returns.reshape(n),
             adv.reshape(n),
         )
-        if cfg.policy_mode == "afterstate":
-            flat = flat + (traj.after.reshape(n, m, 52),
-                           traj.turn.reshape(n))
+        afterstate = cfg.policy_mode == "afterstate"
+        if afterstate:
+            after = traj.after.reshape(n, m, 52)
+            turn = traj.turn.reshape(n)
+            # the afterstates' rows, where they were gathered stacked
+            stacked = None if world is None else _stacked_rows(
+                t, b, world.size, after.device)
         nmb = cfg.num_minibatches
         mb_size = n // nmb
         # this rank's rows of every global minibatch
@@ -381,9 +401,15 @@ def ppo_update(ts: TrainState, traj: Rollout, last_value, last_turn,
         metrics = []
         for _ in range(cfg.num_epochs):
             perm = sampler.permutation(n, traj.reward.device)
+            if afterstate:
+                perm_after = perm if stacked is None else stacked[perm]
             for i in range(nmb):
-                idx = perm[i * mb_size:(i + 1) * mb_size][mine]
+                rows = slice(i * mb_size, (i + 1) * mb_size)
+                idx = perm[rows][mine]
                 batch = tuple(x[idx] for x in flat)
+                if afterstate:
+                    batch = batch + (after[perm_after[rows][mine]],
+                                     turn[idx])
                 opt_state, mb_metrics = minibatch_step(
                     ts.model, opt_state, batch, ent, m, cfg, world)
                 metrics.append(mb_metrics)

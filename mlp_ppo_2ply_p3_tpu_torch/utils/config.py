@@ -11,6 +11,9 @@ Port of ``mlp_ppo_2ply_p3_tpu/utils/config.py`` with the same presets:
 - ``wildbg4096``: ``afterstate4096`` with wildbg's evaluation network
                   (198 -> 300 -> 250 -> 200, six outcome probabilities
                   whose expected reward is the value); port-only.
+- ``wildbg2net4096``: ``wildbg4096`` with wildbg's whole evaluator: a
+                  second network of the same widths for race positions,
+                  each position routed to one by its class; port-only.
 - ``twoply``:     2-ply expectimax evaluation settings.
 - ``pod``:        the multi-host scale-out sizes.
 
@@ -153,6 +156,21 @@ _register(RunConfig(
     env=EnvConfig(movegen=MovegenConfig.fast(256)),
     model=ModelConfig(hidden_size=300, trunk=(250, 200), outcome=True,
                       action_size=256),
+    ppo=PPOConfig(
+        num_envs=4096, t_horizon=64, num_minibatches=32,
+        normalize_adv=True, normalize_returns=False,
+        policy_mode="afterstate",
+    ),
+    num_updates=1000,
+))
+
+_register(RunConfig(
+    # wildbg4096 with wildbg's contact/race composite: a race network of
+    # the same widths, each position through the network its class selects
+    name="wildbg2net4096",
+    env=EnvConfig(movegen=MovegenConfig.fast(256)),
+    model=ModelConfig(hidden_size=300, trunk=(250, 200), outcome=True,
+                      race=True, action_size=256),
     ppo=PPOConfig(
         num_envs=4096, t_horizon=64, num_minibatches=32,
         normalize_adv=True, normalize_returns=False,

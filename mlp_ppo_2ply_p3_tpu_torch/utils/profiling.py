@@ -7,7 +7,8 @@ Port of ``mlp_ppo_2ply_p3_tpu/utils/profiling.py``:
   boundaries (``train_step``, ``rollout``, ``policy``, ``env_step``,
   ``movegen``, ``ppo_update``, ``minibatch_step``, ``adam_step``;
   ``decision``, ``one_ply``, ``reply_movegen``, ``reply_eval``; a deep
-  network's ``dense_layers`` and ``dense_layers_backward``; a
+  network's ``dense_layers`` and ``dense_layers_backward``, inside a
+  routed model's ``dense_layers.contact`` and ``dense_layers.race``; a
   data-parallel world's ``gather_batch`` and ``all_reduce_sum``).  Off,
   a span is a shared no-op context.  Inside ``recording()`` each span
   appends (name, parent index, root index, start_ns, end_ns) on

@@ -80,7 +80,8 @@ def test_config_matches_jax_bench(environ):
     for g, w in zip(got, want):
         g = dataclasses.asdict(g)
         if "trunk" in g:
-            assert (g.pop("trunk"), g.pop("outcome")) == ((), False)
+            assert (g.pop("trunk"), g.pop("outcome"), g.pop("race")) == (
+                (), False, False)
         assert g == dataclasses.asdict(w)
 
 
@@ -107,7 +108,8 @@ def test_lines_and_state(monkeypatch, capsys):
                         "afterstate_eval_backward": 0, "adam_update": 0,
                         "afterstate_hidden": 0,
                         "afterstate_hidden_backward": 0,
-                        "dense_layers": 0, "dense_layers_backward": 0}
+                        "dense_layers": 0, "dense_layers_backward": 0,
+                        "afterstate_route": 0}
     assert len(lines) == 2 and len(res.update_s) == 2
     for line in lines:
         got = json.loads(line)

@@ -327,6 +327,7 @@ WRAPPERS = ((TC, "compact_rows"), (TD, "doubles_levels"),
 AFTERSTATE = ((TAS, "afterstate_eval"), (TAS, "afterstate_eval_backward"))
 DEEP = ((TAS, "afterstate_hidden"), (TAS, "afterstate_hidden_backward"),
         (TDN, "dense_layers"), (TDN, "dense_layers_backward"))
+ROUTED = DEEP + ((TAS, "afterstate_route"),)
 
 
 def _launches(wrappers=WRAPPERS):
@@ -1610,7 +1611,8 @@ def _plain_tf32(fn):
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def deep_within(args, got, want, grads=None):
+def deep_within(args, got, want, grads=None,
+                plain=TAS.afterstate_deep_plain):
     """The deep pass's gate against the plain version, as (within, what
     was read): the forward within 4 times the largest drift that a one-ulp
     nudge of every weight makes of the plain version's kept values (at
@@ -1624,12 +1626,11 @@ def deep_within(args, got, want, grads=None):
     if floors.any():
         return False, {"floors_differ": int(floors.sum())}
     nudged = [nudged_up(w) for w in weights]
-    drift = (TAS.afterstate_deep_plain(boards, mover, n, nudged, *rest)
-             - want)[kept]
+    drift = (plain(boards, mover, n, nudged, *rest) - want)[kept]
     tol = max(NUDGE_FACTOR * float(drift.abs().max()) if drift.numel()
               else 0.0, 1e-6)
     gap = float((got - want)[kept].abs().max()) if kept.any() else 0.0
-    tf32 = _plain_tf32(lambda: TAS.afterstate_deep_plain(*args))
+    tf32 = _plain_tf32(lambda: plain(*args))
     read = {"value_gap": gap, "value_gate": tol, "kept": int(kept.sum()),
             "tf32_value_gap": float((tf32 - want)[kept].abs().max())
             if kept.any() else 0.0}
@@ -1639,15 +1640,14 @@ def deep_within(args, got, want, grads=None):
     if grads is None:
         return True, read
     grad, got_g = grads
-    want_g = _deep_grads(TAS.afterstate_deep_plain, args, weights, grad)
-    nudge_g = _deep_grads(TAS.afterstate_deep_plain, args, nudged, grad)
+    want_g = _deep_grads(plain, args, weights, grad)
+    nudge_g = _deep_grads(plain, args, nudged, grad)
 
     def dist(xs, ys):
         return sum(float(((x.double() - y.double()) ** 2).sum())
                    for x, y in zip(xs, ys)) ** 0.5
 
-    tf32_g = _plain_tf32(lambda: _deep_grads(
-        TAS.afterstate_deep_plain, args, weights, grad))
+    tf32_g = _plain_tf32(lambda: _deep_grads(plain, args, weights, grad))
     read["grad_dist"] = dist(got_g, want_g)
     read["grad_gate"] = max(DEEP_GRAD_FACTOR * dist(nudge_g, want_g), 1e-9)
     read["tf32_grad_dist"] = dist(tf32_g, want_g)
@@ -1843,6 +1843,201 @@ def test_deep_pass_rejects_what_the_kernels_do_not_take(card):
         TAS.afterstate_deep(*args[:3], [w.bfloat16() for w in args[3]],
                             *args[4:])
     assert TDN.MAX_WIDTH == 320
+
+
+# --- the routed pass (wildbg's contact and race networks) -------------------
+
+
+def _routed_case(card, case, seed=0):
+    """``_deep_case``'s inputs with two networks of the trunk (contact
+    first) and a share ``race`` of the boards made races (each side's
+    checkers on its own half: the mover's on points 12-23, the opponent's
+    on 0-11, no bar); -1: every board a race, bars emptied on all."""
+    *deep, race = case
+    boards, mover, n, weights, *rest = _deep_case(card, tuple(deep), seed)
+    second = deep_weights(card, seed + 2, deep[2], deep[3])
+    g = torch.Generator(device=card)
+    g.manual_seed(seed + 3)
+    if boards.numel():
+        pick = torch.rand(boards.shape[:2], generator=g, device=card) < (
+            1.0 if race < 0 else race)
+        raced = boards.clone()
+        raced[..., 0:12] = 0
+        raced[..., 36:48] = 0
+        raced[..., 48:50] = 0
+        boards = torch.where(pick[..., None], raced, boards).contiguous()
+    return (boards, mover, n, weights + second, *rest)
+
+
+def _routed_on_card(boards, mover, n, weights, *rest):
+    k = len(weights) // 2
+    return TAS.afterstate_routed(boards, mover, n, weights[:k], weights[k:],
+                                 *rest)
+
+
+# (R, M, trunk, heads, epilogue, opponent, sign, kept, race share): odd
+# counts in both groups, no race board, only race boards, every slot and
+# none kept, no row, and kept counts either side of a 64-board tile
+ROUTED_CASES = [
+    (37, 29, (300, 250, 200), 6, "logits", False, 1.0, "random", 0.3),
+    (301, 255, (300, 250, 200), 1, "masked", True, -1.0, "random", 0.1),
+    (63, 17, (300, 250, 200), 6, "masked", False, 1.0, "random", 0.0),
+    (65, 19, (300, 250, 200), 6, "logits", True, 1.0, "random", -1),
+    (300, 256, (300, 250, 200), 6, "masked", True, -1.0, "capacity", 0.5),
+    (257, 256, (300, 250, 200), 1, "masked", False, 1.0, "none", 0.5),
+    (0, 5, (300, 250, 200), 6, "logits", False, 1.0, "random", 0.5),
+    (40, 8, (136, 256, 257), 6, "masked", False, 1.0, 65, 0.5),
+    (5, 3, (40, 24, 10), 6, "logits", False, 1.0, "random", 0.5),
+]
+
+
+def _routed_id(case):
+    return "-".join(map(str, case[:2])) + "-" + "x".join(
+        map(str, case[2])) + "-" + "-".join(map(str, case[3:]))
+
+
+@pytest.mark.parametrize("case", ROUTED_CASES, ids=_routed_id)
+def test_routed_route_matches_plain(card, case):
+    """``afterstate_route`` (the class split) against its plain version:
+    the floors, each row's count of each class and its slots of each class
+    in order, exactly."""
+    boards, _, n, _, _, _, epilogue, _ = _routed_case(card, case)
+    out, lim, slots = TAS.afterstate_route(boards, n, epilogue)
+    want_out, want_lim, want_slots = TAS.afterstate_route_plain(boards, n,
+                                                                epilogue)
+    kept = TAS._valid(n, boards.shape[1], epilogue)
+    assert bool((out[~kept] == TAS.FLOOR).all())
+    assert bool((want_out[~kept] == TAS.FLOOR).all())
+    assert torch.equal(lim, want_lim)
+    m = boards.shape[1]
+    for c in range(2):
+        for r in range(boards.shape[0]):
+            k = int(want_lim[c, r])
+            assert torch.equal(slots[c, r * m:r * m + k],
+                               want_slots[c, r * m:r * m + k])
+
+
+@pytest.mark.parametrize("case", ROUTED_CASES, ids=_routed_id)
+def test_routed_pass_matches_plain(card, case):
+    """``afterstate_routed`` on the card (the route, then each group's
+    ``afterstate_hidden`` and ``dense_layers``) against its plain version
+    (every slot through both networks, each slot's value from its class's),
+    forward and gradients of both networks, with the launches of each
+    wrapper counted and the tally of kept boards by group."""
+    from mlp_ppo_2ply_p3_tpu_torch import ops
+
+    args = _routed_case(card, case)
+    boards, mover, n, weights, *rest = args
+    want = TAS.afterstate_routed_plain(*args)
+    ops.zero_launches()
+    w = [x.clone().requires_grad_() for x in weights]
+    got = _routed_on_card(boards, mover, n, w, *rest)
+    grad = torch.randn(got.shape, generator=torch.Generator().manual_seed(
+        3)).to(card)
+    got_g = torch.autograd.grad(got, w, grad) if got.numel() else \
+        [torch.zeros_like(x) for x in w]
+    back = 2 * int(got.numel() > 0)
+    assert _launches(ROUTED) == {"afterstate_route": 1,
+                                 "afterstate_hidden": 2, "dense_layers": 2,
+                                 "afterstate_hidden_backward": back,
+                                 "dense_layers_backward": back}
+    _, lim, _ = TAS.afterstate_route_plain(boards, n, rest[2])
+    assert TAS.routed_rows() == {"contact": int(lim[0].sum()),
+                                 "race": int(lim[1].sum())}
+    within, read = deep_within(args, got.detach(), want, (grad, got_g),
+                               plain=TAS.afterstate_routed_plain)
+    assert within, read
+    assert read["tf32_outside"] or read["kept"] == 0, read
+    if int(lim[1].sum()) == 0 and got.numel():   # no race board: no gradient
+        k = len(w) // 2
+        assert all(not bool(g.any()) for g in got_g[k:])
+
+
+def test_routed_pass_with_equal_networks_is_the_deep_pass(card):
+    """With the race network's weights equal to the contact network's, the
+    routed pass gives the deep pass's values within the deep gate."""
+    args = _routed_case(card, ROUTED_CASES[1])
+    boards, mover, n, weights, *rest = args
+    k = len(weights) // 2
+    same = weights[:k] + weights[:k]
+    with torch.no_grad():
+        got = _routed_on_card(boards, mover, n, same, *rest)
+    deep = (boards, mover, n, weights[:k], *rest)
+    within, read = deep_within(deep, got, TAS.afterstate_deep_plain(*deep))
+    assert within, read
+
+
+def test_routed_pass_in_a_cuda_graph(card):
+    """The routed forward is captured into a CUDA graph (both groups'
+    counts stay on the card: no host sync) and its replay gives the eager
+    call's bits."""
+    args = _routed_case(card, ROUTED_CASES[4], seed=7)
+    with torch.no_grad():
+        eager = _routed_on_card(*args)
+        side = torch.cuda.Stream(card)
+        side.wait_stream(torch.cuda.current_stream(card))
+        with torch.cuda.stream(side):
+            _routed_on_card(*args)
+        torch.cuda.current_stream(card).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = _routed_on_card(*args)
+        graph.replay()
+        torch.cuda.synchronize(card)
+    assert torch.equal(captured, eager)
+
+
+def test_routed_pass_makes_no_host_sync(card):
+    """The routed pass, forward and backward, under CUDA's sync debug mode
+    set to raise: both groups' counts stay on the card, so nothing waits
+    for it."""
+    args = _routed_case(card, ROUTED_CASES[1], seed=9)
+    boards, mover, n, weights, *rest = args
+    w = [x.clone().requires_grad_() for x in weights]
+    grad = torch.randn((boards.shape[0], boards.shape[1]),
+                       generator=torch.Generator().manual_seed(4)).to(card)
+    torch.cuda.synchronize(card)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = _routed_on_card(boards, mover, n, w, *rest)
+        grads = torch.autograd.grad(got, w, grad)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(grads) == len(w)
+
+
+def test_routed_train_step_on_card(card):
+    """``wildbg2net4096``'s model through ``learner.train_step`` on the card
+    at a small batch: both groups' kernels run, every leaf but the unused
+    action heads' moves, and the optimizer takes the 24 leaves."""
+    from mlp_ppo_2ply_p3_tpu_torch import ops
+    from mlp_ppo_2ply_p3_tpu_torch.ppo import learner
+    from mlp_ppo_2ply_p3_tpu_torch.utils.config import get_preset
+
+    cfg = get_preset("wildbg2net4096")
+    ppo = dataclasses.replace(cfg.ppo, num_envs=64, t_horizon=16,
+                              num_minibatches=2, num_epochs=1)
+    ts = learner.init_train_state(5, cfg.model, ppo, device=card)
+    es = TE.reset(ts.gen, cfg.env, 64, device=card)
+    # a quarter of the games raced from the start: each side's checkers on
+    # its own half of the board
+    pts = es.points.clone()
+    pts[:16] = 0
+    pts[:16, 0, 20:24] = torch.tensor([4, 4, 4, 3], dtype=pts.dtype,
+                                      device=card)
+    pts[:16, 1, 0:4] = torch.tensor([3, 4, 4, 4], dtype=pts.dtype,
+                                    device=card)
+    es = TE.make_state(pts, es.bar, es.off, es.turn, es.dice, cfg.env)
+    before = [p.detach().clone() for p in ts.model.parameters()]
+    ops.zero_launches()
+    ts, es, metrics = learner.train_step(ts, es, cfg.env, cfg.model, ppo)
+    assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+    assert ops.launches()["adam_update"] == 2
+    rows = TAS.routed_rows()
+    assert rows["contact"] > 0 and rows["race"] > 0, rows
+    moved = {n: not torch.equal(a, b) for a, (n, b) in
+             zip(before, ts.model.named_parameters())}
+    assert moved == {n: "action" not in n for n in moved}
 
 
 # last: a failed capture must leave the card usable, but if it did not,

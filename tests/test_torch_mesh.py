@@ -149,6 +149,33 @@ def test_collectives_in_a_world_of_one(group_of_one):
     assert mesh.broadcast_object({"a": 1}, world) == {"a": 1}
 
 
+def test_gather_stacked_keeps_its_buffer(group_of_one):
+    """``gather_stacked`` gives every rank's tensor stacked in rank order in
+    a buffer kept for the next gather of the same shape and dtype (host
+    and device alike on gloo's CPU): the same storage, the new values."""
+    world = group_of_one
+    x = torch.arange(12, dtype=torch.int8).reshape(3, 4)
+    first = mesh.gather_stacked(x, world)
+    assert first.shape == (1, 3, 4) and torch.equal(first[0], x)
+    ptr = first.data_ptr()
+    second = mesh.gather_stacked(x + 1, world)
+    assert second.data_ptr() == ptr and torch.equal(second[0], x + 1)
+    other = mesh.gather_stacked(x.float(), world)
+    assert other.data_ptr() != ptr and torch.equal(other[0], x.float())
+
+
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_stacked_rows_find_each_row_of_the_rollout(size):
+    """Row t B + j of a (T, B) rollout is, in its shards stacked as
+    (size, T, B / size), at ``learner._stacked_rows``'s index."""
+    t, b = 3, 8
+    full = torch.arange(t * b).reshape(t, b)
+    stacked = torch.stack([mesh.shard_batch(full, mesh.World(
+        r, size, CPU, "gloo"), dim=1) for r in range(size)])
+    rows = learner._stacked_rows(t, b, size, CPU)
+    assert torch.equal(stacked.reshape(-1)[rows], full.reshape(-1))
+
+
 def test_rows_and_shards_without_a_group():
     """The layout itself: rank r of W holds rows [r B / W, (r+1) B / W)."""
     x = torch.arange(16).reshape(8, 2)

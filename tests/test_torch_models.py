@@ -173,15 +173,16 @@ def test_presets_match_jax():
     """Every preset equals the JAX package's, except the 2-ply search's
     chunk sizes, which were sized again for the card (they cannot change
     a result); the port's deep-network fields hold their one-layer
-    defaults there.  The port adds one preset, ``wildbg4096``, which the
-    JAX package has no network for."""
+    defaults there.  The port adds two presets, ``wildbg4096`` and
+    ``wildbg2net4096``, which the JAX package has no network for."""
     chunks = ("game_chunk", "dbl_game_chunk", "eval_slot_chunk")
-    assert set(TCONF.PRESETS) == set(JCONF.PRESETS) | {"wildbg4096"}
+    assert set(TCONF.PRESETS) == set(JCONF.PRESETS) | {"wildbg4096",
+                                                       "wildbg2net4096"}
     for name, jcfg in JCONF.PRESETS.items():
         got = dataclasses.asdict(TCONF.get_preset(name))
         want = dataclasses.asdict(jcfg)
-        assert (got["model"].pop("trunk"), got["model"].pop("outcome")) == (
-            (), False), name
+        assert (got["model"].pop("trunk"), got["model"].pop("outcome"),
+                got["model"].pop("race")) == ((), False, False), name
         for d in (got, want):
             for k in chunks:
                 d["search"].pop(k)
