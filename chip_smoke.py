@@ -1001,6 +1001,60 @@ def deep_least_ms(boards, n, widths, passes):
     return 1e3 * total, n_kept
 
 
+class WholeRows:
+    """Wraps ``afterstate.<name>`` (``afterstate_deep`` or
+    ``afterstate_routed``) for one train_step: the whole rows of each
+    call's inputs by the plain rule (``collapsed_plain``), and for a routed
+    pass each class's kept boards under the former kept set (every slot
+    of a ``logits`` row with n <= 0), summed on the card (read once,
+    after the step)."""
+
+    NAMES = {"afterstate_deep": ("boards", "mover", "n", "weights",
+                                 "rewards", "opponent", "epilogue", "sign"),
+             "afterstate_routed": ("boards", "mover", "n", "contact", "race",
+                                   "rewards", "opponent", "epilogue",
+                                   "sign")}
+
+    def __init__(self, torch, afterstate, name):
+        self.torch, self.afterstate, self.name = torch, afterstate, name
+        self.whole, self.former = [], []
+
+    def __enter__(self):
+        from mlp_ppo_2ply_p3_tpu_torch.core import board as Bd
+
+        fn, ae, torch = getattr(self.afterstate, self.name), self.afterstate, \
+            self.torch
+        names = self.NAMES[self.name]
+
+        def wrapper(*args, **kwargs):
+            got = dict(zip(names, args), **kwargs)
+            boards, n = got["boards"], got["n"]
+            epilogue = got.get("epilogue", "logits")
+            self.whole.append(ae.collapsed_plain(boards, n, epilogue).sum())
+            if self.name == "afterstate_routed":
+                valid = ae._valid(n, boards.shape[1], epilogue)
+                race = Bd.is_race(boards)
+                self.former.append(torch.stack([(valid & ~race).sum(),
+                                                (valid & race).sum()]))
+            return fn(*args, **kwargs)
+
+        self.saved = fn
+        setattr(self.afterstate, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.afterstate, self.name, self.saved)
+
+    def counts(self):
+        """(whole rows, the former kept boards by class or None)."""
+        whole = int(sum(int(x) for x in self.whole))
+        former = None
+        if self.former:
+            former = dict(zip(self.afterstate.GROUPS, [
+                int(x) for x in self.torch.stack(self.former).sum(0)]))
+        return whole, former
+
+
 def deep_phase(torch, afterstate, dense, bg_env, learner, get_preset, dev):
     """wildbg4096's deep pass on the card: at its first rollout step and
     its first minibatch, the kernels against the plain version (values
@@ -1011,7 +1065,8 @@ def deep_phase(torch, afterstate, dense, bg_env, learner, get_preset, dev):
     launches show that it went through them: the first layer's deep form
     and the dense layers once a rollout step and a minibatch step, their
     backwards once a minibatch step, the shallow afterstate kernels
-    never."""
+    never, and whose tally of whole rows (each kept as one board) equals
+    the plain rule's count over its calls' inputs."""
     from benchmark.yardstick import deep_work
 
     from mlp_ppo_2ply_p3_tpu_torch import ops
@@ -1035,6 +1090,7 @@ def deep_phase(torch, afterstate, dense, bg_env, learner, get_preset, dev):
         (w1, b1), layers, head = afterstate._split(weights)
         out_, h1, elem, count = afterstate.afterstate_hidden(
             *args[:3], w1, b1, False, "logits")
+        row.update(kept_check(torch, afterstate, *args[:3], elem, count))
         row["hidden_ms"] = time_ms(lambda: afterstate.afterstate_hidden(
             *args[:3], w1, b1, False, "logits"), 5)
         row["dense_ms"] = time_ms(lambda: dense.dense_layers(
@@ -1077,6 +1133,8 @@ def deep_phase(torch, afterstate, dense, bg_env, learner, get_preset, dev):
         (w1, b1), layers, head = afterstate._split(weights)
         out_, h1, elem, count = afterstate.afterstate_hidden(
             after, mturn, mn, w1, b1, False, "logits")
+        row.update(kept_check(torch, afterstate, after, mturn, mn, elem,
+                              count))
         acts = dense.dense_layers(h1, elem, count, out_, layers, head,
                                   save=True)
         row["dense_fwd_ms"] = time_ms(lambda: dense.dense_layers(
@@ -1093,10 +1151,17 @@ def deep_phase(torch, afterstate, dense, bg_env, learner, get_preset, dev):
     zero_launches()
     torch.cuda.synchronize()
     t0 = time.time()
-    ts, es, metrics = learner.train_step(ts, es, cfg.env, cfg.model, cfg.ppo)
+    with WholeRows(torch, afterstate, "afterstate_deep") as seen:
+        ts, es, metrics = learner.train_step(ts, es, cfg.env, cfg.model,
+                                             cfg.ppo)
     torch.cuda.synchronize()
     out["train_step_s"] = time.time() - t0
     out["launches"] = launches()
+    out["collapsed_rows"] = afterstate.collapsed_rows()
+    out["whole_rows_plain"], _ = seen.counts()
+    check(out["collapsed_rows"] == out["whole_rows_plain"] > 0,
+          f"wildbg4096 train_step: {out['collapsed_rows']} whole rows "
+          f"tallied, {out['whole_rows_plain']} by the plain rule")
     steps = cfg.ppo.num_epochs * cfg.ppo.num_minibatches
     calls = cfg.ppo.t_horizon + steps
     expect = {"afterstate_hidden": calls, "dense_layers": calls,
@@ -1116,8 +1181,31 @@ def deep_phase(torch, afterstate, dense, bg_env, learner, get_preset, dev):
     return out
 
 
+def kept_check(torch, afterstate, boards, mover, n, elem, count):
+    """The emit's count and elements (a whole row's board marked ``~(r
+    m)``) against the plain kept order exactly; {"kept_boards", "whole",
+    "slots_kept"}: the boards the kernels work on, the whole rows, and
+    the slots the epilogue keeps (what the kept boards were before whole
+    rows)."""
+    want = afterstate._kept_order(boards, n, "logits")
+    c = want.shape[0]
+    check(int(count) == c and bool(torch.equal(elem[:c], want)),
+          f"deep emit: {int(count)} kept boards or their order off the "
+          f"plain kept order's {c}")
+    return {"kept_boards": c,
+            "whole": int(afterstate.collapsed_plain(boards, n,
+                                                    "logits").sum()),
+            "slots_kept": int(afterstate._valid(n, boards.shape[1],
+                                                "logits").sum())}
+
+
 def log_deep(out):
     r, mb = out["rollout_step"], out["minibatch"]
+    log(f"whole rows (wildbg4096): rollout step {r['kept_boards']} kept "
+        f"boards of {r['slots_kept']} kept slots ({r['whole']} whole rows); "
+        f"first minibatch {mb['kept_boards']} of {mb['slots_kept']} "
+        f"({mb['whole']} whole); train_step's tally {out['collapsed_rows']}"
+        f" whole rows (plain rule {out['whole_rows_plain']})")
     log(f"deep pass (wildbg4096): rollout step {r['kept']} kept boards, "
         f"value gap {r['value_gap']:.2e} (gate {r['value_gate']:.2e}, TF32 "
         f"{r['tf32_value_gap']:.2e}), afterstate_hidden {r['hidden_ms']:.4f}"
@@ -1139,9 +1227,10 @@ def log_deep(out):
 
 
 def route_check(torch, afterstate, boards, n, route):
-    """The route's floors, each row's count of each class and its slots of
-    each class in slot order against ``afterstate_route_plain``, exactly;
-    returns the kept boards of each class."""
+    """The route's floors, each row's entry of each class (its count, or
+    ``WHOLE`` for a whole row's class) and its slots of each class in slot
+    order against ``afterstate_route_plain``, exactly; returns the kept
+    boards of each class (a whole row's one)."""
     out, lim, slots = route
     _, want_lim, want_slots = afterstate.afterstate_route_plain(
         boards, n, "logits")
@@ -1151,11 +1240,12 @@ def route_check(torch, afterstate, boards, n, route):
           "route: a slot not kept lacks the floor")
     check(bool(torch.equal(lim, want_lim)),
           "route: a row's count of a class differs from the plain version's")
-    used = torch.arange(m, device=boards.device) < lim[..., None]
+    kept = torch.where(lim == afterstate.WHOLE, 1, lim)
+    used = torch.arange(m, device=boards.device) < kept[..., None]
     check(bool(torch.equal(slots.view(-1, r, m)[used],
                            want_slots.view(-1, r, m)[used])),
           "route: a class's slots differ from the plain version's")
-    return [int(x) for x in lim.sum(1).tolist()]
+    return [int(x) for x in kept.sum(1).tolist()]
 
 
 def routed_emit_check(torch, afterstate, boards, mover, route, weights):
@@ -1215,7 +1305,9 @@ def routed_phase(torch, afterstate, bg_env, learner, get_preset, dev):
     second launch, times (CUDA events) beside least times; then one timed
     train_step whose launches show the route once a pass, every other
     deep wrapper once a group, the shallow afterstate kernels never, and
-    whose tally reaches both networks."""
+    whose tally reaches both networks, whose tally of whole rows equals
+    the plain rule's count over its calls' inputs, and whose kept boards by
+    network are those before whole rows less M - 1 a whole row."""
     from mlp_ppo_2ply_p3_tpu_torch import ops
 
     cfg = get_preset("wildbg2net4096")
@@ -1296,11 +1388,22 @@ def routed_phase(torch, afterstate, bg_env, learner, get_preset, dev):
     zero_launches()
     torch.cuda.synchronize()
     t0 = time.time()
-    ts, es, metrics = learner.train_step(ts, es, cfg.env, cfg.model, cfg.ppo)
+    with WholeRows(torch, afterstate, "afterstate_routed") as seen:
+        ts, es, metrics = learner.train_step(ts, es, cfg.env, cfg.model,
+                                             cfg.ppo)
     torch.cuda.synchronize()
     out["train_step_s"] = time.time() - t0
     out["launches"] = launches()
     out["routed_rows"] = afterstate.routed_rows()
+    out["collapsed_rows"] = afterstate.collapsed_rows()
+    out["whole_rows_plain"], out["former_rows"] = seen.counts()
+    check(out["collapsed_rows"] == out["whole_rows_plain"] > 0,
+          f"wildbg2net4096 train_step: {out['collapsed_rows']} whole rows "
+          f"tallied, {out['whole_rows_plain']} by the plain rule")
+    check(sum(out["former_rows"].values()) - sum(out["routed_rows"].values())
+          == out["whole_rows_plain"] * (cfg.env.movegen.max_moves - 1),
+          f"wildbg2net4096 train_step: kept boards by network "
+          f"{out['routed_rows']}, before whole rows {out['former_rows']}")
     steps = cfg.ppo.num_epochs * cfg.ppo.num_minibatches
     calls = cfg.ppo.t_horizon + steps
     groups = len(afterstate.GROUPS)
@@ -1348,6 +1451,13 @@ def log_routed(out):
         f"launches {json.dumps(out['launches'])}, kept boards by network "
         f"{json.dumps(rows)} (race {rows['race'] / max(sum(rows.values()), 1):.3f})"
         f", peak {out['peak_gb']:.1f} GB")
+    former = out["former_rows"]
+    log(f"whole rows (wildbg2net4096): train_step's tally "
+        f"{out['collapsed_rows']} (plain rule {out['whole_rows_plain']}); "
+        f"kept boards by network before whole rows {json.dumps(former)} "
+        f"(race {former['race'] / max(sum(former.values()), 1):.3f}), after "
+        f"{json.dumps(rows)} (race "
+        f"{rows['race'] / max(sum(rows.values()), 1):.3f})")
 
 
 # --- phase 4 -----------------------------------------------------------------

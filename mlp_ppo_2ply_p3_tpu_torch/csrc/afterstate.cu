@@ -112,6 +112,27 @@
 //   each class's kept slots out row by row; the emit (kRoute) and the deep
 //   backward (kRouted) then walk one class's kept boards as their global
 //   order, a launch a network, the single network's code unchanged.
+// - A whole row is one kept board.  Under the logits epilogue a row with n
+//   <= 0 keeps every slot, and movegen fills such a row (no legal move)
+//   with one board, its zero tail, in all m slots: m equal values, whose
+//   cotangents (log-softmax and entropy terms) sum to about nothing.  A row
+//   with n <= 0 whose m boards all equal slot 0, byte for byte, is whole:
+//   it keeps slot 0 alone, the forward writes that board's value (sign
+//   included) into each of the row's m slots (a warp a row, coalesced), and
+//   the backward gives it the row's m cotangents summed in float32 in a
+//   fixed order (afterstate_whole_grad_kernel before the backward, a warp
+//   a row: each lane its slots lane, lane + 32, ..., then a butterfly), the
+//   gradient of m equal values being that of one with the summed
+//   cotangent.  A row whose boards differ keeps all m, as before.
+//   afterstate_collapse_kernel (a warp a row, reading only the rows with n
+//   <= 0) writes each row's entry of lim: its kept boards, or kWhole; the
+//   route kernel decides the same from the bytes it reads anyway.  Every
+//   form walks lim as the routed forms walk a class's counts; the deep
+//   forms mark a whole row's board in elem as ~(r m), for csrc/dense.cu's
+//   head, which writes and reads the row's m slots.  Both add the whole
+//   rows they find to a tally on the card.  The masked and min epilogues
+//   keep nothing of a row with n <= 0, so they take no lim, and the
+//   forward's instances for them (kLim false) carry none of this code.
 // - Deterministic: every board's value is computed the same way wherever
 //   it runs, the min is an atomic min on the float's bits (exact in any
 //   order; a first kernel writes the +1e9) or, past 256 units, a warp's
@@ -130,6 +151,8 @@
 
 #include <algorithm>
 #include <cstdint>
+
+#include "whole_rows.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -178,8 +201,9 @@ constexpr size_t kSmemTileF = 4ull * (2 * kTile + kWarps * kTile + 2 * kTile +
                                       kTile);  // offv ysum yx dval
 constexpr size_t kSmemTileI = 4ull * 4 * 2 * kTile;   // e row mover grad x2
 constexpr size_t kSmemWin = 4ull * (2 * kWindow + 1 + 16);
+constexpr size_t kSmemWhole = 4ull * (2 * kTile + kWindow);  // the flags
 constexpr size_t kSmem = kSmemW + kSmemX + kSmemRing + kSmemUnit +
-                         kSmemTileF + kSmemTileI + kSmemWin;
+                         kSmemTileF + kSmemTileI + kSmemWin + kSmemWhole;
 
 struct Args {
   const int8_t* boards;
@@ -190,14 +214,18 @@ struct Args {
   const void* wh;
   const void* bh;
   const float* grad;   // backward only
+  const float* wgrad;  // backward: each whole row's m entries of grad summed
   float* out;          // forward: the output; backward: the partials
   float* part;         // the forward past 256 units: (groups, rows m)
   float* h1;           // kEmit: (kept capacity, ldh) relu(pre) of each board
   int* elem;           // kEmit: each kept board's element r m + s
   int* count;          // kEmit: the number of kept boards
   const float* dpre;   // the deep backward: fc1's dpre, (capacity, ldh)
-  const int* rlim;     // a routed group: each row's kept boards of the class
-  const int* rslot;    // and its kept slots of the class, row r at r m ..
+  const int* lim;      // each row's entry (kWhole, or its kept boards): the
+                       // collapse pass's (logits, else null), or a routed
+                       // group's of its class (the route kernel's)
+  const int* rslot;    // a routed group: each row's kept slots of the class,
+                       // row r at r m ..
   unsigned long long* tally;  // kRoute: the group's kept boards, summed
   int ldh;
   int rows, m, hidden, opponent, epilogue;
@@ -224,8 +252,10 @@ struct Smem {
   int* trow;        // [2][64]
   int* tmv;         // [2][64] mover
   float* tgrad;     // [2][64]
+  int* twhole;      // [2][64] 1: the board stands for its whole row
   int* woff;        // [257] the window's offsets
   int* wmv;         // [256] the window's movers
+  int* wwhole;      // [256] 1: the window's row is whole
   int* sc;          // [16] scan partials, [8] start row, [9] its offset,
                     // [10] kept boards, [11] the window's first row
 };
@@ -258,6 +288,8 @@ __device__ __forceinline__ Smem carve(unsigned char* p) {
   s.woff = i;
   s.wmv = i + kWindow + 1;
   s.sc = s.wmv + kWindow;
+  s.twhole = s.sc + 16;
+  s.wwhole = s.twhole + 2 * kTile;
   return s;
 }
 
@@ -267,11 +299,23 @@ __device__ __forceinline__ int row_limit(int n, int m, int epilogue) {
   return n < 0 ? 0 : (n > m ? m : n);
 }
 
-// kRouted: the row's kept boards of the routed group's class.
-template <bool kRouted = false>
-__device__ __forceinline__ int limit_of(const Args& a, int r) {
-  if constexpr (kRouted) return a.rlim[r];
+// A row's entry in lim where it is whole: one board, slot 0, for all m.
+constexpr int kWhole = -1;
+
+// The row's entry: lim's where there is one (a routed group's always), else
+// its slot limit.  kLim false: a.lim is never set (the forward's masked and
+// min forms, compiled without the whole rows' code).
+template <bool kRouted = false, bool kLim = true>
+__device__ __forceinline__ int lim_of(const Args& a, int r) {
+  if (kRouted || (kLim && a.lim != nullptr)) return a.lim[r];
   return row_limit(a.n[r], a.m, a.epilogue);
+}
+
+// The row's kept boards (kRouted: of the routed group's class).
+template <bool kRouted = false, bool kLim = true>
+__device__ __forceinline__ int limit_of(const Args& a, int r) {
+  const int l = lim_of<kRouted, kLim>(a, r);
+  return l == kWhole ? 1 : l;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -376,19 +420,17 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* part,
   return base + x - v;
 }
 
-// Every block's view of the kept boards: their number N (sc[10]) and, for
-// the block's tiles [t0, t1) of ceil(N / 64) cut into `groups` contiguous
-// ranges, the row holding board 64 t0 and the number of kept boards before
-// that row (sc[8], sc[9]).  kRouted: of a routed group's kept boards.
-template <bool kRouted = false>
-__device__ void locate(const Args& a, const Smem& s, int group, int groups,
-                       int& t0, int& t1) {
-  const int per = (a.rows + kThreads - 1) / kThreads;
-  const int r_lo = min(a.rows, (int)threadIdx.x * per);
-  const int r_hi = min(a.rows, r_lo + per);
+// The block's rows [r_lo, r_hi) of a thread: the sum of their kept boards
+// (limit(r) each), then, where board g0 lies among them, its row and the
+// kept boards before that row (sc[8], sc[9]); base is the thread's first
+// kept board, total all the rows'.
+template <class Limit>
+__device__ __forceinline__ void locate_rows(const Smem& s, Limit limit,
+                                            int r_lo, int r_hi, int group,
+                                            int groups, int& t0, int& t1) {
   int sum = 0;
 #pragma unroll 16
-  for (int r = r_lo; r < r_hi; ++r) sum += limit_of<kRouted>(a, r);
+  for (int r = r_lo; r < r_hi; ++r) sum += limit(r);
   int total;
   const int base = block_exclusive_scan(sum, s.sc, total);
   const long long tiles = (total + kTile - 1) / kTile;
@@ -399,7 +441,7 @@ __device__ void locate(const Args& a, const Smem& s, int group, int groups,
     int off = base, row = r_lo, row_off = base;
 #pragma unroll 16
     for (int r = r_lo; r < r_hi; ++r) {   // no break: the loads overlap
-      const int l = limit_of<kRouted>(a, r);
+      const int l = limit(r);
       if (off <= g0 && g0 < off + l) {
         row = r;
         row_off = off;
@@ -410,24 +452,53 @@ __device__ void locate(const Args& a, const Smem& s, int group, int groups,
     s.sc[9] = row_off;
   }
   if (threadIdx.x == 0) s.sc[10] = total;
+}
+
+// Every block's view of the kept boards: their number N (sc[10]) and, for
+// the block's tiles [t0, t1) of ceil(N / 64) cut into `groups` contiguous
+// ranges, the row holding board 64 t0 and the number of kept boards before
+// that row (sc[8], sc[9]).  kRouted: of a routed group's kept boards.  The
+// choice between lim and the slot limits is made once, outside the loops,
+// whose loads then overlap as they would with either alone.
+template <bool kRouted = false, bool kLim = true>
+__device__ void locate(const Args& a, const Smem& s, int group, int groups,
+                       int& t0, int& t1) {
+  const int per = (a.rows + kThreads - 1) / kThreads;
+  const int r_lo = min(a.rows, (int)threadIdx.x * per);
+  const int r_hi = min(a.rows, r_lo + per);
+  if (kRouted || (kLim && a.lim != nullptr)) {
+    const auto by_lim = [&](int r) {
+      const int l = a.lim[r];
+      return l == kWhole ? 1 : l;
+    };
+    locate_rows(s, by_lim, r_lo, r_hi, group, groups, t0, t1);
+  } else {
+    const auto by_n = [&](int r) {
+      return row_limit(a.n[r], a.m, a.epilogue);
+    };
+    locate_rows(s, by_n, r_lo, r_hi, group, groups, t0, t1);
+  }
   __syncthreads();
 }
 
 // Rows row0 .. row0 + 255 (past the end: empty) into the window, their first
 // kept boards' numbers from off0 on.
-template <bool kRouted = false>
+template <bool kRouted = false, bool kLim = true>
 __device__ void load_window(const Args& a, const Smem& s, int row0,
                             int off0) {
   const int r = row0 + (int)threadIdx.x;
-  int l = 0, mv = 0;
+  int l = 0, mv = 0, whole = 0;
   if (r < a.rows) {
-    l = limit_of<kRouted>(a, r);
+    l = lim_of<kRouted, kLim>(a, r);
+    whole = l == kWhole;
+    l = whole ? 1 : l;
     mv = a.mover[r];
   }
   int total;
   const int ex = block_exclusive_scan(l, s.sc, total);
   s.woff[threadIdx.x] = off0 + ex;
   s.wmv[threadIdx.x] = mv;
+  if constexpr (kRouted || kLim) s.wwhole[threadIdx.x] = whole;
   if (threadIdx.x == 0) {
     s.woff[kWindow] = off0 + total;
     s.sc[11] = row0;
@@ -439,7 +510,7 @@ __device__ void load_window(const Args& a, const Smem& s, int row0,
 // element, row and mover, and its bytes (and the backward's gradient)
 // copied in by cp.async (not waited for).  kRouted: the j-th kept board of
 // a row is its j-th kept slot of the group's class.
-template <bool kRouted = false>
+template <bool kRouted = false, bool kLim = true>
 __device__ void map_tile(const Args& a, const Smem& s, int buf, int g,
                          int cnt, bool backward) {
   const int b = threadIdx.x;
@@ -449,7 +520,7 @@ __device__ void map_tile(const Args& a, const Smem& s, int buf, int g,
     if (g + done >= wend) {   // the window is spent: the next 256 rows
       const int row0 = s.sc[11] + kWindow;
       __syncthreads();
-      load_window<kRouted>(a, s, row0, wend);
+      load_window<kRouted, kLim>(a, s, row0, wend);
       continue;
     }
     const int upto = min(cnt, wend - g);
@@ -471,6 +542,7 @@ __device__ void map_tile(const Args& a, const Smem& s, int buf, int g,
       s.te[k] = e;
       s.trow[k] = row;
       s.tmv[k] = s.wmv[lo];
+      if constexpr (kRouted || kLim) s.twhole[k] = s.wwhole[lo];
       const int8_t* src = a.boards + (size_t)e * kBoard;
       int8_t* dst = s.ring + k * kBoard;
       if (a.aligned) {
@@ -479,7 +551,10 @@ __device__ void map_tile(const Args& a, const Smem& s, int buf, int g,
       } else {
         for (int q = 0; q < kBoard; ++q) dst[q] = src[q];
       }
-      if (backward) cp_async4(s.tgrad + k, a.grad + e);
+      if (backward) {   // a whole row's: its m cotangents summed
+        const bool whole = (kRouted || kLim) && s.wwhole[lo];
+        cp_async4(s.tgrad + k, whole ? a.wgrad + row : a.grad + e);
+      }
     }
     done = upto;
     if (done >= cnt) break;
@@ -490,6 +565,7 @@ __device__ void map_tile(const Args& a, const Smem& s, int buf, int g,
     s.te[k] = -1;
     s.trow[k] = -1;
     s.tmv[k] = 0;
+    if constexpr (kRouted || kLim) s.twhole[k] = 0;
   }
 }
 
@@ -791,15 +867,18 @@ __device__ __forceinline__ void halve(float (&v)[16], int upper, int mask) {
 }
 
 // Blocks write the floor of the slots that their share of the rows does not
-// keep (logits and masked): 256 rows' limits at a time into the window's
-// array (free until the window is loaded), then the stores.
+// keep (logits and masked; a whole row's slots all get its value): 256
+// rows' limits at a time into the window's array (free until the window is
+// loaded), then the stores.
+template <bool kLim>
 __device__ void write_floors(const Args& a, const Smem& s, int block,
                              int blocks) {
   const int r0 = (int)((long long)a.rows * block / blocks);
   const int r1 = (int)((long long)a.rows * (block + 1) / blocks);
   for (int c0 = r0; c0 < r1; c0 += kThreads) {
     const int r = c0 + (int)threadIdx.x;
-    s.woff[threadIdx.x] = r < r1 ? limit_of(a, r) : a.m;
+    const int l = r < r1 ? lim_of<false, kLim>(a, r) : a.m;
+    s.woff[threadIdx.x] = l == kWhole ? a.m : l;
     __syncthreads();
     const int cnt = min(kThreads, r1 - c0);
     for (int i = 0; i < cnt; ++i) {
@@ -816,8 +895,9 @@ __device__ void write_floors(const Args& a, const Smem& s, int block,
 // of two blocks, rank q with units 128 q .. 128 q + 127; kSplit: block (p,
 // q) takes tile range p for units 128 q .. 128 q + 127 and writes the
 // group's head partials into a.part (afterstate_finish_kernel ends the
-// pass).
-template <int kMode, bool kBf16>
+// pass).  kLim: a.lim may be set (the logits epilogue's whole rows, and every
+// deep form); false: the masked and min forms, without the whole rows' code.
+template <int kMode, bool kBf16, bool kLim>
 __global__ void __launch_bounds__(kThreads, 1)
 afterstate_eval_kernel(Args a) {
   constexpr bool kRouted_ = kMode == kRoute;
@@ -834,14 +914,14 @@ afterstate_eval_kernel(Args a) {
   const int groups = kPair_ ? (int)(gridDim.x >> 1) : (int)gridDim.x;
 
   if (!kSplit_ && a.epilogue != kMin) {
-    write_floors(a, s, blockIdx.x, gridDim.x);
+    write_floors<kLim>(a, s, blockIdx.x, gridDim.x);
   }
   // a routed group's floors are the route kernel's
   if (kEmit_ && !kRouted_ && blockIdx.y == 0) {
-    write_floors(a, s, blockIdx.x, gridDim.x);
+    write_floors<kLim>(a, s, blockIdx.x, gridDim.x);
   }
   int t0, t1;
-  locate<kRouted_>(a, s, group, groups, t0, t1);
+  locate<kRouted_, kLim>(a, s, group, groups, t0, t1);
   if (kEmit_ && blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
     *a.count = s.sc[10];
     if constexpr (kRouted_) {
@@ -851,9 +931,9 @@ afterstate_eval_kernel(Args a) {
   if (t0 >= t1) return;   // both blocks of a pair alike
   const int n_kept = s.sc[10];
   // the first tile's boards fly while W1 is staged
-  load_window<kRouted_>(a, s, s.sc[8], s.sc[9]);
-  map_tile<kRouted_>(a, s, 0, t0 * kTile, min(kTile, n_kept - t0 * kTile),
-                     false);
+  load_window<kRouted_, kLim>(a, s, s.sc[8], s.sc[9]);
+  map_tile<kRouted_, kLim>(a, s, 0, t0 * kTile,
+                           min(kTile, n_kept - t0 * kTile), false);
   cp_async_commit();
   stage_weights<kBf16>(a, s, kUnits * rank);
   cp_async_wait<0>();
@@ -882,7 +962,8 @@ afterstate_eval_kernel(Args a) {
     __syncthreads();
     if (tile + 1 < t1) {
       const int g1 = (tile + 1) * kTile;
-      map_tile<kRouted_>(a, s, buf ^ 1, g1, min(kTile, n_kept - g1), false);
+      map_tile<kRouted_, kLim>(a, s, buf ^ 1, g1, min(kTile, n_kept - g1),
+                               false);
       cp_async_commit();
     }
     float acc[32];
@@ -904,9 +985,13 @@ afterstate_eval_kernel(Args a) {
           }
         }
       }
-      if (rank == 0 && threadIdx.x < kTile) {
-        const int e = s.te[buf * kTile + threadIdx.x];
-        if (e >= 0) a.elem[(size_t)tile * kTile + threadIdx.x] = e;
+      if (rank == 0 && threadIdx.x < kTile) {   // a whole row's as ~e
+        const int k = buf * kTile + threadIdx.x;
+        const int e = s.te[k];
+        if (e >= 0) {
+          const bool whole = (kRouted_ || kLim) && s.twhole[k];
+          a.elem[(size_t)tile * kTile + threadIdx.x] = whole ? ~e : e;
+        }
       }
       cp_async_wait<0>();   // as below
       __syncthreads();
@@ -973,7 +1058,13 @@ afterstate_eval_kernel(Args a) {
         y += bias;
       }
       if (a.epilogue != kMin) {
-        if (e >= 0) a.out[e] = a.sign * y;
+        if constexpr (kLim) {
+          const bool whole = e >= 0 && s.twhole[k] != 0;
+          if (e >= 0 && !whole) a.out[e] = a.sign * y;
+          write_whole_rows(a.out, a.m, e, whole, a.sign * y);
+        } else {
+          if (e >= 0) a.out[e] = a.sign * y;
+        }
       } else {
         // the tile's boards are in row order: a segmented min over the
         // warp, then one atomic a row and warp
@@ -1009,8 +1100,9 @@ __device__ __forceinline__ float split_value(const Args& a, int groups,
 }
 
 // The epilogue past 256 units: logits and masked a thread an element (the
-// floor where the row keeps none), the min a warp a row (+1e9 where the
-// row keeps none, as the fill and the atomics give it below 256 units).
+// floor where the row keeps none, slot 0's value in a whole row), the min
+// a warp a row (+1e9 where the row keeps none, as the fill and the atomics
+// give it below 256 units).
 template <bool kBf16>
 __global__ void afterstate_finish_kernel(Args a, int groups) {
   const float bias = weight<kBf16>(a.bh, 0);
@@ -1018,8 +1110,10 @@ __global__ void afterstate_finish_kernel(Args a, int groups) {
   if (a.epilogue != kMin) {
     if (i >= (size_t)a.rows * a.m) return;
     const int r = (int)(i / a.m), sl = (int)(i - (size_t)r * a.m);
-    a.out[i] = sl < limit_of(a, r)
-                   ? a.sign * split_value<kBf16>(a, groups, i, bias)
+    const int l = lim_of(a, r);
+    const size_t e = l == kWhole ? (size_t)r * a.m : i;
+    a.out[i] = l == kWhole || sl < l
+                   ? a.sign * split_value<kBf16>(a, groups, e, bias)
                    : kFloor;
     return;
   }
@@ -1280,70 +1374,150 @@ __global__ void afterstate_fill_kernel(float* __restrict__ out, int n,
   if (i < n) out[i] = v;
 }
 
-// Whether the canonical board at b is a race: the mover's rearmost checker
-// past every opponent checker, a checker on the bar rearmost for its side
-// (the mover's at point -1, the opponent's at 24), a side with no checker
-// left meeting none (core/board.py::is_race).  aligned: b is 4-byte
-// aligned, read as words.
-__device__ __forceinline__ bool board_is_race(const int8_t* b, int aligned) {
-  unsigned mine = 0u, theirs = 0u;   // bit i: point i holds a checker
-  int my_bar, opp_bar;
+// The 13 words of the board at b (aligned: b is 4-byte aligned, read as
+// words; else byte by byte).
+__device__ __forceinline__ void load_board(const int8_t* b, int aligned,
+                                           uint32_t (&v)[13]) {
   if (aligned) {
     const uint32_t* w = reinterpret_cast<const uint32_t*>(b);
-    uint32_t v[13];
 #pragma unroll
     for (int k = 0; k < 13; ++k) v[k] = w[k];
-#pragma unroll
-    for (int i = 0; i < 48; ++i) {
-      const unsigned occ = (int8_t)(v[i >> 2] >> (8 * (i & 3))) > 0;
-      if (i < 24) {
-        mine |= occ << i;
-      } else {
-        theirs |= occ << (i - 24);
-      }
-    }
-    my_bar = (int8_t)v[12];
-    opp_bar = (int8_t)(v[12] >> 8);
   } else {
-    for (int i = 0; i < 24; ++i) {
-      mine |= (unsigned)(b[i] > 0) << i;
-      theirs |= (unsigned)(b[24 + i] > 0) << i;
+#pragma unroll
+    for (int k = 0; k < 13; ++k) {
+      v[k] = (uint32_t)(uint8_t)b[4 * k] |
+             (uint32_t)(uint8_t)b[4 * k + 1] << 8 |
+             (uint32_t)(uint8_t)b[4 * k + 2] << 16 |
+             (uint32_t)(uint8_t)b[4 * k + 3] << 24;
     }
-    my_bar = b[48];
-    opp_bar = b[49];
   }
+}
+
+// Whether the canonical board of words v is a race: the mover's rearmost
+// checker past every opponent checker, a checker on the bar rearmost for its
+// side (the mover's at point -1, the opponent's at 24), a side with no
+// checker left meeting none (core/board.py::is_race).
+__device__ __forceinline__ bool board_is_race(const uint32_t (&v)[13]) {
+  unsigned mine = 0u, theirs = 0u;   // bit i: point i holds a checker
+#pragma unroll
+  for (int i = 0; i < 48; ++i) {
+    const unsigned occ = (int8_t)(v[i >> 2] >> (8 * (i & 3))) > 0;
+    if (i < 24) {
+      mine |= occ << i;
+    } else {
+      theirs |= occ << (i - 24);
+    }
+  }
+  const int my_bar = (int8_t)v[12];
+  const int opp_bar = (int8_t)(v[12] >> 8);
   const int my_min = my_bar > 0 ? -1 : mine ? __ffs(mine) - 1 : 99;
   const int opp_max = opp_bar > 0 ? 24 : theirs ? 31 - __clz(theirs) : -99;
   return my_min > opp_max;
+}
+
+// Whether the words v equal ref.
+__device__ __forceinline__ bool same_board(const uint32_t (&v)[13],
+                                           const uint32_t (&ref)[13]) {
+  bool same = true;
+#pragma unroll
+  for (int k = 0; k < 13; ++k) same &= v[k] == ref[k];
+  return same;
+}
+
+constexpr int kRowWarps = 8;   // rows (warps) a block of the row kernels
+
+// Each row's entry of lim under the logits epilogue: kWhole where n <= 0
+// and all m boards equal slot 0, byte for byte, else its slot limit (m where
+// n <= 0); each whole row adds one to tally.  A warp a row, 32 boards at a
+// time, stopping at the first board that differs; rows with n > 0 read n
+// alone.
+__global__ void __launch_bounds__(32 * kRowWarps)
+afterstate_collapse_kernel(const int8_t* __restrict__ boards,
+                           const int32_t* __restrict__ n,
+                           int* __restrict__ lim,
+                           unsigned long long* __restrict__ tally, int rows,
+                           int m, int aligned) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (r >= rows) return;   // the whole warp
+  const int nr = n[r];
+  bool whole = nr <= 0 && m > 0;
+  if (whole) {
+    const int8_t* row = boards + (size_t)r * m * kBoard;
+    uint32_t ref[13];
+    load_board(row, aligned, ref);
+    for (int s0 = 0; s0 < m && whole; s0 += 32) {
+      const int sl = s0 + lane;
+      bool same = true;
+      if (sl < m) {
+        uint32_t v[13];
+        load_board(row + (size_t)sl * kBoard, aligned, v);
+        same = same_board(v, ref);
+      }
+      whole = __all_sync(kFull, same);
+    }
+  }
+  if (lane == 0) {
+    lim[r] = whole ? kWhole : row_limit(nr, m, kLogits);
+    if (whole) atomicAdd(tally, 1ull);
+  }
+}
+
+// Each whole row's (lim kWhole) m entries of grad summed into wgrad[r], the
+// backward's cotangent of its one board: a warp a row (warp_row_sum, a
+// fixed order); other rows read lim alone.
+__global__ void __launch_bounds__(32 * kRowWarps)
+afterstate_whole_grad_kernel(const float* __restrict__ grad,
+                             const int* __restrict__ lim,
+                             float* __restrict__ wgrad, int rows, int m) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (r >= rows || lim[r] != kWhole) return;   // the whole warp
+  const float sum = warp_row_sum(grad + (size_t)r * m, m);
+  if (lane == 0) wgrad[r] = sum;
 }
 
 // A routed pass's two groups: a warp a row writes the floor of each slot
 // the epilogue does not keep, decides each kept board's class from its
 // bytes (32 slots at a time, in slot order) and lays the kept slots of
 // each class out in slot order: class c (0 contact, 1 race) of row r at
-// slots[c rows m + r m ..], their number at lim[c rows + r].
-constexpr int kRouteRows = 8;   // rows (warps) a block
-__global__ void __launch_bounds__(32 * kRouteRows)
+// slots[c rows m + r m ..], their number at lim[c rows + r].  Under the
+// logits epilogue a row with n <= 0 whose boards all equal slot 0 (compared
+// as they are read for their class) is whole: lim kWhole for slot 0's class,
+// 0 for the other, and one added to tally.
+__global__ void __launch_bounds__(32 * kRowWarps)
 afterstate_route_kernel(const int8_t* __restrict__ boards,
                         const int32_t* __restrict__ n, float* __restrict__ out,
                         int* __restrict__ lim, int* __restrict__ slots,
-                        int rows, int m, int epilogue, int aligned) {
+                        unsigned long long* __restrict__ tally, int rows,
+                        int m, int epilogue, int aligned) {
   const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kRouteRows + (threadIdx.x >> 5);
+  const int r = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   if (r >= rows) return;   // the whole warp
-  const int limit = row_limit(n[r], m, epilogue);
+  const int nr = n[r];
+  const int limit = row_limit(nr, m, epilogue);
   float* orow = out + (size_t)r * m;
   for (int sl = limit + lane; sl < m; sl += 32) orow[sl] = kFloor;
   int* contact = slots + (size_t)r * m;
   int* race = slots + ((size_t)rows + r) * m;
+  const int8_t* row = boards + (size_t)r * m * kBoard;
   const unsigned below = (1u << lane) - 1u;
+  // whether the row may be whole (the same for the warp), and slot 0's words
+  const bool may_be_whole = epilogue == kLogits && nr <= 0 && m > 0;
+  uint32_t ref[13] = {};
+  if (may_be_whole) load_board(row, aligned, ref);
+  bool same = true;
   int n_contact = 0, n_race = 0;
   for (int s0 = 0; s0 < limit; s0 += 32) {   // the same trips for the warp
     const int sl = s0 + lane;
     const bool live = sl < limit;
-    const bool is_race =
-        live && board_is_race(boards + ((size_t)r * m + sl) * kBoard,
-                              aligned);
+    bool is_race = false;
+    if (live) {
+      uint32_t v[13];
+      load_board(row + (size_t)sl * kBoard, aligned, v);
+      is_race = board_is_race(v);
+      if (may_be_whole) same &= same_board(v, ref);
+    }
     const unsigned rmask = __ballot_sync(kFull, is_race);
     const unsigned cmask = __ballot_sync(kFull, live && !is_race);
     if (is_race) {
@@ -1354,9 +1528,16 @@ afterstate_route_kernel(const int8_t* __restrict__ boards,
     n_race += __popc(rmask);
     n_contact += __popc(cmask);
   }
+  const bool whole = __all_sync(kFull, same) && may_be_whole;
   if (lane == 0) {
-    lim[r] = n_contact;
-    lim[rows + r] = n_race;
+    if (whole) {   // every board of slot 0's class, slot 0 first
+      lim[n_race > 0 ? rows + r : r] = kWhole;
+      lim[n_race > 0 ? r : rows + r] = 0;
+      atomicAdd(tally, 1ull);
+    } else {
+      lim[r] = n_contact;
+      lim[rows + r] = n_race;
+    }
   }
 }
 
@@ -1375,11 +1556,11 @@ int current_device() {
 }
 
 // Resident groups of the forward (blocks, or pairs of blocks) on the card.
-template <int kMode, bool kBf16>
+template <int kMode, bool kBf16, bool kLim>
 int forward_groups(int dev) {
   static int n[kMaxDevices] = {};  // 0: not read yet (before any capture)
   if (n[dev] == 0) {
-    auto* kernel = afterstate_eval_kernel<kMode, kBf16>;
+    auto* kernel = afterstate_eval_kernel<kMode, kBf16, kLim>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
     int got = 0;
@@ -1415,11 +1596,11 @@ int forward_groups(int dev) {
 
 // H <= 256: one launch (after the min's fill), one block or a pair a range
 // of tiles.
-template <int kMode, bool kBf16>
+template <int kMode, bool kBf16, bool kLim>
 int launch_forward(const Args& a, cudaStream_t stream) {
   const int dev = current_device();
   if (dev < 0) return (int)cudaErrorInvalidDevice;
-  const int resident = forward_groups<kMode, kBf16>(dev);
+  const int resident = forward_groups<kMode, kBf16, kLim>(dev);
   if (resident < 0) return -resident;
   if (a.epilogue == kMin && a.rows > 0) {
     afterstate_fill_kernel<<<(a.rows + 255) / 256, 256, 0, stream>>>(
@@ -1432,7 +1613,7 @@ int launch_forward(const Args& a, cudaStream_t stream) {
   const int groups = (int)std::min<long long>((boards + kTile - 1) / kTile,
                                               resident);
   if (kMode == kSingle) {
-    afterstate_eval_kernel<kSingle, kBf16>
+    afterstate_eval_kernel<kSingle, kBf16, kLim>
         <<<groups, kThreads, kSmem, stream>>>(a);
     return (int)cudaGetLastError();
   }
@@ -1449,23 +1630,24 @@ int launch_forward(const Args& a, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, afterstate_eval_kernel<kPair, kBf16>, a);
+      cudaLaunchKernelEx(&cfg, afterstate_eval_kernel<kPair, kBf16, kLim>,
+                         a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // H > 256: tile ranges x unit groups (about one wave), then the finish.
-template <bool kBf16>
+template <bool kBf16, bool kLim>
 int launch_split(const Args& a, int unit_groups, cudaStream_t stream) {
   const int dev = current_device();
   if (dev < 0) return (int)cudaErrorInvalidDevice;
-  const int resident = forward_groups<kSplit, kBf16>(dev);
+  const int resident = forward_groups<kSplit, kBf16, kLim>(dev);
   if (resident < 0) return -resident;
   const long long boards = (long long)a.rows * a.m;
   if (boards > 0) {
     const int ranges = (int)std::min<long long>(
         (boards + kTile - 1) / kTile, std::max(resident / unit_groups, 1));
-    afterstate_eval_kernel<kSplit, kBf16>
+    afterstate_eval_kernel<kSplit, kBf16, kLim>
         <<<dim3(ranges, unit_groups), kThreads, kSmem, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -1486,7 +1668,7 @@ template <int kMode>
 int launch_emit(const Args& a, int unit_groups, cudaStream_t stream) {
   const int dev = current_device();
   if (dev < 0) return (int)cudaErrorInvalidDevice;
-  const int resident = forward_groups<kMode, false>(dev);
+  const int resident = forward_groups<kMode, false, true>(dev);
   if (resident < 0) return -resident;
   const long long boards = (long long)a.rows * a.m;
   if (boards == 0) {
@@ -1494,20 +1676,21 @@ int launch_emit(const Args& a, int unit_groups, cudaStream_t stream) {
   }
   const int ranges = (int)std::min<long long>(
       (boards + kTile - 1) / kTile, std::max(resident / unit_groups, 1));
-  afterstate_eval_kernel<kMode, false>
+  afterstate_eval_kernel<kMode, false, true>
       <<<dim3(ranges, unit_groups), kThreads, kSmem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 Args make_args(const void* boards, const void* mover, const void* n,
-               const void* w1, const void* b1, const void* wh,
-               const void* bh, const void* grad, void* out, void* part,
-               int rows, int m, int hidden, int opponent, int epilogue,
-               float sign) {
+               const void* lim, const void* w1, const void* b1,
+               const void* wh, const void* bh, const void* grad, void* out,
+               void* part, int rows, int m, int hidden, int opponent,
+               int epilogue, float sign) {
   Args a{};
   a.boards = (const int8_t*)boards;
   a.mover = (const int32_t*)mover;
   a.n = (const int32_t*)n;
+  a.lim = (const int*)lim;
   a.w1 = w1;
   a.b1 = b1;
   a.wh = wh;
@@ -1558,72 +1741,115 @@ int launch_backward(const Args& a, const float* scratch, float* dparams,
   return (int)cudaGetLastError();
 }
 
+// The forward's launch for the width and dtype: one block, a pair, or unit
+// groups and the finish (kLim: with lim, the logits epilogue's).
+template <bool kLim>
+int forward_form(const Args& a, int hidden, int dtype, int unit_groups,
+                 cudaStream_t st) {
+  if (hidden <= kUnits) {
+    return dtype ? launch_forward<kSingle, true, kLim>(a, st)
+                 : launch_forward<kSingle, false, kLim>(a, st);
+  }
+  if (hidden <= 2 * kUnits) {
+    return dtype ? launch_forward<kPair, true, kLim>(a, st)
+                 : launch_forward<kPair, false, kLim>(a, st);
+  }
+  return dtype ? launch_split<true, kLim>(a, unit_groups, st)
+               : launch_split<false, kLim>(a, unit_groups, st);
+}
+
 }  // namespace
 
+// Each row's entry of lim (rows) int32 under the logits epilogue: kWhole (-1)
+// where n <= 0 and the row's m boards all equal slot 0, byte for byte, else
+// its kept boards; tally (one unsigned 64-bit int) gets the whole rows
+// added.  The forms below take this lim (logits only; null: none whole).
+extern "C" int afterstate_collapse_launch(const void* boards, const void* n,
+                                          void* lim, void* tally, int rows,
+                                          int m, void* stream) {
+  if (rows < 0 || m < 0 || tally == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (rows == 0) return (int)cudaGetLastError();   // lim may be null
+  if (lim == nullptr) return (int)cudaErrorInvalidValue;
+  afterstate_collapse_kernel<<<(rows + kRowWarps - 1) / kRowWarps,
+                               32 * kRowWarps, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)boards, (const int32_t*)n, (int*)lim,
+      (unsigned long long*)tally, rows, m, ((uintptr_t)boards & 3) == 0);
+  return (int)cudaGetLastError();
+}
+
 // The forward pass.  boards (rows, m, 52) int8, mover and n (rows,) int32,
-// w1 (hidden, 198), b1 (hidden), wh (1, hidden), bh (1), float32 (dtype 0)
-// or bf16 (dtype 1); out (rows, m) float32, or (rows) for the min epilogue
+// lim (rows) int32 afterstate_collapse_launch's (logits) or null, w1
+// (hidden, 198), b1 (hidden), wh (1, hidden), bh (1), float32 (dtype 0) or
+// bf16 (dtype 1); out (rows, m) float32, or (rows) for the min epilogue
 // (2).  Any hidden >= 1 (at most 65,535 groups of 128); past 256 units
 // scratch holds at least ceil(hidden / 128) rows m floats
 // (ops/afterstate.py::forward_scratch_floats).  epilogue 0 logits, 1
 // masked, 2 min.
 extern "C" int afterstate_eval_launch(const void* boards, const void* mover,
-                                      const void* n, const void* w1,
-                                      const void* b1, const void* wh,
-                                      const void* bh, void* out,
-                                      void* scratch, long long scratch_floats,
-                                      int rows, int m, int hidden,
-                                      int opponent, int epilogue, float sign,
-                                      int dtype, void* stream) {
+                                      const void* n, const void* lim,
+                                      const void* w1, const void* b1,
+                                      const void* wh, const void* bh,
+                                      void* out, void* scratch,
+                                      long long scratch_floats, int rows,
+                                      int m, int hidden, int opponent,
+                                      int epilogue, float sign, int dtype,
+                                      void* stream) {
   const int unit_groups = (hidden + kUnits - 1) / kUnits;
   if (rows < 0 || m < 0 || hidden < 1 || unit_groups > kMaxGroups ||
-      epilogue < kLogits || epilogue > kMin || (dtype != 0 && dtype != 1)) {
+      epilogue < kLogits || epilogue > kMin || (dtype != 0 && dtype != 1) ||
+      (lim != nullptr && epilogue != kLogits)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Args a = make_args(boards, mover, n, w1, b1, wh, bh, nullptr, out,
-                           scratch, rows, m, hidden, opponent, epilogue,
+  const Args a = make_args(boards, mover, n, lim, w1, b1, wh, bh, nullptr,
+                           out, scratch, rows, m, hidden, opponent, epilogue,
                            sign);
   const auto st = (cudaStream_t)stream;
-  if (hidden <= kUnits) {
-    return dtype ? launch_forward<kSingle, true>(a, st)
-                 : launch_forward<kSingle, false>(a, st);
-  }
-  if (hidden <= 2 * kUnits) {
-    return dtype ? launch_forward<kPair, true>(a, st)
-                 : launch_forward<kPair, false>(a, st);
-  }
-  if (scratch_floats < (long long)unit_groups * rows * m) {
+  if (hidden > 2 * kUnits &&
+      scratch_floats < (long long)unit_groups * rows * m) {
     return (int)cudaErrorInvalidValue;
   }
-  return dtype ? launch_split<true>(a, unit_groups, st)
-               : launch_split<false>(a, unit_groups, st);
+  return lim != nullptr
+             ? forward_form<true>(a, hidden, dtype, unit_groups, st)
+             : forward_form<false>(a, hidden, dtype, unit_groups, st);
 }
 
 // The backward pass: grad (rows, m) float32 is the output's gradient (the
-// logits or masked epilogue); dparams (198 hidden + 2 hidden + 1) float32
-// gets dW1 (hidden, 198), db1, dw_head, db_head (dtype 1: each a bf16
-// number); blocks is ops/afterstate.py::backward_blocks of the shapes and
-// scratch holds at least blocks (198 hidden + 2 hidden + 1) floats.  bh is
-// not read.
+// logits or masked epilogue); lim as the forward's, and with it wgrad (rows)
+// float32 scratch for the whole rows' summed cotangents; dparams (198 hidden
+// + 2 hidden + 1) float32 gets dW1 (hidden, 198), db1, dw_head, db_head
+// (dtype 1: each a bf16 number); blocks is
+// ops/afterstate.py::backward_blocks of the shapes and scratch holds at
+// least blocks (198 hidden + 2 hidden + 1) floats.  bh is not read.
 extern "C" int afterstate_backward_launch(
-    const void* boards, const void* mover, const void* n, const void* w1,
-    const void* b1, const void* wh, const void* bh, const void* grad,
-    void* scratch, long long scratch_floats, void* dparams, int blocks,
-    int rows, int m, int hidden, int opponent, int epilogue, float sign,
-    int dtype, void* stream) {
+    const void* boards, const void* mover, const void* n, const void* lim,
+    void* wgrad, const void* w1, const void* b1, const void* wh,
+    const void* bh, const void* grad, void* scratch, long long scratch_floats,
+    void* dparams, int blocks, int rows, int m, int hidden, int opponent,
+    int epilogue, float sign, int dtype, void* stream) {
   const int unit_groups = (hidden + kUnits - 1) / kUnits;
   const long long slab = (long long)kFeatures * hidden + 2LL * hidden + 1;
   if (rows < 0 || m < 0 || hidden < 1 || unit_groups > kMaxGroups ||
       blocks < 0 || (blocks == 0 && (long long)rows * m > 0) ||
       scratch_floats < blocks * slab ||
       (epilogue != kLogits && epilogue != kMasked) ||
-      (dtype != 0 && dtype != 1)) {
+      (dtype != 0 && dtype != 1) ||
+      (lim != nullptr && epilogue != kLogits) ||
+      (lim != nullptr && rows > 0 && wgrad == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Args a = make_args(boards, mover, n, w1, b1, wh, bh, grad, scratch,
-                           nullptr, rows, m, hidden, opponent, epilogue,
-                           sign);
+  Args a = make_args(boards, mover, n, lim, w1, b1, wh, bh, grad, scratch,
+                     nullptr, rows, m, hidden, opponent, epilogue, sign);
+  a.wgrad = (const float*)wgrad;
   const auto st = (cudaStream_t)stream;
+  if (lim != nullptr && rows > 0) {
+    afterstate_whole_grad_kernel<<<(rows + kRowWarps - 1) / kRowWarps,
+                                   32 * kRowWarps, 0, st>>>(
+        (const float*)grad, (const int*)lim, (float*)wgrad, rows, m);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   return dtype ? launch_backward<true>(a, (const float*)scratch,
                                        (float*)dparams, blocks, unit_groups,
                                        st)
@@ -1636,23 +1862,25 @@ extern "C" int afterstate_backward_launch(
 // the epilogue (0 logits, 1 masked) does not keep; h1 (at least the kept
 // boards' number of rows, ldh >= hidden floats apart, a multiple of 4) the
 // post-ReLU fc1 of each kept board in the kernels' global order, elem its
-// element r m + s, count (one int) their number.  csrc/dense.cu runs the rest.
+// element r m + s (~(r m) for a whole row's), count (one int) their number;
+// lim as afterstate_eval_launch's.  csrc/dense.cu runs the rest.
 extern "C" int afterstate_emit_launch(const void* boards, const void* mover,
-                                      const void* n, const void* w1,
-                                      const void* b1, void* out, void* h1,
-                                      int ldh, void* elem, void* count,
-                                      int rows, int m, int hidden,
-                                      int opponent, int epilogue,
-                                      void* stream) {
+                                      const void* n, const void* lim,
+                                      const void* w1, const void* b1,
+                                      void* out, void* h1, int ldh,
+                                      void* elem, void* count, int rows,
+                                      int m, int hidden, int opponent,
+                                      int epilogue, void* stream) {
   const int unit_groups = (hidden + kUnits - 1) / kUnits;
   if (rows < 0 || m < 0 || hidden < 1 || unit_groups > kMaxGroups ||
       ldh < hidden || ldh % 4 != 0 ||
-      (epilogue != kLogits && epilogue != kMasked)) {
+      (epilogue != kLogits && epilogue != kMasked) ||
+      (lim != nullptr && epilogue != kLogits)) {
     return (int)cudaErrorInvalidValue;
   }
   // the head's pointers are staged but not read: b1 stands in for them
-  Args a = make_args(boards, mover, n, w1, b1, b1, b1, nullptr, out, nullptr,
-                     rows, m, hidden, opponent, epilogue, 1.0f);
+  Args a = make_args(boards, mover, n, lim, w1, b1, b1, b1, nullptr, out,
+                     nullptr, rows, m, hidden, opponent, epilogue, 1.0f);
   a.h1 = (float*)h1;
   a.elem = (int*)elem;
   a.count = (int*)count;
@@ -1662,25 +1890,26 @@ extern "C" int afterstate_emit_launch(const void* boards, const void* mover,
 
 // A deep network's fc1 backward, float32: dpre (kept boards, ldh floats
 // apart) is fc1's pre-activation gradient by kept board in the forward's
-// order (csrc/dense.cu's); dparams, blocks and scratch as in
-// afterstate_backward_launch, whose dw_head and db_head come out zero.
+// order (csrc/dense.cu's); lim the forward's; dparams, blocks and scratch as
+// in afterstate_backward_launch, whose dw_head and db_head come out zero.
 extern "C" int afterstate_backward_deep_launch(
-    const void* boards, const void* mover, const void* n, const void* dpre,
-    int ldh, void* scratch, long long scratch_floats, void* dparams,
-    int blocks, int rows, int m, int hidden, int opponent, int epilogue,
-    void* stream) {
+    const void* boards, const void* mover, const void* n, const void* lim,
+    const void* dpre, int ldh, void* scratch, long long scratch_floats,
+    void* dparams, int blocks, int rows, int m, int hidden, int opponent,
+    int epilogue, void* stream) {
   const int unit_groups = (hidden + kUnits - 1) / kUnits;
   const long long slab = (long long)kFeatures * hidden + 2LL * hidden + 1;
   if (rows < 0 || m < 0 || hidden < 1 || unit_groups > kMaxGroups ||
       ldh < hidden || blocks < 0 ||
       (blocks == 0 && (long long)rows * m > 0) ||
       scratch_floats < blocks * slab ||
-      (epilogue != kLogits && epilogue != kMasked)) {
+      (epilogue != kLogits && epilogue != kMasked) ||
+      (lim != nullptr && epilogue != kLogits)) {
     return (int)cudaErrorInvalidValue;
   }
-  Args a = make_args(boards, mover, n, nullptr, nullptr, nullptr, nullptr,
-                     nullptr, scratch, nullptr, rows, m, hidden, opponent,
-                     epilogue, 1.0f);
+  Args a = make_args(boards, mover, n, lim, nullptr, nullptr, nullptr,
+                     nullptr, nullptr, scratch, nullptr, rows, m, hidden,
+                     opponent, epilogue, 1.0f);
   a.dpre = (const float*)dpre;
   a.ldh = ldh;
   return launch_backward<false, true>(a, (const float*)scratch,
@@ -1690,28 +1919,33 @@ extern "C" int afterstate_backward_deep_launch(
 
 // A routed pass's layout: boards (rows, m, 52) int8, n (rows) int32 and the
 // epilogue (0 logits, 1 masked) as the emit's; out (rows, m) float32 gets
-// the floor of every slot not kept; lim (2, rows) int32 each row's kept
-// boards of each class (0 contact, 1 race), slots (2, rows m) int32 their
-// slots in slot order (afterstate_route_kernel).
+// the floor of every slot not kept; lim (2, rows) int32 each row's entry of
+// each class (0 contact, 1 race): its kept boards of the class, or kWhole
+// (-1) for a whole row's class, slots (2, rows m) int32 their slots in slot
+// order (afterstate_route_kernel); tally (one unsigned 64-bit int) gets the
+// whole rows added.
 extern "C" int afterstate_route_launch(const void* boards, const void* n,
                                        void* out, void* lim, void* slots,
-                                       int rows, int m, int epilogue,
-                                       void* stream) {
-  if (rows < 0 || m < 0 || (epilogue != kLogits && epilogue != kMasked)) {
+                                       void* tally, int rows, int m,
+                                       int epilogue, void* stream) {
+  if (rows < 0 || m < 0 || tally == nullptr ||
+      (epilogue != kLogits && epilogue != kMasked)) {
     return (int)cudaErrorInvalidValue;
   }
   if (rows == 0) return (int)cudaGetLastError();
-  afterstate_route_kernel<<<(rows + kRouteRows - 1) / kRouteRows,
-                            32 * kRouteRows, 0, (cudaStream_t)stream>>>(
+  afterstate_route_kernel<<<(rows + kRowWarps - 1) / kRowWarps,
+                            32 * kRowWarps, 0, (cudaStream_t)stream>>>(
       (const int8_t*)boards, (const int32_t*)n, (float*)out, (int*)lim,
-      (int*)slots, rows, m, epilogue, ((uintptr_t)boards & 3) == 0);
+      (int*)slots, (unsigned long long*)tally, rows, m, epilogue,
+      ((uintptr_t)boards & 3) == 0);
   return (int)cudaGetLastError();
 }
 
 // fc1 of one group of a routed pass, float32: lim (rows) and slots (rows m)
-// are afterstate_route_launch's of the group's class; h1, ldh, elem and
-// count as afterstate_emit_launch's, over the group's kept boards in its
-// order; tally (one unsigned 64-bit int) gets the count added.
+// are afterstate_route_launch's of the group's class; h1, ldh, elem (a whole
+// row's board as ~(r m)) and count as afterstate_emit_launch's, over the
+// group's kept boards in its order; tally (one unsigned 64-bit int) gets the
+// count added.
 extern "C" int afterstate_emit_routed_launch(
     const void* boards, const void* mover, const void* lim, const void* slots,
     const void* w1, const void* b1, void* h1, int ldh, void* elem,
@@ -1722,9 +1956,9 @@ extern "C" int afterstate_emit_routed_launch(
       ldh < hidden || ldh % 4 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  Args a = make_args(boards, mover, nullptr, w1, b1, b1, b1, nullptr, nullptr,
-                     nullptr, rows, m, hidden, opponent, kMasked, 1.0f);
-  a.rlim = (const int*)lim;
+  Args a = make_args(boards, mover, nullptr, lim, w1, b1, b1, b1, nullptr,
+                     nullptr, nullptr, rows, m, hidden, opponent, kMasked,
+                     1.0f);
   a.rslot = (const int*)slots;
   a.tally = (unsigned long long*)tally;
   a.h1 = (float*)h1;
@@ -1750,10 +1984,9 @@ extern "C" int afterstate_backward_deep_routed_launch(
       scratch_floats < blocks * slab) {
     return (int)cudaErrorInvalidValue;
   }
-  Args a = make_args(boards, mover, nullptr, nullptr, nullptr, nullptr,
+  Args a = make_args(boards, mover, nullptr, lim, nullptr, nullptr, nullptr,
                      nullptr, nullptr, scratch, nullptr, rows, m, hidden,
                      opponent, kMasked, 1.0f);
-  a.rlim = (const int*)lim;
   a.rslot = (const int*)slots;
   a.dpre = (const float*)dpre;
   a.ldh = ldh;

@@ -11,6 +11,13 @@
 //       = softmax(z) . reward          (the outcome head)
 //   out[elem[g]] = sign y
 //
+// A whole row (csrc/afterstate.cu: under the logits epilogue, a row with n
+// <= 0 whose m boards are one board) is one kept row, its element marked
+// ~(r m): the head writes sign y into each of the row's m slots, and the
+// backward's head takes the row's m entries of grad summed in a fixed order
+// (a warp a row: each lane its slots lane, lane + 32, ..., then a
+// butterfly) as that row's cotangent.
+//
 // What bounds it.  The kept count lives on the card (about 31 of a board
 // position's 256 slots at a rollout step, 8 times fewer than the slots), so
 // no library product fits without a host sync: the grids are sized for the
@@ -82,6 +89,8 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "whole_rows.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;       // two warpgroups
@@ -116,6 +125,7 @@ struct Net {
   int outcome;                      // 1: softmax(z) . reward
   int capacity;                     // rows of every buffer
   int slices;                       // wgrad row slices
+  int m;                            // slots a row of out and grad
   float sign;
   int width[kMaxLayers + 1];        // width[0]: fc1's
   int ld[kMaxLayers + 1];           // row stride of a buffer of width[l]
@@ -1129,7 +1139,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The head and the epilogue: tiles of h_L, out[elem[g]] = sign y.
+// The head and the epilogue: tiles of h_L, out[elem[g]] = sign y (a whole
+// row's m slots).
 __global__ void __launch_bounds__(kThreads, 1)
     dense_forward_kernel_head(Net a) {
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -1146,7 +1157,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       float z[kMaxHeads], p[kMaxHeads];
       head_z(a, tile_in, row, z);
       const float y = head_y(a, z, p);
-      if ((tid & 3) == 0 && row < nrows) a.out[a.elem[g0 + row]] = a.sign * y;
+      const bool writes = (tid & 3) == 0 && row < nrows;
+      const int e = row < nrows ? a.elem[g0 + row] : 0;
+      if (writes && e >= 0) a.out[e] = a.sign * y;
+      write_whole_rows(a.out, a.m, ~e, writes && e < 0, a.sign * y);
     }
     __syncthreads();   // the tile is the next tile's
   }
@@ -1178,8 +1192,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       float z[kMaxHeads], p[kMaxHeads];
       head_z(a, tile_in, row, z);
       const float y = head_y(a, z, p);
-      const float dy =
-          row < nrows ? a.sign * __ldg(a.grad + a.elem[g0 + row]) : 0.0f;
+      // the row's cotangent (a whole row's summed by the warp, from the
+      // row's first lane), on its four lanes
+      const int e = row < nrows ? a.elem[g0 + row] : 0;
+      float g = row < nrows && e >= 0 ? __ldg(a.grad + e) : 0.0f;
+      g = whole_row_grad(a.grad, a.m, ~e,
+                         (tid & 3) == 0 && row < nrows && e < 0, g);
+      g = __shfl_sync(kFull, g, (tid & 31) & ~3);
+      const float dy = row < nrows ? a.sign * g : 0.0f;
       if ((tid & 3) == 0) {
 #pragma unroll
         for (int j = 0; j < kMaxHeads; ++j) {
@@ -1718,12 +1738,14 @@ int make_net(Net& a, int layers, const int* widths, const int* lds,
              const void* const* w, const void* const* b, const void* wh,
              const void* bh, int heads, int outcome, const float* reward,
              const void* h1, void* const* act, void* const* dpre,
-             const void* elem, const void* count, int capacity, float sign) {
+             const void* elem, const void* count, int capacity, int m,
+             float sign) {
   if (layers < 1 || layers > kMaxLayers || heads < 1 || heads > kMaxHeads ||
-      capacity < 0 || (outcome && heads < 2) || act == nullptr) {
+      capacity < 0 || m < 0 || (outcome && heads < 2) || act == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   a = Net{};
+  a.m = m;
   a.layers = layers;
   a.heads = heads;
   a.outcome = outcome != 0;
@@ -1780,7 +1802,8 @@ int split_weights(Net& a, void* limbs, bool transposed, cudaStream_t st) {
 }  // namespace
 
 // The forward: out (rows m) float32 gets sign y at each kept board's element
-// (its floors are csrc/afterstate.cu's); act: L pointers to (capacity,
+// (each of a whole row's m slots, where elem holds ~(r m); its floors are
+// csrc/afterstate.cu's); act: L pointers to (capacity,
 // lds[l + 1]) buffers that get every layer's activations (the backward's
 // saved ones).  widths and lds: L + 1 ints (fc1's first), lds multiples of
 // 4; w, b: L pointers; reward: heads floats on the host (outcome), or null;
@@ -1792,10 +1815,12 @@ extern "C" int dense_forward_launch(int layers, const int* widths,
                                     const float* reward, const void* h1,
                                     void* const* act, const void* elem,
                                     const void* count, void* out, void* limbs,
-                                    int capacity, float sign, void* stream) {
+                                    int capacity, int m, float sign,
+                                    void* stream) {
   Net a;
   int err = make_net(a, layers, widths, lds, w, b, wh, bh, heads, outcome,
-                     reward, h1, act, nullptr, elem, count, capacity, sign);
+                     reward, h1, act, nullptr, elem, count, capacity, m,
+                     sign);
   if (err != 0) return err;
   a.out = (float*)out;
   const int dev = current_device();
@@ -1821,7 +1846,8 @@ extern "C" int dense_forward_launch(int layers, const int* widths,
   return (int)cudaGetLastError();
 }
 
-// The backward: grad (rows m) float32, the output's gradient; act the
+// The backward: grad (rows m) float32, the output's gradient (a whole row's
+// m entries summed, where elem holds ~(r m)); act the
 // forward's saved activations; dpre L + 1 pointers to (capacity, lds[l])
 // buffers that get every layer's dpre (dpre[0]: fc1's); part_rows holds
 // row_blocks heads (widths[L] + 1) floats, part_w slices x sum widths[l]
@@ -1834,10 +1860,10 @@ extern "C" int dense_backward_launch(
     int outcome, const float* reward, const void* h1, void* const* act,
     void* const* dpre, const void* elem, const void* count, const void* grad,
     void* part_rows, int row_blocks, void* part_w, int slices, void* dflat,
-    void* limbs, int capacity, float sign, void* stream) {
+    void* limbs, int capacity, int m, float sign, void* stream) {
   Net a;
   int err = make_net(a, layers, widths, lds, w, b, wh, bh, heads, outcome,
-                     reward, h1, act, dpre, elem, count, capacity, sign);
+                     reward, h1, act, dpre, elem, count, capacity, m, sign);
   if (err != 0) return err;
   if (row_blocks < 0 || slices < 1 || dpre == nullptr) {
     return (int)cudaErrorInvalidValue;

@@ -39,10 +39,12 @@ def launches() -> dict:
 
 
 def zero_launches() -> None:
-    """Zero every count, and the routed pass's tally of kept boards
-    (``afterstate.routed_rows``)."""
+    """Zero every count, the routed pass's tally of kept boards
+    (``afterstate.routed_rows``) and the tally of whole rows
+    (``afterstate.collapsed_rows``)."""
     from . import afterstate
 
     for fn in counters().values():
         fn.launches = 0
     afterstate.zero_routed_rows()
+    afterstate.zero_collapsed_rows()

@@ -86,6 +86,26 @@ and head, inside a span of the group's name (``dense_layers.contact``,
 ``dense_layers.race``).  The emit also adds each group's count to a tally
 on the card (``routed_rows``, zeroed by ``ops.zero_launches``), which the
 hot path never reads.
+
+A whole row is one kept board.  Under the ``logits`` epilogue a row with
+n <= 0 keeps every slot, and movegen fills a row with no legal move with
+one board (its zero tail) in every slot; such a row, every board equal to
+slot 0 byte for byte (``collapsed_plain``), keeps slot 0 alone in every
+form: the forward writes that board's value into each of the row's M
+slots (the same bits as each of M evaluations), the backward gives it the
+row's M cotangents summed (float32, a fixed order), the gradient of M
+equal values.  A row whose boards differ keeps every slot, as before.  On
+the card ``afterstate_collapse`` (a warp a row, reading only rows with n
+<= 0) writes each row's entry, its kept boards or ``WHOLE``, once a
+forward call; the autograd functions keep it for the backward, and the
+routed pass's route decides the same from the bytes it reads anyway.  The
+deep forms mark a whole row's board in ``elem`` as ``~(r m)``.  Both add
+the whole rows they find to a tally on the card (``collapsed_rows``,
+zeroed by ``ops.zero_launches``).  The ``masked`` and ``min`` epilogues
+keep nothing of a row with n <= 0 and take no such entry.  The plain
+versions of the full passes (``afterstate_eval_plain``,
+``afterstate_deep_plain``, ``afterstate_routed_plain``) still evaluate
+every slot: they are what the kernels are held to.
 """
 
 from __future__ import annotations
@@ -111,6 +131,9 @@ ROADMAP_ITEM = "ROADMAP.md, queue 1, item 20"
 DEEP_MIN_ITEM = "ROADMAP.md, queue 6, item C9"
 # a routed pass's groups of kept boards, by position class (contact, race)
 GROUPS = NETS
+# a row's entry in a kept-count array where the row is whole: one board,
+# slot 0, stands for its M slots (csrc/afterstate.cu kWhole)
+WHOLE = -1
 UNITS = 128          # hidden units a block stages (a unit group)
 TILE = 64            # kept boards a tile
 # backward blocks of one unit group: a number of the shapes, never of the
@@ -171,6 +194,45 @@ def _valid(n, m, epilogue):
     if epilogue == "logits":
         valid = valid | (n <= 0)[:, None]
     return valid
+
+
+def collapsed_plain(boards, n, epilogue):
+    """(R,) bool: the whole rows of (R, M, 52) ``boards``: under the
+    ``logits`` epilogue, n <= 0 and every board equal to slot 0, byte for
+    byte (none under the others)."""
+    r, m, _ = boards.shape
+    if epilogue != "logits" or m == 0:
+        return torch.zeros((r,), dtype=torch.bool, device=boards.device)
+    return (n <= 0) & (boards == boards[:, :1]).flatten(1).all(1)
+
+
+def row_lims_plain(boards, n, epilogue):
+    """Plain PyTorch version of ``afterstate_collapse``: (R,) int32 each
+    row's kept boards, ``WHOLE`` for a whole row."""
+    kept = _valid(n, boards.shape[1], epilogue).sum(1, dtype=torch.int32)
+    return torch.where(collapsed_plain(boards, n, epilogue),
+                       torch.full_like(kept, WHOLE), kept)
+
+
+def _kept(boards, n, epilogue):
+    """(R, M) bool: the slots the kernels work on, the epilogue's kept
+    ones but those past slot 0 of a whole row."""
+    m = boards.shape[1]
+    later = torch.arange(m, device=boards.device)[None, :] > 0
+    return _valid(n, m, epilogue) & ~(
+        collapsed_plain(boards, n, epilogue)[:, None] & later)
+
+
+def _mark(elem, m, whole):
+    """Elements ``elem`` (r m + s), those of whole rows (``whole`` (R,)
+    bool) marked ``~e``."""
+    on = whole[elem // max(m, 1)] if elem.numel() else elem.bool()
+    return torch.where(on, ~elem, elem)
+
+
+def _unmark(elem):
+    """Elements r m + s of ``elem``, marks taken off."""
+    return torch.where(elem < 0, ~elem, elem)
 
 
 def _head(feats, w1, b1, w_head, b_head):
@@ -284,15 +346,16 @@ def _on_card(x):
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 _SIGNATURES = {
-    "afterstate_eval_launch": ([_P] * 9 + [_L] + [_I] * 5 + [_F, _I, _P],
+    "afterstate_collapse_launch": ([_P] * 4 + [_I] * 2 + [_P], _I),
+    "afterstate_eval_launch": ([_P] * 10 + [_L] + [_I] * 5 + [_F, _I, _P],
                                _I),
-    "afterstate_backward_launch": ([_P] * 9 + [_L, _P] + [_I] * 6
+    "afterstate_backward_launch": ([_P] * 11 + [_L, _P] + [_I] * 6
                                    + [_F, _I, _P], _I),
-    "afterstate_emit_launch": ([_P] * 7 + [_I, _P, _P] + [_I] * 5 + [_P],
+    "afterstate_emit_launch": ([_P] * 8 + [_I, _P, _P] + [_I] * 5 + [_P],
                                _I),
-    "afterstate_backward_deep_launch": ([_P] * 4 + [_I, _P, _L, _P]
+    "afterstate_backward_deep_launch": ([_P] * 5 + [_I, _P, _L, _P]
                                         + [_I] * 6 + [_P], _I),
-    "afterstate_route_launch": ([_P] * 5 + [_I] * 3 + [_P], _I),
+    "afterstate_route_launch": ([_P] * 6 + [_I] * 3 + [_P], _I),
     "afterstate_emit_routed_launch": ([_P] * 7 + [_I] + [_P] * 3
                                       + [_I] * 4 + [_P], _I),
     "afterstate_backward_deep_routed_launch": ([_P] * 5 + [_I, _P, _L, _P]
@@ -327,8 +390,53 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def _tally_of(tallies, dev, size):
+    """The card's (or the CPU's) int64 tally of ``size`` entries in
+    ``tallies``, made at zero on first use."""
+    key = str(dev)
+    if key not in tallies:
+        tallies[key] = torch.zeros((size,), dtype=torch.int64, device=dev)
+    return tallies[key]
+
+
+def collapsed_rows() -> int:
+    """Whole rows found (``afterstate_collapse`` and the route) since the
+    last ``zero_collapsed_rows``, summed over devices: a host sync, for
+    readings after a traced update, never for the hot path."""
+    return sum(int(t.sum()) for t in _COLLAPSED.values())
+
+
+def zero_collapsed_rows() -> None:
+    for t in _COLLAPSED.values():
+        t.zero_()
+
+
+def afterstate_collapse(boards, n, epilogue):
+    """Each row's entry under the ``logits`` epilogue: (R,) int32, its kept
+    boards, or ``WHOLE`` where n <= 0 and its M boards all equal slot 0;
+    None under the others (nothing is whole).  On the card
+    ``afterstate_collapse_kernel``, which adds the whole rows to the tally
+    (on the CPU, ``row_lims_plain``, added here)."""
+    if epilogue != "logits":
+        return None
+    dev = boards.device
+    tally = _tally_of(_COLLAPSED, dev, 1)
+    if not _on_card(boards):
+        lim = row_lims_plain(boards, n, epilogue)
+        tally += (lim == WHOLE).sum()
+        return lim
+    r, m, _ = boards.shape
+    lim = torch.empty((r,), dtype=torch.int32, device=dev)
+    err = _launch("afterstate_collapse_launch", dev, boards.data_ptr(),
+                  n.data_ptr(), lim.data_ptr(), tally.data_ptr(), r, m)
+    if err != 0:
+        raise RuntimeError(f"afterstate_collapse kernel launch failed: CUDA "
+                           f"error {err} at {r} x {m} boards")
+    return lim
+
+
 def _forward_kernel(boards, mover, n, w1, b1, w_head, b_head, opponent,
-                    epilogue, sign):
+                    epilogue, sign, lim=None):
     r, m, _ = boards.shape
     h, dev = w1.shape[0], boards.device
     shape = (r,) if epilogue == "min" else (r, m)
@@ -337,9 +445,10 @@ def _forward_kernel(boards, mover, n, w1, b1, w_head, b_head, opponent,
     scratch = _scratch(floats, dev)
     err = _launch(
         "afterstate_eval_launch", dev, boards.data_ptr(), mover.data_ptr(),
-        n.data_ptr(), w1.data_ptr(), b1.data_ptr(), w_head.data_ptr(),
-        b_head.data_ptr(), out.data_ptr(), _ptr(scratch), floats, r, m, h,
-        int(opponent), EPILOGUES[epilogue], sign, DTYPES[w1.dtype])
+        n.data_ptr(), _ptr(lim), w1.data_ptr(), b1.data_ptr(),
+        w_head.data_ptr(), b_head.data_ptr(), out.data_ptr(), _ptr(scratch),
+        floats, r, m, h, int(opponent), EPILOGUES[epilogue], sign,
+        DTYPES[w1.dtype])
     if err != 0:
         raise RuntimeError(f"afterstate_eval kernel launch failed: CUDA "
                            f"error {err} at {r} x {m} boards, hidden {h} "
@@ -349,19 +458,23 @@ def _forward_kernel(boards, mover, n, w1, b1, w_head, b_head, opponent,
 
 
 class _Eval(torch.autograd.Function):
-    """The kernel as a differentiable function of the four weights."""
+    """The kernel as a differentiable function of the four weights; the
+    rows' entries (``afterstate_collapse``) are found once, in the
+    forward, and kept for the backward."""
 
     @staticmethod
     def forward(ctx, boards, mover, n, w1, b1, w_head, b_head, opponent,
                 epilogue, sign):
-        ctx.save_for_backward(boards, mover, n, w1, b1, w_head, b_head)
+        lim = afterstate_collapse(boards, n, epilogue)
+        ctx.save_for_backward(boards, mover, n, w1, b1, w_head, b_head, lim)
         ctx.cfg = (opponent, epilogue, sign)
         return _forward_kernel(boards, mover, n, w1, b1, w_head, b_head,
-                               opponent, epilogue, sign)
+                               opponent, epilogue, sign, lim)
 
     @staticmethod
     def backward(ctx, grad):
-        grads = afterstate_eval_backward(*ctx.saved_tensors, *ctx.cfg, grad)
+        *saved, lim = ctx.saved_tensors
+        grads = afterstate_eval_backward(*saved, *ctx.cfg, grad, lim)
         return (None, None, None, *grads, None, None, None)
 
 
@@ -383,10 +496,11 @@ def afterstate_eval(boards, mover, n, w1, b1, w_head, b_head, opponent,
 
 
 def afterstate_eval_backward(boards, mover, n, w1, b1, w_head, b_head,
-                             opponent, epilogue, sign, grad):
+                             opponent, epilogue, sign, grad, lim=None):
     """(dW1 (H, 198), db1 (H,), dw_head (1, H), db_head (1,)) of
     ``sum(grad * afterstate_eval(...))`` for ``grad`` shaped as the
     forward's output.  Entries that the epilogue masks carry no gradient.
+    ``lim``: the forward's ``afterstate_collapse`` (None: found again).
     The ``min`` epilogue has none (its callers run without gradients).  On
     the card the gradients are float32; of bfloat16 weights, bf16 numbers
     (each rounded once, where JAX's cotangent of ``astype(bfloat16)``
@@ -404,14 +518,19 @@ def afterstate_eval_backward(boards, mover, n, w1, b1, w_head, b_head,
             boards, mover, n, w1, b1, w_head, b_head, opponent, epilogue,
             sign, grad)
     h, dev = w1.shape[0], boards.device
+    if lim is None:
+        lim = afterstate_collapse(boards, n, epilogue)
     grad = grad.to(torch.float32).contiguous()
     floats = backward_scratch_floats(r, m, h)
     scratch = _scratch(floats, dev)
+    # the whole rows' summed cotangents
+    wgrad = None if lim is None else _scratch(r, dev)
     flat = torch.empty((h * 198 + 2 * h + 1,), dtype=torch.float32,
                        device=dev)
     err = _launch(
         "afterstate_backward_launch", dev, boards.data_ptr(),
-        mover.data_ptr(), n.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        mover.data_ptr(), n.data_ptr(), _ptr(lim), _ptr(wgrad),
+        w1.data_ptr(), b1.data_ptr(),
         w_head.data_ptr(), b_head.data_ptr(), grad.data_ptr(),
         _ptr(scratch), floats, flat.data_ptr(), backward_blocks(r, m, h), r,
         m, h, int(opponent), EPILOGUES[epilogue], sign, DTYPES[w1.dtype])
@@ -425,19 +544,23 @@ def afterstate_eval_backward(boards, mover, n, w1, b1, w_head, b_head,
             flat[hw + h:hw + 2 * h].view(1, h), flat[hw + 2 * h:])
 
 
-def _kept_order(n, m, epilogue):
+def _kept_order(boards, n, epilogue):
     """The kept boards' elements r m + s in the kernels' order (rows in
-    order, slots in order), counted on the host."""
-    return _valid(n, m, epilogue).reshape(-1).nonzero()[:, 0].to(
+    order, slots in order; a whole row's one board marked ``~(r m)``),
+    counted on the host."""
+    m = boards.shape[1]
+    elem = _kept(boards, n, epilogue).reshape(-1).nonzero()[:, 0]
+    return _mark(elem, m, collapsed_plain(boards, n, epilogue)).to(
         torch.int32)
 
 
 def _features_of(boards, mover, elem, opponent):
-    """The features of the boards at elements ``elem`` (r m + s)."""
+    """The features of the boards at elements ``elem`` (r m + s, marked
+    or not)."""
     r, m, _ = boards.shape
     view = Bd.opponent_view(boards) if opponent else boards
     feats = F.encode_canonical(view, mover[:, None]).reshape(r * m, -1)
-    return feats[elem.long()]
+    return feats[_unmark(elem.long())]
 
 
 def _first_layer_plain(boards, mover, elem, w1, b1, opponent):
@@ -465,16 +588,16 @@ def afterstate_hidden_plain(boards, mover, n, w1, b1, opponent, epilogue):
     out = torch.full((r, m), FLOOR, dtype=torch.float32,
                      device=boards.device)
     return (out, *_first_layer_plain(boards, mover,
-                                     _kept_order(n, m, epilogue), w1, b1,
-                                     opponent))
+                                     _kept_order(boards, n, epilogue), w1,
+                                     b1, opponent))
 
 
 def afterstate_hidden_backward_plain(boards, mover, n, dpre, hidden,
                                      opponent, epilogue):
     """Plain PyTorch version of ``afterstate_hidden_backward``."""
     return _first_layer_backward_plain(
-        boards, mover, _kept_order(n, boards.shape[1], epilogue), dpre,
-        hidden, opponent)
+        boards, mover, _kept_order(boards, n, epilogue), dpre, hidden,
+        opponent)
 
 
 def _check_hidden(boards, mover, n, w1, b1, opponent, epilogue):
@@ -491,28 +614,32 @@ def _check_hidden(boards, mover, n, w1, b1, opponent, epilogue):
     _check(boards, mover, n, w1, b1, wh, bh, opponent, epilogue, 1.0)
 
 
-def afterstate_hidden(boards, mover, n, w1, b1, opponent, epilogue):
+def afterstate_hidden(boards, mover, n, w1, b1, opponent, epilogue,
+                      lim=None):
     """A deep network's ``fc1`` over the kept boards of (R, M, 52) int8
     ``boards`` (``logits`` or ``masked`` epilogue): (``out`` (R, M)
     float32 holding the floor at every slot the epilogue does not keep
     and nothing yet at the kept ones, ``h1`` (R M, ``dense.ld(H)``)
     float32 whose first ``count`` rows are relu(W1 feats + b1) of the kept
     boards in the kernels' global order (rows in order, slots in order),
-    ``elem`` (R M,) int32 each one's element r m + s, ``count`` (1,)
-    int32).  Rows of ``h1`` and ``elem`` past the count are unspecified
-    on the card."""
+    ``elem`` (R M,) int32 each one's element r m + s (a whole row's
+    ``~(r m)``), ``count`` (1,) int32).  Rows of ``h1`` and ``elem`` past
+    the count are unspecified on the card.  ``lim``: the rows' entries,
+    ``afterstate_collapse``'s (None: found here)."""
     _check_hidden(boards, mover, n, w1, b1, opponent, epilogue)
     if not _on_card(boards):
         return afterstate_hidden_plain(boards, mover, n, w1, b1, opponent,
                                        epilogue)
     r, m, _ = boards.shape
     h, dev = w1.shape[0], boards.device
+    if lim is None:
+        lim = afterstate_collapse(boards, n, epilogue)
     out = torch.empty((r, m), dtype=torch.float32, device=dev)
     h1 = torch.empty((r * m, DN.ld(h)), dtype=torch.float32, device=dev)
     elem = torch.empty((r * m,), dtype=torch.int32, device=dev)
     count = torch.empty((1,), dtype=torch.int32, device=dev)
     err = _launch("afterstate_emit_launch", dev, boards.data_ptr(),
-                  mover.data_ptr(), n.data_ptr(), w1.data_ptr(),
+                  mover.data_ptr(), n.data_ptr(), _ptr(lim), w1.data_ptr(),
                   b1.data_ptr(), out.data_ptr(), h1.data_ptr(), DN.ld(h),
                   elem.data_ptr(), count.data_ptr(), r, m, h, int(opponent),
                   EPILOGUES[epilogue])
@@ -524,11 +651,11 @@ def afterstate_hidden(boards, mover, n, w1, b1, opponent, epilogue):
 
 
 def afterstate_hidden_backward(boards, mover, n, dpre, hidden, opponent,
-                               epilogue):
+                               epilogue, lim=None):
     """(dW1 (H, 198), db1 (H,)) of a deep network's ``fc1``, given its
     pre-activation gradient ``dpre`` by kept board in
     ``afterstate_hidden``'s order ((R M, ``dense.ld(H)``) float32, the
-    first count rows read)."""
+    first count rows read); ``lim`` as its (None: found again)."""
     w1 = torch.zeros((hidden, 198), dtype=torch.float32,
                      device=boards.device)
     _check_hidden(boards, mover, n, w1, w1[:, 0].contiguous(), opponent,
@@ -538,12 +665,14 @@ def afterstate_hidden_backward(boards, mover, n, dpre, hidden, opponent,
                                                 hidden, opponent, epilogue)
     r, m, _ = boards.shape
     dev = boards.device
+    if lim is None:
+        lim = afterstate_collapse(boards, n, epilogue)
     floats = backward_scratch_floats(r, m, hidden)
     scratch = _scratch(floats, dev)
     flat = torch.empty((hidden * 198 + 2 * hidden + 1,), dtype=torch.float32,
                        device=dev)
     err = _launch("afterstate_backward_deep_launch", dev, boards.data_ptr(),
-                  mover.data_ptr(), n.data_ptr(), dpre.data_ptr(),
+                  mover.data_ptr(), n.data_ptr(), _ptr(lim), dpre.data_ptr(),
                   dpre.shape[1], _ptr(scratch), floats, flat.data_ptr(),
                   backward_blocks(r, m, hidden), r, m, hidden, int(opponent),
                   EPILOGUES[epilogue])
@@ -590,27 +719,28 @@ class _Deep(torch.autograd.Function):
     def forward(ctx, boards, mover, n, cfg, *weights):
         rewards, opponent, epilogue, sign, save = cfg
         (w1, b1), layers, head = _split(weights)
+        lim = afterstate_collapse(boards, n, epilogue)
         out, h1, elem, count = afterstate_hidden(boards, mover, n, w1, b1,
-                                                 opponent, epilogue)
+                                                 opponent, epilogue, lim)
         acts = DN.dense_layers(h1, elem, count, out, layers, head, rewards,
                                sign, save)
         if save:
-            ctx.save_for_backward(boards, mover, n, h1, elem, count, *acts,
-                                  *weights)
+            ctx.save_for_backward(boards, mover, n, lim, h1, elem, count,
+                                  *acts, *weights)
             ctx.cfg, ctx.depth = cfg, len(acts)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         rewards, opponent, epilogue, sign, _ = ctx.cfg
-        boards, mover, n, h1, elem, count, *rest = ctx.saved_tensors
+        boards, mover, n, lim, h1, elem, count, *rest = ctx.saved_tensors
         acts, weights = rest[:ctx.depth], rest[ctx.depth:]
         (w1, _), layers, head = _split(weights)
         dpre, grads = DN.dense_layers_backward(h1, acts, elem, count, grad,
                                                layers, head, rewards, sign)
         dw1, db1 = afterstate_hidden_backward(boards, mover, n, dpre,
                                               w1.shape[0], opponent,
-                                              epilogue)
+                                              epilogue, lim)
         return (None, None, None, None, dw1, db1, *grads)
 
 
@@ -650,17 +780,19 @@ def afterstate_deep(boards, mover, n, weights, rewards=None, opponent=False,
 def afterstate_route_plain(boards, n, epilogue):
     """Plain PyTorch version of ``afterstate_route``."""
     r, m, _ = boards.shape
-    valid = _valid(n, m, epilogue)
+    kept = _kept(boards, n, epilogue)
     race = Bd.is_race(boards)
     lim = torch.zeros((len(GROUPS), r), dtype=torch.int32,
                       device=boards.device)
     slots = torch.zeros((len(GROUPS), r * m), dtype=torch.int32,
                         device=boards.device)
-    for c, mask in enumerate((valid & ~race, valid & race)):
+    for c, mask in enumerate((kept & ~race, kept & race)):
         lim[c] = mask.sum(1, dtype=torch.int32)
         row, slot = mask.nonzero(as_tuple=True)
         rank = mask.cumsum(1)[row, slot] - 1
         slots[c, row * m + rank] = slot.to(torch.int32)
+    whole = collapsed_plain(boards, n, epilogue)[None, :] & (lim > 0)
+    lim = torch.where(whole, torch.full_like(lim, WHOLE), lim)
     out = torch.full((r, m), FLOOR, dtype=torch.float32,
                      device=boards.device)
     return out, lim, slots
@@ -671,10 +803,12 @@ def afterstate_route(boards, n, epilogue):
     (``logits`` or ``masked`` epilogue): (``out`` (R, M) float32 holding
     the floor at every slot the epilogue does not keep and nothing yet at
     the kept ones, ``lim`` (2, R) int32 each row's kept boards of each
-    class, ``slots`` (2, R M) int32 row r's kept slots of class c in slot
-    order at c, r M .. r M + lim[c, r] - 1).  Class 0 is contact, 1 race
-    (``core.board.is_race``); entries of ``slots`` past a row's count are
-    unspecified on the card."""
+    class, ``WHOLE`` for a whole row's class (its one board, slot 0, and 0
+    for the other class), ``slots`` (2, R M) int32 row r's kept slots of
+    class c in slot order at c, r M .. r M + kept - 1).  Class 0 is
+    contact, 1 race (``core.board.is_race``); entries of ``slots`` past a
+    row's count are unspecified on the card.  Adds the whole rows to the
+    tally of ``collapsed_rows``."""
     if epilogue not in ("logits", "masked"):
         raise ValueError(f"a routed pass takes the logits or masked "
                          f"epilogue, got {epilogue!r}")
@@ -691,16 +825,20 @@ def afterstate_route(boards, n, epilogue):
                              boards.shape[0] * boards.shape[1] >= 2**31):
         raise ValueError("the route kernel needs contiguous inputs of "
                          "fewer than 2^31 boards")
-    if not _on_card(boards):
-        return afterstate_route_plain(boards, n, epilogue)
-    r, m, _ = boards.shape
     dev = boards.device
+    collapsed = _tally_of(_COLLAPSED, dev, 1)
+    if not _on_card(boards):
+        route = afterstate_route_plain(boards, n, epilogue)
+        collapsed += (route[1] == WHOLE).sum()
+        return route
+    r, m, _ = boards.shape
     out = torch.empty((r, m), dtype=torch.float32, device=dev)
     lim = torch.empty((len(GROUPS), r), dtype=torch.int32, device=dev)
     slots = torch.empty((len(GROUPS), r * m), dtype=torch.int32, device=dev)
     err = _launch("afterstate_route_launch", dev, boards.data_ptr(),
                   n.data_ptr(), out.data_ptr(), lim.data_ptr(),
-                  slots.data_ptr(), r, m, EPILOGUES[epilogue])
+                  slots.data_ptr(), collapsed.data_ptr(), r, m,
+                  EPILOGUES[epilogue])
     if err != 0:
         raise RuntimeError(f"afterstate_route kernel launch failed: CUDA "
                            f"error {err} at {r} x {m} boards")
@@ -710,23 +848,22 @@ def afterstate_route(boards, n, epilogue):
 
 def _group_order(lim, slots, m):
     """A group's kept boards' elements r m + s in its order (rows in
-    order, each row's slots of the group in order), on the host."""
+    order, each row's slots of the group in order; a whole row's board
+    marked ``~(r m)``), on the host."""
     r = lim.shape[0]
-    rows = torch.repeat_interleave(torch.arange(r, device=lim.device),
-                                   lim.long())
-    first = torch.cumsum(lim.long(), 0) - lim.long()
+    whole = lim == WHOLE
+    kept = torch.where(whole, 1, lim).long()
+    rows = torch.repeat_interleave(torch.arange(r, device=lim.device), kept)
+    first = torch.cumsum(kept, 0) - kept
     j = torch.arange(rows.shape[0], device=lim.device) - first[rows]
-    return (rows * m + slots.long()[rows * m + j]).to(torch.int32)
+    return _mark(rows * m + slots.long()[rows * m + j], m, whole).to(
+        torch.int32)
 
 
 def _tally(dev):
     """The card's (or the CPU's) count of kept boards a group has sent
     through its network since the last ``zero_routed_rows``."""
-    key = str(dev)
-    if key not in _TALLY:
-        _TALLY[key] = torch.zeros((len(GROUPS),), dtype=torch.int64,
-                                  device=dev)
-    return _TALLY[key]
+    return _tally_of(_TALLY, dev, len(GROUPS))
 
 
 def routed_rows() -> dict:
@@ -928,6 +1065,8 @@ afterstate_hidden_backward.launches = 0
 afterstate_route.launches = 0
 # the routed pass's tally of kept boards by group, a tensor a device
 _TALLY: dict = {}
+# the whole rows found, a tensor a device
+_COLLAPSED: dict = {}
 # the function objects that own the counts, so that a caller who wraps a
 # wrapper (to capture its inputs) still counts on the original
 _COUNTERS = {"afterstate_eval": afterstate_eval,

@@ -10,7 +10,11 @@ epilogue's write, forward and backward.
 ``ops.afterstate.afterstate_hidden`` writes ``h1`` (capacity, ``ld(H)``):
 the post-ReLU ``fc1`` of every kept board in its kernels' global order of
 kept boards, each board's element r m + s into ``elem`` and their number
-into ``count``, a one-int tensor that stays on the card.  The kernels
+into ``count``, a one-int tensor that stays on the card.  A whole row (a
+row whose m slots hold one board, ``ops.afterstate.collapsed_plain``) is
+one kept board whose element is marked ``~(r m)``: the head writes its
+value into each of the row's m slots, and the backward takes the row's m
+entries of ``grad`` summed as its cotangent.  The kernels
 (``csrc/dense.cu``) read the count there, so nothing syncs with the host,
 every shape is the capacity's and a CUDA graph captures a call.  Their
 products run on the tensor cores in exact split form: each float32 operand
@@ -117,6 +121,14 @@ def _check(h1, elem, count, layers, head, rewards):
     return widths
 
 
+def _elements(elem, k):
+    """(each kept row's element r m + s, a whole row's r m; whether its
+    row is whole) of the first ``k`` entries of ``elem``."""
+    e = elem[:k].long()
+    whole = e < 0
+    return torch.where(whole, ~e, e), whole
+
+
 def dense_layers_plain(h1, elem, count, out, layers, head, rewards, sign,
                        save=False):
     """Plain PyTorch version (reads the count on the host): writes
@@ -132,8 +144,11 @@ def dense_layers_plain(h1, elem, count, out, layers, head, rewards, sign,
                               device=h.device)
             buf[:k, :w.shape[0]] = h
             acts.append(buf)
-    y = _y(torch.nn.functional.linear(h, *head), rewards)
-    out.view(-1)[elem[:k].long()] = sign * y
+    y = sign * _y(torch.nn.functional.linear(h, *head), rewards)
+    m = out.shape[1]
+    e, whole = _elements(elem, k)
+    out.view(-1)[e[~whole]] = y[~whole]
+    out[e[whole] // max(m, 1)] = y[whole, None]
     return acts
 
 
@@ -153,7 +168,11 @@ def dense_layers_backward_plain(h1, acts, elem, count, grad, layers, head,
                 h, params[2 * i], params[2 * i + 1]))
         y = _y(torch.nn.functional.linear(h, params[-2], params[-1]),
                rewards)
-        g = sign * grad.reshape(-1)[elem[:k].long()]
+        m = grad.shape[1]
+        e, whole = _elements(elem, k)
+        g = grad.reshape(-1)[e]
+        g[whole] = grad[e[whole] // max(m, 1)].sum(1)
+        g = sign * g
         dx, *grads = torch.autograd.grad(y, [x, *params], g)
     dpre = torch.zeros_like(h1)
     dpre[:k, :width] = torch.where(x > 0, dx, 0.0)
@@ -163,9 +182,9 @@ def dense_layers_backward_plain(h1, acts, elem, count, grad, layers, head,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "dense_forward_launch": ([_I] + [_P] * 6 + [_I, _I] + [_P] * 7
-                             + [_I, _F, _P], _I),
+                             + [_I, _I, _F, _P], _I),
     "dense_backward_launch": ([_I] + [_P] * 6 + [_I, _I] + [_P] * 8
-                              + [_I, _P, _I, _P, _P, _I, _F, _P], _I),
+                              + [_I, _P, _I, _P, _P, _I, _I, _F, _P], _I),
 }
 
 
@@ -202,7 +221,8 @@ def _launch(name, dev, *args):
 def dense_layers(h1, elem, count, out, layers, head, rewards=None, sign=1.0,
                  save=False):
     """The forward over the ``count`` kept rows of ``h1``: writes ``sign
-    y`` into (R, M) float32 ``out`` at each row's element ``elem``.
+    y`` into (R, M) float32 ``out`` at each row's element ``elem`` (into
+    each of a whole row's M slots).
     ``layers`` [(W_l, b_l)] in ``nn.Linear``'s layout, ``head`` (W_head,
     b_head), ``rewards`` the outcome head's weights of its softmax (None: a
     scalar head).  Returns the saved activations [(capacity, ld(w_l))]
@@ -223,7 +243,8 @@ def dense_layers(h1, elem, count, out, layers, head, rewards=None, sign=1.0,
         err = _launch("dense_forward_launch", dev,
                       *_net(layers, head, rewards, widths), h1.data_ptr(),
                       act_ptrs, elem.data_ptr(), count.data_ptr(),
-                      out.data_ptr(), limbs.data_ptr(), cap, float(sign))
+                      out.data_ptr(), limbs.data_ptr(), cap, out.shape[1],
+                      float(sign))
         if err != 0:
             raise RuntimeError(f"dense_layers kernel launch failed: CUDA "
                                f"error {err} at capacity {cap}, widths "
@@ -264,7 +285,7 @@ def dense_layers_backward(h1, acts, elem, count, grad, layers, head,
                       elem.data_ptr(), count.data_ptr(), grad.data_ptr(),
                       part_rows.data_ptr(), blocks, part_w.data_ptr(),
                       SLICES, dflat.data_ptr(), limbs.data_ptr(), cap,
-                      float(sign))
+                      grad.shape[1], float(sign))
         if err != 0:
             raise RuntimeError(f"dense_layers_backward kernel launch "
                                f"failed: CUDA error {err} at capacity {cap}, "

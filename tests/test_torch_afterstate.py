@@ -382,8 +382,11 @@ def test_kernel_dispatch_any_width_and_bf16(monkeypatch):
     launchers (no plain version), with the dtype argument of the weights,
     the scratch sizes and blocks of ``test_launch_sizes``; a bf16 model's
     loss reaches the backward with dtype 1 and its float32 gradients reach
-    the model's float32 parameters; float16, float64, mixed weights and
-    non-contiguous inputs raise (the dtypes naming the ROADMAP item)."""
+    the model's float32 parameters; under the ``logits`` epilogue alone the
+    rows' entries (``afterstate_collapse``) are found first, once a forward
+    call, and handed to the forward and its backward; float16, float64,
+    mixed weights and non-contiguous inputs raise (the dtypes naming the
+    ROADMAP item)."""
     calls = []
 
     def record(name, dev, *args):
@@ -412,18 +415,26 @@ def test_kernel_dispatch_any_width_and_bf16(monkeypatch):
                 name, args = calls.pop()
                 floats = TAS.forward_scratch_floats(r, m, h)
                 assert name == "afterstate_eval_launch"
-                assert args[8:] == (
-                    args[8], floats, r, m, h, 1, TAS.EPILOGUES[epilogue],
+                assert args[9:] == (
+                    args[9], floats, r, m, h, 1, TAS.EPILOGUES[epilogue],
                     1.0, code)
-                assert (args[8] is None) == (floats == 0)
+                assert (args[9] is None) == (floats == 0)
+                # the rows' entries: found first under the logits epilogue
+                # alone, and handed to the forward
+                assert (args[3] is None) == (epilogue == "min")
+                if epilogue == "logits":
+                    name, lim_args = calls.pop()
+                    assert name == "afterstate_collapse_launch"
+                    assert lim_args[2] == args[3] and lim_args[4:] == (r, m)
             grads = TAS.afterstate_eval_backward(
                 boards, mover, n, *w, False, "masked", -1.0,
                 torch.ones((r, m)))
             name, args = calls.pop()
             assert name == "afterstate_backward_launch"
             blocks = TAS.backward_blocks(r, m, h)
-            assert args[9] == TAS.backward_scratch_floats(r, m, h)
-            assert args[11:] == (blocks, r, m, h, 0, 1, -1.0, code)
+            assert args[3] is None and args[4] is None
+            assert args[11] == TAS.backward_scratch_floats(r, m, h)
+            assert args[13:] == (blocks, r, m, h, 0, 1, -1.0, code)
             assert [g.dtype for g in grads] == [torch.float32] * 4
             assert [tuple(g.shape) for g in grads] == [(h, 198), (h,),
                                                       (1, h), (1,)]
@@ -434,7 +445,12 @@ def test_kernel_dispatch_any_width_and_bf16(monkeypatch):
                      device="cpu", generator=torch.Generator().manual_seed(0))
     TAS.evaluate(model, boards, mover, n, "score").sum().backward()
     assert [(c[0], c[1][-1]) for c in calls] == [
-        ("afterstate_eval_launch", 1), ("afterstate_backward_launch", 1)]
+        ("afterstate_collapse_launch", m), ("afterstate_eval_launch", 1),
+        ("afterstate_backward_launch", 1)]
+    # the backward takes the forward's entries (no second collapse launch)
+    # and scratch for the whole rows' summed cotangents
+    assert calls[1][1][3] == calls[2][1][3] == calls[0][1][2] is not None
+    assert calls[2][1][4] is not None
     assert all(p.grad is not None and p.grad.dtype == torch.float32
                for p in port_weights(model, "score"))
     w = port_weights(model, "score")

@@ -38,13 +38,17 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
 
 def test_the_port_sources_and_their_header():
     """The six kernel sources; the two movegen ones share the rules in
-    ``csrc/board.cuh``, the Adam, compaction, afterstate and dense ones
+    ``csrc/board.cuh``, the afterstate and dense ones the whole rows'
+    helpers in ``csrc/whole_rows.cuh``, the Adam and compaction ones
     include none."""
     assert build.sources() == ("adam", "afterstate", "compaction", "dense",
                                "doubles", "nondoubles")
-    header = (build.CSRC_DIR / "board.cuh").resolve()
-    for name in ("doubles", "nondoubles"):
-        assert header in build.source_files(name)
-    for name in ("adam", "afterstate", "compaction", "dense"):
+    for header, names in (("board.cuh", ("doubles", "nondoubles")),
+                          ("whole_rows.cuh", ("afterstate", "dense"))):
+        for name in names:
+            assert build.source_files(name) == [
+                (build.CSRC_DIR / f"{name}.cu").resolve(),
+                (build.CSRC_DIR / header).resolve()]
+    for name in ("adam", "compaction"):
         assert build.source_files(name) == [
             (build.CSRC_DIR / f"{name}.cu").resolve()]

@@ -1869,6 +1869,12 @@ def _routed_case(card, case, seed=0):
     return (boards, mover, n, weights + second, *rest)
 
 
+def kept_counts(lim):
+    """The kept boards of each entry of a route's ``lim`` (one for a whole
+    row's ``WHOLE``)."""
+    return torch.where(lim == TAS.WHOLE, 1, lim)
+
+
 def _routed_on_card(boards, mover, n, weights, *rest):
     k = len(weights) // 2
     return TAS.afterstate_routed(boards, mover, n, weights[:k], weights[k:],
@@ -1910,9 +1916,10 @@ def test_routed_route_matches_plain(card, case):
     assert bool((want_out[~kept] == TAS.FLOOR).all())
     assert torch.equal(lim, want_lim)
     m = boards.shape[1]
+    kept = kept_counts(want_lim)
     for c in range(2):
         for r in range(boards.shape[0]):
-            k = int(want_lim[c, r])
+            k = int(kept[c, r])
             assert torch.equal(slots[c, r * m:r * m + k],
                                want_slots[c, r * m:r * m + k])
 
@@ -1942,6 +1949,7 @@ def test_routed_pass_matches_plain(card, case):
                                  "afterstate_hidden_backward": back,
                                  "dense_layers_backward": back}
     _, lim, _ = TAS.afterstate_route_plain(boards, n, rest[2])
+    lim = kept_counts(lim)
     assert TAS.routed_rows() == {"contact": int(lim[0].sum()),
                                  "race": int(lim[1].sum())}
     within, read = deep_within(args, got.detach(), want, (grad, got_g),
@@ -2038,6 +2046,153 @@ def test_routed_train_step_on_card(card):
     moved = {n: not torch.equal(a, b) for a, (n, b) in
              zip(before, ts.model.named_parameters())}
     assert moved == {n: "action" not in n for n in moved}
+
+
+# --- whole rows: a row with n <= 0 whose M boards are one board -------------
+
+
+def whole_row_inputs(card, seed, r, m, hidden, dtype=torch.float32):
+    """``afterstate_inputs`` with rows of five kinds in turn: n = 0 and M
+    zero boards (a row with no legal move, as movegen leaves it), n = 0 and
+    M copies of one non-zero board, n = 0 and boards that differ (slot 1
+    from slot 0 in one byte at least), n = M with M copies, and the rows as
+    drawn; and the (R,) bool of the rows that are whole (the first two
+    kinds)."""
+    boards, mover, n, *w = afterstate_inputs(card, seed, r, m, hidden, dtype)
+    kind = torch.arange(r, device=card) % 5
+    b = boards.clone()
+    b[kind == 0] = 0
+    one = b[:, :1].clone()
+    one[..., 5] = 3
+    copies = one.expand(-1, m, -1)
+    b = torch.where(((kind == 1) | (kind == 3))[:, None, None], copies, b)
+    b[kind == 2, 1, 7] = b[kind == 2, 0, 7] + 1
+    n = torch.where(kind <= 2, 0, torch.where(kind == 3, m, n)).to(n.dtype)
+    whole = kind <= 1
+    assert torch.equal(TAS.collapsed_plain(b, n, "logits"), whole)
+    return [b.contiguous(), mover, n, *w], whole
+
+
+def alone(n, whole):
+    """``n`` with each whole row's n = 1: its slot 0 evaluated alone."""
+    return torch.where(whole, 1, n).to(n.dtype)
+
+
+# (hidden, dtype, opponent view): one block, a cluster of two, unit groups
+# with the finish kernel, bf16 in one block and in unit groups
+WHOLE_SHALLOW = [(128, F32, False), (256, F32, True), (512, F32, False),
+                 (128, BF16, True), (512, BF16, False)]
+
+
+@pytest.mark.parametrize("hidden,dtype,opponent", WHOLE_SHALLOW,
+                         ids=[f"{h}-{'bf16' if d == BF16 else 'f32'}-{o}"
+                              for h, d, o in WHOLE_SHALLOW])
+def test_whole_rows_in_the_shallow_pass(card, hidden, dtype, opponent):
+    """The shallow kernels over whole rows: every slot of a whole row has
+    the bits the same kernel gives its board in a row with n = 1; values
+    and gradients against the plain version (every slot evaluated) under
+    ``forward_tol`` and ``backward_within``, the floors exact; the same
+    bits on a second launch; ``collapsed_rows`` counts the whole rows once
+    a forward call (its backward takes the forward's entries)."""
+    from mlp_ppo_2ply_p3_tpu_torch import ops
+
+    r, m = 301, 200
+    (boards, mover, n, *w), whole = whole_row_inputs(card, 17 + hidden, r,
+                                                      m, hidden, dtype)
+    args = (boards, mover, n, *w, opponent, "logits", 1.0)
+    ops.zero_launches()
+    got = TAS.afterstate_eval(*args)
+    assert TAS.collapsed_rows() == int(whole.sum())
+    again = TAS.afterstate_eval(*args)
+    single = TAS.afterstate_eval(boards, mover, alone(n, whole), *w,
+                                 opponent, "logits", 1.0)
+    want = TAS.afterstate_eval_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got[whole], single[whole, :1].expand(-1, m))
+    special = want == TAS.FLOOR
+    assert torch.equal(got[special], want[special])
+    assert float((got - want).abs().max()) <= forward_tol(args, want)
+    grad = torch.randn((r, m), device=card,
+                       generator=torch.Generator(device=card).manual_seed(6))
+    grad = grad * (want > TAS.FLOOR)
+    model_w = [x.clone().requires_grad_() for x in w]
+    out = TAS.afterstate_eval(boards, mover, n, *model_w, opponent, "logits",
+                              1.0)
+    got_g = torch.autograd.grad(out, model_w, grad)
+    again_g = TAS.afterstate_eval_backward(*args, grad)
+    want_g = TAS.afterstate_eval_backward_plain(*args, grad)
+    torch.cuda.synchronize()
+    for g, a, x in zip(got_g, again_g, want_g):
+        assert g.shape == x.shape and torch.equal(g, a)
+    assert backward_within(args, grad, got_g, want_g)
+
+
+def _whole_deep_case(card, seed, r, m, trunk, race=None):
+    """``whole_row_inputs`` as a deep (or, with ``race`` weights drawn,
+    routed) case: wildbg's outcome head, movers 0 and 1."""
+    from mlp_ppo_2ply_p3_tpu_torch.models.mlp import OUTCOME_REWARDS
+
+    (boards, mover, n, *_), whole = whole_row_inputs(card, seed, r, m, 1)
+    weights = deep_weights(card, seed + 1, trunk, 6)
+    if race:
+        weights += deep_weights(card, seed + 2, trunk, 6)
+    return (boards, mover.clamp(max=1), n, weights, OUTCOME_REWARDS, False,
+            "logits", 1.0), whole
+
+
+@pytest.mark.parametrize("form", ["deep", "routed"])
+def test_whole_rows_in_the_deep_and_routed_passes(card, form):
+    """The deep pass (the emit, the dense layers at wildbg's widths, their
+    backwards) and the routed pass (the route, each group's) over whole
+    rows: every slot of a whole row has the bits of its board in a row
+    with n = 1; values and gradients against the plain version under
+    ``deep_within``; the same bits on a second launch; the route's layout
+    against its plain version exactly; ``collapsed_rows`` counts the whole
+    rows once a forward call, and each group's tally counts its class's
+    kept boards, a whole row's one."""
+    from mlp_ppo_2ply_p3_tpu_torch import ops
+
+    args, whole = _whole_deep_case(card, 23, 301, 200, (300, 250, 200),
+                                   race=form == "routed")
+    boards, mover, n, weights, *rest = args
+    run = _routed_on_card if form == "routed" else TAS.afterstate_deep
+    plain = (TAS.afterstate_routed_plain if form == "routed"
+             else TAS.afterstate_deep_plain)
+    if form == "routed":
+        _, lim, slots = TAS.afterstate_route(boards, n, "logits")
+        _, want_lim, want_slots = TAS.afterstate_route_plain(boards, n,
+                                                             "logits")
+        assert torch.equal(lim, want_lim)
+        assert bool((lim == TAS.WHOLE).sum(0).bool().eq(whole).all())
+        m = boards.shape[1]
+        used = torch.arange(m, device=card) < kept_counts(lim)[..., None]
+        assert torch.equal(slots.view(2, -1, m)[used],
+                           want_slots.view(2, -1, m)[used])
+    ops.zero_launches()
+    w = [x.clone().requires_grad_() for x in weights]
+    got = run(boards, mover, n, w, *rest)
+    assert TAS.collapsed_rows() == int(whole.sum())
+    if form == "routed":
+        kept = kept_counts(TAS.afterstate_route_plain(boards, n,
+                                                      "logits")[1])
+        assert TAS.routed_rows() == {"contact": int(kept[0].sum()),
+                                     "race": int(kept[1].sum())}
+    grad = torch.randn(got.shape, generator=torch.Generator().manual_seed(
+        7)).to(card)
+    got_g = torch.autograd.grad(got, w, grad)
+    with torch.no_grad():
+        again = run(boards, mover, n, weights, *rest)
+        single = run(boards, mover, alone(n, whole), weights, *rest)
+    again_g = torch.autograd.grad(run(boards, mover, n, w, *rest), w, grad)
+    torch.cuda.synchronize()
+    assert torch.equal(got.detach(), again)
+    assert all(torch.equal(a, b) for a, b in zip(got_g, again_g))
+    m = boards.shape[1]
+    assert torch.equal(got.detach()[whole], single[whole, :1].expand(-1, m))
+    within, read = deep_within(args, got.detach(), plain(*args),
+                               (grad, got_g), plain=plain)
+    assert within and read["tf32_outside"], read
 
 
 # last: a failed capture must leave the card usable, but if it did not,
